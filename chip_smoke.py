@@ -3,17 +3,33 @@
 
 Phases, each printing its result; any failure raises and exits non-zero:
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: nvcc builds the wide-BVH kernel from jet_pbrt_tpu_torch/csrc;
-  3. kernel vs its plain PyTorch version on the bunny's wide tables, on
-     about 65k rays (half primary, half bounce), closest hit and any hit
+  2. build: one nvcc per kernel library of jet_pbrt_tpu_torch/csrc, all
+     started together (wide_bvh, sweep_bvh, sweep_prims), with ptxas
+     registers and spills;
+  3. wide kernel vs its plain PyTorch version on the default bunny's
+     tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
+     half bounce) and a targeted incoherent set, closest hit and any hit
      with finite tmax; every disagreeing lane must be explained by a
      float64 Moller-Trumbore recheck as an edge graze or a t near-tie;
-     then both timed at the main path's wave size;
+     then both timed at the main path's wave size (2^20 rays), their
+     outputs held against each other the same way;
   4. main path: render(bunny_scene(), 1024, 1024, spp=4, max_depth=5,
-     device="cuda") with the exact kernel launch count, rays/s by class,
-     peak memory, and a profiled wave;
+     device="cuda") with the exact wide-kernel launch count, rays/s by
+     class, peak memory, and a profiled wave;
   5. converged goldens (bunny 64^2 and Cornell 48^2) under the reference
-     tests' statistical gates.
+     tests' statistical gates;
+  6. sweep kernel vs its plain version, as phase 3, on the meshes too big
+     for the reference's wide-kernel budget: the instanced bunny of the
+     600k-target OBJ and the soup of four copies of the 150k-target OBJ
+     (generated under assets/ at first use); then both timed and held
+     against each other on a 2^20-ray wave;
+  7. main path on the sweep route: render(bunny_scene(bunny_path=<600k
+     OBJ>), 1024, 1024, spp=4, max_depth=5, device="cuda") with the exact
+     sweep launch count and no wide launch, rays/s, peak memory, build
+     time, a profiled wave, and the sweep's group tests per packet on one
+     1-spp wave with sort_rays on and off, whose images must be
+     bit-identical;
+  8. the sweep primitives harness (scripts/sweep_prims.py).
 The line before the last is the per-kernel JSON summary; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -24,34 +40,89 @@ import os
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from jet_pbrt_tpu_torch.models import camera as camera_mod
 from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, render
-from jet_pbrt_tpu_torch.ops import rng, wide_bvh
+from jet_pbrt_tpu_torch.ops import rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops.linalg import frame_from_z, to_world
 from jet_pbrt_tpu_torch.ops.sampling import sample_cosine_hemisphere
 from jet_pbrt_tpu_torch.scene import pack as scene_pack
-from jet_pbrt_tpu_torch.scene.scenes import bunny_scene, cornell_box
+from jet_pbrt_tpu_torch.scene.scenes import bunny_obj, bunny_scene, cornell_box
+from jet_pbrt_tpu_torch.scripts import sweep_prims
 from jet_pbrt_tpu_torch.utils import cuda_build
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 # kernel vs plain: t on agreeing lanes, and the forensic's f64 margins
 T_RTOL = 1e-5
+# floors of the forensic's margins; each candidate adds its own float32
+# rounding bound (_mt64_all)
 GRAZE = 1e-4        # |min(u, v, 1-u-v)| below this is an edge graze
 TIE_RTOL = 1e-4     # f64 distances this close are a near-tie
+U32 = float(np.finfo(np.float32).eps) / 2   # float32 unit roundoff
 MAX_EXPLAINED = 1e-3
+# the plain sweep is timed at 2^20 rays when its 2^18 call took less
+PLAIN_2_18_LIMIT_S = 5.0
+LIBRARIES = (("wide_bvh", ["wide_bvh.cu"]), ("sweep_bvh", ["sweep_bvh.cu"]),
+             ("sweep_prims", ["sweep_prims.cu"]))
 
 
 def phase(name):
     print(f"== {name}", flush=True)
 
 
+class Route(NamedTuple):
+    """One traversal kernel on one mesh, with what the comparison needs."""
+    name: str
+    kernel: Callable     # (o, d, tmin, tmax, any_hit) -> KindHit
+    plain: Callable
+    rows: np.ndarray     # [T, 9] triangle rows the hit indices select
+    inst: np.ndarray     # [I+1, 4] instance rows, row 0 the identity
+    n_tris: int
+
+
+def wide_route(scene) -> Route:
+    """The wide kernel on the scene's first instanced family."""
+    tables = scene.pack.inst_wide[0]
+    kw = dict(has_inst=True, leaf_size=scene.meta.blas_leaf_size[0],
+              n_tris=scene.meta.n_blas_tris[0])
+    return Route("wide_bvh",
+                 lambda *r, any_hit: wide_bvh.intersect_wide(
+                     tables, *r, any_hit=any_hit, **kw),
+                 lambda *r, any_hit: wide_bvh.intersect_wide_plain(
+                     tables, *r, any_hit=any_hit, **kw),
+                 tables.tris.cpu().numpy(), tables.inst.cpu().numpy(),
+                 kw["n_tris"])
+
+
+def sweep_route(scene) -> Route:
+    """The sweep kernel on the scene's sweep-routed mesh (the first family,
+    else the soup)."""
+    meta, pack = scene.meta, scene.pack
+    if any(meta.pallas_blas):
+        mi = meta.pallas_blas.index(True)
+        tables, rows = pack.inst_sweep[mi], pack.blas_tris[mi]
+        n_tris = meta.n_blas_tris[mi]
+        inst = tables.inst.view(-1, 4).cpu().numpy()
+    elif meta.pallas_bvh:
+        tables, rows, n_tris = pack.bvh_sweep, pack.bvh_tris, meta.n_bvh_tris
+        inst = np.array([[0, 0, 0, 1], [0, 0, 0, 1]], np.float32)
+    else:
+        raise AssertionError(f"{meta.name}: no mesh is routed to the sweep")
+    return Route("sweep_bvh",
+                 lambda *r, any_hit: sweep_bvh.intersect_sweep(
+                     tables, *r, any_hit=any_hit, n_tris=n_tris),
+                 lambda *r, any_hit: sweep_bvh.intersect_sweep_plain(
+                     tables, *r, any_hit=any_hit, n_tris=n_tris),
+                 rows.cpu().numpy(), inst, n_tris)
+
+
 # --------------------------------------------------------------------------
-# 3. kernel vs plain
+# 3, 6. kernel vs plain
 # --------------------------------------------------------------------------
 
 def wave_rays(scene, res: int, seed: int, dev):
@@ -83,23 +154,22 @@ def wave_rays(scene, res: int, seed: int, dev):
     return o, d, tmin, tmax
 
 
-def targeted_rays(scene, n: int, seed: int, dev):
-    """n incoherent rays that mostly hit the bunnies: origins anywhere in a
-    box around the instances, aimed at random points of a random instance's
-    world box; the traversal goes deep on nearly every lane."""
-    tables = scene.pack.inst_wide[0]
+def targeted_rays(scene, route: Route, n: int, seed: int, dev):
+    """n incoherent rays that mostly hit the mesh: origins anywhere in a
+    box around its instances, aimed at random points of a random
+    instance's world box; the traversal goes deep on nearly every lane."""
     rs = np.random.default_rng(seed)
-    lo, hi = (tables.bounds[0, :, :3].cpu().numpy(),
-              tables.bounds[0, :, 3:].cpu().numpy())
-    used = tables.child[0].cpu().numpy() != -1
-    lo, hi = lo[used].min(0), hi[used].max(0)
+    r = route.rows
+    pts = np.concatenate([r[:, 0:3], r[:, 0:3] + r[:, 3:6],
+                          r[:, 0:3] + r[:, 6:9]])
+    blo, bhi = pts.min(0), pts.max(0)
+    inst = route.inst[1:]
+    lo = (blo[None] * inst[:, 3:4] + inst[:, :3]).min(0)
+    hi = (bhi[None] * inst[:, 3:4] + inst[:, :3]).max(0)
     pad = hi - lo
     o = rs.uniform(lo - pad, hi + pad, (n, 3))
-    inst = tables.inst.cpu().numpy()[1:]
-    blo = scene.pack.blas_nodes[0][0, :3].cpu().numpy()
-    bhi = scene.pack.blas_nodes[0][0, 3:6].cpu().numpy()
     k = rs.integers(0, len(inst), n)
-    target = (rs.uniform(blo, bhi, (n, 3)) * inst[k, 3:4] + inst[k, :3])
+    target = rs.uniform(blo, bhi, (n, 3)) * inst[k, 3:4] + inst[k, :3]
     d = target - o
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -108,9 +178,24 @@ def targeted_rays(scene, n: int, seed: int, dev):
             torch.full((n,), float("inf"), device=dev))
 
 
+def _abs_cross(a, b):
+    """|a| x |b| with every product added: bounds the rounding of a x b."""
+    a, b = np.abs(a), np.abs(b)
+    return np.stack([a[..., 1] * b[..., 2] + a[..., 2] * b[..., 1],
+                     a[..., 2] * b[..., 0] + a[..., 0] * b[..., 2],
+                     a[..., 0] * b[..., 1] + a[..., 1] * b[..., 0]], -1)
+
+
 def _mt64_all(o, d, rows):
     """Float64 Moller-Trumbore of one ray against rows [K,9] (p0, e1, e2)
-    -> (t [K], margin [K] = min(u, v, 1-u-v)); t = inf where det ~ 0."""
+    -> (t, margin = min(u, v, 1-u-v), dt, dm), each [K]; t = inf where
+    det ~ 0. dt and dm bound, to first order, how far a float32 evaluation
+    of the same test can land from t and margin: the origin's rounding in
+    instance space (o - off, / scale, - p0: 3 roundings of |o| + |p0|)
+    carried through the test's linear map, plus each cross-then-dot
+    product's rounding (5 roundings of the sum of its absolute terms).
+    A ray grazing the plane (det ~ 0) or a small triangle far from the
+    origin makes them large."""
     p0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
     pv = np.cross(d[None, :], e2)
     det = np.einsum("kj,kj->k", e1, pv)
@@ -120,29 +205,58 @@ def _mt64_all(o, d, rows):
     u = np.einsum("kj,kj->k", tv, pv) / det
     qv = np.cross(tv, e1)
     v = (qv @ d) / det
-    t = np.einsum("kj,kj->k", e2, qv) / det
-    return np.where(ok, t, np.inf), np.minimum(np.minimum(u, v), 1.0 - u - v)
+    t = np.where(ok, np.einsum("kj,kj->k", e2, qv) / det, np.inf)
+
+    dot = lambda a, b: np.einsum("kj,kj->k", a, b)
+    do = 3 * U32 * (np.abs(o).max() + np.abs(p0).max(axis=1))
+    adet, atv = np.abs(det), np.abs(tv)
+    apv, aqv = _abs_cross(d[None, :], e2), _abs_cross(atv, e1)
+    rel = 5 * U32 * dot(np.abs(e1), apv) / adet
+    du = (do * np.abs(pv).sum(1) + 5 * U32 * dot(atv, apv)) / adet
+    dv = (do * np.abs(np.cross(e1, d[None, :])).sum(1)
+          + 5 * U32 * (aqv @ np.abs(d))) / adet
+    dt = (do * np.abs(np.cross(e1, e2)).sum(1)
+          + 5 * U32 * dot(np.abs(e2), aqv)) / adet
+    m = np.minimum(np.minimum(u, v), 1.0 - u - v)
+    with np.errstate(invalid="ignore"):
+        return (t, m, dt + np.abs(t) * rel,
+                du + dv + (np.abs(u) + np.abs(v)) * rel)
+
+
+class Cand(NamedTuple):
+    """One float64 hit of a ray: world t, margin, instance, row, and the
+    float32 rounding bounds of t and margin."""
+    t: float
+    m: float
+    inst: int
+    row: int
+    dt: float
+    dm: float
 
 
 def _lane_candidates(o, d, tmin, tmax, tris64, inst):
     """Every f64 hit of one ray over all instances that is inside the ray
-    interval or close to it: (t_world, margin, inst, row) arrays."""
+    interval or close to it, as Cand."""
     out = []
     for i in range(inst.shape[0] - 1):
         off, scl = inst[i + 1, :3], inst[i + 1, 3]
-        t, m = _mt64_all((o - off) / scl, d, tris64)
-        tw = t * scl
-        near = (m >= -GRAZE) & (tw > tmin * (1 - TIE_RTOL)) \
-            & (tw < tmax * (1 + TIE_RTOL))
-        for r in np.nonzero(near)[0]:
-            out.append((tw[r], m[r], i, r))
+        t, m, dt, dm = _mt64_all((o - off) / scl, d, tris64)
+        tw, dtw = t * scl, dt * scl
+        with np.errstate(invalid="ignore"):
+            near = (m >= -(GRAZE + dm)) \
+                & (tw > tmin * (1 - TIE_RTOL) - dtw) \
+                & (tw < tmax * (1 + TIE_RTOL) + dtw)
+        for k in np.nonzero(near)[0]:
+            out.append(Cand(tw[k], m[k], i, k, dtw[k], dm[k]))
     return out
 
 
-def _fragile(c, tmin, tmax):
-    t, m = c[0], c[1]
-    return (abs(m) <= GRAZE or abs(t - tmin) <= TIE_RTOL * t
-            or (np.isfinite(tmax) and abs(t - tmax) <= TIE_RTOL * t))
+def _fragile(c: Cand, tmin, tmax):
+    """A hit that float32 rounding may move across an edge or an end of
+    the ray interval."""
+    slack = TIE_RTOL * c.t + c.dt
+    return (abs(c.m) <= GRAZE + c.dm or abs(c.t - tmin) <= slack
+            or (np.isfinite(tmax) and abs(c.t - tmax) <= slack))
 
 
 def explain_lane(o, d, tmin, tmax, hits, any_hit, tris64, inst, n_tris):
@@ -151,7 +265,7 @@ def explain_lane(o, d, tmin, tmax, hits, any_hit, tris64, inst, n_tris):
     cands = _lane_candidates(o, d, tmin, tmax, tris64, inst)
     if any_hit:
         robust = [c for c in cands if not _fragile(c, tmin, tmax)
-                  and tmin < c[0] < tmax]
+                  and tmin < c.t < tmax]
         # a solid occluder inside (tmin, tmax) means the side that missed
         # it is wrong; no candidate at all means the other side is
         return not robust and bool(cands)
@@ -163,33 +277,79 @@ def explain_lane(o, d, tmin, tmax, hits, any_hit, tris64, inst, n_tris):
             picked.append(None)
             continue
         ins, row = divmod(int(idx), n_tris)
-        same = [c for c in cands if c[2] == ins and c[3] == row]
-        if not same or abs(same[0][0] - t) > TIE_RTOL * t:
+        same = [c for c in cands if c.inst == ins and c.row == row]
+        if not same or abs(same[0].t - t) > TIE_RTOL * t + same[0].dt:
             return False
         picked.append(same[0])
     a, b = picked
     if a is None or b is None:
         hit = a or b
         return _fragile(hit, tmin, tmax)
-    near = a if a[0] <= b[0] else b
-    return abs(a[0] - b[0]) <= TIE_RTOL * max(a[0], b[0]) or \
-        abs(near[1]) <= GRAZE
+    near = a if a.t <= b.t else b
+    return abs(a.t - b.t) <= TIE_RTOL * max(a.t, b.t) + a.dt + b.dt or \
+        abs(near.m) <= GRAZE + near.dm
 
 
-def compare_modes(scene, label, o, d, tmin, tmax):
+def check_lanes(route: Route, mode, o, d, tmin, tm, any_hit, hk, hp):
+    """Hold the kernel's hits hk against the plain version's hp on the same
+    rays: every lane where they differ must be explained by the float64
+    forensic, and at most MAX_EXPLAINED of the lanes may differ. Prints one
+    line and returns the max |t| error on agreeing closest-hit lanes."""
+    tris_rows = route.rows
+    n_tris = route.n_tris
+    n = o.shape[0]
+    vk, vp = hk.valid.cpu().numpy(), hp.valid.cpu().numpy()
+    tk, tp = hk.t.cpu().numpy(), hp.t.cpu().numpy()
+    ik, ip = hk.index.cpu().numpy(), hp.index.cpu().numpy()
+    on, dn = o.cpu().numpy(), d.cpu().numpy()
+    tmn, tmx = tmin.cpu().numpy(), tm.cpu().numpy()
+    bad = vk != vp
+    max_err = 0.0
+    if not any_hit:
+        both = vk & vp
+        # compare the triangle rows and instances the indices select:
+        # leaves are padded by duplicating triangles
+        same_row = np.all(tris_rows[ik % n_tris] == tris_rows[ip % n_tris],
+                          axis=1) & (ik // n_tris == ip // n_tris)
+        # t within T_RTOL, or within the float32 resolution of the ray's
+        # origin (a smaller difference does not move the hit point o + t d):
+        # hits just past tmin, t ~ 1e-3 on a bounce from a surface ~100
+        # units out, differ by ~1e-7 between two float32 evaluations
+        t_atol = np.finfo(np.float32).eps * np.abs(on).max(axis=1)
+        with np.errstate(invalid="ignore"):
+            t_ok = np.abs(tk - tp) <= T_RTOL * np.abs(tp) + t_atol
+        bad |= both & ~(same_row & t_ok)
+        agree = both & ~bad
+        max_err = float(np.abs(tk[agree] - tp[agree]).max(initial=0.0))
+    lanes = np.nonzero(bad)[0]
+    tris64 = tris_rows.astype(np.float64)
+    inst = route.inst.astype(np.float64)
+    unexplained = [
+        int(j) for j in lanes
+        if not explain_lane(on[j].astype(np.float64),
+                            dn[j].astype(np.float64), float(tmn[j]),
+                            float(tmx[j]),
+                            [(vk[j], float(tk[j]), ik[j]),
+                             (vp[j], float(tp[j]), ip[j])],
+                            any_hit, tris64, inst, n_tris)]
+    print(f"{mode}: lanes {n}, valid kernel {int(vk.sum())} plain "
+          f"{int(vp.sum())}, disagreeing {len(lanes)}, explained "
+          f"{len(lanes) - len(unexplained)}, unexplained {len(unexplained)}"
+          + (f", closest-hit max |t_kernel - t_plain| on agreeing lanes "
+             f"{max_err:.6g}" if not any_hit else ""), flush=True)
+    if unexplained:
+        raise AssertionError(f"{mode}: unexplained lanes {unexplained[:20]}")
+    if len(lanes) > MAX_EXPLAINED * n:
+        raise AssertionError(f"{mode}: {len(lanes)} explained lanes exceed "
+                             f"{MAX_EXPLAINED:.1%} of {n}")
+    return max_err
+
+
+def compare_modes(route: Route, label, o, d, tmin, tmax):
     """Kernel vs plain on the same rays in both modes; returns the max |t|
     error on agreeing closest-hit lanes."""
-    meta = scene.meta
-    tables = scene.pack.inst_wide[0]
-    kw = dict(has_inst=True, leaf_size=meta.blas_leaf_size[0],
-              n_tris=meta.n_blas_tris[0])
-    tris_rows = tables.tris.cpu().numpy()
-    tris64 = tris_rows.astype(np.float64)
-    inst = tables.inst.cpu().numpy().astype(np.float64)
-    n_tris = meta.n_blas_tris[0]
     n = o.shape[0]
-    h_ref = wide_bvh.intersect_wide_plain(tables, o, d, tmin, tmax,
-                                          any_hit=False, **kw)
+    h_ref = route.plain(o, d, tmin, tmax, any_hit=False)
     rs = np.random.default_rng(3)
     # finite tmax 10% short of or beyond the closest hit (shadow rays)
     f = torch.as_tensor(np.where(rs.uniform(size=n) < 0.5, 0.9, 1.1),
@@ -199,58 +359,21 @@ def compare_modes(scene, label, o, d, tmin, tmax):
     max_err = 0.0
     for any_hit, tm in ((False, tmax), (True, tmax_sh)):
         tm = tm.contiguous()
-        hk = wide_bvh.intersect_wide(tables, o, d, tmin, tm, any_hit=any_hit,
-                                     **kw)
-        hp = wide_bvh.intersect_wide_plain(tables, o, d, tmin, tm,
-                                           any_hit=any_hit, **kw)
-        ms_k = time_ms(lambda: wide_bvh.intersect_wide(
-            tables, o, d, tmin, tm, any_hit=any_hit, **kw), 10)
-        ms_p = time_ms(lambda: wide_bvh.intersect_wide_plain(
-            tables, o, d, tmin, tm, any_hit=any_hit, **kw), 1)
-        vk, vp = hk.valid.cpu().numpy(), hp.valid.cpu().numpy()
-        tk, tp = hk.t.cpu().numpy(), hp.t.cpu().numpy()
-        ik, ip = hk.index.cpu().numpy(), hp.index.cpu().numpy()
-        bad = vk != vp
-        if not any_hit:
-            both = vk & vp
-            # compare the triangle rows and instances the indices select:
-            # leaves are padded by duplicating triangles
-            same_row = np.all(tris_rows[ik % n_tris] == tris_rows[ip % n_tris],
-                              axis=1) & (ik // n_tris == ip // n_tris)
-            with np.errstate(invalid="ignore"):
-                t_ok = np.abs(tk - tp) <= T_RTOL * np.abs(tp)
-            bad |= both & ~(same_row & t_ok)
-            agree = both & ~bad
-            max_err = float(np.abs(tk[agree] - tp[agree]).max())
-        lanes = np.nonzero(bad)[0]
-        on, dn = o.cpu().numpy(), d.cpu().numpy()
-        tmn, tmx = tmin.cpu().numpy(), tm.cpu().numpy()
-        unexplained = [
-            int(j) for j in lanes
-            if not explain_lane(on[j].astype(np.float64),
-                                dn[j].astype(np.float64), float(tmn[j]),
-                                float(tmx[j]),
-                                [(vk[j], float(tk[j]), ik[j]),
-                                 (vp[j], float(tp[j]), ip[j])],
-                                any_hit, tris64, inst, n_tris)]
-        mode = f"{label} {'any-hit' if any_hit else 'closest'}"
-        print(f"{mode}: lanes {n}, valid kernel {int(vk.sum())} plain "
-              f"{int(vp.sum())}, disagreeing {len(lanes)}, explained "
-              f"{len(lanes) - len(unexplained)}, unexplained "
-              f"{len(unexplained)}; kernel {ms_k:.4f} ms, plain {ms_p:.2f} ms",
+        ms_k, hk = time_ms(
+            lambda: route.kernel(o, d, tmin, tm, any_hit=any_hit), 10)
+        ms_p, hp = time_ms(
+            lambda: route.plain(o, d, tmin, tm, any_hit=any_hit), 1)
+        mode = f"{route.name} {label} {'any-hit' if any_hit else 'closest'}"
+        max_err = max(max_err, check_lanes(route, mode, o, d, tmin, tm,
+                                           any_hit, hk, hp))
+        print(f"{mode}: kernel {ms_k:.4f} ms, plain {ms_p:.2f} ms",
               flush=True)
-        if unexplained:
-            raise AssertionError(f"{mode}: unexplained lanes {unexplained[:20]}")
-        if len(lanes) > MAX_EXPLAINED * n:
-            raise AssertionError(f"{mode}: {len(lanes)} explained lanes exceed "
-                                 f"{MAX_EXPLAINED:.1%} of {n}")
-    print(f"{label} closest-hit max |t_kernel - t_plain| on agreeing lanes: "
-          f"{max_err:.6g}", flush=True)
     return max_err
 
 
-def time_ms(fn, reps: int) -> float:
-    fn()
+def time_ms(fn, reps: int):
+    """(mean ms of reps calls by CUDA events, output of the warm-up call)."""
+    out = fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -259,70 +382,123 @@ def time_ms(fn, reps: int) -> float:
         fn()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, out
 
 
-def time_kernel(scene, dev):
+def _shadow_tmax(route: Route, o, d, tmin, tmax):
+    h = route.kernel(o, d, tmin, tmax, any_hit=False)
+    tmax_sh = torch.where(h.valid, h.t * 0.9, torch.full_like(h.t, 1e3))
+    return torch.where(tmax < 0, tmax, tmax_sh).contiguous(), h
+
+
+def time_wide(scene, route: Route, dev):
     """Kernel and plain times, both modes, on 1024^2 rays: one main-path
-    wave (half camera, half bounce) and the targeted incoherent set."""
-    meta = scene.meta
-    tables = scene.pack.inst_wide[0]
-    kw = dict(has_inst=True, leaf_size=meta.blas_leaf_size[0],
-              n_tris=meta.n_blas_tris[0])
+    wave (half camera, half bounce) and the targeted incoherent set; the
+    timed calls' outputs are held against each other as in compare_modes,
+    so the kernel is also checked at the main path's wave size."""
     out = {}
     for label, rays in (("wave", wave_rays(scene, 1024, 11, dev)),
-                        ("targeted", targeted_rays(scene, 1 << 20, 12, dev))):
+                        ("targeted",
+                         targeted_rays(scene, route, 1 << 20, 12, dev))):
         o, d, tmin, tmax = rays
-        h = wide_bvh.intersect_wide(tables, o, d, tmin, tmax, any_hit=False,
-                                    **kw)
-        tmax_sh = torch.where(h.valid, h.t * 0.9, torch.full_like(h.t, 1e3))
-        tmax_sh = torch.where(tmax < 0, tmax, tmax_sh).contiguous()
+        tmax_sh, h = _shadow_tmax(route, o, d, tmin, tmax)
         for mode, any_hit, tm in (("closest", False, tmax),
                                   ("any", True, tmax_sh)):
-            k = time_ms(lambda: wide_bvh.intersect_wide(
-                tables, o, d, tmin, tm, any_hit=any_hit, **kw), 10)
-            p = time_ms(lambda: wide_bvh.intersect_wide_plain(
-                tables, o, d, tmin, tm, any_hit=any_hit, **kw), 1)
+            k, hk = time_ms(
+                lambda: route.kernel(o, d, tmin, tm, any_hit=any_hit), 10)
+            p, hp = time_ms(
+                lambda: route.plain(o, d, tmin, tm, any_hit=any_hit), 1)
             out[label, mode] = (k, p)
-            print(f"{label} {mode} at {o.shape[0]} rays ({int(h.valid.sum())} "
-                  f"closest hits): kernel {k:.4f} ms, plain {p:.2f} ms",
-                  flush=True)
+            out["err"] = max(out.get("err", 0.0), check_lanes(
+                route, f"{route.name} {label} {mode} at {o.shape[0]} rays", o,
+                d, tmin, tm, any_hit, hk, hp))
+            print(f"{route.name} {label} {mode} at {o.shape[0]} rays "
+                  f"({int(h.valid.sum())} closest hits): kernel {k:.4f} ms, "
+                  f"plain {p:.2f} ms", flush=True)
+    return out
+
+
+def time_sweep(scene, route: Route, label, dev):
+    """Kernel and plain times, both modes, on one main-path wave of 2^20
+    rays. The plain version is timed at 2^18 first (the first 2^18 rays of
+    the wave) and at 2^20 only when that took under PLAIN_2_18_LIMIT_S.
+    The timed calls' outputs are held against each other as in
+    compare_modes, on every ray the plain version was given."""
+    o, d, tmin, tmax = wave_rays(scene, 1024, 11, dev)
+    tmax_sh, h = _shadow_tmax(route, o, d, tmin, tmax)
+    out = {}
+    for mode, any_hit, tm in (("closest", False, tmax),
+                              ("any", True, tmax_sh)):
+        k, hk = time_ms(
+            lambda: route.kernel(o, d, tmin, tm, any_hit=any_hit), 5)
+        p_rays = min(1 << 18, o.shape[0])
+        q = slice(0, p_rays)
+        p, hp = time_ms(lambda: route.plain(o[q], d[q], tmin[q], tm[q],
+                                            any_hit=any_hit), 1)
+        if p < PLAIN_2_18_LIMIT_S * 1e3 and p_rays < o.shape[0]:
+            p, hp = time_ms(
+                lambda: route.plain(o, d, tmin, tm, any_hit=any_hit), 1)
+            p_rays = o.shape[0]
+        q = slice(0, p_rays)
+        hk = type(hk)(*(x[q] for x in hk))
+        out["err"] = max(out.get("err", 0.0), check_lanes(
+            route, f"{route.name} {label} wave {mode} at {p_rays} rays", o[q],
+            d[q], tmin[q], tm[q], any_hit, hk, hp))
+        out[mode] = (k, p, p_rays)
+        print(f"{route.name} {label} wave {mode} ({int(h.valid.sum())} closest "
+              f"hits of {o.shape[0]}): kernel {k:.4f} ms at {o.shape[0]} rays, "
+              f"plain {p:.2f} ms at {p_rays} rays", flush=True)
     return out
 
 
 # --------------------------------------------------------------------------
-# 4. main path
+# 4, 7. main path
 # --------------------------------------------------------------------------
 
-def main_path(scene, dev, res=1024, spp=4, depth=5):
-    lights = sum(1 for lt in scene.meta.lights if not lt.static_black)
-    routes = len(scene.meta.n_inst) + int(scene.meta.wide_bvh)
-    per_wave = routes * ((depth + 1) + depth * lights)
-    expected = n_waves(res, res, spp, DEFAULT_CHUNK) * per_wave
+def _device_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def main_path(scene, dev, label, res=1024, spp=4, depth=5):
+    """Render the frame once with the exact launch count of each traversal
+    kernel checked, then profile one 1-spp wave."""
+    meta = scene.meta
+    lights = sum(1 for lt in meta.lights if not lt.static_black)
+    casts = n_waves(res, res, spp, DEFAULT_CHUNK) * ((depth + 1)
+                                                      + depth * lights)
+    expected = {"wide_bvh": casts * (sum(meta.wide_blas) + int(meta.wide_bvh)),
+                "sweep_bvh": casts * (sum(meta.pallas_blas)
+                                      + int(meta.pallas_bvh))}
     render(scene, 64, 64, spp=1, max_depth=depth, device=dev)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wide_bvh.intersect_wide.launches = 0
+    sweep_bvh.intersect_sweep.launches = 0
     t0 = time.perf_counter()
     img, st = render(scene, res, res, spp=spp, max_depth=depth, seed=0,
                      clamp=False, device=dev, with_stats=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = wide_bvh.intersect_wide.launches
+    launches = {"wide_bvh": wide_bvh.intersect_wide.launches,
+                "sweep_bvh": sweep_bvh.intersect_sweep.launches}
     peak = torch.cuda.max_memory_allocated()
     if launches != expected:
-        raise AssertionError(f"wide kernel launched {launches} times, the "
-                             f"wave structure implies {expected}")
+        raise AssertionError(f"{label}: kernel launches {launches}, the wave "
+                             f"structure implies {expected}")
     if img.shape != (res, res, 3) or not torch.isfinite(img).all() \
             or (img < 0).any():
-        raise AssertionError("render output is not a finite non-negative "
-                             f"[{res},{res},3] image")
-    print(f"bunny {res}^2 spp {spp} depth {depth}: wall {wall:.3f} s, "
-          f"rays {st['rays']} ({st['rays'] / wall:.1f} rays/s), primary "
-          f"{st['rays_primary']}, bounce {st['rays_bounce']}, shadow "
-          f"{st['rays_shadow']}, kernel launches {launches} (expected "
+        raise AssertionError(f"{label}: render output is not a finite "
+                             f"non-negative [{res},{res},3] image")
+    sweep = {k: v for k, v in st.items() if k.startswith("sweep_")}
+    print(f"{label} {res}^2 spp {spp} depth {depth}: wall {wall:.3f} s, "
+          f"rays {st['rays']} ({st['rays'] / wall:.1f} rays/s), "
+          + ", ".join(f"{c} {st['rays_' + c]} ({st['rays_' + c] / wall:.1f}/s)"
+                      for c in ("primary", "bounce", "shadow"))
+          + f", kernel launches {launches} (expected "
           f"{expected}), peak memory {peak} bytes, image mean "
-          f"{float(img.mean()):.5f}", flush=True)
+          f"{float(img.mean()):.5f}"
+          + (f", sweep counters {sweep}" if sweep else ""), flush=True)
 
     # where a wave's time goes, by kernel (profiled outside the count)
     from torch.profiler import ProfilerActivity, profile
@@ -332,27 +508,58 @@ def main_path(scene, dev, res=1024, spp=4, depth=5):
         render(scene, res, res, spp=1, max_depth=depth, seed=1, device=dev)
         torch.cuda.synchronize()
         prof_wall = time.perf_counter() - t0
-    dev_us = lambda e: getattr(e, "self_device_time_total",
-                               getattr(e, "self_cuda_time_total", 0.0))
     events = prof.key_averages()
     # device-side entries only: an aten op's self device time repeats the
     # time of the kernels it launched
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    total = sum(dev_us(e) for e in kernels)
-    wide = sum(dev_us(e) for e in kernels if "wide_bvh_kernel" in e.key)
-    print(f"profiled 1-spp wave: wall {prof_wall * 1e3:.1f} ms, device kernel "
-          f"time {total / 1e3:.1f} ms (busy {total / 1e4 / prof_wall:.1f}%), "
-          f"wide_bvh kernel {wide / 1e3:.2f} ms", flush=True)
+    total = sum(_device_us(e) for e in kernels)
+    share = {name: sum(_device_us(e) for e in kernels if f"{name}_kernel"
+                       in e.key) for name in ("wide_bvh", "sweep_bvh")}
+    print(f"{label} profiled 1-spp wave: wall {prof_wall * 1e3:.1f} ms, device "
+          f"kernel time {total / 1e3:.1f} ms (busy "
+          f"{total / 1e4 / prof_wall:.1f}%), "
+          + ", ".join(f"{k} kernel {v / 1e3:.2f} ms "
+                      f"({100 * v / max(total, 1):.1f}% of device time)"
+                      for k, v in share.items()),
+          flush=True)
     print(events.table(sort_by="self_cuda_time_total", row_limit=12),
           flush=True)
-
-    # the counter-based RNG alone: one vertex's uniforms for 1M lanes
-    keys = rng.lane_keys(0, 0, torch.arange(res * res, device=dev))
-    s_len = 4 + 2 * scene.meta.n_lights
-    ms = time_ms(lambda: rng.uniforms(keys, 16, s_len), 5)
-    print(f"rng: {s_len} uniforms x {res * res} lanes in {ms:.3f} ms",
-          flush=True)
     return launches
+
+
+def sort_effect(scene, dev, label, res=1024, depth=5):
+    """The sweep's work on one 1-spp wave with sort_rays on (the default)
+    and off, run on, off, off, on: group tests per packet that culled at
+    least one instance, by cast class, and each run's wall time."""
+    imgs, walls = {}, {True: [], False: []}
+    for sort in (True, False, False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, st = render(scene, res, res, spp=1, max_depth=depth, seed=2,
+                         clamp=False, device=dev, with_stats=True,
+                         sort_rays=sort)
+        torch.cuda.synchronize()
+        walls[sort].append(time.perf_counter() - t0)
+        if sort in imgs:
+            continue
+        imgs[sort] = img
+        parts = []
+        for cls in ("closest", "shadow"):
+            p, c, t = (st.get(f"sweep_{cls}_{k}", 0)
+                       for k in ("packets", "culls", "tests"))
+            parts.append(f"{cls}: {t} group tests, {p} live packets, {c} "
+                         f"instance culls, {t / max(p, 1):.2f} tests per "
+                         "live packet")
+        print(f"{label} 1-spp wave, sort_rays={'on' if sort else 'off'}: "
+              f"{st['rays']} rays; " + "; ".join(parts), flush=True)
+    if not torch.equal(imgs[True], imgs[False]):
+        diff = float((imgs[True] - imgs[False]).abs().max())
+        raise AssertionError(f"{label}: sort_rays on and off give different "
+                             f"images (max |diff| {diff})")
+    print(f"{label} 1-spp wave wall (on, off, off, on order): sort on "
+          f"{walls[True][0]:.3f} / {walls[True][1]:.3f} s, sort off "
+          f"{walls[False][0]:.3f} / {walls[False][1]:.3f} s; images "
+          "bit-identical (asserted)", flush=True)
 
 
 # --------------------------------------------------------------------------
@@ -404,6 +611,62 @@ def goldens(bunny, dev):
           flush=True)
 
 
+# --------------------------------------------------------------------------
+# 6-8. the sweep route
+# --------------------------------------------------------------------------
+
+def dense_obj(target: int) -> str:
+    """assets/bunny_<target>.obj through scenes.bunny_obj (generated at
+    first use, never committed), with the time it took."""
+    t0 = time.perf_counter()
+    path = bunny_obj(target)
+    print(f"{os.path.basename(path)} ready in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    return path
+
+
+def build_sweep_scene(label, dev, **kw):
+    t0 = time.perf_counter()
+    scene = bunny_scene(**kw)
+    secs = time.perf_counter() - t0
+    m = scene.meta
+    rows = m.n_blas_tris[0] if m.n_inst else m.n_bvh_tris
+    groups = m.n_groups_blas[0] if m.n_inst else m.n_groups_bvh
+    print(f"{label} built in {secs:.2f} s: {m.n_tri} soup triangles, "
+          f"instances {m.n_inst}, {rows} sweep rows in {groups} groups, "
+          f"routing wide_bvh={m.wide_bvh} wide_blas={m.wide_blas} "
+          f"pallas_bvh={m.pallas_bvh} pallas_blas={m.pallas_blas}",
+          flush=True)
+    if m.wide_bvh or any(m.wide_blas) or not (m.pallas_bvh
+                                              or any(m.pallas_blas)):
+        raise AssertionError(f"{label} is not routed to the sweep alone")
+    return scene.to(dev), secs
+
+
+def prims(dev):
+    """The primitives harness through its entry point, then the kernel
+    against its plain version on the harness's inputs."""
+    sweep_prims.sweep_prims.launches = 0
+    err_oracle = sweep_prims.main("cuda")
+    launches = sweep_prims.sweep_prims.launches
+    if launches < 1:
+        raise AssertionError("the harness never launched the kernel")
+    rs = np.random.default_rng(0)
+    a, b = (torch.as_tensor(rs.normal(size=(4, 128)), dtype=torch.float32,
+                            device=dev) for _ in range(2))
+    k = sweep_prims.sweep_prims(a, b)
+    p = sweep_prims.sweep_prims_plain(a, b)
+    err = float((k - p).abs().max())
+    if not torch.allclose(k, p, rtol=1e-5, atol=1e-4):
+        raise AssertionError(f"sweep_prims kernel vs plain: max error {err}")
+    ms_k = time_ms(lambda: sweep_prims.sweep_prims(a, b), 100)[0]
+    ms_p = time_ms(lambda: sweep_prims.sweep_prims_plain(a, b), 100)[0]
+    print(f"sweep_prims: oracle max error {err_oracle:.3g}, kernel vs plain "
+          f"{err:.3g} (rtol 1e-5, atol 1e-4); kernel {ms_k:.4f} ms, plain "
+          f"{ms_p:.4f} ms; harness launches {launches}", flush=True)
+    return launches, err, ms_k, ms_p
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -418,40 +681,86 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    cuda_build.load_library("wide_bvh", ["wide_bvh.cu"], wide_bvh._declare)
-    secs, log = cuda_build.BUILD_LOG.get("wide_bvh", (0.0, "(cached build)"))
-    print(f"wide_bvh built in {secs:.2f} s (load {time.perf_counter() - t0:.2f}"
-          " s)", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip(), flush=True)
+    cuda_build.build_libraries(LIBRARIES)
+    print(f"kernels built in {time.perf_counter() - t0:.2f} s, one nvcc each "
+          "in parallel", flush=True)
+    for name, _ in LIBRARIES:
+        secs, log = cuda_build.BUILD_LOG.get(name, (0.0, "(cached build)"))
+        print(f"{name}: nvcc {secs:.2f} s", flush=True)
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print("  " + line.strip(), flush=True)
 
-    phase("3 kernel vs plain")
+    phase("3 wide kernel vs plain")
     t0 = time.perf_counter()
     bunny = bunny_scene().to(dev)
+    wide = wide_route(bunny)
     print(f"bunny scene built in {time.perf_counter() - t0:.2f} s: "
           f"{bunny.meta.n_blas_tris[0]} BLAS rows, "
           f"{bunny.pack.inst_wide[0].bounds.shape[0]} wide nodes, depth "
           f"{bunny.pack.inst_wide[0].depth}", flush=True)
-    max_err = max(
-        compare_modes(bunny, "wave", *wave_rays(bunny, 256, 5, dev)),
-        compare_modes(bunny, "targeted", *targeted_rays(bunny, 1 << 16, 6,
-                                                        dev)))
-    times = time_kernel(bunny, dev)
+    if bunny.meta.wide_blas != (True,):
+        raise AssertionError("the default bunny is not on the wide kernel")
+    wide_err = max(
+        compare_modes(wide, "wave", *wave_rays(bunny, 256, 5, dev)),
+        compare_modes(wide, "targeted",
+                      *targeted_rays(bunny, wide, 1 << 16, 6, dev)))
+    wide_times = time_wide(bunny, wide, dev)
+    wide_err = max(wide_err, wide_times["err"])
 
-    phase("4 main path")
-    launches = main_path(bunny, dev)
+    phase("4 main path (wide route)")
+    wide_launches = main_path(bunny, dev, "bunny")["wide_bvh"]
 
     phase("5 goldens")
     goldens(bunny, dev)
+    del bunny
 
-    print(json.dumps({"kernels": [{
-        "name": "wide_bvh", "route": "cuda",
-        "source": "jet_pbrt_tpu_torch/csrc/wide_bvh.cu",
-        "replaces": "jet_pbrt_tpu/ops/wide_bvh.py:315",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": times["wave", "closest"][0],
-        "plain_ms": times["wave", "closest"][1]}]}),
+    phase("6 sweep kernel vs plain")
+    inst600, build_s = build_sweep_scene("bunny 600k instanced", dev,
+                                         bunny_path=dense_obj(600_000))
+    soup = build_sweep_scene("bunny 150k x4 soup", dev,
+                             bunny_path=dense_obj(150_000),
+                             instancing=False)[0]
+    sweep_err = 0.0
+    sweep_times = {}
+    for label, scene in (("instanced", inst600), ("soup", soup)):
+        route = sweep_route(scene)
+        sweep_err = max(
+            sweep_err,
+            compare_modes(route, f"{label} wave",
+                          *wave_rays(scene, 256, 5, dev)),
+            compare_modes(route, f"{label} targeted",
+                          *targeted_rays(scene, route, 1 << 16, 6, dev)))
+        sweep_times[label] = time_sweep(scene, route, label, dev)
+        sweep_err = max(sweep_err, sweep_times[label]["err"])
+    del soup
+
+    phase("7 main path (sweep route)")
+    print(f"bunny 600k instanced: scene build {build_s:.2f} s", flush=True)
+    sweep_launches = main_path(inst600, dev, "bunny 600k")["sweep_bvh"]
+    sort_effect(inst600, dev, "bunny 600k")
+
+    phase("8 sweep primitives")
+    prim_launches, prim_err, prim_ms, prim_plain_ms = prims(dev)
+
+    k_ms, p_ms, p_rays = sweep_times["instanced"]["closest"]
+    print(json.dumps({"kernels": [
+        {"name": "wide_bvh", "route": "cuda",
+         "source": "jet_pbrt_tpu_torch/csrc/wide_bvh.cu",
+         "replaces": "jet_pbrt_tpu/ops/wide_bvh.py:315",
+         "launches": wide_launches, "max_abs_err": wide_err,
+         "ms": wide_times["wave", "closest"][0],
+         "plain_ms": wide_times["wave", "closest"][1]},
+        {"name": "sweep_bvh", "route": "cuda",
+         "source": "jet_pbrt_tpu_torch/csrc/sweep_bvh.cu",
+         "replaces": "jet_pbrt_tpu/ops/sweep_bvh.py:192",
+         "launches": sweep_launches, "max_abs_err": sweep_err,
+         "ms": k_ms, "plain_ms": p_ms, "rays": 1 << 20, "plain_rays": p_rays},
+        {"name": "sweep_prims", "route": "cuda",
+         "source": "jet_pbrt_tpu_torch/csrc/sweep_prims.cu",
+         "replaces": "scripts/sweep_prims.py:16",
+         "launches": prim_launches, "max_abs_err": prim_err,
+         "ms": prim_ms, "plain_ms": prim_plain_ms}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

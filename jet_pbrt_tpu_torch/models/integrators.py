@@ -5,9 +5,12 @@ PyTorch counterpart of jet_pbrt_tpu/models/integrators.py::li_path
 lockstep through an unrolled bounce loop with per-lane active masks.
 Emission counts at bounce 0 and after specular bounces; NEE samples every
 non-black light at non-delta vertices; Russian roulette from bounce 3 uses
-the sampled f. The reference's between-bounce ray sort only regrouped lanes
-for its TPU packets and never changed the estimate, so there is none here.
-MIS is not ported yet.
+the sampled f. With sort_rays (default: on whenever a mesh goes through a
+traversal kernel, as in the reference), lanes are permuted between the
+first bounces so the sweep kernel's 128-ray packets are dense and coherent
+(ops/sort.py); every per-lane quantity, the lane's random stream included,
+travels with its lane, so the estimate does not change. MIS is not ported
+yet.
 """
 from __future__ import annotations
 
@@ -16,20 +19,34 @@ import torch
 from ..ops import bsdf as bsdf_ops
 from ..ops import lights as light_ops
 from ..ops import rng
+from ..ops import sort as sort_ops
 from ..ops.linalg import absdot, frame_from_z, to_local, to_world, \
     max_component, is_black
 from ..scene import pack as scene_pack
 
 
+def _permute(u, perm):
+    """LaneKeys or uniforms [N, ...] reordered by perm."""
+    if isinstance(u, rng.LaneKeys):
+        return rng.LaneKeys(u.seed, u.sample[perm], u.pixel[perm])
+    return u[perm]
+
+
 def li_path(meta, pack, o, d, u, max_depth: int, nee: bool = True,
-            with_stats: bool = False):
+            with_stats: bool = False, sort_rays: bool | None = None):
     """Path-traced radiance L [N,3] of rays o, d [N,3].
 
     u is `rng.LaneKeys` or pregenerated uniforms [N, max_depth+1, S].
     nee=False credits emission at every bounce instead (the plain BSDF
     estimator of the same integral). with_stats also returns the casts the
     estimator needs, by class: closest-hit casts on live lanes (primary,
-    bounce) and shadow casts with a non-zero potential contribution."""
+    bounce) and shadow casts with a non-zero potential contribution, and,
+    for sweep-routed meshes, the sweep kernel's counters (pack._sweep).
+    sort_rays permutes lanes after bounces 0-2 (default meta.kernel_routed,
+    as in the reference); shadow batches of bounces 0-1 of kernel-routed
+    scenes are sorted inside `occluded` either way."""
+    if sort_rays is None:
+        sort_rays = meta.kernel_routed
     n = o.shape[0]
     dev = o.device
     nl = meta.n_lights
@@ -43,13 +60,17 @@ def li_path(meta, pack, o, d, u, max_depth: int, nee: bool = True,
     eps = pack.ray_eps.expand(n)
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     n_primary, n_bounce, n_shadow = zero, zero, zero
+    sweep_stats = {} if with_stats else None
     le_env = light_ops.env_radiance(meta, pack, n)
+    # original lane of each row, to unsort the film at the end
+    lane = torch.arange(n, device=dev)
 
     for bounce in range(max_depth + 1):
         # dead lanes trace nothing: tmin=+inf / tmax=-1 miss at once
         tmin = torch.where(active, eps, inf)
         tmax = torch.where(active, inf, neg)
-        hit = scene_pack.intersect(meta, pack, ray_o, ray_d, tmin, tmax)
+        hit = scene_pack.intersect(meta, pack, ray_o, ray_d, tmin, tmax,
+                                   stats=sweep_stats)
         if with_stats:
             cast = active.sum()
             if bounce == 0:
@@ -95,8 +116,9 @@ def li_path(meta, pack, o, d, u, max_depth: int, nee: bool = True,
             contrib = beta * f * ls.li * (
                 absdot(ls.wi, hit.normal)
                 / torch.clamp_min(ls.pdf, 1e-20))[:, None]
-            occ = scene_pack.occluded(meta, pack, hit.position, ls.pos,
-                                      mask=useful)
+            occ = scene_pack.occluded(
+                meta, pack, hit.position, ls.pos, mask=useful,
+                sort=meta.kernel_routed and bounce < 2, stats=sweep_stats)
             L = L + torch.where((useful & ~occ)[:, None], contrib,
                                 torch.zeros_like(contrib))
 
@@ -125,10 +147,31 @@ def li_path(meta, pack, o, d, u, max_depth: int, nee: bool = True,
         ray_o = torch.where(active[:, None], hit.position, ray_o)
         ray_d = torch.where(active[:, None], wi_world, ray_d)
 
+        if sort_rays and bounce < 3:
+            # regroup lanes for the next bounce's traversal (ops/sort.py);
+            # deep bounces keep the order: lanes only die from here, so the
+            # dead tail of the last sort persists
+            world_lo = pack.world_center - pack.world_radius
+            world_inv = (1.0 / torch.clamp_min(2.0 * pack.world_radius,
+                                               1e-12)).expand(3)
+            needs = sort_ops.bvh_needed(meta, pack, ray_o, ray_d,
+                                        torch.where(active, eps, inf),
+                                        torch.where(active, inf, neg))
+            key = sort_ops.ray_sort_key(active, ray_o, ray_d, world_lo,
+                                        world_inv, needs_bvh=needs)
+            perm = torch.argsort(key, stable=True)
+            L, beta, ray_o, ray_d, active, prev_specular, lane = (
+                x[perm] for x in (L, beta, ray_o, ray_d, active,
+                                  prev_specular, lane))
+            u = _permute(u, perm)
+
+    if sort_rays:
+        # undo the permutation: row i is lane i again (gather, no scatter)
+        L = L[torch.argsort(lane)]
     # invalid-sample guard (reference: src/integrator.cc:104)
     L = torch.where(torch.isfinite(L), L, torch.zeros_like(L))
     if with_stats:
         return L, {"rays_primary": n_primary, "rays_bounce": n_bounce,
                    "rays_shadow": n_shadow,
-                   "rays": n_primary + n_bounce + n_shadow}
+                   "rays": n_primary + n_bounce + n_shadow, **sweep_stats}
     return L

@@ -37,11 +37,14 @@ def n_waves(width: int, height: int, spp: int, chunk: int = DEFAULT_CHUNK):
 
 def render(scene, width: int, height: int, spp: int, seed: int = 0,
            max_depth: int = 5, chunk: int = DEFAULT_CHUNK, clamp: bool = True,
-           device=None, with_stats: bool = False):
+           device=None, with_stats: bool = False,
+           sort_rays: bool | None = None):
     """Full-frame render -> linear [H,W,3] float32 tensor on `device`
     (averaged over spp, optionally clamped like the reference's film write,
-    reference: src/integrator.cc:108). with_stats also returns the ray
-    counts of `li_path`, summed over the frame, as Python ints."""
+    reference: src/integrator.cc:108). with_stats also returns the counts
+    of `li_path` (rays by class, the sweep kernel's counters), summed over
+    the frame, as Python ints. sort_rays is li_path's (default: on for
+    kernel-routed scenes)."""
     device = torch.device(device if device is not None else "cpu")
     pack = scene.pack.to(device)
     cam = camera_mod.make_camera(scene.camera.lookfrom, scene.camera.front,
@@ -59,7 +62,7 @@ def render(scene, width: int, height: int, spp: int, seed: int = 0,
         y = (pixel // width).to(torch.float32) + jitter[:, 1]
         o, d = camera_mod.generate_rays(cam, torch.stack([x, y], dim=-1))
         out = li_path(scene.meta, pack, o, d, keys, max_depth,
-                      with_stats=with_stats)
+                      with_stats=with_stats, sort_rays=sort_rays)
         if with_stats:
             out, st = out
             for k, v in st.items():

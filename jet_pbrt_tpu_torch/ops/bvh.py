@@ -12,7 +12,7 @@ import sys
 
 import numpy as np
 
-from jet_pbrt_tpu.utils.native import try_build_bvh_native
+from ..utils.native import try_build_bvh_native
 
 LEAF_SIZE = 4
 

@@ -42,6 +42,23 @@ LEAF_FLAG = 1 << 30
 INST_FLAG = 1 << 29
 # per-thread stack entries of the CUDA kernel (STACK in csrc/wide_bvh.cu)
 STACK = 128
+# the reference TPU kernel's table budgets (jet_pbrt_tpu/ops/wide_bvh.py:93),
+# which decide the route of a mesh (scene/builder.py sweep_route)
+_VMEM_BUDGET = 13 * 1024 * 1024
+_SMEM_BUDGET = 256 * 1024
+
+
+def fits_vmem(n_wide_nodes: int, n_tris: int, leaf_size: int = 16) -> bool:
+    """The reference's gate for its wide kernel: bf16 planar bounds plus
+    leaf-major float32 triangles within the VMEM budget, and the flat child
+    table within the SMEM budget. The port's kernel has no such budget;
+    the gate only routes meshes as the reference does."""
+    pad = lambda x: ((max(x, 1) + 127) // 128) * 128
+    n_leaves = (n_tris + leaf_size - 1) // leaf_size
+    vmem = (pad(n_wide_nodes) * (6 * WIDTH) * 2
+            + pad(n_leaves) * 9 * leaf_size * 4)
+    smem = n_wide_nodes * WIDTH * 4
+    return vmem <= _VMEM_BUDGET and smem <= _SMEM_BUDGET
 
 
 class WideTables(NamedTuple):

@@ -3,10 +3,11 @@
 PyTorch counterpart of jet_pbrt_tpu/scene/builder.py (reference:
 src/scene.h:66-124, src/scene.cc:11-97). Rows accumulate in numpy and
 `build()` lays them out exactly as the reference's CPU build does (same BVH
-leaf size, so triangle order is identical on both sides), then
-scene/convert.py collapses every BVH into the 8-wide tables the traversal
-kernel walks. One route for all devices: a use_bvh soup and every instanced
-family go through the wide tables. Textures are not ported yet.
+leaf size, so triangle order is identical on both sides), routes every BVH
+mesh (a use_bvh soup, each instanced family) as the reference's TPU build
+would (`sweep_route`), and scene/convert.py builds the one traversal layout
+of its route: the 8-wide tables or the cull-sweep tables. Textures are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import numpy as np
 
 from ..ops import bsdf as bsdf_ops
 from ..ops import microfacet as mf_ops
+from ..ops import sweep_bvh, wide_bvh
 from ..ops.bvh import build_bvh, build_box_bvh, pack_node_table
 from ..ops.linalg import RAY_EPS_REL
 from .pack import (KIND_TRI, KIND_SPHERE, KIND_RECT, KIND_DISK,
@@ -52,6 +54,38 @@ _LOBES_OF = {
     bsdf_ops.MAT_PHONG: (bsdf_ops.LOBE_PHONG,),
 }
 _MF_MATS = {bsdf_ops.MAT_PLASTIC, bsdf_ops.MAT_METAL, bsdf_ops.MAT_ROUGHGLASS}
+
+# the leaf size of the reference TPU build, whose tables its routing gate
+# measures (jet_pbrt_tpu/scene/builder.py:426-428)
+WIDE_LEAF = 16
+# instance fields of the TPU kernels are 5 bits (builder.py:578)
+MAX_SWEEP_INST = 32
+
+
+def sweep_route(n_wide: int, n_rows: int, n_inst: int | None = None) -> bool:
+    """True exactly where the reference's TPU build sends a mesh to the
+    cull-sweep kernel (builder.py:544-600): its tables at the wide leaf of
+    16 (n_wide 8-wide nodes, TLAS nodes included for a family; n_rows
+    triangle rows) exceed the wide kernel's VMEM/SMEM budget, the rows fit
+    the sweep's 8192 groups, and a family has fewer than 32 instances.
+    Everywhere else the port takes the wide kernel: where the reference
+    takes its XLA skip-link walk (more groups, more instances, or its CPU
+    build) the wide kernel is that walk's counterpart in the port."""
+    if n_inst is not None and n_inst >= MAX_SWEEP_INST:
+        return False
+    if wide_bvh.fits_vmem(n_wide, n_rows, WIDE_LEAF):
+        return False
+    return (n_rows + sweep_bvh.GROUP - 1) // sweep_bvh.GROUP \
+        <= sweep_bvh.max_groups()
+
+
+def _wide_leaf_counts(p0, p1, p2) -> tuple[int, int]:
+    """(8-wide nodes, triangle rows) of the mesh's tables at WIDE_LEAF, the
+    counts the reference's gate reads. Evaluating the gate on the port's
+    own leaf-4 tables would let the SMEM term bind near 110k triangles
+    instead of 350k."""
+    bvh, order = build_bvh(p0, p1, p2, leaf_size=WIDE_LEAF)
+    return wide_bvh.collapse_wide(bvh, WIDE_LEAF)[0].shape[0], len(order)
 
 
 def _face_normals(tris: np.ndarray, flip: bool) -> np.ndarray:
@@ -109,13 +143,15 @@ class SceneBuilder:
         return self._add_mat(bsdf_ops.MAT_METAL, eta, k, urough, vrough, remap)
 
     # -- shapes -----------------------------------------------------------
-    def _add_tri_block(self, tris, mat: int, flip_normal: bool):
+    def _add_tri_block(self, tris, mat: int, flip_normal: bool, uvs=None):
         tris = np.asarray(tris, np.float32)
         k = len(tris)
+        if uvs is None:
+            uvs = np.zeros((k, 3, 2), np.float32)
         self._tri_blocks.append(dict(
             p0=tris[:, 0], p1=tris[:, 1], p2=tris[:, 2],
             n=_face_normals(tris, flip_normal),
-            uv=np.zeros((k, 3, 2), np.float32), mat=mat))
+            uv=np.asarray(uvs, np.float32), mat=mat))
         start = self._tri_count
         self._tri_count += k
         return [(KIND_TRI, start + i) for i in range(k)]
@@ -125,13 +161,15 @@ class SceneBuilder:
         return self._add_tri_block(tri[None], mat, flip_normal)[0]
 
     def add_mesh(self, tris, mat: int, flip_normal=False,
-                 flip_handedness=False, offset=(0, 0, 0), scale=1.0):
-        """z-flip, then scale, then offset (reference: src/shape.cc:48-61)."""
+                 flip_handedness=False, offset=(0, 0, 0), scale=1.0,
+                 uvs=None):
+        """tris: [T,3,3] vertex soup (+ optional uvs [T,3,2]); z-flip, then
+        scale, then offset (reference: src/shape.cc:48-61)."""
         tris = np.asarray(tris, np.float32).copy()
         if flip_handedness:
             tris[..., 2] *= -1.0
         tris = tris * np.float32(scale) + np.asarray(offset, np.float32)
-        return self._add_tri_block(tris, mat, flip_normal)
+        return self._add_tri_block(tris, mat, flip_normal, uvs)
 
     def add_instanced_mesh(self, tris, instances, flip_normal=False,
                            flip_handedness=False, uvs=None):
@@ -302,7 +340,10 @@ class SceneBuilder:
         n_tri = self._tri_count
         if use_bvh is None:
             use_bvh = n_tri > 64
+        pallas_bvh = False
         if use_bvh and n_tri:
+            pallas_bvh = sweep_route(
+                *_wide_leaf_counts(tri_p0, tri_p1, tri_p2))
             bvh, order = build_bvh(tri_p0, tri_p1, tri_p2,
                                    leaf_size=bvh_leaf_size)
             tri_p0, tri_p1, tri_p2 = tri_p0[order], tri_p1[order], tri_p2[order]
@@ -330,6 +371,7 @@ class SceneBuilder:
                                 "inst_off", "inst_scale", "inst_mat",
                                 "inst_light", "tlas_nodes", "inst_em_tris",
                                 "inst_em_n")}
+        pallas_blas = []
         for m in self._inst_meshes:
             rows = m["inst"]
             f_off = np.stack([r[0] for r in rows])
@@ -344,6 +386,12 @@ class SceneBuilder:
             ib_lo = blas_nodes[0, :3][None] * f_scale[:, None] + f_off
             ib_hi = blas_nodes[0, 3:6][None] * f_scale[:, None] + f_off
             tlas, torder = build_box_bvh(ib_lo, ib_hi, leaf_size=1)
+            routed = False
+            if len(rows) < MAX_SWEEP_INST:
+                n_w, n_rows = _wide_leaf_counts(*m["tris"].transpose(1, 0, 2))
+                n_w += wide_bvh.collapse_wide(tlas, 1)[0].shape[0]
+                routed = sweep_route(n_w, n_rows, len(rows))
+            pallas_blas.append(routed)
             fams["blas_nodes"].append(blas_nodes)
             fams["blas_tris"].append(np.concatenate(
                 [t0, t1 - t0, t2 - t0], axis=1).astype(np.float32))
@@ -379,7 +427,7 @@ class SceneBuilder:
             n_blas_nodes=tuple(int(x.shape[0]) for x in a["blas_nodes"]),
             n_blas_tris=tuple(int(x.shape[0]) for x in a["blas_tris"]),
             n_tlas_nodes=tuple(int(x.shape[0]) for x in a["tlas_nodes"]),
-            pallas_blas=(False,) * len(self._inst_meshes),
+            pallas_bvh=pallas_bvh, pallas_blas=tuple(pallas_blas),
             n_groups_blas=(0,) * len(self._inst_meshes),
             bvh_leaf_size=bvh_leaf_size,
             blas_leaf_size=(bvh_leaf_size,) * len(self._inst_meshes))

@@ -4,8 +4,10 @@ PyTorch counterpart of jet_pbrt_tpu/scene/pack.py. Static facts (array
 sizes, light descriptors, routing) live in the frozen `SceneMeta`; numbers
 live in `ScenePack`. Shape kinds are dispatched by a Python loop over the
 kinds present. Meshes with a BVH (a triangle soup built with use_bvh, and
-every instanced family) are traversed by ops/wide_bvh.py; spheres, rects,
-disks and small soups are tested by brute force.
+every instanced family) are traversed by ops/wide_bvh.py or, when the
+builder routes them there (meshes beyond the reference's wide-kernel
+budget, scene/builder.py), by ops/sweep_bvh.py; spheres, rects, disks and
+small soups are tested by brute force.
 
 `SceneMeta` and `LightMeta` carry the reference's fields; they are copies
 because the reference module imports JAX.
@@ -19,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import intersect as isect_ops
+from ..ops import sweep_bvh
 from ..ops import wide_bvh
 from ..ops.linalg import dot, normalize
 
@@ -63,8 +66,9 @@ class SceneMeta:
     n_blas_nodes: tuple = ()
     n_blas_tris: tuple = ()
     n_tlas_nodes: tuple = ()
-    # routing: the port sends every BVH through the wide kernel
-    # (wide_bvh / wide_blas); the TPU sweep route (pallas_*) is not ported
+    # routing, decided at build time (scene/builder.py): pallas_* -> the
+    # cull-sweep kernel (ops/sweep_bvh.py), wide_* -> the 8-wide kernel;
+    # exactly one of the two per BVH mesh
     pallas_bvh: bool = False
     pallas_blas: tuple = ()
     wide_bvh: bool = False
@@ -78,6 +82,13 @@ class SceneMeta:
     @property
     def n_lights(self) -> int:
         return len(self.lights)
+
+    @property
+    def kernel_routed(self) -> bool:
+        """True when any mesh goes through a traversal kernel: the signal
+        for ray sorting to default on."""
+        return bool(self.wide_bvh or self.pallas_bvh
+                    or any(self.wide_blas) or any(self.pallas_blas))
 
     @property
     def env_light_indices(self) -> tuple:
@@ -140,13 +151,20 @@ class ScenePack(NamedTuple):
     inst_em_tris: tuple         # per family [Traw,9] (emissive instances)
     inst_em_n: tuple            # per family [Traw,3]
     bvh_wide: wide_bvh.WideTables | None   # soup tables iff meta.wide_bvh
-    inst_wide: tuple            # per family WideTables
+    inst_wide: tuple            # per family WideTables iff wide_blas, else None
+    bvh_sweep: sweep_bvh.SweepTables | None  # soup tables iff meta.pallas_bvh
+    inst_sweep: tuple           # per family SweepTables iff pallas_blas,
+                                # else None
+    # mesh bounding spheres [8] (sweep_bvh.mesh_root_sphere) of the soup and
+    # of each family's BLAS, whatever the route: the sort's pre-test reads them
+    bvh_s_root: torch.Tensor
+    inst_s_root: tuple
 
     def to(self, device) -> "ScenePack":
         def mv(x):
             if x is None:
                 return None
-            if isinstance(x, wide_bvh.WideTables):
+            if isinstance(x, (wide_bvh.WideTables, sweep_bvh.SweepTables)):
                 return x.to(device)
             if isinstance(x, tuple):
                 return tuple(mv(v) for v in x)
@@ -166,13 +184,36 @@ class Hit(NamedTuple):
     light_id: torch.Tensor  # [N] int32, -1 = not an emitter
 
 
+def _sweep(tables, n_tris, o, d, tmin, tmax, any_hit, stats):
+    """One sweep cast; with a stats dict, adds the kernel's per-packet
+    counters to it under sweep_<closest|shadow>_<packets|culls|tests>
+    (packets: those that culled at least one instance)."""
+    if stats is None:
+        return sweep_bvh.intersect_sweep(tables, o, d, tmin, tmax,
+                                         any_hit=any_hit, n_tris=n_tris)
+    hit, c = sweep_bvh.intersect_sweep(tables, o, d, tmin, tmax,
+                                       any_hit=any_hit, n_tris=n_tris,
+                                       with_stats=True)
+    cls = "shadow" if any_hit else "closest"
+    for k, v in (("packets", (c[:, 0] > 0).sum()), ("culls", c[:, 0].sum()),
+                 ("tests", c[:, 1].sum())):
+        key = f"sweep_{cls}_{k}"
+        stats[key] = stats.get(key, 0) + v.to(torch.int64)
+    return hit
+
+
 def _kind_hits(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
-               any_hit: bool = False):
-    """Closest (or any) hit per shape kind present in the scene."""
+               any_hit: bool = False, stats: dict | None = None):
+    """Closest (or any) hit per shape kind present in the scene. A BVH mesh
+    takes the kernel its build routed it to (meta.pallas_* -> sweep,
+    otherwise the wide kernel)."""
     o, d, tmin, tmax = (x.contiguous() for x in (o, d, tmin, tmax))
     hits, kinds = [], []
     if meta.n_tri:
-        if meta.wide_bvh:
+        if meta.pallas_bvh:
+            hits.append(_sweep(pack.bvh_sweep, meta.n_bvh_tris, o, d, tmin,
+                               tmax, any_hit, stats))
+        elif meta.wide_bvh:
             hits.append(wide_bvh.intersect_wide(
                 pack.bvh_wide, o, d, tmin, tmax, any_hit=any_hit,
                 has_inst=False, leaf_size=meta.bvh_leaf_size,
@@ -182,10 +223,14 @@ def _kind_hits(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
                 o, d, tmin, tmax, pack.tri_p0, pack.tri_p1, pack.tri_p2))
         kinds.append(KIND_TRI)
     for mi in range(len(meta.n_inst)):
-        hits.append(wide_bvh.intersect_wide(
-            pack.inst_wide[mi], o, d, tmin, tmax, any_hit=any_hit,
-            has_inst=True, leaf_size=meta.blas_leaf_size[mi],
-            n_tris=meta.n_blas_tris[mi]))
+        if meta.pallas_blas[mi]:
+            hits.append(_sweep(pack.inst_sweep[mi], meta.n_blas_tris[mi], o, d,
+                               tmin, tmax, any_hit, stats))
+        else:
+            hits.append(wide_bvh.intersect_wide(
+                pack.inst_wide[mi], o, d, tmin, tmax, any_hit=any_hit,
+                has_inst=True, leaf_size=meta.blas_leaf_size[mi],
+                n_tris=meta.n_blas_tris[mi]))
         kinds.append(KIND_INST + mi)
     if meta.n_sph:
         hits.append(isect_ops.intersect_spheres(o, d, tmin, tmax, pack.sph_c,
@@ -210,12 +255,14 @@ def _rows(table, index):
     return table[torch.clamp(index, 0, table.shape[0] - 1)]
 
 
-def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax) -> Hit:
-    """Closest hit over the whole scene (reference: src/scene.cc:25-33)."""
+def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
+              stats: dict | None = None) -> Hit:
+    """Closest hit over the whole scene (reference: src/scene.cc:25-33).
+    stats: optional dict that collects the sweep kernel's counters."""
     n = o.shape[0]
     dev = o.device
     uv = torch.zeros((n, 2), dtype=torch.float32, device=dev)
-    hits, kinds = _kind_hits(meta, pack, o, d, tmin, tmax)
+    hits, kinds = _kind_hits(meta, pack, o, d, tmin, tmax, stats=stats)
     if not hits:
         z3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
         return Hit(valid=torch.zeros((n,), dtype=torch.bool, device=dev),
@@ -269,25 +316,43 @@ def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax) -> Hit:
 
 
 def occluded(meta: SceneMeta, pack: ScenePack, p_from, p_to,
-             mask=None) -> torch.Tensor:
+             mask=None, sort: bool | None = None,
+             stats: dict | None = None) -> torch.Tensor:
     """Visibility between two point batches over the ray range
     [eps, dist - eps] (reference: src/scene.h:36-52); lanes with
-    mask=False trace nothing and report unoccluded."""
+    mask=False trace nothing and report unoccluded.
+
+    sort (default: meta.kernel_routed, as in the reference) permutes the
+    batch by (dead, needs-BVH, direction octant, origin Morton) before the
+    casts and un-permutes the result, argsort plus gather (never a
+    scatter); the permutation never changes the result. stats: optional
+    dict that collects the sweep kernel's counters."""
     delta = p_to - p_from
     dist = torch.sqrt(torch.clamp_min(dot(delta, delta), 1e-20))
     d = delta / dist[:, None]
-    eps = pack.ray_eps.expand(dist.shape)
-    tmin = eps
+    tmin = pack.ray_eps.expand(dist.shape)
     tmax = dist - pack.ray_eps
     if mask is not None:
         tmin = torch.where(mask, tmin, torch.full_like(dist, math.inf))
         tmax = torch.where(mask, tmax, torch.full_like(dist, -1.0))
-    hits, _ = _kind_hits(meta, pack, p_from, d, tmin, tmax, any_hit=True)
+    o = p_from
+    if sort is None:
+        sort = meta.kernel_routed
+    if sort:
+        from ..ops import sort as sort_ops
+        key = sort_ops.shadow_sort_key(meta, pack, tmax > 0.0, o, d, tmin,
+                                       tmax)
+        perm = torch.argsort(key, stable=True)
+        o, d, tmin, tmax = o[perm], d[perm], tmin[perm], tmax[perm]
+    hits, _ = _kind_hits(meta, pack, o, d, tmin, tmax, any_hit=True,
+                         stats=stats)
     if not hits:
         return torch.zeros(dist.shape, dtype=torch.bool, device=dist.device)
     occ = hits[0].valid
     for h in hits[1:]:
         occ = occ | h.valid
+    if sort:
+        occ = occ[torch.argsort(perm)]
     return occ
 
 

@@ -2,8 +2,7 @@
 
 PyTorch counterpart of jet_pbrt_tpu/scene/scenes.py (reference:
 src/main.cc:13-111), with the same geometry, materials and lights. The
-bunny mesh is the generated assets/bunny.obj, read and written by the
-reference package's jax-free `objio` / `assets` modules.
+bunny mesh is a generated OBJ under assets/ (`bunny_obj`).
 """
 from __future__ import annotations
 
@@ -11,7 +10,7 @@ import os
 
 import numpy as np
 
-from jet_pbrt_tpu.scene import objio
+from . import assets, objio
 from .builder import Scene, SceneBuilder
 
 ASSET_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "assets")
@@ -81,17 +80,31 @@ def cornell_box(lambert_only: bool = False,
     return b.build(use_bvh=use_bvh)
 
 
-def bunny_scene() -> Scene:
-    """The four-bunny scene (reference: src/main.cc:64-111): four instances
-    of one shared BLAS under a TLAS, a rect area light, a green floor and a
-    constant blue environment. The mesh is assets/bunny.obj, generated on
-    first use."""
-    bunny_path = os.path.join(ASSET_DIR, "bunny.obj")
-    if not os.path.exists(bunny_path):
-        from jet_pbrt_tpu.scene.assets import generate_bunny_obj
-        os.makedirs(os.path.dirname(bunny_path), exist_ok=True)
-        generate_bunny_obj(bunny_path)
-    bunny_tris, bunny_uvs = objio.load_obj(bunny_path)
+def bunny_obj(target_tris: int = assets.BUNNY_TRIS,
+              path: str | None = None) -> str:
+    """Path of a generated bunny OBJ, written at first use (never
+    committed): `path` if given, else assets/bunny.obj at the default
+    target and assets/bunny_<target_tris>.obj at any other."""
+    if path is None:
+        name = ("bunny.obj" if target_tris == assets.BUNNY_TRIS
+                else f"bunny_{target_tris}.obj")
+        path = os.path.join(ASSET_DIR, name)
+    if not os.path.exists(path):
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        assets.generate_bunny_obj(path, target_tris)
+    return path
+
+
+def bunny_scene(use_bvh: bool | None = None, bunny_path: str | None = None,
+                instancing: bool = True, bvh_leaf_size: int = 4) -> Scene:
+    """The four-bunny scene (reference: src/main.cc:64-111), with the
+    reference package's parameters: a rect area light, a green floor, a
+    constant blue environment and four copies of the mesh at bunny_path
+    (default assets/bunny.obj; a missing file is generated at the default
+    target). instancing=True shares one BLAS across the copies under a
+    TLAS; instancing=False flattens them into one triangle soup with a
+    single BVH."""
+    bunny_tris, bunny_uvs = objio.load_obj(bunny_obj(path=bunny_path))
 
     b = SceneBuilder("bunny_scene")
     b.set_camera(lookfrom=(-300, 300, -300), lookat=(0, 0, 0), vup=(0, 1, 0),
@@ -112,7 +125,12 @@ def bunny_scene() -> Scene:
     b.add_rect_xz(-200, 200, -200, 200, 0, green)
     placements = [((0, 0, 0), red), ((-100, 0, -100), plastic),
                   ((0, 0, -100), golden), ((-100, 0, 0), glass)]
-    b.add_instanced_mesh(bunny_tris,
-                         [(offset, 500.0, mat) for offset, mat in placements],
-                         flip_normal=True, flip_handedness=True, uvs=bunny_uvs)
-    return b.build()
+    if instancing:
+        b.add_instanced_mesh(
+            bunny_tris, [(offset, 500.0, mat) for offset, mat in placements],
+            flip_normal=True, flip_handedness=True, uvs=bunny_uvs)
+    else:
+        for offset, mat in placements:
+            b.add_mesh(bunny_tris, mat, flip_normal=True, flip_handedness=True,
+                       offset=offset, scale=500.0, uvs=bunny_uvs)
+    return b.build(use_bvh=use_bvh, bvh_leaf_size=bvh_leaf_size)

@@ -1,0 +1,89 @@
+"""Check the cull-sweep's primitives on the card:
+`python -m jet_pbrt_tpu_torch.scripts.sweep_prims`.
+
+Counterpart of the reference harness scripts/sweep_prims.py: one small
+kernel (csrc/sweep_prims.cu) computes out = a^T b + s for a, b [4, 128],
+where s is the sum of the minima of lanes 0-7, 8-15 and 120-127 of row 0
+of a^T b, and the result is held against the numpy oracle of the
+reference harness. Prints "all primitives OK".
+"""
+from __future__ import annotations
+
+import ctypes
+import sys
+
+import numpy as np
+import torch
+
+K, L = 4, 128
+
+
+def sweep_prims(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T b + s ([128, 128] f32) of a, b [4, 128] f32: the kernel for CUDA
+    tensors, `sweep_prims_plain` for CPU tensors."""
+    for name, x in (("a", a), ("b", b)):
+        if x.dtype != torch.float32 or tuple(x.shape) != (K, L) \
+                or not x.is_contiguous() or x.device != a.device:
+            raise ValueError(f"{name}: expected contiguous float32 [{K}, {L}] "
+                             f"on {a.device}")
+    if a.device.type == "cpu":
+        return sweep_prims_plain(a, b)
+    if a.device.type != "cuda":
+        raise ValueError(f"no sweep_prims route for device {a.device}")
+    from ..utils.cuda_build import load_library
+
+    lib = load_library("sweep_prims", ["sweep_prims.cu"], _declare)
+    out = torch.empty((L, L), dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        err = lib.sweep_prims_launch(
+            a.data_ptr(), b.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(a.device).cuda_stream)
+    sweep_prims.launches += 1
+    if err != 0:
+        raise RuntimeError(f"sweep_prims kernel launch failed: CUDA error {err}")
+    return out
+
+
+sweep_prims.launches = 0
+
+
+def _declare(lib):
+    vp = ctypes.c_void_p
+    lib.sweep_prims_launch.argtypes = [vp, vp, vp, vp]
+    lib.sweep_prims_launch.restype = ctypes.c_int
+
+
+def sweep_prims_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The kernel's plain PyTorch version (float32 multiply-adds)."""
+    o = a[0, :, None] * b[0, None, :]
+    for k in range(1, K):
+        o = o + a[k, :, None] * b[k, None, :]
+    kmin = o[0].view(L // 8, 8).amin(1)
+    return o + (kmin[0] + kmin[1] + kmin[15])
+
+
+def oracle(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The reference harness's numpy oracle (scripts/sweep_prims.py:50-54)."""
+    want = a.T @ b
+    kmin = want[0, :].reshape(16, 8).min(axis=1)
+    return want + (kmin[0] + kmin[1] + kmin[15])
+
+
+def main(device: str = "cuda") -> float:
+    """Run the primitives once on `device` against the oracle; returns the
+    max |error|."""
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is false")
+    rng = np.random.default_rng(0)
+    a = rng.normal(size=(K, L)).astype(np.float32)
+    b = rng.normal(size=(K, L)).astype(np.float32)
+    r = sweep_prims(torch.from_numpy(a).to(device),
+                    torch.from_numpy(b).to(device)).cpu().numpy()
+    want = oracle(a, b)
+    np.testing.assert_allclose(r, want, rtol=1e-5, atol=1e-4)
+    print("all primitives OK", flush=True)
+    return float(np.abs(r - want).max())
+
+
+if __name__ == "__main__":
+    main(sys.argv[1] if len(sys.argv) > 1 else "cuda")

@@ -41,31 +41,50 @@ def _nvcc() -> str:
                        "CUDA toolkit is installed")
 
 
-def load_library(name: str, sources: list[str], declare) -> ctypes.CDLL:
-    """Compile (if needed) and load lib<name>.so; `declare(lib)` sets the
-    argtypes and restype of its functions."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _lib_path(name: str, sources: list[str]) -> tuple[str, list[str]]:
     paths = [os.path.join(CSRC, s) for s in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in paths:
         with open(p, "rb") as f:
             h.update(f.read())
     out_dir = os.path.join(BUILD, f"{name}-{h.hexdigest()[:16]}")
-    lib_path = os.path.join(out_dir, f"lib{name}.so")
-    if not os.path.exists(lib_path):
-        os.makedirs(out_dir, exist_ok=True)
+    return os.path.join(out_dir, f"lib{name}.so"), paths
+
+
+def build_libraries(specs) -> None:
+    """Compile every library of specs [(name, sources), ...] that is not
+    built yet, one nvcc per library, all started together; raises if any
+    fails."""
+    procs = []
+    for name, sources in specs:
+        lib_path, paths = _lib_path(name, sources)
+        if os.path.exists(lib_path):
+            continue
+        os.makedirs(os.path.dirname(lib_path), exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
-                              capture_output=True, text=True)
+        procs.append((name, lib_path, tmp, time.perf_counter(),
+                      subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
+                                       stdout=subprocess.PIPE,
+                                       stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, lib_path, tmp, t0, proc in procs:
+        out, err = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}\n"
-                               f"{proc.stderr}")
+            failed.append(f"nvcc failed for {name}:\n{out}\n{err}")
+            continue
         os.replace(tmp, lib_path)
-        BUILD_LOG[name] = (time.perf_counter() - t0,
-                           proc.stdout + proc.stderr)
-    lib = ctypes.CDLL(lib_path)
+        BUILD_LOG[name] = (time.perf_counter() - t0, out + err)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
+def load_library(name: str, sources: list[str], declare) -> ctypes.CDLL:
+    """Compile (if needed) and load lib<name>.so; `declare(lib)` sets the
+    argtypes and restype of its functions."""
+    if name in _LOADED:
+        return _LOADED[name]
+    build_libraries([(name, sources)])
+    lib = ctypes.CDLL(_lib_path(name, sources)[0])
     declare(lib)
     _LOADED[name] = lib
     return lib

@@ -1,20 +1,23 @@
-"""The CUDA wide-BVH kernel against its plain PyTorch version, on the card.
+"""The CUDA traversal kernels against their plain PyTorch versions, on the
+card.
 
 Marked `cuda`: it skips without a GPU. It imports no JAX (the tables come
 from the port's own host build), so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Both template pairs of the kernel are held against the plain walk: the
+Every template of the wide-BVH kernel is held against the plain walk: the
 single-level soup tables (has_inst=False) and the two-level instanced ones,
-closest hit and any hit with a finite tmax. chip_smoke.py covers the
-instanced bunny at the main path's shapes; this covers the soup route.
+closest hit and any hit with a finite tmax; likewise the cull-sweep kernel,
+soup and 4 instances, both modes, with and without its counters.
+chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import numpy as np
 import pytest
 import torch
 
 from jet_pbrt_tpu_torch.ops import bvh as tbvh
+from jet_pbrt_tpu_torch.ops import sweep_bvh as TS
 from jet_pbrt_tpu_torch.ops import wide_bvh as TW
 
 LEAF = 4
@@ -92,3 +95,53 @@ def test_kernel_matches_plain_on_card(which):
     ak = TW.intersect_wide(tb, o, d, tmin, short, any_hit=True, **kw)
     ap = TW.intersect_wide_plain(tb, o, d, tmin, short, any_hit=True, **kw)
     assert torch.equal(ak.valid, ap.valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["soup", "instanced"])
+def test_sweep_kernel_matches_plain_on_card(which):
+    """Same Baldwin-Weber arithmetic, rounded alike, on both sides: valid
+    bits, t and indices agree exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    if which == "soup":
+        _, _, mt = _mesh(3, 800, 10.0, 0.8)
+        tables, origin = TS.sweep_tables(mt), (0.0, 0.0, 12.0)
+    else:
+        _, _, mt = _mesh(4, 500, 1.0, 0.3)
+        off = np.array([[0, 0, 0], [3, 0, 0], [0, 4, 0], [-3, -1, 2]],
+                       np.float32)
+        scale = np.array([1.0, 2.0, 0.5, 1.5], np.float32)
+        tables, origin = TS.sweep_tables(mt, off, scale), (0.0, 0.0, 10.0)
+    tb = tables.to("cuda")
+    n_tris = mt.shape[0]
+    o, d, tmin, tmax = _rays(22, 4096 + 77, origin, "cuda")
+    dead = torch.arange(o.shape[0], device="cuda") % 9 == 0
+    tmin = torch.where(dead, torch.full_like(tmin, float("inf")), tmin)
+    tmax = torch.where(dead, torch.full_like(tmax, -1.0), tmax)
+
+    before = TS.intersect_sweep.launches
+    hk, stats = TS.intersect_sweep(tb, o, d, tmin, tmax, any_hit=False,
+                                   n_tris=n_tris, with_stats=True)
+    hp = TS.intersect_sweep_plain(tb, o, d, tmin, tmax, any_hit=False,
+                                  n_tris=n_tris)
+    assert TS.intersect_sweep.launches == before + 1
+    tk, ik, vk = _host(hk)
+    tp, ip, vp = _host(hp)
+    assert vp.sum() > 100 and not vk[dead.cpu().numpy()].any()
+    assert np.array_equal(vk, vp)
+    assert np.array_equal(tk[vk], tp[vk]) and np.array_equal(ik[vk], ip[vk])
+    assert stats.shape == ((o.shape[0] + 127) // 128, 2)
+    st = stats.cpu().numpy()
+    assert (st[:, 1] > 0).any() and (st[:, 0] <= max(tables.n_inst, 1)).all()
+
+    short = torch.where(hp.valid, hp.t * 0.9, torch.full_like(hp.t, 30.0))
+    ak = TS.intersect_sweep(tb, o, d, tmin, short, any_hit=True, n_tris=n_tris)
+    ap = TS.intersect_sweep_plain(tb, o, d, tmin, short, any_hit=True,
+                                  n_tris=n_tris)
+    assert torch.equal(ak.valid, ap.valid)
+    long = torch.where(hp.valid, hp.t * 1.1, torch.full_like(hp.t, 30.0))
+    ak = TS.intersect_sweep(tb, o, d, tmin, long, any_hit=True, n_tris=n_tris)
+    ap = TS.intersect_sweep_plain(tb, o, d, tmin, long, any_hit=True,
+                                  n_tris=n_tris)
+    assert torch.equal(ak.valid, ap.valid) and bool(ak.valid.any())

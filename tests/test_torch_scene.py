@@ -3,6 +3,7 @@ the same builder calls give the same meta and bit-identical ScenePack
 arrays, and a JAX scene carried across with `scene_from_arrays` gives the
 port's own traversal tables."""
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -11,6 +12,7 @@ import torch
 from jet_pbrt_tpu.ops import wide_bvh as JW
 from jet_pbrt_tpu.scene import scenes as jscenes
 from jet_pbrt_tpu.scene.builder import SceneBuilder as JBuilder
+from jet_pbrt_tpu_torch.ops import sweep_bvh as TS
 from jet_pbrt_tpu_torch.ops import wide_bvh as TW
 from jet_pbrt_tpu_torch.scene import scenes as tscenes
 from jet_pbrt_tpu_torch.scene.builder import SceneBuilder as TBuilder
@@ -20,8 +22,12 @@ from jet_pbrt_tpu_torch.scene.pack import ScenePack
 torch.set_num_threads(2)
 
 # meta fields that name the traversal route: the reference's CPU build
-# takes its XLA walk, the port sends every BVH through the wide kernel
+# takes its XLA walk, the port sends these small meshes through the wide
+# kernel (both leave the sweep's pallas_* fields unset)
 ROUTING = {"wide_bvh", "wide_blas", "wide_blas_root"}
+# the port's own traversal tables, which the reference's pack lays out
+# differently
+TABLES = ("bvh_wide", "inst_wide", "bvh_sweep", "inst_sweep")
 
 
 def _mesh(t=400, seed=11):
@@ -71,7 +77,7 @@ def _assert_same_scene(js, ts):
             assert tm[k] == v, (k, tm[k], v)
     ja = _arrays(js.pack)
     for f in ScenePack._fields:
-        if f in ("bvh_wide", "inst_wide"):
+        if f in TABLES:
             continue
         tv = getattr(ts.pack, f)
         if isinstance(tv, tuple):
@@ -146,13 +152,18 @@ def test_scene_from_arrays(built, name):
                            js.camera)
     assert cs.meta == ts.meta
     for f, x, y in zip(ScenePack._fields, cs.pack, ts.pack):
-        if isinstance(x, TW.WideTables) or f == "inst_wide":
-            xs = [x] if isinstance(x, TW.WideTables) else list(x)
-            ys = [y] if isinstance(y, TW.WideTables) else list(y)
+        if f in TABLES:
+            xs = list(x) if isinstance(x, tuple) else [x]
+            ys = list(y) if isinstance(y, tuple) else [y]
+            assert len(xs) == len(ys), f
             for a, b in zip(xs, ys):
-                assert a.blas_root == b.blas_root and a.depth == b.depth
-                for u, v in zip(a[:4], b[:4]):
-                    assert torch.equal(u, v), f
+                assert type(a) is type(b), f
+                if isinstance(a, TW.WideTables):
+                    assert a.blas_root == b.blas_root and a.depth == b.depth
+                if isinstance(a, (TW.WideTables, TS.SweepTables)):
+                    for u, v in zip(a[:4], b[:4]):
+                        assert torch.equal(u, v), f
+                    assert a[4:] == b[4:], f
         elif x is None or y is None:
             assert x is None and y is None, f
         elif isinstance(x, tuple):
@@ -167,3 +178,112 @@ def test_pack_moves_between_devices(built):
     moved = ts.to("cpu")
     assert isinstance(moved.pack.inst_wide[0], TW.WideTables)
     assert moved.pack.inst_wide[0].blas_root == ts.pack.inst_wide[0].blas_root
+
+
+@pytest.mark.parametrize("target", [2000, 70000])
+def test_bunny_obj_matches_reference(tmp_path, target):
+    """The port's generated bunny OBJ is the reference's, byte for byte,
+    and the port's bunny_mesh is the reference's, bit for bit."""
+    from jet_pbrt_tpu.scene import assets as jassets
+    from jet_pbrt_tpu_torch.scene import assets as tassets
+    np.testing.assert_array_equal(tassets.bunny_mesh(target),
+                                  jassets.bunny_mesh(target))
+    jp, tp = str(tmp_path / "j.obj"), str(tmp_path / "t.obj")
+    assert jassets.generate_bunny_obj(jp, target) == \
+        tassets.generate_bunny_obj(tp, target)
+    with open(jp, "rb") as a, open(tp, "rb") as b:
+        assert a.read() == b.read()
+
+
+OBJ_TEXT = {
+    "positions": "v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\nf 1 2 3\nf 1 3 4\n",
+    "quad_uvs_negative": ("v 0 0 0\nv 1 0 0\nv 1 1 0.5\nv 0 1 0.25\n"
+                          "vt 0 0\nvt 1 0\nvt 1 1\n"
+                          "f -4/1 -3/2 -2/3 -1\nvn 0 0 1\n"
+                          "f 1/1/1 3//1 4/3/1\n"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(OBJ_TEXT))
+def test_load_obj_matches_reference(tmp_path, name):
+    """The port's OBJ reader gives the reference's triangles and texcoords
+    (fan triangulation, negative indices, missing texcoords)."""
+    from jet_pbrt_tpu.scene import objio as jobjio
+    from jet_pbrt_tpu_torch.scene import objio as tobjio
+    path = tmp_path / f"{name}.obj"
+    path.write_text(OBJ_TEXT[name])
+    (jt, ju), (tt, tu) = jobjio.load_obj(str(path)), tobjio.load_obj(str(path))
+    assert tt.dtype == np.float32 and tu.dtype == np.float32
+    np.testing.assert_array_equal(tt, jt)
+    np.testing.assert_array_equal(tu, ju)
+
+
+def test_bunny_obj_generates_at_first_use(tmp_path, monkeypatch):
+    """bunny_obj names assets/bunny.obj at the default target and
+    assets/bunny_<n>.obj at another, writes each once, and bunny_scene
+    generates a missing bunny_path at the default target as the reference
+    does."""
+    monkeypatch.setattr(tscenes, "ASSET_DIR", str(tmp_path / "assets"))
+    calls = []
+    real = tscenes.assets.generate_bunny_obj
+    monkeypatch.setattr(tscenes.assets, "generate_bunny_obj",
+                        lambda p, n: calls.append((p, n)) or real(p, 300))
+    p = tscenes.bunny_obj(600)
+    assert p == str(tmp_path / "assets" / "bunny_600.obj")
+    assert tscenes.bunny_obj(600) == p
+    assert tscenes.bunny_obj().endswith(os.path.join("assets", "bunny.obj"))
+    given = str(tmp_path / "sub" / "mine.obj")
+    tscenes.bunny_scene(bunny_path=given, instancing=False)
+    assert calls == [(p, 600),
+                     (str(tmp_path / "assets" / "bunny.obj"), 70000),
+                     (given, 70000)]
+
+
+def test_bunny_scene_signature_matches_reference():
+    import inspect
+    sig = lambda f: [(p.name, p.default) for p in
+                     inspect.signature(f).parameters.values()]
+    assert sig(tscenes.bunny_scene) == sig(jscenes.bunny_scene)
+
+
+@pytest.mark.parametrize("instancing", [False, True],
+                         ids=["soup", "instanced"])
+def test_bunny_scene_from_obj_matches_reference(tmp_path, instancing):
+    """bunny_scene(bunny_path=...) on a small generated OBJ: the soup
+    (four flattened copies through add_mesh with their uvs) and the
+    instanced family give the reference's row tables bit for bit."""
+    from jet_pbrt_tpu.scene.assets import generate_bunny_obj
+    path = str(tmp_path / "bunny.obj")
+    generate_bunny_obj(path, 2000)
+    js = jscenes.bunny_scene(bunny_path=path, instancing=instancing)
+    ts = tscenes.bunny_scene(bunny_path=path, instancing=instancing)
+    assert ts.meta.n_tri == js.meta.n_tri
+    assert ts.meta.n_inst == js.meta.n_inst == ((4,) if instancing else ())
+    fields = (("blas_tris", "blas_nodes", "blas_uv", "inst_off") if instancing
+              else ("tri_p0", "tri_p1", "tri_p2", "tri_uv", "bvh_nodes",
+                    "bvh_tris"))
+    for f in fields:
+        x, y = getattr(ts.pack, f), getattr(js.pack, f)
+        xs, ys = (x, y) if isinstance(x, tuple) else ((x,), (y,))
+        for u, v in zip(xs, ys):
+            np.testing.assert_array_equal(u.numpy(), np.asarray(v),
+                                          err_msg=f)
+    _assert_same_scene(js, ts)
+
+
+def test_add_mesh_uvs_match_reference():
+    """add_mesh(uvs=...) carries per-vertex texcoords through the BVH
+    reorder as the reference's does."""
+    tris = _mesh(t=300, seed=2)
+    uvs = np.random.default_rng(2).uniform(size=(300, 3, 2)).astype(
+        np.float32)
+    built = []
+    for builder in (JBuilder, TBuilder):
+        b = builder("uvs")
+        b.set_camera(lookfrom=(0, 0, 9), lookat=(0, 0, 0))
+        b.add_mesh(tris, b.add_matte((0.5, 0.5, 0.5)), flip_handedness=True,
+                   offset=(1, 2, 3), scale=2.0, uvs=uvs)
+        built.append(b.build(use_bvh=True))
+    js, ts = built
+    assert np.asarray(js.pack.tri_uv).any()
+    _assert_same_scene(js, ts)

@@ -118,22 +118,50 @@ def test_render_independent_of_wave_size():
                            img)
 
 
-def test_port_never_imports_jax():
-    """Every module of the port imports without JAX, and so does a scene
-    build (objio/assets/native of the reference package are jax-free)."""
+def test_port_never_imports_jax(tmp_path):
+    """Every module of the port, chip_smoke.py, a render and a bunny scene
+    built from a generated OBJ import nothing of JAX and nothing of the
+    JAX package."""
+    obj = str(tmp_path / "bunny.obj")
     code = (
         "import importlib, pkgutil, sys\n"
         "import jet_pbrt_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "from jet_pbrt_tpu_torch.scene.scenes import cornell_box\n"
+        "import chip_smoke\n"
+        "from jet_pbrt_tpu_torch.scene.scenes import bunny_obj, bunny_scene,"
+        " cornell_box\n"
         "from jet_pbrt_tpu_torch.models.render import render\n"
         "render(cornell_box(), 4, 4, spp=1)\n"
-        "bad = sorted(k for k in sys.modules if k == 'jax' or"
-        " k.startswith('jax.') or k == 'jaxlib')\n"
+        f"bunny_scene(bunny_path=bunny_obj(500, {obj!r}), instancing=False)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
+        " ('jax', 'jaxlib', 'jet_pbrt_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+PORT_SOURCES = sorted(
+    os.path.relpath(os.path.join(d, f), ROOT)
+    for d, _, fs in os.walk(os.path.join(ROOT, "jet_pbrt_tpu_torch"))
+    for f in fs if f.endswith(".py")) + ["chip_smoke.py"]
+
+
+@pytest.mark.parametrize("rel", PORT_SOURCES)
+def test_port_source_names_no_jax_import(rel):
+    """No import statement of the port or of chip_smoke.py, at module level
+    or inside a function, names JAX or the JAX package: a lazy import would
+    escape the import check above until its function runs."""
+    import ast
+    with open(os.path.join(ROOT, rel)) as f:
+        tree = ast.parse(f.read(), rel)
+    named = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    named += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.level == 0]
+    bad = [m for m in named
+           if m.split(".")[0] in ("jax", "jaxlib", "jet_pbrt_tpu")]
+    assert not bad, f"{rel} imports {bad}"

@@ -1,0 +1,407 @@
+"""The port's cull-sweep (jet_pbrt_tpu_torch/ops/sweep_bvh.py) and its
+routing against the JAX package.
+
+* Host tables: `build_sweep_tables`, `mesh_root_sphere`, `flat_inst` equal
+  the reference's bit for bit.
+* The plain sweep against the reference kernel in interpret mode and the
+  XLA skip-link walks, closest hit and any hit, soup and 4 instances, with
+  dead lanes, finite tmax and a partial last packet. Valid bits must be
+  equal everywhere. t within rtol 1e-5 of the reference kernel (the same
+  Baldwin-Weber rows and arithmetic in float32), and within the
+  reference's own sweep-against-walk tolerance, rtol 1e-4
+  (tests/test_sweep.py), of the walk: its Moller-Trumbore t rounds
+  differently from the Baldwin-Weber plane equation, by up to ~1e-5
+  relative on grazing rays. A hit index may differ only on a lane that the
+  float64 forensic of chip_smoke explains as a near-tie or an edge graze.
+* Routing: `sweep_route` equals the reference's predicate on a grid of
+  counts on both sides of each bound; a build with the budget lowered
+  populates only the sweep layout; the gate reads leaf-16 tables.
+* `li_path` on a sweep-routed scene against the JAX `li_path` on the same
+  rays and uniforms, both sorting: at least 99.5% of lanes agree at the
+  slice tolerances (rtol 1e-4, atol 1e-5) and the image mean to 1e-4.
+* The primitives harness (scripts/sweep_prims.py) on the CPU route
+  against the reference harness's numpy oracle.
+* chip_smoke's float64 forensic on two lanes recorded on the card: it
+  explains a disagreement inside the float32 rounding of the triangle test
+  and rejects one outside it.
+"""
+import dataclasses
+import functools
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+import chip_smoke
+from jet_pbrt_tpu.models import integrators as jint
+from jet_pbrt_tpu.ops import bvh as jbvh
+from jet_pbrt_tpu.ops import sweep_bvh as JS
+from jet_pbrt_tpu.ops import wide_bvh as JW
+from jet_pbrt_tpu.scene.builder import SceneBuilder as JBuilder
+from jet_pbrt_tpu_torch.models import integrators as tint
+from jet_pbrt_tpu_torch.models.render import render
+from jet_pbrt_tpu_torch.ops import sweep_bvh as TS
+from jet_pbrt_tpu_torch.ops import wide_bvh as TW
+from jet_pbrt_tpu_torch.scene import builder as tbuilder
+from jet_pbrt_tpu_torch.scene.builder import SceneBuilder as TBuilder
+from jet_pbrt_tpu_torch.scene import scenes as tscenes
+from jet_pbrt_tpu_torch.scene.convert import scene_from_arrays
+from jet_pbrt_tpu_torch.scripts import sweep_prims
+
+from test_torch_scene import _arrays, _mesh, instanced_scene
+from test_torch_slice import _both, _lane_ok
+
+torch.set_num_threads(2)
+
+LEAF = 4
+RTOL = 1e-5
+WALK_RTOL = 1e-4
+OFF = np.array([[0, 0, 0], [25, 0, 0], [0, 25, 0], [25, 25, 0]], np.float32)
+SCALE = np.array([1.0, 0.5, 2.0, 1.5], np.float32)
+
+
+def _random_mesh(seed, t=800, spread=10.0, size=0.8):
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-spread, spread, (t, 1, 3)).astype(np.float32)
+    return base + rng.uniform(-size, size, (t, 3, 3)).astype(np.float32)
+
+
+def _rows(tris, leaf=LEAF):
+    """BVH-ordered (p0, e1, e2) rows and the skip-link node rows."""
+    p0, p1, p2 = tris[:, 0], tris[:, 1], tris[:, 2]
+    bvh, order = jbvh.build_bvh(p0, p1, p2, leaf_size=leaf)
+    p0, p1, p2 = p0[order], p1[order], p2[order]
+    mt = np.concatenate([p0, p1 - p0, p2 - p0], axis=1).astype(np.float32)
+    return mt, jbvh.pack_node_table(bvh, len(order), leaf)
+
+
+MESHES = {
+    # the meshes of tests/test_sweep.py at their leaf of 16, and with
+    # degenerate rows (zero area, and all-zero) mixed in
+    "soup800": lambda: _rows(_random_mesh(3), 16)[0],
+    "blas500": lambda: _rows(_random_mesh(11, t=500), 16)[0],
+    "degenerate": lambda: np.concatenate(
+        [_rows(_random_mesh(5, t=300))[0], np.zeros((7, 9), np.float32),
+         np.tile(np.array([[1, 2, 3, 1, 1, 1, 2, 2, 2]], np.float32),
+                 (5, 1))]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MESHES))
+def test_host_tables_match_reference(name):
+    mt = MESHES[name]()
+    for x, y in zip(TS.build_sweep_tables(mt), JS.build_sweep_tables(mt)):
+        np.testing.assert_array_equal(x, y)
+    np.testing.assert_array_equal(TS.mesh_root_sphere(mt),
+                                  JS.mesh_root_sphere(mt))
+    np.testing.assert_array_equal(TS.flat_inst(OFF, SCALE),
+                                  JS.flat_inst(OFF, SCALE))
+    np.testing.assert_array_equal(
+        TS.flat_inst(np.zeros((0, 3)), np.zeros(0)),
+        JS.flat_inst(np.zeros((0, 3), np.float32), np.zeros(0, np.float32)))
+    assert TS.max_groups() == JS.max_groups()
+    for t in (1, mt.shape[0], 250_000, 251_000, 1 << 20):
+        assert TS.fits_vmem(t) == JS.fits_vmem(t), t
+
+
+# ---------------------------------------------------------------------------
+# plain sweep against the reference kernel (interpret mode) and XLA walk
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def meshes():
+    soup_mt, soup_nodes = _rows(_random_mesh(3))
+    blas_mt, blas_nodes = _rows(_random_mesh(11, t=500))
+    return {"soup": (soup_mt, soup_nodes, 0),
+            "instanced": (blas_mt, blas_nodes, len(SCALE))}
+
+
+def _rays(mt, n_inst, seed):
+    """2*128+17 rays (a partial last packet) aimed at random points inside
+    random triangles of random instances; every 5th lane dead, every 7th
+    with a finite tmax."""
+    rng = np.random.default_rng(seed)
+    n = 2 * TS.RAYS + 17
+    row = mt[rng.integers(0, mt.shape[0], n)]
+    a, b = rng.uniform(0.1, 0.45, (2, n, 1))
+    k = rng.integers(0, max(n_inst, 1), n)
+    off = OFF[k] if n_inst else np.zeros((n, 3), np.float32)
+    scl = SCALE[k] if n_inst else np.ones(n, np.float32)
+    target = (row[:, 0:3] + a * row[:, 3:6] + b * row[:, 6:9]) \
+        * scl[:, None] + off
+    o = np.where(n_inst, (12.0, 12.0, 40.0), (0.0, 0.0, 12.0)) \
+        + rng.normal(0, 1.0, (n, 3))
+    d = target - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, 1e-3, np.float32)
+    tmax = np.full(n, np.inf, np.float32)
+    tmax[1::7] = rng.uniform(5, 40, tmax[1::7].shape)
+    tmin[::5], tmax[::5] = np.inf, -1.0
+    return (o.astype(np.float32), d.astype(np.float32), tmin,
+            tmax.astype(np.float32))
+
+
+def _explained(o, d, tmin, tmax, hits, any_hit, mt, n_inst):
+    inst = TS.flat_inst(OFF, SCALE) if n_inst else np.array(
+        [0, 0, 0, 1, 0, 0, 0, 1], np.float32)
+    return chip_smoke.explain_lane(
+        o.astype(np.float64), d.astype(np.float64), float(tmin), float(tmax),
+        hits, any_hit, mt.astype(np.float64),
+        inst.reshape(-1, 4).astype(np.float64), mt.shape[0])
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("which", ["soup", "instanced"])
+def test_plain_sweep_matches_reference(meshes, which, any_hit):
+    mt, nodes, n_inst = meshes[which]
+    o, d, tmin, tmax = _rays(mt, n_inst, 7 if any_hit else 1)
+    n_tris = mt.shape[0]
+    if any_hit:
+        # shadow segments: half end before the closest hit, half beyond it
+        h = TS.intersect_sweep_plain(
+            TS.sweep_tables(mt, OFF if n_inst else None,
+                            SCALE if n_inst else None),
+            *map(torch.from_numpy, (o, d, tmin, tmax)), any_hit=False,
+            n_tris=n_tris)
+        f = np.where(np.arange(len(o)) % 2 == 0, 0.9, 1.1)
+        tmax = np.where(h.valid.numpy(), h.t.numpy() * f, tmax
+                        ).astype(np.float32)
+    bw, sph, root, ng = JS.build_sweep_tables(mt)
+    inst = JS.flat_inst(OFF, SCALE) if n_inst else JS.flat_inst(
+        np.zeros((0, 3), np.float32), np.zeros(0, np.float32))
+    J = jnp.asarray
+    h_ref = JS.intersect_sweep(J(sph), J(bw), J(inst), J(root), n_tris, ng,
+                               J(o), J(d), J(tmin), J(tmax), n_inst=n_inst,
+                               any_hit=any_hit, interpret=True, pps=1)
+    if n_inst:
+        h_xla = jbvh.intersect_instances(J(OFF), J(SCALE), J(nodes), J(mt),
+                                         J(o), J(d), J(tmin), J(tmax),
+                                         leaf_size=LEAF, any_hit=any_hit)
+    else:
+        h_xla = jbvh.intersect_bvh(J(nodes), J(mt), J(o), J(d), J(tmin),
+                                   J(tmax), leaf_size=LEAF, any_hit=any_hit)
+    tables = TS.sweep_tables(mt, OFF if n_inst else None,
+                             SCALE if n_inst else None)
+    before = TS.intersect_sweep.launches
+    hp = TS.intersect_sweep(tables, *map(torch.from_numpy,
+                                         (o, d, tmin, tmax)),
+                            any_hit=any_hit, n_tris=n_tris)
+    assert TS.intersect_sweep.launches == before  # CPU: the plain version
+    vp, tp, ip = hp.valid.numpy(), hp.t.numpy(), hp.index.numpy()
+    assert 40 < vp.sum() < len(vp) - 40
+    assert not vp[::5].any()
+    for h, rtol in ((h_ref, RTOL), (h_xla, WALK_RTOL)):
+        v, t, idx = (np.asarray(x) for x in (h.valid, h.t, h.index))
+        assert np.array_equal(v, vp)
+        if any_hit:
+            continue
+        np.testing.assert_allclose(t[vp], tp[vp], rtol=rtol)
+        for j in np.nonzero(vp & (idx != ip))[0]:
+            assert _explained(o[j], d[j], tmin[j], tmax[j],
+                              [(True, float(t[j]), idx[j]),
+                               (True, float(tp[j]), ip[j])],
+                              False, mt, n_inst), j
+
+
+def test_plain_sweep_stats_shape(meshes):
+    mt, _, n_inst = meshes["instanced"]
+    o, d, tmin, tmax = map(torch.from_numpy, _rays(mt, n_inst, 3))
+    hit, stats = TS.intersect_sweep(TS.sweep_tables(mt, OFF, SCALE), o, d,
+                                    tmin, tmax, any_hit=False,
+                                    n_tris=mt.shape[0], with_stats=True)
+    assert stats.shape == (3, 2) and stats.dtype == torch.int32
+    assert hit.valid.shape == (o.shape[0],)
+
+
+def test_sweep_checks_its_arguments(meshes):
+    mt, _, _ = meshes["soup"]
+    tables = TS.sweep_tables(mt)
+    o, d, tmin, tmax = map(torch.from_numpy, _rays(mt, 0, 2))
+    with pytest.raises(ValueError, match="do not fill"):
+        TS.intersect_sweep(tables, o, d, tmin, tmax, any_hit=False,
+                           n_tris=mt.shape[0] + TS.GROUP)
+    with pytest.raises(ValueError, match="float32"):
+        TS.intersect_sweep(tables, o.double(), d, tmin, tmax, any_hit=False,
+                           n_tris=mt.shape[0])
+    with pytest.raises(ValueError, match="no sweep route"):
+        TS.intersect_sweep(tables.to("meta"), o.to("meta"), d.to("meta"),
+                           tmin.to("meta"), tmax.to("meta"), any_hit=False,
+                           n_tris=mt.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# routing
+# ---------------------------------------------------------------------------
+
+def _reference_route(n_wide, n_rows, n_inst):
+    """The reference TPU build's decision (builder.py:544-600): 'sweep',
+    'wide', or its XLA walk."""
+    if n_inst is not None and not n_inst < 32:
+        return "walk"
+    if JW.fits_vmem(n_wide, n_rows, 16):
+        return "wide"
+    if (n_rows + 127) // 128 <= JS.max_groups():
+        return "sweep"
+    return "walk"
+
+
+@pytest.mark.parametrize("n_inst", [None, 1, 4, 31, 32, 40])
+def test_route_matches_reference_predicate(n_inst):
+    # SMEM binds at 8192 wide nodes, VMEM near 23.5k leaves of 16, the
+    # group cap at 8192 * 128 rows
+    walls = [1, 1000, 8191, 8192, 8193, 20000]
+    rows = [16, 100_000, 360_000, 370_000, 376_832, 377_000, 8192 * 128,
+            8192 * 128 + 1, 2_000_000]
+    for n_w in walls:
+        for n_r in rows:
+            assert TW.fits_vmem(n_w, n_r, 16) == JW.fits_vmem(n_w, n_r, 16)
+            want = _reference_route(n_w, n_r, n_inst) == "sweep"
+            assert tbuilder.sweep_route(n_w, n_r, n_inst) == want, (n_w, n_r)
+
+
+@pytest.mark.parametrize("instanced", [True, False],
+                         ids=["instanced", "flattened"])
+def test_routed_build_populates_only_the_sweep(monkeypatch, instanced):
+    monkeypatch.setattr(TW, "_VMEM_BUDGET", 1024)
+    scene = instanced_scene(TBuilder, instanced)
+    m, p = scene.meta, scene.pack
+    assert m.kernel_routed
+    if instanced:
+        rows = m.n_blas_tris[0]
+        assert m.pallas_blas == (True,) and m.wide_blas == (False,)
+        assert m.n_groups_blas == ((rows + 127) // 128,)
+        assert p.inst_wide == (None,) and isinstance(p.inst_sweep[0],
+                                                     TS.SweepTables)
+        assert p.inst_sweep[0].n_inst == 4
+    else:
+        rows = m.n_bvh_tris
+        assert m.pallas_bvh and not m.wide_bvh
+        assert m.n_groups_bvh == (rows + 127) // 128
+        assert p.bvh_wide is None and p.bvh_sweep.n_inst == 0
+    img = render(scene, 12, 12, spp=1, seed=3, max_depth=3, clamp=False)
+    assert torch.isfinite(img).all() and float(img.mean()) > 0.01
+
+
+def test_gate_reads_leaf16_tables(monkeypatch):
+    """With the SMEM budget between the mesh's leaf-16 and leaf-4 wide node
+    counts, the reference keeps it on the wide kernel, and so does the
+    port."""
+    tris = _mesh(t=1000, seed=4)
+    p0, p1, p2 = tris[:, 0], tris[:, 1], tris[:, 2]
+    n16 = tbuilder._wide_leaf_counts(p0, p1, p2)[0]
+    bvh4, _ = jbvh.build_bvh(p0, p1, p2, leaf_size=4)
+    n4 = TW.collapse_wide(bvh4, 4)[0].shape[0]
+    assert n16 < n4
+    monkeypatch.setattr(TW, "_SMEM_BUDGET", n16 * TW.WIDTH * 4)
+    b = TBuilder("gate")
+    b.set_camera(lookfrom=(0, 0, 9), lookat=(0, 0, 0))
+    b.add_mesh(tris, b.add_matte((0.5, 0.5, 0.5)))
+    m = b.build(use_bvh=True).meta
+    assert m.wide_bvh and not m.pallas_bvh
+    monkeypatch.setattr(TW, "_SMEM_BUDGET", n16 * TW.WIDTH * 4 - 1)
+    m = b.build(use_bvh=True).meta
+    assert m.pallas_bvh and not m.wide_bvh
+
+
+# ---------------------------------------------------------------------------
+# li_path on a sweep-routed scene against the reference
+# ---------------------------------------------------------------------------
+
+def test_li_path_sweep_routed_matches_reference(monkeypatch):
+    js = instanced_scene(JBuilder)
+    blas = np.asarray(js.pack.blas_tris[0])
+    bw, sph, _root, ng = JS.build_sweep_tables(blas)
+    pack = js.pack._replace(
+        inst_s_sph=(jnp.asarray(sph),),
+        inst_s_bw=(jnp.asarray(np.pad(bw, ((0, 4), (0, 0)))),),
+        inst_s_tbl=(jnp.asarray(JS.flat_inst(js.pack.inst_off[0],
+                                             js.pack.inst_scale[0])),))
+    meta = dataclasses.replace(js.meta, pallas_blas=(True,),
+                               n_groups_blas=(ng,))
+    js = dataclasses.replace(js, meta=meta, pack=pack)
+    # the reference kernel in interpret mode, compiled once per mode
+    kernel = jax.jit(JS.intersect_sweep, static_argnums=(4, 5),
+                     static_argnames=("n_inst", "any_hit", "interpret",
+                                      "with_stats", "stream_bw", "pps"))
+    monkeypatch.setattr(JS, "intersect_sweep",
+                        functools.partial(kernel, interpret=True, pps=1))
+    ts = scene_from_arrays(dataclasses.asdict(meta), _arrays(pack), js.camera)
+    assert ts.meta.pallas_blas == (True,) and ts.meta.n_groups_blas == (ng,)
+    assert meta.kernel_routed and ts.meta.kernel_routed  # both sides sort
+    a, b, sj, st = _both(js, ts, 16, 5)
+    ok = _lane_ok(a, b)
+    print(f"sweep-routed li_path: {int((~ok).sum())} of {len(ok)} lanes "
+          "differ")
+    assert ok.mean() >= 0.995, ok.mean()
+    assert abs(b.mean() - a.mean()) <= 1e-4 * a.mean(), (a.mean(), b.mean())
+    assert a.mean() > 0.01
+    assert int(st["rays"]) == int(sj["rays"])
+
+
+def test_sweep_prims_plain_matches_oracle(capsys):
+    before = sweep_prims.sweep_prims.launches
+    err = sweep_prims.main("cpu")
+    assert "all primitives OK" in capsys.readouterr().out
+    assert err <= 1e-4 and sweep_prims.sweep_prims.launches == before
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke's float64 forensic on two lanes recorded on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def bunny_rows(tmp_path_factory):
+    """The default bunny's BLAS rows and instance table, as the wide kernel
+    reads them."""
+    path = str(tmp_path_factory.mktemp("bunny") / "bunny.obj")
+    scene = tscenes.bunny_scene(bunny_path=tscenes.bunny_obj(path=path))
+    w = scene.pack.inst_wide[0]
+    return (w.tris.numpy().astype(np.float64),
+            w.inst.numpy().astype(np.float64), scene.meta.n_blas_tris[0],
+            float(scene.pack.ray_eps))
+
+
+_H = float.fromhex
+# Two of the default bunny's 2^20 targeted rays (seed 12) where the wide
+# kernel and its plain version disagree on an NVIDIA H100: o, d; tmin is
+# the scene's ray epsilon (0x1.b3f32cp-11), tmax inf.
+CRACK = ((_H("-0x1.a98376p+7"), _H("-0x1.111e3ep+6"), _H("0x1.22014p+7")),
+         (_H("0x1.2d6ca2p-1"), _H("0x1.6ceb14p-2"), _H("-0x1.737a68p-1")))
+GRAZING = ((_H("0x1.b6b178p+6"), _H("0x1.c1cfb4p+6"), _H("0x1.ba21c4p+7")),
+           (_H("-0x1.e7ba7p-2"), _H("-0x1.f8129ap-3"), _H("-0x1.b03246p-1")))
+FORENSIC_CASES = {
+    # the ray crosses the edge shared by rows 25008 and 25612 of instance 2
+    # (f64 margins -1.3e-4 / +1.3e-4): the kernel hits 25612, the plain
+    # version's float32 edge tests leak through to row 13177 behind it
+    "edge-crack": (CRACK, [(2, 25612, 191.6278076171875),
+                           (2, 13177, 206.29708862304688)], True),
+    # |cos| = 6.6e-4 to row 15073: float32 t is good to ~1e-4 relative
+    # (f64 392.41875)
+    "grazing": (GRAZING, [(0, 15073, 392.3989562988281),
+                        (0, 15073, 392.37933349609375)], True),
+    # what the forensic must still reject: two robust hits at different t,
+    "robust-pair": (CRACK, [(2, 13177, 206.29708862304688),
+                            (2, 14473, 218.78491382710098)], False),
+    # a robust hit that one side missed,
+    "robust-miss": (CRACK, [(2, 13177, 206.29708862304688), None], False),
+    # and a t 1% off its triangle even at grazing incidence
+    "grazing-1pct": (GRAZING, [(0, 15073, 392.3989562988281),
+                             (0, 15073, 392.3989562988281 * 1.01)], False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(FORENSIC_CASES))
+def test_forensic_bounds_float32_rounding(bunny_rows, case):
+    """explain_lane accepts a disagreement inside the float32 rounding of
+    the triangle test (an edge crack, a grazing t) and rejects one
+    outside it."""
+    rows, inst, n_tris, tmin = bunny_rows
+    (o, d), sides, expected = FORENSIC_CASES[case]
+    hits = [(False, np.inf, 0) if s is None else (True, s[2],
+                                                  s[0] * n_tris + s[1])
+            for s in sides]
+    assert bool(chip_smoke.explain_lane(np.array(o), np.array(d), tmin,
+                                        np.inf, hits, False, rows, inst,
+                                        n_tris)) == expected
