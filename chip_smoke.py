@@ -4,15 +4,16 @@
 Phases, each printing its result; any failure raises and exits non-zero:
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: one nvcc per kernel library of jet_pbrt_tpu_torch/csrc, all
-     started together (wide_bvh, sweep_bvh, sweep_prims), with ptxas
-     registers and spills;
+     started together (wide_bvh, sweep_bvh, sweep_prims, prim_micro), with
+     ptxas registers and spills;
   3. wide kernel vs its plain PyTorch version on the default bunny's
      tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
      half bounce) and a targeted incoherent set, closest hit and any hit
      with finite tmax; every disagreeing lane must be explained by a
      float64 Moller-Trumbore recheck as an edge graze or a t near-tie;
      then both timed at the main path's wave size (2^20 rays), their
-     outputs held against each other the same way;
+     outputs held against each other the same way, and the node visits and
+     triangle tests of the timed wave counted by the plain walk (its bound);
   4. main path: render(bunny_scene(), 1024, 1024, spp=4, max_depth=5,
      device="cuda") with the exact wide-kernel launch count, rays/s by
      class, peak memory, and a profiled wave;
@@ -22,16 +23,26 @@ Phases, each printing its result; any failure raises and exits non-zero:
      for the reference's wide-kernel budget: the instanced bunny of the
      600k-target OBJ and the soup of four copies of the 150k-target OBJ
      (generated under assets/ at first use); then both timed and held
-     against each other on a 2^20-ray wave;
+     against each other on a 2^20-ray wave, whose culls and group tests the
+     kernel's counters give (its bound);
   7. main path on the sweep route: render(bunny_scene(bunny_path=<600k
      OBJ>), 1024, 1024, spp=4, max_depth=5, device="cuda") with the exact
      sweep launch count and no wide launch, rays/s, peak memory, build
      time, a profiled wave, and the sweep's group tests per packet on one
      1-spp wave with sort_rays on and off, whose images must be
      bit-identical;
-  8. the sweep primitives harness (scripts/sweep_prims.py).
-The line before the last is the per-kernel JSON summary; the last line is
-{"ok": true, "device": {...}}. Imports nothing of JAX.
+  8. the sweep primitives harness (scripts/sweep_prims.py) through its
+     entry point, and its kernel against its plain version bit for bit;
+  9. the wide kernel's primitive probes (scripts/prim_micro.py): its entry
+     point times all 11 probes at REPS = 2048 (ns per dependent
+     iteration), with the exact launch count; the output of every probe's
+     timed launches is held against its plain version at REPS bit for bit
+     (mt equal to inf), the plain version timed there.
+The line before the last is the per-kernel JSON summary, each kernel with
+its bound: the larger of its bytes (inputs read once, outputs written once)
+at HBM_BW and its float operations at F32_PEAK, counted on the timed call's
+inputs. The last line is {"ok": true, "device": {...}}. Imports nothing of
+JAX.
 """
 from __future__ import annotations
 
@@ -52,7 +63,7 @@ from jet_pbrt_tpu_torch.ops.linalg import frame_from_z, to_world
 from jet_pbrt_tpu_torch.ops.sampling import sample_cosine_hemisphere
 from jet_pbrt_tpu_torch.scene import pack as scene_pack
 from jet_pbrt_tpu_torch.scene.scenes import bunny_obj, bunny_scene, cornell_box
-from jet_pbrt_tpu_torch.scripts import sweep_prims
+from jet_pbrt_tpu_torch.scripts import prim_micro, sweep_prims
 from jet_pbrt_tpu_torch.utils import cuda_build
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -68,11 +79,44 @@ MAX_EXPLAINED = 1e-3
 # the plain sweep is timed at 2^20 rays when its 2^18 call took less
 PLAIN_2_18_LIMIT_S = 5.0
 LIBRARIES = (("wide_bvh", ["wide_bvh.cu"]), ("sweep_bvh", ["sweep_bvh.cu"]),
-             ("sweep_prims", ["sweep_prims.cu"]))
+             ("sweep_prims", ["sweep_prims.cu"]),
+             ("prim_micro", ["prim_micro.cu"]))
+# one H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores, and
+# HBM3; every float operation below counts as one against F32_PEAK
+F32_PEAK = 67e12     # FLOP/s
+HBM_BW = 3.35e12     # bytes/s
+# o, d, tmin, tmax in; t, index out
+RAY_BYTES = 4 * (3 + 3 + 1 + 1) + 4 + 4
+# float operations per unit of work, counted from the kernel sources
+WIDE_NODE_OPS = 8 * 26 + 19  # wide_bvh.cu:142-172: 8 slab tests, the sort
+WIDE_TRI_OPS = 55            # wide_bvh.cu:106-122: one Moller-Trumbore test
+SWEEP_CULL_OPS = 33          # sweep_bvh.cu:186-193: one ray, one group sphere
+SWEEP_TRI_OPS = 51           # sweep_bvh.cu:236-257: one ray, one triangle
+# one Moller-Trumbore test of prim_micro.cu's mt: 44 products and sums,
+# the division, |det| > eps, u + v, 4 comparisons and the running minimum
+MT_TEST_OPS = 44 + 1 + 1 + 1 + 4 + 1
+# a prim_micro probe's operations per iteration, counted on the values the
+# function needs: the 8 blocks compute one acc, and r1's and mt's lanes are
+# all equal, so each is one scalar chain; r2 reduces 8 tiles of distinct
+# table values (rows 6k..6k+7 of 128 columns, 6 rows for k = 7); srt's
+# comparators and integer adds count against the float rate (the table of
+# peaks has no int32 rate). The update acc + s * 1e-9 is 2.
+PROBE_OPS = dict(m1=1, m4=4, b1=4, r1=8 + 7 + 2, x8=7 + 2, x32=31 + 2,
+                 r2=2 * (7 * 8 * 128 + 6 * 128) - 8 + 7 + 2,
+                 srt=2 * 19 + 7 + 1 + 2, f1=1, f3=2 + 1,
+                 mt=1 + 16 * MT_TEST_OPS + 2)
 
 
 def phase(name):
     print(f"== {name}", flush=True)
+
+
+def bound(nbytes: int, flops: int):
+    """The least time of the work on one H100, in ms, and what binds it:
+    its bytes at HBM_BW or its float operations at F32_PEAK."""
+    t_bytes, t_ops = nbytes / HBM_BW, flops / F32_PEAK
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 class Route(NamedTuple):
@@ -83,6 +127,8 @@ class Route(NamedTuple):
     rows: np.ndarray     # [T, 9] triangle rows the hit indices select
     inst: np.ndarray     # [I+1, 4] instance rows, row 0 the identity
     n_tris: int
+    work: Callable       # (o, d, tmin, tmax) -> (bytes, flops, counts) of
+                         # a closest-hit call
 
 
 def wide_route(scene) -> Route:
@@ -90,13 +136,23 @@ def wide_route(scene) -> Route:
     tables = scene.pack.inst_wide[0]
     kw = dict(has_inst=True, leaf_size=scene.meta.blas_leaf_size[0],
               n_tris=scene.meta.n_blas_tris[0])
+    def work(*rays):
+        """Node visits and triangle tests, as the plain walk counts them."""
+        st = wide_bvh.intersect_wide_plain(tables, *rays, any_hit=False,
+                                           with_stats=True, **kw)[1]
+        nbytes = rays[0].shape[0] * RAY_BYTES + sum(
+            x.nbytes for x in (tables.bounds, tables.child, tables.tris,
+                               tables.inst))
+        return (nbytes, st["node_visits"] * WIDE_NODE_OPS
+                + st["tri_tests"] * WIDE_TRI_OPS, st)
+
     return Route("wide_bvh",
                  lambda *r, any_hit: wide_bvh.intersect_wide(
                      tables, *r, any_hit=any_hit, **kw),
                  lambda *r, any_hit: wide_bvh.intersect_wide_plain(
                      tables, *r, any_hit=any_hit, **kw),
                  tables.tris.cpu().numpy(), tables.inst.cpu().numpy(),
-                 kw["n_tris"])
+                 kw["n_tris"], work)
 
 
 def sweep_route(scene) -> Route:
@@ -113,12 +169,29 @@ def sweep_route(scene) -> Route:
         inst = np.array([[0, 0, 0, 1], [0, 0, 0, 1]], np.float32)
     else:
         raise AssertionError(f"{meta.name}: no mesh is routed to the sweep")
+
+    def work(o, d, tmin, tmax):
+        """From the kernel's counters: the rays past each root test x the
+        mesh's groups (sphere tests), and the rays that test each popped
+        group x its 128 triangles."""
+        stats = sweep_bvh.intersect_sweep(tables, o, d, tmin, tmax,
+                                          any_hit=False, n_tris=n_tris,
+                                          with_stats=True)[1].long().sum(0)
+        culls = int(stats[2]) * tables.n_groups
+        tests = int(stats[3]) * sweep_bvh.GROUP
+        nbytes = o.shape[0] * RAY_BYTES + sum(
+            x.nbytes for x in (tables.sph, tables.bw, tables.inst,
+                               tables.root))
+        return (nbytes, culls * SWEEP_CULL_OPS + tests * SWEEP_TRI_OPS,
+                {"ray_group_culls": culls, "ray_tri_tests": tests,
+                 "group_tests": int(stats[1])})
+
     return Route("sweep_bvh",
                  lambda *r, any_hit: sweep_bvh.intersect_sweep(
                      tables, *r, any_hit=any_hit, n_tris=n_tris),
                  lambda *r, any_hit: sweep_bvh.intersect_sweep_plain(
                      tables, *r, any_hit=any_hit, n_tris=n_tris),
-                 rows.cpu().numpy(), inst, n_tris)
+                 rows.cpu().numpy(), inst, n_tris, work)
 
 
 # --------------------------------------------------------------------------
@@ -415,7 +488,20 @@ def time_wide(scene, route: Route, dev):
             print(f"{route.name} {label} {mode} at {o.shape[0]} rays "
                   f"({int(h.valid.sum())} closest hits): kernel {k:.4f} ms, "
                   f"plain {p:.2f} ms", flush=True)
+        if label == "wave":
+            out["bound"] = timed_bound(route, label, o, d, tmin, tmax)
     return out
+
+
+def timed_bound(route: Route, label, o, d, tmin, tmax):
+    """The bound of the timed closest-hit call on these rays; prints its
+    work counts."""
+    nbytes, flops, counts = route.work(o, d, tmin, tmax)
+    ms, by = bound(nbytes, flops)
+    print(f"{route.name} {label} closest at {o.shape[0]} rays: {counts}, "
+          f"{nbytes} bytes, {flops} float operations: bound {ms:.4f} ms "
+          f"({by})", flush=True)
+    return ms, by
 
 
 def time_sweep(scene, route: Route, label, dev):
@@ -448,6 +534,7 @@ def time_sweep(scene, route: Route, label, dev):
         print(f"{route.name} {label} wave {mode} ({int(h.valid.sum())} closest "
               f"hits of {o.shape[0]}): kernel {k:.4f} ms at {o.shape[0]} rays, "
               f"plain {p:.2f} ms at {p_rays} rays", flush=True)
+    out["bound"] = timed_bound(route, f"{label} wave", o, d, tmin, tmax)
     return out
 
 
@@ -644,8 +731,9 @@ def build_sweep_scene(label, dev, **kw):
 
 
 def prims(dev):
-    """The primitives harness through its entry point, then the kernel
-    against its plain version on the harness's inputs."""
+    """The primitives harness through its entry point (held against its
+    numpy oracle bit for bit), then the kernel against its plain version on
+    the harness's inputs, bit for bit."""
     sweep_prims.sweep_prims.launches = 0
     err_oracle = sweep_prims.main("cuda")
     launches = sweep_prims.sweep_prims.launches
@@ -654,17 +742,70 @@ def prims(dev):
     rs = np.random.default_rng(0)
     a, b = (torch.as_tensor(rs.normal(size=(4, 128)), dtype=torch.float32,
                             device=dev) for _ in range(2))
-    k = sweep_prims.sweep_prims(a, b)
-    p = sweep_prims.sweep_prims_plain(a, b)
+    ms_k, k = time_ms(lambda: sweep_prims.sweep_prims(a, b), 100)
+    ms_p, p = time_ms(lambda: sweep_prims.sweep_prims_plain(a, b), 100)
     err = float((k - p).abs().max())
-    if not torch.allclose(k, p, rtol=1e-5, atol=1e-4):
+    if not torch.equal(k, p):
         raise AssertionError(f"sweep_prims kernel vs plain: max error {err}")
-    ms_k = time_ms(lambda: sweep_prims.sweep_prims(a, b), 100)[0]
-    ms_p = time_ms(lambda: sweep_prims.sweep_prims_plain(a, b), 100)[0]
+    # a, b read once, out written once; the rank-4 product's multiply-adds,
+    # the add of s to every element, the 3 x 7 window minima and 2 adds
+    ms_b, by = bound(a.nbytes + b.nbytes + k.nbytes,
+                     128 * 128 * 4 * 2 + 128 * 128 + 3 * 7 + 2)
     print(f"sweep_prims: oracle max error {err_oracle:.3g}, kernel vs plain "
-          f"{err:.3g} (rtol 1e-5, atol 1e-4); kernel {ms_k:.4f} ms, plain "
-          f"{ms_p:.4f} ms; harness launches {launches}", flush=True)
-    return launches, err, ms_k, ms_p
+          f"equal bit for bit; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
+          f"bound {ms_b:.6f} ms ({by}); harness launches {launches}",
+          flush=True)
+    return launches, err, ms_k, ms_p, (ms_b, by)
+
+
+def probes(dev):
+    """The wide kernel's primitive probes through their entry point (all
+    11, timed at REPS, with the exact launch count); the output of each
+    probe's timed launches held against its plain version at REPS, bit
+    for bit, and the plain version timed there."""
+    reps = prim_micro.REPS
+    prim_micro.prim_micro.launches = 0
+    ns, outs = prim_micro.main(prim_micro.PROBES, "cuda")
+    launches = prim_micro.prim_micro.launches
+    expected = len(prim_micro.PROBES) * (1 + prim_micro.RUNS)
+    if launches != expected:
+        raise AssertionError(f"prim_micro launches {launches}, the entry "
+                             f"point's runs imply {expected}")
+    tables = prim_micro.tables(dev)
+    out_bytes = outs[prim_micro.PROBES[0]].nbytes
+    total = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    err, bounds = 0.0, []
+    for probe in prim_micro.PROBES:
+        t, k = tables[prim_micro.TABLE_OF[probe]], outs[probe]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = prim_micro.prim_micro_plain(probe, t, reps)
+        torch.cuda.synchronize()
+        ms_p = (time.perf_counter() - t0) * 1e3
+        # inf == inf (mt) is no error
+        e = float(torch.where(k == p, 0.0, (k - p).abs()).max())
+        if not torch.equal(k, p):
+            raise AssertionError(f"prim_micro {probe}: kernel {float(k[0, 0, 0])}"
+                                 f" != plain {float(p[0, 0, 0])}, max error {e}")
+        if not bool(torch.isinf(k).all() if probe == "mt"
+                    else torch.isfinite(k).all()):
+            raise AssertionError(f"prim_micro {probe}: value "
+                                 f"{float(k[0, 0, 0])}")
+        ms_k = ns[probe] * reps * 1e-6
+        ms_b, by = bound(t.nbytes + out_bytes, PROBE_OPS[probe] * reps)
+        err = max(err, e)
+        bounds.append((ms_b, by))
+        total["ms"] += ms_k
+        total["plain_ms"] += ms_p
+        total["bound_ms"] += ms_b
+        print(f"prim_micro {probe}: {ns[probe]:.1f} ns/iter, at REPS {reps} "
+              f"kernel {ms_k:.4f} ms, plain {ms_p:.2f} ms, bound {ms_b:.6f} ms "
+              f"({by}), equal bit for bit (value {float(k[0, 0, 0])!r})",
+              flush=True)
+    print(f"prim_micro: entry-point launches {launches} (expected "
+          f"{expected})", flush=True)
+    # the sum's binding resource is that of its largest term
+    return launches, ns, total, max(bounds)[1], err
 
 
 def main() -> int:
@@ -741,26 +882,46 @@ def main() -> int:
     sort_effect(inst600, dev, "bunny 600k")
 
     phase("8 sweep primitives")
-    prim_launches, prim_err, prim_ms, prim_plain_ms = prims(dev)
+    prim_launches, prim_err, prim_ms, prim_plain_ms, prim_bound = prims(dev)
+
+    phase("9 wide-kernel primitives (K4)")
+    probe_launches, probe_ns, probe_total, probe_by, probe_err = probes(dev)
 
     k_ms, p_ms, p_rays = sweep_times["instanced"]["closest"]
+    # no single PyTorch call computes any of these functions (BVH
+    # traversal, K3's min-sum epilogue, K4's dependent recurrences)
     print(json.dumps({"kernels": [
         {"name": "wide_bvh", "route": "cuda",
          "source": "jet_pbrt_tpu_torch/csrc/wide_bvh.cu",
          "replaces": "jet_pbrt_tpu/ops/wide_bvh.py:315",
          "launches": wide_launches, "max_abs_err": wide_err,
          "ms": wide_times["wave", "closest"][0],
-         "plain_ms": wide_times["wave", "closest"][1]},
+         "plain_ms": wide_times["wave", "closest"][1],
+         "bound_ms": wide_times["bound"][0],
+         "bound_by": wide_times["bound"][1], "library_ms": None},
         {"name": "sweep_bvh", "route": "cuda",
          "source": "jet_pbrt_tpu_torch/csrc/sweep_bvh.cu",
          "replaces": "jet_pbrt_tpu/ops/sweep_bvh.py:192",
          "launches": sweep_launches, "max_abs_err": sweep_err,
-         "ms": k_ms, "plain_ms": p_ms, "rays": 1 << 20, "plain_rays": p_rays},
+         "ms": k_ms, "plain_ms": p_ms,
+         "bound_ms": sweep_times["instanced"]["bound"][0],
+         "bound_by": sweep_times["instanced"]["bound"][1],
+         "library_ms": None, "rays": 1 << 20, "plain_rays": p_rays},
         {"name": "sweep_prims", "route": "cuda",
          "source": "jet_pbrt_tpu_torch/csrc/sweep_prims.cu",
          "replaces": "scripts/sweep_prims.py:16",
          "launches": prim_launches, "max_abs_err": prim_err,
-         "ms": prim_ms, "plain_ms": prim_plain_ms}]}),
+         "ms": prim_ms, "plain_ms": prim_plain_ms,
+         "bound_ms": prim_bound[0], "bound_by": prim_bound[1],
+         "library_ms": None},
+        {"name": "prim_micro", "route": "cuda",
+         "source": "jet_pbrt_tpu_torch/csrc/prim_micro.cu",
+         "replaces": "scripts/prim_micro.py:28",
+         "launches": probe_launches, "max_abs_err": probe_err,
+         "ms": probe_total["ms"], "plain_ms": probe_total["plain_ms"],
+         "bound_ms": probe_total["bound_ms"], "bound_by": probe_by,
+         "library_ms": None, "reps": prim_micro.REPS,
+         "probes": probe_ns}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

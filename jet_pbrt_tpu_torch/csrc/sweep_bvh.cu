@@ -114,7 +114,9 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
   }
   float best = INFINITY;
   int best_idx = 0;
-  int n_cull = 0, n_test = 0;
+  // STATS: instances culled, groups popped, and the rays that did that
+  // work (past the root test in each cull, testing in each pop)
+  int n_cull = 0, n_test = 0, n_ray_cull = 0, n_ray_test = 0;
 
   // whole-packet exit: an all-dead packet costs this one test
   if (__syncthreads_or(tmax > 0.0f)) {
@@ -160,7 +162,10 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
       __syncthreads();
       const int n_live = s_nlive;
       if (n_live == 0) continue;  // uniform: no ray can touch this instance
-      if (STATS && tid == 0) ++n_cull;
+      if (STATS && tid == 0) {
+        ++n_cull;
+        n_ray_cull += n_live;
+      }
 
       // ---- 2. cull: the packet's packed key of every group this thread owns
       int lmin = INT_MAX;
@@ -214,8 +219,15 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
           s_key[g] = far_key | g;
           lmin = own_min(s_key, gp, tid);
         }
-        __syncthreads();
-        if (STATS && tid == 0) ++n_test;
+        if constexpr (STATS) {
+          const int n_want = __syncthreads_count(wants);
+          if (tid == 0) {
+            ++n_test;
+            n_ray_test += n_want;
+          }
+        } else {
+          __syncthreads();
+        }
 
         if (wants) {
           const int base = i * n_tris + g * GROUP;
@@ -255,8 +267,11 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
     idx_out[i_ray] = ANY_HIT ? 0 : best_idx;
   }
   if (STATS && tid == 0) {
-    stats_out[2 * blockIdx.x] = n_cull;
-    stats_out[2 * blockIdx.x + 1] = n_test;
+    int* row = stats_out + 4 * blockIdx.x;
+    row[0] = n_cull;
+    row[1] = n_test;
+    row[2] = n_ray_cull;
+    row[3] = n_ray_test;
   }
 }
 
@@ -279,7 +294,7 @@ int launch(const float* sph, int gp, const float* bw, const float* inst,
 
 // Plain C entry point, loaded through ctypes. Launches on `stream` without
 // synchronising and returns cudaGetLastError() of the launch. stats is
-// [ceil(n/128), 2] int32 or null.
+// [ceil(n/128), 4] int32 or null.
 extern "C" int sweep_bvh_launch(const float* sph, int gp, const float* bw,
                                 const float* inst, int n_inst,
                                 const float* root, int n_groups, int n_tris,

@@ -22,9 +22,21 @@ class Camera(NamedTuple):
     resolution: torch.Tensor  # [2] (width, height)
 
 
+def resolve_device(device) -> torch.device:
+    """`device`, or the card when it is None. Asking for the card where
+    there is none raises: nothing falls back to the CPU."""
+    device = torch.device(device if device is not None else "cuda")
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the "
+                           "CPU")
+    return device
+
+
 def make_camera(lookfrom, front, vup, vfov_degrees, resolution,
                 device=None) -> Camera:
-    """Scaled basis (reference: src/camera.h:44-48), derived in float64."""
+    """Scaled basis (reference: src/camera.h:44-48), derived in float64, on
+    `device` (default: the card)."""
+    device = resolve_device(device)
     front = np.asarray(front, np.float64)
     front = front / np.linalg.norm(front)
     vup = np.asarray(vup, np.float64)

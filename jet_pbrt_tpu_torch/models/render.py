@@ -44,8 +44,9 @@ def render(scene, width: int, height: int, spp: int, seed: int = 0,
     reference: src/integrator.cc:108). with_stats also returns the counts
     of `li_path` (rays by class, the sweep kernel's counters), summed over
     the frame, as Python ints. sort_rays is li_path's (default: on for
-    kernel-routed scenes)."""
-    device = torch.device(device if device is not None else "cpu")
+    kernel-routed scenes). device defaults to the card and raises where
+    there is none; the CPU runs only when asked (device="cpu")."""
+    device = camera_mod.resolve_device(device)
     pack = scene.pack.to(device)
     cam = camera_mod.make_camera(scene.camera.lookfrom, scene.camera.front,
                                  scene.camera.vup, scene.camera.vfov,

@@ -28,6 +28,13 @@ def absdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.abs(dot(a, b))
 
 
+def fma32(a, b, c):
+    """a * b + c rounded once to float32, as a CUDA kernel's __fmaf_rn and
+    XLA's fused float32 contractions round it: float64 holds the float32
+    product exactly."""
+    return (a.double() * b.double() + c.double()).float()
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a, b = torch.broadcast_tensors(a, b)
     return torch.linalg.cross(a, b, dim=-1)

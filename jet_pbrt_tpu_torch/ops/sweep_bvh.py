@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .intersect import KindHit
+from .linalg import fma32
 
 GROUP = 128          # triangles per cull group
 RAYS = 128           # rays per packet (one CUDA thread block)
@@ -205,8 +206,10 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
 
     Index = inst * n_tris + triangle row (inst 0 for a soup); an any-hit
     reports t = 0 when occluded. with_stats also returns per-packet
-    counters [ceil(N/128), 2] int32: instances culled (root test passed)
-    and groups tested. CUDA tensors launch the kernel of
+    counters [ceil(N/128), 4] int32: instances culled (root test passed),
+    groups tested, the rays past the root test summed over the culled
+    instances, and the rays that test a group summed over the groups
+    tested. CUDA tensors launch the kernel of
     csrc/sweep_bvh.cu; CPU tensors take `intersect_sweep_plain` (whose
     counters are not the kernel's: it has no packets, so it returns
     zeros)."""
@@ -217,7 +220,7 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
         hit = intersect_sweep_plain(tables, o, d, tmin, tmax,
                                     any_hit=any_hit, n_tris=n_tris)
         if with_stats:
-            return hit, torch.zeros((n_packets, 2), dtype=torch.int32)
+            return hit, torch.zeros((n_packets, 4), dtype=torch.int32)
         return hit
     if o.device.type != "cuda":
         raise ValueError(f"no sweep route for device {o.device}")
@@ -226,7 +229,7 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
     lib = load_library("sweep_bvh", ["sweep_bvh.cu"], _declare)
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
     idx = torch.empty((n,), dtype=torch.int32, device=o.device)
-    stats = (torch.empty((n_packets, 2), dtype=torch.int32, device=o.device)
+    stats = (torch.empty((n_packets, 4), dtype=torch.int32, device=o.device)
              if with_stats else None)
     with torch.cuda.device(o.device):
         err = lib.sweep_bvh_launch(
@@ -254,17 +257,10 @@ def _declare(lib):
     lib.sweep_bvh_launch.restype = ci
 
 
-def _fma(a, b, c):
-    """a * b + c rounded once to float32, as the kernel's fmaf and the
-    reference's fused contractions round it: float64 holds the float32
-    product exactly."""
-    return (a.double() * b.double() + c.double()).float()
-
-
 def _dot3(w, x, y, z):
     """w[0] x + w[1] y + w[2] z as the chain of fused multiply-adds that
     the kernel and the reference's float32 contraction evaluate."""
-    return _fma(w[2], z, _fma(w[1], y, w[0] * x))
+    return fma32(w[2], z, fma32(w[1], y, w[0] * x))
 
 
 def intersect_sweep_plain(tables: SweepTables, o, d, tmin, tmax, *,
@@ -332,8 +328,8 @@ def intersect_sweep_plain(tables: SweepTables, o, d, tmin, tmax, *,
                 ok_nd = torch.abs(nd) > 1e-20
                 r_nd = torch.where(ok_nd, 1.0 / nd, torch.zeros_like(nd))
                 t = -no * r_nd
-                u = _fma(t, ud, uo)
-                v = _fma(t, vd, vo)
+                u = fma32(t, ud, uo)
+                v = fma32(t, vd, vo)
                 t_w = t * scl
                 ok = (ok_nd & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
                       & (t > tminl[rr, None]) & (t_w < tmax[rr, None]))

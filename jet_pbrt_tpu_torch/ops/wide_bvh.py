@@ -289,13 +289,15 @@ def _declare(lib):
 
 def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
                          any_hit: bool, has_inst: bool, leaf_size: int,
-                         n_tris: int) -> KindHit:
+                         n_tris: int, with_stats: bool = False):
     """The kernel's plain PyTorch version: the same per-ray stack walk over
     the same tables, batched over the rays that still have work. Each
     iteration pops one entry per ray: a node pushes its hit children far to
     near, a leaf tests its triangles in slot order (a tie keeps the lowest
     slot). Entries whose entry distance exceeds min(tmax, best) are skipped.
-    """
+    with_stats also returns the walk's work as Python ints: node visits
+    (8 child slab tests each) and triangle tests (leaf_size per leaf
+    visit)."""
     n = o.shape[0]
     dev = o.device
     inf = math.inf
@@ -325,6 +327,7 @@ def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
     tris = tables.tris
     inst_tbl = tables.inst
     slot_k = torch.arange(WIDTH, device=dev)
+    stats = {"node_visits": 0, "tri_tests": 0}
 
     while True:
         act = torch.nonzero(sp > 0).squeeze(1)
@@ -353,6 +356,7 @@ def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
 
         # ---- node entries: slab-test 8 children, push hits far to near
         nsel = torch.nonzero(~is_leaf).squeeze(1)
+        stats["node_visits"] += nsel.numel()
         if nsel.numel():
             a = act[nsel]
             nb = bounds[code[nsel]]                         # [M, 8, 6]
@@ -408,6 +412,7 @@ def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
 
         # ---- leaf entries: Moller-Trumbore over the leaf's slots in order
         lsel = torch.nonzero(is_leaf).squeeze(1)
+        stats["tri_tests"] += lsel.numel() * leaf_size
         if lsel.numel():
             a = act[lsel]
             leaf = code[lsel] & ~LEAF_FLAG
@@ -453,4 +458,5 @@ def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
             else:
                 best[a] = b_t
                 best_idx[a] = b_i
-    return KindHit(t=best, index=best_idx, valid=torch.isfinite(best))
+    hit = KindHit(t=best, index=best_idx, valid=torch.isfinite(best))
+    return (hit, stats) if with_stats else hit

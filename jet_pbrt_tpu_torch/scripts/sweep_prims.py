@@ -2,10 +2,15 @@
 `python -m jet_pbrt_tpu_torch.scripts.sweep_prims`.
 
 Counterpart of the reference harness scripts/sweep_prims.py: one small
-kernel (csrc/sweep_prims.cu) computes out = a^T b + s for a, b [4, 128],
-where s is the sum of the minima of lanes 0-7, 8-15 and 120-127 of row 0
-of a^T b, and the result is held against the numpy oracle of the
-reference harness. Prints "all primitives OK".
+kernel (csrc/sweep_prims.cu) computes what the reference's kernel `kern`
+computes, out = a^T b + s for a, b [4, 128], with a^T b a chain of fused
+multiply-adds over k = 0..3 (XLA's CPU contraction) and
+s = w[0] + w[8] + w[120], where w[j] = min(k[(j-7 .. j) mod 128]) is the
+trailing-window minimum of row 0 of a^T b that the kernel's three lane
+rolls leave in lane j (`pltpu.roll` follows `jnp.roll`). The reference
+harness's own numpy oracle takes aligned 8-lane blocks instead and
+disagrees with its kernel; the port follows the kernel. The result is held
+against a numpy evaluation of that function. Prints "all primitives OK".
 """
 from __future__ import annotations
 
@@ -14,6 +19,8 @@ import sys
 
 import numpy as np
 import torch
+
+from ..ops.linalg import fma32
 
 K, L = 4, 128
 
@@ -54,24 +61,29 @@ def _declare(lib):
 
 
 def sweep_prims_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The kernel's plain PyTorch version (float32 multiply-adds)."""
+    """The kernel's plain PyTorch version: the fused multiply-add chain,
+    then the trailing-window minima of row 0 at lanes 0, 8 and 120."""
     o = a[0, :, None] * b[0, None, :]
     for k in range(1, K):
-        o = o + a[k, :, None] * b[k, None, :]
-    kmin = o[0].view(L // 8, 8).amin(1)
-    return o + (kmin[0] + kmin[1] + kmin[15])
+        o = fma32(a[k, :, None], b[k, None, :], o)
+    win = torch.stack([torch.roll(o[0], sh) for sh in range(8)]).amin(0)
+    return o + (win[0] + win[8] + win[120])
 
 
 def oracle(a: np.ndarray, b: np.ndarray) -> np.ndarray:
-    """The reference harness's numpy oracle (scripts/sweep_prims.py:50-54)."""
-    want = a.T @ b
-    kmin = want[0, :].reshape(16, 8).min(axis=1)
-    return want + (kmin[0] + kmin[1] + kmin[15])
+    """The same function in numpy, float64 products rounded once to
+    float32 per multiply-add."""
+    o = (a[0, :, None] * b[0, None, :]).astype(np.float32)
+    for k in range(1, K):
+        o = (a[k, :, None].astype(np.float64) * b[k, None, :]
+             + o).astype(np.float32)
+    win = np.stack([np.roll(o[0], sh) for sh in range(8)]).min(axis=0)
+    return o + (win[0] + win[8] + win[120])
 
 
 def main(device: str = "cuda") -> float:
-    """Run the primitives once on `device` against the oracle; returns the
-    max |error|."""
+    """Run the primitives once on `device` against the oracle, which they
+    must equal bit for bit; returns the max |error|."""
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false")
     rng = np.random.default_rng(0)
@@ -80,7 +92,7 @@ def main(device: str = "cuda") -> float:
     r = sweep_prims(torch.from_numpy(a).to(device),
                     torch.from_numpy(b).to(device)).cpu().numpy()
     want = oracle(a, b)
-    np.testing.assert_allclose(r, want, rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(r, want)
     print("all primitives OK", flush=True)
     return float(np.abs(r - want).max())
 

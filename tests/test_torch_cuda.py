@@ -9,7 +9,9 @@ from the port's own host build), so it also runs where JAX is absent:
 Every template of the wide-BVH kernel is held against the plain walk: the
 single-level soup tables (has_inst=False) and the two-level instanced ones,
 closest hit and any hit with a finite tmax; likewise the cull-sweep kernel,
-soup and 4 instances, both modes, with and without its counters.
+soup and 4 instances, both modes, with and without its counters. The two
+harness kernels, the sweep primitives and the wide kernel's eleven
+primitive probes, must equal their plain versions bit for bit.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import numpy as np
@@ -19,6 +21,8 @@ import torch
 from jet_pbrt_tpu_torch.ops import bvh as tbvh
 from jet_pbrt_tpu_torch.ops import sweep_bvh as TS
 from jet_pbrt_tpu_torch.ops import wide_bvh as TW
+from jet_pbrt_tpu_torch.scripts import prim_micro as PM
+from jet_pbrt_tpu_torch.scripts import sweep_prims as SP
 
 LEAF = 4
 
@@ -131,9 +135,12 @@ def test_sweep_kernel_matches_plain_on_card(which):
     assert vp.sum() > 100 and not vk[dead.cpu().numpy()].any()
     assert np.array_equal(vk, vp)
     assert np.array_equal(tk[vk], tp[vk]) and np.array_equal(ik[vk], ip[vk])
-    assert stats.shape == ((o.shape[0] + 127) // 128, 2)
+    assert stats.shape == ((o.shape[0] + 127) // 128, 4)
     st = stats.cpu().numpy()
     assert (st[:, 1] > 0).any() and (st[:, 0] <= max(tables.n_inst, 1)).all()
+    # rays per culled instance and per tested group: 1 to 128 each
+    assert (st[:, 2] >= st[:, 0]).all() and (st[:, 2] <= 128 * st[:, 0]).all()
+    assert (st[:, 3] >= st[:, 1]).all() and (st[:, 3] <= 128 * st[:, 1]).all()
 
     short = torch.where(hp.valid, hp.t * 0.9, torch.full_like(hp.t, 30.0))
     ak = TS.intersect_sweep(tb, o, d, tmin, short, any_hit=True, n_tris=n_tris)
@@ -145,3 +152,25 @@ def test_sweep_kernel_matches_plain_on_card(which):
     ap = TS.intersect_sweep_plain(tb, o, d, tmin, long, any_hit=True,
                                   n_tris=n_tris)
     assert torch.equal(ak.valid, ap.valid) and bool(ak.valid.any())
+
+
+@pytest.mark.cuda
+def test_harness_kernels_match_plain_on_card():
+    """K3 on the harness's inputs, and every K4 probe at a small REPS (the
+    plain versions are Python loops): equal bit for bit, mt inf."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    rng = np.random.default_rng(0)
+    a, b = (torch.from_numpy(rng.normal(size=(4, 128)).astype(np.float32)
+                             ).cuda() for _ in range(2))
+    assert torch.equal(SP.sweep_prims(a, b), SP.sweep_prims_plain(a, b))
+    tables = PM.tables("cuda")
+    for probe in PM.PROBES:
+        table = tables[PM.TABLE_OF[probe]]
+        before = PM.prim_micro.launches
+        k = PM.prim_micro(probe, table, 48)
+        assert PM.prim_micro.launches == before + 1
+        p = PM.prim_micro_plain(probe, table, 48)
+        assert torch.equal(k, p), probe
+        assert bool(torch.isinf(k).all()) if probe == "mt" \
+            else bool(torch.isfinite(k).all()), probe

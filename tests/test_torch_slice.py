@@ -26,6 +26,7 @@ from jet_pbrt_tpu.models import integrators as jint
 from jet_pbrt_tpu.ops import bvh as jbvh
 from jet_pbrt_tpu.scene import scenes as jscenes
 from jet_pbrt_tpu.scene.builder import SceneBuilder as JBuilder
+from jet_pbrt_tpu_torch.models import camera as tcam
 from jet_pbrt_tpu_torch.models import integrators as tint
 from jet_pbrt_tpu_torch.models.render import render
 from jet_pbrt_tpu_torch.scene import scenes as tscenes
@@ -98,7 +99,7 @@ def test_render_smoke():
     """16^2 render of the instanced scene through every layer: finite and
     non-negative."""
     img = render(instanced_scene(TBuilder), 16, 16, spp=1, seed=2, max_depth=3,
-                 clamp=False)
+                 clamp=False, device="cpu")
     assert img.shape == (16, 16, 3) and img.dtype == torch.float32
     assert torch.isfinite(img).all() and (img >= 0).all()
     assert float(img.mean()) > 0.01
@@ -109,13 +110,28 @@ def test_render_independent_of_wave_size():
     summed per wave without atomics, so any wave size gives the same image;
     another seed gives another image."""
     scene = tscenes.cornell_box()
-    img = render(scene, 10, 10, spp=3, seed=2, clamp=False)
+    img = render(scene, 10, 10, spp=3, seed=2, clamp=False, device="cpu")
     for chunk in (100, 37, 1000):
         torch.testing.assert_close(
-            render(scene, 10, 10, spp=3, seed=2, clamp=False, chunk=chunk),
+            render(scene, 10, 10, spp=3, seed=2, clamp=False, chunk=chunk,
+                   device="cpu"),
             img, rtol=1e-6, atol=1e-6)
-    assert not torch.equal(render(scene, 10, 10, spp=3, seed=3, clamp=False),
-                           img)
+    assert not torch.equal(render(scene, 10, 10, spp=3, seed=3, clamp=False,
+                                  device="cpu"), img)
+
+
+def test_render_defaults_to_the_card(monkeypatch):
+    """With no device, render and make_camera ask for the card; where there
+    is none they raise and return no image: nothing falls back to the
+    CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    scene = tscenes.cornell_box()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        render(scene, 4, 4, spp=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tcam.make_camera(scene.camera.lookfrom, scene.camera.front,
+                         scene.camera.vup, scene.camera.vfov, (4, 4))
+    assert render(scene, 4, 4, spp=1, device="cpu").device.type == "cpu"
 
 
 def test_port_never_imports_jax(tmp_path):
@@ -132,7 +148,7 @@ def test_port_never_imports_jax(tmp_path):
         "from jet_pbrt_tpu_torch.scene.scenes import bunny_obj, bunny_scene,"
         " cornell_box\n"
         "from jet_pbrt_tpu_torch.models.render import render\n"
-        "render(cornell_box(), 4, 4, spp=1)\n"
+        "render(cornell_box(), 4, 4, spp=1, device='cpu')\n"
         f"bunny_scene(bunny_path=bunny_obj(500, {obj!r}), instancing=False)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'jet_pbrt_tpu'))\n"

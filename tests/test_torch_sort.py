@@ -117,9 +117,10 @@ def test_sort_changes_nothing(monkeypatch, instanced, route):
              else instanced_scene(TBuilder, instanced))
     assert scene.meta.kernel_routed
     on, st_on = render(scene, 16, 16, spp=2, seed=5, max_depth=DEPTH,
-                       clamp=False, with_stats=True)
+                       clamp=False, with_stats=True, device="cpu")
     off, st_off = render(scene, 16, 16, spp=2, seed=5, max_depth=DEPTH,
-                         clamp=False, with_stats=True, sort_rays=False)
+                         clamp=False, with_stats=True, sort_rays=False,
+                         device="cpu")
     assert torch.equal(on, off)
     assert st_on["rays"] == st_off["rays"] and st_on["rays"] > 0
     assert float(on.mean()) > 0.01

@@ -94,6 +94,26 @@ def _same_hits(mt, n_tris, a, b):
     assert np.array_equal(ia[va] // n_tris, ib[va] // n_tris)
 
 
+def test_plain_counts_its_work(single):
+    """with_stats returns the same hits and the walk's node visits and
+    triangle tests: every live ray visits the root, leaves test LEAF rows,
+    dead rays do no work."""
+    tables = single["tables"]
+    rays = [torch.from_numpy(x) for x in _rays(8, 256)]
+    kw = dict(any_hit=False, has_inst=False, leaf_size=LEAF,
+              n_tris=tables.tris.shape[0])
+    hit, st = TW.intersect_wide_plain(tables, *rays, with_stats=True, **kw)
+    ref = TW.intersect_wide_plain(tables, *rays, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(hit, ref))
+    assert st["node_visits"] >= 256 and int(hit.valid.sum()) > 0
+    assert st["tri_tests"] > 0 and st["tri_tests"] % LEAF == 0
+    o, d, tmin, _ = rays
+    dead = TW.intersect_wide_plain(tables, o, d, tmin,
+                                   torch.full_like(tmin, -1.0),
+                                   with_stats=True, **kw)[1]
+    assert dead == {"node_visits": 0, "tri_tests": 0}
+
+
 def test_host_build_matches_reference(single):
     """The port's numpy BVH builder and row tables equal the reference's."""
     tris = _random_mesh(3)
