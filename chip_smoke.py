@@ -23,8 +23,10 @@ Phases, each printing its result; any failure raises and exits non-zero:
      for the reference's wide-kernel budget: the instanced bunny of the
      600k-target OBJ and the soup of four copies of the 150k-target OBJ
      (generated under assets/ at first use); then both timed and held
-     against each other on a 2^20-ray wave, whose culls and group tests the
-     kernel's counters give (its bound);
+     against each other on a 2^20-ray wave, whose needed culls and
+     ray-group tests `sweep_work_plain` counts from the inputs (its bound),
+     printed beside the kernel's counters and its cull / scan cycle split;
+     the kernel's resident blocks per SM at 4,096 and 8,192 groups;
   7. main path on the sweep route: render(bunny_scene(bunny_path=<600k
      OBJ>), 1024, 1024, spp=4, max_depth=5, device="cuda") with the exact
      sweep launch count and no wide launch, rays/s, peak memory, build
@@ -90,8 +92,11 @@ RAY_BYTES = 4 * (3 + 3 + 1 + 1) + 4 + 4
 # float operations per unit of work, counted from the kernel sources
 WIDE_NODE_OPS = 8 * 26 + 19  # wide_bvh.cu:142-172: 8 slab tests, the sort
 WIDE_TRI_OPS = 55            # wide_bvh.cu:106-122: one Moller-Trumbore test
-SWEEP_CULL_OPS = 33          # sweep_bvh.cu:186-193: one ray, one group sphere
-SWEEP_TRI_OPS = 51           # sweep_bvh.cu:236-257: one ray, one triangle
+# sweep_bvh.cu:133-145 and 259, one ray against one group sphere, and
+# :343-356, one ray against one triangle (a fused multiply-add counts as
+# its product and its sum)
+SWEEP_CULL_OPS = 33
+SWEEP_TRI_OPS = 51
 # one Moller-Trumbore test of prim_micro.cu's mt: 44 products and sums,
 # the division, |det| > eps, u + v, 4 comparisons and the running minimum
 MT_TEST_OPS = 44 + 1 + 1 + 1 + 4 + 1
@@ -171,20 +176,35 @@ def sweep_route(scene) -> Route:
         raise AssertionError(f"{meta.name}: no mesh is routed to the sweep")
 
     def work(o, d, tmin, tmax):
-        """From the kernel's counters: the rays past each root test x the
-        mesh's groups (sphere tests), and the rays that test each popped
-        group x its 128 triangles."""
-        stats = sweep_bvh.intersect_sweep(tables, o, d, tmin, tmax,
-                                          any_hit=False, n_tris=n_tris,
-                                          with_stats=True)[1].long().sum(0)
-        culls = int(stats[2]) * tables.n_groups
-        tests = int(stats[3]) * sweep_bvh.GROUP
+        """From the inputs (`sweep_work_plain` on the plain version's
+        closest hits): the rays past each root test x the mesh's groups
+        (sphere tests), and the needed (ray, group) pairs x 128 triangles.
+        Prints the kernel's own counters beside them, and how its cycles
+        split between cull and scan."""
+        t_final = sweep_bvh.intersect_sweep_plain(
+            tables, o, d, tmin, tmax, any_hit=False, n_tris=n_tris).t
+        n_root, n_pairs = sweep_bvh.sweep_work_plain(tables, o, d, tmin, tmax,
+                                                     t_final)
+        st = [int(x) for x in sweep_bvh.intersect_sweep(
+            tables, o, d, tmin, tmax, any_hit=False, n_tris=n_tris,
+            with_stats=True)[1].sum(0)]
+        cyc = st[4] + st[5]
+        print(f"sweep_bvh counts at {o.shape[0]} rays, inputs / kernel: "
+              f"rays past a root test {n_root} / {st[2]}; ray-group tests "
+              f"{n_pairs} (needed) / {st[3]} ({st[3] / max(n_pairs, 1):.3f}x)"
+              f"; groups tested by the kernel {st[1]}; kernel cycles (thread "
+              f"0 of each block) cull {st[4]} ({100 * st[4] / max(cyc, 1):.1f}"
+              f"%), scan {st[5]} ({100 * st[5] / max(cyc, 1):.1f}%)",
+              flush=True)
+        culls = n_root * tables.n_groups
+        tests = n_pairs * sweep_bvh.GROUP
         nbytes = o.shape[0] * RAY_BYTES + sum(
             x.nbytes for x in (tables.sph, tables.bw, tables.inst,
                                tables.root))
         return (nbytes, culls * SWEEP_CULL_OPS + tests * SWEEP_TRI_OPS,
                 {"ray_group_culls": culls, "ray_tri_tests": tests,
-                 "group_tests": int(stats[1])})
+                 "kernel_ray_group_tests": st[3],
+                 "kernel_cull_cycles": st[4], "kernel_scan_cycles": st[5]})
 
     return Route("sweep_bvh",
                  lambda *r, any_hit: sweep_bvh.intersect_sweep(
@@ -857,6 +877,9 @@ def main() -> int:
     del bunny
 
     phase("6 sweep kernel vs plain")
+    print("sweep_bvh resident blocks per SM: "
+          + ", ".join(f"{gp} groups {sweep_bvh.blocks_per_sm(gp)}"
+                      for gp in (4096, sweep_bvh.max_groups())), flush=True)
     inst600, build_s = build_sweep_scene("bunny 600k instanced", dev,
                                          bunny_path=dense_obj(600_000))
     soup = build_sweep_scene("bunny 150k x4 soup", dev,

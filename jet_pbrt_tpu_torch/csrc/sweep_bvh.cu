@@ -9,30 +9,55 @@
 // ops/sweep_bvh.py (group spheres, Baldwin-Weber rows, instance rows, the
 // mesh's root sphere).
 //
-// Design. One thread block per 128-ray packet, one thread per ray. Per
-// instance, in table order:
+// Design. One thread block per 128-ray packet. Per instance, in table
+// order:
 //   1. root pre-test: the rays whose segment can touch the mesh sphere are
-//      compacted into shared memory; none -> the instance is skipped;
-//   2. cull: thread j owns groups j, j+128, ...; for each it runs the
-//      sphere test against every compacted ray and keeps the packet's
-//      packed key (entry-distance bits & ~8191) | group, the minimum over
-//      the rays that pass (FAR when none does). Keys sit in shared memory
-//      (Gp <= 8192 keys, 32 KiB) and each thread holds the minimum of its
-//      own keys in a register;
-//   3. scan: a block-wide min over those registers pops the nearest group;
-//      the packet stops when that group's entry distance is at or beyond
-//      every live ray's bound min(tmax, best). Otherwise the group's 12x128
-//      Baldwin-Weber rows are staged in shared memory, every thread tests
-//      its ray against the 128 triangles, and the group is retired.
-// The TPU kernel's packets-per-step, VMEM residency and streamed DMA mode
-// are TPU constraints and have no counterpart: the BW table is read from
-// global memory (L2-resident for a mesh of a million rows: 48 MB).
+//      compacted into shared memory (ray k of the instance = column k);
+//      none -> the instance is skipped. Each compacted ray's best hit so
+//      far sits in shared memory as a 64-bit key (t bits << 32 | index);
+//   2. cull: thread j owns groups j, j+128, ... (two per pass); for each
+//      it runs the sphere test against every compacted ray and keeps the
+//      packet's packed key (entry-distance bits & ~8191) | group, the
+//      minimum over the rays that pass (FAR when none does). Keys sit in
+//      shared memory and each thread holds the minimum of its own keys;
+//   3. scan: a block-wide min pops the nearest group, and thread j at once
+//      requests triangle j's 12 Baldwin-Weber values into registers (one
+//      coalesced row per value), so the loads run while the want test and
+//      its barrier do. The packet stops when no compacted ray's bound
+//      min(tmax, best) reaches the group's entry. Otherwise thread k
+//      re-runs compacted ray k's own sphere test of the group (the cull's
+//      arithmetic on the cull's inputs), and the rays that both want the
+//      group and pass it form a 128-bit mask. A pop that no ray wants only
+//      retires the group. Else thread j tests its triangle against each
+//      ray of the mask, read from shared memory as a broadcast; a closest
+//      hit is a 64-bit atomicMin on the ray's key, an any hit a store that
+//      marks it occluded (its bound drops to 0: it wants no later group).
+// The TPU kernel tested whole packets, since its MXU makes a 128 x 128
+// contraction nearly free; here each ray-triangle test is ~51 float
+// operations and an IEEE division, so only the (ray, group) pairs whose
+// own sphere test passes are tested. Its packets-per-step, VMEM residency
+// and streamed DMA mode are TPU constraints with no counterpart: the BW
+// table is read from global memory (L2-resident for a mesh of a million
+// rows: 48 MB).
 //
-// What bounds it on this card: the cull, Gp sphere tests per thread per
-// instance for every packet that passes the root test (4,096 groups for a
-// 524,288-row mesh), and the scan's barriers (four per popped group); not
-// bytes. Rays are read once; a popped group's rows are one coalesced
-// 6 KiB load.
+// What bounds it on this card: the cull, Gp sphere tests (33 float
+// operations each) per compacted ray per instance; not the triangle tests
+// (a ray tests a few groups, about 1.2x the pairs a near-to-far traversal
+// needs) and not bytes (rays are read once, a tested group's rows are 12
+// coalesced 512-byte loads). The cull reads each ray as three broadcast
+// float4 loads for two groups, so the FP32 pipe, not shared-memory issue,
+// sets its pace. The scan costs two barriers per pop, three when the group
+// is tested. On an H100 the cull took about half of thread 0's cycles on
+// a 2^20-ray wave of the 600k-triangle bunny, the scan the other half
+// (PERF.md).
+//
+// Resources: dynamic shared memory 4 * Gp + 6,144 bytes (22,528 at
+// Gp = 4,096, 38,912 at Gp = 8,192) and 1,088 static, under the 48 KB
+// default, so no opt-in is needed; ptxas (sm_90a, CUDA 12.8): 72 registers
+// and 8 bytes of spill stores without the counters, 92 and none with them;
+// so 7 resident blocks per SM at Gp = 4,096 (registers bind) and 5 at
+// Gp = 8,192 (shared memory binds). chip_smoke.py prints both (phases 2
+// and 6).
 //
 // Semantics kept from the reference kernel: rays are mapped into instance
 // space as o' = (o - off) * (1 / scale), d unchanged, tmin' = tmin / scale;
@@ -43,10 +68,12 @@
 // in exact IEEE division (no --use_fast_math), every product and sum of
 // the test rounded as written (dot3); zero rows never hit; dead
 // lanes (tmin = inf, tmax < 0) never hit and an all-dead packet exits
-// after one test; an any-hit reports t = 0. Index ties: the reference
-// packs (t bits & ~127) | sublane; this kernel keeps the exact minimum t
-// and, among exact minima, the lowest index (so it visits a group whose
-// entry equals the bound in closest-hit mode).
+// after one test; an any-hit reports t = 0. Every product and sum of the
+// root and sphere tests is pinned too (ops/sweep_bvh.py::sweep_work_plain
+// repeats them). Index ties: the reference packs (t bits & ~127) |
+// sublane; this kernel keeps the exact minimum t and, among exact minima,
+// the lowest index (so it visits a group whose entry equals the bound in
+// closest-hit mode).
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
@@ -56,22 +83,67 @@ namespace {
 
 constexpr int GROUP = 128;
 constexpr int RAYS = 128;
+constexpr int WARPS = RAYS / 32;
 constexpr int GMASK = 8191;
 constexpr float FAR = 3.0e37f;
 constexpr int BW_ROWS = 12;
-constexpr int RAY_ROWS = 10;  // compacted rays: o', d, tmin', cap', o'.d, o'.o
+// a compacted ray: (o', tmin' clamped), (d, cap' clamped), (o'.d, o'.o,
+// tmin', world tmax)
+constexpr int RAY_VEC = 3;
 
 __device__ __forceinline__ int fbits(float x) { return __float_as_int(x); }
 
-// Baldwin-Weber row r0..r0+2 of the staged triangle at w, dotted with
-// (x, y, z) as a chain of fused multiply-adds in this order. The reference
-// contracted on the TPU's MXU; its CPU interpret mode, the plain PyTorch
-// version and this kernel all round this chain, so they agree bit for bit.
-__device__ __forceinline__ float dot3(const float* w, int r0, float x, float y,
-                                      float z) {
-  return __fmaf_rn(w[(r0 + 2) * GROUP], z,
-                   __fmaf_rn(w[(r0 + 1) * GROUP], y,
-                             __fmul_rn(w[r0 * GROUP], x)));
+// a * x + b * y + c * z as a chain of fused multiply-adds in this order.
+// For the Baldwin-Weber rows the reference contracted on the TPU's MXU; its
+// CPU interpret mode, the plain PyTorch version and this kernel all round
+// this chain, so they agree bit for bit.
+__device__ __forceinline__ float dot3(float a, float b, float c, float x,
+                                      float y, float z) {
+  return __fmaf_rn(c, z, __fmaf_rn(b, y, __fmul_rn(a, x)));
+}
+
+// order-preserving 64-bit hit key: t's bits (flipped so that unsigned order
+// is float order) above the index; the minimum is the exact minimum t, then
+// the lowest index
+__device__ __forceinline__ unsigned long long hit_key(float t, int idx) {
+  unsigned u = __float_as_uint(t);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return (static_cast<unsigned long long>(u) << 32) | static_cast<unsigned>(idx);
+}
+
+__device__ __forceinline__ float key_to_t(unsigned long long key) {
+  unsigned u = static_cast<unsigned>(key >> 32);
+  u = (u & 0x80000000u) ? (u & 0x7fffffffu) : ~u;
+  return __uint_as_float(u);
+}
+
+struct Sphere {
+  float cx, cy, cz, cc, r2, rad;
+};
+
+__device__ __forceinline__ Sphere load_sphere(const float* __restrict__ sph,
+                                              int gp, int g) {
+  return {__ldg(sph + g), __ldg(sph + gp + g), __ldg(sph + 2 * gp + g),
+          __ldg(sph + 3 * gp + g), __ldg(sph + 4 * gp + g),
+          __ldg(sph + 5 * gp + g)};
+}
+
+// The cull's sphere test of one compacted ray (a = o', tmin'; b = d, cap';
+// od = o'.d, oo = o'.o): true when the segment can touch the sphere, with
+// the entry distance tc - r in instance units.
+__device__ __forceinline__ bool sphere_test(const Sphere& s, float4 a,
+                                            float4 b, float od, float oo,
+                                            float& entry) {
+  const float cd = dot3(b.x, b.y, b.z, s.cx, s.cy, s.cz);
+  const float co = dot3(a.x, a.y, a.z, s.cx, s.cy, s.cz);
+  const float tc = __fsub_rn(cd, od);
+  const float m2 = __fmaf_rn(-tc, tc, __fadd_rn(__fmaf_rn(-2.0f, co, s.cc), oo));
+  const float slack = __fmul_rn(
+      __fmaf_rn(tc, tc, __fadd_rn(__fmaf_rn(2.0f, fabsf(co), s.cc), oo)),
+      1e-6f);
+  entry = __fsub_rn(tc, s.rad);
+  return m2 <= __fadd_rn(s.r2, slack) && __fadd_rn(tc, s.rad) >= a.w &&
+         entry <= b.w && b.w >= a.w;
 }
 
 // minimum of this thread's keys (groups tid, tid + RAYS, ...)
@@ -90,12 +162,13 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
                  const float* __restrict__ d, const float* __restrict__ tmin_in,
                  const float* __restrict__ tmax_in, int n,
                  float* __restrict__ t_out, int* __restrict__ idx_out,
-                 int* __restrict__ stats_out) {
-  extern __shared__ int smem[];
-  int* s_key = smem;                                   // [gp]
-  float* s_bw = reinterpret_cast<float*>(smem + gp);   // [BW_ROWS][GROUP]
-  float* s_ray = s_bw + BW_ROWS * GROUP;               // [RAY_ROWS][RAYS]
-  __shared__ int s_red[RAYS / 32];
+                 long long* __restrict__ stats_out) {
+  extern __shared__ float4 smem[];
+  float4* s_ray = smem;                                        // [RAYS][3]
+  int* s_key = reinterpret_cast<int*>(smem + RAY_VEC * RAYS);  // [gp]
+  __shared__ unsigned long long s_best[RAYS];
+  __shared__ int s_red[WARPS];
+  __shared__ unsigned s_mask[WARPS], s_live[WARPS];
   __shared__ int s_nlive;
 
   const int tid = threadIdx.x;
@@ -114,29 +187,33 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
   }
   float best = INFINITY;
   int best_idx = 0;
-  // STATS: instances culled, groups popped, and the rays that did that
-  // work (past the root test in each cull, testing in each pop)
-  int n_cull = 0, n_test = 0, n_ray_cull = 0, n_ray_test = 0;
+  // STATS: instances culled, groups tested, the rays that did that work
+  // (past the root test in each cull, testing in each tested group), and
+  // thread 0's clock64() cycles in the culls and in the scans
+  long long n_cull = 0, n_test = 0, n_ray_cull = 0, n_ray_test = 0;
+  long long cyc_cull = 0, cyc_scan = 0;
 
   // whole-packet exit: an all-dead packet costs this one test
   if (__syncthreads_or(tmax > 0.0f)) {
     const float rcx = root[0], rcy = root[1], rcz = root[2], rr = root[5];
+    const float rlim = __fadd_rn(__fmul_rn(__fmul_rn(rr, rr), 1.0001f), 1e-5f);
     for (int i = 0; i < max(n_inst, 1); ++i) {
       const float* row = inst + (n_inst ? 4 * (i + 1) : 0);
       const float scl = row[3];
-      const float inv = 1.0f / scl;
-      const float oxl = (ox - row[0]) * inv;
-      const float oyl = (oy - row[1]) * inv;
-      const float ozl = (oz - row[2]) * inv;
-      const float tminl = tmin * inv;
-      const float capl = fminf(tmax, best) * inv;
+      const float inv = __fdiv_rn(1.0f, scl);
+      const float oxl = __fmul_rn(__fsub_rn(ox, row[0]), inv);
+      const float oyl = __fmul_rn(__fsub_rn(oy, row[1]), inv);
+      const float ozl = __fmul_rn(__fsub_rn(oz, row[2]), inv);
+      const float tminl = __fmul_rn(tmin, inv);
+      const float capl = __fmul_rn(fminf(tmax, best), inv);
 
       // ---- 1. root pre-test, and compaction of the rays that pass it
-      const float ex = rcx - oxl, ey = rcy - oyl, ez = rcz - ozl;
-      const float rtc = ex * dx + ey * dy + ez * dz;
-      const float rm2 = ex * ex + ey * ey + ez * ez - rtc * rtc;
-      const bool rhit = rm2 <= rr * rr * 1.0001f + 1e-5f &&
-                        rtc + rr >= tminl && rtc - rr <= capl && capl >= tminl;
+      const float ex = __fsub_rn(rcx, oxl), ey = __fsub_rn(rcy, oyl);
+      const float ez = __fsub_rn(rcz, ozl);
+      const float rtc = dot3(ex, ey, ez, dx, dy, dz);
+      const float rm2 = __fmaf_rn(-rtc, rtc, dot3(ex, ey, ez, ex, ey, ez));
+      const bool rhit = rm2 <= rlim && __fadd_rn(rtc, rr) >= tminl &&
+                        __fsub_rn(rtc, rr) <= capl && capl >= tminl;
       const unsigned ballot = __ballot_sync(0xffffffffu, rhit);
       if (lane == 0) s_red[warp] = __popc(ballot);
       __syncthreads();
@@ -144,60 +221,60 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
       for (int w = 0; w < warp; ++w) pos += s_red[w];
       if (tid == 0) {
         int total = 0;
-        for (int w = 0; w < RAYS / 32; ++w) total += s_red[w];
+        for (int w = 0; w < WARPS; ++w) total += s_red[w];
         s_nlive = total;
       }
       if (rhit) {
-        s_ray[0 * RAYS + pos] = oxl;
-        s_ray[1 * RAYS + pos] = oyl;
-        s_ray[2 * RAYS + pos] = ozl;
-        s_ray[3 * RAYS + pos] = dx;
-        s_ray[4 * RAYS + pos] = dy;
-        s_ray[5 * RAYS + pos] = dz;
-        s_ray[6 * RAYS + pos] = fminf(tminl, FAR);
-        s_ray[7 * RAYS + pos] = fminf(capl, FAR);
-        s_ray[8 * RAYS + pos] = oxl * dx + oyl * dy + ozl * dz;
-        s_ray[9 * RAYS + pos] = oxl * oxl + oyl * oyl + ozl * ozl;
+        s_ray[RAY_VEC * pos] = make_float4(oxl, oyl, ozl, fminf(tminl, FAR));
+        s_ray[RAY_VEC * pos + 1] = make_float4(dx, dy, dz, fminf(capl, FAR));
+        s_ray[RAY_VEC * pos + 2] =
+            make_float4(dot3(oxl, oyl, ozl, dx, dy, dz),
+                        dot3(oxl, oyl, ozl, oxl, oyl, ozl), tminl, tmax);
+        s_best[pos] = hit_key(best, best_idx);
       }
       __syncthreads();
       const int n_live = s_nlive;
       if (n_live == 0) continue;  // uniform: no ray can touch this instance
+      long long clk = 0;
       if (STATS && tid == 0) {
         ++n_cull;
         n_ray_cull += n_live;
+        clk = clock64();
       }
 
-      // ---- 2. cull: the packet's packed key of every group this thread owns
+      // ---- 2. cull: the packet's packed key of every group this thread
+      // owns, two groups per pass over the rays
       int lmin = INT_MAX;
-      for (int g = tid; g < gp; g += RAYS) {
-        int key = far_key;
-        if (g < n_groups) {
-          const float cx = sph[g], cy = sph[gp + g], cz = sph[2 * gp + g];
-          const float cc = sph[3 * gp + g], r2 = sph[4 * gp + g];
-          const float rad = sph[5 * gp + g];
+      for (int g0 = tid; g0 < gp; g0 += 2 * RAYS) {
+        const int g1 = g0 + RAYS;
+        const bool ok0 = g0 < n_groups, ok1 = g1 < n_groups;
+        const Sphere s0 = load_sphere(sph, gp, ok0 ? g0 : 0);
+        const Sphere s1 = load_sphere(sph, gp, ok1 ? g1 : 0);
+        int key0 = far_key, key1 = far_key;
+        if (ok0) {
           for (int k = 0; k < n_live; ++k) {
-            const float lx = s_ray[0 * RAYS + k], ly = s_ray[1 * RAYS + k];
-            const float lz = s_ray[2 * RAYS + k];
-            const float ddx = s_ray[3 * RAYS + k], ddy = s_ray[4 * RAYS + k];
-            const float ddz = s_ray[5 * RAYS + k];
-            const float tminc = s_ray[6 * RAYS + k];
-            const float capc = s_ray[7 * RAYS + k];
-            const float od = s_ray[8 * RAYS + k], oo = s_ray[9 * RAYS + k];
-            const float cd = ddx * cx + ddy * cy + ddz * cz;
-            const float co = lx * cx + ly * cy + lz * cz;
-            const float tc = cd - od;
-            const float m2 = cc - 2.0f * co + oo - tc * tc;
-            const float slack = (cc + 2.0f * fabsf(co) + oo + tc * tc) * 1e-6f;
-            if (m2 <= r2 + slack && tc + rad >= tminc && tc - rad <= capc &&
-                capc >= tminc)
-              key = min(key, fbits(fmaxf(tc - rad, 0.0f) * scl) & ~GMASK);
+            const float4 a = s_ray[RAY_VEC * k], b = s_ray[RAY_VEC * k + 1];
+            const float4 c = s_ray[RAY_VEC * k + 2];
+            float e0, e1;
+            if (sphere_test(s0, a, b, c.x, c.y, e0))
+              key0 = min(key0, fbits(__fmul_rn(fmaxf(e0, 0.0f), scl)) & ~GMASK);
+            if (ok1 && sphere_test(s1, a, b, c.x, c.y, e1))
+              key1 = min(key1, fbits(__fmul_rn(fmaxf(e1, 0.0f), scl)) & ~GMASK);
           }
         }
-        key |= g;
-        s_key[g] = key;
-        lmin = min(lmin, key);
+        s_key[g0] = key0 | g0;
+        lmin = min(lmin, key0 | g0);
+        if (g1 < gp) {
+          s_key[g1] = key1 | g1;
+          lmin = min(lmin, key1 | g1);
+        }
       }
       __syncthreads();
+      if (STATS && tid == 0) {
+        const long long now = clock64();
+        cyc_cull += now - clk;
+        clk = now;
+      }
 
       // ---- 3. near-to-far scan
       while (true) {
@@ -205,61 +282,96 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
         if (lane == 0) s_red[warp] = wmin;
         __syncthreads();
         int kmin = s_red[0];
-        for (int w = 1; w < RAYS / 32; ++w) kmin = min(kmin, s_red[w]);
+        for (int w = 1; w < WARPS; ++w) kmin = min(kmin, s_red[w]);
         const int g = kmin & GMASK;
         const int dist = kmin & ~GMASK;
-        const int bound = fbits(fminf(tmax, best));
-        const bool wants = ANY_HIT ? dist < bound : dist <= bound;
-        if (!__syncthreads_or(dist < far_key && wants)) break;
 
+        // rows requested before the want test (speculative)
         const float* src = bw + static_cast<size_t>(g) * GROUP + tid;
+        float wr[BW_ROWS];
+        if (dist < far_key) {
 #pragma unroll
-        for (int r = 0; r < BW_ROWS; ++r) s_bw[r * GROUP + tid] = src[r * tp];
+          for (int r = 0; r < BW_ROWS; ++r) wr[r] = __ldg(src + r * tp);
+        }
+        // compacted ray tid: does its bound reach the group, and does its
+        // own sphere test keep it?
+        bool live = false, mine = false;
+        if (tid < n_live) {
+          const float4 c = s_ray[RAY_VEC * tid + 2];
+          const int bound = fbits(fminf(c.w, key_to_t(s_best[tid])));
+          live = dist < far_key && (ANY_HIT ? dist < bound : dist <= bound);
+          if (live) {
+            float e;
+            mine = sphere_test(load_sphere(sph, gp, g), s_ray[RAY_VEC * tid],
+                               s_ray[RAY_VEC * tid + 1], c.x, c.y, e);
+          }
+        }
+        const unsigned bm = __ballot_sync(0xffffffffu, mine);
+        const unsigned bl = __ballot_sync(0xffffffffu, live);
+        if (lane == 0) {
+          s_mask[warp] = bm;
+          s_live[warp] = bl;
+        }
+        __syncthreads();
+        unsigned any_live = 0, any_mine = 0;
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+          any_live |= s_live[w];
+          any_mine |= s_mask[w];
+        }
+        if (!any_live) break;  // uniform: the packet stops
         if ((g & (RAYS - 1)) == tid) {  // retire the group
           s_key[g] = far_key | g;
           lmin = own_min(s_key, gp, tid);
         }
-        if constexpr (STATS) {
-          const int n_want = __syncthreads_count(wants);
-          if (tid == 0) {
-            ++n_test;
-            n_ray_test += n_want;
-          }
-        } else {
-          __syncthreads();
-        }
+        if (!any_mine) continue;  // uniform: no load, no test
 
-        if (wants) {
-          const int base = i * n_tris + g * GROUP;
-          for (int k = 0; k < GROUP; ++k) {
-            const float* w = s_bw + k;
-            const float nd = dot3(w, 0, dx, dy, dz);
+        // ---- thread tid tests triangle tid of g against each wanting ray
+        const int idx = i * n_tris + g * GROUP + tid;
+        if (STATS && tid == 0) {
+          ++n_test;
+#pragma unroll
+          for (int w = 0; w < WARPS; ++w) n_ray_test += __popc(s_mask[w]);
+        }
+        // s_mask is rewritten only after the barrier that ends this pop
+        for (int w = 0; w < WARPS; ++w) {
+          unsigned m = s_mask[w];
+          while (m) {
+            const int k = 32 * w + __ffs(m) - 1;
+            m &= m - 1;
+            const float4 a = s_ray[RAY_VEC * k], b = s_ray[RAY_VEC * k + 1];
+            const float4 c = s_ray[RAY_VEC * k + 2];
+            const float nd = dot3(wr[0], wr[1], wr[2], b.x, b.y, b.z);
             if (!(fabsf(nd) > 1e-20f)) continue;
-            const float no = __fadd_rn(dot3(w, 0, oxl, oyl, ozl), w[3 * GROUP]);
-            const float t = __fmul_rn(-no, 1.0f / nd);
-            const float u = __fmaf_rn(t, dot3(w, 4, dx, dy, dz),
-                                      __fadd_rn(dot3(w, 4, oxl, oyl, ozl),
-                                                w[7 * GROUP]));
-            const float v = __fmaf_rn(t, dot3(w, 8, dx, dy, dz),
-                                      __fadd_rn(dot3(w, 8, oxl, oyl, ozl),
-                                                w[11 * GROUP]));
+            const float no =
+                __fadd_rn(dot3(wr[0], wr[1], wr[2], a.x, a.y, a.z), wr[3]);
+            const float t = __fmul_rn(-no, __fdiv_rn(1.0f, nd));
+            const float u = __fmaf_rn(
+                t, dot3(wr[4], wr[5], wr[6], b.x, b.y, b.z),
+                __fadd_rn(dot3(wr[4], wr[5], wr[6], a.x, a.y, a.z), wr[7]));
+            const float v = __fmaf_rn(
+                t, dot3(wr[8], wr[9], wr[10], b.x, b.y, b.z),
+                __fadd_rn(dot3(wr[8], wr[9], wr[10], a.x, a.y, a.z), wr[11]));
             const float t_w = __fmul_rn(t, scl);
             if (!(u >= 0.0f && v >= 0.0f && __fadd_rn(u, v) <= 1.0f &&
-                  t > tminl && t_w < tmax))
+                  t > c.z && t_w < c.w))
               continue;
-            if (ANY_HIT) {
-              if (t_w < best) {
-                best = 0.0f;
-                break;
-              }
-            } else if (t_w < best || (t_w == best && base + k < best_idx)) {
-              best = t_w;
-              best_idx = base + k;
-            }
+            if (ANY_HIT)
+              s_best[k] = hit_key(0.0f, 0);  // occluded: the bound drops to 0
+            else
+              atomicMin(&s_best[k], hit_key(t_w, idx));
           }
         }
-        __syncthreads();  // s_bw and s_red are rewritten by the next pop
+        __syncthreads();  // s_best is read by the next pop
       }
+      if (STATS && tid == 0) cyc_scan += clock64() - clk;
+      if (rhit) {
+        const unsigned long long key = s_best[pos];
+        best = key_to_t(key);
+        best_idx = static_cast<int>(key & 0xffffffffu);
+      }
+      // the next instance rewrites s_ray and s_best only after its first
+      // barrier, which every thread reaches after this read
     }
   }
   if (i_ray < n) {
@@ -267,41 +379,53 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
     idx_out[i_ray] = ANY_HIT ? 0 : best_idx;
   }
   if (STATS && tid == 0) {
-    int* row = stats_out + 4 * blockIdx.x;
+    long long* row = stats_out + 6 * blockIdx.x;
     row[0] = n_cull;
     row[1] = n_test;
     row[2] = n_ray_cull;
     row[3] = n_ray_test;
+    row[4] = cyc_cull;
+    row[5] = cyc_scan;
   }
+}
+
+size_t shmem_bytes(int gp) {
+  return sizeof(float4) * RAY_VEC * RAYS + sizeof(int) * gp;
 }
 
 template <bool ANY_HIT, bool STATS>
 int launch(const float* sph, int gp, const float* bw, const float* inst,
            int n_inst, const float* root, int n_groups, int n_tris,
            const float* o, const float* d, const float* tmin,
-           const float* tmax, int n, float* t_out, int* idx_out, int* stats,
-           cudaStream_t stream) {
+           const float* tmax, int n, float* t_out, int* idx_out,
+           long long* stats, cudaStream_t stream) {
   const int grid = (n + RAYS - 1) / RAYS;
-  const size_t shmem = sizeof(int) * gp +
-                       sizeof(float) * (BW_ROWS * GROUP + RAY_ROWS * RAYS);
-  sweep_bvh_kernel<ANY_HIT, STATS><<<grid, RAYS, shmem, stream>>>(
+  sweep_bvh_kernel<ANY_HIT, STATS><<<grid, RAYS, shmem_bytes(gp), stream>>>(
       sph, gp, bw, inst, n_inst, root, n_groups, n_tris, o, d, tmin, tmax, n,
       t_out, idx_out, stats);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool ANY_HIT, bool STATS>
+int blocks_per_sm(int gp) {
+  int blocks = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, sweep_bvh_kernel<ANY_HIT, STATS>, RAYS, shmem_bytes(gp));
+  return blocks;
 }
 
 }  // namespace
 
 // Plain C entry point, loaded through ctypes. Launches on `stream` without
 // synchronising and returns cudaGetLastError() of the launch. stats is
-// [ceil(n/128), 4] int32 or null.
+// [ceil(n/128), 6] int64 or null.
 extern "C" int sweep_bvh_launch(const float* sph, int gp, const float* bw,
                                 const float* inst, int n_inst,
                                 const float* root, int n_groups, int n_tris,
                                 const float* o, const float* d,
                                 const float* tmin, const float* tmax, int n,
                                 int any_hit, float* t_out, int* idx_out,
-                                int* stats, void* stream) {
+                                long long* stats, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit)
@@ -317,4 +441,10 @@ extern "C" int sweep_bvh_launch(const float* sph, int gp, const float* bw,
                : launch<false, false>(sph, gp, bw, inst, n_inst, root,
                                       n_groups, n_tris, o, d, tmin, tmax, n,
                                       t_out, idx_out, stats, s);
+}
+
+// Resident blocks per SM of the closest-hit kernel without counters at
+// this Gp (the launch's block size and shared memory).
+extern "C" int sweep_bvh_blocks_per_sm(int gp) {
+  return blocks_per_sm<false, false>(gp);
 }

@@ -206,31 +206,52 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
 
     Index = inst * n_tris + triangle row (inst 0 for a soup); an any-hit
     reports t = 0 when occluded. with_stats also returns per-packet
-    counters [ceil(N/128), 4] int32: instances culled (root test passed),
+    counters [ceil(N/128), 6] int64: instances culled (root test passed),
     groups tested, the rays past the root test summed over the culled
-    instances, and the rays that test a group summed over the groups
-    tested. CUDA tensors launch the kernel of
-    csrc/sweep_bvh.cu; CPU tensors take `intersect_sweep_plain` (whose
-    counters are not the kernel's: it has no packets, so it returns
-    zeros)."""
+    instances, the rays that test a group summed over the groups tested
+    (the (ray, group) tests), and thread 0's clock64() cycles in the culls
+    and in the scans. CUDA tensors launch the kernel of csrc/sweep_bvh.cu;
+    CPU tensors take `intersect_sweep_plain` (whose counters are not the
+    kernel's: it has no packets, so it returns zeros)."""
     _check(tables, o, d, tmin, tmax, n_tris)
-    n = o.shape[0]
-    n_packets = (n + RAYS - 1) // RAYS
+    n_packets = (o.shape[0] + RAYS - 1) // RAYS
     if o.device.type == "cpu":
         hit = intersect_sweep_plain(tables, o, d, tmin, tmax,
                                     any_hit=any_hit, n_tris=n_tris)
         if with_stats:
-            return hit, torch.zeros((n_packets, 4), dtype=torch.int32)
+            return hit, torch.zeros((n_packets, 6), dtype=torch.int64)
         return hit
     if o.device.type != "cuda":
         raise ValueError(f"no sweep route for device {o.device}")
+    stats = (torch.empty((n_packets, 6), dtype=torch.int64, device=o.device)
+             if with_stats else None)
+    t, idx = launch(load_kernel(), tables, o, d, tmin, tmax, any_hit=any_hit,
+                    n_tris=n_tris, stats=stats)
+    intersect_sweep.launches += 1
+    hit = KindHit(t=t, index=idx, valid=torch.isfinite(t))
+    return (hit, stats) if with_stats else hit
+
+
+intersect_sweep.launches = 0
+
+
+def load_kernel(source: str = "sweep_bvh.cu", name: str = "sweep_bvh"):
+    """The compiled sweep library: csrc/<source>, or any file (an absolute
+    path) with the same C entry point, built and loaded under `name`."""
     from ..utils.cuda_build import load_library
 
-    lib = load_library("sweep_bvh", ["sweep_bvh.cu"], _declare)
+    return load_library(name, [source], _declare)
+
+
+def launch(lib, tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
+           n_tris: int, stats=None):
+    """One launch of `lib`'s sweep_bvh_launch on the current stream, on
+    arguments `_check` has passed; returns (t, index) and raises when the
+    launch fails. `stats` is None or the counters' [packets, 6] int64
+    output."""
+    n = o.shape[0]
     t = torch.empty((n,), dtype=torch.float32, device=o.device)
     idx = torch.empty((n,), dtype=torch.int32, device=o.device)
-    stats = (torch.empty((n_packets, 4), dtype=torch.int32, device=o.device)
-             if with_stats else None)
     with torch.cuda.device(o.device):
         err = lib.sweep_bvh_launch(
             tables.sph.data_ptr(), tables.sph.shape[1], tables.bw.data_ptr(),
@@ -238,16 +259,17 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
             tables.n_groups, n_tris, o.data_ptr(), d.data_ptr(),
             tmin.data_ptr(), tmax.data_ptr(), n, int(any_hit),
             t.data_ptr(), idx.data_ptr(),
-            stats.data_ptr() if with_stats else None,
+            None if stats is None else stats.data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream)
-    intersect_sweep.launches += 1
     if err != 0:
         raise RuntimeError(f"sweep_bvh kernel launch failed: CUDA error {err}")
-    hit = KindHit(t=t, index=idx, valid=torch.isfinite(t))
-    return (hit, stats) if with_stats else hit
+    return t, idx
 
 
-intersect_sweep.launches = 0
+def blocks_per_sm(gp: int) -> int:
+    """Resident blocks per SM of the closest-hit kernel at a sphere table
+    of gp columns (the occupancy API, on the current card)."""
+    return int(load_kernel().sweep_bvh_blocks_per_sm(int(gp)))
 
 
 def _declare(lib):
@@ -359,3 +381,75 @@ def intersect_sweep_plain(tables: SweepTables, o, d, tmin, tmax, *,
                                               device=dev), valid=occ)
     return KindHit(t=best, index=best_idx.to(torch.int32),
                    valid=torch.isfinite(best))
+
+
+# ---------------------------------------------------------------------------
+# the work the inputs need (the kernel's root and sphere tests, as it rounds
+# them: every fused step of csrc/sweep_bvh.cu is fma32 here)
+# ---------------------------------------------------------------------------
+
+def instance_rays(row, o, d, tmin, cap):
+    """Rays in the space of instance row (off.xyz, scale), as the kernel maps
+    them: (o' [N,3], tmin', cap', o'.d, o'.o)."""
+    inv = 1.0 / row[3]
+    lo = (o - row[:3]) * inv
+    lx, ly, lz = lo.unbind(1)
+    dx, dy, dz = d.unbind(1)
+    return (lo, tmin * inv, cap * inv, _dot3((lx, ly, lz), dx, dy, dz),
+            _dot3((lx, ly, lz), lx, ly, lz))
+
+
+def root_test(root, lo, d, tminl, capl):
+    """The kernel's root pre-test of rays in instance space: [N] bool."""
+    ex, ey, ez = (root[k] - lo[:, k] for k in range(3))
+    rtc = _dot3((ex, ey, ez), d[:, 0], d[:, 1], d[:, 2])
+    rm2 = fma32(-rtc, rtc, _dot3((ex, ey, ez), ex, ey, ez))
+    rr = root[5]
+    return ((rm2 <= rr * rr * 1.0001 + 1e-5) & (rtc + rr >= tminl)
+            & (rtc - rr <= capl) & (capl >= tminl))
+
+
+def sphere_test(sph, lo, d, tminl, capl, od, oo):
+    """The kernel's group-sphere test: rays [R] (instance space) against
+    sphere columns sph [8, G] -> (pass [R, G], entry distance tc - r)."""
+    cx, cy, cz, cc, r2, rad = (sph[k][None, :] for k in range(6))
+    c = lambda x: x[:, None]
+    far = float(FAR)
+    tminc, capc = c(tminl.clamp(max=far)), c(capl.clamp(max=far))
+    cd = _dot3((c(d[:, 0]), c(d[:, 1]), c(d[:, 2])), cx, cy, cz)
+    co = _dot3((c(lo[:, 0]), c(lo[:, 1]), c(lo[:, 2])), cx, cy, cz)
+    tc = cd - c(od)
+    m2 = fma32(-tc, tc, cc - 2.0 * co + c(oo))
+    slack = fma32(tc, tc, cc + 2.0 * torch.abs(co) + c(oo)) * 1e-6
+    entry = tc - rad
+    ok = ((m2 <= r2 + slack) & (tc + rad >= tminc) & (entry <= capc)
+          & (capc >= tminc))
+    return ok, entry
+
+
+def sweep_work_plain(tables: SweepTables, o, d, tmin, tmax, t_final):
+    """The work a closest-hit cull-sweep needs on these rays, counted from
+    the inputs, whichever kernel does it: (rays past each
+    instance's root test, summed over instances; (ray, group) pairs among
+    those whose own sphere test passes and whose entry, in world units,
+    lies at or before the ray's final closest t). t_final [N] is that t,
+    inf where there is no hit; min(tmax, t_final) caps both tests. Any
+    near-to-far traversal culls those rays and tests those pairs."""
+    ng = tables.n_groups
+    sph = tables.sph[:, :ng]
+    inst = tables.inst.view(-1, 4)
+    cap = torch.minimum(tmax, t_final)
+    chunk = max(1, _CULL_ELEMS // ng)
+    n_root = n_pairs = 0
+    for i in range(max(tables.n_inst, 1)):
+        row = inst[i + 1] if tables.n_inst else inst[0]
+        lo, tminl, capl, od, oo = instance_rays(row, o, d, tmin, cap)
+        live = torch.nonzero(root_test(tables.root, lo, d, tminl, capl))[:, 0]
+        n_root += live.numel()
+        for r0 in range(0, live.numel(), chunk):
+            k = live[r0:r0 + chunk]
+            ok, entry = sphere_test(sph, lo[k], d[k], tminl[k], capl[k], od[k],
+                                    oo[k])
+            ok &= entry.clamp(min=0.0) * row[3] <= cap[k, None]
+            n_pairs += int(ok.sum())
+    return n_root, n_pairs

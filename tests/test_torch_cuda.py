@@ -9,7 +9,11 @@ from the port's own host build), so it also runs where JAX is absent:
 Every template of the wide-BVH kernel is held against the plain walk: the
 single-level soup tables (has_inst=False) and the two-level instanced ones,
 closest hit and any hit with a finite tmax; likewise the cull-sweep kernel,
-soup and 4 instances, both modes, with and without its counters. The two
+soup and 4 instances, both modes, with and without its counters, and on
+the cases its per-ray scan relies on: exact-t ties across two groups and
+across two coincident instances, packets in which each group is wanted by
+exactly one ray, a ragged batch with dead lanes and an all-dead packet,
+and a mesh of 8,192 groups (the packed key's limit). The two
 harness kernels, the sweep primitives and the wide kernel's eleven
 primitive probes, must equal their plain versions bit for bit.
 chip_smoke.py covers the bunnies at the main path's shapes.
@@ -135,12 +139,16 @@ def test_sweep_kernel_matches_plain_on_card(which):
     assert vp.sum() > 100 and not vk[dead.cpu().numpy()].any()
     assert np.array_equal(vk, vp)
     assert np.array_equal(tk[vk], tp[vk]) and np.array_equal(ik[vk], ip[vk])
-    assert stats.shape == ((o.shape[0] + 127) // 128, 4)
+    assert stats.shape == ((o.shape[0] + 127) // 128, 6)
+    assert stats.dtype == torch.int64
     st = stats.cpu().numpy()
     assert (st[:, 1] > 0).any() and (st[:, 0] <= max(tables.n_inst, 1)).all()
     # rays per culled instance and per tested group: 1 to 128 each
     assert (st[:, 2] >= st[:, 0]).all() and (st[:, 2] <= 128 * st[:, 0]).all()
     assert (st[:, 3] >= st[:, 1]).all() and (st[:, 3] <= 128 * st[:, 1]).all()
+    # cycles in the cull and the scan wherever an instance was culled
+    assert ((st[:, 4] > 0) == (st[:, 0] > 0)).all()
+    assert ((st[:, 5] > 0) == (st[:, 0] > 0)).all()
 
     short = torch.where(hp.valid, hp.t * 0.9, torch.full_like(hp.t, 30.0))
     ak = TS.intersect_sweep(tb, o, d, tmin, short, any_hit=True, n_tris=n_tris)
@@ -152,6 +160,127 @@ def test_sweep_kernel_matches_plain_on_card(which):
     ap = TS.intersect_sweep_plain(tb, o, d, tmin, long, any_hit=True,
                                   n_tris=n_tris)
     assert torch.equal(ak.valid, ap.valid) and bool(ak.valid.any())
+
+
+def _clusters(nx, ny, seed, spacing=4.0):
+    """nx * ny clusters of 128 small triangles on the plane z = 0, rows in
+    cluster order, so cluster g is sweep group g; -> rows [T, 9], centres."""
+    rng = np.random.default_rng(seed)
+    gx, gy = np.meshgrid(np.arange(nx), np.arange(ny), indexing="xy")
+    centre = np.stack([gx.ravel() * spacing, gy.ravel() * spacing,
+                       np.zeros(nx * ny)], 1)
+    shape = (nx * ny, TS.GROUP, 3)
+    p0 = centre[:, None] + rng.uniform(-0.5, 0.5, shape)
+    e1, e2 = rng.uniform(-0.3, 0.3, (2, *shape))
+    mt = np.concatenate([p0, e1, e2], -1).reshape(-1, 9).astype(np.float32)
+    return mt, centre.astype(np.float32)
+
+
+def _aimed(o, target):
+    d = target - o
+    return o, d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
+def _sweep_case(case):
+    """(tables, n_tris, o, d, tmin, tmax) of one edge case, on the host."""
+    rng = np.random.default_rng(31)
+    off = np.array([[0, 0, 0], [3, 0, 0], [3, 0, 0], [0, 4, 0]], np.float32)
+    scale = np.array([1.0, 2.0, 2.0, 0.5], np.float32)
+    if case in ("tie-groups", "tie-instances", "ragged-dead"):
+        _, _, mt = _mesh(4, 500, 1.0, 0.3)
+        n = 300
+        o = np.array([0.0, 0.0, 10.0]) + rng.normal(0, 1.0, (n, 3))
+        if case == "tie-groups":
+            mt[300] = mt[0]  # row 0 (group 0) again in group 2
+            tables = TS.sweep_tables(mt)
+            row = np.repeat(mt[0:1], n, 0)
+            s, t = rng.uniform(0.05, 0.45, (2, n, 1))
+            target = row[:, 0:3] + s * row[:, 3:6] + t * row[:, 6:9]
+            # from just off the triangle, on either side: nothing between
+            nrm = np.cross(mt[0, 3:6], mt[0, 6:9])
+            side = np.where(np.arange(n) % 2 == 0, 1.0, -1.0)[:, None]
+            o = target + side * 0.02 * nrm / np.linalg.norm(nrm) \
+                + rng.normal(0, 0.003, (n, 3))
+        else:
+            # instances 1 and 2 coincide
+            tables = TS.sweep_tables(mt, off, scale)
+            k = 1 if case == "tie-instances" else rng.integers(0, 4, n)
+            target = mt[rng.integers(0, len(mt), n), 0:3] \
+                * np.atleast_1d(scale[k])[:, None] + off[k]
+        o, d = _aimed(o, target)
+    elif case == "one-ray-per-group":
+        # parallel rays, ray j of each packet straight down onto cluster j
+        mt, centre = _clusters(16, 8, 32)
+        tables = TS.sweep_tables(mt)
+        n = 3 * TS.RAYS + 50
+        target = centre[np.arange(n) % TS.RAYS] \
+            + np.concatenate([rng.uniform(-0.1, 0.1, (n, 2)),
+                              np.zeros((n, 1))], 1)
+        o = target + np.array([0.0, 0.0, 10.0])
+        d = np.repeat(np.array([[0.0, 0.0, -1.0]]), n, 0)
+    else:  # "8192-groups"
+        mt, centre = _clusters(128, 64, 33)
+        tables = TS.sweep_tables(mt)
+        n = 4096 + 77
+        o = np.stack([rng.uniform(0, 508, n), rng.uniform(0, 252, n),
+                      np.full(n, 30.0)], 1)
+        o, d = _aimed(o, centre[rng.integers(0, len(centre), n)]
+                      + rng.uniform(-0.3, 0.3, (n, 3)))
+    tmin = np.full(n, 1e-3, np.float32)
+    tmax = np.full(n, np.inf, np.float32)
+    if case == "ragged-dead":
+        dead = (np.arange(n) % 3 == 0) | ((np.arange(n) >= 128)
+                                          & (np.arange(n) < 256))
+        tmin[dead], tmax[dead] = np.inf, -1.0
+    return (tables, mt.shape[0], o.astype(np.float32), d.astype(np.float32),
+            tmin, tmax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["tie-groups", "tie-instances",
+                                  "one-ray-per-group", "ragged-dead",
+                                  "8192-groups"])
+def test_sweep_kernel_edge_cases_on_card(case):
+    """The per-ray scan against the plain version, bit for bit, closest hit
+    and any hit, on the cases it relies on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    tables, n_tris, *rays = _sweep_case(case)
+    tb = tables.to("cuda")
+    o, d, tmin, tmax = (torch.from_numpy(x).cuda() for x in rays)
+    hk, stats = TS.intersect_sweep(tb, o, d, tmin, tmax, any_hit=False,
+                                   n_tris=n_tris, with_stats=True)
+    hp = TS.intersect_sweep_plain(tb, o, d, tmin, tmax, any_hit=False,
+                                  n_tris=n_tris)
+    tk, ik, vk = _host(hk)
+    tp, ip, vp = _host(hp)
+    assert np.array_equal(vk, vp) and vp.sum() > 20
+    assert np.array_equal(tk[vk], tp[vk]) and np.array_equal(ik[vk], ip[vk])
+    st = stats.cpu().numpy()
+    if case == "tie-groups":
+        # the duplicate (row 300) never wins over row 0 at the same t
+        assert (ip[vp] == 0).sum() > 20 and not (ip[vp] == 300).any()
+    elif case == "tie-instances":
+        assert (ip[vp] // n_tris == 1).sum() > 20
+        assert not (ip[vp] // n_tris == 2).any()
+    elif case == "one-ray-per-group":
+        # every ray passes the root test, and each tested group has exactly
+        # one testing ray
+        assert (st[:, 2] == [128, 128, 128, 50]).all()
+        assert (st[:, 1] > 0).all() and (st[:, 3] == st[:, 1]).all()
+    elif case == "ragged-dead":
+        assert not vk[np.isinf(rays[2])].any()
+        assert (st[1] == 0).all()  # the all-dead packet exits at once
+    else:
+        assert tables.n_groups == TS.max_groups()
+    for f in (0.9, 1.1):
+        tm = torch.where(hp.valid, hp.t * f, torch.full_like(hp.t, 30.0))
+        tm = torch.where(tmax < 0, tmax, tm)
+        ak = TS.intersect_sweep(tb, o, d, tmin, tm, any_hit=True,
+                                n_tris=n_tris)
+        ap = TS.intersect_sweep_plain(tb, o, d, tmin, tm, any_hit=True,
+                                      n_tris=n_tris)
+        assert torch.equal(ak.valid, ap.valid) and torch.equal(ak.t, ap.t)
 
 
 @pytest.mark.cuda

@@ -135,16 +135,16 @@ def test_render_defaults_to_the_card(monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Every module of the port, chip_smoke.py, a render and a bunny scene
-    built from a generated OBJ import nothing of JAX and nothing of the
-    JAX package."""
+    """Every module of the port, chip_smoke.py, sweep_ab.py, a render and a
+    bunny scene built from a generated OBJ import nothing of JAX and nothing
+    of the JAX package."""
     obj = str(tmp_path / "bunny.obj")
     code = (
         "import importlib, pkgutil, sys\n"
         "import jet_pbrt_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
-        "import chip_smoke\n"
+        "import chip_smoke, sweep_ab\n"
         "from jet_pbrt_tpu_torch.scene.scenes import bunny_obj, bunny_scene,"
         " cornell_box\n"
         "from jet_pbrt_tpu_torch.models.render import render\n"
@@ -163,7 +163,7 @@ def test_port_never_imports_jax(tmp_path):
 PORT_SOURCES = sorted(
     os.path.relpath(os.path.join(d, f), ROOT)
     for d, _, fs in os.walk(os.path.join(ROOT, "jet_pbrt_tpu_torch"))
-    for f in fs if f.endswith(".py")) + ["chip_smoke.py"]
+    for f in fs if f.endswith(".py")) + ["chip_smoke.py", "sweep_ab.py"]
 
 
 @pytest.mark.parametrize("rel", PORT_SOURCES)

@@ -217,8 +217,128 @@ def test_plain_sweep_stats_shape(meshes):
     hit, stats = TS.intersect_sweep(TS.sweep_tables(mt, OFF, SCALE), o, d,
                                     tmin, tmax, any_hit=False,
                                     n_tris=mt.shape[0], with_stats=True)
-    assert stats.shape == (3, 4) and stats.dtype == torch.int32
+    assert stats.shape == (3, 6) and stats.dtype == torch.int64
     assert hit.valid.shape == (o.shape[0],)
+
+
+# ---------------------------------------------------------------------------
+# the kernel's root and sphere tests, and the work the inputs need
+# ---------------------------------------------------------------------------
+
+def _fma(a, b, c):
+    return (np.asarray(a, np.float64) * b + c).astype(np.float32)
+
+
+def _dot(a, b, c, x, y, z):
+    return _fma(c, z, _fma(b, y, a * x))
+
+
+def _inst_rows(n_inst):
+    return (TS.flat_inst(OFF, SCALE).reshape(-1, 4)[1:] if n_inst
+            else np.array([[0, 0, 0, 1]], np.float32))
+
+
+def _work_numpy(mt, n_inst, o, d, tmin, tmax, t_final):
+    """sweep_work_plain by brute force in numpy: every ray against every
+    group of every instance, float32 with each fused step rounded once."""
+    _, sph, root, ng = JS.build_sweep_tables(mt)
+    cap = np.minimum(tmax, t_final)
+    cx, cy, cz, cc, r2, rad = (sph[k, :ng][None] for k in range(6))
+    R = lambda x: x[:, None]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    n_root = n_pairs = 0
+    for row in _inst_rows(n_inst):
+        inv = np.float32(1) / row[3]
+        lo = (o - row[:3]) * inv
+        lx, ly, lz = lo[:, 0], lo[:, 1], lo[:, 2]
+        tminl, capl = tmin * inv, cap * inv
+        od, oo = _dot(lx, ly, lz, dx, dy, dz), _dot(lx, ly, lz, lx, ly, lz)
+        ex, ey, ez = root[0] - lx, root[1] - ly, root[2] - lz
+        rtc = _dot(ex, ey, ez, dx, dy, dz)
+        rm2 = _fma(-rtc, rtc, _dot(ex, ey, ez, ex, ey, ez))
+        rr = root[5]
+        rhit = ((rm2 <= rr * rr * np.float32(1.0001) + np.float32(1e-5))
+                & (rtc + rr >= tminl) & (rtc - rr <= capl) & (capl >= tminl))
+        n_root += int(rhit.sum())
+        far = np.float32(3e37)
+        tminc, capc = R(np.minimum(tminl, far)), R(np.minimum(capl, far))
+        cd = _dot(R(dx), R(dy), R(dz), cx, cy, cz)
+        co = _dot(R(lx), R(ly), R(lz), cx, cy, cz)
+        tc = cd - R(od)
+        m2 = _fma(-tc, tc, cc - np.float32(2) * co + R(oo))
+        slack = _fma(tc, tc, cc + np.float32(2) * np.abs(co) + R(oo)) \
+            * np.float32(1e-6)
+        entry = tc - rad
+        ok = ((m2 <= r2 + slack) & (tc + rad >= tminc) & (entry <= capc)
+              & (capc >= tminc) & R(rhit)
+              & (np.maximum(entry, np.float32(0)) * row[3] <= R(cap)))
+        n_pairs += int(ok.sum())
+    return n_root, n_pairs
+
+
+@pytest.mark.parametrize("which", ["soup", "instanced"])
+def test_sweep_work_plain_matches_brute_force(meshes, monkeypatch, which):
+    """The input-side work count (the bound's numerator) against an
+    independent numpy count, scales 0.5 to 2, chunked over rays."""
+    mt, _, n_inst = meshes[which]
+    o, d, tmin, tmax = _rays(mt, n_inst, 13)
+    tables = TS.sweep_tables(mt, OFF if n_inst else None,
+                             SCALE if n_inst else None)
+    T = torch.from_numpy
+    h = TS.intersect_sweep_plain(tables, T(o), T(d), T(tmin), T(tmax),
+                                 any_hit=False, n_tris=mt.shape[0])
+    monkeypatch.setattr(TS, "_CULL_ELEMS", 64)
+    with np.errstate(invalid="ignore", over="ignore"):
+        want = _work_numpy(mt, n_inst, o, d, tmin, tmax, h.t.numpy())
+    got = TS.sweep_work_plain(tables, T(o), T(d), T(tmin), T(tmax), h.t)
+    assert got == want
+    n_root, n_pairs = got
+    # every hit's group is a needed pair; dead lanes pass no root test
+    assert int(h.valid.sum()) <= n_pairs < n_root * tables.n_groups
+    assert n_root <= (len(o) - len(o[::5])) * max(n_inst, 1)
+
+
+@pytest.mark.parametrize("which", ["soup", "instanced"])
+def test_closest_hit_group_passes_own_sphere_test(meshes, which):
+    """The kernel tests a group for a ray only where that ray's own sphere
+    test passes (csrc/sweep_bvh.cu, the scan). So every closest hit that a
+    float64 Moller-Trumbore recheck confirms must lie in a group whose
+    sphere test, and whose instance's root test, pass for that ray under
+    the kernel's float32 arithmetic and slack, with the cap the kernel has
+    at that instance: min(tmax, the best hit of the earlier instances)."""
+    mt, _, n_inst = meshes[which]
+    o, d, tmin, tmax = _rays(mt, n_inst, 17)
+    n_tris = mt.shape[0]
+    tables = TS.sweep_tables(mt, OFF if n_inst else None,
+                             SCALE if n_inst else None)
+    T = torch.from_numpy
+    rays = tuple(map(T, (o, d, tmin, tmax)))
+    h = TS.intersect_sweep_plain(tables, *rays, any_hit=False, n_tris=n_tris)
+    valid, t, idx = h.valid.numpy(), h.t.numpy(), h.index.numpy()
+    checked = 0
+    for i, row in enumerate(_inst_rows(n_inst)):
+        best = torch.full_like(rays[3], float("inf"))
+        if i:
+            best = TS.intersect_sweep_plain(
+                tables._replace(inst=tables.inst[:4 * (i + 1)], n_inst=i),
+                *rays, any_hit=False, n_tris=n_tris).t
+        cap = torch.minimum(rays[3], best)
+        lo, tminl, capl, od, oo = TS.instance_rays(T(row), rays[0], rays[1],
+                                                   rays[2], cap)
+        rhit = TS.root_test(tables.root, lo, rays[1], tminl, capl).numpy()
+        ok, _ = TS.sphere_test(tables.sph[:, :tables.n_groups], lo, rays[1],
+                               tminl, capl, od, oo)
+        for j in np.nonzero(valid & (idx // n_tris == i))[0]:
+            r = int(idx[j] % n_tris)
+            t64 = chip_smoke._mt64_all(
+                (o[j].astype(np.float64) - row[:3]) / row[3],
+                d[j].astype(np.float64), mt[r:r + 1].astype(np.float64))[0]
+            if not abs(t64[0] * row[3] - t[j]) <= 1e-4 * t[j]:
+                continue
+            assert rhit[j], (j, i)
+            assert bool(ok[j, r // TS.GROUP]), (j, i, r // TS.GROUP)
+            checked += 1
+    assert checked > 40
 
 
 def test_sweep_checks_its_arguments(meshes):
