@@ -9,14 +9,25 @@ Phases, each printing its result; any failure raises and exits non-zero:
   3. wide kernel vs its plain PyTorch version on the default bunny's
      tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
      half bounce) and a targeted incoherent set, closest hit and any hit
-     with finite tmax; every disagreeing lane must be explained by a
-     float64 Moller-Trumbore recheck as an edge graze or a t near-tie;
-     then both timed at the main path's wave size (2^20 rays), their
-     outputs held against each other the same way, and the node visits and
-     triangle tests of the timed wave counted by the plain walk (its bound);
+     with finite tmax: t, index and valid must agree bit for bit on every
+     lane (the count of disagreeing lanes is printed, each one put through
+     the float64 forensic before the run fails); then both timed at the
+     main path's wave size (2^20 rays: a wave and a targeted set), their
+     outputs held against each other the same way, the kernel's event time
+     beside the profiler's device time of the same calls, and the kernel's
+     counted node and leaf visits held equal to the plain walk's, which
+     give each timed closest-hit call its bound; the counters' SIMD
+     efficiency and lane-0 cycle split are printed, and the walk's resident
+     blocks per SM;
   4. main path: render(bunny_scene(), 1024, 1024, spp=4, max_depth=5,
      device="cuda") with the exact wide-kernel launch count, rays/s by
-     class, peak memory, and a profiled wave;
+     class, peak memory, and a profiled wave; then the 16 wide casts of
+     one 1-spp wave, recorded (o, d, tmin, tmax) by wrapping
+     wide_bvh.intersect_wide here, each replayed alone: live lanes,
+     survivors of the cull, kernel event time, host enqueue time and
+     profiler device time, the plain version's output held bit for bit,
+     and the sums, with what could stall the host (collector passes,
+     cudaMalloc and cudaFree calls) during the timed calls;
   5. converged goldens (bunny 64^2 and Cornell 48^2) under the reference
      tests' statistical gates;
   6. sweep kernel vs its plain version, as phase 3, on the meshes too big
@@ -48,6 +59,9 @@ JAX.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
+import gc
 import json
 import os
 import subprocess
@@ -89,9 +103,20 @@ F32_PEAK = 67e12     # FLOP/s
 HBM_BW = 3.35e12     # bytes/s
 # o, d, tmin, tmax in; t, index out
 RAY_BYTES = 4 * (3 + 3 + 1 + 1) + 4 + 4
-# float operations per unit of work, counted from the kernel sources
-WIDE_NODE_OPS = 8 * 26 + 19  # wide_bvh.cu:142-172: 8 slab tests, the sort
-WIDE_TRI_OPS = 55            # wide_bvh.cu:106-122: one Moller-Trumbore test
+# a dead lane of the wide kernel: tmin, tmax in; t, index out
+DEAD_RAY_BYTES = 4 + 4 + 4 + 4
+# float operations per unit of work that the function needs: a node visit's
+# 8 slab tests of 26 (wide_bvh.cu visit_node), the 19 comparators of an
+# optimal 8-key sorting network where a node visit hits two or more
+# children and so orders them, and one Moller-Trumbore test with its accept
+# rule (tri_test)
+WIDE_SLAB_OPS = 8 * 26
+WIDE_RANK_OPS = 19
+WIDE_TRI_OPS = 55
+# the wide kernel's two passes, as the profiler names them; a timed cast
+# also counts the memset that zeroes its counter
+WIDE_KERNELS = ("wide_cull_kernel", "wide_walk_kernel")
+WIDE_OPS = WIDE_KERNELS + ("Memset",)
 # sweep_bvh.cu:133-145 and 259, one ray against one group sphere, and
 # :343-356, one ray against one triangle (a fused multiply-add counts as
 # its product and its sum)
@@ -132,8 +157,24 @@ class Route(NamedTuple):
     rows: np.ndarray     # [T, 9] triangle rows the hit indices select
     inst: np.ndarray     # [I+1, 4] instance rows, row 0 the identity
     n_tris: int
-    work: Callable       # (o, d, tmin, tmax) -> (bytes, flops, counts) of
-                         # a closest-hit call
+    work: Callable | None  # (o, d, tmin, tmax) -> (bytes, flops, counts)
+                           # of a closest-hit call; None for the wide
+                           # kernel, whose timed walk counts its own work
+    exact: bool          # kernel and plain must agree bit for bit
+
+
+def wide_work(tables, o, d, tmin, tmax, st):
+    """(bytes, float operations) of one wide cast of these rays whose walk
+    made st's node visits, ranked node visits and triangle tests
+    (intersect_wide_plain(with_stats=True)): a live lane moves RAY_BYTES, a
+    dead one DEAD_RAY_BYTES, and the tables are read once."""
+    live = int(wide_bvh.live_lanes(o, d, tmin, tmax).sum())
+    nbytes = live * RAY_BYTES + (o.shape[0] - live) * DEAD_RAY_BYTES + sum(
+        x.nbytes for x in (tables.planar, tables.child, tables.tris,
+                           tables.inst))
+    return nbytes, (st["node_visits"] * WIDE_SLAB_OPS
+                    + st["ranked_visits"] * WIDE_RANK_OPS
+                    + st["tri_tests"] * WIDE_TRI_OPS)
 
 
 def wide_route(scene) -> Route:
@@ -141,23 +182,13 @@ def wide_route(scene) -> Route:
     tables = scene.pack.inst_wide[0]
     kw = dict(has_inst=True, leaf_size=scene.meta.blas_leaf_size[0],
               n_tris=scene.meta.n_blas_tris[0])
-    def work(*rays):
-        """Node visits and triangle tests, as the plain walk counts them."""
-        st = wide_bvh.intersect_wide_plain(tables, *rays, any_hit=False,
-                                           with_stats=True, **kw)[1]
-        nbytes = rays[0].shape[0] * RAY_BYTES + sum(
-            x.nbytes for x in (tables.bounds, tables.child, tables.tris,
-                               tables.inst))
-        return (nbytes, st["node_visits"] * WIDE_NODE_OPS
-                + st["tri_tests"] * WIDE_TRI_OPS, st)
-
     return Route("wide_bvh",
                  lambda *r, any_hit: wide_bvh.intersect_wide(
                      tables, *r, any_hit=any_hit, **kw),
                  lambda *r, any_hit: wide_bvh.intersect_wide_plain(
                      tables, *r, any_hit=any_hit, **kw),
                  tables.tris.cpu().numpy(), tables.inst.cpu().numpy(),
-                 kw["n_tris"], work)
+                 kw["n_tris"], None, True)
 
 
 def sweep_route(scene) -> Route:
@@ -211,7 +242,7 @@ def sweep_route(scene) -> Route:
                      tables, *r, any_hit=any_hit, n_tris=n_tris),
                  lambda *r, any_hit: sweep_bvh.intersect_sweep_plain(
                      tables, *r, any_hit=any_hit, n_tris=n_tris),
-                 rows.cpu().numpy(), inst, n_tris, work)
+                 rows.cpu().numpy(), inst, n_tris, work, False)
 
 
 # --------------------------------------------------------------------------
@@ -383,11 +414,16 @@ def explain_lane(o, d, tmin, tmax, hits, any_hit, tris64, inst, n_tris):
         abs(near.m) <= GRAZE + near.dm
 
 
-def check_lanes(route: Route, mode, o, d, tmin, tm, any_hit, hk, hp):
+def check_lanes(route: Route, mode, o, d, tmin, tm, any_hit, hk, hp,
+                exact=None):
     """Hold the kernel's hits hk against the plain version's hp on the same
-    rays: every lane where they differ must be explained by the float64
+    rays. Prints the count of lanes whose t, index or valid differ at all.
+    With exact (route.exact by default) that count must be 0; every such
+    lane is still put through the float64 forensic and printed first.
+    Otherwise every lane where the hits differ must be explained by the
     forensic, and at most MAX_EXPLAINED of the lanes may differ. Prints one
     line and returns the max |t| error on agreeing closest-hit lanes."""
+    exact = route.exact if exact is None else exact
     tris_rows = route.rows
     n_tris = route.n_tris
     n = o.shape[0]
@@ -396,6 +432,8 @@ def check_lanes(route: Route, mode, o, d, tmin, tm, any_hit, hk, hp):
     ik, ip = hk.index.cpu().numpy(), hp.index.cpu().numpy()
     on, dn = o.cpu().numpy(), d.cpu().numpy()
     tmn, tmx = tmin.cpu().numpy(), tm.cpu().numpy()
+    n_bits = int(((tk.view(np.int32) != tp.view(np.int32)) | (ik != ip)
+                  | (vk != vp)).sum())
     bad = vk != vp
     max_err = 0.0
     if not any_hit:
@@ -426,10 +464,14 @@ def check_lanes(route: Route, mode, o, d, tmin, tm, any_hit, hk, hp):
                              (vp[j], float(tp[j]), ip[j])],
                             any_hit, tris64, inst, n_tris)]
     print(f"{mode}: lanes {n}, valid kernel {int(vk.sum())} plain "
-          f"{int(vp.sum())}, disagreeing {len(lanes)}, explained "
+          f"{int(vp.sum())}, lanes not equal bit for bit {n_bits}, "
+          f"disagreeing hits {len(lanes)}, explained "
           f"{len(lanes) - len(unexplained)}, unexplained {len(unexplained)}"
           + (f", closest-hit max |t_kernel - t_plain| on agreeing lanes "
              f"{max_err:.6g}" if not any_hit else ""), flush=True)
+    if exact and n_bits:
+        raise AssertionError(f"{mode}: {n_bits} lanes differ from the plain "
+                             "version (bit for bit expected)")
     if unexplained:
         raise AssertionError(f"{mode}: unexplained lanes {unexplained[:20]}")
     if len(lanes) > MAX_EXPLAINED * n:
@@ -478,17 +520,70 @@ def time_ms(fn, reps: int):
     return start.elapsed_time(end) / reps, out
 
 
+def time_enqueue_ms(fn, reps: int):
+    """(mean ms per call by CUDA events, mean and largest host ms per call
+    to enqueue it, host_stalls of the timed calls, output of the warm-up
+    call): events bracket the reps calls on the stream and the host clock
+    stops before the closing synchronize, so where the host ms reaches the
+    events' ms the host, not the card, set the pace."""
+    out = fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    laps = []
+    with host_stalls() as stalls:
+        start.record()
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            laps.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+    torch.cuda.synchronize()
+    return (start.elapsed_time(end) / reps, sum(laps) / reps, max(laps),
+            stalls, out)
+
+
 def _shadow_tmax(route: Route, o, d, tmin, tmax):
     h = route.kernel(o, d, tmin, tmax, any_hit=False)
     tmax_sh = torch.where(h.valid, h.t * 0.9, torch.full_like(h.t, 1e3))
     return torch.where(tmax < 0, tmax, tmax_sh).contiguous(), h
 
 
+def profiled_ms(fn, reps: int, names) -> dict:
+    """Device time per call in ms, by the profiler, of the device
+    operations (kernels, memsets) whose names contain each of `names`, over
+    reps calls of fn (after a warm-up). fn must launch one of them: the
+    profiler now and then records no device operation of a run, which is
+    then made again (at most twice)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        out = {nm: sum(_device_us(e) for e in events if nm in e.key) / 1e3
+               / reps for nm in names}
+        if any(out.values()):
+            break
+    return out
+
+
 def time_wide(scene, route: Route, dev):
     """Kernel and plain times, both modes, on 1024^2 rays: one main-path
-    wave (half camera, half bounce) and the targeted incoherent set; the
-    timed calls' outputs are held against each other as in compare_modes,
-    so the kernel is also checked at the main path's wave size."""
+    wave (half camera, half bounce) and the targeted incoherent set. The
+    kernel's event time per call is printed beside the profiler's device
+    time. The timed calls' outputs are held against each other bit for
+    bit, and the kernel's counters against the plain walk's node visits
+    and triangle tests, which with its ranked visits give each closest-hit
+    call its bound; the counters' SIMD efficiency and cycle split are
+    printed."""
+    tables = scene.pack.inst_wide[0]
+    kw = dict(has_inst=True, leaf_size=scene.meta.blas_leaf_size[0],
+              n_tris=scene.meta.n_blas_tris[0])
     out = {}
     for label, rays in (("wave", wave_rays(scene, 1024, 11, dev)),
                         ("targeted",
@@ -497,20 +592,142 @@ def time_wide(scene, route: Route, dev):
         tmax_sh, h = _shadow_tmax(route, o, d, tmin, tmax)
         for mode, any_hit, tm in (("closest", False, tmax),
                                   ("any", True, tmax_sh)):
-            k, hk = time_ms(
-                lambda: route.kernel(o, d, tmin, tm, any_hit=any_hit), 10)
-            p, hp = time_ms(
-                lambda: route.plain(o, d, tmin, tm, any_hit=any_hit), 1)
+            call = lambda: route.kernel(o, d, tmin, tm, any_hit=any_hit)
+            k, hk = time_ms(call, 10)
+            k_dev = sum(profiled_ms(call, 10, WIDE_OPS).values())
+            p, (hp, pst) = time_ms(lambda: wide_bvh.intersect_wide_plain(
+                tables, o, d, tmin, tm, any_hit=any_hit, with_stats=True,
+                **kw), 1)
+            name = f"{route.name} {label} {mode} at {o.shape[0]} rays"
             out[label, mode] = (k, p)
             out["err"] = max(out.get("err", 0.0), check_lanes(
-                route, f"{route.name} {label} {mode} at {o.shape[0]} rays", o,
-                d, tmin, tm, any_hit, hk, hp))
-            print(f"{route.name} {label} {mode} at {o.shape[0]} rays "
-                  f"({int(h.valid.sum())} closest hits): kernel {k:.4f} ms, "
-                  f"plain {p:.2f} ms", flush=True)
-        if label == "wave":
-            out["bound"] = timed_bound(route, label, o, d, tmin, tmax)
+                route, name, o, d, tmin, tm, any_hit, hk, hp))
+            kst = wide_bvh.stats_summary(wide_bvh.intersect_wide(
+                tables, o, d, tmin, tm, any_hit=any_hit, with_stats=True,
+                **kw)[1], kw["leaf_size"])
+            if (kst["node_visits"], kst["tri_tests"]) != (
+                    pst["node_visits"], pst["tri_tests"]):
+                raise AssertionError(f"{name}: kernel counts {kst}, plain "
+                                     f"walk {pst}")
+            print(f"{name} ({int(h.valid.sum())} closest hits): kernel "
+                  f"{k:.4f} ms by events, {k_dev:.4f} ms of device time by "
+                  f"the profiler; plain {p:.2f} ms; node visits "
+                  f"{kst['node_visits']}, triangle tests {kst['tri_tests']} "
+                  f"(kernel = plain walk), ranked node visits "
+                  f"{pst['ranked_visits']}; " + counters_line(kst), flush=True)
+            if mode == "closest":
+                nbytes, flops = wide_work(tables, o, d, tmin, tm, pst)
+                ms, by = bound(nbytes, flops)
+                out["bound", label] = (ms, by)
+                out["dev", label] = k_dev
+                print(f"{name}: {nbytes} bytes, {flops} float operations: "
+                      f"bound {ms:.4f} ms ({by})", flush=True)
     return out
+
+
+def wide_casts(scene, dev, res=1024, depth=5, seed=1):
+    """Every wide-kernel cast of one 1-spp wave of the frame, in order:
+    [(tables, o, d, tmin, tmax, kwargs)], recorded by wrapping
+    wide_bvh.intersect_wide for the length of one render."""
+    casts = []
+    inner = wide_bvh.intersect_wide
+
+    @functools.wraps(inner)  # the wrapper counts its launches on `record`
+    def record(tables, o, d, tmin, tmax, **kw):
+        casts.append((tables, o.clone(), d.clone(), tmin.clone(),
+                      tmax.clone(), kw))
+        return inner(tables, o, d, tmin, tmax, **kw)
+
+    wide_bvh.intersect_wide = record
+    try:
+        render(scene, res, res, spp=1, max_depth=depth, seed=seed, device=dev)
+    finally:
+        wide_bvh.intersect_wide = inner
+    return casts
+
+
+def counters_line(st) -> str:
+    """The wide kernel's counters (stats_summary) in words."""
+    cyc = max(st["cycles_node"] + st["cycles_leaf"] + st["cycles_stack"], 1)
+    return (f"live {st['live']}, survivors {st['survivors']}; SIMD efficiency "
+            f"{st['simd']:.3f} (node steps {st['simd_node']:.3f}, leaf steps "
+            f"{st['simd_leaf']:.3f}); lane-0 cycles of the walk node "
+            f"{100 * st['cycles_node'] / cyc:.1f}%, leaf "
+            f"{100 * st['cycles_leaf'] / cyc:.1f}%, stack "
+            f"{100 * st['cycles_stack'] / cyc:.1f}%")
+
+
+@contextlib.contextmanager
+def host_stalls():
+    """While open, counts what can stall the host between launches: the
+    garbage collector's passes and their wall time in ms, and the caching
+    allocator's cudaMalloc and cudaFree calls: {"gc": ..., "gc_ms": ...,
+    "mallocs": ..., "frees": ...}."""
+    out, start = {"gc": 0, "gc_ms": 0.0}, [0.0]
+
+    def watch(phase, _info):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            out["gc"] += 1
+            out["gc_ms"] += (time.perf_counter() - start[0]) * 1e3
+
+    alloc = lambda: [torch.cuda.memory_stats().get(k, 0)
+                     for k in ("num_device_alloc", "num_device_free")]
+    before = alloc()
+    gc.callbacks.append(watch)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(watch)
+        out["mallocs"], out["frees"] = (a - b for a, b in zip(alloc(), before))
+
+
+def stalls_line(st) -> str:
+    return (f"{st['gc']} collector passes ({st['gc_ms']:.3f} ms), "
+            f"{st['mallocs']} cudaMalloc, {st['frees']} cudaFree")
+
+
+def time_casts(casts):
+    """Each recorded cast replayed alone: live lanes, survivors of the
+    cull, the kernel's event time, host enqueue time (mean and slowest
+    call) and profiler device time, and its output held against the plain
+    version's bit for bit; what could stall the host during the
+    event-timed calls (host_stalls). Returns the summed event and device
+    times in ms."""
+    total = total_dev = total_host = 0.0
+    stalls = dict.fromkeys(("gc", "gc_ms", "mallocs", "frees"), 0)
+    missed = []
+    for j, (tables, o, d, tmin, tmax, kw) in enumerate(casts):
+        call = lambda: wide_bvh.intersect_wide(tables, o, d, tmin, tmax, **kw)
+        ms, host_ms, slowest, g, hk = time_enqueue_ms(call, 5)
+        for k in stalls:
+            stalls[k] += g[k]
+        dev_ms = sum(profiled_ms(call, 5, WIDE_OPS).values())
+        hp = wide_bvh.intersect_wide_plain(tables, o, d, tmin, tmax, **kw)
+        same = all(torch.equal(x, y) for x, y in zip(hk, hp))
+        if not same:
+            raise AssertionError(f"wide cast {j}: kernel and plain differ")
+        live = int(wide_bvh.live_lanes(o, d, tmin, tmax).sum())
+        surv = int(wide_bvh.wide_root_cull_plain(tables, o, d, tmin,
+                                                 tmax).sum())
+        total += ms
+        total_dev += dev_ms
+        total_host += host_ms
+        if not dev_ms:
+            missed.append(j)
+        print(f"wide cast {j} ({'any-hit' if kw['any_hit'] else 'closest'}"
+              f", {o.shape[0]} lanes): live {live}, survivors {surv}, hits "
+              f"{int(hk.valid.sum())}; kernel {ms:.4f} ms by events (host "
+              f"enqueue {host_ms:.4f} ms, slowest call {slowest:.4f} ms), "
+              f"{dev_ms:.4f} ms of device time; equal to plain bit for bit",
+              flush=True)
+    print(f"wide casts of one 1-spp wave: {len(casts)}, kernel time summed "
+          f"{total:.4f} ms by events (host enqueue {total_host:.4f} ms), "
+          f"{total_dev:.4f} ms of device time (the profiler recorded no "
+          f"kernel of casts {missed}); during the event-timed calls "
+          + stalls_line(stalls), flush=True)
+    return total, total_dev
 
 
 def timed_bound(route: Route, label, o, d, tmin, tmax):
@@ -620,8 +837,10 @@ def main_path(scene, dev, label, res=1024, spp=4, depth=5):
     # time of the kernels it launched
     kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
     total = sum(_device_us(e) for e in kernels)
-    share = {name: sum(_device_us(e) for e in kernels if f"{name}_kernel"
-                       in e.key) for name in ("wide_bvh", "sweep_bvh")}
+    share = {name: sum(_device_us(e) for e in kernels
+                       if any(k in e.key for k in keys))
+             for name, keys in (("wide_bvh", WIDE_KERNELS),
+                                ("sweep_bvh", ("sweep_bvh_kernel",)))}
     print(f"{label} profiled 1-spp wave: wall {prof_wall * 1e3:.1f} ms, device "
           f"kernel time {total / 1e3:.1f} ms (busy "
           f"{total / 1e4 / prof_wall:.1f}%), "
@@ -859,7 +1078,10 @@ def main() -> int:
     print(f"bunny scene built in {time.perf_counter() - t0:.2f} s: "
           f"{bunny.meta.n_blas_tris[0]} BLAS rows, "
           f"{bunny.pack.inst_wide[0].bounds.shape[0]} wide nodes, depth "
-          f"{bunny.pack.inst_wide[0].depth}", flush=True)
+          f"{bunny.pack.inst_wide[0].depth}; wide walk: "
+          f"{wide_bvh.blocks_per_sm()} resident blocks per SM, "
+          f"{wide_bvh.load_kernel().wide_bvh_walk_warps(0, 1, 0)} persistent "
+          "warps", flush=True)
     if bunny.meta.wide_blas != (True,):
         raise AssertionError("the default bunny is not on the wide kernel")
     wide_err = max(
@@ -871,6 +1093,14 @@ def main() -> int:
 
     phase("4 main path (wide route)")
     wide_launches = main_path(bunny, dev, "bunny")["wide_bvh"]
+    casts = wide_casts(bunny, dev)
+    lights = sum(1 for lt in bunny.meta.lights if not lt.static_black)
+    expected = n_waves(1024, 1024, 1, DEFAULT_CHUNK) * (6 + 5 * lights)
+    if len(casts) != expected:
+        raise AssertionError(f"one 1-spp wave made {len(casts)} wide casts, "
+                             f"expected {expected}")
+    casts_ms, casts_dev_ms = time_casts(casts)
+    del casts
 
     phase("5 goldens")
     goldens(bunny, dev)
@@ -920,8 +1150,12 @@ def main() -> int:
          "launches": wide_launches, "max_abs_err": wide_err,
          "ms": wide_times["wave", "closest"][0],
          "plain_ms": wide_times["wave", "closest"][1],
-         "bound_ms": wide_times["bound"][0],
-         "bound_by": wide_times["bound"][1], "library_ms": None},
+         "bound_ms": wide_times["bound", "wave"][0],
+         "bound_by": wide_times["bound", "wave"][1], "library_ms": None,
+         "device_ms": wide_times["dev", "wave"],
+         "targeted_ms": wide_times["targeted", "closest"][0],
+         "targeted_bound_ms": wide_times["bound", "targeted"][0],
+         "wave_casts_ms": casts_ms, "wave_casts_device_ms": casts_dev_ms},
         {"name": "sweep_bvh", "route": "cuda",
          "source": "jet_pbrt_tpu_torch/csrc/sweep_bvh.cu",
          "replaces": "jet_pbrt_tpu/ops/sweep_bvh.py:192",

@@ -6,11 +6,16 @@ Replaces the TPU packet kernel jet_pbrt_tpu/ops/wide_bvh.py
 is the same: the closest hit (world t and index inst * n_tris + triangle)
 or an any-hit bit, over an 8-wide BVH collapsed from the binary skip-link
 BVH, with two-level instancing (uniform scale + translation). The form is
-not: the CUDA kernel (csrc/wide_bvh.cu) walks one ray per thread behind a
-short private stack, nearest child first, over node-major float32 bounds.
+not: the CUDA kernel (csrc/wide_bvh.cu) culls the lanes whose root visit
+enters nothing, then walks each surviving ray on one thread of a persistent
+warp behind a private stack, over child-planar float32 bounds. The kernel
+and the plain version round alike and pop a node's children in one order,
+(entry t, slot), so they walk the same nodes and agree bit for bit.
 
 Tables (`WideTables`):
   bounds [N8, 8, 6] f32   per child: lo.xyz, hi.xyz
+  planar [N8, 6, 8] f32   the same values child-planar (rows lo.x .. hi.z of
+                          8 children): the kernel's aligned node loads
   child  [N8, 8]    i32   -1 empty; < INST_FLAG internal node index;
                           INST_FLAG | i instance leaf (enter the BLAS root
                           with instance i); LEAF_FLAG | l triangle leaf l,
@@ -40,8 +45,16 @@ FAR = np.float32(3.0e37)
 # port child encoding (see the module docstring)
 LEAF_FLAG = 1 << 30
 INST_FLAG = 1 << 29
-# per-thread stack entries of the CUDA kernel (STACK in csrc/wide_bvh.cu)
+# per-thread stack entries of the CUDA kernel (STACK in csrc/wide_bvh.cu);
+# an entry packs a node, leaf or instance index below INST_FLAG
 STACK = 128
+# columns of the kernel's counters (STATS_COLS in csrc/wide_bvh.cu): row 0
+# is the cull pass (root visits of the live lanes it retires, -, -, -, live
+# lanes, zeros), each further row one warp of the walk (node visits, leaf
+# visits, node steps and leaf steps of the warp, rays walked, lanes at work
+# summed over the node steps and over the leaf steps, lane 0's cycles in
+# node work, leaf work and stack work)
+STATS_COLS = 10
 # the reference TPU kernel's table budgets (jet_pbrt_tpu/ops/wide_bvh.py:93),
 # which decide the route of a mesh (scene/builder.py sweep_route)
 _VMEM_BUDGET = 13 * 1024 * 1024
@@ -68,12 +81,14 @@ class WideTables(NamedTuple):
     inst: torch.Tensor     # [I+1, 4] f32
     blas_root: int         # first BLAS node (0 for single-level tables)
     depth: int             # wide levels on the deepest root-to-leaf path
+    planar: torch.Tensor   # [N8, 6, 8] f32, bounds child-planar
 
     def to(self, device) -> "WideTables":
         return self._replace(bounds=self.bounds.to(device),
                              child=self.child.to(device),
                              tris=self.tris.to(device),
-                             inst=self.inst.to(device))
+                             inst=self.inst.to(device),
+                             planar=self.planar.to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -179,11 +194,13 @@ def _inst_table(inst_off, inst_scale) -> np.ndarray:
 
 
 def _tables(bounds, child, tris, inst, blas_root, depth) -> WideTables:
+    planar = np.ascontiguousarray(np.asarray(bounds).transpose(0, 2, 1))
     return WideTables(bounds=torch.tensor(bounds, dtype=torch.float32),
                       child=torch.tensor(child, dtype=torch.int32),
                       tris=torch.tensor(tris, dtype=torch.float32),
                       inst=torch.tensor(inst, dtype=torch.float32),
-                      blas_root=int(blas_root), depth=int(depth))
+                      blas_root=int(blas_root), depth=int(depth),
+                      planar=torch.tensor(planar, dtype=torch.float32))
 
 
 def wide_tables(bvh, tris: np.ndarray, leaf_size: int) -> WideTables:
@@ -219,14 +236,28 @@ def wide_tables_instanced(tlas_bvh, blas_bvh, tris, inst_off, inst_scale,
 def _check(tables: WideTables, o, d, tmin, tmax, leaf_size, n_tris):
     n = o.shape[0]
     dev = o.device
+    n8 = tables.child.shape[0]
+    # what the kernel's packed stack entry, its stack and the int32 hit
+    # index can hold (shapes only, so before any tensor is touched)
+    if (WIDTH - 1) * tables.depth + 1 > STACK:
+        raise ValueError(f"wide-BVH depth {tables.depth} overflows the "
+                         f"{STACK}-entry traversal stack")
+    n_leaves = n_tris // max(leaf_size, 1)
+    if max(n8, n_leaves, tables.inst.shape[0]) >= INST_FLAG:
+        raise ValueError("a node, leaf or instance index of these tables "
+                         "does not fit the stack entry's 29 bits")
+    if max(tables.inst.shape[0] - 1, 1) * n_tris >= 2 ** 31:
+        raise ValueError("hit indices inst * n_tris + row overflow int32")
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rays: the kernel's int32 lane index holds "
+                         "fewer than 2^31")
     for name, x, shape, dtype in (
             ("o", o, (n, 3), torch.float32), ("d", d, (n, 3), torch.float32),
             ("tmin", tmin, (n,), torch.float32),
             ("tmax", tmax, (n,), torch.float32),
-            ("bounds", tables.bounds, (tables.child.shape[0], WIDTH, 6),
-             torch.float32),
-            ("child", tables.child, (tables.child.shape[0], WIDTH),
-             torch.int32),
+            ("bounds", tables.bounds, (n8, WIDTH, 6), torch.float32),
+            ("planar", tables.planar, (n8, 6, WIDTH), torch.float32),
+            ("child", tables.child, (n8, WIDTH), torch.int32),
             ("tris", tables.tris, (n_tris, 9), torch.float32),
             ("inst", tables.inst, (tables.inst.shape[0], 4), torch.float32)):
         if x.device != dev:
@@ -238,53 +269,159 @@ def _check(tables: WideTables, o, d, tmin, tmax, leaf_size, n_tris):
             raise ValueError(f"{name} must be contiguous")
     if n_tris % leaf_size:
         raise ValueError("triangle rows are not a whole number of leaves")
-    if (WIDTH - 1) * tables.depth + 1 > STACK:
-        raise ValueError(f"wide-BVH depth {tables.depth} overflows the "
-                         f"{STACK}-entry traversal stack")
 
 
 def intersect_wide(tables: WideTables, o, d, tmin, tmax, *, any_hit: bool,
-                   has_inst: bool, leaf_size: int, n_tris: int) -> KindHit:
+                   has_inst: bool, leaf_size: int, n_tris: int,
+                   with_stats: bool = False):
     """Closest hit (or any hit) of rays o, d [N,3] in (tmin, tmax) [N].
 
     Index = inst * n_tris + triangle row (inst 0 without instancing); an
     any-hit reports t = 0 when occluded. CUDA tensors launch the kernel of
-    csrc/wide_bvh.cu; CPU tensors take `intersect_wide_plain`."""
+    csrc/wide_bvh.cu (a cull pass, then the walk; one launch counted);
+    CPU tensors take `intersect_wide_plain`. with_stats (CUDA only: the
+    counters are the kernel's) also returns them, [1 + walk warps,
+    STATS_COLS] int64 (see STATS_COLS; `stats_summary` adds them up)."""
     _check(tables, o, d, tmin, tmax, leaf_size, n_tris)
-    if o.device.type == "cpu":
+    if o.device.type == "cpu" and not with_stats:
         return intersect_wide_plain(tables, o, d, tmin, tmax, any_hit=any_hit,
                                     has_inst=has_inst, leaf_size=leaf_size,
                                     n_tris=n_tris)
     if o.device.type != "cuda":
-        raise ValueError(f"no wide-BVH route for device {o.device}")
-    from ..utils.cuda_build import load_library
-
-    lib = load_library("wide_bvh", ["wide_bvh.cu"], _declare)
-    n = o.shape[0]
-    t = torch.empty((n,), dtype=torch.float32, device=o.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=o.device)
-    with torch.cuda.device(o.device):
-        err = lib.wide_bvh_launch(
-            tables.bounds.data_ptr(), tables.child.data_ptr(),
-            tables.tris.data_ptr(), tables.inst.data_ptr(),
-            o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-            n, tables.blas_root, leaf_size, n_tris, int(any_hit),
-            int(has_inst), t.data_ptr(), idx.data_ptr(),
-            torch.cuda.current_stream(o.device).cuda_stream)
+        raise ValueError(f"no wide-BVH kernel for device {o.device}"
+                         + (" (with_stats counts the kernel's work)"
+                            if with_stats else ""))
+    lib = load_kernel()
+    stats = None
+    if with_stats:
+        with torch.cuda.device(o.device):
+            warps = lib.wide_bvh_walk_warps(int(any_hit), int(has_inst), 1)
+        stats = torch.empty((1 + warps, STATS_COLS), dtype=torch.int64,
+                            device=o.device)
+    t, idx = launch(lib, tables, o, d, tmin, tmax, any_hit=any_hit,
+                    has_inst=has_inst, leaf_size=leaf_size, n_tris=n_tris,
+                    stats=stats)
     intersect_wide.launches += 1
-    if err != 0:
-        raise RuntimeError(f"wide_bvh kernel launch failed: CUDA error {err}")
-    return KindHit(t=t, index=idx, valid=torch.isfinite(t))
+    hit = KindHit(t=t, index=idx, valid=torch.isfinite(t))
+    return (hit, stats) if with_stats else hit
 
 
 intersect_wide.launches = 0
 
 
+def load_kernel(source: str = "wide_bvh.cu", name: str = "wide_bvh"):
+    """The compiled wide-BVH library: csrc/<source>, or any file (an
+    absolute path) with the same C entry points, built and loaded under
+    `name`."""
+    from ..utils.cuda_build import load_library
+
+    return load_library(name, [source], _declare)
+
+
+def launch(lib, tables: WideTables, o, d, tmin, tmax, *, any_hit: bool,
+           has_inst: bool, leaf_size: int, n_tris: int, stats=None):
+    """One cast through `lib`'s wide_bvh_cast on the current stream, on
+    arguments `_check` has passed: allocates the outputs and, in one
+    tensor, the survivor list and its two counters (the C entry zeroes the
+    counters on the stream; nothing is read back), returns (t, index) and
+    raises when a launch fails. `stats` is None or the counters' output."""
+    n = o.shape[0]
+    dev = o.device
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((n + 2,), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.wide_bvh_cast(
+            tables.planar.data_ptr(), tables.child.data_ptr(),
+            tables.tris.data_ptr(), tables.inst.data_ptr(),
+            o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
+            n, tables.blas_root, leaf_size, n_tris, int(any_hit),
+            int(has_inst), t.data_ptr(), idx.data_ptr(),
+            scratch.data_ptr(), scratch.data_ptr() + 4 * n,
+            None if stats is None else stats.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"wide_bvh kernel launch failed: CUDA error {err}")
+    return t, idx
+
+
+def blocks_per_sm() -> int:
+    """Resident blocks per SM of the walk (closest hit, instanced, no
+    counters; the occupancy API on the current card)."""
+    return int(load_kernel().wide_bvh_blocks_per_sm())
+
+
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.wide_bvh_launch.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
-                                    ci, ci, ci, ci, ci, ci, vp, vp, vp]
-    lib.wide_bvh_launch.restype = ci
+    lib.wide_bvh_cast.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                                  ci, ci, ci, vp, vp, vp, vp, vp, vp]
+    lib.wide_bvh_cast.restype = ci
+    lib.wide_bvh_walk_warps.argtypes = [ci, ci, ci]
+    lib.wide_bvh_walk_warps.restype = ci
+    lib.wide_bvh_blocks_per_sm.argtypes = []
+    lib.wide_bvh_blocks_per_sm.restype = ci
+
+
+def stats_summary(stats: torch.Tensor, leaf_size: int) -> dict:
+    """The kernel's counters added up: node visits and triangle tests (as
+    intersect_wide_plain(with_stats=True) counts them), leaf visits, live
+    lanes, survivors of the cull, SIMD efficiency of the walk's node and
+    leaf steps (lanes at work / 32 per warp step), and lane 0's cycles per
+    kind of work."""
+    c = [int(x) for x in stats[1:].sum(0).cpu()]
+    cull = [int(x) for x in stats[0].cpu()]
+    share = lambda visits, steps: visits / (32 * steps) if steps else 0.0
+    return {"node_visits": cull[0] + c[0], "tri_tests": c[1] * leaf_size,
+            "leaf_visits": c[1], "live": cull[4], "survivors": c[4],
+            "simd_node": share(c[5], c[2]), "simd_leaf": share(c[6], c[3]),
+            "simd": share(c[5] + c[6], c[2] + c[3]),
+            "cycles_node": c[7], "cycles_leaf": c[8], "cycles_stack": c[9]}
+
+
+def live_lanes(o, d, tmin, tmax):
+    """Lanes with work: dead lanes (tmin = +inf or NaN, tmax < 0 or NaN)
+    and rays with a NaN miss at once."""
+    return ((tmax >= 0) & ~torch.isinf(tmin) & ~torch.isnan(tmin)
+            & ~torch.isnan(o).any(1) & ~torch.isnan(d).any(1))
+
+
+def _inv_dir(c):
+    eps = 1e-12
+    small = torch.abs(c) < eps
+    guard = torch.where(c < 0, torch.full_like(c, -eps),
+                        torch.full_like(c, eps))
+    return 1.0 / torch.where(small, guard, c)
+
+
+def _slab(nb, lx, ly, lz, jx, jy, jz):
+    """Entry and exit distances of rays against boxes nb [..., 6] (lo.xyz,
+    hi.xyz), one rounding per operation (the kernel's visit_node)."""
+    t0x = (nb[..., 0] - lx) * jx
+    t0y = (nb[..., 1] - ly) * jy
+    t0z = (nb[..., 2] - lz) * jz
+    t1x = (nb[..., 3] - lx) * jx
+    t1y = (nb[..., 4] - ly) * jy
+    t1z = (nb[..., 5] - lz) * jz
+    t_en = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
+                                       torch.minimum(t0y, t1y)),
+                         torch.minimum(t0z, t1z))
+    t_ex = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
+                                       torch.maximum(t0y, t1y)),
+                         torch.maximum(t0z, t1z))
+    return t_en, t_ex
+
+
+def wide_root_cull_plain(tables: WideTables, o, d, tmin, tmax):
+    """The kernel's cull pass: True for a lane that is live and whose root
+    visit (node 0 in world space: the TLAS root of instanced tables) pushes
+    at least one child. Every other lane's result is the miss."""
+    t_en, t_ex = _slab(tables.bounds[0][None], o[:, :1], o[:, 1:2], o[:, 2:],
+                       _inv_dir(d[:, :1]), _inv_dir(d[:, 1:2]),
+                       _inv_dir(d[:, 2:]))
+    lo = torch.maximum(t_en, tmin[:, None])
+    hi = torch.minimum(t_ex, tmax[:, None])
+    hit = (lo <= hi) & (tables.child[0] != -1)[None]
+    return live_lanes(o, d, tmin, tmax) & hit.any(1)
 
 
 def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
@@ -292,31 +429,24 @@ def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
                          n_tris: int, with_stats: bool = False):
     """The kernel's plain PyTorch version: the same per-ray stack walk over
     the same tables, batched over the rays that still have work. Each
-    iteration pops one entry per ray: a node pushes its hit children far to
-    near, a leaf tests its triangles in slot order (a tie keeps the lowest
-    slot). Entries whose entry distance exceeds min(tmax, best) are skipped.
+    iteration pops one entry per ray: a node pushes its hit children so
+    that they pop in the order (entry t, slot), in both modes; a leaf tests
+    its triangles in slot order (a tie keeps the lowest slot). Entries
+    whose entry distance exceeds min(tmax, best) are skipped. Each torch op
+    rounds once, as the kernel's pinned arithmetic does.
     with_stats also returns the walk's work as Python ints: node visits
-    (8 child slab tests each) and triangle tests (leaf_size per leaf
+    (8 child slab tests each), the node visits that hit two or more
+    children (and so rank them), and triangle tests (leaf_size per leaf
     visit)."""
     n = o.shape[0]
     dev = o.device
     inf = math.inf
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-    eps = 1e-12
-
-    def inv_dir(c):
-        small = torch.abs(c) < eps
-        guard = torch.where(c < 0, torch.full_like(c, -eps),
-                            torch.full_like(c, eps))
-        return 1.0 / torch.where(small, guard, c)
-
-    ix, iy, iz = inv_dir(dx), inv_dir(dy), inv_dir(dz)
+    ix, iy, iz = _inv_dir(dx), _inv_dir(dy), _inv_dir(dz)
     best = torch.full((n,), inf, dtype=torch.float32, device=dev)
     best_idx = torch.zeros((n,), dtype=torch.int32, device=dev)
-    # dead lanes (tmin=+inf or tmax<0) and NaN rays miss at once
-    live = ((tmax >= 0) & ~torch.isinf(tmin)
-            & ~torch.isnan(o).any(1) & ~torch.isnan(d).any(1))
+    live = live_lanes(o, d, tmin, tmax)
     cap_s = (WIDTH - 1) * tables.depth + 1
     s_code = torch.zeros((n, cap_s), dtype=torch.int64, device=dev)
     s_inst = torch.full((n, cap_s), -1, dtype=torch.int64, device=dev)
@@ -326,8 +456,7 @@ def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
     child = tables.child.to(torch.int64)
     tris = tables.tris
     inst_tbl = tables.inst
-    slot_k = torch.arange(WIDTH, device=dev)
-    stats = {"node_visits": 0, "tri_tests": 0}
+    stats = {"node_visits": 0, "ranked_visits": 0, "tri_tests": 0}
 
     while True:
         act = torch.nonzero(sp > 0).squeeze(1)
@@ -359,21 +488,9 @@ def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
         stats["node_visits"] += nsel.numel()
         if nsel.numel():
             a = act[nsel]
-            nb = bounds[code[nsel]]                         # [M, 8, 6]
-            lx, ly, lz = oxl[nsel, None], oyl[nsel, None], ozl[nsel, None]
-            jx, jy, jz = ix[a, None], iy[a, None], iz[a, None]
-            t0x = (nb[..., 0] - lx) * jx
-            t0y = (nb[..., 1] - ly) * jy
-            t0z = (nb[..., 2] - lz) * jz
-            t1x = (nb[..., 3] - lx) * jx
-            t1y = (nb[..., 4] - ly) * jy
-            t1z = (nb[..., 5] - lz) * jz
-            t_en = torch.maximum(torch.maximum(torch.minimum(t0x, t1x),
-                                               torch.minimum(t0y, t1y)),
-                                 torch.minimum(t0z, t1z))
-            t_ex = torch.minimum(torch.minimum(torch.maximum(t0x, t1x),
-                                               torch.maximum(t0y, t1y)),
-                                 torch.maximum(t0z, t1z))
+            t_en, t_ex = _slab(bounds[code[nsel]], oxl[nsel, None],
+                               oyl[nsel, None], ozl[nsel, None], ix[a, None],
+                               iy[a, None], iz[a, None])
             if has_inst:
                 capl = cap[nsel] * inv[nsel]
                 lo = torch.maximum(t_en, tminl[nsel, None])
@@ -385,17 +502,18 @@ def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
                 key = lo
             cc = child[code[nsel]]                           # [M, 8]
             hit = (lo <= hi) & (cc != -1)
+            if with_stats:
+                stats["ranked_visits"] += int((hit.sum(1) >= 2).sum())
             key = torch.where(hit, key, torch.full_like(key, inf))
-            if any_hit:
-                order = slot_k.expand_as(cc)
-            else:
-                order = torch.argsort(key, dim=1, descending=True, stable=True)
+            # pop order (key, slot): ascending keys, equal keys by slot,
+            # pushed last to first so that the first is on top
+            order = torch.argsort(key, dim=1, stable=True)
             key = torch.gather(key, 1, order)
             cc = torch.gather(cc, 1, order)
             hit = torch.gather(hit, 1, order)
             ins_n = ins[nsel]
             p = sp[a]
-            for k in range(WIDTH):
+            for k in reversed(range(WIDTH)):
                 h = hit[:, k]
                 c = cc[:, k]
                 to_inst = (c & INST_FLAG) != 0
@@ -409,7 +527,6 @@ def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
                 s_t[a[hi_], at[hi_]] = key[hi_, k]
                 p = p + h.to(torch.int64)
             sp[a] = p
-
         # ---- leaf entries: Moller-Trumbore over the leaf's slots in order
         lsel = torch.nonzero(is_leaf).squeeze(1)
         stats["tri_tests"] += lsel.numel() * leaf_size

@@ -6,9 +6,12 @@ from the port's own host build), so it also runs where JAX is absent:
 
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_cuda.py
 
-Every template of the wide-BVH kernel is held against the plain walk: the
-single-level soup tables (has_inst=False) and the two-level instanced ones,
-closest hit and any hit with a finite tmax; likewise the cull-sweep kernel,
+Every template of the wide-BVH kernel is held against the plain walk, bit
+for bit, with its counted node and leaf visits equal to the plain walk's:
+the single-level soup tables (has_inst=False) and the two-level instanced
+ones, closest hit and any hit with a finite tmax, and the edges of its cull
+and persistent walk (one lane, a ragged count, all lanes dead, no survivor,
+one survivor in 2^16 lanes, equal entry keys). Likewise the cull-sweep kernel,
 soup and 4 instances, both modes, with and without its counters, and on
 the cases its per-ray scan relies on: exact-t ties across two groups and
 across two coincident instances, packets in which each group is wanted by
@@ -74,35 +77,113 @@ def _host(h):
     return h.t.cpu().numpy(), h.index.cpu().numpy(), h.valid.cpu().numpy()
 
 
+def _wide_both_modes(tb, kw, o, d, tmin, tmax):
+    """The wide kernel against its plain walk in both modes (any hit with
+    tmax 10% short of the closest hit): t, index and valid bit for bit, the
+    kernel's node and leaf visits equal to the plain walk's, its survivors
+    to the plain root cull's. Returns the closest-hit summary and plain hits."""
+    out = None
+    tm = tmax
+    for any_hit in (False, True):
+        before = TW.intersect_wide.launches
+        hk, st = TW.intersect_wide(tb, o, d, tmin, tm, any_hit=any_hit,
+                                   with_stats=True, **kw)
+        assert TW.intersect_wide.launches == before + 1
+        hp, sp = TW.intersect_wide_plain(tb, o, d, tmin, tm, any_hit=any_hit,
+                                         with_stats=True, **kw)
+        for x, y in zip(hk, hp):
+            assert torch.equal(x, y), any_hit
+        summ = TW.stats_summary(st, kw["leaf_size"])
+        assert summ["node_visits"] == sp["node_visits"]
+        assert summ["tri_tests"] == sp["tri_tests"]
+        assert summ["survivors"] == int(
+            TW.wide_root_cull_plain(tb, o, d, tmin, tm).sum())
+        assert summ["live"] == int(TW.live_lanes(o, d, tmin, tm).sum())
+        if not any_hit:
+            out = summ, hp
+            tm = torch.where(hp.valid, hp.t * 0.9, torch.full_like(hp.t, 30.0))
+            tm = torch.where(tmax < 0, tmax, tm).contiguous()
+    return out
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["soup", "instanced"])
 def test_kernel_matches_plain_on_card(which):
+    """Pinned arithmetic and one child order on both sides: the kernel and
+    the plain walk agree bit for bit and count the same visits."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
-    tables, mt, origin = _soup() if which == "soup" else _instanced()
+    tables, _, origin = _soup() if which == "soup" else _instanced()
     tb = tables.to("cuda")
-    n_tris = tb.tris.shape[0]
-    kw = dict(has_inst=which == "instanced", leaf_size=LEAF, n_tris=n_tris)
+    kw = dict(has_inst=which == "instanced", leaf_size=LEAF,
+              n_tris=tb.tris.shape[0])
     o, d, tmin, tmax = _rays(21, 4096, origin, "cuda")
+    summ, hp = _wide_both_modes(tb, kw, o, d, tmin, tmax)
+    assert int(hp.valid.sum()) > 100 and summ["survivors"] > 100
+    assert summ["node_visits"] > summ["live"]
+    assert 0 < summ["simd"] <= 1
 
-    before = TW.intersect_wide.launches
-    tk, ik, vk = _host(TW.intersect_wide(tb, o, d, tmin, tmax, any_hit=False,
-                                         **kw))
-    hp = TW.intersect_wide_plain(tb, o, d, tmin, tmax, any_hit=False, **kw)
-    tp, ip, vp = _host(hp)
-    assert TW.intersect_wide.launches == before + 1
-    assert vp.sum() > 100
-    # t at rtol 1e-5 (float32 on both sides); indices compared through the
-    # rows and instances they select, since leaves pad by duplication
-    assert np.array_equal(vk, vp)
-    np.testing.assert_allclose(tk[vk], tp[vk], rtol=1e-5, atol=1e-5)
-    assert np.array_equal(mt[ik[vk] % n_tris], mt[ip[vk] % n_tris])
-    assert np.array_equal(ik[vk] // n_tris, ip[vk] // n_tris)
 
-    short = torch.where(hp.valid, hp.t * 0.9, torch.full_like(hp.t, 30.0))
-    ak = TW.intersect_wide(tb, o, d, tmin, short, any_hit=True, **kw)
-    ap = TW.intersect_wide_plain(tb, o, d, tmin, short, any_hit=True, **kw)
-    assert torch.equal(ak.valid, ap.valid)
+def _wide_case(case, which, tables):
+    """Rays of one edge case of the wide kernel's cull and persistent walk,
+    on the card."""
+    rng = np.random.default_rng(41)
+    origin = np.array([0.0, 0.0, 12.0 if which == "soup" else 10.0])
+    n = {"one-lane": 1, "ragged": 1000 + 7, "all-dead": 777,
+         "all-miss": 4096, "one-survivor": 1 << 16,
+         "equal-keys": 2048}[case]
+    o = np.repeat(origin[None], n, 0)
+    d = rng.normal(size=(n, 3))
+    if case in ("all-miss", "one-survivor"):
+        # straight up, away from the mesh below the origin
+        d = np.abs(d) * [0.05, 0.05, 1.0]
+    if case in ("one-lane", "one-survivor"):
+        # lane n // 3 aims at triangle 0's centroid (in the first instance)
+        row = tables.tris[0].numpy().astype(np.float64)
+        inst = tables.inst[min(1, tables.inst.shape[0] - 1)].numpy()
+        off, scl = inst[:3], float(inst[3])
+        target = (row[0:3] + (row[3:6] + row[6:9]) / 3) * scl + off
+        d[n // 3] = target - origin
+    if case == "equal-keys":
+        # origins inside the mesh: every box holding the origin is entered
+        # at tmin, so many children of a node share one key
+        o = rng.uniform(-0.5, 0.5, (n, 3)) * (4.0 if which == "soup" else 0.5)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, 1e-3)
+    tmax = np.full(n, np.inf)
+    if case == "all-dead":
+        tmin[::2], tmax[1::2] = np.inf, -1.0
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).cuda()
+    return f(o), f(d), f(tmin), f(tmax)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["soup", "instanced"])
+@pytest.mark.parametrize("case", ["one-lane", "ragged", "all-dead",
+                                  "all-miss", "one-survivor", "equal-keys"])
+def test_wide_kernel_edge_cases_on_card(case, which):
+    """The cull and the persistent walk at their edges: one lane, a count
+    that is not a multiple of 32, every lane dead, no survivor, one
+    survivor in 2^16 lanes, and origins inside several child boxes (equal
+    entry keys, ordered by slot); bit for bit in both modes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    tables, _, _ = _soup() if which == "soup" else _instanced()
+    tb = tables.to("cuda")
+    kw = dict(has_inst=which == "instanced", leaf_size=LEAF,
+              n_tris=tb.tris.shape[0])
+    o, d, tmin, tmax = _wide_case(case, which, tables)
+    summ, hp = _wide_both_modes(tb, kw, o, d, tmin, tmax)
+    if case == "all-dead":
+        assert summ["live"] == 0 and summ["node_visits"] == 0
+    elif case == "all-miss":
+        assert summ["live"] == o.shape[0] and summ["survivors"] == 0
+    elif case in ("one-lane", "one-survivor"):
+        assert summ["survivors"] == 1 and bool(hp.valid[o.shape[0] // 3])
+    elif case == "equal-keys":
+        assert int(hp.valid.sum()) > 10
+    else:
+        assert summ["survivors"] > 0
 
 
 @pytest.mark.cuda

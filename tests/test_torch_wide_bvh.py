@@ -3,6 +3,11 @@ JAX package: the host collapse must match `collapse_wide` exactly, and the
 plain traversal must return the hits of the TPU kernel run in interpret mode
 and of the XLA skip-link walks, on the meshes of tests/test_wide_bvh.py.
 
+The plain walk also stands for the CUDA kernel on the CPU: its child-planar
+bounds, its root cull (`wide_root_cull_plain`) and the wrapper's limits are
+checked here; the kernel itself is held against the plain walk, bit for bit,
+in tests/test_torch_cuda.py.
+
 Tolerances: t at rtol 1e-5 / atol 1e-5 (float32 Moller-Trumbore on both
 sides; the XLA walk's accept rule u+v<=1 and the port's 1-u-v>=0 round
 differently only on edge grazes, which these random meshes do not hit).
@@ -111,7 +116,7 @@ def test_plain_counts_its_work(single):
     dead = TW.intersect_wide_plain(tables, o, d, tmin,
                                    torch.full_like(tmin, -1.0),
                                    with_stats=True, **kw)[1]
-    assert dead == {"node_visits": 0, "tri_tests": 0}
+    assert dead == {"node_visits": 0, "ranked_visits": 0, "tri_tests": 0}
 
 
 def test_host_build_matches_reference(single):
@@ -278,11 +283,152 @@ def test_wrapper_validates_inputs(single):
     o, d, tmin, tmax = (torch.from_numpy(x) for x in _rays(1, 8))
     kw = dict(any_hit=False, has_inst=False, leaf_size=LEAF,
               n_tris=single["mt"].shape[0])
+    tb = single["tables"]
     with pytest.raises(ValueError, match="contiguous"):
-        TW.intersect_wide(single["tables"], o, d.t().contiguous().t(), tmin,
-                          tmax, **kw)
+        TW.intersect_wide(tb, o, d.t().contiguous().t(), tmin, tmax, **kw)
     with pytest.raises(ValueError, match="expected"):
-        TW.intersect_wide(single["tables"], o.double(), d, tmin, tmax, **kw)
+        TW.intersect_wide(tb, o.double(), d, tmin, tmax, **kw)
     with pytest.raises(ValueError, match="leaves"):
-        TW.intersect_wide(single["tables"], o, d, tmin, tmax,
-                          **dict(kw, leaf_size=3))
+        TW.intersect_wide(tb, o, d, tmin, tmax, **dict(kw, leaf_size=3))
+    with pytest.raises(ValueError, match="planar"):
+        TW.intersect_wide(tb._replace(planar=tb.planar.transpose(1, 2)
+                                      .contiguous()), o, d, tmin, tmax, **kw)
+    # what the kernel's stack and its packed entries cannot hold, decided
+    # from shapes alone (expanded tables allocate nothing)
+    with pytest.raises(ValueError, match="stack"):
+        TW.intersect_wide(tb._replace(depth=TW.STACK // (TW.WIDTH - 1) + 1),
+                          o, d, tmin, tmax, **kw)
+    n_big = TW.INST_FLAG
+    big = tb._replace(child=tb.child[:1].expand(n_big, TW.WIDTH),
+                      bounds=tb.bounds[:1].expand(n_big, TW.WIDTH, 6),
+                      planar=tb.planar[:1].expand(n_big, 6, TW.WIDTH))
+    with pytest.raises(ValueError, match="stack entry"):
+        TW.intersect_wide(big, o, d, tmin, tmax, **kw)
+    many = tb._replace(inst=tb.inst.expand(2 ** 31 // kw["n_tris"] + 2, 4))
+    with pytest.raises(ValueError, match="overflow int32"):
+        TW.intersect_wide(many, o, d, tmin, tmax, **dict(kw, has_inst=True))
+    n_many = 2 ** 31
+    with pytest.raises(ValueError, match="lane index"):
+        TW.intersect_wide(tb, o[:1].expand(n_many, 3), d[:1].expand(n_many, 3),
+                          tmin[:1].expand(n_many), tmax[:1].expand(n_many),
+                          **kw)
+    # the counters are the kernel's: there are none on the CPU
+    with pytest.raises(ValueError, match="with_stats"):
+        TW.intersect_wide(tb, o, d, tmin, tmax, with_stats=True, **kw)
+
+
+@pytest.mark.parametrize("which", ["single", "instanced"])
+def test_planar_bounds_hold_the_node_major_values(single, instanced, which):
+    """The kernel's child-planar copy holds exactly the values of
+    [N8, 8, 6]: planar[n, r, k] == bounds[n, k, r]."""
+    tb = (single if which == "single" else instanced)["tables"]
+    assert tb.planar.dtype == torch.float32 and tb.planar.is_contiguous()
+    assert tb.planar.shape == (tb.bounds.shape[0], 6, TW.WIDTH)
+    assert torch.equal(tb.planar, tb.bounds.transpose(1, 2))
+    moved = tb.to("cpu")
+    assert torch.equal(moved.planar, tb.planar)
+
+
+def _cull_rays(which, n=600, seed=5):
+    """Rays of which many miss every root child and some are dead: origins
+    around the mesh, directions random."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-14, 14, (n, 3)).astype(np.float32)
+    if which == "instanced":
+        o = (o * 0.5 + [0.0, 1.0, 6.0]).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, 1e-3, np.float32)
+    tmax = np.full(n, np.inf, np.float32)
+    tmin[::17], tmax[5::19] = np.inf, -1.0
+    return [torch.from_numpy(np.ascontiguousarray(x)) for x in (o, d, tmin, tmax)]
+
+
+def _kw(tables, which, any_hit=False):
+    return dict(any_hit=any_hit, has_inst=which == "instanced", leaf_size=LEAF,
+                n_tris=tables.tris.shape[0])
+
+
+@pytest.mark.parametrize("which", ["single", "instanced"])
+def test_root_cull_marks_lanes_whose_root_visit_pushes(single, instanced,
+                                                        which):
+    """wide_root_cull_plain keeps a lane exactly when its root visit in the
+    plain walk pushes a child: the lanes it drops do one node visit each
+    (dead ones none) and no triangle test, and each lane it keeps does
+    more than its root visit."""
+    tb = (single if which == "single" else instanced)["tables"]
+    o, d, tmin, tmax = _cull_rays(which)
+    kw = _kw(tb, which)
+    keep = TW.wide_root_cull_plain(tb, o, d, tmin, tmax)
+    live = TW.live_lanes(o, d, tmin, tmax)
+    assert not keep[~live].any()
+    drop = torch.nonzero(live & ~keep).squeeze(1)
+    assert 50 < drop.numel() and 50 < int(keep.sum())
+    st = TW.intersect_wide_plain(tb, *(x[drop] for x in (o, d, tmin, tmax)),
+                                 with_stats=True, **kw)[1]
+    assert st == {"node_visits": drop.numel(), "ranked_visits": 0,
+                  "tri_tests": 0}
+    for j in torch.nonzero(keep).squeeze(1)[:12].tolist():
+        st = TW.intersect_wide_plain(
+            tb, *(x[j:j + 1] for x in (o, d, tmin, tmax)), with_stats=True,
+            **kw)[1]
+        assert st["node_visits"] + st["tri_tests"] > 1, j
+
+
+@pytest.mark.parametrize("which", ["single", "instanced"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cull_keeps_every_hit_and_drops_to_the_miss(single, instanced, which,
+                                                     any_hit):
+    """Every lane with a plain-walk hit survives the cull, and a lane the
+    cull drops gets exactly the plain walk's miss (t = inf, index 0)."""
+    tb = (single if which == "single" else instanced)["tables"]
+    o, d, tmin, tmax = _cull_rays(which, seed=6)
+    kw = _kw(tb, which, any_hit)
+    if any_hit:
+        ref = TW.intersect_wide_plain(tb, o, d, tmin, tmax, **_kw(tb, which))
+        f = torch.where(torch.arange(o.shape[0]) % 2 == 0, 0.9, 1.1)
+        tmax = torch.where(ref.valid, ref.t * f, tmax)
+    hit = TW.intersect_wide_plain(tb, o, d, tmin, tmax, **kw)
+    keep = TW.wide_root_cull_plain(tb, o, d, tmin, tmax)
+    assert int(hit.valid.sum()) > 10
+    assert bool(keep[hit.valid].all())
+    assert torch.equal(hit.t[~keep], torch.full_like(hit.t[~keep], np.inf))
+    assert not hit.index[~keep].any() and not hit.valid[~keep].any()
+
+
+@pytest.mark.parametrize("which", ["single", "instanced"])
+def test_plain_counts_the_ranked_visits(single, instanced, which):
+    """ranked_visits counts the node visits that hit two or more children:
+    a ray's visits one at a time (its stack after each pop) give the same
+    count as the batched walk."""
+    tb = (single if which == "single" else instanced)["tables"]
+    o, d, tmin, tmax = _cull_rays(which, n=200, seed=8)
+    kw = _kw(tb, which)
+    st = TW.intersect_wide_plain(tb, o, d, tmin, tmax, with_stats=True,
+                                 **kw)[1]
+    per_ray = [TW.intersect_wide_plain(
+        tb, *(x[j:j + 1] for x in (o, d, tmin, tmax)), with_stats=True,
+        **kw)[1] for j in range(o.shape[0])]
+    for key in st:
+        assert st[key] == sum(p[key] for p in per_ray), key
+    assert 0 < st["ranked_visits"] < st["node_visits"]
+    # a lane the cull retires hits no child; a ray with one visit ranks none
+    assert all(p["ranked_visits"] == 0 for p in per_ray
+               if p["node_visits"] <= 1)
+
+
+def test_plain_equal_keys_match_xla_walk(single):
+    """Origins inside the mesh enter every box that holds them at tmin, so
+    many children of a node share one key and pop by slot: the hits still
+    equal the XLA walk's."""
+    rng = np.random.default_rng(13)
+    n = 1500
+    o = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, 1e-3, np.float32)
+    tmax = np.full(n, np.inf, np.float32)
+    ref = _xla_single(single, o, d, tmin, tmax)
+    got = _plain(single["tables"], o, d, tmin, tmax)
+    assert ref[2].sum() > 100
+    _same_hits(single["mt"], single["mt"].shape[0], got, ref)
