@@ -4,8 +4,14 @@
 Phases, each printing its result; any failure raises and exits non-zero:
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: one nvcc per kernel library of jet_pbrt_tpu_torch/csrc, all
-     started together (wide_bvh, sweep_bvh, sweep_prims, prim_micro), with
-     ptxas registers and spills;
+     started together (wide_bvh, sweep_bvh, sweep_prims, prim_micro,
+     threefry), with ptxas registers and spills;
+  2b. the random streams' Threefry kernel (csrc/threefry.cu) against its
+     plain version, bit for bit, at 2^20 lanes: the key words of
+     lane_keys, and the [2^20, S] uniforms of vertex_uniforms and
+     camera_jitter at the default bunny's S, on lanes in pixel order and
+     permuted as the ray sort permutes them; both versions timed, with
+     the kernel's bound;
   3. wide kernel vs its plain PyTorch version on the default bunny's
      tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
      half bounce) and a targeted incoherent set, closest hit and any hit
@@ -20,8 +26,10 @@ Phases, each printing its result; any failure raises and exits non-zero:
      efficiency and lane-0 cycle split are printed, and the walk's resident
      blocks per SM;
   4. main path: render(bunny_scene(), 1024, 1024, spp=4, max_depth=5,
-     device="cuda") with the exact wide-kernel launch count, rays/s by
-     class, peak memory, and a profiled wave; then the 16 wide casts of
+     device="cuda") with the exact launch counts of the wide kernel and of
+     the Threefry kernel, rays/s by class, peak memory, and a profiled
+     1-spp wave, profiled again with the streams drawn by the plain
+     version (the wave before the Threefry kernel); then the 16 wide casts of
      one 1-spp wave, recorded (o, d, tmin, tmax) by wrapping
      wide_bvh.intersect_wide here, each replayed alone: live lanes,
      survivors of the cull, kernel event time, host enqueue time and
@@ -29,7 +37,10 @@ Phases, each printing its result; any failure raises and exits non-zero:
      and the sums, with what could stall the host (collector passes,
      cudaMalloc and cudaFree calls) during the timed calls;
   5. converged goldens (bunny 64^2 and Cornell 48^2) under the reference
-     tests' statistical gates;
+     tests' statistical gates, and the exact-seed Cornell 16^2 golden
+     (tests/golden/cornell_smoke_16.npz): the pixels outside rtol 1e-4 /
+     atol 1e-5 are printed and counted against EXACT_SEED_MAX_OFF, the mean
+     held within 1e-3 relative;
   6. sweep kernel vs its plain version, as phase 3, on the meshes too big
      for the reference's wide-kernel budget: the instanced bunny of the
      600k-target OBJ and the soup of four copies of the 150k-target OBJ
@@ -50,7 +61,14 @@ Phases, each printing its result; any failure raises and exits non-zero:
      point times all 11 probes at REPS = 2048 (ns per dependent
      iteration), with the exact launch count; the output of every probe's
      timed launches is held against its plain version at REPS bit for bit
-     (mt equal to inf), the plain version timed there.
+     (mt equal to inf), the plain version timed there;
+ 10. the command line: `python -m jet_pbrt_tpu_torch.cli 1 4 --size 1024`
+     in a subprocess, whose BMP must equal utils.image.write_bmp of
+     render(bunny_scene(), 1024, 1024, 4, seed=0) here byte for byte; then
+     Cornell 256^2 through cli.main under --integrator whitted, debug,
+     --sampler stratified, --mis and --format ppm / hdr, each file read
+     back finite with its wall time; and a render_resumable stopped after 2
+     of 4 samples and resumed, equal bit for bit to the uninterrupted one.
 The line before the last is the per-kernel JSON summary, each kernel with
 its bound: the larger of its bytes (inputs read once, outputs written once)
 at HBM_BW and its float operations at F32_PEAK, counted on the timed call's
@@ -66,13 +84,16 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from jet_pbrt_tpu_torch import cli
 from jet_pbrt_tpu_torch.models import camera as camera_mod
+from jet_pbrt_tpu_torch.models import integrators
 from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, render
 from jet_pbrt_tpu_torch.ops import rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops.linalg import frame_from_z, to_world
@@ -80,7 +101,8 @@ from jet_pbrt_tpu_torch.ops.sampling import sample_cosine_hemisphere
 from jet_pbrt_tpu_torch.scene import pack as scene_pack
 from jet_pbrt_tpu_torch.scene.scenes import bunny_obj, bunny_scene, cornell_box
 from jet_pbrt_tpu_torch.scripts import prim_micro, sweep_prims
-from jet_pbrt_tpu_torch.utils import cuda_build
+from jet_pbrt_tpu_torch.utils import checkpoint, cuda_build
+from jet_pbrt_tpu_torch.utils import image as image_io
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden")
@@ -96,7 +118,8 @@ MAX_EXPLAINED = 1e-3
 PLAIN_2_18_LIMIT_S = 5.0
 LIBRARIES = (("wide_bvh", ["wide_bvh.cu"]), ("sweep_bvh", ["sweep_bvh.cu"]),
              ("sweep_prims", ["sweep_prims.cu"]),
-             ("prim_micro", ["prim_micro.cu"]))
+             ("prim_micro", ["prim_micro.cu"]),
+             ("threefry", ["threefry.cu"]))
 # one H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores, and
 # HBM3; every float operation below counts as one against F32_PEAK
 F32_PEAK = 67e12     # FLOP/s
@@ -131,6 +154,19 @@ MT_TEST_OPS = 44 + 1 + 1 + 1 + 4 + 1
 # table values (rows 6k..6k+7 of 128 columns, 6 rows for k = 7); srt's
 # comparators and integer adds count against the float rate (the table of
 # peaks has no int32 rate). The update acc + s * 1e-9 is 2.
+# Threefry-2x32-20 as threefry.cu issues it: 20 rounds of an add, a funnel
+# shift and a xor, 5 key injections of 3 adds, and the 2 adds and 2 xors
+# before the rounds; a uniform's float takes the xor of the two words, a
+# shift, an or and the subtraction. Integer operations count against
+# F32_PEAK, as K4's do (the table of peaks has no int32 rate).
+HASH_OPS = 20 * 3 + 5 * 3 + 4
+UNIFORM_OPS = 4
+# the Cornell 16^2 exact-seed golden was rendered by the reference under
+# jit, where XLA contracts a * b + c into fused multiply-adds; its own
+# op-by-op render on the CPU misses the golden's tolerance on 24 of 256
+# pixels (tests/test_torch_render.py), and the card's libm rounds
+# differently again: the share of pixels outside that may pass
+EXACT_SEED_MAX_OFF = 0.2
 PROBE_OPS = dict(m1=1, m4=4, b1=4, r1=8 + 7 + 2, x8=7 + 2, x32=31 + 2,
                  r2=2 * (7 * 8 * 128 + 6 * 128) - 8 + 7 + 2,
                  srt=2 * 19 + 7 + 1 + 2, f1=1, f3=2 + 1,
@@ -243,6 +279,105 @@ def sweep_route(scene) -> Route:
                  lambda *r, any_hit: sweep_bvh.intersect_sweep_plain(
                      tables, *r, any_hit=any_hit, n_tris=n_tris),
                  rows.cpu().numpy(), inst, n_tris, work, False)
+
+
+# --------------------------------------------------------------------------
+# 2b. the random streams' kernel
+# --------------------------------------------------------------------------
+
+def rng_launches() -> int:
+    return rng.lane_keys.launches + rng.uniforms.launches
+
+
+def reset_rng_launches():
+    rng.lane_keys.launches = 0
+    rng.uniforms.launches = 0
+
+
+def rng_bits(label, k, p):
+    """Number of entries whose bits differ; raises if any does."""
+    bad = int((k.view(torch.int32) != p.view(torch.int32)).sum()) \
+        if k.dtype == torch.float32 else int((k != p).sum())
+    if bad:
+        raise AssertionError(f"threefry {label}: {bad} entries differ from "
+                             "the plain version")
+    return bad
+
+
+def rng_phase(dev, n_lights: int, n: int = 1 << 20):
+    """The Threefry kernel against its plain version at 2^20 lanes (pixels
+    0..2^20-1, samples 0-3 per lane): lane key words, the uniforms of every
+    vertex purpose and the camera's, in pixel order and permuted as the ray
+    sort permutes lanes (and equal to the permuted unsorted draw); times of
+    both versions by events, and the bound of one vertex_uniforms call.
+    Returns (ms, plain ms, (bound ms, binds)) of vertex_uniforms and the
+    largest |kernel - plain| of the uniforms compared."""
+    s = 4 + 2 * n_lights
+    gen = torch.Generator().manual_seed(0)
+    pixel = torch.arange(n, device=dev)
+    sample = torch.randint(0, 4, (n,), generator=gen).to(dev)
+    perm = torch.randperm(n, generator=gen).to(dev)
+    seed = 2 ** 31 - 1
+    keys = rng.lane_keys(seed, sample, pixel)
+    plain = rng.lane_keys_plain(seed, sample, pixel)
+    rng_bits("lane_keys k0", keys.k0, plain.k0)
+    rng_bits("lane_keys k1", keys.k1, plain.k1)
+    moved = integrators._permute(keys, perm)
+    err = 0.0
+    for label, purpose, width in (
+            [("camera", rng.PURPOSE_CAMERA, 2)]
+            + [(f"vertex {b}", rng.PURPOSE_PATH_BASE + b, s)
+               for b in range(5)]):
+        k = rng.uniforms(keys, purpose, width)
+        p = rng.uniforms_plain(keys, purpose, width)
+        rng_bits(label, k, p)
+        err = max(err, float((k - p).abs().max()))
+        ks = rng.uniforms(moved, purpose, width)
+        rng_bits(label + " sorted", ks, rng.uniforms_plain(moved, purpose,
+                                                           width))
+        rng_bits(label + " sorted vs unsorted", ks, k[perm])
+    for sampler in ("random", "stratified"):
+        rng_bits(f"camera_jitter {sampler}",
+                 rng.camera_jitter(moved, sampler, spp=4),
+                 rng.camera_jitter(keys, sampler, spp=4)[perm])
+    purpose = rng.PURPOSE_PATH_BASE + 2
+    ms, out = time_ms(lambda: rng.vertex_uniforms(keys, 2, n_lights), 20)
+    plain_ms, _ = time_ms(lambda: rng.uniforms_plain(keys, purpose, s), 2)
+    keys_ms, _ = time_ms(lambda: rng.lane_keys(seed, sample, pixel), 20)
+    keys_plain_ms, _ = time_ms(
+        lambda: rng.lane_keys_plain(seed, sample, pixel), 2)
+    # keys in (two int32 words), the [n, S] float32 out; a fold_in and S
+    # hashes per lane
+    b = bound(n * 8 + out.nbytes, n * ((1 + s) * HASH_OPS + s * UNIFORM_OPS))
+    kb = bound(n * 16 + n * 8, n * 2 * HASH_OPS)
+    print(f"threefry at {n} lanes, S = {s}: lane key words and the uniforms "
+          "of the camera and 5 vertices equal the plain version bit for bit, "
+          "sorted and unsorted; vertex_uniforms kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]}); lane_keys kernel {keys_ms:.4f} ms, plain "
+          f"{keys_plain_ms:.3f} ms, bound {kb[0]:.4f} ms ({kb[1]})",
+          flush=True)
+    return ms, plain_ms, b, err
+
+
+@contextlib.contextmanager
+def plain_streams():
+    """While open, the streams are drawn by the plain version on the card
+    (the wave as it was before the Threefry kernel): a measurement of this
+    script only; the port never takes it."""
+    keys, uni = rng.lane_keys, rng.uniforms
+
+    def plain_keys(seed, sample, pixel_ids):
+        pixel = pixel_ids.to(torch.int64)
+        sample = torch.as_tensor(sample, dtype=torch.int64,
+                                 device=pixel.device).expand(pixel.shape)
+        return rng.lane_keys_plain(seed, sample, pixel)
+
+    rng.lane_keys, rng.uniforms = plain_keys, rng.uniforms_plain
+    try:
+        yield
+    finally:
+        rng.lane_keys, rng.uniforms = keys, uni
 
 
 # --------------------------------------------------------------------------
@@ -794,18 +929,23 @@ def main_path(scene, dev, label, res=1024, spp=4, depth=5):
     expected = {"wide_bvh": casts * (sum(meta.wide_blas) + int(meta.wide_bvh)),
                 "sweep_bvh": casts * (sum(meta.pallas_blas)
                                       + int(meta.pallas_bvh))}
+    # a wave draws its lane keys, the camera's jitter and one set of
+    # uniforms per vertex below max_depth: one Threefry launch each
+    expected["threefry"] = n_waves(res, res, spp, DEFAULT_CHUNK) * (2 + depth)
     render(scene, 64, 64, spp=1, max_depth=depth, device=dev)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     wide_bvh.intersect_wide.launches = 0
     sweep_bvh.intersect_sweep.launches = 0
+    reset_rng_launches()
     t0 = time.perf_counter()
     img, st = render(scene, res, res, spp=spp, max_depth=depth, seed=0,
                      clamp=False, device=dev, with_stats=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"wide_bvh": wide_bvh.intersect_wide.launches,
-                "sweep_bvh": sweep_bvh.intersect_sweep.launches}
+                "sweep_bvh": sweep_bvh.intersect_sweep.launches,
+                "threefry": rng_launches()}
     peak = torch.cuda.max_memory_allocated()
     if launches != expected:
         raise AssertionError(f"{label}: kernel launches {launches}, the wave "
@@ -824,7 +964,14 @@ def main_path(scene, dev, label, res=1024, spp=4, depth=5):
           f"{float(img.mean()):.5f}"
           + (f", sweep counters {sweep}" if sweep else ""), flush=True)
 
-    # where a wave's time goes, by kernel (profiled outside the count)
+    profile_wave(scene, dev, label, res, depth)
+    return launches
+
+
+def profile_wave(scene, dev, label, res=1024, depth=5, table=True):
+    """Where a 1-spp wave's time goes, by kernel (profiled outside the
+    launch counts): wall, device kernel time, busy share and each kernel's
+    share. Returns (wall ms, device ms)."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
@@ -840,7 +987,9 @@ def main_path(scene, dev, label, res=1024, spp=4, depth=5):
     share = {name: sum(_device_us(e) for e in kernels
                        if any(k in e.key for k in keys))
              for name, keys in (("wide_bvh", WIDE_KERNELS),
-                                ("sweep_bvh", ("sweep_bvh_kernel",)))}
+                                ("sweep_bvh", ("sweep_bvh_kernel",)),
+                                ("threefry", ("lane_keys_kernel",
+                                              "uniforms_kernel")))}
     print(f"{label} profiled 1-spp wave: wall {prof_wall * 1e3:.1f} ms, device "
           f"kernel time {total / 1e3:.1f} ms (busy "
           f"{total / 1e4 / prof_wall:.1f}%), "
@@ -848,9 +997,10 @@ def main_path(scene, dev, label, res=1024, spp=4, depth=5):
                       f"({100 * v / max(total, 1):.1f}% of device time)"
                       for k, v in share.items()),
           flush=True)
-    print(events.table(sort_by="self_cuda_time_total", row_limit=12),
-          flush=True)
-    return launches
+    if table:
+        print(events.table(sort_by="self_cuda_time_total", row_limit=12),
+              flush=True)
+    return prof_wall * 1e3, total / 1e3
 
 
 def sort_effect(scene, dev, label, res=1024, depth=5):
@@ -935,6 +1085,21 @@ def goldens(bunny, dev):
     print(f"cornell 48^2 512 spp vs golden: MAE {mae:.4f}, region worst "
           f"{worst:.4f}, energy {energy:.4f} (gates 0.05 / 0.12 / 0.02)",
           flush=True)
+
+    ref = np.load(os.path.join(GOLDEN, "cornell_smoke_16.npz"))["img"]
+    img = render(cornell_box(), 16, 16, spp=8, seed=42, max_depth=5,
+                 device=dev).cpu().numpy()
+    off = ~np.all(np.isclose(img, ref, rtol=1e-4, atol=1e-5), axis=-1)
+    rel = abs(float(img.mean()) - float(ref.mean())) / float(ref.mean())
+    print(f"cornell 16^2 8 spp seed 42 vs the exact-seed golden: "
+          f"{int(off.sum())} of {off.size} pixels outside rtol 1e-4 / atol "
+          f"1e-5 ({100 * off.mean():.1f}%; gate {100 * EXACT_SEED_MAX_OFF:.0f}"
+          f"%), at (y, x) {[tuple(int(v) for v in p) for p in np.argwhere(off)]}"
+          f", max |diff| {float(np.abs(img - ref).max()):.6f}; mean relative "
+          f"difference {rel:.2e} (gate 1e-3)", flush=True)
+    if not np.isfinite(img).all() or off.mean() > EXACT_SEED_MAX_OFF \
+            or rel > 1e-3:
+        raise AssertionError("cornell exact-seed golden gate failed")
 
 
 # --------------------------------------------------------------------------
@@ -1047,6 +1212,105 @@ def probes(dev):
     return launches, ns, total, max(bounds)[1], err
 
 
+# --------------------------------------------------------------------------
+# 10. the command line
+# --------------------------------------------------------------------------
+
+def read_image(path: str) -> np.ndarray:
+    """A written BMP, PPM or HDR file back as float32 [H, W, 3] (the BMP's
+    and PPM's gamma undone, the HDR's RGBE decoded)."""
+    if path.endswith(".ppm"):
+        return image_io.read_ppm(path)
+    with open(path, "rb") as f:
+        data = f.read()
+    if path.endswith(".bmp"):
+        w, h = (int(x) for x in np.frombuffer(data[18:26], "<i4"))
+        rows = np.frombuffer(data[54:], np.uint8).reshape(h, -1)
+        u8 = rows[::-1, :w * 3].reshape(h, w, 3)[..., ::-1]
+        return np.power(u8 / 255.0, 2.2).astype(np.float32)
+    head = data.index(b"+X")
+    dims = data[data.rindex(b"\n", 0, head) + 1:data.index(b"\n", head)]
+    h, w = int(dims.split()[1]), int(dims.split()[3])
+    rgbe = np.frombuffer(data[data.index(b"\n", head) + 1:], np.uint8)
+    rgbe = rgbe.reshape(h, w, 4).astype(np.float64)
+    scale = np.where(rgbe[..., 3] > 0, np.ldexp(1.0, rgbe[..., 3].astype(int)
+                                                - 136), 0.0)
+    return (rgbe[..., :3] * scale[..., None]).astype(np.float32)
+
+
+def cli_phase(dev, res=1024, small=256):
+    """The bunny CLI at res^2 in a subprocess against render() + write_bmp
+    here, Cornell small^2 through cli.main under each option, and a
+    resumed render. Returns the bunny CLI's wall time in s. (On the CPU, a
+    rehearsal, both pass --device cpu.)"""
+    where = [] if dev.type == "cuda" else ["--device", dev.type]
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "bunny")
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "jet_pbrt_tpu_torch.cli", "1", "4",
+             "--size", str(res), "--out", base] + where, cwd=ROOT, env=env,
+            capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        print(proc.stdout + proc.stderr, flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"the CLI exited {proc.returncode}")
+        with open(base + ".bmp", "rb") as f:
+            got = f.read()
+        img = render(bunny_scene(), res, res, 4, seed=0, device=dev)
+        image_io.write_bmp(os.path.join(tmp, "here.bmp"), img.cpu().numpy())
+        with open(os.path.join(tmp, "here.bmp"), "rb") as f:
+            want = f.read()
+        if got != want:
+            n = min(len(got), len(want))
+            diff = int(np.count_nonzero(np.frombuffer(got[:n], np.uint8)
+                                        != np.frombuffer(want[:n], np.uint8)))
+            raise AssertionError(f"CLI BMP differs from render() + write_bmp "
+                                 f"in {diff} bytes (sizes {len(got)}, "
+                                 f"{len(want)})")
+        print(f"cli 1 4 --size {res}: exit 0 in {wall:.2f} s (process start, "
+              f"scene build and render); its BMP ({len(got)} bytes) equals "
+              f"write_bmp(render(bunny_scene(), {res}, {res}, 4, seed=0)) "
+              "byte for byte", flush=True)
+
+        for flags in (["--integrator", "whitted"], ["--integrator", "debug"],
+                      ["--sampler", "stratified"], ["--mis"],
+                      ["--format", "ppm"], ["--format", "hdr"]):
+            out = os.path.join(tmp, "cornell")
+            t0 = time.perf_counter()
+            rc = cli.main(["0", "4", "--size", str(small), "--out", out]
+                          + flags + where)
+            secs = time.perf_counter() - t0
+            fmt = flags[1] if flags[0] == "--format" else "bmp"
+            back = read_image(f"{out}.{fmt}")
+            if rc != 0 or back.shape != (small, small, 3) \
+                    or not np.isfinite(back).all() or not back.mean() > 0.01:
+                raise AssertionError(f"cli 0 4 --size {small} {flags}: exit "
+                                     f"{rc}, image {back.shape} mean "
+                                     f"{back.mean()}")
+            print(f"cli 0 4 --size {small} {' '.join(flags)}: {secs:.3f} s, file "
+                  f"read back finite, mean {float(back.mean()):.5f}",
+                  flush=True)
+
+        scene = cornell_box()
+        ck = os.path.join(tmp, "resume.npz")
+        whole = checkpoint.render_resumable(scene, small, small, 4,
+                                            os.path.join(tmp, "whole.npz"),
+                                            device=dev)
+        checkpoint.render_resumable(scene, small, small, 2, ck, device=dev)
+        resumed = checkpoint.render_resumable(scene, small, small, 4, ck,
+                                              device=dev)
+        if not torch.equal(resumed, whole):
+            raise AssertionError("the resumed render differs from the "
+                                 "uninterrupted one")
+        same = torch.equal(whole, render(scene, small, small, 4, device=dev))
+        print(f"render_resumable Cornell {small}^2 4 spp, stopped after 2 samples "
+              "and resumed: equal to the uninterrupted run bit for bit "
+              f"(asserted); equal to render(): {same}", flush=True)
+    return wall
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1071,11 +1335,17 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print("  " + line.strip(), flush=True)
 
-    phase("3 wide kernel vs plain")
+    phase("2b threefry kernel vs plain")
     t0 = time.perf_counter()
     bunny = bunny_scene().to(dev)
+    bunny_s = time.perf_counter() - t0
+    rng_s = 4 + 2 * bunny.meta.n_lights
+    rng_ms, rng_plain_ms, rng_bound, rng_err = rng_phase(dev,
+                                                         bunny.meta.n_lights)
+
+    phase("3 wide kernel vs plain")
     wide = wide_route(bunny)
-    print(f"bunny scene built in {time.perf_counter() - t0:.2f} s: "
+    print(f"bunny scene built in {bunny_s:.2f} s: "
           f"{bunny.meta.n_blas_tris[0]} BLAS rows, "
           f"{bunny.pack.inst_wide[0].bounds.shape[0]} wide nodes, depth "
           f"{bunny.pack.inst_wide[0].depth}; wide walk: "
@@ -1092,7 +1362,11 @@ def main() -> int:
     wide_err = max(wide_err, wide_times["err"])
 
     phase("4 main path (wide route)")
-    wide_launches = main_path(bunny, dev, "bunny")["wide_bvh"]
+    frame_launches = main_path(bunny, dev, "bunny")
+    wide_launches = frame_launches["wide_bvh"]
+    with plain_streams():
+        profile_wave(bunny, dev, "bunny, streams by the plain version,",
+                     table=False)
     casts = wide_casts(bunny, dev)
     lights = sum(1 for lt in bunny.meta.lights if not lt.static_black)
     expected = n_waves(1024, 1024, 1, DEFAULT_CHUNK) * (6 + 5 * lights)
@@ -1140,9 +1414,13 @@ def main() -> int:
     phase("9 wide-kernel primitives (K4)")
     probe_launches, probe_ns, probe_total, probe_by, probe_err = probes(dev)
 
+    phase("10 command line")
+    cli_phase(dev)
+
     k_ms, p_ms, p_rays = sweep_times["instanced"]["closest"]
     # no single PyTorch call computes any of these functions (BVH
-    # traversal, K3's min-sum epilogue, K4's dependent recurrences)
+    # traversal, K3's min-sum epilogue, K4's dependent recurrences, the
+    # Threefry hash)
     print(json.dumps({"kernels": [
         {"name": "wide_bvh", "route": "cuda",
          "source": "jet_pbrt_tpu_torch/csrc/wide_bvh.cu",
@@ -1178,7 +1456,14 @@ def main() -> int:
          "ms": probe_total["ms"], "plain_ms": probe_total["plain_ms"],
          "bound_ms": probe_total["bound_ms"], "bound_by": probe_by,
          "library_ms": None, "reps": prim_micro.REPS,
-         "probes": probe_ns}]}),
+         "probes": probe_ns},
+        {"name": "threefry", "route": "cuda",
+         "source": "jet_pbrt_tpu_torch/csrc/threefry.cu",
+         "replaces": "jax.random threefry (XLA; no Pallas kernel)",
+         "launches": frame_launches["threefry"], "max_abs_err": rng_err,
+         "ms": rng_ms, "plain_ms": rng_plain_ms, "bound_ms": rng_bound[0],
+         "bound_by": rng_bound[1], "library_ms": None,
+         "lanes": 1 << 20, "s": rng_s}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

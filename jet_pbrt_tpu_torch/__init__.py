@@ -1,24 +1,29 @@
 """jet_pbrt_tpu_torch — the path tracer of jet_pbrt_tpu on PyTorch and CUDA.
 
 The same renderer as the JAX package beside it, which stays the reference:
-scene building, per-lane shading math and the path integrator are plain
-PyTorch; BVH traversal is CUDA kernels written for Hopper (csrc/), built
-with nvcc at first use, each with a plain PyTorch version as its CPU route
-and oracle. Entry points run on the card unless the caller asks for the
-CPU (device="cpu").
+scene building, per-lane shading math and the integrators are plain
+PyTorch; BVH traversal and the random streams' Threefry hash are CUDA
+kernels written for Hopper (csrc/), built with nvcc at first use, each
+with a plain PyTorch version as its CPU route and oracle. Entry points
+(render, render_resumable, `python -m jet_pbrt_tpu_torch.cli`) run on
+the card unless the caller asks for the CPU (device="cpu", --device cpu).
 
 Layout mirrors the reference package:
-  ops/      linalg, rng, sampling, fresnel, microfacet, bsdf, intersect,
-            lights, bvh (host build), wide_bvh (8-wide traversal),
-            sweep_bvh (cull-sweep traversal), sort (the ray sort)
+  ops/      linalg, rng (jax.random's streams), sampling, fresnel,
+            microfacet, bsdf, intersect, lights, bvh (host build),
+            wide_bvh (8-wide traversal), sweep_bvh (cull-sweep
+            traversal), sort (the ray sort)
   scene/    pack, builder, scenes, convert (reference scene -> port),
             objio (OBJ I/O), assets (the bunny generator)
-  models/   camera, integrators (li_path), render
+  models/   camera, integrators (path, Whitted, debug normals), film,
+            render
   scripts/  the harnesses: sweep_prims (the sweep's primitives),
             prim_micro (the wide kernel's primitive probes)
   utils/    cuda_build (nvcc + ctypes), native (ctypes bridge to the C++ host
-            library)
-  csrc/     CUDA sources: wide_bvh, sweep_bvh, sweep_prims, prim_micro
+            library), image (BMP / PPM / HDR), log, checkpoint
+  csrc/     CUDA sources: wide_bvh, sweep_bvh, sweep_prims, prim_micro,
+            threefry
+  cli.py    the command-line renderer
 """
 import torch
 

@@ -9,8 +9,11 @@ the sampled f. With sort_rays (default: on whenever a mesh goes through a
 traversal kernel, as in the reference), lanes are permuted between the
 first bounces so the sweep kernel's 128-ray packets are dense and coherent
 (ops/sort.py); every per-lane quantity, the lane's random stream included,
-travels with its lane, so the estimate does not change. MIS is not ported
-yet.
+travels with its lane, so the estimate does not change. mis=True adds the
+power-heuristic MIS the reference package defines (its BSDF-sampled
+emitter hits weighted against `pdf_li`, its NEE weighted against the BSDF
+pdf). `li_whitted` and `li_debug_normal` are the reference package's other
+two integrators (integrators.py:300-381).
 """
 from __future__ import annotations
 
@@ -22,23 +25,29 @@ from ..ops import rng
 from ..ops import sort as sort_ops
 from ..ops.linalg import absdot, frame_from_z, to_local, to_world, \
     max_component, is_black
+from ..ops.sampling import power_heuristic
 from ..scene import pack as scene_pack
 
 
 def _permute(u, perm):
-    """LaneKeys or uniforms [N, ...] reordered by perm."""
+    """LaneKeys (both key words and the sample index) or uniforms [N, ...]
+    reordered by perm."""
     if isinstance(u, rng.LaneKeys):
-        return rng.LaneKeys(u.seed, u.sample[perm], u.pixel[perm])
+        return rng.LaneKeys(*(x[perm] for x in u))
     return u[perm]
 
 
-def li_path(meta, pack, o, d, u, max_depth: int, nee: bool = True,
-            with_stats: bool = False, sort_rays: bool | None = None):
+def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
+            nee: bool = True, with_stats: bool = False,
+            sort_rays: bool | None = None):
     """Path-traced radiance L [N,3] of rays o, d [N,3].
 
     u is `rng.LaneKeys` or pregenerated uniforms [N, max_depth+1, S].
-    nee=False credits emission at every bounce instead (the plain BSDF
-    estimator of the same integral). with_stats also returns the casts the
+    mis=True weights BSDF-sampled emitter hits after non-specular bounces
+    and the NEE of non-delta lights by the power heuristic
+    (reference package integrators.py:118-136, 182-196). nee=False
+    credits emission at every bounce instead (the plain BSDF estimator of
+    the same integral). with_stats also returns the casts the
     estimator needs, by class: closest-hit casts on live lanes (primary,
     bounce) and shadow casts with a non-zero potential contribution, and,
     for sweep-routed meshes, the sweep kernel's counters (pack._sweep).
@@ -54,6 +63,8 @@ def li_path(meta, pack, o, d, u, max_depth: int, nee: bool = True,
     beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     prev_specular = torch.zeros((n,), dtype=torch.bool, device=dev)
+    # pdf of the previous BSDF sample, for the MIS weight of emitter hits
+    prev_pdf = torch.zeros((n,), dtype=torch.float32, device=dev)
     ray_o, ray_d = o, d
     inf = torch.full((n,), float("inf"), device=dev)
     neg = torch.full((n,), -1.0, device=dev)
@@ -84,6 +95,22 @@ def li_path(meta, pack, o, d, u, max_depth: int, nee: bool = True,
         le = torch.where(hit.valid[:, None], scene_pack.emitted(pack, hit),
                          le_env)
         L = L + torch.where(gate[:, None], beta * le, torch.zeros_like(le))
+
+        if mis and bounce > 0:
+            # the BSDF-sampled emitter hits that NEE alone drops
+            w_area = torch.zeros((n,), dtype=torch.float32, device=dev)
+            for li_idx in range(nl):
+                kind = meta.lights[li_idx].kind
+                if kind not in (scene_pack.LIGHT_AREA, scene_pack.LIGHT_ENV):
+                    continue
+                pl = light_ops.pdf_li(meta, pack, li_idx, ray_o, ray_d)
+                w = power_heuristic(1.0, prev_pdf, 1.0, pl)
+                this = (hit.valid & (hit.light_id == li_idx)
+                        if kind == scene_pack.LIGHT_AREA else ~hit.valid)
+                w_area = torch.where(this, w, w_area)
+            L = L + torch.where((active & ~prev_specular)[:, None],
+                                beta * le * w_area[:, None],
+                                torch.zeros_like(le))
 
         if bounce >= max_depth:
             break
@@ -116,6 +143,12 @@ def li_path(meta, pack, o, d, u, max_depth: int, nee: bool = True,
             contrib = beta * f * ls.li * (
                 absdot(ls.wi, hit.normal)
                 / torch.clamp_min(ls.pdf, 1e-20))[:, None]
+            if mis and not scene_pack.light_is_delta(meta, li_idx):
+                pb = bsdf_ops.pdf(lobe, wo_local, wi_local,
+                                  lobes=meta.present_lobes,
+                                  mf_kinds=meta.present_mf_kinds)
+                contrib = contrib * power_heuristic(1.0, ls.pdf, 1.0,
+                                                    pb)[:, None]
             occ = scene_pack.occluded(
                 meta, pack, hit.position, ls.pos, mask=useful,
                 sort=meta.kernel_routed and bounce < 2, stats=sweep_stats)
@@ -144,6 +177,7 @@ def li_path(meta, pack, o, d, u, max_depth: int, nee: bool = True,
                   * rr_scale[:, None])
         beta = torch.where(active[:, None], beta * weight, beta)
         prev_specular = bs.is_specular
+        prev_pdf = bs.pdf
         ray_o = torch.where(active[:, None], hit.position, ray_o)
         ray_d = torch.where(active[:, None], wi_world, ray_d)
 
@@ -160,9 +194,9 @@ def li_path(meta, pack, o, d, u, max_depth: int, nee: bool = True,
             key = sort_ops.ray_sort_key(active, ray_o, ray_d, world_lo,
                                         world_inv, needs_bvh=needs)
             perm = torch.argsort(key, stable=True)
-            L, beta, ray_o, ray_d, active, prev_specular, lane = (
+            L, beta, ray_o, ray_d, active, prev_specular, prev_pdf, lane = (
                 x[perm] for x in (L, beta, ray_o, ray_d, active,
-                                  prev_specular, lane))
+                                  prev_specular, prev_pdf, lane))
             u = _permute(u, perm)
 
     if sort_rays:
@@ -175,3 +209,83 @@ def li_path(meta, pack, o, d, u, max_depth: int, nee: bool = True,
                    "rays_shadow": n_shadow,
                    "rays": n_primary + n_bounce + n_shadow, **sweep_stats}
     return L
+
+
+def li_debug_normal(meta, pack, o, d):
+    """Normal visualisation (reference: src/integrator.h:44-58): |normal|
+    on a hit, black on a miss."""
+    n = o.shape[0]
+    tmin = pack.ray_eps.expand(n)
+    tmax = torch.full((n,), float("inf"), device=o.device)
+    hit = scene_pack.intersect(meta, pack, o, d, tmin, tmax)
+    return torch.where(hit.valid[:, None], torch.abs(hit.normal),
+                       torch.zeros_like(hit.normal))
+
+
+def li_whitted(meta, pack, o, d, u, max_depth: int):
+    """Whitted-style integrator (reference: src/integrator.cc:115-220):
+    emission at every depth, NEE at every hit, and a path continues only
+    through delta (specular) lobes."""
+    n = o.shape[0]
+    dev = o.device
+    nl = meta.n_lights
+    L = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    beta = torch.ones((n, 3), dtype=torch.float32, device=dev)
+    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    ray_o, ray_d = o, d
+    inf = torch.full((n,), float("inf"), device=dev)
+    neg = torch.full((n,), -1.0, device=dev)
+    eps = pack.ray_eps.expand(n)
+    le_env = light_ops.env_radiance(meta, pack, n)
+
+    for bounce in range(max_depth + 1):
+        hit = scene_pack.intersect(meta, pack, ray_o, ray_d,
+                                   torch.where(active, eps, inf),
+                                   torch.where(active, inf, neg))
+        le = torch.where(hit.valid[:, None], scene_pack.emitted(pack, hit),
+                         le_env)
+        L = L + torch.where(active[:, None], beta * le, torch.zeros_like(le))
+        if bounce >= max_depth:
+            break
+        cont = active & hit.valid
+
+        u_vertex = rng.vertex_uniforms(u, bounce, nl)
+        mat_kind, c0, c1, s0, s1, remap, tex_id, mf_kind = \
+            scene_pack.gather_material(pack, hit.mat_id)
+        c0 = scene_pack.effective_kd(meta, pack, hit, c0, tex_id)
+        lobe = bsdf_ops.make_lobe(mat_kind, c0, c1, s0, s1, remap,
+                                  rng.stream_lobe(u_vertex), mf_kind=mf_kind)
+        delta = bsdf_ops.is_delta(lobe)
+        frame = frame_from_z(hit.normal)
+        wo_local = to_local(frame, hit.wo)
+
+        for li_idx in range(nl):
+            if meta.lights[li_idx].static_black:
+                continue
+            ls = light_ops.sample_li(meta, pack, li_idx, hit.position,
+                                     rng.stream_nee(u_vertex, li_idx))
+            f = bsdf_ops.eval_f(lobe, wo_local, to_local(frame, ls.wi),
+                                lobes=meta.present_lobes,
+                                mf_kinds=meta.present_mf_kinds)
+            useful = (cont & ~delta & (ls.pdf > 0.0) & ~is_black(ls.li)
+                      & ~is_black(f))
+            occ = scene_pack.occluded(meta, pack, hit.position, ls.pos,
+                                      mask=useful)
+            contrib = beta * f * ls.li * (
+                absdot(ls.wi, hit.normal)
+                / torch.clamp_min(ls.pdf, 1e-20))[:, None]
+            L = L + torch.where((useful & ~occ)[:, None], contrib,
+                                torch.zeros_like(contrib))
+
+        bs = bsdf_ops.sample(lobe, wo_local, rng.stream_bsdf(u_vertex, nl),
+                             lobes=meta.present_lobes,
+                             mf_kinds=meta.present_mf_kinds)
+        wi_world = to_world(frame, bs.wi)
+        active = cont & delta & (bs.pdf > 0.0) & ~is_black(bs.f)
+        weight = bs.f * (absdot(wi_world, hit.normal)
+                         / torch.clamp_min(bs.pdf, 1e-20))[:, None]
+        beta = torch.where(active[:, None], beta * weight, beta)
+        ray_o = torch.where(active[:, None], hit.position, ray_o)
+        ray_d = torch.where(active[:, None], wi_world, ray_d)
+
+    return torch.where(torch.isfinite(L), L, torch.zeros_like(L))

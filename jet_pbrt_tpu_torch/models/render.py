@@ -1,11 +1,12 @@
-"""Render orchestration: drive waves of (sample, pixel) lanes through the
-path integrator and accumulate the film on the device.
+"""Render orchestration: drive waves of (sample, pixel) lanes through an
+integrator and accumulate the film on the device.
 
 PyTorch counterpart of jet_pbrt_tpu/models/render.py::render. A wave holds
 whole samples of the frame (or, for frames larger than a wave, a pixel
-range of one sample), so the film is summed without atomics and the image
-does not depend on the wave size: every uniform is keyed by (seed, sample,
-pixel) alone.
+range of one sample); every uniform is keyed by (seed, sample, pixel) alone
+and the film adds each sample in float64 in sample order (models/film.py),
+so the image does not depend on the wave size and equals the reference
+package's for the same seed up to the rounding of libm functions.
 """
 from __future__ import annotations
 
@@ -13,9 +14,12 @@ import torch
 
 from ..ops import rng
 from . import camera as camera_mod
-from .integrators import li_path
+from . import film as film_mod
+from . import integrators
 
 DEFAULT_CHUNK = 1 << 20
+INTEGRATORS = ("path", "whitted", "debug")
+SAMPLERS = ("random", "stratified", "debug")
 
 
 def _waves(n_pixels: int, spp: int, chunk: int):
@@ -31,47 +35,92 @@ def _waves(n_pixels: int, spp: int, chunk: int):
 
 
 def n_waves(width: int, height: int, spp: int, chunk: int = DEFAULT_CHUNK):
-    """How many integrator waves `render` runs for this frame."""
+    """How many integrator waves `render` runs for this frame (the path
+    and Whitted integrators; the debug one takes one sample)."""
     return sum(1 for _ in _waves(width * height, spp, chunk))
 
 
-def render(scene, width: int, height: int, spp: int, seed: int = 0,
-           max_depth: int = 5, chunk: int = DEFAULT_CHUNK, clamp: bool = True,
-           device=None, with_stats: bool = False,
-           sort_rays: bool | None = None):
-    """Full-frame render -> linear [H,W,3] float32 tensor on `device`
-    (averaged over spp, optionally clamped like the reference's film write,
-    reference: src/integrator.cc:108). with_stats also returns the counts
-    of `li_path` (rays by class, the sweep kernel's counters), summed over
-    the frame, as Python ints. sort_rays is li_path's (default: on for
-    kernel-routed scenes). device defaults to the card and raises where
-    there is none; the CPU runs only when asked (device="cpu")."""
-    device = camera_mod.resolve_device(device)
-    pack = scene.pack.to(device)
-    cam = camera_mod.make_camera(scene.camera.lookfrom, scene.camera.front,
-                                 scene.camera.vup, scene.camera.vfov,
-                                 (width, height), device=device)
-    n_pixels = width * height
-    film = torch.zeros((n_pixels, 3), dtype=torch.float32, device=device)
-    stats = {}
-    for s0, ns, p0, npx in _waves(n_pixels, spp, chunk):
-        sample = torch.arange(s0, s0 + ns, device=device).repeat_interleave(npx)
-        pixel = torch.arange(p0, p0 + npx, device=device).repeat(ns)
+def wave_fn(meta, width: int, max_depth: int, integrator: str = "path",
+            mis: bool = False, nee: bool = True, sampler: str = "random",
+            spp: int | None = None, seed: int = 0,
+            sort_rays: bool | None = None, with_stats: bool = False):
+    """The one-wave function for a fixed scene meta (the counterpart of the
+    reference package's `_wave_fn`): wave(pack, cam, sample, pixel) with
+    [N] int64 global sample indices and pixel ids returns the colours
+    [N, 3] (and, with_stats, li_path's counts)."""
+    if integrator not in INTEGRATORS:
+        raise ValueError(f"unknown integrator {integrator!r}")
+    if sampler not in SAMPLERS:
+        raise ValueError(f"unknown sampler {sampler!r}")
+    if with_stats and integrator != "path":
+        raise ValueError("with_stats counts the path integrator's rays only")
+
+    def wave(pack, cam, sample, pixel):
         keys = rng.lane_keys(seed, sample, pixel)
-        jitter = rng.camera_jitter(keys)
+        jitter = rng.camera_jitter(keys, sampler=sampler, spp=spp)
+        # pixel + in-pixel jitter (reference: src/sampler.h:148-155)
         x = (pixel % width).to(torch.float32) + jitter[:, 0]
         y = (pixel // width).to(torch.float32) + jitter[:, 1]
         o, d = camera_mod.generate_rays(cam, torch.stack([x, y], dim=-1))
-        out = li_path(scene.meta, pack, o, d, keys, max_depth,
-                      with_stats=with_stats, sort_rays=sort_rays)
+        if integrator == "debug":
+            return integrators.li_debug_normal(meta, pack, o, d)
+        u = keys
+        if sampler == "debug":
+            u = rng.debug_path_uniforms(o.shape[0], max_depth, meta.n_lights,
+                                        device=o.device)
+        if integrator == "whitted":
+            return integrators.li_whitted(meta, pack, o, d, u, max_depth)
+        return integrators.li_path(meta, pack, o, d, u, max_depth, mis=mis,
+                                   nee=nee, with_stats=with_stats,
+                                   sort_rays=sort_rays)
+
+    return wave
+
+
+def setup(scene, width: int, height: int, device=None):
+    """(device, pack, camera) of a frame: `device`, or the card when it is
+    None (raising where there is none)."""
+    device = camera_mod.resolve_device(device)
+    cam = camera_mod.make_camera(scene.camera.lookfrom, scene.camera.front,
+                                 scene.camera.vup, scene.camera.vfov,
+                                 (width, height), device=device)
+    return device, scene.pack.to(device), cam
+
+
+def render(scene, width: int, height: int, spp: int, seed: int = 0,
+           max_depth: int = 5, integrator: str = "path", mis: bool = False,
+           nee: bool = True, sampler: str = "random",
+           chunk: int = DEFAULT_CHUNK, clamp: bool = True, device=None,
+           with_stats: bool = False, sort_rays: bool | None = None):
+    """Full-frame render -> linear [H,W,3] float32 tensor on `device`
+    (averaged over spp, optionally clamped like the reference's film write,
+    reference: src/integrator.cc:108). integrator "path" | "whitted" |
+    "debug" (normals, one sample), mis, nee and sampler "random" |
+    "stratified" | "debug" are the reference package's. with_stats also
+    returns the counts of `li_path` (rays by class, the sweep kernel's
+    counters), summed over the frame, as Python ints. sort_rays is
+    li_path's (default: on for kernel-routed scenes). device defaults to
+    the card and raises where there is none; the CPU runs only when asked
+    (device="cpu")."""
+    device, pack, cam = setup(scene, width, height, device)
+    wave = wave_fn(scene.meta, width, max_depth, integrator, mis, nee,
+                   sampler, spp, seed, sort_rays, with_stats)
+    n_pixels = width * height
+    samples = 1 if integrator == "debug" else spp
+    film = film_mod.new_film(width, height, device)
+    stats = {}
+    for s0, ns, p0, npx in _waves(n_pixels, samples, chunk):
+        sample = torch.arange(s0, s0 + ns, device=device).repeat_interleave(npx)
+        pixel = torch.arange(p0, p0 + npx, device=device).repeat(ns)
+        out = wave(pack, cam, sample, pixel)
         if with_stats:
             out, st = out
             for k, v in st.items():
                 stats[k] = stats.get(k, 0) + v
-        film[p0:p0 + npx] += out.view(ns, npx, 3).sum(0)
-    img = (film / spp).view(height, width, 3)
-    if clamp:
-        img = torch.clamp(img, 0.0, 1.0)
+        out = out.view(ns, npx, 3)
+        for k in range(ns):     # sample by sample, as the reference adds
+            film_mod.add_samples(film, out[k], p0)
+    img = film_mod.finalize(film, samples, clamp)
     if with_stats:
         return img, {k: int(v) for k, v in stats.items()}
     return img

@@ -1,11 +1,12 @@
-"""Light sampling: point, directional, area (triangle, rect, disk, sphere)
-and constant environment lights.
+"""Light sampling: point, directional, area (triangle, rect, disk, sphere,
+emissive instance) and constant environment lights, and `pdf_li` for MIS.
 
 PyTorch counterpart of jet_pbrt_tpu/ops/lights.py (reference:
 src/light.h:50-311, src/shape.h:120-181, 549-656). Light kinds are static
 (SceneMeta.lights), so dispatch is plain Python; radiance comes from the
-pack. Emissive instances and `pdf_li` (needed only with MIS) are not
-ported yet.
+pack. An emissive instance is one light over the whole instanced mesh: a
+triangle of its raw mesh table picked uniformly by index, then a uniform
+point on it, with the picked triangle's own area in the pdf.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from . import intersect as isect_ops
 from .linalg import PI, dot, normalize, distance2, frame_from_z, to_world, \
     cross, length
 from .sampling import sample_uniform_sphere, sample_uniform_triangle, \
@@ -38,7 +40,8 @@ def _area_convert_pdf(pdf_area, light_pos, light_n, shade_pos, wi):
 
 def _sample_shape_position(pack, shape_kind, shape_idx, u):
     """SamplePosition of one static shape row -> (pos, n, pdf_area)."""
-    from ..scene.pack import KIND_TRI, KIND_SPHERE, KIND_RECT, KIND_DISK
+    from ..scene.pack import KIND_TRI, KIND_SPHERE, KIND_RECT, KIND_DISK, \
+        KIND_INST
 
     n_batch = u.shape[0]
     if shape_kind == KIND_TRI:
@@ -72,10 +75,27 @@ def _sample_shape_position(pack, shape_kind, shape_idx, u):
         pos = c[None, :] + r * dirs
         nrm = dirs
         area = 4.0 * PI * r * r
+    elif shape_kind >= KIND_INST:
+        # the raw mesh table: blas_tris pads leaves with duplicate rows,
+        # which would cover their area twice
+        mi = shape_kind - KIND_INST
+        em = pack.inst_em_tris[mi]
+        t_count = em.shape[0]
+        off = pack.inst_off[mi][shape_idx]
+        scl = pack.inst_scale[mi][shape_idx]
+        u0 = torch.clamp(u[:, 0] * t_count, 0.0, t_count - 1e-3)
+        ti = u0.to(torch.int64)
+        u0r = u0 - ti.to(torch.float32)
+        rows = torch.cat([em, pack.inst_em_n[mi]], dim=1)[ti]
+        p0, e1, e2 = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+        b = sample_uniform_triangle(torch.stack([u0r, u[:, 1]], dim=-1))
+        pos_l = p0 + b[:, 1:2] * e1 + (1.0 - b[:, 0:1] - b[:, 1:2]) * e2
+        pos = pos_l * scl + off[None, :]
+        area_w = torch.clamp_min(0.5 * length(cross(e1, e2)) * scl * scl,
+                                 1e-20)
+        return pos, rows[:, 9:12], 1.0 / (t_count * area_w)
     else:
-        raise NotImplementedError(
-            f"area lights on shape kind {shape_kind} (emissive instances) "
-            "are not ported yet")
+        raise ValueError(f"bad shape kind {shape_kind}")
     pdf_area = torch.ones((n_batch,), dtype=torch.float32,
                           device=u.device) / area
     return pos, nrm, pdf_area
@@ -189,3 +209,114 @@ def env_radiance(meta, pack, n: int) -> torch.Tensor:
     for i in meta.env_light_indices:
         le = le + pack.light_c[i][None, :]
     return le
+
+
+def _reintersect_pdf(h, shade_pos, wi, ln, area):
+    """Solid-angle pdf dist^2 / (|cos| area) at the re-intersected point
+    (reference: src/shape.h:147-181); 0 where the ray misses."""
+    t_safe = torch.where(h.valid, h.t, torch.ones_like(h.t))
+    lp = shade_pos + t_safe[:, None] * wi
+    pdf = distance2(shade_pos, lp) / torch.clamp_min(
+        torch.abs(dot(ln, -wi)) * area, 1e-12)
+    return torch.where(h.valid & torch.isfinite(pdf), pdf,
+                       torch.zeros_like(pdf))
+
+
+def pdf_li(meta, pack, light_index: int, shade_pos, wi) -> torch.Tensor:
+    """Pdf_Li for MIS (reference: src/light.h:218-221, 289-298,
+    src/shape.h:147-181, 646-656): the solid-angle pdf with which
+    `sample_li` would pick direction wi from shade_pos. Delta lights give
+    0."""
+    from ..scene.pack import LIGHT_AREA, LIGHT_ENV, KIND_SPHERE, KIND_TRI, \
+        KIND_RECT, KIND_DISK, KIND_INST
+
+    lm = meta.lights[light_index]
+    n = shade_pos.shape[0]
+    dev = shade_pos.device
+    if lm.kind == LIGHT_ENV:
+        cos_t = torch.clamp(wi[:, 2], -1.0, 1.0)
+        sin_t = torch.sqrt(torch.clamp_min(1.0 - cos_t * cos_t, 0.0))
+        return torch.where(
+            sin_t > 0.0, 1.0 / (2.0 * PI * PI * torch.clamp_min(sin_t, 1e-12)),
+            torch.zeros_like(sin_t))
+    if lm.kind != LIGHT_AREA:
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    sk, si = lm.shape_kind, lm.shape_idx
+    tmin = torch.full((n,), 1e-3, dtype=torch.float32, device=dev)
+    tmax = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
+    if sk >= KIND_INST:
+        # re-intersect this instance's raw mesh alone, brute force: the
+        # pdf at the hit triangle k is d^2 / (cos t_count area_k)
+        mi = sk - KIND_INST
+        em = pack.inst_em_tris[mi]
+        t_count = em.shape[0]
+        if t_count > 8192:
+            raise ValueError(
+                "pdf_li over an emissive instance brute-forces the raw mesh; "
+                f"{t_count} triangles is beyond the supported light-mesh size")
+        off = pack.inst_off[mi][si]
+        scl = pack.inst_scale[mi][si]
+        inv = 1.0 / scl
+        p0 = em[:, 0:3]
+        o_l, tmin_l = (shade_pos - off[None, :]) * inv, tmin * inv
+        # the test is [T, lanes]: lanes go in slices of about 2^24 pairs
+        step = max(1, (1 << 24) // max(t_count, 1))
+        parts = [isect_ops.intersect_triangles(
+            o_l[i:i + step], wi[i:i + step], tmin_l[i:i + step],
+            tmax[i:i + step], p0, p0 + em[:, 3:6], p0 + em[:, 6:9])
+            for i in range(0, max(n, 1), step)]
+        h = isect_ops.KindHit(*(torch.cat(x) for x in zip(*parts)))
+        ti = torch.clamp(h.index.to(torch.int64), 0, t_count - 1)
+        rows = torch.cat([em[:, 3:9], pack.inst_em_n[mi]], dim=1)[ti]
+        e1, e2, ln = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+        area_w = 0.5 * length(cross(e1, e2)) * scl * scl
+        t_w = torch.where(h.valid, h.t, torch.ones_like(h.t)) * scl
+        lp = shade_pos + t_w[:, None] * wi
+        pdf = distance2(shade_pos, lp) / torch.clamp_min(
+            torch.abs(dot(ln, -wi)) * t_count * area_w, 1e-12)
+        return torch.where(h.valid & torch.isfinite(pdf), pdf,
+                           torch.zeros_like(pdf))
+    if sk == KIND_SPHERE:
+        c = pack.sph_c[si]
+        r = pack.sph_r[si]
+        d2 = distance2(shade_pos, c[None, :])
+        sin2_max = torch.clamp(r * r / torch.clamp_min(d2, 1e-20), 0.0, 1.0)
+        pdf_out = pdf_uniform_cone(
+            torch.sqrt(torch.clamp_min(1.0 - sin2_max, 0.0)))
+        # inside: the re-intersection pdf
+        h = isect_ops.intersect_spheres(shade_pos, wi, tmin, tmax,
+                                        pack.sph_c[si:si + 1],
+                                        pack.sph_r[si:si + 1])
+        t_safe = torch.where(h.valid, h.t, torch.ones_like(h.t))
+        lp = shade_pos + t_safe[:, None] * wi
+        ln = normalize(lp - c[None, :])
+        pdf_in = torch.where(
+            h.valid, distance2(shade_pos, lp) / torch.clamp_min(
+                torch.abs(dot(ln, -wi)) * (4.0 * PI * r * r), 1e-12),
+            torch.zeros_like(d2))
+        return torch.where(d2 <= r * r, pdf_in, pdf_out)
+    if sk == KIND_TRI:
+        p0, p1, p2 = pack.tri_p0[si], pack.tri_p1[si], pack.tri_p2[si]
+        h = isect_ops.intersect_triangles(shade_pos, wi, tmin, tmax,
+                                          p0[None], p1[None], p2[None])
+        ln = pack.tri_n[si][None, :].expand(n, 3)
+        area = 0.5 * length(cross(p1 - p0, p2 - p0))
+    elif sk == KIND_RECT:
+        q = pack.rect_q[si]
+        h = isect_ops.intersect_rects(shade_pos, wi, tmin, tmax, q[None, 0],
+                                      q[None, 1], q[None, 2], q[None, 3],
+                                      pack.rect_n[si:si + 1])
+        ln = pack.rect_n[si][None, :].expand(n, 3)
+        area = length(cross(q[0] - q[1], q[2] - q[1]))
+    elif sk == KIND_DISK:
+        h = isect_ops.intersect_disks(shade_pos, wi, tmin, tmax,
+                                      pack.disk_c[si:si + 1],
+                                      pack.disk_n[si:si + 1],
+                                      pack.disk_r[si:si + 1])
+        ln = pack.disk_n[si][None, :].expand(n, 3)
+        r = pack.disk_r[si]
+        area = PI * r * r
+    else:
+        raise ValueError(f"bad area-light shape kind {sk}")
+    return _reintersect_pdf(h, shade_pos, wi, ln, area)

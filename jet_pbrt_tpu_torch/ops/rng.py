@@ -1,14 +1,28 @@
-"""Counter-based random streams for path tracing.
+"""Counter-based random streams for path tracing: jax.random's, bit for bit.
 
 PyTorch counterpart of jet_pbrt_tpu/ops/rng.py. Every uniform is a pure
-function of (seed, global sample index, global pixel id, purpose, slot): one
-Threefry-2x32 (20 rounds, Salmon et al. 2011) hash of the counter
-(pixel, purpose << 16 | slot) under the key (seed, sample). Images therefore
-do not depend on how pixels and samples are chunked into waves. The hash is
-written in int64 tensor ops (32-bit words kept in the low half), so it runs
-unchanged on the CPU and the card. Its words match `jax.random`'s
-threefry_2x32 for the same (key, counter); the key derivation differs, so
-the streams are not those of the reference.
+function of (seed, global sample index, global pixel id, purpose, slot),
+drawn as the reference draws it through jax.random (JAX 0.9.0, threefry
+keys with `jax_threefry_partitionable` on, its default), so a port render
+equals the reference's for the same seed. With T = Threefry-2x32-20
+(Salmon et al. 2011) of a key (k0, k1) and a counter (c0, c1):
+
+    key(seed)        = (0, seed)
+    fold_in(k, x)    = T(k, (0, x)), both output words
+    lane key         = fold_in(fold_in(key(seed), sample), pixel)
+    uniform(k, (S,)) : (x0, x1) = T(k, (0, i)) for slot i,
+                       bits = x0 ^ x1,
+                       u_i = bitcast_f32((bits >> 9) | 0x3F800000) - 1
+    a purpose's draw = uniform(fold_in(lane key, purpose), (S,))
+
+The card's machine has no JAX: this derivation is checked against
+jax.random only by the CPU tests (tests/test_torch_rng.py).
+
+Two routes, chosen by the device of the tensors: on the CPU the plain
+version (the hash in int64 tensor ops, 32-bit words in the low half); on
+the card one launch of csrc/threefry.cu per `lane_keys` and per
+`uniforms` call (so per `camera_jitter` and `vertex_uniforms`). A failure
+to build or launch there raises.
 
 Stream layout per path vertex (rng.py:21-28 of the reference package):
 
@@ -18,10 +32,12 @@ Stream layout per path vertex (rng.py:21-28 of the reference package):
     [3+2L]           russian-roulette coin
 
 A path tracer takes either `LaneKeys` or a pregenerated uniform tensor
-u: [N, max_depth+1, S] (the parity tests inject the reference's draws).
+u: [N, max_depth+1, S] (the debug sampler's, or a test's injected draws).
 """
 from __future__ import annotations
 
+import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -32,20 +48,25 @@ PURPOSE_PATH_BASE = 16
 _MASK = 0xFFFFFFFF
 _ROT = (13, 15, 26, 6, 17, 29, 16, 24)
 _PARITY = 0x1BD11BDA
+_ONE_BITS = 0x3F800000
 
 
 class LaneKeys(NamedTuple):
-    """Per-lane stream keys: one (sample, pixel) pair per lane."""
-    seed: int
-    sample: torch.Tensor   # [N] int64 global sample index
-    pixel: torch.Tensor    # [N] int64 global pixel id (y * width + x)
+    """Per-lane stream keys: the two key words (uint32 bits in int32) and
+    the lane's global sample index (the stratified sampler's stratum)."""
+    k0: torch.Tensor       # [N] int32
+    k1: torch.Tensor       # [N] int32
+    sample: torch.Tensor   # [N] int64
 
 
-def lane_keys(seed: int, sample, pixel_ids: torch.Tensor) -> LaneKeys:
-    pixel = pixel_ids.to(torch.int64)
-    sample = torch.as_tensor(sample, dtype=torch.int64,
-                             device=pixel.device).expand(pixel.shape)
-    return LaneKeys(int(seed), sample, pixel)
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """int32 key words -> int64 values in [0, 2^32)."""
+    return x.to(torch.int64) & _MASK
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 of the same bits."""
+    return (x - ((x >> 31) << 32)).to(torch.int32)
 
 
 def _rotl(x, r):
@@ -69,18 +90,143 @@ def threefry2x32(k0, k1, c0, c1):
     return x0, x1
 
 
+def _check(name, x, dtype, n, device):
+    if x.dtype != dtype or x.dim() != 1 or x.shape[0] != n \
+            or not x.is_contiguous() or x.device != device:
+        raise ValueError(f"{name}: expected a contiguous {dtype} [{n}] tensor "
+                         f"on {device}")
+
+
+def _library():
+    from ..utils.cuda_build import load_library
+    return load_library("threefry", ["threefry.cu"], _declare)
+
+
+def _declare(lib):
+    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+    lib.threefry_lane_keys.argtypes = [cu, vp, vp, ci, vp, vp, vp]
+    lib.threefry_lane_keys.restype = ci
+    lib.threefry_uniforms.argtypes = [vp, vp, ci, cu, ci, vp, vp]
+    lib.threefry_uniforms.restype = ci
+
+
+def lane_keys(seed: int, sample, pixel_ids: torch.Tensor) -> LaneKeys:
+    """One key per lane, fold_in(fold_in(key(seed), sample), pixel).
+    sample: an int or an [N] tensor of global sample indices; pixel_ids:
+    [N] global pixel ids (y * width + x). The kernel for CUDA tensors,
+    `lane_keys_plain` for CPU tensors."""
+    pixel = pixel_ids.to(torch.int64).contiguous()
+    sample = torch.as_tensor(sample, dtype=torch.int64, device=pixel.device)
+    sample = sample.expand(pixel.shape).contiguous()
+    if pixel.device.type == "cpu":
+        return lane_keys_plain(seed, sample, pixel)
+    if pixel.device.type != "cuda":
+        raise ValueError(f"no lane_keys route for device {pixel.device}")
+    if pixel.dim() != 1:
+        raise ValueError("pixel_ids: expected a [N] tensor")
+    n = pixel.shape[0]
+    k0 = torch.empty((n,), dtype=torch.int32, device=pixel.device)
+    k1 = torch.empty_like(k0)
+    if n:
+        lib = _library()
+        with torch.cuda.device(pixel.device):
+            err = lib.threefry_lane_keys(
+                int(seed) & _MASK, sample.data_ptr(), pixel.data_ptr(), n,
+                k0.data_ptr(), k1.data_ptr(),
+                torch.cuda.current_stream(pixel.device).cuda_stream)
+        lane_keys.launches += 1
+        if err != 0:
+            raise RuntimeError(f"threefry lane_keys launch failed: CUDA error "
+                               f"{err}")
+    return LaneKeys(k0, k1, sample)
+
+
+lane_keys.launches = 0
+
+
+def lane_keys_plain(seed: int, sample: torch.Tensor,
+                    pixel: torch.Tensor) -> LaneKeys:
+    """`lane_keys` in int64 tensor ops."""
+    zero = torch.zeros_like(pixel)
+    b0, b1 = threefry2x32(zero, zero + (int(seed) & _MASK), zero,
+                          sample & _MASK)
+    k0, k1 = threefry2x32(b0, b1, zero, pixel & _MASK)
+    return LaneKeys(_i32(k0), _i32(k1), sample)
+
+
 def uniforms(keys: LaneKeys, purpose: int, n: int) -> torch.Tensor:
-    """[N, n] float32 uniforms in [0, 1) for one purpose."""
-    slot = torch.arange(n, dtype=torch.int64, device=keys.pixel.device)
-    c1 = ((purpose << 16) | slot)[None, :]
-    x0, _ = threefry2x32(torch.full_like(keys.sample[:, None], keys.seed),
-                         keys.sample[:, None], keys.pixel[:, None], c1)
-    return (x0 >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    """[N, n] float32 uniforms in [0, 1): jax.random.uniform(fold_in(key,
+    purpose), (n,)) of every lane. The kernel for CUDA tensors,
+    `uniforms_plain` for CPU tensors."""
+    dev = keys.k0.device
+    if dev.type == "cpu":
+        return uniforms_plain(keys, purpose, n)
+    if dev.type != "cuda":
+        raise ValueError(f"no uniforms route for device {dev}")
+    lanes = keys.k0.shape[0]
+    _check("k0", keys.k0, torch.int32, lanes, dev)
+    _check("k1", keys.k1, torch.int32, lanes, dev)
+    out = torch.empty((lanes, n), dtype=torch.float32, device=dev)
+    if lanes and n:
+        lib = _library()
+        with torch.cuda.device(dev):
+            err = lib.threefry_uniforms(
+                keys.k0.data_ptr(), keys.k1.data_ptr(), lanes,
+                int(purpose) & _MASK, n, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        uniforms.launches += 1
+        if err != 0:
+            raise RuntimeError(f"threefry uniforms launch failed: CUDA error "
+                               f"{err}")
+    return out
 
 
-def camera_jitter(keys: LaneKeys) -> torch.Tensor:
-    """In-pixel jitter [N, 2] (reference: src/sampler.h:148-155)."""
-    return uniforms(keys, PURPOSE_CAMERA, 2)
+uniforms.launches = 0
+
+
+def uniforms_plain(keys: LaneKeys, purpose: int, n: int) -> torch.Tensor:
+    """`uniforms` in int64 tensor ops."""
+    k0, k1 = _u32(keys.k0), _u32(keys.k1)
+    zero = torch.zeros_like(k0)
+    f0, f1 = threefry2x32(k0, k1, zero, zero + (int(purpose) & _MASK))
+    slot = torch.arange(n, dtype=torch.int64, device=k0.device)[None, :]
+    x0, x1 = threefry2x32(f0[:, None], f1[:, None], torch.zeros_like(slot),
+                          slot)
+    bits = ((x0 ^ x1) >> 9) | _ONE_BITS
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def camera_jitter(keys: LaneKeys, sampler: str = "random",
+                  spp: int | None = None) -> torch.Tensor:
+    """In-pixel jitter [N, 2] (reference: src/sampler.h:148-155).
+
+    sampler: "random" i.i.d. uniforms; "stratified" jittered strata of the
+    ceil(sqrt(spp))^2 grid, the stratum of a lane being its sample index
+    modulo g^2 (reference package rng.py:78-84); "debug" the constant
+    0.5."""
+    n = keys.k0.shape[0]
+    if sampler == "debug":
+        return torch.full((n, 2), 0.5, dtype=torch.float32,
+                          device=keys.k0.device)
+    u = uniforms(keys, PURPOSE_CAMERA, 2)
+    if sampler == "stratified":
+        if spp is None:
+            raise ValueError("the stratified sampler needs spp")
+        g = math.isqrt(spp - 1) + 1 if spp > 0 else 1
+        stratum = keys.sample % (g * g)
+        s = torch.stack([stratum % g, stratum // g], dim=-1).to(torch.float32)
+        return (s + u) / g
+    if sampler != "random":
+        raise ValueError(f"unknown sampler {sampler!r}")
+    return u
+
+
+def debug_path_uniforms(n: int, max_depth: int, n_lights: int,
+                        device=None) -> torch.Tensor:
+    """All-0.5 path uniforms [n, max_depth+1, S]: the debug sampler's
+    transport streams, taken by the integrators in place of LaneKeys."""
+    return torch.full((n, max_depth + 1, 4 + 2 * n_lights), 0.5,
+                      dtype=torch.float32, device=device)
 
 
 def vertex_uniforms(u, bounce: int, n_lights: int) -> torch.Tensor:

@@ -20,7 +20,7 @@ from ..ops import microfacet as mf_ops
 from ..ops import sweep_bvh, wide_bvh
 from ..ops.bvh import build_bvh, build_box_bvh, pack_node_table
 from ..ops.linalg import RAY_EPS_REL
-from .pack import (KIND_TRI, KIND_SPHERE, KIND_RECT, KIND_DISK,
+from .pack import (KIND_TRI, KIND_SPHERE, KIND_RECT, KIND_DISK, KIND_INST,
                    LIGHT_POINT, LIGHT_DIRECTIONAL, LIGHT_AREA, LIGHT_ENV,
                    LightMeta, SceneMeta, ScenePack)
 
@@ -173,27 +173,32 @@ class SceneBuilder:
 
     def add_instanced_mesh(self, tris, instances, flip_normal=False,
                            flip_handedness=False, uvs=None):
-        """One mesh family shared by many (offset, scale, mat) instances.
-        Emissive instances (a 4th radiance entry) are not ported yet."""
+        """One mesh family shared by many (offset, scale, mat) instances. A
+        fourth entry, a radiance, makes that instance an emissive mesh: one
+        area light over its whole surface (reference package
+        builder.py:202-240)."""
         tris = np.asarray(tris, np.float32).copy()
         if flip_handedness:
             tris[..., 2] *= -1.0
         if uvs is None:
             uvs = np.zeros((len(tris), 3, 2), np.float32)
+        mesh_idx = len(self._inst_meshes)
         rows = []
         for entry in instances:
-            if len(entry) > 3:
-                raise NotImplementedError("emissive instances are not ported "
-                                          "yet")
-            off, scale, mat = entry
+            off, scale, mat = entry[:3]
             if not float(scale) > 0.0:
                 raise ValueError("instance scale must be positive")
+            light_id = -1
+            if len(entry) > 3:
+                light_id = self._add_light(
+                    LightMeta(LIGHT_AREA, shape_kind=KIND_INST + mesh_idx,
+                              shape_idx=len(rows)), entry[3])
             rows.append((np.asarray(off, np.float32), float(scale), int(mat),
-                         -1))
+                         light_id))
         self._inst_meshes.append(dict(
             tris=tris, n=_face_normals(tris, flip_normal),
             uv=np.asarray(uvs, np.float32), inst=rows))
-        return len(self._inst_meshes) - 1, list(range(len(rows)))
+        return mesh_idx, list(range(len(rows)))
 
     def add_sphere(self, center, radius: float, mat: int):
         self._sph.append([np.asarray(center, np.float32), float(radius), mat, -1])
@@ -372,6 +377,7 @@ class SceneBuilder:
                                 "inst_light", "tlas_nodes", "inst_em_tris",
                                 "inst_em_n")}
         pallas_blas = []
+        inst_newpos = []   # per family: instance id -> row after the TLAS order
         for m in self._inst_meshes:
             rows = m["inst"]
             f_off = np.stack([r[0] for r in rows])
@@ -402,8 +408,20 @@ class SceneBuilder:
             fams["inst_mat"].append(f_mat[torder])
             fams["inst_light"].append(f_light[torder])
             fams["tlas_nodes"].append(pack_node_table(tlas, len(torder), 1))
-            fams["inst_em_tris"].append(np.zeros((0, 9), np.float32))
-            fams["inst_em_n"].append(np.zeros((0, 3), np.float32))
+            newpos = np.empty(len(torder), np.int64)
+            newpos[np.asarray(torder)] = np.arange(len(torder))
+            inst_newpos.append(newpos)
+            # the raw mesh, one row per triangle, for emissive-instance
+            # sampling (blas_tris pads leaves with duplicates)
+            if (f_light >= 0).any():
+                r0 = m["tris"][:, 0]
+                fams["inst_em_tris"].append(np.concatenate(
+                    [r0, m["tris"][:, 1] - r0, m["tris"][:, 2] - r0],
+                    axis=1).astype(np.float32))
+                fams["inst_em_n"].append(m["n"].astype(np.float32))
+            else:
+                fams["inst_em_tris"].append(np.zeros((0, 9), np.float32))
+                fams["inst_em_n"].append(np.zeros((0, 3), np.float32))
         a.update({k: tuple(v) for k, v in fams.items()})
 
         present_lobes = tuple(sorted({lb for m in self._mat
@@ -414,6 +432,10 @@ class SceneBuilder:
         for lm, c, _pos, _dir in self._lights:
             if float(np.abs(c).sum()) == 0.0:
                 lm = dataclasses.replace(lm, static_black=True)
+            if lm.kind == LIGHT_AREA and lm.shape_kind >= KIND_INST:
+                mi = lm.shape_kind - KIND_INST
+                lm = dataclasses.replace(
+                    lm, shape_idx=int(inst_newpos[mi][lm.shape_idx]))
             light_metas.append(lm)
         meta = SceneMeta(
             name=self.name, n_tri=n_tri, n_sph=len(self._sph),

@@ -375,6 +375,11 @@ def effective_kd(meta: SceneMeta, pack: ScenePack, hit: Hit, c0, tex_id):
     return c0
 
 
+def light_is_delta(meta: SceneMeta, light_index: int) -> bool:
+    """Static is_delta_light (reference: src/light.h:25-28)."""
+    return meta.lights[light_index].kind in (LIGHT_POINT, LIGHT_DIRECTIONAL)
+
+
 def gather_material(pack: ScenePack, mat_id):
     """Material rows for a ray batch as (kind, c0, c1, s0, s1, remap, tex,
     mf), by plain indexing."""

@@ -134,3 +134,7 @@ def bunny_scene(use_bvh: bool | None = None, bunny_path: str | None = None,
             b.add_mesh(bunny_tris, mat, flip_normal=True, flip_handedness=True,
                        offset=offset, scale=500.0, uvs=bunny_uvs)
     return b.build(use_bvh=use_bvh, bvh_leaf_size=bvh_leaf_size)
+
+
+# the CLI's scene ids (reference: src/main.cc:113-163)
+SCENES = {0: cornell_box, 1: bunny_scene}

@@ -18,7 +18,10 @@ across two coincident instances, packets in which each group is wanted by
 exactly one ray, a ragged batch with dead lanes and an all-dead packet,
 and a mesh of 8,192 groups (the packed key's limit). The two
 harness kernels, the sweep primitives and the wide kernel's eleven
-primitive probes, must equal their plain versions bit for bit.
+primitive probes, must equal their plain versions bit for bit. So must the
+Threefry kernel of the random streams (lane keys and uniforms) on its
+edges: one lane, ragged counts, S = 4 and 10, seed 2^31 - 1 and pixel
+2^20 - 1, with exactly one launch per call.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import numpy as np
@@ -26,6 +29,7 @@ import pytest
 import torch
 
 from jet_pbrt_tpu_torch.ops import bvh as tbvh
+from jet_pbrt_tpu_torch.ops import rng as TR
 from jet_pbrt_tpu_torch.ops import sweep_bvh as TS
 from jet_pbrt_tpu_torch.ops import wide_bvh as TW
 from jet_pbrt_tpu_torch.scripts import prim_micro as PM
@@ -384,3 +388,30 @@ def test_harness_kernels_match_plain_on_card():
         assert torch.equal(k, p), probe
         assert bool(torch.isinf(k).all()) if probe == "mt" \
             else bool(torch.isfinite(k).all()), probe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 257, 4099])
+@pytest.mark.parametrize("s", [4, 10])
+def test_threefry_kernel_matches_plain_on_card(n, s):
+    """Lane keys and one purpose's [n, S] uniforms, kernel against plain,
+    bit for bit; pixel ids run to 2^20 - 1 and the samples vary per lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    rng = np.random.default_rng(n + s)
+    pix = rng.integers(0, 1 << 20, n)
+    pix[-1] = (1 << 20) - 1
+    sample = rng.integers(0, 64, n)
+    for seed in (0, 2 ** 31 - 1):
+        pc, sc = (torch.from_numpy(x).cuda() for x in (pix, sample))
+        before = (TR.lane_keys.launches, TR.uniforms.launches)
+        kk = TR.lane_keys(seed, sc, pc)
+        kp = TR.lane_keys_plain(seed, sc, pc)
+        assert torch.equal(kk.k0, kp.k0) and torch.equal(kk.k1, kp.k1)
+        for purpose in (0, 16 + 5):
+            uk = TR.uniforms(kk, purpose, s)
+            assert torch.equal(uk, TR.uniforms_plain(kp, purpose, s))
+            assert uk.shape == (n, s) and float(uk.max()) < 1.0
+        assert (TR.lane_keys.launches, TR.uniforms.launches) == (
+            before[0] + 1, before[1] + 2)
+        torch.cuda.synchronize()

@@ -134,7 +134,9 @@ def test_threefry_matches_jax_words():
 
 def test_uniforms_pure_function_of_lane():
     """A lane's uniforms depend on (seed, sample, pixel, purpose, slot)
-    only, not on which other lanes share its wave."""
+    only, not on which other lanes share its wave, and are jax.random's
+    uniform(fold_in(lane key, purpose), (8,)) bit for bit."""
+    import jax
     pix = torch.arange(100, dtype=torch.int64)
     a = trng.uniforms(trng.lane_keys(7, 3, pix), 20, 8)
     b = trng.uniforms(trng.lane_keys(7, 3, pix[37:61]), 20, 8)
@@ -143,6 +145,10 @@ def test_uniforms_pure_function_of_lane():
     assert not torch.equal(a, trng.uniforms(trng.lane_keys(7, 4, pix), 20, 8))
     assert float(a.min()) >= 0.0 and float(a.max()) < 1.0
     assert abs(float(a.mean()) - 0.5) < 0.03
+    keys = jrng.lane_keys(7, jnp.int32(3), jnp.arange(100, dtype=jnp.int32))
+    ref = jax.vmap(lambda k: jax.random.uniform(
+        jax.random.fold_in(k, 20), (8,), jnp.float32))(keys)
+    np.testing.assert_array_equal(a.numpy(), np.asarray(ref))
 
 
 @pytest.mark.parametrize("fn", ["lobe", "nee", "bsdf", "rr", "vertex"])
@@ -152,6 +158,13 @@ def test_stream_layout(fn):
     if fn == "vertex":
         assert_same(jrng.vertex_uniforms(jnp.asarray(u), 1, 2),
                     trng.vertex_uniforms(_t(u), 1, 2))
+        # and from keys: the bounce's purpose, drawn bit for bit
+        pix = np.arange(N, dtype=np.int32)
+        jk = jrng.lane_keys(5, jnp.int32(2), jnp.asarray(pix))
+        tk = trng.lane_keys(5, 2, torch.from_numpy(pix))
+        np.testing.assert_array_equal(
+            np.asarray(jrng.vertex_uniforms(jk, 1, 2)),
+            trng.vertex_uniforms(tk, 1, 2).numpy())
     elif fn == "lobe":
         assert_same(jrng.stream_lobe(jnp.asarray(uv)), trng.stream_lobe(_t(uv)))
     elif fn == "nee":

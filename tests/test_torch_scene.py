@@ -61,6 +61,25 @@ def instanced_scene(builder, instanced=True):
     return b.build(use_bvh=not instanced)
 
 
+def emissive_scene(builder):
+    """The instanced scene with two of its four instances emissive (the
+    fourth entry of an instance is its radiance), a dim environment and
+    the rect light."""
+    tris = _mesh(t=160, seed=12)
+    b = builder("emissive")
+    b.set_camera(lookfrom=(0, 0, 9), lookat=(0, 0, 0), vfov=60)
+    b.add_env_light((0.05, 0.05, 0.08))
+    mats = [b.add_matte((0.7, 0.3, 0.2)), b.add_matte((0.2, 0.6, 0.3))]
+    light = b.add_matte((0.6, 0.6, 0.6))
+    r = b.add_rect_xz(-2, 2, -2, 2, 6, light, flip_normal=True)
+    b.add_area_light(r, (6.0, 6.0, 6.0))
+    placed = [(off, s, mats[i % 2]) for i, (off, s) in enumerate(INSTANCES)]
+    placed[1] += ((4.0, 3.0, 1.0),)
+    placed[3] += ((1.0, 2.0, 5.0),)
+    b.add_instanced_mesh(tris, placed)
+    return b.build()
+
+
 def _arrays(pack):
     """{field: numpy array or tuple of arrays} of a JAX ScenePack."""
     out = {}
@@ -96,6 +115,7 @@ SCENES = {
                                                           use_bvh=True),
     "instanced": lambda B, mod: instanced_scene(B, True),
     "flattened": lambda B, mod: instanced_scene(B, False),
+    "emissive_instances": lambda B, mod: emissive_scene(B),
 }
 
 

@@ -106,16 +106,15 @@ def test_render_smoke():
 
 
 def test_render_independent_of_wave_size():
-    """Uniforms are keyed by (seed, sample, pixel) alone and the film is
-    summed per wave without atomics, so any wave size gives the same image;
-    another seed gives another image."""
+    """Uniforms are keyed by (seed, sample, pixel) alone and the film adds
+    each sample in float64 in sample order, so any wave size gives the same
+    image bit for bit; another seed gives another image."""
     scene = tscenes.cornell_box()
     img = render(scene, 10, 10, spp=3, seed=2, clamp=False, device="cpu")
     for chunk in (100, 37, 1000):
-        torch.testing.assert_close(
+        assert torch.equal(
             render(scene, 10, 10, spp=3, seed=2, clamp=False, chunk=chunk,
-                   device="cpu"),
-            img, rtol=1e-6, atol=1e-6)
+                   device="cpu"), img), chunk
     assert not torch.equal(render(scene, 10, 10, spp=3, seed=3, clamp=False,
                                   device="cpu"), img)
 
