@@ -68,12 +68,22 @@ Phases, each printing its result; any failure raises and exits non-zero:
      Cornell 256^2 through cli.main under --integrator whitted, debug,
      --sampler stratified, --mis and --format ppm / hdr, each file read
      back finite with its wall time; and a render_resumable stopped after 2
-     of 4 samples and resumed, equal bit for bit to the uninterrupted one.
+     of 4 samples and resumed, equal bit for bit to the uninterrupted one;
+ 11. the differentiable path (diff_phase): render_fn on the default bunny
+     at 1024^2, 1 spp, depth 5, equal to render(clamp=False) bit for bit,
+     16 wide and 7 Threefry launches forward and none backward, forward and
+     backward times, their ratio and the tape's peak memory, the profiled
+     backward and four backwards in turns with the gathers by index_select
+     and by table[index]; check_grads on the emission (depth 5) and the red
+     bunny's albedo (depth 2); three
+     fit steps; texel and checker-colour gradients against finite
+     differences (texture_grads); one {"diff": ...} JSON line.
 The line before the last is the per-kernel JSON summary, each kernel with
-its bound: the larger of its bytes (inputs read once, outputs written once)
-at HBM_BW and its float operations at F32_PEAK, counted on the timed call's
-inputs. The last line is {"ok": true, "device": {...}}. Imports nothing of
-JAX.
+its bound: the largest of its bytes (inputs read once, outputs written
+once) at HBM_BW, its float operations at F32_PEAK, counted on the timed
+call's inputs, and, for integer kernels, its SASS instructions at the
+card's issue rates (int_rates, sass_work). The last line is {"ok": true,
+"device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -82,6 +92,7 @@ import functools
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -92,13 +103,17 @@ import numpy as np
 import torch
 
 from jet_pbrt_tpu_torch import cli
+from jet_pbrt_tpu_torch.diff import params as dparams
+from jet_pbrt_tpu_torch.diff.gradcheck import check_grads
 from jet_pbrt_tpu_torch.models import camera as camera_mod
 from jet_pbrt_tpu_torch.models import integrators
-from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, render
-from jet_pbrt_tpu_torch.ops import rng, sweep_bvh, wide_bvh
+from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, render, \
+    render_fn
+from jet_pbrt_tpu_torch.ops import linalg, rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops.linalg import frame_from_z, to_world
 from jet_pbrt_tpu_torch.ops.sampling import sample_cosine_hemisphere
 from jet_pbrt_tpu_torch.scene import pack as scene_pack
+from jet_pbrt_tpu_torch.scene.builder import SceneBuilder
 from jet_pbrt_tpu_torch.scene.scenes import bunny_obj, bunny_scene, cornell_box
 from jet_pbrt_tpu_torch.scripts import prim_micro, sweep_prims
 from jet_pbrt_tpu_torch.utils import checkpoint, cuda_build
@@ -148,28 +163,35 @@ SWEEP_TRI_OPS = 51
 # one Moller-Trumbore test of prim_micro.cu's mt: 44 products and sums,
 # the division, |det| > eps, u + v, 4 comparisons and the running minimum
 MT_TEST_OPS = 44 + 1 + 1 + 1 + 4 + 1
-# a prim_micro probe's operations per iteration, counted on the values the
-# function needs: the 8 blocks compute one acc, and r1's and mt's lanes are
-# all equal, so each is one scalar chain; r2 reduces 8 tiles of distinct
-# table values (rows 6k..6k+7 of 128 columns, 6 rows for k = 7); srt's
-# comparators and integer adds count against the float rate (the table of
-# peaks has no int32 rate). The update acc + s * 1e-9 is 2.
-# Threefry-2x32-20 as threefry.cu issues it: 20 rounds of an add, a funnel
-# shift and a xor, 5 key injections of 3 adds, and the 2 adds and 2 xors
-# before the rounds; a uniform's float takes the xor of the two words, a
-# shift, an or and the subtraction. Integer operations count against
-# F32_PEAK, as K4's do (the table of peaks has no int32 rate).
-HASH_OPS = 20 * 3 + 5 * 3 + 4
-UNIFORM_OPS = 4
+# Integer work is bounded by Hopper's issue rates, not by F32_PEAK (whose
+# 67e12 is 128 float lanes per SM with each FMA counted twice): an SM
+# issues at most 4 warp instructions, 128 thread instructions, per clock,
+# and shifts, logic and integer min / max have only the 64-lane ALU pipe
+# (an add may issue as an IMAD on the FMA pipe). The Threefry kernel's and
+# K4 srt's instructions are counted from the built library's SASS
+# (`sass_work`), each class at its rate over the card's SMs at its
+# largest SM clock (nvidia-smi clocks.max.sm).
+INSTR_PER_SM_CLOCK = 128
+ALU_PER_SM_CLOCK = 64
+ALU_PIPE_OPS = ("SHF", "LOP3", "IMNMX", "VIMNMX")
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[0-9T]\s+)?"
+                       r"([A-Z][A-Z0-9_.]*)([^;]*);")
 # the Cornell 16^2 exact-seed golden was rendered by the reference under
 # jit, where XLA contracts a * b + c into fused multiply-adds; its own
 # op-by-op render on the CPU misses the golden's tolerance on 24 of 256
 # pixels (tests/test_torch_render.py), and the card's libm rounds
 # differently again: the share of pixels outside that may pass
 EXACT_SEED_MAX_OFF = 0.2
+# the step of phase 11's fit of the bunny's albedos (the loss falls at it
+# on the CPU at 32^2, 64^2 and 160^2)
+FIT_LR = 1.0
+# a prim_micro float probe's operations per iteration, counted on the
+# values the function needs: the 8 blocks compute one acc, and r1's and
+# mt's lanes are all equal, so each is one scalar chain; r2 reduces 8 tiles
+# of distinct table values (rows 6k..6k+7 of 128 columns, 6 rows for k =
+# 7). The update acc + s * 1e-9 is 2. srt is integer work (sass_work).
 PROBE_OPS = dict(m1=1, m4=4, b1=4, r1=8 + 7 + 2, x8=7 + 2, x32=31 + 2,
-                 r2=2 * (7 * 8 * 128 + 6 * 128) - 8 + 7 + 2,
-                 srt=2 * 19 + 7 + 1 + 2, f1=1, f3=2 + 1,
+                 r2=2 * (7 * 8 * 128 + 6 * 128) - 8 + 7 + 2, f1=1, f3=2 + 1,
                  mt=1 + 16 * MT_TEST_OPS + 2)
 
 
@@ -177,12 +199,77 @@ def phase(name):
     print(f"== {name}", flush=True)
 
 
-def bound(nbytes: int, flops: int):
+def bound(nbytes: int, flops: int, int_work=None):
     """The least time of the work on one H100, in ms, and what binds it:
-    its bytes at HBM_BW or its float operations at F32_PEAK."""
+    its bytes at HBM_BW, its float operations at F32_PEAK, or int_work =
+    (ALU-pipe instructions, all instructions) at their issue rates
+    (int_rates)."""
     t_bytes, t_ops = nbytes / HBM_BW, flops / F32_PEAK
+    if int_work is not None:
+        alu_rate, issue_rate = int_rates()
+        t_ops = max(t_ops, int_work[0] / alu_rate, int_work[1] / issue_rate)
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+@functools.lru_cache(maxsize=None)
+def int_rates():
+    """(ALU-pipe, issue) thread instructions per second of the card: 64 and
+    128 per SM per clock at its largest SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    per_clock = torch.cuda.get_device_properties(0).multi_processor_count \
+        * mhz * 1e6
+    return ALU_PER_SM_CLOCK * per_clock, INSTR_PER_SM_CLOCK * per_clock
+
+
+def sass_function(library: str, name: str):
+    """[(address, opcode, operands)] of the kernel in library (the name
+    under which cuda_build built it) whose mangled name contains `name`,
+    from cuobjdump -sass, up to its final EXIT (the branch to itself and
+    the NOPs after it are padding)."""
+    lib = cuda_build.library_path(library, dict(LIBRARIES)[library])
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    parts = [p for p in text.split("Function : ")[1:]
+             if name in p.split(None, 1)[0]]
+    if len(parts) != 1:
+        raise AssertionError(f"{len(parts)} kernels named {name} in {lib}")
+    code = [(int(m[1], 16), m[3], m[4]) for m in SASS_LINE.finditer(parts[0])]
+    last = max(i for i, (_, op, _) in enumerate(code) if op == "EXIT")
+    return code[:last + 1]
+
+
+def sass_work(code, slots: int = 0):
+    """(ALU-pipe, all) instructions one thread executes in `code`
+    (sass_function). Straight-line code counts once. Given a loop (the
+    longest backward branch): where its body stores k of the thread's
+    output slots (k STG), the body runs slots // k times, and the code
+    after it runs for the slots % k left (in proportion to its stores) or
+    else its first instruction, the exit guard; where the body stores
+    nothing, the body alone is returned, once (the caller scales it)."""
+    index = {addr: i for i, (addr, _, _) in enumerate(code)}
+    loops = [(index[int(arg, 16)], i) for i, (addr, op, arg) in enumerate(code)
+             if op == "BRA" and int(arg, 16) < addr]
+    alu = lambda part: sum(op.split(".")[0] in ALU_PIPE_OPS
+                           for _, op, _ in part)
+    stores = lambda part: sum(op.startswith("STG") for _, op, _ in part)
+    if not loops:
+        return float(alu(code)), float(len(code))
+    first, last = max(loops, key=lambda lp: lp[1] - lp[0])
+    pre, body, post = code[:first], code[first:last + 1], code[last + 1:]
+    if not stores(body):
+        return float(alu(body)), float(len(body))
+    trips, rest = divmod(slots, stores(body))
+    if rest:
+        share = rest / max(stores(post), 1)
+        return (alu(pre) + trips * alu(body) + share * alu(post),
+                len(pre) + trips * len(body) + share * len(post))
+    return (float(alu(pre) + trips * alu(body)),
+            float(len(pre) + trips * len(body) + 1))
 
 
 class Route(NamedTuple):
@@ -294,6 +381,18 @@ def reset_rng_launches():
     rng.uniforms.launches = 0
 
 
+def launch_counts() -> dict:
+    return {"wide_bvh": wide_bvh.intersect_wide.launches,
+            "sweep_bvh": sweep_bvh.intersect_sweep.launches,
+            "threefry": rng_launches()}
+
+
+def reset_launches():
+    wide_bvh.intersect_wide.launches = 0
+    sweep_bvh.intersect_sweep.launches = 0
+    reset_rng_launches()
+
+
 def rng_bits(label, k, p):
     """Number of entries whose bits differ; raises if any does."""
     bad = int((k.view(torch.int32) != p.view(torch.int32)).sum()) \
@@ -346,10 +445,16 @@ def rng_phase(dev, n_lights: int, n: int = 1 << 20):
     keys_ms, _ = time_ms(lambda: rng.lane_keys(seed, sample, pixel), 20)
     keys_plain_ms, _ = time_ms(
         lambda: rng.lane_keys_plain(seed, sample, pixel), 2)
-    # keys in (two int32 words), the [n, S] float32 out; a fold_in and S
-    # hashes per lane
-    b = bound(n * 8 + out.nbytes, n * ((1 + s) * HASH_OPS + s * UNIFORM_OPS))
-    kb = bound(n * 16 + n * 8, n * 2 * HASH_OPS)
+    # keys in (two int32 words), the [n, S] float32 out; per lane the
+    # instructions of the kernel's SASS: a fold_in, then S hashes and floats
+    uni = sass_work(sass_function("threefry", "uniforms_kernel"), s)
+    key = sass_work(sass_function("threefry", "lane_keys_kernel"))
+    b = bound(n * 8 + out.nbytes, 0, (n * uni[0], n * uni[1]))
+    kb = bound(n * 16 + n * 8, 0, (n * key[0], n * key[1]))
+    print(f"threefry SASS per lane (ALU-pipe / all instructions): uniforms at "
+          f"S = {s} {uni[0]:.0f} / {uni[1]:.0f}, lane_keys {key[0]:.0f} / "
+          f"{key[1]:.0f}; rates {int_rates()[0]:.4g} / {int_rates()[1]:.4g} "
+          "thread instructions/s", flush=True)
     print(f"threefry at {n} lanes, S = {s}: lane key words and the uniforms "
           "of the camera and 5 vertices equal the plain version bit for bit, "
           "sorted and unsorted; vertex_uniforms kernel "
@@ -935,17 +1040,13 @@ def main_path(scene, dev, label, res=1024, spp=4, depth=5):
     render(scene, 64, 64, spp=1, max_depth=depth, device=dev)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    wide_bvh.intersect_wide.launches = 0
-    sweep_bvh.intersect_sweep.launches = 0
-    reset_rng_launches()
+    reset_launches()
     t0 = time.perf_counter()
     img, st = render(scene, res, res, spp=spp, max_depth=depth, seed=0,
                      clamp=False, device=dev, with_stats=True)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"wide_bvh": wide_bvh.intersect_wide.launches,
-                "sweep_bvh": sweep_bvh.intersect_sweep.launches,
-                "threefry": rng_launches()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if launches != expected:
         raise AssertionError(f"{label}: kernel launches {launches}, the wave "
@@ -1196,7 +1297,14 @@ def probes(dev):
             raise AssertionError(f"prim_micro {probe}: value "
                                  f"{float(k[0, 0, 0])}")
         ms_k = ns[probe] * reps * 1e-6
-        ms_b, by = bound(t.nbytes + out_bytes, PROBE_OPS[probe] * reps)
+        if probe == "srt":   # integer work: its SASS loop body per rep
+            work = sass_work(sass_function(
+                "prim_micro",
+                f"prim_micro_kernelILi{prim_micro.PROBES.index(probe)}EE"))
+            ms_b, by = bound(t.nbytes + out_bytes, 0,
+                             (work[0] * reps, work[1] * reps))
+        else:
+            ms_b, by = bound(t.nbytes + out_bytes, PROBE_OPS[probe] * reps)
         err = max(err, e)
         bounds.append((ms_b, by))
         total["ms"] += ms_k
@@ -1311,6 +1419,250 @@ def cli_phase(dev, res=1024, small=256):
     return wall
 
 
+# --------------------------------------------------------------------------
+# 11. the differentiable path
+# --------------------------------------------------------------------------
+
+def mean64(fn, pack):
+    """f(params): the mean pixel of fn(pack with params), summed in
+    float64 so the finite differences see no float32 rounding of the sum."""
+    return lambda p: fn(dparams.with_params(pack, p)).double().mean()
+
+
+def fwd_bwd(fn, pack, fields, loss):
+    """One forward and one backward of loss(image) over the fields, each
+    timed by the host clock to torch.cuda.synchronize(): (image, grads,
+    forward ms, backward ms, forward launches, backward launches, peak
+    bytes above what was allocated before)."""
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in dparams.get_params(pack, fields).items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    t0 = time.perf_counter()
+    img = fn(dparams.with_params(pack, leaves))
+    val = loss(img)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    fwd = launch_counts()
+    reset_launches()
+    grads = torch.autograd.grad(val, list(leaves.values()))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bwd = launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    return (img.detach(), dict(zip(fields, grads)), (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3, fwd, bwd, peak)
+
+
+@contextlib.contextmanager
+def indexed_gathers():
+    """While open, linalg.gather_rows gathers by table[index], whose
+    backward sorts the indices and adds each row's lanes in turn (the
+    port's gathers before they went through index_select): a measurement
+    of this script only; the port never takes it."""
+    inner = linalg.gather_rows
+    linalg.gather_rows = lambda table, index: table[index]
+    try:
+        yield
+    finally:
+        linalg.gather_rows = inner
+
+
+def profile_backward(fn, pack, fields, loss, label):
+    """Where one backward of loss(fn(pack)) over the fields spends its
+    time, by the profiler (the forward runs before it starts): wall,
+    device kernel time, busy share and the device operations with the
+    most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in dparams.get_params(pack, fields).items()}
+    val = loss(fn(dparams.with_params(pack, leaves)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
+            as prof:
+        t0 = time.perf_counter()
+        torch.autograd.grad(val, list(leaves.values()))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    total = sum(_device_us(e) for e in kernels)
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    print(f"{label} profiled backward: wall {wall * 1e3:.1f} ms, device "
+          f"kernel time {total / 1e3:.1f} ms (busy {total / 1e4 / wall:.1f}%); "
+          "most device time: " + "; ".join(
+              f"{e.key[:60]} {_device_us(e) / 1e3:.2f} ms x {e.count}"
+              for e in top), flush=True)
+    return wall * 1e3, total / 1e3
+
+
+def grad_scene(texture: str):
+    """tests/test_grad.py's textured scene: a matte floor whose Kd is a 2x2
+    bilinear image, under an area light; or its checker variant, the
+    floor's Kd a 3D sine checker of scale 4, the floor raised to y = 0.25
+    so that the checker's sin(4 y) has a sign."""
+    b = SceneBuilder(f"grad-{texture}")
+    b.set_camera(lookfrom=(0, 2, 5), lookat=(0, 0, 0), vfov=45)
+    if texture == "image":
+        tex = b.add_image_texture(
+            np.asarray([[[0.7, 0.3, 0.2], [0.3, 0.7, 0.2]],
+                        [[0.2, 0.3, 0.7], [0.5, 0.5, 0.5]]], np.float32),
+            bilinear=True)
+    else:
+        tex = b.add_checker_texture((0.7, 0.3, 0.2), (0.2, 0.3, 0.7), 4.0)
+    b.add_rect_xz(-10, 10, -10, 10, 0.0 if texture == "image" else 0.25,
+                  b.add_matte((1.0, 1.0, 1.0), tex=tex))
+    light = b.add_rect_xz(-1, 1, -1, 1, 3, b.add_matte((0.6, 0.6, 0.6)),
+                          flip_normal=True)
+    b.add_area_light(light, (3.0, 3.0, 3.0))
+    return b.build(use_bvh=False)
+
+
+def fd_line(label, g_auto, g_fd, rtol, secs):
+    """check_grads' result in one line: the largest relative difference of
+    the elements it holds (above its atol on either side)."""
+    worst = 0.0
+    for k, b in g_fd.items():
+        a = g_auto[k].detach().cpu().numpy().astype(np.float64)
+        held = (np.abs(a) > 1e-4) | (np.abs(b) > 1e-4)
+        rel = np.abs(a - b) / np.maximum(np.abs(b), 1e-4 / rtol)
+        worst = max(worst, float(rel[held].max(initial=0.0)))
+        print(f"{label} {k}: autograd {np.round(a.ravel(), 6).tolist()}, "
+              f"finite differences {np.round(b.ravel(), 6).tolist()}",
+              flush=True)
+    print(f"{label}: agree within rtol {rtol} (largest relative difference "
+          f"{worst:.2e}) in {secs:.2f} s", flush=True)
+    return worst
+
+
+def diff_phase(dev, smi: str, res: int = 1024):
+    """render_fn on the default bunny (wide route) at res^2, 1 spp, depth 5:
+    its image equal to render(clamp=False) bit for bit, 16 wide and 7
+    Threefry launches in the forward and none in the backward of the loss
+    mean((img - target)^2) over mat_c0 and light_c (target: light_c x
+    1.2), forward and backward ms, their ratio and peak memory (two runs);
+    finite gradients, the red bunny's albedo row non-zero; the backward
+    profiled, and timed in turns with the gathers by index_select and by
+    table[index] (indexed_gathers); check_grads
+    for light_c at depth 5 (rtol 1e-2) and mat_c0[0] at depth 2 (no
+    roulette, rtol 5e-2); three fit steps of mat_c0 from a wrong red
+    albedo, each timed, the loss falling; then texture_grads. Returns a
+    summary dict."""
+    scene = bunny_scene()
+    fn, pack = render_fn(scene, res, res, spp=1, seed=0, max_depth=5,
+                         device=dev)
+    with torch.no_grad():
+        target = fn(dparams.with_params(
+            pack, {"light_c": pack.light_c * 1.2}))
+    ref = render(scene, res, res, spp=1, seed=0, max_depth=5, clamp=False,
+                 device=dev)
+    loss = lambda img: torch.mean((img - target) ** 2)
+    out = {"runs": []}
+    for run in range(2):
+        img, g, f_ms, b_ms, fwd, bwd, peak = fwd_bwd(
+            fn, pack, ("mat_c0", "light_c"), loss)
+        want = {"wide_bvh": 6 + 5 * 2, "sweep_bvh": 0, "threefry": 2 + 5}
+        if fwd != want or any(bwd.values()):
+            raise AssertionError(f"render_fn launches: forward {fwd} (expected "
+                                 f"{want}), backward {bwd} (expected none)")
+        if not torch.equal(img, ref):
+            diff = float((img - ref).abs().max())
+            raise AssertionError(f"render_fn differs from render(clamp=False) "
+                                 f"(max |diff| {diff})")
+        if not all(bool(torch.isfinite(x).all()) for x in g.values()) \
+                or not bool((g["mat_c0"][0] != 0).any()):
+            raise AssertionError(f"bunny gradients: {g}")
+        out["runs"].append({"forward_ms": f_ms, "backward_ms": b_ms,
+                            "ratio": b_ms / f_ms, "peak_bytes": peak})
+        print(f"bunny render_fn {res}^2 1 spp depth 5, run {run + 1}: forward "
+              f"{f_ms:.1f} ms, backward {b_ms:.1f} ms (backward/forward "
+              f"{b_ms / f_ms:.2f}), peak memory of the tape {peak} bytes; "
+              f"launches forward {fwd}, backward {bwd}; image equal to "
+              f"render(clamp=False) bit for bit; d loss / d mat_c0[0] "
+              f"{g['mat_c0'][0].tolist()}, d loss / d light_c "
+              f"{g['light_c'].tolist()} [{smi}]", flush=True)
+
+    out["backward_profile"] = profile_backward(
+        fn, pack, ("mat_c0", "light_c"), loss, f"bunny [{smi}]")
+    turns = []
+    for indexed in (False, True, True, False):
+        with indexed_gathers() if indexed else contextlib.nullcontext():
+            turns.append(fwd_bwd(fn, pack, ("mat_c0", "light_c"), loss)[3])
+    out["backward_turns_ms"] = turns
+    print(f"bunny backward ms in turns, gathers by index_select / table[index]"
+          f" / table[index] / index_select: "
+          f"{' / '.join(f'{x:.1f}' for x in turns)} [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    ga, gf = check_grads(mean64(fn, pack), {"light_c": pack.light_c},
+                         rtol=1e-2, eps=1e-2)
+    out["fd_light_c"] = fd_line(f"bunny light_c depth 5 [{smi}]", ga, gf,
+                                1e-2, time.perf_counter() - t0)
+    fn2, pack2 = render_fn(scene, res, res, spp=1, seed=0, max_depth=2,
+                           device=dev)
+    rest = pack2.mat_c0[1:]
+    f2 = lambda p: mean64(fn2, pack2)(
+        {"mat_c0": torch.cat([p["mat_c0[0]"][None], rest])})
+    t0 = time.perf_counter()
+    ga, gf = check_grads(f2, {"mat_c0[0]": pack2.mat_c0[0]}, rtol=5e-2)
+    out["fd_mat_c0"] = fd_line(f"bunny mat_c0[0] depth 2 [{smi}]", ga, gf,
+                               5e-2, time.perf_counter() - t0)
+    del fn2, pack2, rest
+
+    wrong = pack.mat_c0.clone()
+    wrong[0] = torch.tensor([0.9, 0.1, 0.7], device=dev)
+    with torch.no_grad():
+        target = fn(pack)
+    params, losses, step_ms = {"mat_c0": wrong}, [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, ls = dparams.fit(fn, pack._replace(**params), target,
+                                 fields=("mat_c0",), steps=1, lr=FIT_LR)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses += ls
+    print(f"bunny fit of mat_c0 from red albedo (0.9, 0.1, 0.7), lr "
+          f"{FIT_LR}: losses {losses}, ms per step "
+          f"{[round(x, 1) for x in step_ms]}, red albedo now "
+          f"{params['mat_c0'][0].tolist()} [{smi}]", flush=True)
+    if not losses[2] < losses[1] < losses[0]:
+        raise AssertionError(f"the fit's loss does not fall: {losses}")
+    out["fit"] = {"losses": losses, "step_ms": step_ms}
+    del fn, pack, target, ref
+
+    out.update(texture_grads(dev, smi, res))
+    return out
+
+
+def texture_grads(dev, smi: str, res: int = 1024) -> dict:
+    """The textured scene's texels and its checker variant's two colours
+    at res^2, 1 spp, depth 1: autograd against finite differences (rtol
+    5e-2), one forward and backward of the mean pixel timed."""
+    out = {}
+    for texture, fields in (("image", ("tex_image",)),
+                            ("checker", ("tex_c0", "tex_c1"))):
+        fn, pk = render_fn(grad_scene(texture), res, res, spp=1, seed=0,
+                           max_depth=1, device=dev)
+        _, g, f_ms, b_ms, fwd, bwd, peak = fwd_bwd(
+            fn, pk, fields, lambda img: img.double().mean())
+        t0 = time.perf_counter()
+        ga, gf = check_grads(mean64(fn, pk), dparams.get_params(pk, fields),
+                             rtol=5e-2)
+        worst = fd_line(f"{texture} texture {res}^2 depth 1 [{smi}]", ga, gf,
+                        5e-2, time.perf_counter() - t0)
+        if not float(sum(x.abs().sum() for x in g.values())) > 1e-4:
+            raise AssertionError(f"{texture}: no texture gradient")
+        print(f"{texture} texture: forward {f_ms:.1f} ms, backward "
+              f"{b_ms:.1f} ms (backward/forward {b_ms / f_ms:.2f}), peak "
+              f"memory {peak} bytes, launches forward {fwd}, backward {bwd} "
+              f"[{smi}]", flush=True)
+        out[texture] = {"forward_ms": f_ms, "backward_ms": b_ms,
+                        "peak_bytes": peak, "fd_worst": worst}
+    return out
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1416,6 +1768,10 @@ def main() -> int:
 
     phase("10 command line")
     cli_phase(dev)
+
+    phase("11 differentiable path")
+    diff = diff_phase(dev, smi.splitlines()[0])
+    print(json.dumps({"diff": diff}), flush=True)
 
     k_ms, p_ms, p_rays = sweep_times["instanced"]["closest"]
     # no single PyTorch call computes any of these functions (BVH

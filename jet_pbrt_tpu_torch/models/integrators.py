@@ -14,6 +14,12 @@ power-heuristic MIS the reference package defines (its BSDF-sampled
 emitter hits weighted against `pdf_li`, its NEE weighted against the BSDF
 pdf). `li_whitted` and `li_debug_normal` are the reference package's other
 two integrators (integrators.py:300-381).
+
+Gradients (models/render.py::render_fn): sampled directions, pdfs, light
+sample points, MIS weights and the roulette probability are detached where
+the reference package stops their gradients, so the estimate is
+differentiable through f, Li and emission alone and no traversal input
+carries a gradient (the kernels have no backward).
 """
 from __future__ import annotations
 
@@ -109,7 +115,7 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
                         if kind == scene_pack.LIGHT_AREA else ~hit.valid)
                 w_area = torch.where(this, w, w_area)
             L = L + torch.where((active & ~prev_specular)[:, None],
-                                beta * le * w_area[:, None],
+                                beta * le * w_area.detach()[:, None],
                                 torch.zeros_like(le))
 
         if bounce >= max_depth:
@@ -132,25 +138,26 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
                 continue
             ls = light_ops.sample_li(meta, pack, li_idx, hit.position,
                                      rng.stream_nee(u_vertex, li_idx))
-            wi_local = to_local(frame, ls.wi)
+            # the light sample's direction, pdf and point carry no gradient
+            wi, pdf = ls.wi.detach(), ls.pdf.detach()
+            wi_local = to_local(frame, wi)
             f = bsdf_ops.eval_f(lobe, wo_local, wi_local,
                                 lobes=meta.present_lobes,
                                 mf_kinds=meta.present_mf_kinds)
-            useful = (cont & ~delta & (ls.pdf > 0.0) & ~is_black(ls.li)
+            useful = (cont & ~delta & (pdf > 0.0) & ~is_black(ls.li)
                       & ~is_black(f))
             if with_stats:
                 n_shadow = n_shadow + useful.sum()
             contrib = beta * f * ls.li * (
-                absdot(ls.wi, hit.normal)
-                / torch.clamp_min(ls.pdf, 1e-20))[:, None]
+                absdot(wi, hit.normal) / torch.clamp_min(pdf, 1e-20))[:, None]
             if mis and not scene_pack.light_is_delta(meta, li_idx):
                 pb = bsdf_ops.pdf(lobe, wo_local, wi_local,
                                   lobes=meta.present_lobes,
                                   mf_kinds=meta.present_mf_kinds)
-                contrib = contrib * power_heuristic(1.0, ls.pdf, 1.0,
-                                                    pb)[:, None]
+                contrib = contrib * power_heuristic(1.0, pdf, 1.0,
+                                                    pb.detach())[:, None]
             occ = scene_pack.occluded(
-                meta, pack, hit.position, ls.pos, mask=useful,
+                meta, pack, hit.position, ls.pos.detach(), mask=useful,
                 sort=meta.kernel_routed and bounce < 2, stats=sweep_stats)
             L = L + torch.where((useful & ~occ)[:, None], contrib,
                                 torch.zeros_like(contrib))
@@ -159,25 +166,27 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
         bs = bsdf_ops.sample(lobe, wo_local, rng.stream_bsdf(u_vertex, nl),
                              lobes=meta.present_lobes,
                              mf_kinds=meta.present_mf_kinds)
-        wi_world = to_world(frame, bs.wi)
-        sample_ok = (bs.pdf > 0.0) & ~is_black(bs.f)
+        # the sampled direction and its pdf carry no gradient; f does
+        wi_world = to_world(frame, bs.wi).detach()
+        pdf_b = bs.pdf.detach()
+        sample_ok = (pdf_b > 0.0) & ~is_black(bs.f)
 
         # Russian roulette (reference: src/integrator.cc:383-393)
         if bounce >= 3:
-            q = torch.clamp_min(1.0 - max_component(bs.f), 0.05)
+            q = torch.clamp_min(1.0 - max_component(bs.f.detach()), 0.05)
             rr_die = rng.stream_rr(u_vertex, nl) < q
             rr_scale = 1.0 / torch.clamp_min(1.0 - q, 1e-6)
         else:
             rr_die = torch.zeros_like(active)
-            rr_scale = torch.ones_like(bs.pdf)
+            rr_scale = torch.ones_like(pdf_b)
 
         active = cont & sample_ok & ~rr_die
         weight = (bs.f * (absdot(wi_world, hit.normal)
-                          / torch.clamp_min(bs.pdf, 1e-20))[:, None]
+                          / torch.clamp_min(pdf_b, 1e-20))[:, None]
                   * rr_scale[:, None])
         beta = torch.where(active[:, None], beta * weight, beta)
         prev_specular = bs.is_specular
-        prev_pdf = bs.pdf
+        prev_pdf = pdf_b
         ray_o = torch.where(active[:, None], hit.position, ray_o)
         ray_d = torch.where(active[:, None], wi_world, ray_d)
 
@@ -185,13 +194,14 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
             # regroup lanes for the next bounce's traversal (ops/sort.py);
             # deep bounces keep the order: lanes only die from here, so the
             # dead tail of the last sort persists
-            world_lo = pack.world_center - pack.world_radius
+            world_lo = (pack.world_center - pack.world_radius).detach()
             world_inv = (1.0 / torch.clamp_min(2.0 * pack.world_radius,
-                                               1e-12)).expand(3)
-            needs = sort_ops.bvh_needed(meta, pack, ray_o, ray_d,
+                                               1e-12)).detach().expand(3)
+            o_key, d_key = ray_o.detach(), ray_d.detach()
+            needs = sort_ops.bvh_needed(meta, pack, o_key, d_key,
                                         torch.where(active, eps, inf),
                                         torch.where(active, inf, neg))
-            key = sort_ops.ray_sort_key(active, ray_o, ray_d, world_lo,
+            key = sort_ops.ray_sort_key(active, o_key, d_key, world_lo,
                                         world_inv, needs_bvh=needs)
             perm = torch.argsort(key, stable=True)
             L, beta, ray_o, ray_d, active, prev_specular, prev_pdf, lane = (
@@ -264,26 +274,27 @@ def li_whitted(meta, pack, o, d, u, max_depth: int):
                 continue
             ls = light_ops.sample_li(meta, pack, li_idx, hit.position,
                                      rng.stream_nee(u_vertex, li_idx))
-            f = bsdf_ops.eval_f(lobe, wo_local, to_local(frame, ls.wi),
+            wi, pdf = ls.wi.detach(), ls.pdf.detach()
+            f = bsdf_ops.eval_f(lobe, wo_local, to_local(frame, wi),
                                 lobes=meta.present_lobes,
                                 mf_kinds=meta.present_mf_kinds)
-            useful = (cont & ~delta & (ls.pdf > 0.0) & ~is_black(ls.li)
+            useful = (cont & ~delta & (pdf > 0.0) & ~is_black(ls.li)
                       & ~is_black(f))
-            occ = scene_pack.occluded(meta, pack, hit.position, ls.pos,
-                                      mask=useful)
+            occ = scene_pack.occluded(meta, pack, hit.position,
+                                      ls.pos.detach(), mask=useful)
             contrib = beta * f * ls.li * (
-                absdot(ls.wi, hit.normal)
-                / torch.clamp_min(ls.pdf, 1e-20))[:, None]
+                absdot(wi, hit.normal) / torch.clamp_min(pdf, 1e-20))[:, None]
             L = L + torch.where((useful & ~occ)[:, None], contrib,
                                 torch.zeros_like(contrib))
 
         bs = bsdf_ops.sample(lobe, wo_local, rng.stream_bsdf(u_vertex, nl),
                              lobes=meta.present_lobes,
                              mf_kinds=meta.present_mf_kinds)
-        wi_world = to_world(frame, bs.wi)
-        active = cont & delta & (bs.pdf > 0.0) & ~is_black(bs.f)
+        wi_world = to_world(frame, bs.wi).detach()
+        pdf_b = bs.pdf.detach()
+        active = cont & delta & (pdf_b > 0.0) & ~is_black(bs.f)
         weight = bs.f * (absdot(wi_world, hit.normal)
-                         / torch.clamp_min(bs.pdf, 1e-20))[:, None]
+                         / torch.clamp_min(pdf_b, 1e-20))[:, None]
         beta = torch.where(active[:, None], beta * weight, beta)
         ray_o = torch.where(active[:, None], hit.position, ray_o)
         ray_d = torch.where(active[:, None], wi_world, ray_d)

@@ -124,3 +124,25 @@ def render(scene, width: int, height: int, spp: int, seed: int = 0,
     if with_stats:
         return img, {k: int(v) for k, v in stats.items()}
     return img
+
+
+def render_fn(scene, width: int, height: int, spp: int, seed: int = 0,
+              max_depth: int = 5, mis: bool = False, device=None):
+    """The whole frame as one differentiable function of the scene pack
+    (reference package render.py:90-121): returns (fn, pack), pack on
+    `device` (default: the card), and fn(pack) -> [H,W,3] float32 runs one
+    path-integrator wave of the whole frame per sample, sums the waves in
+    float32 in sample order and divides by spp, with no clamp. Gradients
+    flow into every floating field of the pack that requires grad."""
+    device, pack, cam = setup(scene, width, height, device)
+    wave = wave_fn(scene.meta, width, max_depth, mis=mis, seed=seed)
+    pixel = torch.arange(width * height, device=device)
+
+    def fn(pack):
+        film = torch.zeros((width * height, 3), dtype=torch.float32,
+                           device=device)
+        for s in range(spp):
+            film = film + wave(pack, cam, s, pixel)
+        return (film / spp).view(height, width, 3)
+
+    return fn, pack

@@ -169,9 +169,14 @@ def _pdf_lambert(wo, wi):
 
 
 def _microfacet_fresnel(lobe: Lobe, cos_i):
-    f_cond = fresnel_conductor(cos_i, 1.0, lobe.f1, lobe.f2)
+    # dielectric lanes feed the conductor branch eta = k = 1, not their zero
+    # f1, f2: its sqrt of 0 would turn the zero gradient of the unselected
+    # branch into NaN (the values it selects are unchanged)
+    cond = lobe.fr_conductor[..., None]
+    f_cond = fresnel_conductor(cos_i, 1.0, _w(cond, lobe.f1, 1.0),
+                               _w(cond, lobe.f2, 1.0))
     f_diel = fresnel_dielectric(cos_i, lobe.fr_eta_i, lobe.fr_eta_t)[..., None]
-    return torch.where(lobe.fr_conductor[..., None], f_cond, f_diel)
+    return torch.where(cond, f_cond, f_diel)
 
 
 def _eval_microfacet(lobe: Lobe, wo, wi, mf_kinds=None):

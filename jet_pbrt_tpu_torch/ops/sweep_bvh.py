@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .intersect import KindHit
+from .intersect import KindHit, no_grad_inputs
 from .linalg import fma32
 
 GROUP = 128          # triangles per cull group
@@ -223,6 +223,7 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
         return hit
     if o.device.type != "cuda":
         raise ValueError(f"no sweep route for device {o.device}")
+    no_grad_inputs("sweep_bvh", o=o, d=d, tmin=tmin, tmax=tmax)
     stats = (torch.empty((n_packets, 6), dtype=torch.int64, device=o.device)
              if with_stats else None)
     t, idx = launch(load_kernel(), tables, o, d, tmin, tmax, any_hit=any_hit,

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .intersect import KindHit
+from .intersect import KindHit, no_grad_inputs
 
 WIDTH = 8
 # raw collapse encoding, as the reference's collapse_wide emits it:
@@ -291,6 +291,7 @@ def intersect_wide(tables: WideTables, o, d, tmin, tmax, *, any_hit: bool,
         raise ValueError(f"no wide-BVH kernel for device {o.device}"
                          + (" (with_stats counts the kernel's work)"
                             if with_stats else ""))
+    no_grad_inputs("wide_bvh", o=o, d=d, tmin=tmin, tmax=tmax)
     lib = load_kernel()
     stats = None
     if with_stats:

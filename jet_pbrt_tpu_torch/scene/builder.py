@@ -6,8 +6,8 @@ src/scene.h:66-124, src/scene.cc:11-97). Rows accumulate in numpy and
 leaf size, so triangle order is identical on both sides), routes every BVH
 mesh (a use_bvh soup, each instanced family) as the reference's TPU build
 would (`sweep_route`), and scene/convert.py builds the one traversal layout
-of its route: the 8-wide tables or the cull-sweep tables. Textures are not
-ported yet.
+of its route: the 8-wide tables or the cull-sweep tables. Textures are
+rows of one table, images padded to the largest (ops/texture.py).
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ import numpy as np
 
 from ..ops import bsdf as bsdf_ops
 from ..ops import microfacet as mf_ops
-from ..ops import sweep_bvh, wide_bvh
+from ..ops import sweep_bvh, texture as tex_ops, wide_bvh
 from ..ops.bvh import build_bvh, build_box_bvh, pack_node_table
 from ..ops.linalg import RAY_EPS_REL
 from .pack import (KIND_TRI, KIND_SPHERE, KIND_RECT, KIND_DISK, KIND_INST,
@@ -108,6 +108,7 @@ class SceneBuilder:
         self._disk = []         # rows: (c, n, r, mat, light)
         self._mat = []          # rows: (kind, c0, c1, s0, s1, remap, tex, mf)
         self._lights = []       # rows: (LightMeta, c, pos, dir)
+        self._tex = []          # rows: (kind, c0, c1, scale, image or None)
         self._inst_meshes = []  # per family: local mesh + instance rows
 
     def set_camera(self, lookfrom, lookat=None, front=None, vup=(0, 1, 0),
@@ -119,28 +120,88 @@ class SceneBuilder:
             lookfrom=tuple(lookfrom), front=tuple(np.asarray(front, np.float64)),
             vup=tuple(vup), vfov=float(vfov))
 
+    # -- textures (reference: src/texture.h, wired into materials) ----------
+    def _add_tex(self, kind, c0=(0, 0, 0), c1=(0, 0, 0), scale=1.0,
+                 image=None) -> int:
+        self._tex.append((kind, np.asarray(c0, np.float32),
+                          np.asarray(c1, np.float32), float(scale), image))
+        return len(self._tex) - 1
+
+    def add_solid_texture(self, color) -> int:
+        return self._add_tex(tex_ops.TEX_SOLID, color)
+
+    def add_checker_texture(self, c0, c1, scale: float = 10.0) -> int:
+        """3D sine checker (reference: src/texture.cc:26-35; the default
+        scale is its fixed frequency)."""
+        return self._add_tex(tex_ops.TEX_CHECKER, c0, c1, scale)
+
+    def add_image_texture(self, image, bilinear: bool = False) -> int:
+        """image: [H,W,3] floats in [0,1], uint8 (scaled by 1/255 as
+        src/texture.cc:70 does), or a file path: a .ppm through
+        utils/image.read_ppm, any other format through PIL (imported here,
+        so its absence raises only on such a path)."""
+        if isinstance(image, str):
+            if image.lower().endswith(".ppm"):
+                from ..utils.image import read_ppm
+                image = read_ppm(image)
+            else:
+                from PIL import Image
+                image = np.asarray(Image.open(image).convert("RGB"))
+        image = np.asarray(image)
+        if image.dtype == np.uint8:
+            image = image.astype(np.float32) / 255.0
+        kind = tex_ops.TEX_IMAGE_BILINEAR if bilinear else tex_ops.TEX_IMAGE
+        return self._add_tex(kind, image=image.astype(np.float32))
+
     # -- materials (reference: src/material.h) ------------------------------
     def _add_mat(self, kind, c0, c1=(0, 0, 0), s0=0.0, s1=0.0,
-                 remap=False) -> int:
-        # no texture (-1); GGX microfacets (the reference's default)
+                 remap=False, tex: int = -1, mf: int = mf_ops.GGX) -> int:
         self._mat.append((kind, np.asarray(c0, np.float32),
                           np.asarray(c1, np.float32), float(s0), float(s1),
-                          bool(remap), -1, mf_ops.GGX))
+                          bool(remap), int(tex), int(mf)))
         return len(self._mat) - 1
 
-    def add_matte(self, color) -> int:
-        return self._add_mat(bsdf_ops.MAT_MATTE, color)
+    @staticmethod
+    def _mf_kind(distribution: str) -> int:
+        try:
+            return {"ggx": mf_ops.GGX, "beckmann": mf_ops.BECKMANN}[
+                distribution]
+        except KeyError:
+            raise ValueError(f"unknown microfacet distribution "
+                             f"{distribution!r}") from None
+
+    def add_matte(self, color, tex: int = -1) -> int:
+        return self._add_mat(bsdf_ops.MAT_MATTE, color, tex=tex)
+
+    def add_mirror(self, color) -> int:
+        return self._add_mat(bsdf_ops.MAT_MIRROR, color)
 
     def add_glass(self, eta: float, kr=(1, 1, 1), kt=(1, 1, 1)) -> int:
         return self._add_mat(bsdf_ops.MAT_GLASS, kr, kt, eta)
 
-    def add_plastic(self, kd, ks, roughness: float, remap: bool = False) -> int:
+    def add_plastic(self, kd, ks, roughness: float, remap: bool = False,
+                    tex: int = -1, distribution: str = "ggx") -> int:
         return self._add_mat(bsdf_ops.MAT_PLASTIC, kd, ks, roughness,
-                             roughness, remap)
+                             roughness, remap, tex=tex,
+                             mf=self._mf_kind(distribution))
 
     def add_metal(self, eta, k, urough: float, vrough: float,
-                  remap: bool = False) -> int:
-        return self._add_mat(bsdf_ops.MAT_METAL, eta, k, urough, vrough, remap)
+                  remap: bool = False, distribution: str = "ggx") -> int:
+        return self._add_mat(bsdf_ops.MAT_METAL, eta, k, urough, vrough, remap,
+                             mf=self._mf_kind(distribution))
+
+    def add_roughglass(self, eta: float, roughness: float, kr=(1, 1, 1),
+                       kt=(1, 1, 1), remap: bool = False,
+                       distribution: str = "ggx") -> int:
+        """Rough dielectric: microfacet reflection and transmission
+        (reference: src/bsdf.cc:80-145)."""
+        return self._add_mat(bsdf_ops.MAT_ROUGHGLASS, kr, kt, roughness, eta,
+                             remap, mf=self._mf_kind(distribution))
+
+    def add_phong(self, ks, exponent: float) -> int:
+        """Energy-conserving modified Phong reflection (reference:
+        src/bsdf.h:555-631)."""
+        return self._add_mat(bsdf_ops.MAT_PHONG, ks, s0=exponent)
 
     # -- shapes -----------------------------------------------------------
     def _add_tri_block(self, tris, mat: int, flip_normal: bool, uvs=None):
@@ -156,9 +217,11 @@ class SceneBuilder:
         self._tri_count += k
         return [(KIND_TRI, start + i) for i in range(k)]
 
-    def add_triangle(self, p0, p1, p2, mat: int, flip_normal=False):
+    def add_triangle(self, p0, p1, p2, mat: int, flip_normal=False, uv=None):
+        """uv: optional per-vertex texcoords [3,2]."""
         tri = np.stack([np.asarray(p, np.float32) for p in (p0, p1, p2)])
-        return self._add_tri_block(tri[None], mat, flip_normal)[0]
+        uvs = None if uv is None else np.asarray(uv, np.float32)[None]
+        return self._add_tri_block(tri[None], mat, flip_normal, uvs)[0]
 
     def add_mesh(self, tris, mat: int, flip_normal=False,
                  flip_handedness=False, offset=(0, 0, 0), scale=1.0,
@@ -213,8 +276,19 @@ class SceneBuilder:
         self._rect.append([q, n.astype(np.float32), mat, -1])
         return (KIND_RECT, len(self._rect) - 1)
 
+    def add_rect_xy(self, x0, x1, y0, y1, z, mat: int, flip_normal=False):
+        """(reference: src/shape.cc:76-81)"""
+        return self.add_rect((x0, y0, z), (x1, y0, z), (x1, y1, z), (x0, y1, z),
+                             mat, flip_normal)
+
     def add_rect_xz(self, x0, x1, z0, z1, y, mat: int, flip_normal=False):
+        """(reference: src/shape.cc:83-88)"""
         return self.add_rect((x0, y, z0), (x0, y, z1), (x1, y, z1), (x1, y, z0),
+                             mat, flip_normal)
+
+    def add_rect_yz(self, y0, y1, z0, z1, x, mat: int, flip_normal=False):
+        """(reference: src/shape.cc:90-95)"""
+        return self.add_rect((x, y0, z0), (x, y1, z0), (x, y1, z1), (x, y0, z1),
                              mat, flip_normal)
 
     def add_disk(self, center, normal, radius: float, mat: int):
@@ -260,8 +334,13 @@ class SceneBuilder:
         return [self.add_area_light(r, radiance) for r in shape_refs]
 
     # -- build --------------------------------------------------------------
-    def build(self, use_bvh: bool | None = None,
-              bvh_leaf_size: int = 4) -> Scene:
+    def build(self, use_bvh: bool | None = None, bvh_leaf_size: int = 4,
+              prune_black_nee: bool = True,
+              ray_eps: float | None = None) -> Scene:
+        """prune_black_nee marks lights of zero radiance static_black (NEE
+        skips them, and their radiance loses its NEE gradient); ray_eps
+        pins the spawn / shadow epsilon (default: RAY_EPS_REL of the scene's
+        diameter)."""
         from .convert import pack_from_arrays
 
         if self.camera is None:
@@ -311,13 +390,20 @@ class SceneBuilder:
         a["mat_remap"] = col(self._mat, 5, bool)
         a["mat_tex"] = col(self._mat, 6, np.int32)
         a["mat_mf"] = col(self._mat, 7, np.int32)
-        # empty texture table (the reference's layout with no textures)
-        a["tex_kind"] = np.zeros(0, np.int32)
-        a["tex_c0"] = np.zeros((0, 3), np.float32)
-        a["tex_c1"] = np.zeros((0, 3), np.float32)
-        a["tex_scale"] = np.zeros(0, np.float32)
-        a["tex_image"] = np.zeros((0, 1, 1, 3), np.float32)
-        a["tex_wh"] = np.ones((0, 2), np.int32)
+        # the texture table, images padded to the largest
+        images = [t[4] for t in self._tex]
+        th = max([im.shape[0] for im in images if im is not None] or [1])
+        tw = max([im.shape[1] for im in images if im is not None] or [1])
+        a["tex_kind"] = col(self._tex, 0, np.int32)
+        a["tex_c0"] = stack(self._tex, 1, (3,))
+        a["tex_c1"] = stack(self._tex, 2, (3,))
+        a["tex_scale"] = col(self._tex, 3, np.float32)
+        a["tex_image"] = np.zeros((len(images), th, tw, 3), np.float32)
+        a["tex_wh"] = np.ones((len(images), 2), np.int32)
+        for i, im in enumerate(images):
+            if im is not None:
+                a["tex_image"][i, :im.shape[0], :im.shape[1]] = im
+                a["tex_wh"][i] = (im.shape[1], im.shape[0])
         a["light_c"] = stack(self._lights, 1, (3,))
         a["light_pos"] = stack(self._lights, 2, (3,))
         a["light_dir"] = stack(self._lights, 3, (3,))
@@ -339,8 +425,9 @@ class SceneBuilder:
         radius = float(np.linalg.norm(bmax - center))
         a["world_center"] = np.asarray(center, np.float32)
         a["world_radius"] = np.asarray(radius, np.float32)
-        a["ray_eps"] = np.asarray(max(float(2.0 * radius) * RAY_EPS_REL, 1e-30),
-                                  np.float32)
+        a["ray_eps"] = np.asarray(
+            ray_eps if ray_eps is not None
+            else max(float(2.0 * radius) * RAY_EPS_REL, 1e-30), np.float32)
 
         n_tri = self._tri_count
         if use_bvh is None:
@@ -430,7 +517,7 @@ class SceneBuilder:
                                          if m[0] in _MF_MATS}))
         light_metas = []
         for lm, c, _pos, _dir in self._lights:
-            if float(np.abs(c).sum()) == 0.0:
+            if prune_black_nee and float(np.abs(c).sum()) == 0.0:
                 lm = dataclasses.replace(lm, static_black=True)
             if lm.kind == LIGHT_AREA and lm.shape_kind >= KIND_INST:
                 mi = lm.shape_kind - KIND_INST
@@ -441,7 +528,7 @@ class SceneBuilder:
             name=self.name, n_tri=n_tri, n_sph=len(self._sph),
             n_rect=len(self._rect), n_disk=len(self._disk),
             n_mat=len(self._mat), lights=tuple(light_metas),
-            use_bvh=bool(use_bvh), n_tex=0,
+            use_bvh=bool(use_bvh), n_tex=len(self._tex),
             present_lobes=present_lobes, present_mf_kinds=present_mf_kinds,
             n_bvh_nodes=int(a["bvh_nodes"].shape[0]),
             n_bvh_tris=int(a["bvh_tris"].shape[0]),

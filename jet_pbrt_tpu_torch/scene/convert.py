@@ -117,8 +117,6 @@ def scene_from_arrays(meta: dict, arrays: dict, camera):
             m[k] = tuple(v)
     names = {f.name for f in dataclasses.fields(SceneMeta)}
     port_meta = SceneMeta(**{k: v for k, v in m.items() if k in names})
-    if port_meta.n_tex:
-        raise NotImplementedError("textured scenes are not ported yet")
     a = dict(arrays)
     for f in FAMILY_FIELDS:
         a[f] = tuple(np.asarray(x) for x in a[f])

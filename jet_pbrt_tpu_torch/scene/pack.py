@@ -23,7 +23,9 @@ import torch
 from ..ops import intersect as isect_ops
 from ..ops import sweep_bvh
 from ..ops import wide_bvh
-from ..ops.linalg import dot, normalize
+from ..ops import linalg
+from ..ops import texture as tex_ops
+from ..ops.linalg import dot, frame_from_z, normalize, to_local
 
 KIND_TRI = 0
 KIND_SPHERE = 1
@@ -123,7 +125,7 @@ class ScenePack(NamedTuple):
     mat_s0: torch.Tensor      # [M]
     mat_s1: torch.Tensor
     mat_remap: torch.Tensor   # [M] bool
-    mat_tex: torch.Tensor     # [M] int32 (-1: the port has no textures yet)
+    mat_tex: torch.Tensor     # [M] int32 texture of Kd, -1 = none
     mat_mf: torch.Tensor      # [M] int32
     tex_kind: torch.Tensor
     tex_c0: torch.Tensor
@@ -179,7 +181,8 @@ class Hit(NamedTuple):
     position: torch.Tensor  # [N,3]
     normal: torch.Tensor    # [N,3] geometric normal
     wo: torch.Tensor        # [N,3] -ray.dir
-    uv: torch.Tensor        # [N,2] (zero: textures are not ported yet)
+    uv: torch.Tensor        # [N,2] surface parameterisation (zero unless
+                            # the scene has textures)
     mat_id: torch.Tensor    # [N] int32 (0 when invalid)
     light_id: torch.Tensor  # [N] int32, -1 = not an emitter
 
@@ -252,16 +255,34 @@ def _kind_hits(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
 def _rows(table, index):
     """table[index] with the index clamped into range: lanes of other kinds
     carry indices of their own tables, and their rows are discarded."""
-    return table[torch.clamp(index, 0, table.shape[0] - 1)]
+    return linalg.gather_rows(table,
+                              torch.clamp(index, 0, table.shape[0] - 1))
+
+
+def _bary_uv(a, e1, e2, p, uvs):
+    """Vertex uvs [N,3,2] interpolated at p by its barycentrics on the
+    triangles (a, a + e1, a + e2) (reference package pack.py:483-507; the
+    reference's own triangle GetUV is unused)."""
+    v2 = p - a
+    d00, d01, d11 = dot(e1, e1), dot(e1, e2), dot(e2, e2)
+    d20, d21 = dot(v2, e1), dot(v2, e2)
+    denom = torch.clamp_min(d00 * d11 - d01 * d01, 1e-18)
+    wb = (d11 * d20 - d01 * d21) / denom
+    wc = (d00 * d21 - d01 * d20) / denom
+    wa = 1.0 - wb - wc
+    return (uvs[:, 0] * wa[:, None] + uvs[:, 1] * wb[:, None]
+            + uvs[:, 2] * wc[:, None])
 
 
 def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
               stats: dict | None = None) -> Hit:
     """Closest hit over the whole scene (reference: src/scene.cc:25-33).
-    stats: optional dict that collects the sweep kernel's counters."""
+    UVs are computed only when the scene has textures. stats: optional
+    dict that collects the sweep kernel's counters."""
     n = o.shape[0]
     dev = o.device
     uv = torch.zeros((n, 2), dtype=torch.float32, device=dev)
+    want_uv = meta.n_tex > 0
     hits, kinds = _kind_hits(meta, pack, o, d, tmin, tmax, stats=stats)
     if not hits:
         z3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
@@ -285,10 +306,22 @@ def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
             nk = _rows(pack.tri_n, index)
             mk = _rows(pack.tri_mat, index)
             lk = _rows(pack.tri_light, index)
+            if want_uv:
+                a = _rows(pack.tri_p0, index)
+                uvk = _bary_uv(a, _rows(pack.tri_p1, index) - a,
+                               _rows(pack.tri_p2, index) - a, p,
+                               _rows(pack.tri_uv, index))
         elif k == KIND_SPHERE:
             nk = normalize(p - _rows(pack.sph_c, index))
             mk = _rows(pack.sph_mat, index)
             lk = _rows(pack.sph_light, index)
+            if want_uv:
+                # lat-long of the unit normal (reference: src/shape.h:528-538,
+                # on the normalised offset as the reference package does)
+                phi = torch.atan2(nk[:, 2], nk[:, 0])
+                theta = torch.asin(torch.clamp(nk[:, 1], -1.0, 1.0))
+                uvk = torch.stack([1.0 - (phi + math.pi) / (2.0 * math.pi),
+                                   (theta + math.pi / 2.0) / math.pi], dim=-1)
         elif k >= KIND_INST:
             mi = k - KIND_INST
             inst = index // meta.n_blas_tris[mi]
@@ -296,18 +329,50 @@ def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
             mk = _rows(pack.inst_mat[mi], inst)
             lk = _rows(pack.inst_light[mi], inst)
             nk = _rows(pack.blas_n[mi], ti)
+            if want_uv:
+                # barycentrics in instance space: the transform is a uniform
+                # scale and a shift, so the weights are the world's
+                rows = _rows(pack.blas_tris[mi], ti)
+                p_l = ((p - _rows(pack.inst_off[mi], inst))
+                       / torch.clamp_min(_rows(pack.inst_scale[mi], inst),
+                                         1e-12)[:, None])
+                uvk = _bary_uv(rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], p_l,
+                               _rows(pack.blas_uv[mi], ti))
         elif k == KIND_RECT:
             nk = isect_ops.rect_hit_normal(_rows(pack.rect_n, index), d)
             mk = _rows(pack.rect_mat, index)
             lk = _rows(pack.rect_light, index)
+            if want_uv:
+                # edge projection (reference: src/shape.h:437-447)
+                q = _rows(pack.rect_q, index)
+                v01 = q[:, 1] - q[:, 0]
+                v03 = q[:, 3] - q[:, 0]
+                v0p = p - q[:, 0]
+                uvk = torch.stack(
+                    [dot(v01, v0p) / torch.clamp_min(dot(v01, v01), 1e-12),
+                     dot(v03, v0p) / torch.clamp_min(dot(v03, v03), 1e-12)],
+                    dim=-1)
         else:
             nk = _rows(pack.disk_n, index)
             mk = _rows(pack.disk_mat, index)
             lk = _rows(pack.disk_light, index)
+            if want_uv:
+                # polar (reference: src/shape.h:223-236)
+                c = _rows(pack.disk_c, index)
+                local = to_local(frame_from_z(nk), p - c)
+                phi = torch.atan2(local[:, 1], local[:, 0])
+                phi = torch.where(phi < 0, phi + 2 * math.pi, phi)
+                r = torch.sqrt(torch.clamp_min(dot(p - c, p - c), 0.0))
+                uvk = torch.stack(
+                    [phi / (2 * math.pi),
+                     r / torch.clamp_min(_rows(pack.disk_r, index), 1e-12)],
+                    dim=-1)
         sel = kind == k
         normal = torch.where(sel[:, None], nk, normal)
         mat_id = torch.where(sel, mk, mat_id)
         light_id = torch.where(sel, lk, light_id)
+        if want_uv:
+            uv = torch.where(sel[:, None], uvk, uv)
 
     return Hit(valid=valid, t=t, position=p, normal=normal, wo=-d, uv=uv,
                mat_id=torch.where(valid, mat_id, torch.zeros_like(mat_id)),
@@ -369,10 +434,14 @@ def emitted(pack: ScenePack, hit: Hit) -> torch.Tensor:
 
 
 def effective_kd(meta: SceneMeta, pack: ScenePack, hit: Hit, c0, tex_id):
-    """Kd with texture taps; the port has no textures yet."""
-    if meta.n_tex:
-        raise NotImplementedError("textured materials are not ported yet")
-    return c0
+    """Kd, or its texture's tap at the hit where the material has a
+    texture (tex_id from gather_material; reference package
+    pack.py:595-607). The texels stay on the autograd tape."""
+    if meta.n_tex == 0:
+        return c0
+    rgb = tex_ops.sample(pack, torch.clamp_min(tex_id, 0), hit.uv,
+                         hit.position)
+    return torch.where((tex_id >= 0)[:, None], rgb, c0)
 
 
 def light_is_delta(meta: SceneMeta, light_index: int) -> bool:
@@ -384,5 +453,6 @@ def gather_material(pack: ScenePack, mat_id):
     """Material rows for a ray batch as (kind, c0, c1, s0, s1, remap, tex,
     mf), by plain indexing."""
     i = mat_id.to(torch.int64)
-    return (pack.mat_kind[i], pack.mat_c0[i], pack.mat_c1[i], pack.mat_s0[i],
-            pack.mat_s1[i], pack.mat_remap[i], pack.mat_tex[i], pack.mat_mf[i])
+    return tuple(linalg.gather_rows(t, i) for t in (
+        pack.mat_kind, pack.mat_c0, pack.mat_c1, pack.mat_s0, pack.mat_s1,
+        pack.mat_remap, pack.mat_tex, pack.mat_mf))

@@ -29,7 +29,9 @@ _LOADED: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, tuple[float, str]] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """Path of nvcc: on PATH, else under CUDA_HOME (default
+    /usr/local/cuda)."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -63,7 +65,7 @@ def build_libraries(specs) -> None:
         os.makedirs(os.path.dirname(lib_path), exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         procs.append((name, lib_path, tmp, time.perf_counter(),
-                      subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
+                      subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
                                        stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -76,6 +78,11 @@ def build_libraries(specs) -> None:
         BUILD_LOG[name] = (time.perf_counter() - t0, out + err)
     if failed:
         raise RuntimeError("\n".join(failed))
+
+
+def library_path(name: str, sources: list[str]) -> str:
+    """Where lib<name>.so of these sources is (or will be) built."""
+    return _lib_path(name, sources)[0]
 
 
 def load_library(name: str, sources: list[str], declare) -> ctypes.CDLL:

@@ -415,3 +415,95 @@ def test_threefry_kernel_matches_plain_on_card(n, s):
         assert (TR.lane_keys.launches, TR.uniforms.launches) == (
             before[0] + 1, before[1] + 2)
         torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arg", ["o", "d", "tmin", "tmax"])
+@pytest.mark.parametrize("which", ["wide", "sweep"])
+def test_kernels_refuse_inputs_that_require_grad(which, arg):
+    """A launch reads raw pointers and has no backward: the CUDA route of
+    each traversal kernel raises, launching nothing, when a ray or interval
+    input requires grad."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    bvh, _, mt = _mesh(3, 800, 10.0, 0.8)
+    rays = dict(zip(("o", "d", "tmin", "tmax"),
+                    _rays(5, 300, (0.0, 0.0, 12.0), "cuda")))
+    rays[arg] = rays[arg].clone().requires_grad_(True)
+    if which == "wide":
+        tb, fn = TW.wide_tables(bvh, mt, LEAF).to("cuda"), TW.intersect_wide
+        kw = dict(has_inst=False, leaf_size=LEAF, n_tris=mt.shape[0])
+    else:
+        tb, fn = TS.sweep_tables(mt).to("cuda"), TS.intersect_sweep
+        kw = dict(n_tris=mt.shape[0])
+    before = fn.launches
+    with pytest.raises(ValueError, match="require grad"):
+        fn(tb, *rays.values(), any_hit=False, **kw)
+    assert fn.launches == before
+    rays[arg] = rays[arg].detach()
+    fn(tb, *rays.values(), any_hit=False, **kw)
+    assert fn.launches == before + 1
+
+
+def _grad_scene():
+    """A textured matte floor, a rough metal and a plastic instanced mesh
+    (the wide kernel's route) under an area light, no environment."""
+    from jet_pbrt_tpu_torch.scene.builder import SceneBuilder
+    rng = np.random.default_rng(9)
+    b = SceneBuilder("grad-card")
+    b.set_camera(lookfrom=(0, 1.5, 9), lookat=(0, 0, 0), vfov=55)
+    tex = b.add_image_texture(rng.uniform(0.2, 0.9, (4, 4, 3)),
+                              bilinear=True)
+    b.add_rect_xz(-6, 6, -6, 6, -2, b.add_matte((1, 1, 1), tex=tex))
+    metal = b.add_metal((0.2, 0.9, 1.1), (3.9, 2.4, 2.1), 0.25, 0.25)
+    plastic = b.add_plastic((0.5, 0.3, 0.2), (0.4, 0.4, 0.4), 0.3)
+    b.add_sphere((2.5, -0.8, 0.5), 1.2, metal)
+    base = rng.uniform(-1, 1, (300, 1, 3))
+    b.add_instanced_mesh(base + rng.uniform(-0.3, 0.3, (300, 3, 3)),
+                         [((0, 0, 0), 1.2, plastic), ((-2.5, 0, 0), 0.8,
+                                                      plastic)])
+    b.add_area_light(b.add_rect_xz(-1, 1, -1, 1, 4, b.add_matte(
+        (0.6, 0.6, 0.6)), flip_normal=True), (8.0, 8.0, 8.0))
+    return b.build()
+
+
+@pytest.mark.cuda
+def test_render_fn_gradients_on_card_match_cpu():
+    """render_fn at depth 2 on the card (wide kernel with its ray sort,
+    Threefry kernel) against the port on the CPU. The card's libm rounds
+    some rays' directions an ulp apart, which moves a lane that grazes an
+    edge onto another path: at most 8 of the 256 pixels may differ beyond
+    rtol 1e-4 / atol 1e-5. The gradients of the mean over the pixels that
+    agree, in albedo, roughness, emission and texels, agree within rtol
+    1e-4 where |g| > 1e-6 (atomic adds sum in another order). The
+    backward launches no kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.diff import params as P
+    from jet_pbrt_tpu_torch.models.render import render_fn
+    scene = _grad_scene()
+    assert scene.meta.wide_blas == (True,) and scene.meta.n_tex == 1
+    fields = ("mat_c0", "mat_s0", "light_c", "tex_image")
+    fns = {dev: render_fn(scene, 16, 16, 2, seed=4, max_depth=2, device=dev)
+           for dev in ("cpu", "cuda")}
+    with torch.no_grad():
+        ic, ig = (fn(pk).cpu().numpy() for fn, pk in fns.values())
+    same = np.all(np.isclose(ig, ic, rtol=1e-4, atol=1e-5), axis=-1)
+    assert (~same).sum() <= 8, int((~same).sum())
+    grads = {}
+    for dev, (fn, pk) in fns.items():
+        mask = torch.from_numpy(same).to(dev)[..., None]
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in P.get_params(pk, fields).items()}
+        val = torch.sum(fn(P.with_params(pk, leaves)) * mask) / mask.sum()
+        launches = (TW.intersect_wide.launches, TR.uniforms.launches)
+        g = torch.autograd.grad(val, list(leaves.values()))
+        assert (TW.intersect_wide.launches, TR.uniforms.launches) == launches
+        grads[dev] = {k: x.cpu().numpy() for k, x in zip(fields, g)}
+    gc, gg = grads["cpu"], grads["cuda"]
+    for k in fields:
+        assert np.isfinite(gg[k]).all(), k
+        big = np.abs(gc[k]) > 1e-6
+        assert big.any(), k
+        np.testing.assert_allclose(gg[k][big], gc[k][big], rtol=1e-4,
+                                   err_msg=k)

@@ -80,6 +80,46 @@ def emissive_scene(builder):
     return b.build()
 
 
+def materials_scene(builder):
+    """Every builder call of the reference's that the port's first lacked:
+    mirror, rough glass (GGX and Beckmann), Phong, Beckmann plastic and
+    metal, textured matte and plastic, solid / checker / image textures
+    (float and uint8 images of two sizes, padded to the larger),
+    add_rect_xy / add_rect_yz, a triangle with uvs, and a build that keeps
+    its black light and pins ray_eps."""
+    rs = np.random.default_rng(13)
+    b = builder("materials")
+    b.set_camera(lookfrom=(0, 1, 6), lookat=(0, 0, 0), vfov=50)
+    b.add_env_light((0.0, 0.0, 0.0))
+    solid = b.add_solid_texture((0.2, 0.4, 0.6))
+    checker = b.add_checker_texture((0.9, 0.1, 0.1), (0.1, 0.1, 0.9), 4.0)
+    img = b.add_image_texture(rs.uniform(size=(3, 5, 3)).astype(np.float32),
+                              bilinear=True)
+    img8 = b.add_image_texture(rs.integers(0, 256, (4, 2, 3), dtype=np.uint8))
+    mats = [b.add_matte((0.5, 0.5, 0.5), tex=checker),
+            b.add_mirror((0.9, 0.8, 0.7)),
+            b.add_roughglass(1.5, 0.3, remap=True, distribution="beckmann"),
+            b.add_roughglass(1.33, 0.1, kr=(0.9, 0.9, 0.9), kt=(0.8, 0.9, 1)),
+            b.add_phong((0.6, 0.6, 0.6), 20.0),
+            b.add_plastic((0.3, 0.2, 0.1), (0.5, 0.5, 0.5), 0.2, tex=img,
+                          distribution="beckmann"),
+            b.add_metal((0.2, 0.9, 1.1), (3.9, 2.4, 2.1), 0.1, 0.3,
+                        remap=True, distribution="beckmann"),
+            b.add_matte((0.7, 0.7, 0.7), tex=img8),
+            b.add_matte((1.0, 1.0, 1.0), tex=solid)]
+    b.add_rect_xy(-3, 3, -1.5, 2.5, -2, mats[0])
+    b.add_rect_yz(-1.5, 2.5, -2, 2, 3, mats[1], flip_normal=True)
+    b.add_rect_xz(-3, 3, -2, 2, -1.5, mats[7])
+    b.add_triangle((-2.5, -1, 0), (-0.5, -1, 0.5), (-1.5, 0.5, 0.2), mats[5],
+                   uv=((0, 0), (1, 0), (0.5, 1)))
+    for i, m in enumerate(mats[2:7]):
+        b.add_sphere((-2 + i, -0.9 + 0.3 * (i % 2), 0.5 * (i % 3)), 0.45, m)
+    light = b.add_rect_xz(-0.7, 0.7, -0.7, 0.7, 2.4, mats[8],
+                          flip_normal=True)
+    b.add_area_light(light, (6.0, 6.0, 6.0))
+    return b.build(prune_black_nee=False, ray_eps=1e-3)
+
+
 def _arrays(pack):
     """{field: numpy array or tuple of arrays} of a JAX ScenePack."""
     out = {}
@@ -116,6 +156,7 @@ SCENES = {
     "instanced": lambda B, mod: instanced_scene(B, True),
     "flattened": lambda B, mod: instanced_scene(B, False),
     "emissive_instances": lambda B, mod: emissive_scene(B),
+    "materials_textures": lambda B, mod: materials_scene(B),
 }
 
 
@@ -309,3 +350,36 @@ def test_add_mesh_uvs_match_reference():
     js, ts = built
     assert np.asarray(js.pack.tri_uv).any()
     _assert_same_scene(js, ts)
+
+
+def test_materials_scene_tables(built):
+    """The scene of every new builder call: its textures padded to the
+    largest image, the black light kept, ray_eps pinned, Beckmann present."""
+    from jet_pbrt_tpu_torch.ops import microfacet as tmf
+    _, ts = built["materials_textures"]
+    m, p = ts.meta, ts.pack
+    assert m.n_tex == 4 and tuple(p.tex_image.shape) == (4, 4, 5, 3)
+    assert p.tex_wh.tolist() == [[1, 1], [1, 1], [5, 3], [2, 4]]
+    assert float(p.tex_image[3].max()) <= 1.0 and p.mat_tex.max() == 3
+    assert not m.lights[0].static_black and float(p.ray_eps) == np.float32(1e-3)
+    assert m.present_mf_kinds == (tmf.GGX, tmf.BECKMANN)
+
+
+def test_image_texture_from_ppm_path(tmp_path):
+    """add_image_texture(<.ppm path>) reads the file as the reference does
+    (each package through its own read_ppm), and an unknown microfacet
+    distribution raises in both."""
+    from jet_pbrt_tpu_torch.utils.image import write_ppm
+    path = str(tmp_path / "t.ppm")
+    write_ppm(path, np.random.default_rng(1).uniform(size=(3, 4, 3)))
+    built = []
+    for builder in (JBuilder, TBuilder):
+        b = builder("ppm")
+        b.set_camera(lookfrom=(0, 0, 5), lookat=(0, 0, 0))
+        b.add_rect_xy(-1, 1, -1, 1, 0, b.add_matte(
+            (1, 1, 1), tex=b.add_image_texture(path)))
+        with pytest.raises(ValueError, match="distribution"):
+            b.add_metal((1, 1, 1), (1, 1, 1), 0.1, 0.1, distribution="phong")
+        built.append(b.build())
+    _assert_same_scene(*built)
+    assert built[1].pack.tex_image.shape == (1, 3, 4, 3)

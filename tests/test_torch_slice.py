@@ -134,20 +134,31 @@ def test_render_defaults_to_the_card(monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Every module of the port, chip_smoke.py, sweep_ab.py, a render and a
-    bunny scene built from a generated OBJ import nothing of JAX and nothing
-    of the JAX package."""
+    """Every module of the port (diff/ and ops/texture.py among them),
+    chip_smoke.py, sweep_ab.py, a render, a gradient of a textured
+    render_fn and a bunny scene built from a generated OBJ import nothing
+    of JAX and nothing of the JAX package."""
     obj = str(tmp_path / "bunny.obj")
     code = (
         "import importlib, pkgutil, sys\n"
         "import jet_pbrt_tpu_torch as p\n"
-        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
-        "    importlib.import_module(m.name)\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__,"
+        " p.__name__ + '.')]\n"
+        "assert {'jet_pbrt_tpu_torch.diff.params',"
+        " 'jet_pbrt_tpu_torch.diff.gradcheck',"
+        " 'jet_pbrt_tpu_torch.ops.texture'} <= set(names), names\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
         "import chip_smoke, sweep_ab\n"
         "from jet_pbrt_tpu_torch.scene.scenes import bunny_obj, bunny_scene,"
         " cornell_box\n"
-        "from jet_pbrt_tpu_torch.models.render import render\n"
+        "from jet_pbrt_tpu_torch.models.render import render, render_fn\n"
+        "from jet_pbrt_tpu_torch.diff import params as P\n"
         "render(cornell_box(), 4, 4, spp=1, device='cpu')\n"
+        "fn, pk = render_fn(chip_smoke.grad_scene('image'), 4, 4, 1,"
+        " max_depth=1, device='cpu')\n"
+        "P.value_and_grad(lambda q: fn(P.with_params(pk, q)).mean(),"
+        " P.get_params(pk))\n"
         f"bunny_scene(bunny_path=bunny_obj(500, {obj!r}), instancing=False)\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in"
         " ('jax', 'jaxlib', 'jet_pbrt_tpu'))\n"
