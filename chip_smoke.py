@@ -10,8 +10,11 @@ Phases, each printing its result; any failure raises and exits non-zero:
      plain version, bit for bit, at 2^20 lanes: the key words of
      lane_keys, and the [2^20, S] uniforms of vertex_uniforms and
      camera_jitter at the default bunny's S, on lanes in pixel order and
-     permuted as the ray sort permutes them; both versions timed, with
-     the kernel's bound;
+     permuted as the ray sort permutes them; both versions timed: the
+     kernel by events, host enqueue and the profiler's device time, with
+     its bound from the function's integer work (threefry_work) and, as a
+     diagnostic, its SASS per lane (ALU-pipe, FMA-heavy-pipe and all
+     instructions, and the opcode mix);
   3. wide kernel vs its plain PyTorch version on the default bunny's
      tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
      half bounce) and a targeted incoherent set, closest hit and any hit
@@ -56,7 +59,9 @@ Phases, each printing its result; any failure raises and exits non-zero:
      1-spp wave with sort_rays on and off, whose images must be
      bit-identical;
   8. the sweep primitives harness (scripts/sweep_prims.py) through its
-     entry point, and its kernel against its plain version bit for bit;
+     entry point, and its kernel against its plain version and the oracle
+     bit for bit on six inputs (two with keys tied across the window
+     edges); its events, enqueue and device time;
   9. the wide kernel's primitive probes (scripts/prim_micro.py): its entry
      point times all 11 probes at REPS = 2048 (ns per dependent
      iteration), with the exact launch count; the output of every probe's
@@ -81,12 +86,16 @@ Phases, each printing its result; any failure raises and exits non-zero:
 The line before the last is the per-kernel JSON summary, each kernel with
 its bound: the largest of its bytes (inputs read once, outputs written
 once) at HBM_BW, its float operations at F32_PEAK, counted on the timed
-call's inputs, and, for integer kernels, its SASS instructions at the
-card's issue rates (int_rates, sass_work). The last line is {"ok": true,
+call's inputs, and, for integer kernels, their instructions at the
+card's pipe and issue rates (int_rates): Threefry's counted from the
+function (threefry_work), K4 srt's from its SASS (sass_work); the Threefry and K3
+entries also carry the profiler's device time and the host's enqueue time
+per call. The last line is {"ok": true,
 "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import functools
 import gc
@@ -164,16 +173,32 @@ SWEEP_TRI_OPS = 51
 # the division, |det| > eps, u + v, 4 comparisons and the running minimum
 MT_TEST_OPS = 44 + 1 + 1 + 1 + 4 + 1
 # Integer work is bounded by Hopper's issue rates, not by F32_PEAK (whose
-# 67e12 is 128 float lanes per SM with each FMA counted twice): an SM
-# issues at most 4 warp instructions, 128 thread instructions, per clock,
-# and shifts, logic and integer min / max have only the 64-lane ALU pipe
-# (an add may issue as an IMAD on the FMA pipe). The Threefry kernel's and
-# K4 srt's instructions are counted from the built library's SASS
-# (`sass_work`), each class at its rate over the card's SMs at its
-# largest SM clock (nvidia-smi clocks.max.sm).
+# 67e12 is 128 float lanes per SM with each FMA counted twice). NVIDIA's
+# Nsight Compute Kernel Profiling Guide ("Pipelines"): the ALU pipe runs
+# the bit manipulation and logic instructions and every integer
+# instruction except IMAD and IMUL; those run on the FMA-heavy pipe (with
+# the integer dot products). Each pipe has 64 lanes per SM (16 per SM
+# sub-partition), and an SM issues at most 4 warp instructions, 128 thread
+# instructions, per clock. Each class goes at its rate over the card's SMs
+# at its largest SM clock (nvidia-smi clocks.max.sm); the bound is the
+# largest of the three and the bytes. Threefry's instructions are those
+# the function needs (threefry_work), K4 srt's are counted from its SASS
+# (`sass_work`).
 INSTR_PER_SM_CLOCK = 128
 ALU_PER_SM_CLOCK = 64
-ALU_PIPE_OPS = ("SHF", "LOP3", "IMNMX", "VIMNMX")
+FMA_HEAVY_PER_SM_CLOCK = 64
+ALU_PIPE_OPS = ("IADD3", "IADD", "VIADD", "IABS", "ISETP", "ISCADD", "LEA",
+                "LOP", "LOP3", "PLOP3", "SHF", "SHL", "SHR", "IMNMX",
+                "VIMNMX", "VIADDMNMX", "SEL", "PRMT", "SGXT", "BMSK")
+FMA_HEAVY_OPS = ("IMAD", "IMUL", "IDP")
+# Threefry-2x32-20 as jax.random computes it: per hash, 20 rotations (SHF)
+# and 20 xors (LOP3), which only the ALU pipe runs, and 31 adds (20 rounds,
+# 10 key injections, the counter word), which either pipe runs; per key,
+# its schedule word k0 ^ k1 ^ parity (one LOP3); per uniform, ((x0 ^ x1) >>
+# 9) | 0x3F800000 (3 ALU-pipe instructions) and the float subtract of 1.
+THREEFRY_ALU_PER_HASH = 40
+THREEFRY_ADDS_PER_HASH = 31
+THREEFRY_ALU_PER_SLOT = 3
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[0-9T]\s+)?"
                        r"([A-Z][A-Z0-9_.]*)([^;]*);")
 # the Cornell 16^2 exact-seed golden was rendered by the reference under
@@ -202,51 +227,70 @@ def phase(name):
 def bound(nbytes: int, flops: int, int_work=None):
     """The least time of the work on one H100, in ms, and what binds it:
     its bytes at HBM_BW, its float operations at F32_PEAK, or int_work =
-    (ALU-pipe instructions, all instructions) at their issue rates
+    (ALU-pipe, FMA-heavy-pipe, all instructions) at their issue rates
     (int_rates)."""
     t_bytes, t_ops = nbytes / HBM_BW, flops / F32_PEAK
     if int_work is not None:
-        alu_rate, issue_rate = int_rates()
-        t_ops = max(t_ops, int_work[0] / alu_rate, int_work[1] / issue_rate)
+        t_ops = max(t_ops, *(w / r for w, r in zip(int_work, int_rates())))
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
 @functools.lru_cache(maxsize=None)
 def int_rates():
-    """(ALU-pipe, issue) thread instructions per second of the card: 64 and
-    128 per SM per clock at its largest SM clock."""
+    """(ALU-pipe, FMA-heavy-pipe, issue) thread instructions per second of
+    the card: 64, 64 and 128 per SM per clock at its largest SM clock."""
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
     per_clock = torch.cuda.get_device_properties(0).multi_processor_count \
         * mhz * 1e6
-    return ALU_PER_SM_CLOCK * per_clock, INSTR_PER_SM_CLOCK * per_clock
+    return (ALU_PER_SM_CLOCK * per_clock, FMA_HEAVY_PER_SM_CLOCK * per_clock,
+            INSTR_PER_SM_CLOCK * per_clock)
 
 
-def sass_function(library: str, name: str):
-    """[(address, opcode, operands)] of the kernel in library (the name
-    under which cuda_build built it) whose mangled name contains `name`,
-    from cuobjdump -sass, up to its final EXIT (the branch to itself and
-    the NOPs after it are padding)."""
-    lib = cuda_build.library_path(library, dict(LIBRARIES)[library])
+@functools.lru_cache(maxsize=None)
+def sass_functions(lib: str) -> dict:
+    """{mangled name: [(address, opcode, operands)]} of every kernel in the
+    built library `lib` (a path, or the name under which cuda_build builds
+    one of LIBRARIES), from cuobjdump -sass, each up to its final EXIT (the
+    branch to itself and the NOPs after it are padding)."""
+    if not os.path.isabs(lib):
+        lib = cuda_build.library_path(lib, dict(LIBRARIES)[lib])
     cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc()), "cuobjdump")
     text = subprocess.run([cuobjdump, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
-    parts = [p for p in text.split("Function : ")[1:]
-             if name in p.split(None, 1)[0]]
-    if len(parts) != 1:
-        raise AssertionError(f"{len(parts)} kernels named {name} in {lib}")
-    code = [(int(m[1], 16), m[3], m[4]) for m in SASS_LINE.finditer(parts[0])]
-    last = max(i for i, (_, op, _) in enumerate(code) if op == "EXIT")
-    return code[:last + 1]
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        code = [(int(m[1], 16), m[3], m[4]) for m in SASS_LINE.finditer(part)]
+        last = max(i for i, (_, op, _) in enumerate(code) if op == "EXIT")
+        out[part.split(None, 1)[0]] = code[:last + 1]
+    return out
+
+
+def sass_function(lib: str, name: str):
+    """The SASS (sass_functions) of the one kernel of `lib` whose mangled
+    name contains `name`."""
+    found = [c for nm, c in sass_functions(lib).items() if name in nm]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} kernels named {name} in {lib}")
+    return found[0]
+
+
+def pipe_counts(code):
+    """(ALU-pipe, FMA-heavy-pipe, all) instructions of `code`, by opcode
+    (ALU_PIPE_OPS, FMA_HEAVY_OPS; uniform-datapath U* opcodes are on
+    neither)."""
+    base = [op.split(".")[0] for _, op, _ in code]
+    return (sum(op in ALU_PIPE_OPS for op in base),
+            sum(op in FMA_HEAVY_OPS for op in base), len(code))
 
 
 def sass_work(code, slots: int = 0):
-    """(ALU-pipe, all) instructions one thread executes in `code`
-    (sass_function). Straight-line code counts once. Given a loop (the
-    longest backward branch): where its body stores k of the thread's
+    """(ALU-pipe, FMA-heavy-pipe, all) instructions one thread executes in
+    `code` (sass_function). Straight-line code counts once. Given a loop
+    (the longest backward branch): where its body stores k of the thread's
     output slots (k STG), the body runs slots // k times, and the code
     after it runs for the slots % k left (in proportion to its stores) or
     else its first instruction, the exit guard; where the body stores
@@ -254,22 +298,20 @@ def sass_work(code, slots: int = 0):
     index = {addr: i for i, (addr, _, _) in enumerate(code)}
     loops = [(index[int(arg, 16)], i) for i, (addr, op, arg) in enumerate(code)
              if op == "BRA" and int(arg, 16) < addr]
-    alu = lambda part: sum(op.split(".")[0] in ALU_PIPE_OPS
-                           for _, op, _ in part)
     stores = lambda part: sum(op.startswith("STG") for _, op, _ in part)
     if not loops:
-        return float(alu(code)), float(len(code))
+        return tuple(float(c) for c in pipe_counts(code))
     first, last = max(loops, key=lambda lp: lp[1] - lp[0])
     pre, body, post = code[:first], code[first:last + 1], code[last + 1:]
     if not stores(body):
-        return float(alu(body)), float(len(body))
+        return tuple(float(c) for c in pipe_counts(body))
     trips, rest = divmod(slots, stores(body))
     if rest:
-        share = rest / max(stores(post), 1)
-        return (alu(pre) + trips * alu(body) + share * alu(post),
-                len(pre) + trips * len(body) + share * len(post))
-    return (float(alu(pre) + trips * alu(body)),
-            float(len(pre) + trips * len(body) + 1))
+        tail, share = post, rest / max(stores(post), 1)
+    else:   # the exit guard alone
+        tail, share = post[:1], 1.0
+    pre, body, tail = (pipe_counts(x) for x in (pre, body, tail))
+    return tuple(a + trips * b + share * c for a, b, c in zip(pre, body, tail))
 
 
 class Route(NamedTuple):
@@ -403,20 +445,34 @@ def rng_bits(label, k, p):
     return bad
 
 
+def rng_inputs(dev, n: int):
+    """(seed, sample, pixel, perm) of rng_phase: pixels 0..n-1, samples
+    0-3 per lane and a permutation of the lanes, from a seeded generator."""
+    gen = torch.Generator().manual_seed(0)
+    sample = torch.randint(0, 4, (n,), generator=gen).to(dev)
+    perm = torch.randperm(n, generator=gen).to(dev)
+    return 2 ** 31 - 1, sample, torch.arange(n, device=dev), perm
+
+
+# chip_smoke's inputs of K3 (sweep_prims.inputs): (seed, keys tied)
+PRIMS_INPUTS = ((0, False), (1, False), (2, False), (3, False), (0, True),
+                (1, True))
+
+
 def rng_phase(dev, n_lights: int, n: int = 1 << 20):
     """The Threefry kernel against its plain version at 2^20 lanes (pixels
     0..2^20-1, samples 0-3 per lane): lane key words, the uniforms of every
     vertex purpose and the camera's, in pixel order and permuted as the ray
     sort permutes lanes (and equal to the permuted unsorted draw); times of
-    both versions by events, and the bound of one vertex_uniforms call.
-    Returns (ms, plain ms, (bound ms, binds)) of vertex_uniforms and the
-    largest |kernel - plain| of the uniforms compared."""
+    both versions (kernel_times: events, host enqueue and the profiler's
+    device time), and the bounds of one vertex_uniforms and one lane_keys
+    call from the function's integer work (threefry_bounds; the kernel's
+    SASS is printed beside them as a diagnostic). Returns vertex_uniforms' kernel_times
+    with its plain ms, bound and the largest |kernel - plain| of the
+    uniforms compared (`err`), and the camera's and lane_keys' times under
+    "camera" and "lane_keys"."""
     s = 4 + 2 * n_lights
-    gen = torch.Generator().manual_seed(0)
-    pixel = torch.arange(n, device=dev)
-    sample = torch.randint(0, 4, (n,), generator=gen).to(dev)
-    perm = torch.randperm(n, generator=gen).to(dev)
-    seed = 2 ** 31 - 1
+    seed, sample, pixel, perm = rng_inputs(dev, n)
     keys = rng.lane_keys(seed, sample, pixel)
     plain = rng.lane_keys_plain(seed, sample, pixel)
     rng_bits("lane_keys k0", keys.k0, plain.k0)
@@ -440,29 +496,115 @@ def rng_phase(dev, n_lights: int, n: int = 1 << 20):
                  rng.camera_jitter(moved, sampler, spp=4),
                  rng.camera_jitter(keys, sampler, spp=4)[perm])
     purpose = rng.PURPOSE_PATH_BASE + 2
-    ms, out = time_ms(lambda: rng.vertex_uniforms(keys, 2, n_lights), 20)
-    plain_ms, _ = time_ms(lambda: rng.uniforms_plain(keys, purpose, s), 2)
-    keys_ms, _ = time_ms(lambda: rng.lane_keys(seed, sample, pixel), 20)
-    keys_plain_ms, _ = time_ms(
-        lambda: rng.lane_keys_plain(seed, sample, pixel), 2)
-    # keys in (two int32 words), the [n, S] float32 out; per lane the
-    # instructions of the kernel's SASS: a fold_in, then S hashes and floats
-    uni = sass_work(sass_function("threefry", "uniforms_kernel"), s)
-    key = sass_work(sass_function("threefry", "lane_keys_kernel"))
-    b = bound(n * 8 + out.nbytes, 0, (n * uni[0], n * uni[1]))
-    kb = bound(n * 16 + n * 8, 0, (n * key[0], n * key[1]))
-    print(f"threefry SASS per lane (ALU-pipe / all instructions): uniforms at "
-          f"S = {s} {uni[0]:.0f} / {uni[1]:.0f}, lane_keys {key[0]:.0f} / "
-          f"{key[1]:.0f}; rates {int_rates()[0]:.4g} / {int_rates()[1]:.4g} "
-          "thread instructions/s", flush=True)
+    uni = kernel_times(lambda: rng.vertex_uniforms(keys, 2, n_lights),
+                       ("uniforms_kernel",))
+    cam = kernel_times(lambda: rng.uniforms(keys, rng.PURPOSE_CAMERA, 2),
+                       ("uniforms_kernel",))
+    key = kernel_times(lambda: rng.lane_keys(seed, sample, pixel),
+                       ("lane_keys_kernel",))
+    uni["plain_ms"] = time_ms(lambda: rng.uniforms_plain(keys, purpose, s),
+                              2)[0]
+    key["plain_ms"] = time_ms(
+        lambda: rng.lane_keys_plain(seed, sample, pixel), 2)[0]
+    uni["bound"], key["bound"] = threefry_bounds(n, s)
+    work = threefry_work(s)
+    print(f"threefry per lane (ALU-pipe / FMA-heavy-pipe / all "
+          f"instructions), the function's: uniforms at S = {s} "
+          + " / ".join(f"{x:.0f}" for x in work["uniforms"]) + ", lane_keys "
+          + " / ".join(f"{x:.0f}" for x in work["lane_keys"])
+          + "; the kernel's SASS (a diagnostic): "
+          + sass_line(threefry_sass("threefry", s))
+          + "; rates " + " / ".join(f"{r:.4g}" for r in int_rates())
+          + " thread instructions/s", flush=True)
     print(f"threefry at {n} lanes, S = {s}: lane key words and the uniforms "
           "of the camera and 5 vertices equal the plain version bit for bit, "
-          "sorted and unsorted; vertex_uniforms kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
-          f"({b[1]}); lane_keys kernel {keys_ms:.4f} ms, plain "
-          f"{keys_plain_ms:.3f} ms, bound {kb[0]:.4f} ms ({kb[1]})",
-          flush=True)
-    return ms, plain_ms, b, err
+          "sorted and unsorted", flush=True)
+    for label, t in (("vertex_uniforms", uni), ("camera uniforms", cam),
+                     ("lane_keys", key)):
+        print(f"threefry {label}: " + times_line(t), flush=True)
+    uni.update(err=err, lane_keys=key, camera=cam)
+    return uni
+
+
+def kernel_times(fn, names, reps: int = 20) -> dict:
+    """Times of one kernel wrapper's call, in ms: `ms` by CUDA events over
+    reps back-to-back calls (the wrapper's host work included where it
+    outlasts the kernel), `enqueue_ms` the host's mean time per call to
+    enqueue them, `device_ms` the profiler's device time per call of the
+    kernels named `names`."""
+    ms, host_ms = time_enqueue_ms(fn, reps)[:2]
+    return {"ms": ms, "enqueue_ms": host_ms,
+            "device_ms": sum(profiled_ms(fn, reps, names).values())}
+
+
+def times_line(t: dict) -> str:
+    line = (f"kernel {t['ms']:.4f} ms by events, {t['device_ms']:.4f} ms of "
+            f"device time by the profiler, host enqueue {t['enqueue_ms']:.4f} "
+            "ms per call")
+    if "plain_ms" in t:
+        line += f"; plain {t['plain_ms']:.3f} ms"
+    if "bound" in t:
+        ms, by = t["bound"]
+        line += (f"; bound {ms:.6f} ms ({by}), device time "
+                 f"{t['device_ms'] / ms:.2f}x the bound")
+    return line
+
+
+def threefry_work(s: int) -> dict:
+    """Per lane, the integer instructions (ALU-pipe, FMA-heavy-pipe, all)
+    that the function needs (THREEFRY_*): a uniforms call at width s is
+    1 + s hashes under 2 keys (the lane's fold_in, then s slots), and s
+    conversions; a lane_keys call is 2 hashes, one key per lane (the
+    first, (0, seed), is the launch's). The adds go to the FMA-heavy pipe
+    up to the ALU pipe's load, the rest split evenly."""
+    def work(hashes, keys, slots):
+        alu = (THREEFRY_ALU_PER_HASH * hashes + keys
+               + THREEFRY_ALU_PER_SLOT * slots)
+        adds = THREEFRY_ADDS_PER_HASH * hashes
+        on_alu = max(0.0, (adds - alu) / 2)
+        return (alu + on_alu, adds - on_alu, alu + adds + slots)
+    return {"uniforms": work(1 + s, 2, s), "lane_keys": work(2, 1, 0)}
+
+
+def threefry_sass(lib: str, s: int) -> dict:
+    """Per lane, the SASS instructions (ALU-pipe, FMA-heavy-pipe, all) of
+    the built Threefry library `lib` (sass_function), a diagnostic beside
+    threefry_work: a uniforms call at width s (its instantiation for s,
+    else the generic one; a kernel with no template, an older source's,
+    counted by its slot loop) and a lane_keys call, each beside its opcode
+    mix."""
+    names = list(sass_functions(lib))
+    out = {}
+    for entry, wanted in (
+            ("uniforms", (f"uniforms_kernelILi{s}E", "uniforms_kernelILi0E",
+                          "uniforms_kernel")),
+            ("lane_keys", ("lane_keys_kernel",))):
+        frag = next(w for w in wanted if sum(w in nm for nm in names) == 1)
+        code = sass_function(lib, frag)
+        mix = collections.Counter(op.split(".")[0] for _, op, _ in code)
+        out[entry] = (sass_work(code, s), ", ".join(
+            f"{op} {c}" for op, c in mix.most_common(8)))
+    return out
+
+
+def sass_line(sass: dict) -> str:
+    """threefry_sass's counts and the uniforms' opcode mix, one line."""
+    return ("uniforms " + " / ".join(f"{x:.0f}" for x in sass["uniforms"][0])
+            + ", lane_keys " + " / ".join(
+                f"{x:.0f}" for x in sass["lane_keys"][0])
+            + "; opcodes of uniforms " + sass["uniforms"][1])
+
+
+def threefry_bounds(n: int, s: int):
+    """Bounds (ms, binds) of a uniforms call at width s and of a lane_keys
+    call on n lanes, from threefry_work: the uniforms read two key words
+    and write s floats per lane, lane_keys reads two int64 and writes two
+    int32 per lane."""
+    work = threefry_work(s)
+    return (bound(n * 8 + n * s * 4, 0,
+                  tuple(n * x for x in work["uniforms"])),
+            bound(n * 16 + n * 8, 0,
+                  tuple(n * x for x in work["lane_keys"])))
 
 
 @contextlib.contextmanager
@@ -789,27 +931,81 @@ def _shadow_tmax(route: Route, o, d, tmin, tmax):
     return torch.where(tmax < 0, tmax, tmax_sh).contiguous(), h
 
 
-def profiled_ms(fn, reps: int, names) -> dict:
+PROFILER_TRIES = 3
+PROFILER_WARMUP_S = 0.02
+
+
+def profiled_ms(fn, reps: int, names, each=None) -> dict:
     """Device time per call in ms, by the profiler, of the device
     operations (kernels, memsets) whose names contain each of `names`, over
-    reps calls of fn (after a warm-up). fn must launch one of them: the
-    profiler now and then records no device operation of a run, which is
-    then made again (at most twice)."""
-    from torch.profiler import ProfilerActivity, profile
+    reps calls of fn. `each` (default: all of names) are the operations
+    every call launches. The profiler loses the records of the first
+    launches after its trace starts (one cast of five lost its cull and
+    memset, 10-62 of 100 K3 launches), so each run traces a warm-up step
+    of calls (reps, and PROFILER_WARMUP_S at least) that its schedule
+    discards before the reps calls it keeps. A run counts only where each
+    of `each` was recorded reps times, or anything was where `each` is
+    empty; the profiler now and then records nothing of a run, which is
+    then made again, up to PROFILER_TRIES. Where none is complete the time
+    is the events' behind a held stream (queued_events_ms), under the key
+    "queued events", so that neither an unmeasured 0 nor a partial sum is
+    reported as a device time."""
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    each = tuple(names) if each is None else tuple(each)
+    for attempt in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            t0, n = time.perf_counter(), 0
+            while n < reps or time.perf_counter() - t0 < PROFILER_WARMUP_S:
+                fn()
+                n += 1
+            torch.cuda.synchronize()
+            prof.step()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        events = prof.key_averages()
+            prof.step()
+        events = [e for e in prof.key_averages() if _device_us(e) > 0]
         out = {nm: sum(_device_us(e) for e in events if nm in e.key) / 1e3
                / reps for nm in names}
-        if any(out.values()):
-            break
-    return out
+        seen = {nm: sum(e.count for e in events if nm in e.key)
+                for nm in each}
+        if all(n >= reps for n in seen.values()) and any(out.values()):
+            return out
+        print(f"the profiler's run {attempt + 1} of {PROFILER_TRIES} "
+              f"recorded {seen} of {reps} calls", flush=True)
+    ms = queued_events_ms(fn, reps)
+    print(f"no complete profiler run of {names}: device time {ms:.4f} ms "
+          "per call by events behind a held stream", flush=True)
+    return {"queued events": ms}
+
+
+def queued_events_ms(fn, reps: int) -> float:
+    """Device time per call in ms by CUDA events, with the host's enqueue
+    kept out: the stream is held by a spin kernel (torch.cuda._sleep) while
+    the host enqueues the events and reps calls, so the events bracket the
+    card's run of them alone, gaps between launches included. The hold
+    doubles until the start event is still pending when the host is done;
+    fn must not wait on the card."""
+    cycles = 1 << 24
+    for _ in range(4):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        held = not start.query()
+        torch.cuda.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError("the host could not enqueue the calls within the "
+                         "stream's hold")
 
 
 def time_wide(scene, route: Route, dev):
@@ -943,7 +1139,8 @@ def time_casts(casts):
         ms, host_ms, slowest, g, hk = time_enqueue_ms(call, 5)
         for k in stalls:
             stalls[k] += g[k]
-        dev_ms = sum(profiled_ms(call, 5, WIDE_OPS).values())
+        dev = profiled_ms(call, 5, WIDE_OPS)
+        dev_ms = sum(dev.values())
         hp = wide_bvh.intersect_wide_plain(tables, o, d, tmin, tmax, **kw)
         same = all(torch.equal(x, y) for x, y in zip(hk, hp))
         if not same:
@@ -954,7 +1151,7 @@ def time_casts(casts):
         total += ms
         total_dev += dev_ms
         total_host += host_ms
-        if not dev_ms:
+        if "queued events" in dev:
             missed.append(j)
         print(f"wide cast {j} ({'any-hit' if kw['any_hit'] else 'closest'}"
               f", {o.shape[0]} lanes): live {live}, survivors {surv}, hits "
@@ -964,9 +1161,9 @@ def time_casts(casts):
               flush=True)
     print(f"wide casts of one 1-spp wave: {len(casts)}, kernel time summed "
           f"{total:.4f} ms by events (host enqueue {total_host:.4f} ms), "
-          f"{total_dev:.4f} ms of device time (the profiler recorded no "
-          f"kernel of casts {missed}); during the event-timed calls "
-          + stalls_line(stalls), flush=True)
+          f"{total_dev:.4f} ms of device time (by queued events, no "
+          f"complete profiler run: casts {missed}); during the event-timed "
+          "calls " + stalls_line(stalls), flush=True)
     return total, total_dev
 
 
@@ -1237,30 +1434,41 @@ def build_sweep_scene(label, dev, **kw):
 
 def prims(dev):
     """The primitives harness through its entry point (held against its
-    numpy oracle bit for bit), then the kernel against its plain version on
-    the harness's inputs, bit for bit."""
+    numpy oracle bit for bit), then the kernel against its plain version
+    and the oracle, bit for bit, on the harness's inputs, on seeds 1-3 and
+    on keys with ties across the window edges (sweep_prims.inputs); the
+    kernel timed on the harness's inputs (kernel_times)."""
     sweep_prims.sweep_prims.launches = 0
     err_oracle = sweep_prims.main("cuda")
     launches = sweep_prims.sweep_prims.launches
     if launches < 1:
         raise AssertionError("the harness never launched the kernel")
-    rs = np.random.default_rng(0)
-    a, b = (torch.as_tensor(rs.normal(size=(4, 128)), dtype=torch.float32,
-                            device=dev) for _ in range(2))
-    ms_k, k = time_ms(lambda: sweep_prims.sweep_prims(a, b), 100)
-    ms_p, p = time_ms(lambda: sweep_prims.sweep_prims_plain(a, b), 100)
-    err = float((k - p).abs().max())
-    if not torch.equal(k, p):
-        raise AssertionError(f"sweep_prims kernel vs plain: max error {err}")
+    err = 0.0
+    for seed, ties in PRIMS_INPUTS:
+        an, bn = sweep_prims.inputs(seed, ties)
+        a, b = (torch.from_numpy(x).to(dev) for x in (an, bn))
+        k = sweep_prims.sweep_prims(a, b)
+        p = sweep_prims.sweep_prims_plain(a, b)
+        err = max(err, float((k - p).abs().max()))
+        if not (torch.equal(k, p) and np.array_equal(
+                k.cpu().numpy(), sweep_prims.oracle(an, bn))):
+            raise AssertionError(f"sweep_prims seed {seed} ties {ties}: "
+                                 f"kernel, plain and oracle differ ({err})")
+    a, b = (torch.from_numpy(x).to(dev) for x in sweep_prims.inputs(0))
+    t = kernel_times(lambda: sweep_prims.sweep_prims(a, b),
+                     ("sweep_prims_kernel",), 100)
+    t["plain_ms"] = time_ms(lambda: sweep_prims.sweep_prims_plain(a, b),
+                            100)[0]
     # a, b read once, out written once; the rank-4 product's multiply-adds,
     # the add of s to every element, the 3 x 7 window minima and 2 adds
-    ms_b, by = bound(a.nbytes + b.nbytes + k.nbytes,
-                     128 * 128 * 4 * 2 + 128 * 128 + 3 * 7 + 2)
-    print(f"sweep_prims: oracle max error {err_oracle:.3g}, kernel vs plain "
-          f"equal bit for bit; kernel {ms_k:.4f} ms, plain {ms_p:.4f} ms, "
-          f"bound {ms_b:.6f} ms ({by}); harness launches {launches}",
-          flush=True)
-    return launches, err, ms_k, ms_p, (ms_b, by)
+    t["bound"] = bound(a.nbytes + b.nbytes + 128 * 128 * 4,
+                       128 * 128 * 4 * 2 + 128 * 128 + 3 * 7 + 2)
+    print(f"sweep_prims: oracle max error {err_oracle:.3g}; kernel, plain "
+          "and oracle equal bit for bit on 6 inputs (seeds 0-3, two with "
+          "tied keys across the window edges); " + times_line(t)
+          + f"; harness launches {launches}", flush=True)
+    t.update(launches=launches, err=err)
+    return t
 
 
 def probes(dev):
@@ -1302,7 +1510,10 @@ def probes(dev):
                 "prim_micro",
                 f"prim_micro_kernelILi{prim_micro.PROBES.index(probe)}EE"))
             ms_b, by = bound(t.nbytes + out_bytes, 0,
-                             (work[0] * reps, work[1] * reps))
+                             tuple(w * reps for w in work))
+            print("prim_micro srt SASS per rep (ALU-pipe / FMA-heavy-pipe / "
+                  "all instructions): " + " / ".join(f"{w:.0f}" for w in work),
+                  flush=True)
         else:
             ms_b, by = bound(t.nbytes + out_bytes, PROBE_OPS[probe] * reps)
         err = max(err, e)
@@ -1692,8 +1903,7 @@ def main() -> int:
     bunny = bunny_scene().to(dev)
     bunny_s = time.perf_counter() - t0
     rng_s = 4 + 2 * bunny.meta.n_lights
-    rng_ms, rng_plain_ms, rng_bound, rng_err = rng_phase(dev,
-                                                         bunny.meta.n_lights)
+    streams = rng_phase(dev, bunny.meta.n_lights)
 
     phase("3 wide kernel vs plain")
     wide = wide_route(bunny)
@@ -1761,7 +1971,7 @@ def main() -> int:
     sort_effect(inst600, dev, "bunny 600k")
 
     phase("8 sweep primitives")
-    prim_launches, prim_err, prim_ms, prim_plain_ms, prim_bound = prims(dev)
+    prim = prims(dev)
 
     phase("9 wide-kernel primitives (K4)")
     probe_launches, probe_ns, probe_total, probe_by, probe_err = probes(dev)
@@ -1801,10 +2011,11 @@ def main() -> int:
         {"name": "sweep_prims", "route": "cuda",
          "source": "jet_pbrt_tpu_torch/csrc/sweep_prims.cu",
          "replaces": "scripts/sweep_prims.py:16",
-         "launches": prim_launches, "max_abs_err": prim_err,
-         "ms": prim_ms, "plain_ms": prim_plain_ms,
-         "bound_ms": prim_bound[0], "bound_by": prim_bound[1],
-         "library_ms": None},
+         "launches": prim["launches"], "max_abs_err": prim["err"],
+         "ms": prim["ms"], "plain_ms": prim["plain_ms"],
+         "bound_ms": prim["bound"][0], "bound_by": prim["bound"][1],
+         "library_ms": None, "device_ms": prim["device_ms"],
+         "enqueue_ms": prim["enqueue_ms"]},
         {"name": "prim_micro", "route": "cuda",
          "source": "jet_pbrt_tpu_torch/csrc/prim_micro.cu",
          "replaces": "scripts/prim_micro.py:28",
@@ -1816,9 +2027,15 @@ def main() -> int:
         {"name": "threefry", "route": "cuda",
          "source": "jet_pbrt_tpu_torch/csrc/threefry.cu",
          "replaces": "jax.random threefry (XLA; no Pallas kernel)",
-         "launches": frame_launches["threefry"], "max_abs_err": rng_err,
-         "ms": rng_ms, "plain_ms": rng_plain_ms, "bound_ms": rng_bound[0],
-         "bound_by": rng_bound[1], "library_ms": None,
+         "launches": frame_launches["threefry"],
+         "max_abs_err": streams["err"], "ms": streams["ms"],
+         "plain_ms": streams["plain_ms"], "bound_ms": streams["bound"][0],
+         "bound_by": streams["bound"][1], "library_ms": None,
+         "device_ms": streams["device_ms"],
+         "enqueue_ms": streams["enqueue_ms"],
+         "lane_keys": {k: streams["lane_keys"][k] for k in (
+             "ms", "device_ms", "enqueue_ms", "plain_ms")}
+         | {"bound_ms": streams["lane_keys"]["bound"][0]},
          "lanes": 1 << 20, "s": rng_s}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -16,8 +16,15 @@
 // is a chain of fused multiply-adds over k = 0..3, as XLA's CPU dot_general
 // evaluates it in the reference's interpret mode, pinned with __fmaf_rn.
 //
-// One block of 128 threads; thread j owns column j. Bound by launch
-// latency at this size (64 KiB out): it is a probe, not a workload.
+// What bounds it: its 69,632 bytes take 2.1e-5 ms at 3.35 TB/s, far below
+// one launch, so launch latency is the floor at this size (it is a probe,
+// not a workload). The design spreads the output over the card: the first
+// design ran one block of 128 threads, each writing its column of all 128
+// rows, so one SM of 132 wrote the 64 KiB in 128 serial steps. Here each of
+// L / ROWS blocks owns ROWS rows. Every block recomputes row 0 of a^T b (128
+// chains of 4 multiply-adds) and the three window minima in shared memory,
+// cheap beside its output, and each thread writes 4 adjacent columns of one
+// row with one 16-byte store, a warp 512 contiguous bytes.
 #include <cuda_runtime.h>
 
 namespace {
@@ -25,25 +32,33 @@ namespace {
 constexpr int K = 4;
 constexpr int L = 128;
 constexpr int WINDOW = 8;
+constexpr int ROWS = 8;                  // rows of the output per block
+constexpr int THREADS = ROWS * L / 4;    // 4 columns per thread
 
-__global__ void __launch_bounds__(L)
+// column j of a^T b at row i: the pinned multiply-add chain over k
+__device__ __forceinline__ float dot4(const float* sa, const float* sb, int i,
+                                      int j) {
+  float acc = __fmul_rn(sa[i], sb[j]);
+#pragma unroll
+  for (int k = 1; k < K; ++k)
+    acc = __fmaf_rn(sa[k * L + i], sb[k * L + j], acc);
+  return acc;
+}
+
+__global__ void __launch_bounds__(THREADS)
 sweep_prims_kernel(const float* __restrict__ a, const float* __restrict__ b,
                    float* __restrict__ out) {
   __shared__ float s_a[K * L];
+  __shared__ float s_b[K * L];
   __shared__ float s_key[L];
-  const int j = threadIdx.x;
-  float bj[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) {
-    s_a[k * L + j] = a[k * L + j];
-    bj[k] = b[k * L + j];
+  const int t = threadIdx.x;
+  for (int x = t; x < K * L; x += THREADS) {
+    s_a[x] = a[x];
+    s_b[x] = b[x];
   }
   __syncthreads();
   // row 0 of a^T b, then the trailing-window minima the lane rolls leave
-  float key = __fmul_rn(s_a[0], bj[0]);
-#pragma unroll
-  for (int k = 1; k < K; ++k) key = __fmaf_rn(s_a[k * L], bj[k], key);
-  s_key[j] = key;
+  if (t < L) s_key[t] = dot4(s_a, s_b, 0, t);
   __syncthreads();
   float w[3];
   const int lanes[3] = {0, 8, 120};
@@ -55,20 +70,24 @@ sweep_prims_kernel(const float* __restrict__ a, const float* __restrict__ b,
       w[q] = fminf(w[q], s_key[(lanes[q] - sh) & (L - 1)]);
   }
   const float s = __fadd_rn(__fadd_rn(w[0], w[1]), w[2]);
-  for (int i = 0; i < L; ++i) {
-    float acc = __fmul_rn(s_a[i], bj[0]);
-#pragma unroll
-    for (int k = 1; k < K; ++k) acc = __fmaf_rn(s_a[k * L + i], bj[k], acc);
-    out[i * L + j] = __fadd_rn(acc, s);
-  }
+  const int i = blockIdx.x * ROWS + t / (L / 4);
+  const int j = 4 * (t % (L / 4));
+  float4 v;
+  v.x = __fadd_rn(dot4(s_a, s_b, i, j), s);
+  v.y = __fadd_rn(dot4(s_a, s_b, i, j + 1), s);
+  v.z = __fadd_rn(dot4(s_a, s_b, i, j + 2), s);
+  v.w = __fadd_rn(dot4(s_a, s_b, i, j + 3), s);
+  reinterpret_cast<float4*>(out + i * L)[j / 4] = v;
 }
 
 }  // namespace
 
 // Plain C entry point, loaded through ctypes: a, b [4, 128] f32, out
-// [128, 128] f32, launched on `stream`; returns cudaGetLastError().
+// [128, 128] f32 (16-byte aligned), launched on `stream`; returns
+// cudaGetLastError().
 extern "C" int sweep_prims_launch(const float* a, const float* b, float* out,
                                   void* stream) {
-  sweep_prims_kernel<<<1, L, 0, static_cast<cudaStream_t>(stream)>>>(a, b, out);
+  sweep_prims_kernel<<<L / ROWS, THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(a, b, out);
   return static_cast<int>(cudaGetLastError());
 }

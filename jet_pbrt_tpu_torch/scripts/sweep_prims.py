@@ -37,9 +37,7 @@ def sweep_prims(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return sweep_prims_plain(a, b)
     if a.device.type != "cuda":
         raise ValueError(f"no sweep_prims route for device {a.device}")
-    from ..utils.cuda_build import load_library
-
-    lib = load_library("sweep_prims", ["sweep_prims.cu"], _declare)
+    lib = _library()
     out = torch.empty((L, L), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):
         err = lib.sweep_prims_launch(
@@ -52,6 +50,11 @@ def sweep_prims(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 sweep_prims.launches = 0
+
+
+def _library():
+    from ..utils.cuda_build import load_library
+    return load_library("sweep_prims", ["sweep_prims.cu"], _declare)
 
 
 def _declare(lib):
@@ -81,14 +84,30 @@ def oracle(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     return o + (win[0] + win[8] + win[120])
 
 
+# lanes on both sides of the windows' edges at lanes 0, 8 and 120 (the
+# windows are 121..0, 1..8 and 113..120)
+TIE_LANES = (127, 1, 121, 120, 113, 112, 8, 9)
+
+
+def inputs(seed: int, ties: bool = False):
+    """a, b [4, 128] float32 normals from `seed`; with `ties`, the key of
+    lane 0 (row 0 of a^T b) is made the row's minimum and copied exactly to
+    TIE_LANES, so every window's minimum is tied across its edges."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(K, L)).astype(np.float32)
+    b = rng.normal(size=(K, L)).astype(np.float32)
+    if ties:
+        b[:, 0] = -3.0 * np.sign(a[:, 0])
+        b[:, TIE_LANES] = b[:, :1]
+    return a, b
+
+
 def main(device: str = "cuda") -> float:
     """Run the primitives once on `device` against the oracle, which they
     must equal bit for bit; returns the max |error|."""
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false")
-    rng = np.random.default_rng(0)
-    a = rng.normal(size=(K, L)).astype(np.float32)
-    b = rng.normal(size=(K, L)).astype(np.float32)
+    a, b = inputs(0)
     r = sweep_prims(torch.from_numpy(a).to(device),
                     torch.from_numpy(b).to(device)).cpu().numpy()
     want = oracle(a, b)

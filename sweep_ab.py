@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
-"""Two builds of a traversal kernel on one card, in turns:
+"""Two builds of a kernel on one card, in turns:
 
-    python3 sweep_ab.py OTHER.cu           # the cull-sweep kernel (K2)
-    python3 sweep_ab.py --wide OTHER.cu    # the wide-BVH kernel (K1)
+    python3 sweep_ab.py OTHER.cu                   # the cull-sweep kernel (K2)
+    python3 sweep_ab.py --wide OTHER.cu            # the wide-BVH kernel (K1)
+    python3 sweep_ab.py --lib threefry OTHER.cu    # the random streams' kernel
+    python3 sweep_ab.py --lib sweep_prims OTHER.cu # the sweep primitives (K3)
 
 OTHER.cu is another version of the kernel's source, for example an earlier
 commit's, written into a directory that .gitignore lists:
@@ -43,9 +45,26 @@ node-major kernel pins neither its arithmetic nor its child order, so
 there the count of lanes whose output differs is printed and each is put
 through chip_smoke's float64 forensic, and the frames' largest pixel
 difference is printed.
+
+--lib NAME: a kernel behind a ctypes wrapper whose module loads its
+library through _library(), which is swapped per turn (LIB_AB). OTHER.cu
+has the same C entry points. Each case's output of both builds is held
+equal to the plain version's bit for bit, and the timed cases run 20 or
+100 calls per turn (chip_smoke.kernel_times: events, host enqueue, and
+the profiler's device time). threefry, at chip_smoke's 2^20 lanes
+(rng_phase's keys): a lane_keys call and a uniforms call at S = 2, 6, 8,
+10 and 13 (the camera, 1-3 lights, and a width of the generic
+instantiation); each build's SASS per lane at S = 8 (ALU-pipe,
+FMA-heavy-pipe, all; chip_smoke.threefry_sass) beside the function's
+bound; then the default bunny's 1024^2, 4-spp, depth-5 frame through
+each build (frames equal bit for bit) and each build's profiled 1-spp
+wave (chip_smoke.profile_wave, the Threefry share of device time).
+sweep_prims: chip_smoke.prims' six inputs held equal, the harness's
+inputs timed.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -56,9 +75,10 @@ import torch
 
 import chip_smoke
 from jet_pbrt_tpu_torch.models.render import render
-from jet_pbrt_tpu_torch.ops import sweep_bvh, wide_bvh
+from jet_pbrt_tpu_torch.ops import rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops.intersect import KindHit
 from jet_pbrt_tpu_torch.scene.scenes import bunny_scene
+from jet_pbrt_tpu_torch.scripts import sweep_prims
 from jet_pbrt_tpu_torch.utils import cuda_build
 
 ORDER = ("other", "this", "this", "other")
@@ -207,7 +227,7 @@ def _wide_stats(lib, tables, rays, kw):
 def _device(lib, call) -> tuple[float, str]:
     """(device ms per call, its split by operation) of call(lib)."""
     parts = {k: v for k, v in chip_smoke.profiled_ms(
-        lambda: call(lib), 10, WIDE_OPS).items() if v}
+        lambda: call(lib), 10, WIDE_OPS, each=()).items() if v}
     return sum(parts.values()), ", ".join(f"{k} {v:.4f}"
                                           for k, v in parts.items())
 
@@ -329,13 +349,155 @@ def wide_main(path) -> int:
     return 0
 
 
+# --------------------------------------------------------------------------
+# --lib: a kernel behind a ctypes wrapper whose module loads its library
+# through a module-level _library(), swapped per turn
+# --------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _using(module, lib):
+    this = module._library
+    module._library = lambda: lib
+    try:
+        yield
+    finally:
+        module._library = this
+
+
+def _turns(module, libs, call, names, reps):
+    """{who: [kernel_times of each turn]} of call() with module's wrapper
+    on each build, in ORDER."""
+    times = {"this": [], "other": []}
+    for who in ORDER:
+        with _using(module, libs[who]):
+            times[who].append(chip_smoke.kernel_times(call, names, reps))
+    return times
+
+
+def _turns_line(times) -> str:
+    turn = lambda t: (f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}, "
+                      f"enqueue {t['enqueue_ms']:.4f})")
+    return (f"other {turn(times['other'][0])} / {turn(times['other'][1])}, "
+            f"this {turn(times['this'][0])} / {turn(times['this'][1])}")
+
+
+def _held_equal(label, outs):
+    """outs: tuples of tensors, each equal to the first bit for bit."""
+    if not all(torch.equal(x, y) for other in outs[1:]
+               for x, y in zip(outs[0], other)):
+        raise AssertionError(f"{label}: the builds and the plain version "
+                             "differ")
+
+
+def threefry_cases(dev):
+    """--lib threefry: [(label, call, plain output, kernel names, reps)]."""
+    n = 1 << 20
+    seed, sample, pixel, _ = chip_smoke.rng_inputs(dev, n)
+    keys = rng.lane_keys(seed, sample, pixel)
+    kb, kby = chip_smoke.threefry_bounds(n, 2)[1]
+    cases = [(f"lane_keys at {n} lanes (bound {kb:.6f} ms, {kby})",
+              lambda: tuple(rng.lane_keys(seed, sample, pixel)[:2]),
+              tuple(rng.lane_keys_plain(seed, sample, pixel)[:2]),
+              ("lane_keys_kernel",), 20)]
+    for s in (2, 6, 8, 10, 13):
+        purpose = rng.PURPOSE_CAMERA if s == 2 else rng.PURPOSE_PATH_BASE + 2
+        ub, uby = chip_smoke.threefry_bounds(n, s)[0]
+        cases.append((f"uniforms S = {s} at {n} lanes (bound {ub:.6f} ms, "
+                      f"{uby})",
+                      lambda s=s, p=purpose: (rng.uniforms(keys, p, s),),
+                      (rng.uniforms_plain(keys, purpose, s),),
+                      ("uniforms_kernel",), 20))
+    return cases
+
+
+def prims_cases(dev):
+    """--lib sweep_prims: chip_smoke.prims' inputs, the first timed."""
+    cases = []
+    for seed, ties in chip_smoke.PRIMS_INPUTS:
+        a, b = (torch.from_numpy(x).to(dev)
+                for x in sweep_prims.inputs(seed, ties))
+        cases.append((f"sweep_prims seed {seed} ties {ties}",
+                      lambda a=a, b=b: (sweep_prims.sweep_prims(a, b),),
+                      (sweep_prims.sweep_prims_plain(a, b),),
+                      ("sweep_prims_kernel",), 0 if cases else 100))
+    return cases
+
+
+def _frames(module, libs, dev):
+    """The default bunny's frame through each build, equal bit for bit,
+    then each build's profiled 1-spp wave."""
+    bunny = bunny_scene().to(dev)
+    imgs, walls = {}, {"this": [], "other": []}
+    render(bunny, 64, 64, spp=1, max_depth=5, device=dev)  # warm-up
+    for who in ORDER:
+        with _using(module, libs[who]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = render(bunny, 1024, 1024, spp=4, max_depth=5, seed=0,
+                         clamp=False, device=dev)
+            torch.cuda.synchronize()
+            walls[who].append(time.perf_counter() - t0)
+        imgs.setdefault(who, img)
+    if not torch.equal(imgs["this"], imgs["other"]):
+        raise AssertionError("the two builds render different frames")
+    print(f"A/B frame 1024^2 spp 4 depth 5 (order other, this, this, "
+          f"other): other {walls['other'][0]:.3f} / "
+          f"{walls['other'][1]:.3f} s, this {walls['this'][0]:.3f} / "
+          f"{walls['this'][1]:.3f} s; frames equal bit for bit", flush=True)
+    for who in ORDER:
+        with _using(module, libs[who]):
+            chip_smoke.profile_wave(bunny, dev, f"A/B {who}:", table=False)
+
+
+# name: (wrapper module, its cases, per-lane SASS of a build or None,
+# whether the frame goes through it)
+LIB_AB = {
+    "threefry": (rng, threefry_cases, lambda lib: chip_smoke.sass_line(
+        chip_smoke.threefry_sass(lib, 8)), True),
+    "sweep_prims": (sweep_prims, prims_cases, None, False)}
+
+
+def lib_main(name, path) -> int:
+    module, cases, sass, frame = LIB_AB[name]
+    dev = _card()
+    libs = {"this": module._library(),
+            "other": cuda_build.load_library(f"{name}_other", [path],
+                                             module._declare)}
+    print(f"other kernel: {path}", flush=True)
+    for label, call, want, names, reps in cases(dev):
+        outs = [want]
+        for who in ORDER[:2]:
+            with _using(module, libs[who]):
+                outs.append(call())
+        _held_equal(label, outs)
+        if reps:
+            print(f"{name} A/B {label} (order other, this, this, other): "
+                  + _turns_line(_turns(module, libs, call, names, reps))
+                  + "; outputs equal to the plain version bit for bit",
+                  flush=True)
+        else:
+            print(f"{name} A/B {label}: both builds equal the plain version "
+                  "bit for bit", flush=True)
+    if sass:
+        for who, lib in (("other", cuda_build.library_path(
+                f"{name}_other", [path])), ("this", name)):
+            print(f"{name} A/B {who} SASS per lane (ALU-pipe / "
+                  f"FMA-heavy-pipe / all) at S = 8: {sass(lib)}", flush=True)
+    if frame:
+        _frames(module, libs, dev)
+    return 0
+
+
 def main(argv) -> int:
-    wide = argv[:1] == ["--wide"]
-    args = argv[1:] if wide else argv
+    if argv[:1] == ["--lib"] and len(argv) == 3 and argv[1] in LIB_AB:
+        name, args = argv[1], argv[2:]
+        run = lambda path: lib_main(name, path)
+    else:
+        wide = argv[:1] == ["--wide"]
+        args, run = (argv[1:], wide_main) if wide else (argv, sweep_main)
     if len(args) != 1 or not os.path.isfile(args[0]):
         raise SystemExit(__doc__)
-    path = os.path.abspath(args[0])
-    return wide_main(path) if wide else sweep_main(path)
+    return run(os.path.abspath(args[0]))
 
 
 if __name__ == "__main__":

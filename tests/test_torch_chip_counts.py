@@ -1,0 +1,175 @@
+"""chip_smoke's count of a kernel's SASS instructions, which prices the
+integer kernels (Threefry, K4 srt) on the card: each opcode on the pipe
+NVIDIA documents for it, loops scaled by the slots they store, and the
+bound the largest of the pipes, the issue rate and the bytes; and how it
+reads device time from the profiler, which now and then drops records. On
+synthetic SASS and a stand-in profiler, so it runs without the CUDA
+toolkit or a card."""
+import pytest
+
+import chip_smoke
+
+
+def _code(*ops, loop_from=None):
+    """[(address, opcode, operands)], 16 bytes apart; a "BRA" branches back
+    to the instruction at index loop_from."""
+    return [(16 * i, op, f" 0x{16 * loop_from:x}" if op == "BRA" else "")
+            for i, op in enumerate(ops)]
+
+
+@pytest.mark.parametrize("op,pipe", [
+    ("IADD3", 0), ("VIADD", 0), ("ISETP.GE.AND", 0), ("LOP3.LUT", 0),
+    ("SHF.L.W.U32.HI", 0), ("LEA.HI.X", 0), ("VIMNMX", 0), ("VIADDMNMX", 0),
+    ("IMAD", 1), ("IMAD.IADD", 1), ("IMAD.MOV.U32", 1), ("IMAD.WIDE", 1),
+    ("IMUL", 1), ("UIADD3", None), ("ULOP3.LUT", None), ("FADD", None),
+    ("STG.E", None), ("LDS.128", None)])
+def test_each_opcode_counts_on_its_pipe(op, pipe):
+    """The ALU pipe takes every integer instruction but IMAD and IMUL,
+    which take the FMA-heavy pipe; uniform-datapath, float and memory
+    instructions count only among all instructions."""
+    alu, fma, total = chip_smoke.pipe_counts(_code(op, "EXIT"))
+    assert (alu, fma, total) == (int(pipe == 0), int(pipe == 1), 2)
+
+
+def test_slot_loop_scales_by_the_slots_it_stores():
+    """A loop body storing one slot runs once per slot; straight-line code
+    counts once; a rest of slots runs the code after the loop in
+    proportion to its stores."""
+    straight = _code("IMAD", "IADD3", "SHF", "STG.E", "EXIT")
+    assert chip_smoke.sass_work(straight, 8) == (2.0, 1.0, 5.0)
+    # pre: IMAD; body: IADD3 SHF STG BRA; after: ISETP STG EXIT
+    loop = _code("IMAD", "IADD3", "SHF", "STG.E", "BRA", "ISETP", "STG.E",
+                 "EXIT", loop_from=1)
+    assert chip_smoke.sass_work(loop, 8) == (8 * 2 + 1, 1.0, 1 + 8 * 4 + 1)
+    # two stores per body: 4 trips and 1 slot left, half the tail's 2 stores
+    loop2 = _code("IMAD", "IADD3", "STG.E", "STG.E", "BRA", "ISETP",
+                  "STG.E", "STG.E", "EXIT", loop_from=1)
+    alu, fma, total = chip_smoke.sass_work(loop2, 9)
+    assert (alu, fma) == (4 * 1 + 0.5 * 1, 1.0)
+    assert total == 1 + 4 * 4 + 0.5 * 4
+
+
+def test_bound_is_the_largest_pipe_issue_or_bytes(monkeypatch):
+    """Per second: 64 ALU-pipe, 64 FMA-heavy-pipe and 128 issued thread
+    instructions per SM clock; the bound takes the slowest, or the bytes
+    at HBM_BW where those take longer."""
+    monkeypatch.setattr(chip_smoke, "int_rates", lambda: (1e12, 1e12, 2e12))
+    assert chip_smoke.bound(0, 0, (3e9, 1e9, 4e9)) == (3.0, "operations")
+    assert chip_smoke.bound(0, 0, (1e9, 2.5e9, 4e9)) == (2.5, "operations")
+    assert chip_smoke.bound(0, 0, (1e9, 1e9, 8e9)) == (4.0, "operations")
+    ms, by = chip_smoke.bound(int(chip_smoke.HBM_BW * 1e-2), 0,
+                              (1e9, 1e9, 2e9))
+    assert by == "bytes" and ms == pytest.approx(10.0)
+
+
+@pytest.mark.parametrize("s,alu,adds", [
+    (2, 3 * 40 + 2 + 2 * 3, 3 * 31), (8, 9 * 40 + 2 + 8 * 3, 9 * 31),
+    (13, 14 * 40 + 2 + 13 * 3, 14 * 31)])
+def test_threefry_work_is_the_functions(s, alu, adds):
+    """A uniforms call at width s needs 1 + s hashes (40 ALU-only
+    instructions and 31 adds each), one schedule word per key and 3 ALU
+    instructions and a float subtract per uniform; the adds fit on the
+    FMA-heavy pipe, so the ALU pipe carries only what it alone runs."""
+    work = chip_smoke.threefry_work(s)
+    assert work["uniforms"] == (alu, adds, alu + adds + s)
+    assert work["lane_keys"] == (2 * 40 + 1, 2 * 31, 2 * 40 + 1 + 2 * 31)
+
+
+def test_threefry_bound_binds_on_the_alu_pipe(monkeypatch):
+    """At 2^20 lanes and S = 8 the ALU-only work (386 per lane) outlasts
+    the bytes (40 per lane) and the issue rate; lane_keys is bound by its
+    bytes (24 per lane). Rates of an H100 SXM: 132 SMs at 1,980 MHz."""
+    pipe = 64 * 132 * 1.98e9
+    monkeypatch.setattr(chip_smoke, "int_rates", lambda: (pipe, pipe,
+                                                          2 * pipe))
+    n = 1 << 20
+    (ms, by), (kms, kby) = chip_smoke.threefry_bounds(n, 8)
+    assert by == "operations" and ms == pytest.approx(n * 386 / pipe * 1e3)
+    assert kby == "bytes" and kms == pytest.approx(
+        n * 24 / chip_smoke.HBM_BW * 1e3)
+
+
+class _Event:
+    def __init__(self, key, count, us):
+        self.key, self.count, self.self_device_time_total = key, count, us
+
+
+def _fake_profiler(monkeypatch, runs):
+    """torch.profiler.profile replaced by one that records runs[i] (a list
+    of (name, count, device us)) on its i-th use; the card's calls and
+    waits become no-ops. Returns the list of runs made."""
+    made = []
+
+    class Profile:
+        def __init__(self, schedule, **_):
+            self.schedule, self.step_num = schedule, 0
+
+        def __enter__(self):
+            return self
+
+        def step(self):
+            self.step_num += 1
+
+        def __exit__(self, *_):
+            # warm-up, then the one active step that is kept
+            assert [self.schedule(k).name for k in range(3)] == [
+                "WARMUP", "RECORD_AND_SAVE", "NONE"]
+            assert self.step_num == 2
+            made.append(len(made))
+
+        def key_averages(self):
+            return [_Event(*e) for e in runs[made[-1]]]
+
+    monkeypatch.setattr("torch.profiler.profile", Profile)
+    monkeypatch.setattr("torch.cuda.synchronize", lambda: None)
+    monkeypatch.setattr(chip_smoke, "PROFILER_WARMUP_S", 0.0)
+    return made
+
+
+WIDE = [("wide_cull_kernel", 5, 50.0), ("wide_walk_kernel", 5, 450.0),
+        ("Memset (Device)", 5, 5.0), ("cudaLaunchKernel", 10, 0.0)]
+
+
+@pytest.mark.parametrize("dropped", [
+    [("Memset (Device)", 5, 5.0)],
+    [],
+    [("wide_cull_kernel", 5, 50.0), ("wide_walk_kernel", 4, 360.0),
+     ("Memset (Device)", 5, 5.0)]])
+def test_profiled_ms_makes_an_incomplete_run_again(monkeypatch, dropped):
+    """A run whose records lack some calls of an operation every call
+    launches (all kernels lost, everything lost, one walk lost) is made
+    again; the complete run's device time per call is returned."""
+    made = _fake_profiler(monkeypatch, [dropped, WIDE])
+    out = chip_smoke.profiled_ms(lambda: None, 5, chip_smoke.WIDE_OPS)
+    assert made == [0, 1]
+    assert out == pytest.approx({"wide_cull_kernel": 0.01,
+                                 "wide_walk_kernel": 0.09, "Memset": 0.001})
+
+
+def test_profiled_ms_falls_back_to_queued_events(monkeypatch):
+    """Where no run of PROFILER_TRIES is complete, the time is the events'
+    behind a held stream, under its own key, never a partial sum."""
+    made = _fake_profiler(monkeypatch, [[("Memset (Device)", 5, 5.0)]]
+                          * chip_smoke.PROFILER_TRIES)
+    monkeypatch.setattr(chip_smoke, "queued_events_ms", lambda fn, reps: 0.1)
+    out = chip_smoke.profiled_ms(lambda: None, 5, chip_smoke.WIDE_OPS)
+    assert len(made) == chip_smoke.PROFILER_TRIES
+    assert out == {"queued events": 0.1}
+
+
+def test_profiled_ms_each_names_what_every_call_launches(monkeypatch):
+    """With each=() any recorded operation completes a run (a build that
+    launches one of several names); with each naming an operation the
+    calls do not launch, no run is complete."""
+    pr4 = [("wide_bvh_kernel", 5, 400.0)]
+    _fake_profiler(monkeypatch, [pr4])
+    out = chip_smoke.profiled_ms(lambda: None, 5,
+                                 chip_smoke.WIDE_OPS + ("wide_bvh_kernel",),
+                                 each=())
+    assert out["wide_bvh_kernel"] == pytest.approx(0.08)
+    made = _fake_profiler(monkeypatch, [pr4] * chip_smoke.PROFILER_TRIES)
+    monkeypatch.setattr(chip_smoke, "queued_events_ms", lambda fn, reps: 0.2)
+    assert chip_smoke.profiled_ms(lambda: None, 5, ("wide_bvh_kernel",),
+                                  each=("wide_cull_kernel",)) == {
+        "queued events": 0.2}
+    assert len(made) == chip_smoke.PROFILER_TRIES

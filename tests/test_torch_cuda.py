@@ -20,8 +20,10 @@ and a mesh of 8,192 groups (the packed key's limit). The two
 harness kernels, the sweep primitives and the wide kernel's eleven
 primitive probes, must equal their plain versions bit for bit. So must the
 Threefry kernel of the random streams (lane keys and uniforms) on its
-edges: one lane, ragged counts, S = 4 and 10, seed 2^31 - 1 and pixel
-2^20 - 1, with exactly one launch per call.
+edges: one lane, ragged counts around its 256-lane tiles, every width it
+instantiates and widths of its generic instantiation, seed 2^31 - 1 and
+pixel 2^20 - 1, with exactly one launch per call, and on keys permuted as
+the ray sort permutes them.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import numpy as np
@@ -370,14 +372,19 @@ def test_sweep_kernel_edge_cases_on_card(case):
 
 @pytest.mark.cuda
 def test_harness_kernels_match_plain_on_card():
-    """K3 on the harness's inputs, and every K4 probe at a small REPS (the
-    plain versions are Python loops): equal bit for bit, mt inf."""
+    """K3 against its plain version and the harness's oracle on the
+    harness's inputs, seeds 1-3 and keys tied across the window edges at
+    lanes 0, 8 and 120, and every K4 probe at a small REPS (the plain
+    versions are Python loops): equal bit for bit, mt inf."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
-    rng = np.random.default_rng(0)
-    a, b = (torch.from_numpy(rng.normal(size=(4, 128)).astype(np.float32)
-                             ).cuda() for _ in range(2))
-    assert torch.equal(SP.sweep_prims(a, b), SP.sweep_prims_plain(a, b))
+    for seed, ties in ((0, False), (1, False), (2, False), (3, False),
+                       (0, True), (1, True), (2, True)):
+        an, bn = SP.inputs(seed, ties)
+        a, b = torch.from_numpy(an).cuda(), torch.from_numpy(bn).cuda()
+        k = SP.sweep_prims(a, b)
+        assert torch.equal(k, SP.sweep_prims_plain(a, b)), (seed, ties)
+        np.testing.assert_array_equal(k.cpu().numpy(), SP.oracle(an, bn))
     tables = PM.tables("cuda")
     for probe in PM.PROBES:
         table = tables[PM.TABLE_OF[probe]]
@@ -390,12 +397,16 @@ def test_harness_kernels_match_plain_on_card():
             else bool(torch.isfinite(k).all()), probe
 
 
+# the kernel's block of 256 lanes: 257 and 3 * 256 + 1 end one lane past a
+# tile, 255 one short, so the flat (lane, slot) walk ends ragged
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [1, 255, 257, 4099])
-@pytest.mark.parametrize("s", [4, 10])
+@pytest.mark.parametrize("n", [1, 255, 257, 4099, 3 * 256 + 1])
+@pytest.mark.parametrize("s", [1, 2, 3, 4, 6, 8, 10, 13])
 def test_threefry_kernel_matches_plain_on_card(n, s):
     """Lane keys and one purpose's [n, S] uniforms, kernel against plain,
-    bit for bit; pixel ids run to 2^20 - 1 and the samples vary per lane."""
+    bit for bit, at every width the kernel instantiates (2, 6, 8, 10) and
+    at widths of its generic instantiation (1, 3, 4, 13); pixel ids run to
+    2^20 - 1 and the samples vary per lane."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
     rng = np.random.default_rng(n + s)
@@ -415,6 +426,27 @@ def test_threefry_kernel_matches_plain_on_card(n, s):
         assert (TR.lane_keys.launches, TR.uniforms.launches) == (
             before[0] + 1, before[1] + 2)
         torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 8, 13])
+def test_threefry_draw_of_permuted_keys_on_card(s):
+    """Keys permuted as the ray sort permutes lanes: the kernel's draw of
+    the permuted keys is the permuted draw, and equals the plain version's,
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    n = 4099
+    rng = np.random.default_rng(s)
+    pix, sample = (torch.from_numpy(x).cuda() for x in (
+        rng.permutation(1 << 20)[:n], rng.integers(0, 64, n)))
+    keys = TR.lane_keys(7, sample, pix)
+    perm = torch.from_numpy(rng.permutation(n)).cuda()
+    moved = TR.LaneKeys(keys.k0[perm], keys.k1[perm], keys.sample[perm])
+    for purpose in (0, 16 + 3):
+        u = TR.uniforms(moved, purpose, s)
+        assert torch.equal(u, TR.uniforms(keys, purpose, s)[perm])
+        assert torch.equal(u, TR.uniforms_plain(moved, purpose, s))
 
 
 @pytest.mark.cuda

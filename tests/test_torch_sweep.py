@@ -23,7 +23,8 @@ routing against the JAX package.
   against the reference's kernel `kern` in interpret mode, bit for bit
   (trailing-window minima, as `pltpu.roll` leaves them; the reference
   harness's own numpy oracle takes aligned blocks and disagrees with its
-  kernel), and the CPU route of the port's entry point.
+  kernel), on main's inputs and on more seeds and keys tied across the
+  window edges, and the CPU route of the port's entry point.
 * chip_smoke's float64 forensic on two lanes recorded on the card: it
   explains a disagreement inside the float32 rounding of the triangle test
   and rejects one outside it.
@@ -474,17 +475,23 @@ def test_sweep_prims_plain_matches_oracle(capsys):
     assert err == 0.0 and sweep_prims.sweep_prims.launches == before
 
 
-def test_sweep_prims_plain_matches_reference_kernel(monkeypatch):
-    """The reference harness's `kern`, run by its own main in interpret
-    mode on main's inputs, equals sweep_prims_plain bit for bit. The
-    harness's numpy oracle (aligned 8-lane blocks), which its main asserts,
-    is off by 0.33: the port follows the kernel."""
+def _reference_prims():
+    """The reference harness scripts/sweep_prims.py, loaded as a module."""
     spec = importlib.util.spec_from_file_location(
         "reference_sweep_prims", os.path.join(
             os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
             "scripts", "sweep_prims.py"))
     ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref)
+    return ref
+
+
+def test_sweep_prims_plain_matches_reference_kernel(monkeypatch):
+    """The reference harness's `kern`, run by its own main in interpret
+    mode on main's inputs, equals sweep_prims_plain bit for bit. The
+    harness's numpy oracle (aligned 8-lane blocks), which its main asserts,
+    is off by 0.33: the port follows the kernel."""
+    ref = _reference_prims()
     monkeypatch.setattr(pl, "pallas_call",
                         functools.partial(pl.pallas_call, interpret=True))
     seen = []
@@ -499,6 +506,36 @@ def test_sweep_prims_plain_matches_reference_kernel(monkeypatch):
     plain = sweep_prims.sweep_prims_plain(a, b).numpy()
     assert np.array_equal(plain.view(np.uint32), out.view(np.uint32))
     assert np.abs(aligned_oracle - out).max() > 0.3
+
+
+@pytest.mark.parametrize("seed,ties", [(1, False), (2, False), (0, True),
+                                       (1, True)])
+def test_sweep_prims_plain_matches_reference_kernel_on_more_inputs(seed,
+                                                                    ties):
+    """The reference's `kern` in interpret mode, called as its main calls
+    it, on sweep_prims.inputs (seeded normals, and keys tied across the
+    window edges at lanes 0, 8 and 120), equals sweep_prims_plain and the
+    port's oracle bit for bit: the inputs the card's kernel is held to."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    ref = _reference_prims()
+    an, bn = sweep_prims.inputs(seed, ties)
+    f = pl.pallas_call(
+        ref.kern,
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
+                  pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((128, 128), jnp.float32),
+        scratch_shapes=[pltpu.VMEM((1, 128), jnp.float32),
+                        pltpu.SMEM((1, 128), jnp.float32),
+                        pltpu.SemaphoreType.DMA],
+        interpret=True)
+    out = np.asarray(jax.jit(f)(jnp.asarray(an), jnp.asarray(bn)))
+    plain = sweep_prims.sweep_prims_plain(torch.from_numpy(an),
+                                          torch.from_numpy(bn)).numpy()
+    assert np.array_equal(plain.view(np.uint32), out.view(np.uint32))
+    assert np.array_equal(sweep_prims.oracle(an, bn).view(np.uint32),
+                          out.view(np.uint32))
 
 
 # ---------------------------------------------------------------------------
