@@ -83,6 +83,25 @@ Phases, each printing its result; any failure raises and exits non-zero:
      bunny's albedo (depth 2); three
      fit steps; texel and checker-colour gradients against finite
      differences (texture_grads); one {"diff": ...} JSON line.
+ 12. sharded render and train (sharded_phase, parallel/): (a) a world of
+     one rank over NCCL (multihost.initialize), mesh (1, 1): render_sharded
+     of the default bunny at 1024^2, 4 spp, depth 5 equal to render_fn's
+     frame bit for bit, 64 wide and 28 Threefry launches, its wall time and
+     rays/s in turns with render()'s frame (medians of 3), peak memory; (c)
+     build_train_step at (1, 1), 1 spp: the partial film's 16 + 7 launches
+     and none in its backward, the gradient within rtol 1e-6 of
+     diff.params.value_and_grad's, three steps with the loss falling; (b) 4
+     gloo ranks spawned to share the card (card_rank), scene and kernels
+     built here: meshes (2, 1) and (4, 1) equal to (a)'s frame bit for bit,
+     (2, 2) and (1, 4) within atol 2e-4, exact launches per rank, every
+     rank's partial film equal bit for bit to its samples' single-card
+     waves on its block, the first wave's Threefry draws (and on (4, 1) its
+     16 wide casts) equal to the plain versions'; (2, 1) train losses
+     within 1e-5 relative of (1, 1)'s; (d) scaling_report at 1, 2 and 4
+     ranks (ranks sharing one card: a check of the machinery, not of
+     scaling); one {"sharded": ...} JSON line, and the kernels line's
+     wide_bvh and threefry entries carry the launches per rank of each
+     layout ("sharded_launches").
 The line before the last is the per-kernel JSON summary, each kernel with
 its bound: the largest of its bytes (inputs read once, outputs written
 once) at HBM_BW, its float operations at F32_PEAK, counted on the timed
@@ -97,11 +116,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import datetime
 import functools
 import gc
 import json
 import os
 import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -110,6 +131,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from jet_pbrt_tpu_torch import cli
 from jet_pbrt_tpu_torch.diff import params as dparams
@@ -117,10 +139,14 @@ from jet_pbrt_tpu_torch.diff.gradcheck import check_grads
 from jet_pbrt_tpu_torch.models import camera as camera_mod
 from jet_pbrt_tpu_torch.models import integrators
 from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, render, \
-    render_fn
+    render_fn, setup, wave_fn
 from jet_pbrt_tpu_torch.ops import linalg, rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops.linalg import frame_from_z, to_world
 from jet_pbrt_tpu_torch.ops.sampling import sample_cosine_hemisphere
+from jet_pbrt_tpu_torch.parallel import mesh as pmesh
+from jet_pbrt_tpu_torch.parallel import multihost
+from jet_pbrt_tpu_torch.parallel import render as prender
+from jet_pbrt_tpu_torch.parallel import train as ptrain
 from jet_pbrt_tpu_torch.scene import pack as scene_pack
 from jet_pbrt_tpu_torch.scene.builder import SceneBuilder
 from jet_pbrt_tpu_torch.scene.scenes import bunny_obj, bunny_scene, cornell_box
@@ -1874,6 +1900,437 @@ def texture_grads(dev, smi: str, res: int = 1024) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# 12. sharded render and train (parallel/)
+# --------------------------------------------------------------------------
+
+# the phase's frame: the default bunny at 1024^2, 4 spp, depth 5
+SHARD_SPP, SHARD_DEPTH = 4, 5
+# the gloo world whose ranks share the card, and its meshes: (px, spp) ->
+# the world's ranks on it (None: all of them)
+CARD_RANKS = 4
+CARD_LAYOUTS = {(2, 1): [0, 1], (4, 1): None, (2, 2): None, (1, 4): None}
+# the reference's own tolerance for the spp axis, whose sum reassociates
+# (tests/test_parallel.py:38-39)
+SPP_ATOL = 2e-4
+# the layout whose ranks replay their first wave's wide casts through the
+# plain walk (every layout replays its Threefry draws)
+PLAIN_LAYOUT = (4, 1)
+# the train steps' relative agreement between (1, 1) and (2, 1): the loss
+# sums blocks in another order
+TRAIN_RTOL = 1e-5
+# the sharded gradient against value_and_grad's: the loss reaches the film
+# by another sequence of float operations
+GRAD_RTOL = 1e-6
+# (a)'s frames in turns: a warm-up each, then three samples each
+TURNS = ("sharded", "render", "sharded", "render", "render", "sharded",
+         "sharded", "render")
+CARD_DEADLINE_S = 600.0
+RANK_TIMEOUT = datetime.timedelta(seconds=300)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """While open, PyTorch's deterministic algorithms (warning where an op
+    has none): the backward's index_add_ then sums in a fixed order, not by
+    atomics, so two gradients of the same loss differ only where their
+    arithmetic does. A measurement setting of this script only."""
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def sharded_launches(shape, lights: int) -> dict:
+    """Launches per rank of the phase's frame on a (px, spp) mesh: one
+    wave per local sample, each with (depth + 1) closest and depth x lights
+    shadow casts and 2 + depth Threefry draws."""
+    local = SHARD_SPP // shape[1]
+    return {"wide_bvh": local * (SHARD_DEPTH + 1 + SHARD_DEPTH * lights),
+            "sweep_bvh": 0, "threefry": local * (2 + SHARD_DEPTH)}
+
+
+def free_port() -> int:
+    with contextlib.closing(socket.socket()) as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def recorded_calls(out: list, limit: int):
+    """While open, the first `limit` calls of wide_bvh.intersect_wide,
+    rng.lane_keys and rng.uniforms append (name, inputs, keywords,
+    output) to `out`, their inputs cloned."""
+    copy = lambda a: tuple(
+        rng.LaneKeys(*(k.clone() for k in x)) if isinstance(x, rng.LaneKeys)
+        else x.clone() if torch.is_tensor(x) else x for x in a)
+    saved = []
+    for mod, name in ((wide_bvh, "intersect_wide"), (rng, "lane_keys"),
+                      (rng, "uniforms")):
+        inner = getattr(mod, name)
+
+        # the wrapped function counts its launches on its module's name, so
+        # on `call` (functools.wraps copies the count) while this is open
+        @functools.wraps(inner)
+        def call(*a, _inner=inner, _name=name, **kw):
+            got = _inner(*a, **kw)
+            if len(out) < limit:
+                out.append((_name, copy(a), kw, got))
+            return got
+
+        setattr(mod, name, call)
+        saved.append((mod, name, inner))
+    try:
+        yield out
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+
+
+def replay_plain(calls) -> dict:
+    """Each recorded call through its plain version, bit for bit; returns
+    the number of calls checked by name."""
+    n = collections.Counter()
+    for name, a, kw, got in calls:
+        if name == "intersect_wide":
+            want = wide_bvh.intersect_wide_plain(*a, **kw)
+        elif name == "lane_keys":
+            seed, sample, pixel = a
+            want = rng.lane_keys_plain(seed, torch.as_tensor(
+                sample, device=pixel.device).expand(pixel.shape), pixel)
+        else:
+            got, want = (got.view(torch.int32),), (rng.uniforms_plain(
+                *a).view(torch.int32),)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            raise AssertionError(f"{name}: kernel and plain version differ "
+                                 "on the sharded path")
+        n[name] += 1
+    return dict(n)
+
+
+def train_steps(scene, mesh, dev, res: int, steps: int = 3):
+    """build_train_step on the mesh at res^2, 1 spp, depth 5, fields
+    ("mat_c0",), lr FIT_LR, from the red bunny's albedo set to (0.9, 0.1,
+    0.7) towards the scene's own frame: the steps' losses, ms per step
+    (host clock to synchronize) and the peak memory above what was
+    allocated before them; and (step's render, pack, cam, params, target)
+    for the caller's checks."""
+    step, init, rend, cam = ptrain.build_train_step(
+        scene, mesh, res, res, 1, fields=("mat_c0",), lr=FIT_LR,
+        max_depth=SHARD_DEPTH, device=dev)
+    pack = scene.pack
+    target = rend.frame(pack, cam)
+    wrong = init()["mat_c0"].clone()
+    wrong[0] = torch.tensor([0.9, 0.1, 0.7], device=dev)
+    params, out = {"mat_c0": wrong}, {"losses": [], "ms": []}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        params, loss = step(params, target)
+        torch.cuda.synchronize()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(loss)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    if not out["losses"][2] < out["losses"][1] < out["losses"][0]:
+        raise AssertionError(f"the sharded fit's loss does not fall: "
+                             f"{out['losses']}")
+    return out, (rend, pack, cam, {"mat_c0": wrong}, target)
+
+
+def card_rank(rank, path, scene, dev_type, res):
+    """One of CARD_RANKS gloo ranks sharing one device: each layout's frame
+    through render_sharded with its launches counted; then the rank's
+    partial film of the same frame, the first wave's kernel calls recorded
+    and replayed through the plain versions (the wide casts on
+    PLAIN_LAYOUT only); three train steps at (2, 1) on ranks 0 and 1; the
+    scaling report at 1, 2 and 4 ranks. Saves its results to
+    path/rank<rank>.pt, rank 0's frames to path/<px>x<spp>.pt."""
+    torch.set_num_threads(2)
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{path}/init",
+                            world_size=CARD_RANKS, rank=rank,
+                            timeout=RANK_TIMEOUT)
+    start = time.perf_counter()
+    note = lambda what: print(f"rank {rank}: {what} at "
+                              f"{time.perf_counter() - start:.1f} s",
+                              flush=True)
+    try:
+        dev = pmesh.rank_device(dev_type)
+        scene = scene.to(dev)
+        lights = sum(1 for lt in scene.meta.lights if not lt.static_black)
+        per_wave = sum(sharded_launches((1, SHARD_SPP), lights).values())
+        out = {"layouts": {}}
+        for shape, ranks in CARD_LAYOUTS.items():
+            mesh = pmesh.make_mesh(*shape, ranks=ranks, device=dev)
+            if mesh.get_coordinate() is None:
+                continue
+            torch.cuda.synchronize()
+            reset_launches()
+            t0 = time.perf_counter()
+            img = prender.render_sharded(scene, res, res, SHARD_SPP, mesh,
+                                         max_depth=SHARD_DEPTH, clamp=False,
+                                         device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            note(f"{shape} frame in {wall:.3f} s")
+            if rank == 0:
+                torch.save(img.cpu(), os.path.join(
+                    path, f"{shape[0]}x{shape[1]}.pt"))
+            _, pack, cam = setup(scene, res, res, dev)
+            fn = prender.build_sharded_render(scene.meta, mesh, res, res,
+                                              SHARD_SPP,
+                                              max_depth=SHARD_DEPTH,
+                                              device=dev)
+            calls = []
+            with torch.no_grad(), recorded_calls(calls, per_wave):
+                part = fn.partial(pack, cam)
+            note(f"{shape} partial film")
+            calls = [c for c in calls if shape == PLAIN_LAYOUT
+                     or c[0] != "intersect_wide"]
+            out["layouts"][shape] = {
+                "launches": launches, "wall": wall, "coord": (fn.ip, fn.isp),
+                "partial": part.cpu(), "plain": replay_plain(calls)}
+            del calls, part, img
+            note(f"{shape} kernel calls replayed through the plain versions")
+        mesh = pmesh.make_mesh(2, 1, ranks=[0, 1], device=dev)
+        if rank < 2:
+            out["train"] = train_steps(scene, mesh, dev, res)[0]
+            note("(2, 1) train steps")
+        out["rows"] = multihost.scaling_report(
+            scene, res, res, SHARD_SPP, rank_counts=[1, 2, 4],
+            max_depth=SHARD_DEPTH, device=dev)
+        note("scaling report")
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(path, f"rank{rank}.pt"))
+
+
+def run_card_ranks(path, scene, dev_type, res) -> list:
+    """card_rank in CARD_RANKS spawned processes; their results in rank
+    order. Raises if a rank raises or the world outlives CARD_DEADLINE_S
+    (every rank killed)."""
+    ctx = torch.multiprocessing.start_processes(
+        card_rank, args=(path, scene, dev_type, res), nprocs=CARD_RANKS,
+        join=False, start_method="spawn")
+    end = time.monotonic() + CARD_DEADLINE_S
+    try:
+        while not ctx.join(timeout=5.0):
+            if time.monotonic() > end:
+                raise TimeoutError(f"the {CARD_RANKS}-rank world outlived "
+                                   f"{CARD_DEADLINE_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(5.0)
+    return [torch.load(os.path.join(path, f"rank{r}.pt"))
+            for r in range(CARD_RANKS)]
+
+
+def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
+    """parallel/ on the default bunny at res^2, 4 spp, depth 5. (a) A world
+    of one rank over NCCL (multihost.initialize), mesh (1, 1):
+    render_sharded equal to render_fn's frame bit for bit, with the exact
+    launch counts; its wall time and rays/s in turns with render()'s
+    frame (a warm-up each, then 3 samples each, medians), its peak memory.
+    (c) build_train_step at (1, 1): the step's partial film launches one
+    wave's kernels and its backward none, its gradient equals
+    diff.params.value_and_grad's (GRAD_RTOL; both under deterministic()),
+    three steps with the loss falling. (b) CARD_RANKS gloo ranks sharing the card (card_rank), the
+    scene and kernels built here: (2, 1) and (4, 1) frames equal to (a)'s
+    bit for bit, (2, 2) and (1, 4) within SPP_ATOL; exact launches per
+    rank; every rank's partial film equal bit for bit to the sum of its
+    samples' waves on its block as the single-card path computes them;
+    their recorded kernel calls equal to the plain versions'; (2, 1) train
+    losses within TRAIN_RTOL of (1, 1)'s; (d) the scaling report. Returns
+    a summary dict."""
+    scene = bunny_scene()
+    sdev = scene.to(dev)
+    lights = sum(1 for lt in scene.meta.lights if not lt.static_black)
+    n_pix = res * res
+    out = {"device": smi}
+    world = multihost.initialize(f"localhost:{free_port()}", 1, 0, device=dev,
+                                 timeout=RANK_TIMEOUT)
+    if world != 1:
+        raise AssertionError(f"a world of one rank has size {world}")
+    out["backend"] = dist.get_backend()
+    try:
+        mesh = pmesh.make_mesh(device=dev)
+        fn, pack = render_fn(sdev, res, res, SHARD_SPP, max_depth=SHARD_DEPTH,
+                             device=dev)
+        _, _, cam = setup(sdev, res, res, dev)
+        wave = wave_fn(sdev.meta, res, SHARD_DEPTH)
+        ids = torch.arange(n_pix, device=dev)
+        with torch.no_grad():
+            ref = fn(pack)
+            waves = [wave(pack, cam, s, ids).cpu() for s in range(SHARD_SPP)]
+        sharded = lambda: prender.render_sharded(
+            sdev, res, res, SHARD_SPP, mesh, max_depth=SHARD_DEPTH,
+            clamp=False, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        img = sharded()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        want = sharded_launches((1, 1), lights)
+        if launches != want:
+            raise AssertionError(f"(1, 1) launches {launches}, expected {want}")
+        if not torch.equal(img, ref):
+            raise AssertionError(f"the (1, 1) frame differs from render_fn's "
+                                 f"(max |diff| {float((img - ref).abs().max())})")
+        out["launches"] = {"1x1": launches}
+        _, st = render(sdev, res, res, SHARD_SPP, max_depth=SHARD_DEPTH,
+                       clamp=False, device=dev, with_stats=True)
+        frame = lambda: render(sdev, res, res, SHARD_SPP,
+                               max_depth=SHARD_DEPTH, clamp=False, device=dev)
+        walls = {"sharded": [], "render": []}
+        for name in TURNS:
+            call = sharded if name == "sharded" else frame
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+        med = {k: float(np.median(v[1:])) for k, v in walls.items()}
+        out["walls"], out["median_s"], out["rays"] = walls, med, st["rays"]
+        print(f"(a) world of 1 over {out['backend']}, mesh (1, 1), bunny "
+              f"{res}^2 spp {SHARD_SPP} depth {SHARD_DEPTH}: render_sharded "
+              f"equal to render_fn bit for bit; launches {launches} "
+              f"(expected {want}); peak memory {out['peak_bytes']} bytes; "
+              f"in turns after a warm-up each, sharded {walls['sharded'][1:]} "
+              f"s, render {walls['render'][1:]} s; medians sharded "
+              f"{med['sharded']:.4f} s ({st['rays'] / med['sharded']:.1f} "
+              f"rays/s), render {med['render']:.4f} s "
+              f"({st['rays'] / med['render']:.1f} rays/s), {st['rays']} rays "
+              f"as render(with_stats=True) counts them [{smi}]", flush=True)
+        del img, fn
+
+        train, (rend, tpack, tcam, params, target) = train_steps(
+            sdev, mesh, dev, res)
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in params.items()}
+        reset_launches()
+        part = rend.partial(dparams.with_params(tpack, leaves), tcam)
+        torch.cuda.synchronize()
+        fwd = launch_counts()
+        reset_launches()
+        torch.autograd.grad(part.sum(), list(leaves.values()))
+        torch.cuda.synchronize()
+        bwd = launch_counts()
+        del part, leaves
+        want1 = sharded_launches((1, SHARD_SPP), lights)
+        if fwd != want1 or any(bwd.values()):
+            raise AssertionError(f"train launches: forward {fwd} (expected "
+                                 f"{want1}), backward {bwd} (expected none)")
+        fn1, pk1 = render_fn(sdev, res, res, 1, max_depth=SHARD_DEPTH,
+                             device=dev)
+        timg = target.view(res, res, 3)
+        with deterministic():
+            reset_launches()
+            loss_s, g_s = ptrain.value_and_grad(rend, tpack, tcam, params,
+                                                target)
+            if launch_counts() != want1:
+                raise AssertionError(f"a gradient launched {launch_counts()}"
+                                     f", one forward wave is {want1}")
+            loss_1, g_1 = dparams.value_and_grad(
+                lambda p: torch.mean((fn1(dparams.with_params(pk1, p))
+                                      - timg) ** 2), params)
+        rel = float(((g_s["mat_c0"] - g_1["mat_c0"]).abs()
+                     / g_1["mat_c0"].abs().clamp_min(1e-30)).max())
+        if not torch.allclose(g_s["mat_c0"], g_1["mat_c0"], rtol=GRAD_RTOL,
+                              atol=0.0):
+            raise AssertionError(f"sharded gradient differs from "
+                                 f"value_and_grad's (max rel {rel:.3e})")
+        out["train_1x1"] = train | {"grad_rel": rel, "loss": loss_s,
+                                    "loss_single": loss_1}
+        print(f"(c) build_train_step (1, 1), {res}^2 1 spp depth "
+              f"{SHARD_DEPTH}, mat_c0 from red albedo (0.9, 0.1, 0.7), lr "
+              f"{FIT_LR}: losses {train['losses']}, ms per step "
+              f"{[round(x, 1) for x in train['ms']]}, peak memory "
+              f"{train['peak_bytes']} bytes; the partial film launches {fwd},"
+              f" its backward {bwd}; loss {loss_s} vs value_and_grad's "
+              f"{loss_1}, gradient within {rel:.3e} relative [{smi}]",
+              flush=True)
+        del rend, tpack, tcam, params, target, fn1, pk1, g_s, g_1
+    finally:
+        dist.destroy_process_group()
+
+    with tempfile.TemporaryDirectory() as path:
+        t0 = time.perf_counter()
+        ranks = run_card_ranks(path, scene, dev.type, res)
+        world_s = time.perf_counter() - t0
+        imgs = {shape: torch.load(os.path.join(
+            path, f"{shape[0]}x{shape[1]}.pt")) for shape in CARD_LAYOUTS}
+    ref = ref.cpu()
+    out["layouts"] = {}
+    for shape, img in imgs.items():
+        err = float((img - ref).abs().max())
+        exact = torch.equal(img, ref)
+        if shape[1] == 1 and not exact:
+            raise AssertionError(f"{shape}: the frame differs from (1, 1)'s "
+                                 f"(max |diff| {err})")
+        if err > SPP_ATOL:
+            raise AssertionError(f"{shape}: max |diff| {err} > {SPP_ATOL}")
+        want = sharded_launches(shape, lights)
+        local_px = n_pix // shape[0]
+        local_spp = SHARD_SPP // shape[1]
+        rows = []
+        for rank, got in enumerate(ranks):
+            lay = got["layouts"].get(shape)
+            if lay is None:
+                continue
+            if lay["launches"] != want:
+                raise AssertionError(f"{shape} rank {rank}: launches "
+                                     f"{lay['launches']}, expected {want}")
+            ip, isp = lay["coord"]
+            block = slice(ip * local_px, (ip + 1) * local_px)
+            part = torch.zeros((local_px, 3), dtype=torch.float32)
+            for s in range(isp * local_spp, (isp + 1) * local_spp):
+                part = part + waves[s][block]
+            if not torch.equal(lay["partial"], part):
+                raise AssertionError(f"{shape} rank {rank}: the partial film "
+                                     "differs from the single-card waves")
+            rows.append({"rank": rank, "wall_s": lay["wall"],
+                         "plain": lay["plain"]})
+        out["layouts"][f"{shape[0]}x{shape[1]}"] = {
+            "max_abs_err": err, "bit_for_bit": exact, "launches": want,
+            "ranks": rows}
+        out["launches"][f"{shape[0]}x{shape[1]}"] = want
+        print(f"(b) {len(rows)} gloo ranks sharing the card, mesh {shape}: "
+              f"frame {'equal to (1, 1) bit for bit' if exact else 'within '}"
+              f"{'' if exact else f'{err:.3e} of (1, 1)'}; launches per rank "
+              f"{want}; partial films equal to the single-card waves bit for "
+              f"bit; kernel calls equal to plain {[r['plain'] for r in rows]};"
+              f" walls {[round(r['wall_s'], 3) for r in rows]} s [{smi}]",
+              flush=True)
+    losses = ranks[0]["train"]["losses"]
+    base = out["train_1x1"]["losses"]
+    if not all(abs(a - b) <= TRAIN_RTOL * abs(b) for a, b in zip(losses, base)):
+        raise AssertionError(f"(2, 1) train losses {losses} vs (1, 1) {base}")
+    out["train_2x1"] = ranks[0]["train"]
+    print(f"(c) build_train_step (2, 1) over gloo on the card: losses "
+          f"{losses} (1, 1): {base}; ms per step "
+          f"{[round(x, 1) for x in ranks[0]['train']['ms']]} [{smi}]",
+          flush=True)
+    rows = ranks[0]["rows"]
+    out["scaling"], out["world_s"] = rows, world_s
+    print(f"(d) scaling_report, bunny {res}^2 spp {SHARD_SPP} depth "
+          f"{SHARD_DEPTH}, ranks sharing one card over gloo (a check of the "
+          f"machinery, not of scaling) [{smi}]:\n"
+          + multihost.format_scaling_table(rows), flush=True)
+    print(f"the {CARD_RANKS}-rank world took {world_s:.1f} s, start-up "
+          "included", flush=True)
+    return out
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1983,6 +2440,13 @@ def main() -> int:
     diff = diff_phase(dev, smi.splitlines()[0])
     print(json.dumps({"diff": diff}), flush=True)
 
+    phase("12 sharded render and train (parallel/)")
+    t0 = time.perf_counter()
+    sharded = sharded_phase(dev, smi.splitlines()[0])
+    sharded["phase_s"] = time.perf_counter() - t0
+    print(f"phase 12 took {sharded['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
+
     k_ms, p_ms, p_rays = sweep_times["instanced"]["closest"]
     # no single PyTorch call computes any of these functions (BVH
     # traversal, K3's min-sum epilogue, K4's dependent recurrences, the
@@ -1999,7 +2463,9 @@ def main() -> int:
          "device_ms": wide_times["dev", "wave"],
          "targeted_ms": wide_times["targeted", "closest"][0],
          "targeted_bound_ms": wide_times["bound", "targeted"][0],
-         "wave_casts_ms": casts_ms, "wave_casts_device_ms": casts_dev_ms},
+         "wave_casts_ms": casts_ms, "wave_casts_device_ms": casts_dev_ms,
+         "sharded_launches": {k: v["wide_bvh"]
+                              for k, v in sharded["launches"].items()}},
         {"name": "sweep_bvh", "route": "cuda",
          "source": "jet_pbrt_tpu_torch/csrc/sweep_bvh.cu",
          "replaces": "jet_pbrt_tpu/ops/sweep_bvh.py:192",
@@ -2036,7 +2502,9 @@ def main() -> int:
          "lane_keys": {k: streams["lane_keys"][k] for k in (
              "ms", "device_ms", "enqueue_ms", "plain_ms")}
          | {"bound_ms": streams["lane_keys"]["bound"][0]},
-         "lanes": 1 << 20, "s": rng_s}]}),
+         "lanes": 1 << 20, "s": rng_s,
+         "sharded_launches": {k: v["threefry"]
+                              for k, v in sharded["launches"].items()}}]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -5,8 +5,9 @@ scene building, per-lane shading math and the integrators are plain
 PyTorch; BVH traversal and the random streams' Threefry hash are CUDA
 kernels written for Hopper (csrc/), built with nvcc at first use, each
 with a plain PyTorch version as its CPU route and oracle. Entry points
-(render, render_resumable, `python -m jet_pbrt_tpu_torch.cli`) run on
-the card unless the caller asks for the CPU (device="cpu", --device cpu).
+(render, render_resumable, render_sharded, `python -m
+jet_pbrt_tpu_torch.cli`) run on the card unless the caller asks for the
+CPU (device="cpu", --device cpu).
 
 Layout mirrors the reference package:
   ops/      linalg, rng (jax.random's streams), sampling, fresnel,
@@ -17,6 +18,11 @@ Layout mirrors the reference package:
             objio (OBJ I/O), assets (the bunny generator)
   models/   camera, integrators (path, Whitted, debug normals), film,
             render
+  diff/     params (value_and_grad, fit), gradcheck
+  parallel/ mesh (a (px, spp) DeviceMesh over ranks), render (sharded
+            frames), train (the distributed fit), multihost
+            (torch.distributed init, host-aware meshes, scaling report):
+            one process per device over torch.distributed
   scripts/  the harnesses: sweep_prims (the sweep's primitives),
             prim_micro (the wide kernel's primitive probes)
   utils/    cuda_build (nvcc + ctypes), native (ctypes bridge to the C++ host

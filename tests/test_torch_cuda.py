@@ -24,6 +24,9 @@ edges: one lane, ragged counts around its 256-lane tiles, every width it
 instantiates and widths of its generic instantiation, seed 2^31 - 1 and
 pixel 2^20 - 1, with exactly one launch per call, and on keys permuted as
 the ray sort permutes them.
+The sharded renderer (parallel/) on the card: a world of one NCCL rank and
+two gloo ranks sharing the card, each on a px-only mesh, give render_fn's
+frame bit for bit.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import numpy as np
@@ -539,3 +542,32 @@ def test_render_fn_gradients_on_card_match_cpu():
         assert big.any(), k
         np.testing.assert_allclose(gg[k][big], gc[k][big], rtol=1e-4,
                                    err_msg=k)
+
+
+def _rank_sharded(rank, scene, world):
+    from jet_pbrt_tpu_torch.parallel.mesh import make_mesh
+    from jet_pbrt_tpu_torch.parallel.render import render_sharded
+    img = render_sharded(scene, 64, 64, 2, make_mesh(px=world), seed=3,
+                         max_depth=3, clamp=False)
+    assert img.device.type == "cuda"
+    return img.cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
+def test_sharded_render_on_card_equals_render_fn(backend, world, tmp_path):
+    """render_sharded at 64^2, 2 spp, depth 3 on a (world, 1) mesh of ranks
+    on the card (NCCL at one rank; gloo for two ranks sharing the card)
+    equals render_fn's frame on the card bit for bit, on every rank. The
+    parent builds the kernels first; the ranks load them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.models.render import render_fn
+    from test_torch_multihost import run_world
+    scene = _grad_scene()
+    fn, pk = render_fn(scene, 64, 64, 2, seed=3, max_depth=3, device="cuda")
+    with torch.no_grad():
+        ref = fn(pk).cpu()
+    for img in run_world(_rank_sharded, world, tmp_path, scene, world,
+                         backend=backend):
+        assert torch.equal(img, ref)
