@@ -29,11 +29,16 @@ Phases, each printing its result; any failure raises and exits non-zero:
      efficiency and lane-0 cycle split are printed, and the walk's resident
      blocks per SM;
   4. main path: render(bunny_scene(), 1024, 1024, spp=4, max_depth=5,
-     device="cuda") with the exact launch counts of the wide kernel and of
-     the Threefry kernel, rays/s by class, peak memory, and a profiled
-     1-spp wave, profiled again with the streams drawn by the plain
-     version (the wave before the Threefry kernel); then the 16 wide casts of
-     one 1-spp wave, recorded (o, d, tmin, tmax) by wrapping
+     device="cuda"), its waves replayed from the CUDA graph a 1-spp
+     frame of the same key captured with graph=True (models/graph.py),
+     under a profiler trace: the launch counters (a replay counts its
+     graph's kernel nodes) exact for the wide kernel and the Threefry
+     kernel, and equal to the launches the trace recorded by kernel
+     name, which the kernels line reports; rays/s by class (the wall
+     under the trace), peak memory, and a profiled 1-spp eager wave with
+     the streams drawn by the plain version (the wave before the Threefry
+     kernel; phase 13 profiles the replayed and eager waves); then the 16
+     wide casts of one eager 1-spp wave, recorded (o, d, tmin, tmax) by wrapping
      wide_bvh.intersect_wide here, each replayed alone: live lanes,
      survivors of the cull, kernel event time, host enqueue time and
      profiler device time, the plain version's output held bit for bit,
@@ -55,9 +60,10 @@ Phases, each printing its result; any failure raises and exits non-zero:
   7. main path on the sweep route: render(bunny_scene(bunny_path=<600k
      OBJ>), 1024, 1024, spp=4, max_depth=5, device="cuda") with the exact
      sweep launch count and no wide launch, rays/s, peak memory, build
-     time, a profiled wave, and the sweep's group tests per packet on one
-     1-spp wave with sort_rays on and off, whose images must be
-     bit-identical;
+     time (the counted frame traced as in phase 4), and the sweep's group
+     tests per packet on one
+     1-spp wave with sort_rays on and off (each captured first), whose
+     images must be bit-identical;
   8. the sweep primitives harness (scripts/sweep_prims.py) through its
      entry point, and its kernel against its plain version and the oracle
      bit for bit on six inputs (two with keys tied across the window
@@ -99,9 +105,34 @@ Phases, each printing its result; any failure raises and exits non-zero:
      16 wide casts) equal to the plain versions'; (2, 1) train losses
      within 1e-5 relative of (1, 1)'s; (d) scaling_report at 1, 2 and 4
      ranks (ranks sharing one card: a check of the machinery, not of
-     scaling); one {"sharded": ...} JSON line, and the kernels line's
+     scaling); each rank's cached graphs (lanes, pool bytes); one
+     {"sharded": ...} JSON line, and the kernels line's
      wide_bvh and threefry entries carry the launches per rank of each
-     layout ("sharded_launches").
+     layout ("sharded_launches": the (1, 1) world's counted frame traced
+     as in phase 4, the gloo ranks' by the counters, where a replay counts
+     its graph's kernel nodes). The sharded forward replays each rank's own
+     CUDA graphs, captured by a graph=True frame before each counted one;
+     the partial films (the train step's tape) run the eager wave.
+ 13. the compiled wave (compiled_phase): on the default bunny and the
+     600k-target bunny at 1024^2, 4 spp, and the Cornell box at 512^2, 16
+     spp, depth 5: render(graph=True) against render(graph=False), images
+     and stats bit for bit, exact launches per frame in both modes; the
+     first frame on the default (fresh cache: each wave shape runs op by
+     op for its first graph.CAPTURE_AFTER calls) and the first graph=True
+     frame, with each captured wave's warm-up and capture times, graph
+     pool bytes and its kernel nodes' launches; three frames of each in
+     turns after a warm-up each,
+     medians and rays/s, each mode's peak memory in a frame; the 1-spp
+     wave replayed and eager, profiled (wall, device time and its source,
+     busy share; the replayed wave's top operations by device time); one
+     {"graph": ...} JSON line.
+Phases 4, 5, 7, 10, 11 and 12 run render() (and the sharded forward) on
+graphed waves: graph=True, or the default once a graph=True frame has
+captured the key; the recorders of kernel calls (phase 4's wide casts,
+phase 12's partial films) and the plain-streams profile run the eager
+wave, which is what they wrap, and phase 10's CLI frame of four waves
+runs op by op, as the default does for a shape's first
+graph.CAPTURE_AFTER waves.
 The line before the last is the per-kernel JSON summary, each kernel with
 its bound: the largest of its bytes (inputs read once, outputs written
 once) at HBM_BW, its float operations at F32_PEAK, counted on the timed
@@ -137,6 +168,7 @@ from jet_pbrt_tpu_torch import cli
 from jet_pbrt_tpu_torch.diff import params as dparams
 from jet_pbrt_tpu_torch.diff.gradcheck import check_grads
 from jet_pbrt_tpu_torch.models import camera as camera_mod
+from jet_pbrt_tpu_torch.models import graph as graph_mod
 from jet_pbrt_tpu_torch.models import integrators
 from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, render, \
     render_fn, setup, wave_fn
@@ -246,8 +278,12 @@ PROBE_OPS = dict(m1=1, m4=4, b1=4, r1=8 + 7 + 2, x8=7 + 2, x32=31 + 2,
                  mt=1 + 16 * MT_TEST_OPS + 2)
 
 
+_START = time.perf_counter()
+
+
 def phase(name):
-    print(f"== {name}", flush=True)
+    """A phase's header, with the seconds since the script started."""
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def bound(nbytes: int, flops: int, int_work=None):
@@ -1102,7 +1138,9 @@ def wide_casts(scene, dev, res=1024, depth=5, seed=1):
 
     wide_bvh.intersect_wide = record
     try:
-        render(scene, res, res, spp=1, max_depth=depth, seed=seed, device=dev)
+        # the eager wave: a replayed graph runs no Python, so records nothing
+        render(scene, res, res, spp=1, max_depth=depth, seed=seed, device=dev,
+               graph=False)
     finally:
         wide_bvh.intersect_wide = inner
     return casts
@@ -1247,75 +1285,190 @@ def _device_us(e):
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
+def expected_launches(meta, res: int, spp: int, depth: int) -> dict:
+    """Each kernel's launches in render()'s res^2 frame: per wave, (depth +
+    1) closest and depth x lights shadow casts of each BVH mesh on its
+    route, and its lane keys, the camera's jitter and one set of uniforms
+    per vertex below max_depth, one Threefry launch each."""
+    lights = sum(1 for lt in meta.lights if not lt.static_black)
+    waves = n_waves(res, res, spp, DEFAULT_CHUNK)
+    casts = waves * ((depth + 1) + depth * lights)
+    return {"wide_bvh": casts * (sum(meta.wide_blas) + int(meta.wide_bvh)),
+            "sweep_bvh": casts * (sum(meta.pallas_blas)
+                                  + int(meta.pallas_bvh)),
+            "threefry": waves * (2 + depth)}
+
+
+TRACED_KERNELS = {"wide_bvh": ("wide_walk_kernel",),
+                  "sweep_bvh": ("sweep_bvh_kernel",),
+                  "threefry": ("lane_keys_kernel", "uniforms_kernel")}
+
+
+def traced_launches(prof) -> dict:
+    """Each kernel of the path's launches in a profiler trace: its device
+    function's records counted by name (one per launch, a graph's kernel
+    nodes on every replay)."""
+    events = [e for e in prof.key_averages() if _device_us(e) > 0]
+    return {k: sum(e.count for e in events if any(n in e.key for n in names))
+            for k, names in TRACED_KERNELS.items()}
+
+
+def traced_frame(frame, warm):
+    """frame() under a profiler trace of the card, whose first step runs
+    warm() and is discarded (the profiler loses the first launches after
+    its trace starts), the launch counters set to 0 after it: (frame's
+    output, its wall in s, the launches its trace recorded)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        warm()
+        torch.cuda.synchronize()
+        prof.step()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = frame()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.step()
+    return out, wall, traced_launches(prof)
+
+
+def counted_frame(frame, warm, expected: dict, label: str):
+    """frame() traced (traced_frame) with its launch counters checked:
+    they must equal `expected`, and the launches the trace recorded must
+    equal them; where a trace lost records the frame is run again, up to
+    PROFILER_TRIES. Returns (frame's output, its wall in s under the
+    trace, the traced launches, the peak memory allocated)."""
+    for attempt in range(PROFILER_TRIES):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, wall, traced = traced_frame(frame, warm)
+        launches = launch_counts()
+        if launches != expected:
+            raise AssertionError(f"{label}: kernel launches {launches}, the "
+                                 f"wave structure implies {expected}")
+        if traced == launches:
+            return out, wall, traced, torch.cuda.max_memory_allocated()
+        print(f"the profiler's trace {attempt + 1} of {PROFILER_TRIES} of "
+              f"the {label} frame recorded launches {traced}, its counters "
+              f"{launches}", flush=True)
+    raise AssertionError(f"{label}: no trace of the counted frame recorded "
+                         "the launches its counters hold")
+
+
 def main_path(scene, dev, label, res=1024, spp=4, depth=5):
     """Render the frame once with the exact launch count of each traversal
-    kernel checked, then profile one 1-spp wave."""
-    meta = scene.meta
-    lights = sum(1 for lt in meta.lights if not lt.static_black)
-    casts = n_waves(res, res, spp, DEFAULT_CHUNK) * ((depth + 1)
-                                                      + depth * lights)
-    expected = {"wide_bvh": casts * (sum(meta.wide_blas) + int(meta.wide_bvh)),
-                "sweep_bvh": casts * (sum(meta.pallas_blas)
-                                      + int(meta.pallas_bvh))}
-    # a wave draws its lane keys, the camera's jitter and one set of
-    # uniforms per vertex below max_depth: one Threefry launch each
-    expected["threefry"] = n_waves(res, res, spp, DEFAULT_CHUNK) * (2 + depth)
-    render(scene, 64, 64, spp=1, max_depth=depth, device=dev)  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    img, st = render(scene, res, res, spp=spp, max_depth=depth, seed=0,
-                     clamp=False, device=dev, with_stats=True)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated()
-    if launches != expected:
-        raise AssertionError(f"{label}: kernel launches {launches}, the wave "
-                             f"structure implies {expected}")
+    kernel checked (phase 13 profiles its 1-spp wave). The frame replays its
+    waves from CUDA graphs, captured by a 1-spp frame of the same key
+    (seed, stats, lane count) rendered with graph=True first. The counted
+    frame runs under a profiler trace: its counters (a replay counts its
+    graph's kernel nodes) must equal what the wave structure implies, and
+    the launches its trace recorded must equal the counters; where a trace
+    lost records the frame is rendered again, up to PROFILER_TRIES.
+    Returns the launches the trace recorded."""
+    expected = expected_launches(scene.meta, res, spp, depth)
+    warm = lambda: render(scene, res, res, spp=1, max_depth=depth, seed=0,
+                          clamp=False, device=dev, with_stats=True,
+                          graph=True)
+    warm()  # captures the wave
+    (img, st), wall, traced, peak = counted_frame(
+        lambda: render(scene, res, res, spp=spp, max_depth=depth, seed=0,
+                       clamp=False, device=dev, with_stats=True), warm,
+        expected, label)
     if img.shape != (res, res, 3) or not torch.isfinite(img).all() \
             or (img < 0).any():
         raise AssertionError(f"{label}: render output is not a finite "
                              f"non-negative [{res},{res},3] image")
     sweep = {k: v for k, v in st.items() if k.startswith("sweep_")}
-    print(f"{label} {res}^2 spp {spp} depth {depth}: wall {wall:.3f} s, "
+    print(f"{label} {res}^2 spp {spp} depth {depth}, waves replayed: wall "
+          f"{wall:.3f} s under the profiler's trace, "
           f"rays {st['rays']} ({st['rays'] / wall:.1f} rays/s), "
           + ", ".join(f"{c} {st['rays_' + c]} ({st['rays_' + c] / wall:.1f}/s)"
                       for c in ("primary", "bounce", "shadow"))
-          + f", kernel launches {launches} (expected "
-          f"{expected}), peak memory {peak} bytes, image mean "
+          + f", kernel launches {traced} by the trace, equal to the counters "
+          f"(expected {expected}), peak memory {peak} bytes, image mean "
           f"{float(img.mean()):.5f}"
           + (f", sweep counters {sweep}" if sweep else ""), flush=True)
-
-    profile_wave(scene, dev, label, res, depth)
-    return launches
+    return traced
 
 
-def profile_wave(scene, dev, label, res=1024, depth=5, table=True):
+def profile_wave(scene, dev, label, res=1024, depth=5, table=True,
+                 graph=True, draws=None):
     """Where a 1-spp wave's time goes, by kernel (profiled outside the
     launch counts): wall, device kernel time, busy share and each kernel's
-    share. Returns (wall ms, device ms)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        t0 = time.perf_counter()
-        render(scene, res, res, spp=1, max_depth=depth, seed=1, device=dev)
-        torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    # device-side entries only: an aten op's self device time repeats the
-    # time of the kernels it launched
-    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
-    total = sum(_device_us(e) for e in kernels)
+    share, of the frame of one 1-spp wave replayed from its CUDA graph
+    (graph=True) or run op by op (graph=False). The wave is rendered once
+    before the trace (its capture), and the trace's first step renders it
+    again and is discarded (the profiler loses the first launches after
+    its trace starts). The kept step's device time counts where each of
+    the wave's Threefry draws (`draws`, default 2 + depth a wave) was
+    recorded once. Where not, a replayed wave's device time is its graph's
+    alone by events behind a held stream (queued_events_ms); an eager
+    wave is traced again, up to PROFILER_TRIES, and where no trace is
+    complete its device time is None, not measured. The line names its
+    source. Returns (wall ms, device ms or None, source)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    call = lambda: render(scene, res, res, spp=1, max_depth=depth, seed=1,
+                          device=dev, graph=graph)
+    call()
+    torch.cuda.synchronize()
+    if draws is None:
+        draws = n_waves(res, res, 1, DEFAULT_CHUNK) * (2 + depth)
+    for attempt in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1,
+                                       repeat=1)) as prof:
+            call()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+            prof.step()
+        events = prof.key_averages()
+        # device-side entries only: an aten op's self device time repeats
+        # the time of the kernels it launched, and the step's annotation
+        # spans them
+        kernels = [e for e in events if str(e.device_type).endswith("CUDA")
+                   and not getattr(e, "is_user_annotation", False)
+                   and not e.key.startswith("ProfilerStep")]
+        total = sum(_device_us(e) for e in kernels)
+        seen = sum(e.count for e in kernels if "lane_keys_kernel" in e.key
+                   or "uniforms_kernel" in e.key)
+        if seen == draws:
+            source = "profiler"
+            break
+        print(f"the profiler's trace {attempt + 1} of {PROFILER_TRIES} of "
+              f"the {'replayed' if graph else 'eager'} wave recorded {seen} "
+              f"of {draws} Threefry draws", flush=True)
+        if graph:
+            replay = next(reversed(graph_mod.CACHE.entries.values())).graph
+            total = queued_events_ms(replay.replay, 1) * 1e3
+            source = (f"events behind a held stream (the profiler recorded "
+                      f"{seen} of {draws} Threefry draws)")
+            break
+    else:
+        total = None
+        source = (f"nothing: no trace of {PROFILER_TRIES} recorded the "
+                  f"wave's {draws} Threefry draws")
     share = {name: sum(_device_us(e) for e in kernels
                        if any(k in e.key for k in keys))
              for name, keys in (("wide_bvh", WIDE_KERNELS),
                                 ("sweep_bvh", ("sweep_bvh_kernel",)),
                                 ("threefry", ("lane_keys_kernel",
                                               "uniforms_kernel")))}
-    print(f"{label} profiled 1-spp wave: wall {prof_wall * 1e3:.1f} ms, device "
-          f"kernel time {total / 1e3:.1f} ms (busy "
+    mode = "replayed from its CUDA graph" if graph else "eager"
+    if total is None:
+        print(f"{label} profiled 1-spp wave ({mode}): wall "
+              f"{prof_wall * 1e3:.1f} ms, device kernel time not measured "
+              f"(measured by {source})", flush=True)
+        return prof_wall * 1e3, None, source
+    print(f"{label} profiled 1-spp wave ({mode}): wall "
+          f"{prof_wall * 1e3:.1f} ms, device kernel time "
+          f"{total / 1e3:.1f} ms by the {source} (busy "
           f"{total / 1e4 / prof_wall:.1f}%), "
           + ", ".join(f"{k} kernel {v / 1e3:.2f} ms "
                       f"({100 * v / max(total, 1):.1f}% of device time)"
@@ -1324,7 +1477,7 @@ def profile_wave(scene, dev, label, res=1024, depth=5, table=True):
     if table:
         print(events.table(sort_by="self_cuda_time_total", row_limit=12),
               flush=True)
-    return prof_wall * 1e3, total / 1e3
+    return prof_wall * 1e3, total / 1e3, source
 
 
 def sort_effect(scene, dev, label, res=1024, depth=5):
@@ -1332,6 +1485,9 @@ def sort_effect(scene, dev, label, res=1024, depth=5):
     and off, run on, off, off, on: group tests per packet that culled at
     least one instance, by cast class, and each run's wall time."""
     imgs, walls = {}, {True: [], False: []}
+    for sort in (True, False):  # warm-up: captures each setting's wave
+        render(scene, res, res, spp=1, max_depth=depth, seed=2, clamp=False,
+               device=dev, with_stats=True, sort_rays=sort, graph=True)
     for sort in (True, False, False, True):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1369,7 +1525,7 @@ def sort_effect(scene, dev, label, res=1024, depth=5):
 def goldens(bunny, dev):
     ref = np.load(os.path.join(GOLDEN, "bunny_self_64.npz"))["img"]
     img = render(bunny, 64, 64, spp=32, seed=9, max_depth=5,
-                 device=dev).cpu().numpy()
+                 device=dev, graph=True).cpu().numpy()
     if not np.isfinite(img).all():
         raise AssertionError("bunny golden render is not finite")
     top = img[:8].mean(axis=(0, 1))
@@ -1391,7 +1547,7 @@ def goldens(bunny, dev):
 
     ref = np.load(os.path.join(GOLDEN, "cornell_self_48.npz"))["img"]
     img = render(cornell_box(), 48, 48, spp=512, seed=7, max_depth=5,
-                 device=dev).cpu().numpy()
+                 device=dev, graph=True).cpu().numpy()
     if not np.isfinite(img).all():
         raise AssertionError("cornell golden render is not finite")
     scale = ref.mean()
@@ -1412,7 +1568,7 @@ def goldens(bunny, dev):
 
     ref = np.load(os.path.join(GOLDEN, "cornell_smoke_16.npz"))["img"]
     img = render(cornell_box(), 16, 16, spp=8, seed=42, max_depth=5,
-                 device=dev).cpu().numpy()
+                 device=dev, graph=True).cpu().numpy()
     off = ~np.all(np.isclose(img, ref, rtol=1e-4, atol=1e-5), axis=-1)
     rel = abs(float(img.mean()) - float(ref.mean())) / float(ref.mean())
     print(f"cornell 16^2 8 spp seed 42 vs the exact-seed golden: "
@@ -1584,11 +1740,15 @@ def read_image(path: str) -> np.ndarray:
 
 
 def cli_phase(dev, res=1024, small=256):
-    """The bunny CLI at res^2 in a subprocess against render() + write_bmp
-    here, Cornell small^2 through cli.main under each option, and a
-    resumed render. Returns the bunny CLI's wall time in s. (On the CPU, a
-    rehearsal, both pass --device cpu.)"""
+    """The bunny CLI at res^2 in a subprocess against render(graph=True) +
+    write_bmp here (the CLI's frame of four waves, one per sample, runs op
+    by op: a wave shape is captured after graph.CAPTURE_AFTER eager
+    calls), Cornell small^2 through cli.main under each option, and a
+    resumed render through graphed waves. Returns the bunny CLI's wall
+    time in s. (On the CPU, a rehearsal, both pass --device cpu and run
+    eagerly.)"""
     where = [] if dev.type == "cuda" else ["--device", dev.type]
+    graph = True if dev.type == "cuda" else None
     with tempfile.TemporaryDirectory() as tmp:
         base = os.path.join(tmp, "bunny")
         env = dict(os.environ, PYTHONPATH=ROOT)
@@ -1603,7 +1763,8 @@ def cli_phase(dev, res=1024, small=256):
             raise AssertionError(f"the CLI exited {proc.returncode}")
         with open(base + ".bmp", "rb") as f:
             got = f.read()
-        img = render(bunny_scene(), res, res, 4, seed=0, device=dev)
+        img = render(bunny_scene(), res, res, 4, seed=0, device=dev,
+                     graph=graph)
         image_io.write_bmp(os.path.join(tmp, "here.bmp"), img.cpu().numpy())
         with open(os.path.join(tmp, "here.bmp"), "rb") as f:
             want = f.read()
@@ -1616,8 +1777,8 @@ def cli_phase(dev, res=1024, small=256):
                                  f"{len(want)})")
         print(f"cli 1 4 --size {res}: exit 0 in {wall:.2f} s (process start, "
               f"scene build and render); its BMP ({len(got)} bytes) equals "
-              f"write_bmp(render(bunny_scene(), {res}, {res}, 4, seed=0)) "
-              "byte for byte", flush=True)
+              f"write_bmp(render(bunny_scene(), {res}, {res}, 4, seed=0, "
+              f"graph={graph})) byte for byte", flush=True)
 
         for flags in (["--integrator", "whitted"], ["--integrator", "debug"],
                       ["--sampler", "stratified"], ["--mis"],
@@ -1642,15 +1803,17 @@ def cli_phase(dev, res=1024, small=256):
         ck = os.path.join(tmp, "resume.npz")
         whole = checkpoint.render_resumable(scene, small, small, 4,
                                             os.path.join(tmp, "whole.npz"),
-                                            device=dev)
-        checkpoint.render_resumable(scene, small, small, 2, ck, device=dev)
+                                            device=dev, graph=graph)
+        checkpoint.render_resumable(scene, small, small, 2, ck, device=dev,
+                                    graph=graph)
         resumed = checkpoint.render_resumable(scene, small, small, 4, ck,
-                                              device=dev)
+                                              device=dev, graph=graph)
         if not torch.equal(resumed, whole):
             raise AssertionError("the resumed render differs from the "
                                  "uninterrupted one")
         same = torch.equal(whole, render(scene, small, small, 4, device=dev))
-        print(f"render_resumable Cornell {small}^2 4 spp, stopped after 2 samples "
+        print(f"render_resumable Cornell {small}^2 4 spp (graph={graph}), "
+              "stopped after 2 samples "
               "and resumed: equal to the uninterrupted run bit for bit "
               f"(asserted); equal to render(): {same}", flush=True)
     return wall
@@ -1794,7 +1957,7 @@ def diff_phase(dev, smi: str, res: int = 1024):
         target = fn(dparams.with_params(
             pack, {"light_c": pack.light_c * 1.2}))
     ref = render(scene, res, res, spp=1, seed=0, max_depth=5, clamp=False,
-                 device=dev)
+                 device=dev, graph=True)
     loss = lambda img: torch.mean((img - target) ** 2)
     out = {"runs": []}
     for run in range(2):
@@ -2043,7 +2206,9 @@ def train_steps(scene, mesh, dev, res: int, steps: int = 3):
 
 def card_rank(rank, path, scene, dev_type, res):
     """One of CARD_RANKS gloo ranks sharing one device: each layout's frame
-    through render_sharded with its launches counted; then the rank's
+    through render_sharded with its launches counted (not traced: a trace
+    per rank, four processes on the host's cores, doubled the phase's
+    time); then the rank's
     partial film of the same frame, the first wave's kernel calls recorded
     and replayed through the plain versions (the wide casts on
     PLAIN_LAYOUT only); three train steps at (2, 1) on ranks 0 and 1; the
@@ -2069,12 +2234,14 @@ def card_rank(rank, path, scene, dev_type, res):
             mesh = pmesh.make_mesh(*shape, ranks=ranks, device=dev)
             if mesh.get_coordinate() is None:
                 continue
+            frame = lambda graph=None: prender.render_sharded(
+                scene, res, res, SHARD_SPP, mesh, max_depth=SHARD_DEPTH,
+                clamp=False, device=dev, graph=graph)
+            frame(True)  # warm-up: captures this layout's wave
             torch.cuda.synchronize()
             reset_launches()
             t0 = time.perf_counter()
-            img = prender.render_sharded(scene, res, res, SHARD_SPP, mesh,
-                                         max_depth=SHARD_DEPTH, clamp=False,
-                                         device=dev)
+            img = frame()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = launch_counts()
@@ -2106,6 +2273,8 @@ def card_rank(rank, path, scene, dev_type, res):
             scene, res, res, SHARD_SPP, rank_counts=[1, 2, 4],
             max_depth=SHARD_DEPTH, device=dev)
         note("scaling report")
+        out["graphs"] = [(e.lanes, e.pool_bytes)
+                         for e in graph_mod.CACHE.entries.values()]
     finally:
         dist.destroy_process_group()
     torch.save(out, os.path.join(path, f"rank{rank}.pt"))
@@ -2137,7 +2306,7 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
     """parallel/ on the default bunny at res^2, 4 spp, depth 5. (a) A world
     of one rank over NCCL (multihost.initialize), mesh (1, 1):
     render_sharded equal to render_fn's frame bit for bit, with the exact
-    launch counts; its wall time and rays/s in turns with render()'s
+    launch counts, traced (counted_frame); its wall time and rays/s in turns with render()'s
     frame (a warm-up each, then 3 samples each, medians), its peak memory.
     (c) build_train_step at (1, 1): the step's partial film launches one
     wave's kernels and its backward none, its gradient equals
@@ -2170,27 +2339,23 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
         with torch.no_grad():
             ref = fn(pack)
             waves = [wave(pack, cam, s, ids).cpu() for s in range(SHARD_SPP)]
-        sharded = lambda: prender.render_sharded(
+        sharded = lambda graph=None: prender.render_sharded(
             sdev, res, res, SHARD_SPP, mesh, max_depth=SHARD_DEPTH,
-            clamp=False, device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        img = sharded()
-        torch.cuda.synchronize()
-        launches = launch_counts()
-        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+            clamp=False, device=dev, graph=graph)
+        sharded(True)  # warm-up: captures the rank's wave
         want = sharded_launches((1, 1), lights)
-        if launches != want:
-            raise AssertionError(f"(1, 1) launches {launches}, expected {want}")
+        img, _, launches, out["peak_bytes"] = counted_frame(
+            sharded, sharded, want, "(1, 1) sharded")
         if not torch.equal(img, ref):
             raise AssertionError(f"the (1, 1) frame differs from render_fn's "
                                  f"(max |diff| {float((img - ref).abs().max())})")
         out["launches"] = {"1x1": launches}
         _, st = render(sdev, res, res, SHARD_SPP, max_depth=SHARD_DEPTH,
                        clamp=False, device=dev, with_stats=True)
-        frame = lambda: render(sdev, res, res, SHARD_SPP,
-                               max_depth=SHARD_DEPTH, clamp=False, device=dev)
+        frame = lambda graph=None: render(sdev, res, res, SHARD_SPP,
+                                          max_depth=SHARD_DEPTH, clamp=False,
+                                          device=dev, graph=graph)
+        frame(True)  # captures render()'s wave
         walls = {"sharded": [], "render": []}
         for name in TURNS:
             call = sharded if name == "sharded" else frame
@@ -2203,8 +2368,9 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
         out["walls"], out["median_s"], out["rays"] = walls, med, st["rays"]
         print(f"(a) world of 1 over {out['backend']}, mesh (1, 1), bunny "
               f"{res}^2 spp {SHARD_SPP} depth {SHARD_DEPTH}: render_sharded "
-              f"equal to render_fn bit for bit; launches {launches} "
-              f"(expected {want}); peak memory {out['peak_bytes']} bytes; "
+              f"equal to render_fn bit for bit; launches {launches} by "
+              f"its trace, equal to the counters (expected {want}); peak "
+              f"memory {out['peak_bytes']} bytes; "
               f"in turns after a warm-up each, sharded {walls['sharded'][1:]} "
               f"s, render {walls['render'][1:]} s; medians sharded "
               f"{med['sharded']:.4f} s ({st['rays'] / med['sharded']:.1f} "
@@ -2326,8 +2492,114 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
           f"{SHARD_DEPTH}, ranks sharing one card over gloo (a check of the "
           f"machinery, not of scaling) [{smi}]:\n"
           + multihost.format_scaling_table(rows), flush=True)
+    out["graphs"] = [r["graphs"] for r in ranks]
     print(f"the {CARD_RANKS}-rank world took {world_s:.1f} s, start-up "
-          "included", flush=True)
+          f"included; each rank's cached graphs at its end, (lanes, pool "
+          f"bytes): {out['graphs']} [{smi}]", flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# 13. the compiled wave
+# --------------------------------------------------------------------------
+
+GRAPH_TURNS = (False, True, True, False, False, True)
+GRAPH_DEPTH = 5
+
+
+def compiled_phase(cases, dev, smi: str) -> dict:
+    """render()'s frame with its waves replayed from CUDA graphs (graph=
+    True) against the eager frame (graph=False), for each (label, scene,
+    res, spp) of cases at depth GRAPH_DEPTH, seed 0, with stats: the first
+    frame on render()'s default (graph=None, a fresh cache: its waves run
+    op by op until a shape has run graph.CAPTURE_AFTER times) with the
+    captures it made; the first graphed frame's wall (graph=True, its
+    captures) and each captured wave's warm-up and capture seconds, pool
+    bytes and the launches its graph's kernel nodes count per replay; an
+    eager warm-up frame; then the two in GRAPH_TURNS, each frame's launches exact
+    (expected_launches), every image bit for bit equal to the other mode's
+    and to its own mode's first, and the stats equal; medians, rays/s and
+    each mode's peak memory above what was allocated before the frame (a
+    graph's pool is reserved at capture, not allocated in a frame); and
+    the 1-spp wave replayed and eager (profile_wave): wall, device time,
+    busy share. Returns a summary dict."""
+    out = {}
+    for label, scene, res, spp in cases:
+        kw = dict(spp=spp, max_depth=GRAPH_DEPTH, seed=0, clamp=False,
+                  device=dev, with_stats=True)
+        want = expected_launches(scene.meta, res, spp, GRAPH_DEPTH)
+        first = {}
+        for graph in (None, True):
+            graph_mod.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render(scene, res, res, graph=graph, **kw)
+            torch.cuda.synchronize()
+            first[graph] = (time.perf_counter() - t0,
+                            len(graph_mod.CACHE.entries))
+        first_s = first[True][0]
+        captured = [{"lanes": e.lanes, "warmup_s": e.warmup_s,
+                     "capture_s": e.capture_s, "pool_bytes": e.pool_bytes,
+                     "replay_launches": {k: v for k, v in e.launches.items()
+                                         if v}}
+                    for e in graph_mod.CACHE.entries.values()]
+        render(scene, res, res, graph=False, **kw)
+        walls, peaks, firsts = {True: [], False: []}, {True: 0, False: 0}, {}
+        for graph in GRAPH_TURNS:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_launches()
+            t0 = time.perf_counter()
+            img, st = render(scene, res, res, graph=graph, **kw)
+            torch.cuda.synchronize()
+            walls[graph].append(time.perf_counter() - t0)
+            peaks[graph] = max(peaks[graph],
+                               torch.cuda.max_memory_allocated() - base)
+            if launch_counts() != want:
+                raise AssertionError(f"{label} graph={graph}: launches "
+                                     f"{launch_counts()}, expected {want}")
+            if graph not in firsts:
+                firsts[graph] = (img.clone(), st)
+            elif not torch.equal(img, firsts[graph][0]):
+                raise AssertionError(f"{label} graph={graph}: two frames "
+                                     "differ")
+        (gi, gs), (ei, es) = firsts[True], firsts[False]
+        if not torch.equal(gi, ei) or gs != es:
+            raise AssertionError(
+                f"{label}: the graphed frame differs from the eager one (max "
+                f"|diff| {float((gi - ei).abs().max())}, stats {gs} vs {es})")
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        rays = gs["rays"]
+        wave = {mode: profile_wave(scene, dev, f"{label} {res}^2", res,
+                                   GRAPH_DEPTH, table=graph, graph=graph)
+                for mode, graph in (("graphed", True), ("eager", False))}
+        out[label] = {
+            "res": res, "spp": spp, "rays": rays, "launches": want,
+            "first_graphed_s": first_s, "first_default_s": first[None][0],
+            "first_default_captures": first[None][1], "captured": captured,
+            "walls": {"graphed": walls[True], "eager": walls[False]},
+            "median_s": {"graphed": med[True], "eager": med[False]},
+            "peak_bytes": {"graphed": peaks[True], "eager": peaks[False]},
+            "wave": {m: {"wall_ms": w[0], "device_ms": w[1], "source": w[2]}
+                     for m, w in wave.items()}}
+        print(f"{label} {res}^2 spp {spp} depth {GRAPH_DEPTH}: graphed frame "
+              f"equal to the eager one bit for bit (images and stats), "
+              f"launches {want} a frame in both modes; first frame on the "
+              f"default {first[None][0]:.3f} s ({first[None][1]} captures); "
+              f"first graphed frame {first_s:.3f} s with its captures "
+              + ", ".join(f"({c['lanes']} lanes: warm-up wave "
+                          f"{c['warmup_s']:.3f} s, capture "
+                          f"{c['capture_s']:.3f} s, pool {c['pool_bytes']} "
+                          f"bytes, a replay's launches by its kernel nodes "
+                          f"{c['replay_launches']})" for c in captured)
+              + f"; in turns after a warm-up each, graphed {walls[True]} s, "
+              f"eager {walls[False]} s; medians graphed {med[True]:.4f} s "
+              f"({rays / med[True]:.1f} rays/s), eager {med[False]:.4f} s "
+              f"({rays / med[False]:.1f} rays/s), {rays} rays; peak memory "
+              f"in a frame graphed {peaks[True]} bytes, eager {peaks[False]} "
+              f"bytes [{smi}]", flush=True)
+    graph_mod.clear()
     return out
 
 
@@ -2384,8 +2656,9 @@ def main() -> int:
     frame_launches = main_path(bunny, dev, "bunny")
     wide_launches = frame_launches["wide_bvh"]
     with plain_streams():
+        # eager: a graph replays the streams it captured
         profile_wave(bunny, dev, "bunny, streams by the plain version,",
-                     table=False)
+                     table=False, graph=False, draws=0)
     casts = wide_casts(bunny, dev)
     lights = sum(1 for lt in bunny.meta.lights if not lt.static_black)
     expected = n_waves(1024, 1024, 1, DEFAULT_CHUNK) * (6 + 5 * lights)
@@ -2397,7 +2670,6 @@ def main() -> int:
 
     phase("5 goldens")
     goldens(bunny, dev)
-    del bunny
 
     phase("6 sweep kernel vs plain")
     print("sweep_bvh resident blocks per SM: "
@@ -2446,6 +2718,16 @@ def main() -> int:
     sharded["phase_s"] = time.perf_counter() - t0
     print(f"phase 12 took {sharded['phase_s']:.1f} s", flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
+
+    phase("13 compiled wave")
+    t0 = time.perf_counter()
+    compiled = compiled_phase((("bunny", bunny, 1024, 4),
+                               ("bunny 600k", inst600, 1024, 4),
+                               ("cornell", cornell_box().to(dev), 512, 16)),
+                              dev, smi.splitlines()[0])
+    compiled["phase_s"] = time.perf_counter() - t0
+    print(f"phase 13 took {compiled['phase_s']:.1f} s", flush=True)
+    print(json.dumps({"graph": compiled}), flush=True)
 
     k_ms, p_ms, p_rays = sweep_times["instanced"]["closest"]
     # no single PyTorch call computes any of these functions (BVH

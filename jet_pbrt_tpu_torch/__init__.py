@@ -33,6 +33,8 @@ Layout mirrors the reference package:
 """
 import torch
 
+__version__ = "0.1.0"
+
 # Geometry is float32 end to end and ray/triangle decisions hinge on the
 # last bits: TF32 (about three decimal digits) must never stand in for a
 # float32 product, whatever a caller set before importing this package.

@@ -6,7 +6,11 @@ whole samples of the frame (or, for frames larger than a wave, a pixel
 range of one sample); every uniform is keyed by (seed, sample, pixel) alone
 and the film adds each sample in float64 in sample order (models/film.py),
 so the image does not depend on the wave size and equals the reference
-package's for the same seed up to the rounding of libm functions.
+package's for the same seed up to the rounding of libm functions. On the
+card a wave shape that recurs is replayed from a CUDA graph
+(models/graph.py, the counterpart of the reference's `jax.jit(wave)`);
+graph=False runs it op by op, as `jax.disable_jit()` does the
+reference's.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ import torch
 from ..ops import rng
 from . import camera as camera_mod
 from . import film as film_mod
+from . import graph as graph_mod
 from . import integrators
 
 DEFAULT_CHUNK = 1 << 20
@@ -77,6 +82,45 @@ def wave_fn(meta, width: int, max_depth: int, integrator: str = "path",
     return wave
 
 
+def compiled_wave_fn(meta, width: int, max_depth: int,
+                     integrator: str = "path", mis: bool = False,
+                     nee: bool = True, sampler: str = "random",
+                     spp: int | None = None, seed: int = 0,
+                     sort_rays: bool | None = None, with_stats: bool = False,
+                     capture_after: int = 0):
+    """wave_fn's wave, replayed from one CUDA graph per input shape (the
+    counterpart of the reference's `jax.jit(wave)`, models/graph.py): the
+    same arguments and outputs, on the card only, sample and pixel [N]
+    tensors; the outputs are overwritten by the next call of the same
+    shape. Each shape's first capture_after calls run op by op and the
+    next captures it. spp, which only the stratified sampler reads, keys
+    no other sampler's graph."""
+    if sampler != "stratified":
+        spp = None
+    static = (meta, width, max_depth, integrator, mis, nee, sampler, spp,
+              int(seed), sort_rays, with_stats)
+    return graph_mod.compile_wave(wave_fn(*static), static, capture_after)
+
+
+def frame_wave_fn(device: torch.device, graph: bool | None, *args, **kw):
+    """The wave a frame on `device` runs: on the card, where graph is None,
+    compiled_wave_fn(*args, **kw) capturing a shape once it has run
+    graph.CAPTURE_AFTER times op by op (a frame of a few waves pays no
+    capture it would not repay); where graph is True, compiled_wave_fn
+    capturing at a shape's first call; where graph is False (the
+    counterpart of `jax.disable_jit()`), or None on the CPU, wave_fn(*args,
+    **kw). graph=True off the card raises."""
+    if graph is None and device.type != "cuda":
+        graph = False
+    if graph and device.type != "cuda":
+        raise ValueError(f"graph=True: a CUDA graph runs on the card, not on "
+                         f"{device}")
+    if graph is False:
+        return wave_fn(*args, **kw)
+    return compiled_wave_fn(*args, **kw, capture_after=(
+        0 if graph else graph_mod.CAPTURE_AFTER))
+
+
 def setup(scene, width: int, height: int, device=None):
     """(device, pack, camera) of a frame: `device`, or the card when it is
     None (raising where there is none)."""
@@ -91,7 +135,8 @@ def render(scene, width: int, height: int, spp: int, seed: int = 0,
            max_depth: int = 5, integrator: str = "path", mis: bool = False,
            nee: bool = True, sampler: str = "random",
            chunk: int = DEFAULT_CHUNK, clamp: bool = True, device=None,
-           with_stats: bool = False, sort_rays: bool | None = None):
+           with_stats: bool = False, sort_rays: bool | None = None,
+           graph: bool | None = None):
     """Full-frame render -> linear [H,W,3] float32 tensor on `device`
     (averaged over spp, optionally clamped like the reference's film write,
     reference: src/integrator.cc:108). integrator "path" | "whitted" |
@@ -101,10 +146,15 @@ def render(scene, width: int, height: int, spp: int, seed: int = 0,
     counters), summed over the frame, as Python ints. sort_rays is
     li_path's (default: on for kernel-routed scenes). device defaults to
     the card and raises where there is none; the CPU runs only when asked
-    (device="cpu")."""
+    (device="cpu"). On the card each wave shape is replayed from a CUDA
+    graph (compiled_wave_fn) once it has run graph.CAPTURE_AFTER times op
+    by op, or from its first wave with graph=True; graph=False runs the
+    eager wave, with the same image bit for bit; graph=True off the card
+    raises."""
     device, pack, cam = setup(scene, width, height, device)
-    wave = wave_fn(scene.meta, width, max_depth, integrator, mis, nee,
-                   sampler, spp, seed, sort_rays, with_stats)
+    wave = frame_wave_fn(device, graph, scene.meta, width, max_depth,
+                         integrator, mis, nee, sampler, spp, seed, sort_rays,
+                         with_stats)
     n_pixels = width * height
     samples = 1 if integrator == "debug" else spp
     film = film_mod.new_film(width, height, device)

@@ -13,7 +13,7 @@ from typing import NamedTuple
 import torch
 
 from .linalg import PI, INV_PI, INV_2PI, dot, normalize, luminance, \
-    face_forward, refract, safe_sqrt, frame_from_z, to_world
+    face_forward, refract, safe_sqrt, frame_from_z, to_world, unit
 from . import microfacet as mf
 from .fresnel import fresnel_dielectric, fresnel_conductor
 from .sampling import sample_cosine_hemisphere
@@ -91,6 +91,10 @@ def _same_hemisphere(wo, wi):
 
 def _flip_z(v):
     return torch.stack([-v[..., 0], -v[..., 1], v[..., 2]], dim=-1)
+
+
+def _negate_z(v):
+    return torch.stack([v[..., 0], v[..., 1], -v[..., 2]], dim=-1)
 
 
 def make_lobe(mat_kind, c0, c1, s0, s1, remap, u_lobe, mf_kind=None) -> Lobe:
@@ -186,7 +190,7 @@ def _eval_microfacet(lobe: Lobe, wo, wi, mf_kinds=None):
     wh_raw = wo + wi
     degenerate = (cos_o < 1e-9) | (cos_i < 1e-9) | (dot(wh_raw, wh_raw) < 1e-18)
     wh = normalize(wh_raw)
-    wh_ff = face_forward(wh, wh.new_tensor([0.0, 0.0, 1.0]).expand(wh.shape))
+    wh_ff = face_forward(wh, unit(wh, 2))
     fr = _microfacet_fresnel(lobe, dot(wi, wh_ff))
     d_term = mf.d(lobe.mf_kind, wh, lobe.a0, lobe.a1, mf_kinds)
     g_term = mf.g(lobe.mf_kind, wo, wi, lobe.a0, lobe.a1, mf_kinds)
@@ -324,7 +328,7 @@ def pdf(lobe: Lobe, wo, wi, lobes=None, mf_kinds=None) -> torch.Tensor:
 def _sample_lambert(lobe: Lobe, wo, u):
     wi = sample_cosine_hemisphere(u)
     wi = torch.where((wo[..., 2] < 0.0)[..., None],
-                     wi * wi.new_tensor([1.0, 1.0, -1.0]), wi)
+                     _negate_z(wi), wi)
     return wi, _eval_lambert(lobe, wo, wi), _pdf_lambert(wo, wi)
 
 
@@ -348,9 +352,10 @@ def _sample_fresnel(lobe: Lobe, wo, u):
         torch.abs(wi_r[..., 2]), 1e-9)[..., None]
 
     entering = cos_o > 0.0
-    n_loc = torch.where(entering[..., None],
-                        wo.new_tensor([0.0, 0.0, 1.0]).expand(wo.shape),
-                        wo.new_tensor([0.0, 0.0, -1.0]).expand(wo.shape))
+    one = torch.ones_like(cos_o)
+    nz = torch.where(entering, one, -one)
+    n_loc = torch.stack([torch.zeros_like(nz), torch.zeros_like(nz), nz],
+                        dim=-1)
     e_i = torch.where(entering, eta_i, eta_t)
     e_t = torch.where(entering, eta_t, eta_i)
     eta = e_i / e_t
@@ -387,7 +392,7 @@ def _sample_phong(lobe: Lobe, wo, u):
                         dim=-1)
     wi = to_world(frame_from_z(_flip_z(wo)), local)
     wi = torch.where((wo[..., 2] < 0.0)[..., None],
-                     wi * wi.new_tensor([1.0, 1.0, -1.0]), wi)
+                     _negate_z(wi), wi)
     return wi, _eval_phong(lobe, wo, wi), _pdf_phong(lobe, wo, wi)
 
 

@@ -49,3 +49,12 @@ def fresnel_conductor(cos_theta_i: torch.Tensor, eta_i, eta_t, k) -> torch.Tenso
     t4 = t2 * s2
     rp = rs * (t3 - t4) / torch.clamp_min(t3 + t4, 1e-20)
     return 0.5 * (rp + rs)
+
+
+def schlick_fresnel(cos_theta: torch.Tensor, f0: torch.Tensor) -> torch.Tensor:
+    """Schlick's approximation (reference: src/bsdf.h:125-170); kept for
+    API parity, unused by the reference's materials. The fifth power is
+    m * ((m m)(m m)), the order of XLA's integer power."""
+    m = torch.clamp(1.0 - cos_theta, 0.0, 1.0)[..., None]
+    m2 = m * m
+    return f0 + (1.0 - f0) * (m * (m2 * m2))

@@ -12,7 +12,9 @@ from typing import NamedTuple
 
 import torch
 
-from .linalg import dot
+from .linalg import RAY_EPS, cross, dot, normalize
+
+NO_HIT_T = math.inf
 
 
 class KindHit(NamedTuple):
@@ -46,6 +48,13 @@ def _c3(a):
     return a[..., 0], a[..., 1], a[..., 2]
 
 
+def empty_hit(n: int, device=None) -> KindHit:
+    """n misses: t = NO_HIT_T, index 0, not valid."""
+    return KindHit(t=torch.full((n,), NO_HIT_T, device=device),
+                   index=torch.zeros((n,), dtype=torch.int32, device=device),
+                   valid=torch.zeros((n,), dtype=torch.bool, device=device))
+
+
 def intersect_triangles(o, d, tmin, tmax, p0, p1, p2) -> KindHit:
     """Moller-Trumbore; o, d: [N,3]; p0, p1, p2: [T,3]."""
     ox, oy, oz = (c[None, :] for c in _c3(o))
@@ -71,6 +80,16 @@ def intersect_triangles(o, d, tmin, tmax, p0, p1, p2) -> KindHit:
     valid = (big & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
              & (t > tmin[None, :]) & (t < tmax[None, :]))
     return _closest_mn(t, valid)
+
+
+def triangle_normal(p0, p1, p2, flip=None) -> torch.Tensor:
+    """Face normal per triangle, flipped where `flip` (reference:
+    src/shape.h:284-286): one normal per face, as the reference discards
+    an OBJ's normals."""
+    n = normalize(cross(p1 - p0, p2 - p0))
+    if flip is not None:
+        n = torch.where(flip[:, None], -n, n)
+    return n
 
 
 def intersect_spheres(o, d, tmin, tmax, center, radius) -> KindHit:
@@ -166,3 +185,9 @@ def merge_hits(hits: list[KindHit], kinds: list[int]):
         kind = torch.where(closer, torch.full_like(kind, k), kind)
         index = torch.where(closer, h.index, index)
     return t, kind, index, torch.isfinite(t)
+
+
+def offset_ray_origin(p: torch.Tensor) -> tuple[torch.Tensor, float]:
+    """A spawned ray's origin and tmin: the hit point and RAY_EPS, the
+    reference's shadow epsilon (reference: src/geometry.h:395-396)."""
+    return p, RAY_EPS

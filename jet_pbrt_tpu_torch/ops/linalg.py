@@ -7,6 +7,8 @@ agree to the last bit on the CPU wherever XLA does not fuse.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 PI = 3.14159265358979323846
@@ -15,7 +17,12 @@ INV_2PI = 1.0 / (2.0 * PI)
 INV_4PI = 1.0 / (4.0 * PI)
 PI_OVER_2 = PI / 2.0
 PI_OVER_4 = PI / 4.0
-# scene-relative ray epsilon: ScenePack.ray_eps = RAY_EPS_REL x diameter
+EPSILON = 1e-4
+INFINITY = math.inf
+# the reference renderer's fixed ray t_min and shadow epsilon (reference:
+# src/geometry.h:395); scenes use the scale-relative ScenePack.ray_eps =
+# RAY_EPS_REL x diameter
+RAY_EPS = 1e-3
 RAY_EPS_REL = 1.25e-6
 
 
@@ -69,13 +76,27 @@ def normalize(a: torch.Tensor, eps: float = 1e-20) -> torch.Tensor:
     return a * torch.reciprocal(torch.clamp_min(length(a), eps))[..., None]
 
 
+def distance(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return length(a - b)
+
+
 def distance2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return length2(a - b)
+
+
+def lerp(a, b, t):
+    return a + (b - a) * t
 
 
 def face_forward(n: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Flip n into v's hemisphere (reference: src/bsdf.h:23-26)."""
     return torch.where(dot(n, v)[..., None] < 0.0, -n, n)
+
+
+def reflect(wo: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Mirror wo about n, both pointing away from the surface (reference:
+    src/bsdf.h:62-67)."""
+    return -wo + 2.0 * dot(wo, n)[..., None] * n
 
 
 def refract(wi: torch.Tensor, n: torch.Tensor, eta: torch.Tensor):
@@ -90,13 +111,19 @@ def refract(wi: torch.Tensor, n: torch.Tensor, eta: torch.Tensor):
     return wt, ok
 
 
+def unit(like: torch.Tensor, i: int) -> torch.Tensor:
+    """The unit axis e_i broadcast to like's [..., 3] shape, made on like's
+    device by a kernel (torch.eye): a tensor copied from host data would
+    synchronise with the card, which a CUDA graph's capture refuses."""
+    return torch.eye(3, dtype=like.dtype, device=like.device)[i].expand(
+        like.shape)
+
+
 def frame_from_z(n: torch.Tensor):
     """Orthonormal basis (s, t, n) around unit normal n, with the per-lane
     |x| > 0.99 helper-axis pick (reference: src/geometry.h:372-377)."""
     nx = torch.abs(n[..., 0])
-    ey = n.new_tensor([0.0, 1.0, 0.0]).expand(n.shape)
-    ex = n.new_tensor([1.0, 0.0, 0.0]).expand(n.shape)
-    helper = torch.where((nx > 0.99)[..., None], ey, ex)
+    helper = torch.where((nx > 0.99)[..., None], unit(n, 1), unit(n, 0))
     t = normalize(cross(n, helper))
     s = normalize(cross(t, n))
     return s, t, n
@@ -110,6 +137,28 @@ def to_local(frame, v: torch.Tensor) -> torch.Tensor:
 def to_world(frame, v: torch.Tensor) -> torch.Tensor:
     s, t, n = frame
     return s * v[..., 0:1] + t * v[..., 1:2] + n * v[..., 2:3]
+
+
+def spherical_theta(v: torch.Tensor) -> torch.Tensor:
+    return torch.arccos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v: torch.Tensor) -> torch.Tensor:
+    phi = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(phi < 0.0, phi + 2.0 * PI, phi)
+
+
+def spherical_direction(sin_theta, cos_theta, phi) -> torch.Tensor:
+    """z-up spherical to cartesian (reference: src/geometry.h:203-208)."""
+    return torch.stack([sin_theta * torch.cos(phi), sin_theta * torch.sin(phi),
+                        cos_theta], dim=-1)
+
+
+def spherical_direction_in_frame(sin_theta, cos_theta, phi,
+                                 frame) -> torch.Tensor:
+    """A spherical direction in the basis `frame` (reference:
+    src/geometry.h:211-221)."""
+    return to_world(frame, spherical_direction(sin_theta, cos_theta, phi))
 
 
 def luminance(c: torch.Tensor) -> torch.Tensor:

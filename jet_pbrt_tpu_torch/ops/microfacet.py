@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .linalg import PI, dot, normalize, safe_sqrt, cross
+from .linalg import PI, dot, normalize, safe_sqrt, cross, unit
 
 GGX = 0
 BECKMANN = 1
@@ -120,7 +120,7 @@ def _sample_ggx_vndf(wo_up, ax, ay, u):
     t1 = _where((lensq > 1e-20)[..., None],
                 torch.stack([-vh[..., 1] * inv, vh[..., 0] * inv,
                              torch.zeros_like(inv)], dim=-1),
-                vh.new_tensor([1.0, 0.0, 0.0]).expand(vh.shape))
+                unit(vh, 0))
     t2 = cross(vh, t1)
     r = torch.sqrt(u[..., 0])
     phi = 2.0 * PI * u[..., 1]
@@ -158,7 +158,8 @@ def _beckmann_slope_sample(cos_theta, u1, u2):
     b = c - (1.0 + c) * torch.pow(1.0 - u1, fit)
 
     # rounded in float32 like the reference's weakly typed jnp.sqrt(PI)
-    sqrt_pi_inv = 1.0 / torch.sqrt(cos_theta.new_tensor(PI))
+    sqrt_pi_inv = 1.0 / torch.sqrt(torch.full((), PI, dtype=cos_theta.dtype,
+                                              device=cos_theta.device))
     norm = 1.0 / (1.0 + c + sqrt_pi_inv * tan_t * torch.exp(-cot_t * cot_t))
     for _ in range(10):
         b = _where((b >= a) & (b <= c), b, 0.5 * (a + c))

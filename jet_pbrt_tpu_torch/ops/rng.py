@@ -42,6 +42,8 @@ from typing import NamedTuple
 
 import torch
 
+from .launches import register
+
 PURPOSE_CAMERA = 0
 PURPOSE_PATH_BASE = 16
 
@@ -142,6 +144,7 @@ def lane_keys(seed: int, sample, pixel_ids: torch.Tensor) -> LaneKeys:
 
 
 lane_keys.launches = 0
+register(__name__, "lane_keys", "lane_keys_kernel")
 
 
 def lane_keys_plain(seed: int, sample: torch.Tensor,
@@ -182,6 +185,7 @@ def uniforms(keys: LaneKeys, purpose: int, n: int) -> torch.Tensor:
 
 
 uniforms.launches = 0
+register(__name__, "uniforms", "uniforms_kernel")
 
 
 def uniforms_plain(keys: LaneKeys, purpose: int, n: int) -> torch.Tensor:

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .intersect import KindHit, no_grad_inputs
+from .launches import register
 from .linalg import fma32
 
 GROUP = 128          # triangles per cull group
@@ -234,6 +235,7 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
 
 
 intersect_sweep.launches = 0
+register(__name__, "intersect_sweep", "sweep_bvh_kernel")
 
 
 def load_kernel(source: str = "sweep_bvh.cu", name: str = "sweep_bvh"):

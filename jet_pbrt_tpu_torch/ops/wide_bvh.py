@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .intersect import KindHit, no_grad_inputs
+from .launches import register
 
 WIDTH = 8
 # raw collapse encoding, as the reference's collapse_wide emits it:
@@ -308,6 +309,7 @@ def intersect_wide(tables: WideTables, o, d, tmin, tmax, *, any_hit: bool,
 
 
 intersect_wide.launches = 0
+register(__name__, "intersect_wide", "wide_walk_kernel")
 
 
 def load_kernel(source: str = "wide_bvh.cu", name: str = "wide_bvh"):

@@ -9,6 +9,13 @@ with all_reduce (the reference's psum over "spp"); the film is then
 divided by spp. The scene pack and camera are replicated: every rank
 holds them on its device.
 
+On the card the forward frame (`__call__`, `frame`) takes render()'s
+route: each wave shape that recurs is replayed from the rank's own CUDA
+graph (models/render.py::compiled_wave_fn, the counterpart of the
+reference's jitted shard_map), from its first wave with graph=True; the
+collectives stay outside the graph, and `partial`, which backs the train
+step's tape, runs the eager wave.
+
 Streams are keyed by (seed, global sample, global pixel) alone, never by
 the layout, so a px-only mesh gives the single-card render_fn's frame bit
 for bit, and a mesh with an spp axis gives it up to the reassociation of
@@ -19,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
-from ..models.render import setup, wave_fn
+from ..models.render import frame_wave_fn, setup, wave_fn
 from .mesh import rank_device
 
 
@@ -33,7 +40,7 @@ class ShardedRender:
     def __init__(self, meta, mesh, width: int, height: int, spp: int,
                  seed: int = 0, max_depth: int = 5, mis: bool = False,
                  sampler: str = "random", sort_rays: bool | None = None,
-                 device=None):
+                 device=None, graph: bool | None = None):
         coord = mesh.get_coordinate()
         if coord is None:
             raise ValueError(f"rank {dist.get_rank()} is not in the mesh")
@@ -57,24 +64,32 @@ class ShardedRender:
         self.spp_group = mesh.get_group("spp")
         self._ids = torch.arange(self.block.start, self.block.stop,
                                  device=self.device)
-        self._wave = wave_fn(meta, width, max_depth, mis=mis, sampler=sampler,
-                             spp=spp, seed=seed, sort_rays=sort_rays)
+        args = (meta, width, max_depth)
+        kw = dict(mis=mis, sampler=sampler, spp=spp, seed=seed,
+                  sort_rays=sort_rays)
+        self._wave = wave_fn(*args, **kw)
+        self._forward = frame_wave_fn(self.device, graph, *args, **kw)
 
-    def partial(self, pack, cam) -> torch.Tensor:
-        """Sum of this rank's samples' colours [local_pixels, 3], float32,
-        sample by sample in order; global sample isp * local_spp + s."""
+    def _sum(self, wave, pack, cam) -> torch.Tensor:
         film = torch.zeros((self.local_pixels, 3), dtype=torch.float32,
                            device=self.device)
         for s in range(self.local_spp):
-            film = film + self._wave(pack, cam,
-                                     self.isp * self.local_spp + s, self._ids)
+            sample = torch.full_like(self._ids, self.isp * self.local_spp + s)
+            film = film + wave(pack, cam, sample, self._ids)
         return film
 
+    def partial(self, pack, cam) -> torch.Tensor:
+        """Sum of this rank's samples' colours [local_pixels, 3], float32,
+        sample by sample in order (global sample isp * local_spp + s), by
+        the eager wave: differentiable in the pack."""
+        return self._sum(self._wave, pack, cam)
+
     def __call__(self, pack, cam) -> torch.Tensor:
-        """This rank's film block, averaged over the frame's spp; it
+        """This rank's film block, averaged over the frame's spp, its waves
+        taking render()'s route by `graph` (CUDA graphs on the card); it
         carries no gradient (the collective has no backward)."""
         with torch.no_grad():
-            film = self.partial(pack, cam)
+            film = self._sum(self._forward, pack, cam)
         dist.all_reduce(film, group=self.spp_group)
         return film / self.spp
 
@@ -95,25 +110,28 @@ def build_sharded_render(meta, mesh, width: int, height: int, spp: int,
                          seed: int = 0, max_depth: int = 5, mis: bool = False,
                          sampler: str = "random",
                          sort_rays: bool | None = None,
-                         device=None) -> ShardedRender:
+                         device=None, graph: bool | None = None
+                         ) -> ShardedRender:
     """fn(pack, cam) -> this rank's film block [H*W/px, 3] (reference
     package render.py:32-95). H*W must divide by the mesh's px and spp by
     its spp. pack and cam live on `device` (default: this rank's card,
-    mesh.rank_device); this rank must be in the mesh."""
+    mesh.rank_device); this rank must be in the mesh. The forward's waves
+    take render()'s route by `graph`."""
     return ShardedRender(meta, mesh, width, height, spp, seed, max_depth, mis,
-                         sampler, sort_rays, device)
+                         sampler, sort_rays, device, graph)
 
 
 def render_sharded(scene, width: int, height: int, spp: int, mesh,
                    seed: int = 0, max_depth: int = 5, mis: bool = False,
                    clamp: bool = True, sampler: str = "random",
-                   device=None) -> torch.Tensor:
+                   device=None, graph: bool | None = None) -> torch.Tensor:
     """The full frame [H, W, 3] float32 on every rank of the mesh, on its
     device (default: this rank's card; device="cpu" on the CPU), clamped
-    to [0, 1] unless clamp=False (reference package render.py:98-115)."""
+    to [0, 1] unless clamp=False (reference package render.py:98-115);
+    its waves take render()'s route by `graph`."""
     device, pack, cam = setup(scene, width, height, rank_device(device))
     fn = build_sharded_render(scene.meta, mesh, width, height, spp, seed=seed,
                               max_depth=max_depth, mis=mis, sampler=sampler,
-                              device=device)
+                              device=device, graph=graph)
     img = fn.frame(pack, cam).view(height, width, 3)
     return img.clamp(0.0, 1.0) if clamp else img

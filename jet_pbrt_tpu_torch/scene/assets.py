@@ -1,5 +1,6 @@
-"""The generated bunny mesh: counterpart of the bunny half of
-jet_pbrt_tpu/scene/assets.py, vertex for vertex.
+"""Generated assets: counterpart of jet_pbrt_tpu/scene/assets.py, vertex
+for vertex and file for file. `python -m jet_pbrt_tpu_torch.scene.assets
+[dir]` writes bunny.obj and cornellbox/*.obj (default dir: assets/).
 
 The reference renderer's scenes load OBJ files its repo does not ship
 (reference: src/main.cc:94), so the bunny is synthesised from UV-sphere
@@ -68,3 +69,35 @@ def generate_bunny_obj(path: str, target_tris: int = BUNNY_TRIS) -> int:
     mesh = bunny_mesh(target_tris)
     objio.save_obj(path, mesh)
     return len(mesh)
+
+
+def generate_cornell_objs(dirpath: str) -> None:
+    """The Cornell box's triangles as one OBJ per part (light.obj,
+    floor.obj, ...), the file set the reference renderer loads
+    (reference: src/main.cc:34-54)."""
+    import os
+    from .scenes import cornell_box
+
+    os.makedirs(dirpath, exist_ok=True)
+    pack = cornell_box(use_bvh=False).pack
+    tris = np.stack([np.asarray(pack.tri_p0), np.asarray(pack.tri_p1),
+                     np.asarray(pack.tri_p2)], axis=1)
+    groups = {"light.obj": range(0, 2), "floor.obj": range(2, 4),
+              "ceiling.obj": range(4, 6), "back.obj": range(6, 8),
+              "left.obj": range(8, 10), "right.obj": range(10, 12),
+              "shortbox.obj": range(12, 22), "tallbox.obj": range(22, 32)}
+    for name, rows in groups.items():
+        objio.save_obj(os.path.join(dirpath, name), tris[list(rows)])
+
+
+if __name__ == "__main__":
+    import os
+    import sys
+
+    out = sys.argv[1] if len(sys.argv) > 1 else os.path.join(
+        os.path.dirname(__file__), "..", "..", "assets")
+    os.makedirs(out, exist_ok=True)
+    n = generate_bunny_obj(os.path.join(out, "bunny.obj"))
+    print(f"wrote bunny.obj with {n} triangles")
+    generate_cornell_objs(os.path.join(out, "cornellbox"))
+    print("wrote cornellbox/*.obj")

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..ops.linalg import fma32
+from ..ops.launches import register
 
 REPS = 2048
 RUNS = 10            # timed launches per probe, after one warm-up
@@ -104,6 +105,7 @@ def prim_micro(probe: str, table: torch.Tensor, reps: int) -> torch.Tensor:
 
 
 prim_micro.launches = 0
+register(__name__, "prim_micro", "prim_micro_kernel")
 
 
 def _declare(lib):

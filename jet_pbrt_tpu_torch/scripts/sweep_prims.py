@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..ops.linalg import fma32
+from ..ops.launches import register
 
 K, L = 4, 128
 
@@ -50,6 +51,7 @@ def sweep_prims(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 sweep_prims.launches = 0
+register(__name__, "sweep_prims", "sweep_prims_kernel")
 
 
 def _library():

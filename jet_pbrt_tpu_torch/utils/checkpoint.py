@@ -41,17 +41,20 @@ def load_render_state(path: str):
 def render_resumable(scene, width: int, height: int, spp: int,
                      checkpoint_path: str, checkpoint_every: int = 16,
                      seed: int = 0, max_depth: int = 5, clamp: bool = True,
-                     device=None) -> torch.Tensor:
+                     device=None, graph: bool | None = None) -> torch.Tensor:
     """Render spp samples of the path integrator, saving the float64 film
     and the count of samples done every checkpoint_every samples and at
     the end; an existing checkpoint at checkpoint_path is resumed (its
     seed must match). Returns the [H, W, 3] float32 image on `device`
-    (default the card), as `render` would."""
+    (default the card), as `render` would; its waves take `render`'s
+    route by `graph`: CUDA graphs on the card, the eager wave with
+    graph=False."""
     from ..models import film as film_mod
-    from ..models.render import DEFAULT_CHUNK, setup, wave_fn
+    from ..models.render import DEFAULT_CHUNK, frame_wave_fn, setup
 
     device, pack, cam = setup(scene, width, height, device)
-    wave = wave_fn(scene.meta, width, max_depth, seed=seed)
+    wave = frame_wave_fn(device, graph, scene.meta, width, max_depth,
+                         seed=seed)
     n_pixels = width * height
     film = film_mod.new_film(width, height, device)
     start = 0

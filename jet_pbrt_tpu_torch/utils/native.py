@@ -42,6 +42,10 @@ def _lib():
     return _LIB[0]
 
 
+def native_available() -> bool:
+    return _lib() is not None
+
+
 def _ptr(a: np.ndarray, kind):
     return a.ctypes.data_as(kind)
 

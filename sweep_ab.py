@@ -61,6 +61,12 @@ each build (frames equal bit for bit) and each build's profiled 1-spp
 wave (chip_smoke.profile_wave, the Threefry share of device time).
 sweep_prims: chip_smoke.prims' six inputs held equal, the harness's
 inputs timed.
+
+Frames replay their waves from CUDA graphs (models/graph.py), and a graph
+keeps the kernels it captured: each turn empties the graph cache and
+renders the frame once under its build with graph=True (the capture,
+untimed) before the timed frame, and each build's profiled wave is
+captured under it.
 """
 from __future__ import annotations
 
@@ -74,6 +80,7 @@ import time
 import torch
 
 import chip_smoke
+from jet_pbrt_tpu_torch.models import graph as graph_mod
 from jet_pbrt_tpu_torch.models.render import render
 from jet_pbrt_tpu_torch.ops import rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops.intersect import KindHit
@@ -138,6 +145,7 @@ def sweep_main(path) -> int:
     for who in ORDER:
         sweep_bvh.load_kernel = lambda lib=libs[who]: lib
         try:
+            _captured_frame(inst, dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             img = render(inst, 1024, 1024, spp=4, max_depth=5, seed=0,
@@ -329,6 +337,7 @@ def wide_main(path) -> int:
             lambda tb, o, d, tmin, tmax, lib=libs[who], **kw:
             wide_call(lib, tb, o, d, tmin, tmax, **kw))
         try:
+            _captured_frame(bunny, dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             img = render(bunny, 1024, 1024, spp=4, max_depth=5, seed=0,
@@ -431,6 +440,7 @@ def _frames(module, libs, dev):
     render(bunny, 64, 64, spp=1, max_depth=5, device=dev)  # warm-up
     for who in ORDER:
         with _using(module, libs[who]):
+            _captured_frame(bunny, dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             img = render(bunny, 1024, 1024, spp=4, max_depth=5, seed=0,
@@ -446,7 +456,17 @@ def _frames(module, libs, dev):
           f"{walls['this'][1]:.3f} s; frames equal bit for bit", flush=True)
     for who in ORDER:
         with _using(module, libs[who]):
+            graph_mod.clear()
             chip_smoke.profile_wave(bunny, dev, f"A/B {who}:", table=False)
+    graph_mod.clear()
+
+
+def _captured_frame(scene, dev):
+    """The turn's frame captured under the build in place (untimed): the
+    graph cache emptied, then one frame rendered."""
+    graph_mod.clear()
+    return render(scene, 1024, 1024, spp=4, max_depth=5, seed=0, clamp=False,
+                  device=dev, graph=True)
 
 
 # name: (wrapper module, its cases, per-lane SASS of a build or None,

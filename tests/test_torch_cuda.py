@@ -27,6 +27,16 @@ the ray sort permutes them.
 The sharded renderer (parallel/) on the card: a world of one NCCL rank and
 two gloo ranks sharing the card, each on a px-only mesh, give render_fn's
 frame bit for bit.
+The compiled wave (models/graph.py): render's graphed frame equals the
+eager one (graph=False) bit for bit, with equal stats and launch counts, on
+the Cornell box (brute force), a small instanced scene on the wide route
+and the same forced onto the sweep, each frame capturing two wave shapes;
+two scenes of equal shapes and other material colours through one cache
+entry each give their own image; a pack that requires grad makes the
+compiled wave raise; render_resumable under the graph equals the
+uninterrupted render; on render()'s default a shape is captured after
+its eager calls, and its graph's kernel nodes, read through the CUDA driver API,
+count what an eager wave launches.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import numpy as np
@@ -571,3 +581,156 @@ def test_sharded_render_on_card_equals_render_fn(backend, world, tmp_path):
     for img in run_world(_rank_sharded, world, tmp_path, scene, world,
                          backend=backend):
         assert torch.equal(img, ref)
+
+
+def _graph_scene(which, monkeypatch):
+    from jet_pbrt_tpu_torch.scene.scenes import cornell_box
+    if which == "cornell":
+        return cornell_box()
+    if which == "sweep":
+        monkeypatch.setattr(TW, "_VMEM_BUDGET", 1024)
+    scene = _grad_scene()
+    assert scene.meta.pallas_blas == ((which == "sweep"),)
+    return scene
+
+
+def _launches():
+    return (TW.intersect_wide.launches, TS.intersect_sweep.launches,
+            TR.lane_keys.launches + TR.uniforms.launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["cornell", "wide", "sweep"])
+def test_graphed_frame_equals_eager_on_card(which, monkeypatch):
+    """48^2, 3 spp in waves of two samples: the frame captures two shapes
+    (two samples, then the short last one). After the capturing frame, a
+    replayed frame's image, stats and launches equal the eager frame's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import render
+    scene = _graph_scene(which, monkeypatch)
+    kw = dict(spp=3, seed=5, max_depth=4, clamp=False, device="cuda",
+              with_stats=True, chunk=5000)
+    G.clear()
+    render(scene, 48, 48, graph=True, **kw)
+    assert len(G.CACHE.entries) == 2
+    runs = {}
+    for graph in (True, False):
+        before = _launches()
+        img, st = render(scene, 48, 48, graph=graph, **kw)
+        torch.cuda.synchronize()
+        runs[graph] = (img, st, tuple(a - b for a, b in
+                                      zip(_launches(), before)))
+    (gi, gs, gl), (ei, es, el) = runs[True], runs[False]
+    assert torch.equal(gi, ei) and gs == es and gl == el, (gs, es, gl, el)
+    route = {"cornell": None, "wide": 0, "sweep": 1}[which]
+    assert all((k > 0) == (i == route) for i, k in enumerate(gl[:2])), gl
+    assert gl[2] > 0 and gs["rays"] > 0
+    G.clear()
+
+
+@pytest.mark.cuda
+def test_one_cache_entry_renders_each_pack_on_card():
+    """Two scenes of equal shapes and other material colours, back to
+    back through one captured wave: each image equals its eager render."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import dataclasses
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import render
+    from jet_pbrt_tpu_torch.scene.scenes import cornell_box
+    a = cornell_box()
+    b = dataclasses.replace(a, pack=a.pack._replace(
+        mat_c0=a.pack.mat_c0.flip(0).contiguous()))
+    G.clear()
+    imgs = [render(s, 32, 32, 2, seed=1, device="cuda", graph=True).clone()
+            for s in (a, b, a)]
+    assert len(G.CACHE.entries) == 1
+    for s, img in zip((a, b, a), imgs):
+        assert torch.equal(img, render(s, 32, 32, 2, seed=1, device="cuda",
+                                       graph=False))
+    assert not torch.equal(imgs[0], imgs[1])
+    G.clear()
+
+
+@pytest.mark.cuda
+def test_compiled_wave_refuses_a_pack_that_requires_grad():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import compiled_wave_fn, render, \
+        setup
+    import dataclasses
+    from jet_pbrt_tpu_torch.scene.scenes import cornell_box
+    scene = cornell_box()
+    _, pack, cam = setup(scene, 16, 16, "cuda")
+    pack = pack._replace(mat_c0=pack.mat_c0.clone().requires_grad_(True))
+    pixel = torch.arange(256, device="cuda")
+    wave = compiled_wave_fn(scene.meta, 16, 3)
+    with pytest.raises(ValueError, match="requires grad"):
+        wave(pack, cam, torch.zeros_like(pixel), pixel)
+    with torch.enable_grad(), pytest.raises(ValueError, match="requires grad"):
+        render(dataclasses.replace(scene, pack=pack), 16, 16, 1,
+               device="cuda")
+    G.clear()
+
+
+@pytest.mark.cuda
+def test_render_resumable_graphed_on_card(tmp_path):
+    """Stopped after 2 of 4 samples and resumed, through the compiled
+    wave: equal to the uninterrupted run and to render(graph=False)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import render
+    from jet_pbrt_tpu_torch.scene.scenes import cornell_box
+    from jet_pbrt_tpu_torch.utils import checkpoint as ck
+    scene = cornell_box()
+    G.clear()
+    whole = ck.render_resumable(scene, 40, 40, 4, str(tmp_path / "a.npz"),
+                                seed=7, device="cuda", graph=True)
+    assert len(G.CACHE.entries) == 1
+    path = str(tmp_path / "b.npz")
+    ck.render_resumable(scene, 40, 40, 2, path, seed=7, device="cuda",
+                        graph=True)
+    resumed = ck.render_resumable(scene, 40, 40, 4, path, seed=7,
+                                  device="cuda", graph=True)
+    assert torch.equal(resumed, whole)
+    assert torch.equal(whole, render(scene, 40, 40, 4, seed=7, device="cuda",
+                                     graph=False))
+    G.clear()
+
+
+@pytest.mark.cuda
+def test_default_captures_after_eager_calls_on_card(monkeypatch):
+    """On render()'s default a wave shape runs op by op for its first
+    CAPTURE_AFTER calls and is captured at the next; the captured graph's
+    kernel nodes, read through the CUDA driver API, are the launches an eager wave
+    counts, and a replay adds them; every image equals the eager one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import render
+    scene = _graph_scene("wide", monkeypatch)
+    kw = dict(spp=1, seed=3, max_depth=4, device="cuda")
+    G.clear()
+    before = _launches()
+    want = render(scene, 32, 32, graph=False, **kw)
+    eager = tuple(a - b for a, b in zip(_launches(), before))
+    for call in range(G.CAPTURE_AFTER + 2):
+        before = _launches()
+        img = render(scene, 32, 32, **kw)
+        torch.cuda.synchronize()
+        assert len(G.CACHE.entries) == (call >= G.CAPTURE_AFTER)
+        assert torch.equal(img, want) and eager[0] > 0
+        assert tuple(a - b for a, b in zip(_launches(), before)) == eager
+    entry = next(iter(G.CACHE.entries.values()))
+    assert (entry.launches["wide_walk_kernel"], entry.launches[
+        "sweep_bvh_kernel"], entry.launches["lane_keys_kernel"]
+        + entry.launches["uniforms_kernel"]) == eager
+    from jet_pbrt_tpu_torch.ops.launches import is_function
+    names = G.kernel_names(entry.graph)
+    assert sum(is_function(n, "wide_cull_kernel") for n in names) \
+        == eager[0], sorted(set(names))
+    G.clear()
