@@ -86,33 +86,47 @@ Phases, each printing its result; any failure raises and exits non-zero:
      backward times, their ratio and the tape's peak memory, the profiled
      backward and four backwards in turns with the gathers by index_select
      and by table[index]; check_grads on the emission (depth 5) and the red
-     bunny's albedo (depth 2); three
-     fit steps; texel and checker-colour gradients against finite
-     differences (texture_grads); one {"diff": ...} JSON line.
+     bunny's albedo (depth 2); the graphed value_and_grad
+     (compile_value_and_grad, one CUDA graph of forward and backward): its
+     kernel nodes one forward's launches, its loss bit for bit with eager's
+     and its gradient within the spread of the eager ones (bit for bit
+     under deterministic algorithms), wall in turns, device time and busy
+     share, capture seconds and pool bytes; fits graphed and eager in
+     turns, ms per step with the capture step apart, bit for bit under
+     deterministic algorithms; texel and checker-colour gradients against
+     finite differences (texture_grads); one {"diff": ...} JSON line.
  12. sharded render and train (sharded_phase, parallel/): (a) a world of
      one rank over NCCL (multihost.initialize), mesh (1, 1): render_sharded
      of the default bunny at 1024^2, 4 spp, depth 5 equal to render_fn's
      frame bit for bit, 64 wide and 28 Threefry launches, its wall time and
      rays/s in turns with render()'s frame (medians of 3), peak memory; (c)
-     build_train_step at (1, 1), 1 spp: the partial film's 16 + 7 launches
-     and none in its backward, the gradient within rtol 1e-6 of
-     diff.params.value_and_grad's, three steps with the loss falling; (b) 4
+     build_train_step at (1, 1), 1 spp, graphed (its partial film and that
+     film's backward replayed from two CUDA graphs of one pool) and eager
+     in turns, ms per step with the capture step apart: the partial film's
+     16 + 7 launches and none in its backward, the forward graph's kernel
+     nodes the same and the backward graph's none, the first losses equal
+     bit for bit and each route's loss falling; under deterministic
+     algorithms the graphed step's loss and gradient equal the eager
+     step's bit for bit, and the gradient lies within rtol 1e-6 of
+     diff.params.value_and_grad's; (b) 4
      gloo ranks spawned to share the card (card_rank), scene and kernels
      built here: meshes (2, 1) and (4, 1) equal to (a)'s frame bit for bit,
      (2, 2) and (1, 4) within atol 2e-4, exact launches per rank, every
      rank's partial film equal bit for bit to its samples' single-card
      waves on its block, the first wave's Threefry draws (and on (4, 1) its
-     16 wide casts) equal to the plain versions'; (2, 1) train losses
-     within 1e-5 relative of (1, 1)'s; (d) scaling_report at 1, 2 and 4
-     ranks (ranks sharing one card: a check of the machinery, not of
-     scaling); each rank's cached graphs (lanes, pool bytes); one
+     16 wide casts) equal to the plain versions'; (2, 1) graphed train
+     losses within 1e-5 relative of (1, 1)'s; (d) scaling_report at 1, 2
+     and 4 ranks (ranks sharing one card: a check of the machinery, not of
+     scaling); each rank's cached graphs (lanes, pool bytes) and gradient
+     graphs' pool bytes; (e) entry.dryrun_multichip(4) on gloo ranks
+     sharing the card, one graphed train step; one
      {"sharded": ...} JSON line, and the kernels line's
      wide_bvh and threefry entries carry the launches per rank of each
      layout ("sharded_launches": the (1, 1) world's counted frame traced
      as in phase 4, the gloo ranks' by the counters, where a replay counts
      its graph's kernel nodes). The sharded forward replays each rank's own
      CUDA graphs, captured by a graph=True frame before each counted one;
-     the partial films (the train step's tape) run the eager wave.
+     the recorded partial films run the eager wave.
  13. the compiled wave (compiled_phase): on the default bunny and the
      600k-target bunny at 1024^2, 4 spp, and the Cornell box at 512^2, 16
      spp, depth 5: render(graph=True) against render(graph=False), images
@@ -165,6 +179,7 @@ import torch
 import torch.distributed as dist
 
 from jet_pbrt_tpu_torch import cli
+from jet_pbrt_tpu_torch.entry import dryrun_multichip
 from jet_pbrt_tpu_torch.diff import params as dparams
 from jet_pbrt_tpu_torch.diff.gradcheck import check_grads
 from jet_pbrt_tpu_torch.models import camera as camera_mod
@@ -268,6 +283,13 @@ EXACT_SEED_MAX_OFF = 0.2
 # the step of phase 11's fit of the bunny's albedos (the loss falls at it
 # on the CPU at 32^2, 64^2 and 160^2)
 FIT_LR = 1.0
+# phase 11's fits: steps (more than graph.CAPTURE_AFTER, so that fit's
+# default captures at its first), routes in turns (graph=False eager,
+# None graphed) and the steps of the graphed and eager fits held bit for bit
+# under deterministic algorithms
+FIT_STEPS = graph_mod.CAPTURE_AFTER + 2
+FIT_TURNS = (False, None, None, False)
+DETERMINISTIC_FIT_STEPS = 3
 # a prim_micro float probe's operations per iteration, counted on the
 # values the function needs: the 8 blocks compute one acc, and r1's and
 # mt's lanes are all equal, so each is one scalar chain; r2 reduces 8 tiles
@@ -997,7 +1019,7 @@ PROFILER_TRIES = 3
 PROFILER_WARMUP_S = 0.02
 
 
-def profiled_ms(fn, reps: int, names, each=None) -> dict:
+def profiled_ms(fn, reps: int, names, each=None, walls=None) -> dict:
     """Device time per call in ms, by the profiler, of the device
     operations (kernels, memsets) whose names contain each of `names`, over
     reps calls of fn. `each` (default: all of names) are the operations
@@ -1011,7 +1033,9 @@ def profiled_ms(fn, reps: int, names, each=None) -> dict:
     then made again, up to PROFILER_TRIES. Where none is complete the time
     is the events' behind a held stream (queued_events_ms), under the key
     "queued events", so that neither an unmeasured 0 nor a partial sum is
-    reported as a device time."""
+    reported as a device time. `walls`, where given, gets the host wall
+    per call of each traced run's kept calls (to the card's synchronize),
+    in ms."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     each = tuple(names) if each is None else tuple(each)
@@ -1025,11 +1049,17 @@ def profiled_ms(fn, reps: int, names, each=None) -> dict:
                 n += 1
             torch.cuda.synchronize()
             prof.step()
+            t0 = time.perf_counter()
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            if walls is not None:
+                walls.append((time.perf_counter() - t0) * 1e3 / reps)
             prof.step()
-        events = [e for e in prof.key_averages() if _device_us(e) > 0]
+        # the step's annotation spans the kernels: not device time
+        events = [e for e in prof.key_averages() if _device_us(e) > 0
+                  and not getattr(e, "is_user_annotation", False)
+                  and not e.key.startswith("ProfilerStep")]
         out = {nm: sum(_device_us(e) for e in events if nm in e.key) / 1e3
                / reps for nm in names}
         seen = {nm: sum(e.count for e in events if nm in e.key)
@@ -1937,6 +1967,269 @@ def fd_line(label, g_auto, g_fd, rtol, secs):
     return worst
 
 
+def node_launches(nodes: dict) -> dict:
+    """A graph's kernel nodes by registered device function, per kernel as
+    launch_counts() names them."""
+    return {"wide_bvh": nodes["wide_walk_kernel"],
+            "sweep_bvh": nodes["sweep_bvh_kernel"],
+            "threefry": nodes["lane_keys_kernel"] + nodes["uniforms_kernel"]}
+
+
+def max_diff(a: dict, b: dict) -> float:
+    return max(float((a[k] - b[k]).abs().max()) for k in a)
+
+
+def spread_check(label, got: dict, eager: list) -> dict:
+    """A graphed gradient held to the eager ones of the same loss, taken in
+    this run (atomic adds reorder their sums, so two eager gradients
+    differ): its distance to the nearest eager gradient (largest absolute
+    difference of an element) must not exceed the largest distance between
+    two eager ones; both printed, with the first two eager gradients'
+    distance."""
+    spread = max(max_diff(a, b) for i, a in enumerate(eager)
+                 for b in eager[i + 1:])
+    near = min(max_diff(got, e) for e in eager)
+    print(f"{label}: the graphed gradient lies {near:.3e} from the nearest of "
+          f"{len(eager)} eager gradients, which lie up to {spread:.3e} apart "
+          f"(the first two {max_diff(eager[0], eager[1]):.3e}); largest "
+          f"element {max(float(v.abs().max()) for v in got.values()):.3e}",
+          flush=True)
+    if near > spread:
+        raise AssertionError(f"{label}: the graphed gradient lies outside the "
+                             f"eager gradients' spread ({near} > {spread})")
+    return {"nearest": near, "spread": spread,
+            "spread_first_two": max_diff(eager[0], eager[1])}
+
+
+def device_ms(fn) -> tuple:
+    """(device ms per call of fn, its source, the host wall per call of the
+    same calls in ms) over 3 calls, by profiled_ms (every operation; each
+    call's lane-key draw recorded)."""
+    walls = []
+    (source, ms), = profiled_ms(fn, 3, ("",), each=("lane_keys_kernel",),
+                                walls=walls).items()
+    return ms, "profiler" if source == "" else source, walls[-1]
+
+
+def graphed_value_and_grad(fn, pack, target, fields, eager: list,
+                           want: dict, smi: str) -> dict:
+    """compile_value_and_grad of mean((fn(pack with params) - target)^2)
+    over `fields` against diff.params.value_and_grad: the capturing call
+    (GRAD_WARMUPS eager warm-ups counted, its seconds, the warm-ups' and
+    the capture's, the pool's bytes), the graph's kernel nodes equal to
+    one eager forward's launches `want` (so its backward adds none), a
+    replay's loss bit for bit with eager's and its gradient within the
+    eager gradients' spread (spread_check over `eager`, the phase's runs,
+    and one more); wall in GRAPH_TURNS after a warm-up each, device time
+    and busy share of each, peak memory of a call; then under
+    deterministic(), where the backward sums in a fixed order, the
+    replay's gradient bit for bit with eager's. Returns a summary dict."""
+    f = dparams.loss_fn(fn, pack, target)
+    params = dparams.get_params(pack, fields)
+    graph_mod.clear()
+    vg = dparams.compile_value_and_grad(f)
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vg(params)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    warm = launch_counts()
+    (entry,) = graph_mod.GRAD_CACHE.entries.values()
+    nodes = node_launches(entry.launches)
+    if nodes != want or warm != {k: graph_mod.GRAD_WARMUPS * v
+                                 for k, v in want.items()}:
+        raise AssertionError(f"the gradient graph's kernel nodes {nodes}, "
+                             f"its warm-ups' launches {warm}; one forward "
+                             f"launches {want}, its backward none")
+    val, g = vg(params)
+    val, g = val.clone(), {k: v.clone() for k, v in g.items()}
+    loss_e, g_e = dparams.value_and_grad(f, params)
+    if not torch.equal(val, loss_e):
+        raise AssertionError(f"the graphed loss {float(val)} differs from "
+                             f"eager {float(loss_e)}")
+    spread = spread_check(f"bunny value_and_grad [{smi}]", g,
+                          eager + [g_e])
+    walls = {True: [], False: []}
+    call = {True: lambda: vg(params),
+            False: lambda: dparams.value_and_grad(f, params)}
+    for graph in (True, False) + GRAPH_TURNS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call[graph]()
+        torch.cuda.synchronize()
+        walls[graph].append(time.perf_counter() - t0)
+    med = {k: float(np.median(v[1:])) * 1e3 for k, v in walls.items()}
+    dev_ms = {k: device_ms(call[k]) for k in (True, False)}
+    peaks = {}
+    for graph in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        call[graph]()
+        torch.cuda.synchronize()
+        peaks[graph] = torch.cuda.max_memory_allocated() - base
+    out = {"first_call_s": first_s, "warmup_s": entry.warmup_s,
+           "capture_s": entry.capture_s, "pool_bytes": entry.pool_bytes,
+           "nodes": nodes, "loss": float(val), **spread,
+           "wall_ms": {"graphed": walls[True][1:], "eager": walls[False][1:]},
+           "median_ms": {"graphed": med[True], "eager": med[False]},
+           "device_ms": {"graphed": dev_ms[True][0], "eager": dev_ms[False][0]},
+           "device_source": {"graphed": dev_ms[True][1],
+                             "eager": dev_ms[False][1]},
+           "profiled_wall_ms": {"graphed": dev_ms[True][2],
+                                "eager": dev_ms[False][2]},
+           "peak_bytes": {"graphed": peaks[True], "eager": peaks[False]}}
+    vg.release()
+    print(f"bunny value_and_grad over {fields}, graphed (one CUDA graph of "
+          f"forward and backward, compile_value_and_grad): the capturing "
+          f"call {first_s:.3f} s ({graph_mod.GRAD_WARMUPS} warm-ups "
+          f"{entry.warmup_s:.3f} s, capture {entry.capture_s:.3f} s), pool "
+          f"{entry.pool_bytes} bytes; kernel nodes {nodes} (one forward's "
+          f"launches: the backward adds none); loss {float(val)} equal to "
+          f"eager bit for bit; wall in turns after a warm-up each, graphed "
+          f"{[round(x * 1e3, 1) for x in walls[True][1:]]} ms, eager "
+          f"{[round(x * 1e3, 1) for x in walls[False][1:]]} ms, medians "
+          f"{med[True]:.1f} / {med[False]:.1f} ms; under the profiler, "
+          f"graphed {dev_ms[True][0]:.1f} ms of device time by the "
+          f"{dev_ms[True][1]} in {dev_ms[True][2]:.1f} ms of wall (busy "
+          f"{100 * dev_ms[True][0] / dev_ms[True][2]:.1f}%), eager "
+          f"{dev_ms[False][0]:.1f} ms by the {dev_ms[False][1]} in "
+          f"{dev_ms[False][2]:.1f} ms (busy "
+          f"{100 * dev_ms[False][0] / dev_ms[False][2]:.1f}%); peak memory of a "
+          f"call graphed {peaks[True]} bytes, eager {peaks[False]} bytes "
+          f"[{smi}]", flush=True)
+
+    with deterministic():
+        t0 = time.perf_counter()
+        loss_d, g_d = dparams.value_and_grad(f, params)
+        vg = dparams.compile_value_and_grad(f)
+        vg(params)
+        val, g = vg(params)
+        torch.cuda.synchronize()
+        if not (torch.equal(val, loss_d)
+                and all(torch.equal(g[k], g_d[k]) for k in g_d)):
+            raise AssertionError(f"under deterministic algorithms the graphed "
+                                 f"value_and_grad differs from eager's (loss "
+                                 f"{float(val)} / {float(loss_d)}, largest "
+                                 f"difference {max_diff(g, g_d)})")
+        vg.release()
+    out["deterministic_s"] = time.perf_counter() - t0
+    print(f"bunny value_and_grad under deterministic algorithms: the graphed "
+          f"loss and gradient equal eager's bit for bit (eager, capture and "
+          f"replay {out['deterministic_s']:.1f} s) [{smi}]", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def timed_fit(out: dict):
+    """While open, a fit's steps are timed: each call of its value and
+    gradient (diff.params.value_and_grad, or a compile_value_and_grad
+    function's) first synchronizes the card and appends the host time to
+    out["marks"], and the first graphed call records its capture (warm-up
+    and capture s, pool bytes) in out["capture"] before the fit releases
+    it. A measurement of this script only."""
+    eager_vg = dparams.value_and_grad
+    compile_vg = dparams.compile_value_and_grad
+    marks = out.setdefault("marks", [])
+
+    def mark():
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    def timed_eager(f, params):
+        mark()
+        return eager_vg(f, params)
+
+    def timed_compile(f, *a, **kw):
+        vg = compile_vg(f, *a, **kw)
+
+        def call(params):
+            mark()
+            got = vg(params)
+            if "capture" not in out:
+                e = next(reversed(graph_mod.GRAD_CACHE.entries.values()))
+                out["capture"] = {"warmup_s": e.warmup_s,
+                                  "capture_s": e.capture_s,
+                                  "pool_bytes": e.pool_bytes}
+            return got
+
+        call.release = vg.release
+        return call
+
+    dparams.value_and_grad = timed_eager
+    dparams.compile_value_and_grad = timed_compile
+    try:
+        yield out
+        mark()
+    finally:
+        dparams.value_and_grad = eager_vg
+        dparams.compile_value_and_grad = compile_vg
+
+
+def graphed_fits(fn, pack, target, smi: str) -> dict:
+    """fit of mat_c0 towards target at lr FIT_LR, FIT_STEPS steps, in
+    FIT_TURNS: on the default (graph=None) a fit of that many steps
+    captures its value and gradient at its first step and replays the
+    rest; graph=False runs them eagerly. Every fit's first loss equal bit
+    for bit (the forward is), its first three falling; ms per step, the
+    graphed fits' capture step apart. Then under deterministic() a
+    DETERMINISTIC_FIT_STEPS-step fit with graph=True and one with
+    graph=False: losses and params bit for bit. Returns a summary dict."""
+    runs = []
+    for graph in FIT_TURNS:
+        with timed_fit({}) as t:
+            params, losses = dparams.fit(fn, pack, target, fields=("mat_c0",),
+                                         steps=FIT_STEPS, lr=FIT_LR,
+                                         graph=graph)
+        ms = [(b - a) * 1e3 for a, b in zip(t["marks"], t["marks"][1:])]
+        runs.append({"graphed": graph is None, "losses": losses,
+                     "step_ms": ms, "capture": t.get("capture"),
+                     "albedo": params["mat_c0"][0].tolist()})
+        if not losses[2] < losses[1] < losses[0]:
+            raise AssertionError(f"the fit's loss does not fall: {losses}")
+        if (graph is None) != ("capture" in t):
+            raise AssertionError(f"fit(graph={graph}) of {FIT_STEPS} steps "
+                                 f"took the wrong route")
+    if len({r["losses"][0] for r in runs}) != 1:
+        raise AssertionError(f"the fits' first losses differ: {runs}")
+    per = {g: [x for r in runs if r["graphed"] == g
+               for x in r["step_ms"][int(g):]] for g in (True, False)}
+    med = {g: float(np.median(v)) for g, v in per.items()}
+    for r in runs:
+        print(f"bunny fit of mat_c0 from red albedo (0.9, 0.1, 0.7), lr "
+              f"{FIT_LR}, {FIT_STEPS} steps, "
+              f"{'graphed' if r['graphed'] else 'eager'}: losses "
+              f"{r['losses']}, ms per step "
+              f"{[round(x, 1) for x in r['step_ms']]}"
+              + (f" (the first the capture: warm-ups "
+                 f"{r['capture']['warmup_s']:.3f} s, capture "
+                 f"{r['capture']['capture_s']:.3f} s, pool "
+                 f"{r['capture']['pool_bytes']} bytes)" if r["graphed"]
+                 else "") + f", red albedo now {r['albedo']} [{smi}]",
+              flush=True)
+    print(f"bunny fit, in turns {FIT_TURNS}: median ms per step graphed "
+          f"{med[True]:.1f} (replays), eager {med[False]:.1f}; first losses "
+          f"equal bit for bit [{smi}]", flush=True)
+    with deterministic():
+        t0 = time.perf_counter()
+        got = {g: dparams.fit(fn, pack, target, fields=("mat_c0",),
+                              steps=DETERMINISTIC_FIT_STEPS, lr=FIT_LR,
+                              graph=g) for g in (True, False)}
+    (pg, lg), (pe, le) = got[True], got[False]
+    if lg != le or not torch.equal(pg["mat_c0"], pe["mat_c0"]):
+        raise AssertionError(f"under deterministic algorithms the graphed fit "
+                             f"differs from the eager one: {lg} / {le}")
+    det_s = time.perf_counter() - t0
+    print(f"bunny fit under deterministic algorithms, "
+          f"{DETERMINISTIC_FIT_STEPS} steps graph=True and graph=False: "
+          f"losses {lg} and params equal bit for bit ({det_s:.1f} s) "
+          f"[{smi}]", flush=True)
+    return {"runs": runs, "median_step_ms": {"graphed": med[True],
+                                             "eager": med[False]},
+            "deterministic_losses": lg, "deterministic_s": det_s}
+
+
 def diff_phase(dev, smi: str, res: int = 1024):
     """render_fn on the default bunny (wide route) at res^2, 1 spp, depth 5:
     its image equal to render(clamp=False) bit for bit, 16 wide and 7
@@ -1947,9 +2240,12 @@ def diff_phase(dev, smi: str, res: int = 1024):
     profiled, and timed in turns with the gathers by index_select and by
     table[index] (indexed_gathers); check_grads
     for light_c at depth 5 (rtol 1e-2) and mat_c0[0] at depth 2 (no
-    roulette, rtol 5e-2); three fit steps of mat_c0 from a wrong red
-    albedo, each timed, the loss falling; then texture_grads. Returns a
-    summary dict."""
+    roulette, rtol 5e-2); the same loss's value and gradient graphed
+    (graphed_value_and_grad: loss bit for bit, gradient within the eager
+    runs' spread, and bit for bit under deterministic algorithms; kernel
+    nodes, times, capture, pool); fits of mat_c0 from a wrong red albedo,
+    graphed and eager in turns (graphed_fits); then texture_grads. Returns
+    a summary dict."""
     scene = bunny_scene()
     fn, pack = render_fn(scene, res, res, spp=1, seed=0, max_depth=5,
                          device=dev)
@@ -1960,10 +2256,12 @@ def diff_phase(dev, smi: str, res: int = 1024):
                  device=dev, graph=True)
     loss = lambda img: torch.mean((img - target) ** 2)
     out = {"runs": []}
+    want = {"wide_bvh": 6 + 5 * 2, "sweep_bvh": 0, "threefry": 2 + 5}
+    eager = []      # the eager gradients of the loss, by index_select
     for run in range(2):
         img, g, f_ms, b_ms, fwd, bwd, peak = fwd_bwd(
             fn, pack, ("mat_c0", "light_c"), loss)
-        want = {"wide_bvh": 6 + 5 * 2, "sweep_bvh": 0, "threefry": 2 + 5}
+        eager.append(g)
         if fwd != want or any(bwd.values()):
             raise AssertionError(f"render_fn launches: forward {fwd} (expected "
                                  f"{want}), backward {bwd} (expected none)")
@@ -1989,7 +2287,10 @@ def diff_phase(dev, smi: str, res: int = 1024):
     turns = []
     for indexed in (False, True, True, False):
         with indexed_gathers() if indexed else contextlib.nullcontext():
-            turns.append(fwd_bwd(fn, pack, ("mat_c0", "light_c"), loss)[3])
+            got = fwd_bwd(fn, pack, ("mat_c0", "light_c"), loss)
+        turns.append(got[3])
+        if not indexed:
+            eager.append(got[1])
     out["backward_turns_ms"] = turns
     print(f"bunny backward ms in turns, gathers by index_select / table[index]"
           f" / table[index] / index_select: "
@@ -2010,27 +2311,15 @@ def diff_phase(dev, smi: str, res: int = 1024):
                                5e-2, time.perf_counter() - t0)
     del fn2, pack2, rest
 
+    out["graphed_vg"] = graphed_value_and_grad(
+        fn, pack, target, ("mat_c0", "light_c"), eager, want, smi)
     wrong = pack.mat_c0.clone()
     wrong[0] = torch.tensor([0.9, 0.1, 0.7], device=dev)
     with torch.no_grad():
         target = fn(pack)
-    params, losses, step_ms = {"mat_c0": wrong}, [], []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, ls = dparams.fit(fn, pack._replace(**params), target,
-                                 fields=("mat_c0",), steps=1, lr=FIT_LR)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        losses += ls
-    print(f"bunny fit of mat_c0 from red albedo (0.9, 0.1, 0.7), lr "
-          f"{FIT_LR}: losses {losses}, ms per step "
-          f"{[round(x, 1) for x in step_ms]}, red albedo now "
-          f"{params['mat_c0'][0].tolist()} [{smi}]", flush=True)
-    if not losses[2] < losses[1] < losses[0]:
-        raise AssertionError(f"the fit's loss does not fall: {losses}")
-    out["fit"] = {"losses": losses, "step_ms": step_ms}
-    del fn, pack, target, ref
+    out["fit"] = graphed_fits(fn, pack._replace(mat_c0=wrong), target, smi)
+    del fn, pack, target, ref, eager
+    graph_mod.clear()
 
     out.update(texture_grads(dev, smi, res))
     return out
@@ -2085,6 +2374,9 @@ TRAIN_RTOL = 1e-5
 # the sharded gradient against value_and_grad's: the loss reaches the film
 # by another sequence of float operations
 GRAD_RTOL = 1e-6
+# (c)'s train steps at (1, 1): the graphed step's capture, then graphed
+# (True) and eager steps in turns
+TRAIN_TURNS = (True, False, False, True, True, False, False, True)
 # (a)'s frames in turns: a warm-up each, then three samples each
 TURNS = ("sharded", "render", "sharded", "render", "render", "sharded",
          "sharded", "render")
@@ -2173,133 +2465,127 @@ def replay_plain(calls) -> dict:
     return dict(n)
 
 
-def train_steps(scene, mesh, dev, res: int, steps: int = 3):
+def train_steps(scene, mesh, dev, res: int, turns=(True, True, True)):
     """build_train_step on the mesh at res^2, 1 spp, depth 5, fields
     ("mat_c0",), lr FIT_LR, from the red bunny's albedo set to (0.9, 0.1,
-    0.7) towards the scene's own frame: the steps' losses, ms per step
-    (host clock to synchronize) and the peak memory above what was
-    allocated before them; and (step's render, pack, cam, params, target)
-    for the caller's checks."""
-    step, init, rend, cam = ptrain.build_train_step(
+    0.7) towards the scene's own frame: one step function per route in
+    `turns` (True graph=True, whose first call captures its two graphs;
+    False graph=False, eager), called in that order, each route continuing
+    its own params. Per route ("graphed", "eager"): its losses, ms per step
+    (host clock to synchronize) and, for the graphed one, its capture
+    (warm-up and capture s, pool bytes, each graph's kernel nodes); each
+    route's first three losses must fall and the routes' first losses be
+    equal bit for bit (the forward is). Also the peak memory above what
+    was allocated before the steps, and (a step's render, pack, cam,
+    params, target) for the caller's checks."""
+    routes = {g: ptrain.build_train_step(
         scene, mesh, res, res, 1, fields=("mat_c0",), lr=FIT_LR,
-        max_depth=SHARD_DEPTH, device=dev)
+        max_depth=SHARD_DEPTH, device=dev, graph=g)
+        for g in dict.fromkeys(turns)}
+    _, init, rend, cam = routes[turns[0]]
     pack = scene.pack
     target = rend.frame(pack, cam)
     wrong = init()["mat_c0"].clone()
     wrong[0] = torch.tensor([0.9, 0.1, 0.7], device=dev)
-    params, out = {"mat_c0": wrong}, {"losses": [], "ms": []}
+    params = dict.fromkeys(routes, {"mat_c0": wrong})
+    name = {True: "graphed", False: "eager"}
+    out = {name[g]: {"losses": [], "ms": []} for g in routes}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for _ in range(steps):
+    for graph in turns:
+        rec = out[name[graph]]
         t0 = time.perf_counter()
-        params, loss = step(params, target)
+        params[graph], loss = routes[graph][0](params[graph], target)
         torch.cuda.synchronize()
-        out["ms"].append((time.perf_counter() - t0) * 1e3)
-        out["losses"].append(loss)
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["losses"].append(float(loss))
+        if graph and "capture" not in rec:
+            g = next(reversed(graph_mod.GRAD_CACHE.entries.values())).graphs
+            rec["capture"] = {
+                "warmup_s": g.warmup_s, "capture_s": g.capture_s,
+                "pool_bytes": g.pool_bytes,
+                "nodes": {k: node_launches(v) for k, v in g.launches.items()}}
     out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
-    if not out["losses"][2] < out["losses"][1] < out["losses"][0]:
-        raise AssertionError(f"the sharded fit's loss does not fall: "
-                             f"{out['losses']}")
+    for rec in (out[name[g]] for g in routes):
+        ls = rec["losses"]
+        if not ls[2] < ls[1] < ls[0]:
+            raise AssertionError(f"the sharded fit's loss does not fall: {ls}")
+    if len({out[name[g]]["losses"][0] for g in routes}) != 1:
+        raise AssertionError(f"the routes' first losses differ: {out}")
     return out, (rend, pack, cam, {"mat_c0": wrong}, target)
 
 
-def card_rank(rank, path, scene, dev_type, res):
+def card_rank(rank, scene, dev_type, res):
     """One of CARD_RANKS gloo ranks sharing one device: each layout's frame
     through render_sharded with its launches counted (not traced: a trace
     per rank, four processes on the host's cores, doubled the phase's
     time); then the rank's
     partial film of the same frame, the first wave's kernel calls recorded
     and replayed through the plain versions (the wide casts on
-    PLAIN_LAYOUT only); three train steps at (2, 1) on ranks 0 and 1; the
-    scaling report at 1, 2 and 4 ranks. Saves its results to
-    path/rank<rank>.pt, rank 0's frames to path/<px>x<spp>.pt."""
+    PLAIN_LAYOUT only); three graphed train steps at (2, 1) on ranks 0 and
+    1; the scaling report at 1, 2 and 4 ranks; the pool bytes of its
+    cached wave and gradient graphs. Returns its results, rank 0's with
+    each layout's frame (on the CPU)."""
     torch.set_num_threads(2)
     if dev_type == "cuda":
         torch.cuda.set_device(0)
-    dist.init_process_group("gloo", init_method=f"file://{path}/init",
-                            world_size=CARD_RANKS, rank=rank,
-                            timeout=RANK_TIMEOUT)
     start = time.perf_counter()
     note = lambda what: print(f"rank {rank}: {what} at "
                               f"{time.perf_counter() - start:.1f} s",
                               flush=True)
-    try:
-        dev = pmesh.rank_device(dev_type)
-        scene = scene.to(dev)
-        lights = sum(1 for lt in scene.meta.lights if not lt.static_black)
-        per_wave = sum(sharded_launches((1, SHARD_SPP), lights).values())
-        out = {"layouts": {}}
-        for shape, ranks in CARD_LAYOUTS.items():
-            mesh = pmesh.make_mesh(*shape, ranks=ranks, device=dev)
-            if mesh.get_coordinate() is None:
-                continue
-            frame = lambda graph=None: prender.render_sharded(
-                scene, res, res, SHARD_SPP, mesh, max_depth=SHARD_DEPTH,
-                clamp=False, device=dev, graph=graph)
-            frame(True)  # warm-up: captures this layout's wave
-            torch.cuda.synchronize()
-            reset_launches()
-            t0 = time.perf_counter()
-            img = frame()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = launch_counts()
-            note(f"{shape} frame in {wall:.3f} s")
-            if rank == 0:
-                torch.save(img.cpu(), os.path.join(
-                    path, f"{shape[0]}x{shape[1]}.pt"))
-            _, pack, cam = setup(scene, res, res, dev)
-            fn = prender.build_sharded_render(scene.meta, mesh, res, res,
-                                              SHARD_SPP,
-                                              max_depth=SHARD_DEPTH,
-                                              device=dev)
-            calls = []
-            with torch.no_grad(), recorded_calls(calls, per_wave):
-                part = fn.partial(pack, cam)
-            note(f"{shape} partial film")
-            calls = [c for c in calls if shape == PLAIN_LAYOUT
-                     or c[0] != "intersect_wide"]
-            out["layouts"][shape] = {
-                "launches": launches, "wall": wall, "coord": (fn.ip, fn.isp),
-                "partial": part.cpu(), "plain": replay_plain(calls)}
-            del calls, part, img
-            note(f"{shape} kernel calls replayed through the plain versions")
-        mesh = pmesh.make_mesh(2, 1, ranks=[0, 1], device=dev)
-        if rank < 2:
-            out["train"] = train_steps(scene, mesh, dev, res)[0]
-            note("(2, 1) train steps")
-        out["rows"] = multihost.scaling_report(
-            scene, res, res, SHARD_SPP, rank_counts=[1, 2, 4],
-            max_depth=SHARD_DEPTH, device=dev)
-        note("scaling report")
-        out["graphs"] = [(e.lanes, e.pool_bytes)
-                         for e in graph_mod.CACHE.entries.values()]
-    finally:
-        dist.destroy_process_group()
-    torch.save(out, os.path.join(path, f"rank{rank}.pt"))
-
-
-def run_card_ranks(path, scene, dev_type, res) -> list:
-    """card_rank in CARD_RANKS spawned processes; their results in rank
-    order. Raises if a rank raises or the world outlives CARD_DEADLINE_S
-    (every rank killed)."""
-    ctx = torch.multiprocessing.start_processes(
-        card_rank, args=(path, scene, dev_type, res), nprocs=CARD_RANKS,
-        join=False, start_method="spawn")
-    end = time.monotonic() + CARD_DEADLINE_S
-    try:
-        while not ctx.join(timeout=5.0):
-            if time.monotonic() > end:
-                raise TimeoutError(f"the {CARD_RANKS}-rank world outlived "
-                                   f"{CARD_DEADLINE_S} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join(5.0)
-    return [torch.load(os.path.join(path, f"rank{r}.pt"))
-            for r in range(CARD_RANKS)]
+    dev = pmesh.rank_device(dev_type)
+    scene = scene.to(dev)
+    lights = sum(1 for lt in scene.meta.lights if not lt.static_black)
+    per_wave = sum(sharded_launches((1, SHARD_SPP), lights).values())
+    out = {"layouts": {}}
+    for shape, ranks in CARD_LAYOUTS.items():
+        mesh = pmesh.make_mesh(*shape, ranks=ranks, device=dev)
+        if mesh.get_coordinate() is None:
+            continue
+        frame = lambda graph=None: prender.render_sharded(
+            scene, res, res, SHARD_SPP, mesh, max_depth=SHARD_DEPTH,
+            clamp=False, device=dev, graph=graph)
+        frame(True)  # warm-up: captures this layout's wave
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        img = frame()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        note(f"{shape} frame in {wall:.3f} s")
+        if rank == 0:
+            out.setdefault("frames", {})[shape] = img.cpu()
+        _, pack, cam = setup(scene, res, res, dev)
+        fn = prender.build_sharded_render(scene.meta, mesh, res, res,
+                                          SHARD_SPP,
+                                          max_depth=SHARD_DEPTH,
+                                          device=dev)
+        calls = []
+        with torch.no_grad(), recorded_calls(calls, per_wave):
+            part = fn.partial(pack, cam)
+        note(f"{shape} partial film")
+        calls = [c for c in calls if shape == PLAIN_LAYOUT
+                 or c[0] != "intersect_wide"]
+        out["layouts"][shape] = {
+            "launches": launches, "wall": wall, "coord": (fn.ip, fn.isp),
+            "partial": part.cpu(), "plain": replay_plain(calls)}
+        del calls, part, img
+        note(f"{shape} kernel calls replayed through the plain versions")
+    mesh = pmesh.make_mesh(2, 1, ranks=[0, 1], device=dev)
+    if rank < 2:
+        out["train"] = train_steps(scene, mesh, dev, res)[0]["graphed"]
+        note("(2, 1) graphed train steps")
+    out["rows"] = multihost.scaling_report(
+        scene, res, res, SHARD_SPP, rank_counts=[1, 2, 4],
+        max_depth=SHARD_DEPTH, device=dev)
+    note("scaling report")
+    out["graphs"] = [(e.inputs[-1].shape[0], e.pool_bytes)
+                     for e in graph_mod.CACHE.entries.values()]
+    out["grad_graphs"] = [e.graphs.pool_bytes for e in
+                          graph_mod.GRAD_CACHE.entries.values()]
+    return out
 
 
 def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
@@ -2308,17 +2594,18 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
     render_sharded equal to render_fn's frame bit for bit, with the exact
     launch counts, traced (counted_frame); its wall time and rays/s in turns with render()'s
     frame (a warm-up each, then 3 samples each, medians), its peak memory.
-    (c) build_train_step at (1, 1): the step's partial film launches one
-    wave's kernels and its backward none, its gradient equals
-    diff.params.value_and_grad's (GRAD_RTOL; both under deterministic()),
-    three steps with the loss falling. (b) CARD_RANKS gloo ranks sharing the card (card_rank), the
+    (c) build_train_step at (1, 1), graphed and eager in TRAIN_TURNS
+    (train_steps): the step's partial film launches one wave's kernels and
+    its backward none, as the graphs' kernel nodes count them; under
+    deterministic() the graphed step equals the eager one bit for bit and
+    its gradient diff.params.value_and_grad's within GRAD_RTOL. (b) CARD_RANKS gloo ranks sharing the card (card_rank), the
     scene and kernels built here: (2, 1) and (4, 1) frames equal to (a)'s
     bit for bit, (2, 2) and (1, 4) within SPP_ATOL; exact launches per
     rank; every rank's partial film equal bit for bit to the sum of its
     samples' waves on its block as the single-card path computes them;
-    their recorded kernel calls equal to the plain versions'; (2, 1) train
-    losses within TRAIN_RTOL of (1, 1)'s; (d) the scaling report. Returns
-    a summary dict."""
+    their recorded kernel calls equal to the plain versions'; (2, 1)
+    graphed train losses within TRAIN_RTOL of (1, 1)'s; (d) the scaling
+    report; (e) dryrun_multichip(CARD_RANKS). Returns a summary dict."""
     scene = bunny_scene()
     sdev = scene.to(dev)
     lights = sum(1 for lt in scene.meta.lights if not lt.static_black)
@@ -2380,7 +2667,7 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
         del img, fn
 
         train, (rend, tpack, tcam, params, target) = train_steps(
-            sdev, mesh, dev, res)
+            sdev, mesh, dev, res, TRAIN_TURNS)
         leaves = {k: v.detach().clone().requires_grad_(True)
                   for k, v in params.items()}
         reset_launches()
@@ -2393,9 +2680,12 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
         bwd = launch_counts()
         del part, leaves
         want1 = sharded_launches((1, SHARD_SPP), lights)
-        if fwd != want1 or any(bwd.values()):
+        nodes = train["graphed"]["capture"]["nodes"]
+        if fwd != want1 or any(bwd.values()) or nodes != {
+                "forward": want1, "backward": dict.fromkeys(want1, 0)}:
             raise AssertionError(f"train launches: forward {fwd} (expected "
-                                 f"{want1}), backward {bwd} (expected none)")
+                                 f"{want1}), backward {bwd} (expected none); "
+                                 f"the graphs' kernel nodes {nodes}")
         fn1, pk1 = render_fn(sdev, res, res, 1, max_depth=SHARD_DEPTH,
                              device=dev)
         timg = target.view(res, res, 3)
@@ -2406,35 +2696,55 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
             if launch_counts() != want1:
                 raise AssertionError(f"a gradient launched {launch_counts()}"
                                      f", one forward wave is {want1}")
+            graphed = ptrain.GraphedValueAndGrad(rend, tpack, tcam, params,
+                                                 target)
+            loss_g, g_g = graphed((params, target))
             loss_1, g_1 = dparams.value_and_grad(
                 lambda p: torch.mean((fn1(dparams.with_params(pk1, p))
                                       - timg) ** 2), params)
-        rel = float(((g_s["mat_c0"] - g_1["mat_c0"]).abs()
+            graphed.release()
+        if not (torch.equal(loss_g, loss_s)
+                and torch.equal(g_g["mat_c0"], g_s["mat_c0"])):
+            raise AssertionError("under deterministic algorithms the graphed "
+                                 "train step's loss or gradient differs from "
+                                 "the eager step's")
+        rel = float(((g_g["mat_c0"] - g_1["mat_c0"]).abs()
                      / g_1["mat_c0"].abs().clamp_min(1e-30)).max())
-        if not torch.allclose(g_s["mat_c0"], g_1["mat_c0"], rtol=GRAD_RTOL,
+        if not torch.allclose(g_g["mat_c0"], g_1["mat_c0"], rtol=GRAD_RTOL,
                               atol=0.0):
             raise AssertionError(f"sharded gradient differs from "
                                  f"value_and_grad's (max rel {rel:.3e})")
-        out["train_1x1"] = train | {"grad_rel": rel, "loss": loss_s,
-                                    "loss_single": loss_1}
+        out["train_1x1"] = train | {"grad_rel": rel, "loss": float(loss_g),
+                                    "loss_single": float(loss_1)}
+        gr, ea = train["graphed"], train["eager"]
+        med = {k: float(np.median(r["ms"][int(k == "graphed"):]))
+               for k, r in (("graphed", gr), ("eager", ea))}
+        out["train_1x1"]["median_ms"] = med
         print(f"(c) build_train_step (1, 1), {res}^2 1 spp depth "
               f"{SHARD_DEPTH}, mat_c0 from red albedo (0.9, 0.1, 0.7), lr "
-              f"{FIT_LR}: losses {train['losses']}, ms per step "
-              f"{[round(x, 1) for x in train['ms']]}, peak memory "
-              f"{train['peak_bytes']} bytes; the partial film launches {fwd},"
-              f" its backward {bwd}; loss {loss_s} vs value_and_grad's "
-              f"{loss_1}, gradient within {rel:.3e} relative [{smi}]",
-              flush=True)
+              f"{FIT_LR}, steps in turns {TRAIN_TURNS} (True graphed): "
+              f"graphed losses {gr['losses']}, ms per step "
+              f"{[round(x, 1) for x in gr['ms']]} (the first its capture: "
+              f"warm-ups {gr['capture']['warmup_s']:.3f} s, capture "
+              f"{gr['capture']['capture_s']:.3f} s, pool "
+              f"{gr['capture']['pool_bytes']} bytes); eager losses "
+              f"{ea['losses']}, ms per step {[round(x, 1) for x in ea['ms']]};"
+              f" medians graphed {med['graphed']:.1f} (replays), eager "
+              f"{med['eager']:.1f} ms; peak memory {train['peak_bytes']} "
+              f"bytes; the partial film launches {fwd}, its backward {bwd}, "
+              f"the graphs' kernel nodes {nodes}; under deterministic "
+              f"algorithms the graphed step equals the eager one bit for bit, "
+              f"loss {float(loss_g)} vs value_and_grad's {float(loss_1)}, "
+              f"gradient within {rel:.3e} relative [{smi}]", flush=True)
         del rend, tpack, tcam, params, target, fn1, pk1, g_s, g_1
     finally:
         dist.destroy_process_group()
 
-    with tempfile.TemporaryDirectory() as path:
-        t0 = time.perf_counter()
-        ranks = run_card_ranks(path, scene, dev.type, res)
-        world_s = time.perf_counter() - t0
-        imgs = {shape: torch.load(os.path.join(
-            path, f"{shape[0]}x{shape[1]}.pt")) for shape in CARD_LAYOUTS}
+    t0 = time.perf_counter()
+    ranks = multihost.spawn(card_rank, CARD_RANKS, scene, dev.type, res,
+                            deadline_s=CARD_DEADLINE_S, timeout=RANK_TIMEOUT)
+    world_s = time.perf_counter() - t0
+    imgs = ranks[0]["frames"]
     ref = ref.cpu()
     out["layouts"] = {}
     for shape, img in imgs.items():
@@ -2478,14 +2788,14 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
               f" walls {[round(r['wall_s'], 3) for r in rows]} s [{smi}]",
               flush=True)
     losses = ranks[0]["train"]["losses"]
-    base = out["train_1x1"]["losses"]
+    base = out["train_1x1"]["graphed"]["losses"]
     if not all(abs(a - b) <= TRAIN_RTOL * abs(b) for a, b in zip(losses, base)):
         raise AssertionError(f"(2, 1) train losses {losses} vs (1, 1) {base}")
     out["train_2x1"] = ranks[0]["train"]
-    print(f"(c) build_train_step (2, 1) over gloo on the card: losses "
+    print(f"(c) build_train_step (2, 1) over gloo on the card, graphed: losses "
           f"{losses} (1, 1): {base}; ms per step "
-          f"{[round(x, 1) for x in ranks[0]['train']['ms']]} [{smi}]",
-          flush=True)
+          f"{[round(x, 1) for x in ranks[0]['train']['ms']]} (the first its "
+          f"capture) [{smi}]", flush=True)
     rows = ranks[0]["rows"]
     out["scaling"], out["world_s"] = rows, world_s
     print(f"(d) scaling_report, bunny {res}^2 spp {SHARD_SPP} depth "
@@ -2493,9 +2803,17 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
           f"machinery, not of scaling) [{smi}]:\n"
           + multihost.format_scaling_table(rows), flush=True)
     out["graphs"] = [r["graphs"] for r in ranks]
+    out["grad_graphs"] = [r["grad_graphs"] for r in ranks]
     print(f"the {CARD_RANKS}-rank world took {world_s:.1f} s, start-up "
           f"included; each rank's cached graphs at its end, (lanes, pool "
-          f"bytes): {out['graphs']} [{smi}]", flush=True)
+          f"bytes): {out['graphs']}; its gradient graphs' pool bytes: "
+          f"{out['grad_graphs']} [{smi}]", flush=True)
+    t0 = time.perf_counter()
+    out["dryrun_loss"] = dryrun_multichip(CARD_RANKS)
+    out["dryrun_s"] = time.perf_counter() - t0
+    print(f"(e) dryrun_multichip({CARD_RANKS}): gloo ranks sharing the card, "
+          f"one graphed train step, in {out['dryrun_s']:.1f} s, start-up "
+          f"included [{smi}]", flush=True)
     return out
 
 
@@ -2538,7 +2856,7 @@ def compiled_phase(cases, dev, smi: str) -> dict:
             first[graph] = (time.perf_counter() - t0,
                             len(graph_mod.CACHE.entries))
         first_s = first[True][0]
-        captured = [{"lanes": e.lanes, "warmup_s": e.warmup_s,
+        captured = [{"lanes": e.inputs[-1].shape[0], "warmup_s": e.warmup_s,
                      "capture_s": e.capture_s, "pool_bytes": e.pool_bytes,
                      "replay_launches": {k: v for k, v in e.launches.items()
                                          if v}}
@@ -2729,6 +3047,8 @@ def main() -> int:
     print(f"phase 13 took {compiled['phase_s']:.1f} s", flush=True)
     print(json.dumps({"graph": compiled}), flush=True)
 
+    print(f"chip_smoke.py took {time.perf_counter() - _START:.1f} s",
+          flush=True)
     k_ms, p_ms, p_rays = sweep_times["instanced"]["closest"]
     # no single PyTorch call computes any of these functions (BVH
     # traversal, K3's min-sum epilogue, K4's dependent recurrences, the

@@ -6,8 +6,8 @@ PyTorch; BVH traversal and the random streams' Threefry hash are CUDA
 kernels written for Hopper (csrc/), built with nvcc at first use, each
 with a plain PyTorch version as its CPU route and oracle. Entry points
 (render, render_resumable, render_sharded, `python -m
-jet_pbrt_tpu_torch.cli`) run on the card unless the caller asks for the
-CPU (device="cpu", --device cpu).
+jet_pbrt_tpu_torch.cli`, entry.entry, entry.dryrun_multichip) run on the
+card unless the caller asks for the CPU (device="cpu", --device cpu).
 
 Layout mirrors the reference package:
   ops/      linalg, rng (jax.random's streams), sampling, fresnel,
@@ -17,12 +17,13 @@ Layout mirrors the reference package:
   scene/    pack, builder, scenes, convert (reference scene -> port),
             objio (OBJ I/O), assets (the bunny generator)
   models/   camera, integrators (path, Whitted, debug normals), film,
-            render
-  diff/     params (value_and_grad, fit), gradcheck
+            render, graph (CUDA graphs of waves and gradients)
+  diff/     params (value_and_grad, compile_value_and_grad, fit),
+            gradcheck
   parallel/ mesh (a (px, spp) DeviceMesh over ranks), render (sharded
             frames), train (the distributed fit), multihost
-            (torch.distributed init, host-aware meshes, scaling report):
-            one process per device over torch.distributed
+            (torch.distributed init, host-aware meshes, scaling report,
+            spawn): one process per device over torch.distributed
   scripts/  the harnesses: sweep_prims (the sweep's primitives),
             prim_micro (the wide kernel's primitive probes)
   utils/    cuda_build (nvcc + ctypes), native (ctypes bridge to the C++ host
@@ -30,6 +31,7 @@ Layout mirrors the reference package:
   csrc/     CUDA sources: wide_bvh, sweep_bvh, sweep_prims, prim_micro,
             threefry
   cli.py    the command-line renderer
+  entry.py  entry points: one wave; one sharded train step
 """
 import torch
 

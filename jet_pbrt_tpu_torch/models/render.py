@@ -110,15 +110,10 @@ def frame_wave_fn(device: torch.device, graph: bool | None, *args, **kw):
     capturing at a shape's first call; where graph is False (the
     counterpart of `jax.disable_jit()`), or None on the CPU, wave_fn(*args,
     **kw). graph=True off the card raises."""
-    if graph is None and device.type != "cuda":
-        graph = False
-    if graph and device.type != "cuda":
-        raise ValueError(f"graph=True: a CUDA graph runs on the card, not on "
-                         f"{device}")
-    if graph is False:
+    after = graph_mod.capture_after(graph, device)
+    if after is None:
         return wave_fn(*args, **kw)
-    return compiled_wave_fn(*args, **kw, capture_after=(
-        0 if graph else graph_mod.CAPTURE_AFTER))
+    return compiled_wave_fn(*args, **kw, capture_after=after)
 
 
 def setup(scene, width: int, height: int, device=None):

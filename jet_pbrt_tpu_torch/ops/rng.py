@@ -118,8 +118,11 @@ def lane_keys(seed: int, sample, pixel_ids: torch.Tensor) -> LaneKeys:
     [N] global pixel ids (y * width + x). The kernel for CUDA tensors,
     `lane_keys_plain` for CPU tensors."""
     pixel = pixel_ids.to(torch.int64).contiguous()
-    sample = torch.as_tensor(sample, dtype=torch.int64, device=pixel.device)
-    sample = sample.expand(pixel.shape).contiguous()
+    if torch.is_tensor(sample):
+        sample = sample.to(pixel.device, torch.int64).expand(
+            pixel.shape).contiguous()
+    else:   # made on the device: a host copy would break a CUDA graph
+        sample = torch.full_like(pixel, int(sample))
     if pixel.device.type == "cpu":
         return lane_keys_plain(seed, sample, pixel)
     if pixel.device.type != "cuda":

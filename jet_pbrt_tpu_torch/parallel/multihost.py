@@ -1,5 +1,5 @@
-"""Multi-host rendering: process-group initialization, host-aware meshes
-and a scaling-efficiency harness.
+"""Multi-host rendering: process-group initialization, host-aware meshes,
+a scaling-efficiency harness and a spawner of a world of local ranks.
 
 PyTorch counterpart of jet_pbrt_tpu/parallel/multihost.py. One process
 per device: the *pixel* axis spans hosts (film blocks never need a
@@ -12,10 +12,12 @@ from __future__ import annotations
 
 import datetime
 import os
+import tempfile
 import time
 
 import torch
 import torch.distributed as dist
+import torch.multiprocessing as tmp
 
 from ..models.render import setup
 from .mesh import make_mesh, rank_device
@@ -23,6 +25,8 @@ from .render import build_sharded_render
 
 # how long a rendezvous or a collective may wait before it fails
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
+# how long a spawned world may take, start-up included
+SPAWN_DEADLINE_S = 600.0
 
 
 def initialize(coordinator_address: str | None = None,
@@ -147,3 +151,44 @@ def format_scaling_table(rows: list[dict]) -> str:
             f"{r['speedup']:.2f}x | {100 * r['efficiency']:.0f}% |"
         )
     return "\n".join(lines)
+
+
+def _spawned_rank(rank, world, path, backend, timeout, fn, args):
+    os.environ["LOCAL_RANK"] = str(rank)
+    if backend == "nccl":
+        torch.cuda.set_device(rank_device())
+    dist.init_process_group(backend, init_method=f"file://{path}/init",
+                            world_size=world, rank=rank, timeout=timeout)
+    try:
+        out = fn(rank, *args)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(path, f"rank{rank}.pt"))
+
+
+def spawn(fn, world: int, *args, backend: str = "gloo",
+          deadline_s: float = SPAWN_DEADLINE_S,
+          timeout=DEFAULT_TIMEOUT) -> list:
+    """fn(rank, *args) in each of `world` spawned processes of one process
+    group (`backend`; a file:// rendezvous in a temporary directory; each
+    rank's LOCAL_RANK set, so mesh.rank_device gives it card rank % count
+    on the card); returns the ranks' results in rank order. fn must be a
+    module-level function of a module the ranks can import. Raises if a
+    rank raises or the world outlives deadline_s (its ranks killed)."""
+    with tempfile.TemporaryDirectory() as path:
+        ctx = tmp.start_processes(
+            _spawned_rank, args=(world, path, backend, timeout, fn, args),
+            nprocs=world, join=False, start_method="spawn")
+        end = time.monotonic() + deadline_s
+        try:
+            while not ctx.join(timeout=5.0):
+                if time.monotonic() > end:
+                    raise TimeoutError(f"a {world}-rank world outlived "
+                                       f"{deadline_s} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(5.0)
+        return [torch.load(os.path.join(path, f"rank{r}.pt"))
+                for r in range(world)]

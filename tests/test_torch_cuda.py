@@ -37,8 +37,16 @@ compiled wave raise; render_resumable under the graph equals the
 uninterrupted render; on render()'s default a shape is captured after
 its eager calls, and its graph's kernel nodes, read through the CUDA driver API,
 count what an eager wave launches.
+The graphed gradients (models/graph.py, diff/params.py, parallel/train.py):
+compile_value_and_grad of a 2-spp frame on the Cornell box and on the
+sweep-routed scene, its loss bit for bit with eager value_and_grad's and,
+under deterministic algorithms, its gradients too (else within float32's
+default tolerances: the atomic adds reorder); build_train_step graphed against eager at (1, 1)
+over NCCL; a failed capture raises and caches nothing.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -565,7 +573,7 @@ def _rank_sharded(rank, scene, world):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("backend,world", [("nccl", 1), ("gloo", 2)])
-def test_sharded_render_on_card_equals_render_fn(backend, world, tmp_path):
+def test_sharded_render_on_card_equals_render_fn(backend, world):
     """render_sharded at 64^2, 2 spp, depth 3 on a (world, 1) mesh of ranks
     on the card (NCCL at one rank; gloo for two ranks sharing the card)
     equals render_fn's frame on the card bit for bit, on every rank. The
@@ -578,7 +586,7 @@ def test_sharded_render_on_card_equals_render_fn(backend, world, tmp_path):
     fn, pk = render_fn(scene, 64, 64, 2, seed=3, max_depth=3, device="cuda")
     with torch.no_grad():
         ref = fn(pk).cpu()
-    for img in run_world(_rank_sharded, world, tmp_path, scene, world,
+    for img in run_world(_rank_sharded, world, scene, world,
                          backend=backend):
         assert torch.equal(img, ref)
 
@@ -733,4 +741,170 @@ def test_default_captures_after_eager_calls_on_card(monkeypatch):
     names = G.kernel_names(entry.graph)
     assert sum(is_function(n, "wide_cull_kernel") for n in names) \
         == eager[0], sorted(set(names))
+    G.clear()
+
+
+@contextlib.contextmanager
+def _deterministic(on: bool):
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(on, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was)
+
+
+def _held_to_eager(got, eager, deterministic: bool):
+    """A graphed (loss, grads) against eager ones of the same params: the
+    loss bit for bit; the gradients bit for bit under deterministic
+    algorithms, else within torch.testing's float32 tolerances: the
+    backward's atomic adds sum in another order on every run, and a
+    replayed graph's order need not be an eager run's (at 16^2 six eager
+    gradients lay within 2^-36 of each other and the graphed one 2^-35
+    from them; chip_smoke.py holds the graphed gradient to the eager runs'
+    spread at the main path's size)."""
+    (val, g), (val0, g0) = got, eager
+    assert torch.equal(val, val0), (float(val), float(val0))
+    for k in g0:
+        if deterministic:
+            assert torch.equal(g[k], g0[k]), k
+        else:
+            torch.testing.assert_close(g[k], g0[k])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "deterministic"])
+@pytest.mark.parametrize("which", ["cornell", "sweep"])
+def test_graphed_value_and_grad_on_card(which, mode, monkeypatch):
+    """compile_value_and_grad of a 16^2, 2-spp, depth-3 render_fn loss in
+    albedo, roughness and emission (the Cornell box by brute force; the
+    textured instanced scene forced onto the sweep kernel): the capturing
+    call, two replays and a replay of other params, each held to eager
+    value_and_grad's (_held_to_eager); the graph's kernel nodes are the
+    eager forward's launches, which each replay counts (the capturing call
+    counts its GRAD_WARMUPS eager warm-ups); one cache entry, released by
+    vg.release()."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.diff import params as P
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import render_fn
+    fn, pack = render_fn(_graph_scene(which, monkeypatch), 16, 16, 2, seed=1,
+                         max_depth=3, device="cuda")
+    with torch.no_grad():
+        target = fn(pack._replace(light_c=pack.light_c * 1.2))
+    f = P.loss_fn(fn, pack, target)
+    params = P.get_params(pack, ("mat_c0", "mat_s0", "light_c"))
+    G.clear()
+    with _deterministic(mode == "deterministic"):
+        vg = P.compile_value_and_grad(f)
+        for call, scale in enumerate((1.0, 1.0, 1.0, 0.8)):
+            p = {k: v * scale for k, v in params.items()}
+            before = _launches()
+            eager = P.value_and_grad(f, p)
+            launched = tuple(a - b for a, b in zip(_launches(), before))
+            before = _launches()
+            val, g = vg(p)
+            torch.cuda.synchronize()
+            # the capturing call's warm-ups launch, its capture does not
+            runs = G.GRAD_WARMUPS if call == 0 else 1
+            assert tuple(a - b for a, b in zip(_launches(), before)) \
+                == tuple(runs * n for n in launched)
+            _held_to_eager((val.clone(), {k: x.clone() for k, x in g.items()}),
+                           eager, mode == "deterministic")
+        entry = next(iter(G.GRAD_CACHE.entries.values()))
+        assert len(G.GRAD_CACHE.entries) == 1 and entry.pool_bytes > 0
+        assert (entry.launches["wide_walk_kernel"],
+                entry.launches["sweep_bvh_kernel"],
+                entry.launches["lane_keys_kernel"]
+                + entry.launches["uniforms_kernel"]) == launched
+        assert launched[0] == 0 and launched[2] > 0
+        assert (launched[1] > 0) == (which == "sweep")
+        vg.release()
+        assert not G.GRAD_CACHE.entries
+    G.clear()
+
+
+def _rank_train_graphed(rank, scene, mode):
+    """Three steps at (1, 1) graphed (graph=True) and eager (graph=False)
+    from one wrong albedo: (losses and params of each, the graphed entry's
+    launches per replay and pool bytes)."""
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.parallel.mesh import make_mesh
+    from jet_pbrt_tpu_torch.parallel.train import build_train_step
+    mesh = make_mesh(1, 1)
+    out = {}
+    with _deterministic(mode == "deterministic"):
+        for graph in (True, False):
+            step, init, render, cam = build_train_step(
+                scene, mesh, 16, 16, 2, fields=("mat_c0", "light_c"),
+                lr=0.5, max_depth=3, graph=graph)
+            target = render.frame(scene.pack.to("cuda"), cam)
+            params = init()
+            params["mat_c0"] = params["mat_c0"] * 0.5 + 0.1
+            losses = []
+            for _ in range(3):
+                params, loss = step(params, target)
+                losses.append(loss.cpu())
+            out[graph] = (losses, {k: v.cpu() for k, v in params.items()})
+        entry = next(iter(G.GRAD_CACHE.entries.values()))
+        out["entry"] = (entry.graphs.launches, entry.graphs.pool_bytes)
+    G.clear()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["default", "deterministic"])
+def test_graphed_train_step_on_card(mode):
+    """build_train_step at (1, 1) over NCCL on the textured instanced scene
+    (wide route), 16^2, 2 spp, depth 3: three graphed steps against three
+    eager ones. The first loss is bit for bit in both modes (the forward
+    is); under deterministic algorithms every loss and the fitted params
+    too. The forward graph holds the wave's kernels, the backward graph
+    none; the pool holds the tape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from test_torch_multihost import run_world
+    (got,) = run_world(_rank_train_graphed, 1, _grad_scene(), mode,
+                       backend="nccl")
+    (gl, gp), (el, ep) = got[True], got[False]
+    assert torch.equal(gl[0], el[0]) and gl[0] > 0
+    if mode == "deterministic":
+        assert all(torch.equal(a, b) for a, b in zip(gl, el))
+        assert all(torch.equal(gp[k], ep[k]) for k in ep)
+    else:
+        np.testing.assert_allclose(torch.stack(gl).numpy(),
+                                   torch.stack(el).numpy(), rtol=1e-5)
+    launches, pool = got["entry"]
+    assert launches["forward"]["wide_walk_kernel"] > 0
+    assert launches["forward"]["lane_keys_kernel"] == 2
+    assert not any(launches["backward"].values()) and pool > 0
+
+
+@pytest.mark.cuda
+def test_failed_gradient_capture_raises_and_caches_nothing():
+    """A loss that copies host data to the card inside its forward cannot
+    be captured: the compiled value_and_grad raises at its capture, and
+    again at the next call (nothing falls back to the eager path); no cache
+    entry is left and the launch counters are as before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.diff import params as P
+    from jet_pbrt_tpu_torch.models import graph as G
+
+    def f(params):
+        shift = torch.tensor([0.25], device="cuda")  # a host copy
+        return ((params["a"] + shift) ** 2).sum()
+
+    G.clear()
+    vg = P.compile_value_and_grad(f)
+    params = {"a": torch.linspace(0, 1, 8, device="cuda")}
+    before = _launches()
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="capture"):
+            vg(params)
+        assert not G.GRAD_CACHE.entries
+    assert _launches() == before
+    val, g = P.value_and_grad(f, params)
+    assert torch.allclose(g["a"], 2 * (params["a"] + 0.25))
     G.clear()

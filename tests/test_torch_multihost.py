@@ -13,12 +13,10 @@ or collective fails its test rather than stalling the run.
 import datetime
 import os
 import sys
-import time
 
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as tmp
 
 from jet_pbrt_tpu_torch.parallel import multihost as MH
 from jet_pbrt_tpu_torch.parallel.mesh import make_mesh
@@ -31,55 +29,35 @@ WORLD_DEADLINE = 240.0
 RANK_TIMEOUT = datetime.timedelta(seconds=120)
 
 
-def _rank_main(rank, world, path, backend, fn, args):
+def _checked(rank, fn, args):
+    """fn(rank, *args) in a rank that imported no JAX."""
     torch.set_num_threads(1)
-    if backend == "nccl":
-        torch.cuda.set_device(0)
-    dist.init_process_group(backend, init_method=f"file://{path}/init",
-                            world_size=world, rank=rank, timeout=RANK_TIMEOUT)
-    try:
-        jax = sorted(k for k in sys.modules
-                     if k.split(".")[0] in ("jax", "jaxlib", "jet_pbrt_tpu"))
-        if jax:
-            raise AssertionError(f"a rank imported {jax}")
-        out = fn(rank, *args)
-    finally:
-        dist.destroy_process_group()
-    torch.save(out, os.path.join(path, f"rank{rank}.pt"))
+    jax = sorted(k for k in sys.modules
+                 if k.split(".")[0] in ("jax", "jaxlib", "jet_pbrt_tpu"))
+    if jax:
+        raise AssertionError(f"a rank imported {jax}")
+    return fn(rank, *args)
 
 
-def run_world(fn, world: int, path, *args, backend: str = "gloo",
+def run_world(fn, world: int, *args, backend: str = "gloo",
               env=None) -> list:
     """fn(rank, *args) in each of `world` spawned ranks of one process group
-    (file:// rendezvous under `path`, a test's tmp_path); returns the ranks'
-    results in rank order. fn must live in a JAX-free module. Raises if a
-    rank raises or the world outlives WORLD_DEADLINE (its ranks killed)."""
+    (multihost.spawn: a file:// rendezvous in a temporary directory),
+    returns the ranks' results in rank order. fn must live in a JAX-free
+    module, and each rank checks it imported no JAX. Raises if a rank
+    raises or the world outlives WORLD_DEADLINE (its ranks killed). env:
+    variables the ranks start with, restored here after the world."""
     saved = {k: os.environ.get(k) for k in (env or {})}
     os.environ.update(env or {})
     try:
-        ctx = tmp.start_processes(_rank_main,
-                                  args=(world, str(path), backend, fn, args),
-                                  nprocs=world, join=False,
-                                  start_method="spawn")
+        return MH.spawn(_checked, world, fn, args, backend=backend,
+                        deadline_s=WORLD_DEADLINE, timeout=RANK_TIMEOUT)
     finally:
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k)
             else:
                 os.environ[k] = v
-    end = time.monotonic() + WORLD_DEADLINE
-    try:
-        while not ctx.join(timeout=5.0):
-            if time.monotonic() > end:
-                raise TimeoutError(f"a {world}-rank world outlived "
-                                   f"{WORLD_DEADLINE} s")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.kill()
-            p.join(5.0)
-    return [torch.load(os.path.join(path, f"rank{r}.pt"))
-            for r in range(world)]
 
 
 def _lambert():
@@ -107,9 +85,9 @@ def _rank_multihost(rank, scene):
 
 
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
-    return run_world(_rank_multihost, 4, tmp_path_factory.mktemp("world"),
-                     _lambert(), env={"LOCAL_WORLD_SIZE": "2"})
+def world():
+    return run_world(_rank_multihost, 4, _lambert(),
+                     env={"LOCAL_WORLD_SIZE": "2"})
 
 
 def test_initialize_single_process_noop(monkeypatch):

@@ -99,13 +99,12 @@ def _reference():
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs():
     """(the ranks' results, the reference's): the world runs while the
     reference compiles."""
     scene = tscenes.cornell_box(lambert_only=True, use_bvh=False)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        world = pool.submit(run_world, _rank_render, 4,
-                            tmp_path_factory.mktemp("world"), scene)
+        world = pool.submit(run_world, _rank_render, 4, scene)
         ref = _reference()
         ranks = world.result()
     return ranks, ref

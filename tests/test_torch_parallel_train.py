@@ -54,7 +54,7 @@ def _rank_train(rank, scene, wrong):
         params, losses = {"mat_c0": wrong}, []
         for _ in range(steps):
             params, loss = step(params, target)
-            losses.append(loss)
+            losses.append(float(loss))
         out[shape] = {"losses": losses, "fitted": params["mat_c0"],
                       "init": init()["mat_c0"]}
     mesh = make_mesh(1, 1, ranks=[0], device="cpu")
@@ -102,7 +102,7 @@ def _reference(js, wrong):
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs():
     """(the ranks' results, the reference's): the world runs while the
     reference compiles."""
     from jet_pbrt_tpu.scene import scenes as jscenes
@@ -116,8 +116,7 @@ def runs(tmp_path_factory):
              else np.asarray(v)) for f, v in zip(js.pack._fields, js.pack)},
         js.camera)
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        world = pool.submit(run_world, _rank_train, 4,
-                            tmp_path_factory.mktemp("world"), scene,
+        world = pool.submit(run_world, _rank_train, 4, scene,
                             torch.from_numpy(wrong))
         ref = _reference(js, wrong)
         ranks = world.result()
@@ -161,6 +160,8 @@ def test_train_gradient_equals_value_and_grad(runs):
     """At (1, 1) the sharded step's loss and gradient are the single-card
     ones of mean((render_fn(pack) - target)^2)."""
     (loss, g), (loss1, g1) = runs[0][0]["sharded"], runs[0][0]["single"]
+    assert loss.dim() == 0 and loss1.dim() == 0
+    loss, loss1 = float(loss), float(loss1)
     assert abs(loss - loss1) <= 1e-6 * loss1
     assert float(g["mat_c0"].abs().max()) > 0
     np.testing.assert_allclose(g["mat_c0"].numpy(), g1["mat_c0"].numpy(),

@@ -134,8 +134,8 @@ def test_render_defaults_to_the_card(monkeypatch):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """Every module of the port (diff/, ops/texture.py and parallel/ among
-    them),
+    """Every module of the port (diff/, ops/texture.py, parallel/ and
+    entry.py among them),
     chip_smoke.py, sweep_ab.py, a render, a gradient of a textured
     render_fn and a bunny scene built from a generated OBJ import nothing
     of JAX and nothing of the JAX package."""
@@ -149,7 +149,8 @@ def test_port_never_imports_jax(tmp_path):
         " 'jet_pbrt_tpu_torch.diff.gradcheck',"
         " 'jet_pbrt_tpu_torch.ops.texture',"
         " 'jet_pbrt_tpu_torch.parallel.render',"
-        " 'jet_pbrt_tpu_torch.parallel.multihost'} <= set(names), names\n"
+        " 'jet_pbrt_tpu_torch.parallel.multihost',"
+        " 'jet_pbrt_tpu_torch.entry'} <= set(names), names\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke, sweep_ab\n"
