@@ -5,7 +5,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: one nvcc per kernel library of jet_pbrt_tpu_torch/csrc, all
      started together (wide_bvh, sweep_bvh, sweep_prims, prim_micro,
-     threefry), with ptxas registers and spills;
+     threefry, shade, and shade.cu's operation-counting variant,
+     COUNT_LIBRARY), with ptxas registers and spills;
   2b. the random streams' Threefry kernel (csrc/threefry.cu) against its
      plain version, bit for bit, at 2^20 lanes: the key words of
      lane_keys, and the [2^20, S] uniforms of vertex_uniforms and
@@ -15,6 +16,23 @@ Phases, each printing its result; any failure raises and exits non-zero:
      its bound from the function's integer work (threefry_work) and, as a
      diagnostic, its SASS per lane (ALU-pipe, FMA-heavy-pipe and all
      instructions, and the opcode mix);
+  2c. the fused path vertex (ops/shade.py, csrc/shade.cu): one eager
+     1-spp wave of the default bunny and the Cornell box at 1024^2 (2^20
+     lanes) and of a scene of every material, texture, light and shape
+     kind (every_kind_scene) at 256^2 on the wide route and forced onto
+     the sweep, and of a scene of 46 lights (many_lights_scene) at 256^2,
+     each recording its depth + 1 shade_vertex and depth
+     nee_accumulate calls (vertex_calls), each call held against its
+     plain version on the same inputs, every output of every lane bit for
+     bit (NaN equal to NaN; before them torch_rules prints how torch's
+     CUDA sum over 3 and cross round), then each frame on the kernel
+     route against the plain route's (plain_vertex), image and stats bit
+     for bit; phase 7 does the same on the 600k bunny. The bunny's
+     bounce-1 vertex and
+     nee_accumulate timed: events, host enqueue, the profiler's device
+     time (warm, and after an L2 flush each), the plain version, and the
+     bound from the call's bytes and its float operations, counted on its
+     inputs by the counting build (counted_ops);
   3. wide kernel vs its plain PyTorch version on the default bunny's
      tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
      half bounce) and a targeted incoherent set, closest hit and any hit
@@ -138,8 +156,16 @@ Phases, each printing its result; any failure raises and exits non-zero:
      turns after a warm-up each,
      medians and rays/s, each mode's peak memory in a frame; the 1-spp
      wave replayed and eager, profiled (wall, device time and its source,
-     busy share; the replayed wave's top operations by device time); one
-     {"graph": ...} JSON line.
+     busy share; the replayed wave's top operations by device time); the
+     1-spp wave at 1024^2 split by li_path's record_function ranges
+     (module_split: intersect, rng, vertex, occluded, nee_accumulate,
+     sort, the rest), replayed and eager, on the fused and the plain
+     vertex in turns; whether `import triton` works; one {"graph": ...}
+     JSON line.
+Phases 4, 7, 12 (the forward) and 13 count each frame's shade_vertex and
+nee_accumulate launches beside the others (expected_launches,
+sharded_launches); phases 11 and 12's gradients run the plain vertex and
+count none.
 Phases 4, 5, 7, 10, 11 and 12 run render() (and the sharded forward) on
 graphed waves: graph=True, or the default once a graph=True frame has
 captured the key; the recorders of kernel calls (phase 4's wide casts,
@@ -161,6 +187,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import ctypes
 import datetime
 import functools
 import gc
@@ -187,7 +214,9 @@ from jet_pbrt_tpu_torch.models import graph as graph_mod
 from jet_pbrt_tpu_torch.models import integrators
 from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, render, \
     render_fn, setup, wave_fn
+from jet_pbrt_tpu_torch.ops import launches as launch_registry
 from jet_pbrt_tpu_torch.ops import linalg, rng, sweep_bvh, wide_bvh
+from jet_pbrt_tpu_torch.ops import shade as shade_ops
 from jet_pbrt_tpu_torch.ops.linalg import frame_from_z, to_world
 from jet_pbrt_tpu_torch.ops.sampling import sample_cosine_hemisphere
 from jet_pbrt_tpu_torch.parallel import mesh as pmesh
@@ -216,7 +245,11 @@ PLAIN_2_18_LIMIT_S = 5.0
 LIBRARIES = (("wide_bvh", ["wide_bvh.cu"]), ("sweep_bvh", ["sweep_bvh.cu"]),
              ("sweep_prims", ["sweep_prims.cu"]),
              ("prim_micro", ["prim_micro.cu"]),
-             ("threefry", ["threefry.cu"]))
+             ("threefry", ["threefry.cu"]), ("shade", ["shade.cu"]))
+# the fused vertex built to count its float operations per lane (the
+# bound's operations on the timed call's own inputs; its flag is in
+# cuda_build.FLAGS); built beside the rest
+COUNT_LIBRARY = ("shade_count", ["shade.cu"])
 # one H100 SXM (NVIDIA's data sheet): float32 outside the tensor cores, and
 # HBM3; every float operation below counts as one against F32_PEAK
 F32_PEAK = 67e12     # FLOP/s
@@ -510,12 +543,16 @@ def reset_rng_launches():
 def launch_counts() -> dict:
     return {"wide_bvh": wide_bvh.intersect_wide.launches,
             "sweep_bvh": sweep_bvh.intersect_sweep.launches,
-            "threefry": rng_launches()}
+            "threefry": rng_launches(),
+            "shade_vertex": shade_ops.shade_vertex.launches,
+            "nee_accumulate": shade_ops.nee_accumulate.launches}
 
 
 def reset_launches():
     wide_bvh.intersect_wide.launches = 0
     sweep_bvh.intersect_sweep.launches = 0
+    shade_ops.shade_vertex.launches = 0
+    shade_ops.nee_accumulate.launches = 0
     reset_rng_launches()
 
 
@@ -709,6 +746,448 @@ def plain_streams():
         yield
     finally:
         rng.lane_keys, rng.uniforms = keys, uni
+
+
+# --------------------------------------------------------------------------
+# 2c. the fused path vertex (ops/shade.py)
+# --------------------------------------------------------------------------
+
+VERTEX_DEPTH = 5
+# written between timed calls to evict their inputs from the H100's 50 MB L2
+L2_FLUSH_BYTES = 256 << 20
+# the state, then per non-black light j: its output, and the dimension of
+# the lane in it
+VERTEX_OUTPUTS = (tuple((f, 0) for f in shade_ops.VertexState._fields)
+                  + (("useful", 1), ("contrib", 1), ("shadow_to", 1)))
+
+
+def every_kind_scene(sweep: bool = False, builder=SceneBuilder):
+    """A scene of every kind the fused vertex tells apart: every material
+    (matte, mirror, glass, plastic, metal, rough glass, phong) under GGX
+    and Beckmann, the solid, checker, nearest and bilinear image textures,
+    every light (point, directional, env, and area lights on a rect, a
+    triangle, a disk, a sphere and an emissive instance) and every shape
+    kind (rect, sphere, disk, triangle soup, instanced mesh); the
+    instanced mesh on the wide route, or on the sweep with the wide budget
+    set low while it is built. `builder` is a SceneBuilder class (the
+    reference package's makes the same scene)."""
+    budget = wide_bvh._VMEM_BUDGET
+    if sweep:
+        wide_bvh._VMEM_BUDGET = 1024
+    try:
+        g = np.random.default_rng(5)
+        b = builder("every-kind")
+        b.set_camera(lookfrom=(0, 1.5, 9), lookat=(0, 0, 0), vfov=55)
+        image = g.uniform(0, 1, (6, 8, 3)).astype(np.float32)
+        checker = b.add_checker_texture((0.8, 0.2, 0.2), (0.2, 0.2, 0.8), 3.0)
+        b.add_rect_xz(-6, 6, -6, 6, -2, b.add_matte((0.7, 0.7, 0.7),
+                                                   tex=checker))
+        b.add_sphere((2.5, -0.8, 0.5), 1.0, b.add_glass(1.5))
+        b.add_sphere((-2.5, -0.8, 0.5), 0.8, b.add_roughglass(1.4, 0.3))
+        b.add_sphere((-1.2, -1.4, 2.6), 0.5, b.add_roughglass(
+            1.3, 0.2, distribution="beckmann"))
+        b.add_sphere((1.2, -1.4, 2.6), 0.5, b.add_metal(
+            (0.2, 0.9, 1.1), (3.9, 2.4, 2.1), 0.3, 0.1,
+            distribution="beckmann"))
+        b.add_disk((0, -1.9, 2.5), (0, 1, 0), 0.8,
+                   b.add_mirror((0.9, 0.9, 0.9)))
+        b.add_mesh(g.uniform(-0.4, 0.4, (6, 3, 3)) + (0.0, 2.0, -1.0),
+                   b.add_phong((0.6, 0.6, 0.6), 20.0))
+        uvs = g.uniform(0, 1, (4, 3, 2)).astype(np.float32)
+        for k, bilinear in enumerate((False, True)):
+            b.add_mesh(g.uniform(-0.5, 0.5, (4, 3, 3))
+                       + (-3.0 + 6.0 * k, 1.0, -1.5),
+                       b.add_matte((1, 1, 1), tex=b.add_image_texture(
+                           image, bilinear=bilinear)), uvs=uvs)
+        metal = b.add_metal((0.2, 0.9, 1.1), (3.9, 2.4, 2.1), 0.25, 0.25)
+        plastic = b.add_plastic((0.5, 0.3, 0.2), (0.4, 0.4, 0.4), 0.3,
+                                tex=b.add_solid_texture((0.3, 0.6, 0.2)))
+        rough = b.add_plastic((0.2, 0.3, 0.5), (0.5, 0.5, 0.5), 0.4,
+                              remap=True, distribution="beckmann")
+        base = g.uniform(-1, 1, (200, 1, 3))
+        b.add_instanced_mesh(base + g.uniform(-0.3, 0.3, (200, 3, 3)),
+                             [((0, 0, 0), 1.0, plastic),
+                              ((0, 0, -2.5), 0.8, metal),
+                              ((3.5, 2.5, -3.0), 0.3, rough, (2, 2, 1.5))])
+        b.add_area_light(b.add_rect_xz(-1, 1, -1, 1, 4, b.add_matte(
+            (0.6, 0.6, 0.6)), flip_normal=True), (8.0, 8.0, 8.0))
+        b.add_area_light(b.add_triangle((-4, 3, -2), (-2, 3, -2), (-3, 4, -2),
+                                        b.add_matte((0.5, 0.5, 0.5))),
+                         (3.0, 2.0, 2.0))
+        b.add_area_light(b.add_disk((3, 3, 0), (-1, -0.5, 0), 0.6,
+                                    b.add_matte((0.5, 0.5, 0.5))),
+                         (1.0, 2.0, 3.0))
+        b.add_area_light(b.add_sphere((0, 3.2, 1.5), 0.3, b.add_matte(
+            (0.5, 0.5, 0.5))), (4.0, 4.0, 3.0))
+        b.add_point_light((1, 3, 2), (5.0, 5.0, 5.0))
+        b.add_directional_light((0.3, -1, 0.2), (0.5, 0.5, 0.5))
+        b.add_env_light((0.1, 0.15, 0.2))
+        scene = b.build()
+    finally:
+        wide_bvh._VMEM_BUDGET = budget
+    if builder is SceneBuilder and scene.meta.pallas_blas != (sweep,):
+        raise AssertionError("the every-kind scene is not on the route asked")
+    return scene
+
+
+def many_lights_scene(builder=SceneBuilder):
+    """A scene of 46 lights, more than one of each kind, one of them
+    black: 24 point lights on a ring, a directional and an env light,
+    area lights on 8 rects, 4 spheres, 2 disks and 2 triangles, and 4
+    emissive instances of two instanced mesh families (their triangles
+    at two offsets of the light table's emissive buffer), over a floor,
+    spheres of plastic, metal and glass and those families' other
+    instances. `builder` is a SceneBuilder class."""
+    g = np.random.default_rng(7)
+    b = builder("many-lights")
+    b.set_camera(lookfrom=(0, 4, 10), lookat=(0, 0, 0), vfov=60)
+    white = b.add_matte((0.7, 0.7, 0.7))
+    b.add_rect_xz(-8, 8, -8, 8, -1, white)
+    b.add_sphere((-2, 0, 0), 1.0, b.add_plastic((0.5, 0.3, 0.2),
+                                               (0.4, 0.4, 0.4), 0.3))
+    b.add_sphere((2, 0, 0), 1.0, b.add_metal(
+        (0.2, 0.9, 1.1), (3.9, 2.4, 2.1), 0.2, 0.2))
+    b.add_sphere((0, 0, 2), 0.7, b.add_glass(1.5))
+    for k in range(24):
+        a = 2 * np.pi * k / 24
+        b.add_point_light((5 * np.cos(a), 3 + (k % 3), 5 * np.sin(a)),
+                          (0.0, 0.0, 0.0) if k == 5 else
+                          tuple(g.uniform(0.5, 3.0, 3)))
+    b.add_directional_light((0.2, -1, -0.3), (0.3, 0.3, 0.3))
+    b.add_env_light((0.05, 0.06, 0.08))
+    for k in range(8):
+        x = -7 + 2 * k
+        b.add_area_light(b.add_rect_xz(x, x + 0.8, -6, -5, 5, white,
+                                       flip_normal=True),
+                         tuple(g.uniform(1.0, 4.0, 3)))
+    for k in range(4):
+        b.add_area_light(b.add_sphere((-3 + 2 * k, 4, 3), 0.2, white),
+                         tuple(g.uniform(2.0, 6.0, 3)))
+    for k in range(2):
+        b.add_area_light(b.add_disk((-4 + 8 * k, 2, -2), (1 - 2 * k, -1, 0),
+                                    0.5, white), (2.0, 1.5, 1.0))
+        b.add_area_light(b.add_triangle((-1 + k, 4, -3), (1 + k, 4, -3),
+                                        (k, 5, -3), white), (1.0, 2.0, 2.5))
+    for fam in range(2):
+        base = g.uniform(-1, 1, (60 + 40 * fam, 1, 3))
+        b.add_instanced_mesh(
+            base + g.uniform(-0.3, 0.3, (60 + 40 * fam, 3, 3)),
+            [((-4 + 8 * fam, 0.5, -4), 0.5, white),
+             ((-4 + 8 * fam, 3.5, -4), 0.3, white, (1.5, 1.0, 0.5)),
+             ((-2 + 4 * fam, 3.0, 4), 0.2, white, (0.5, 1.0, 1.5))])
+    return b.build()
+
+
+@contextlib.contextmanager
+def vertex_calls(out: list):
+    """While open, each call of shade_ops.shade_vertex and
+    shade_ops.nee_accumulate appends (name, args, keywords, output) to
+    `out` (the wave makes no in-place change, so the inputs are kept as
+    they were). The wrapped function counts on the name in the module
+    (functools.wraps copies the count), as recorded_calls does."""
+    saved = []
+    for name in ("shade_vertex", "nee_accumulate"):
+        inner = getattr(shade_ops, name)
+
+        @functools.wraps(inner)
+        def call(*a, _inner=inner, _name=name, **kw):
+            got = _inner(*a, **kw)
+            out.append((_name, a, kw, got))
+            return got
+
+        setattr(shade_ops, name, call)
+        saved.append((name, inner))
+    try:
+        yield out
+    finally:
+        for name, inner in saved:
+            setattr(shade_ops, name, inner)
+
+
+@contextlib.contextmanager
+def plain_vertex():
+    """While open, the plain versions stand in the wrappers' places, so
+    li_path's kernel route runs the plain vertex (a measurement only)."""
+    sv, na = shade_ops.shade_vertex, shade_ops.nee_accumulate
+    shade_ops.shade_vertex = (
+        lambda *a, lights=None: shade_ops.shade_vertex_plain(*a))
+    shade_ops.nee_accumulate = shade_ops.nee_accumulate_plain
+    try:
+        yield
+    finally:
+        shade_ops.shade_vertex, shade_ops.nee_accumulate = sv, na
+
+
+def differing_lanes(got, want, lane_dim: int):
+    """[N] bool: lanes where got and want differ in any bit (NaN equal to
+    NaN) anywhere in the lane's entries."""
+    if got.dtype == torch.bool:
+        diff = got != want
+    else:
+        diff = (got.view(torch.int32) != want.view(torch.int32)) \
+            & ~(torch.isnan(got) & torch.isnan(want))
+    diff = diff.movedim(lane_dim, 0)
+    return diff.reshape(diff.shape[0], -1).any(dim=1)
+
+
+def check_vertex_calls(label: str, calls: list) -> dict:
+    """Each recorded shade_vertex call held against shade_vertex_plain on
+    the same inputs, every output, and each nee_accumulate call against
+    nee_accumulate_plain, bit for bit (NaN equal to NaN); a differing lane
+    is printed with its inputs and both values before the run fails.
+    Returns {"vertices", "accumulates", "lanes", "max_abs_err"}."""
+    out = {"vertices": 0, "accumulates": 0, "lanes": 0, "max_abs_err": 0.0}
+    bad = []
+    for name, a, kw, got in calls:
+        if name == "shade_vertex":
+            meta, pack, hit, state, u, bounce, depth = a
+            want = shade_ops.shade_vertex_plain(meta, pack, hit, state, u,
+                                                bounce, depth)
+            pairs = [(f, getattr(got.state, f), getattr(want.state, f), 0)
+                     for f in shade_ops.VertexState._fields] + [
+                (f, getattr(got, f), getattr(want, f), 1)
+                for f in ("useful", "contrib", "shadow_to")]
+            out["vertices"] += 1
+            live = int(state.active.sum())
+            per = {}
+            for f, g, w, dim in pairs:
+                if g.shape != w.shape:
+                    raise AssertionError(
+                        f"{label} bounce {bounce} {f}: shape "
+                        f"{tuple(g.shape)} vs {tuple(w.shape)}")
+                lanes = differing_lanes(g, w, dim)
+                per[f] = int(lanes.sum())
+                if per[f]:
+                    bad.append((f, bounce, g, w, dim, lanes, hit, state, u))
+                if g.dtype != torch.bool:
+                    fin = torch.isfinite(g) & torch.isfinite(w)
+                    if fin.any():
+                        out["max_abs_err"] = max(
+                            out["max_abs_err"],
+                            float((g[fin] - w[fin]).abs().max()))
+            out["lanes"] += state.L.shape[0]
+            print(f"{label} vertex at bounce {bounce}: {state.L.shape[0]} "
+                  f"lanes, {live} live, {got.useful.shape[0]} NEE lights; "
+                  "lanes differing from the plain version by output "
+                  + ", ".join(f"{k} {v}" for k, v in per.items()),
+                  flush=True)
+        else:
+            want = shade_ops.nee_accumulate_plain(*a)
+            lanes = differing_lanes(got, want, 0)
+            out["accumulates"] += 1
+            if int(lanes.sum()):
+                bad.append(("nee_accumulate", None, got, want, 0, lanes,
+                            None, None, None))
+            print(f"{label} nee_accumulate of {a[1].shape[0]} lights: "
+                  f"{int(lanes.sum())} lanes differ", flush=True)
+    for f, bounce, g, w, dim, lanes, hit, state, u in bad[:6]:
+        for i in lanes.nonzero().flatten()[:3].tolist():
+            pick = lambda x: x.select(dim, i) if dim == 0 else x[:, i]
+            print(f"{label} {f} at bounce {bounce} lane {i}: kernel "
+                  f"{pick(g).tolist()}, plain {pick(w).tolist()}", flush=True)
+            if hit is not None:
+                print(f"  hit: valid {bool(hit.valid[i])} mat "
+                      f"{int(hit.mat_id[i])} light {int(hit.light_id[i])} "
+                      f"position {hit.position[i].tolist()} normal "
+                      f"{hit.normal[i].tolist()} wo {hit.wo[i].tolist()}; "
+                      f"active {bool(state.active[i])} beta "
+                      f"{state.beta[i].tolist()}; u {u[i].tolist()}",
+                      flush=True)
+    if bad:
+        raise AssertionError(f"{label}: the fused vertex differs from its "
+                             f"plain version in {len(bad)} outputs")
+    return out
+
+
+def vertex_bytes(meta, pack, n: int, lights: int, last: bool) -> int:
+    """Bytes one shade_vertex call must move: each input read once (the
+    hit, the lane state, the vertex's uniforms, the material, texture and
+    light tables, the light table's static part and emissive triangles)
+    and each output written once (the state, and per NEE
+    light its mask, contribution and shadow endpoint)."""
+    hit = 1 + 12 + 12 + 12 + 4 + 4 + (8 if meta.n_tex else 0)
+    state = 12 + 12 + 1 + 1 + 12 + 12
+    tables = sum(t.numel() * t.element_size() for t in (
+        pack.mat_kind, pack.mat_c0, pack.mat_c1, pack.mat_s0, pack.mat_s1,
+        pack.mat_remap, pack.mat_tex, pack.mat_mf, pack.light_c,
+        *pack.inst_em_tris, *pack.inst_em_n)) \
+        + lights * (shade_ops.TABLE_W + shade_ops.STATIC_W) * 4 + 12
+    if last:
+        return n * (hit + 12 + 1 + 1 + 12 + 12) + tables
+    u = 4 * (4 + 2 * meta.n_lights)
+    outs = 12 + 12 + 1 + 1 + 4 + 12 + 12 + lights * (1 + 12 + 12)
+    return n * (hit + state + u + outs) + tables
+
+
+def count_library():
+    lib = cuda_build.load_library(*COUNT_LIBRARY, shade_ops._declare)
+    lib.shade_count_ops.argtypes = [ctypes.c_void_p]
+    lib.shade_count_ops.restype = ctypes.c_int
+    return lib
+
+
+def counted_ops(fn, n: int, dev):
+    """(float operations fn's shade_vertex or nee_accumulate launch makes
+    on its inputs, fn's output), by the COUNT_LIBRARY build of the kernel
+    (each lane counts its own branch's operations) set in the wrappers'
+    library's place; its launches are not counted."""
+    lib = count_library()
+    counts = torch.zeros((n + 256,), dtype=torch.int64, device=dev)
+    if lib.shade_count_ops(counts.data_ptr()) != 0:
+        raise AssertionError("the counting build did not take its buffer")
+    inner = shade_ops._library
+    shade_ops._library = lambda: lib
+    try:
+        got, _ = launch_registry.counted_apart(fn)
+        torch.cuda.synchronize()
+    finally:
+        shade_ops._library = inner
+    return int(counts.sum()), got
+
+
+def same_vertex(a, b) -> bool:
+    return all(differing_lanes(x, y, 0 if x.dim() < 2 or k < 7 else 1)
+               .sum() == 0 for k, (x, y) in enumerate(zip(
+                   (*a.state, a.useful, a.contrib, a.shadow_to),
+                   (*b.state, b.useful, b.contrib, b.shadow_to))))
+
+
+def time_vertex(label, call, smi: str, reps: int = 20) -> dict:
+    """One recorded shade_vertex call and the nee_accumulate after it,
+    each kernel timed by events, host enqueue and the profiler's device
+    time (also with an L2 flush before each call), its plain version by
+    events, and its bound: the bytes it must
+    move (vertex_bytes; nee_accumulate: L and the lights' masks and
+    contributions in, L out) at HBM_BW against its float operations at
+    F32_PEAK, counted by the counting build on these inputs."""
+    (_, a, kw, got), (_, na, _, _) = call
+    meta, pack, hit, state, u, bounce, depth = a
+    n = state.L.shape[0]
+    nj = got.useful.shape[0]
+    k = lambda: shade_ops.shade_vertex(*a, **kw)
+    p = lambda: shade_ops.shade_vertex_plain(meta, pack, hit, state, u,
+                                             bounce, depth)
+    nk = lambda: shade_ops.nee_accumulate(*na)
+    npl = lambda: shade_ops.nee_accumulate_plain(*na)
+    out = {}
+    flush = torch.empty((L2_FLUSH_BYTES // 4,), dtype=torch.int32,
+                        device=state.L.device)
+    ops, counted = counted_ops(k, n, state.L.device)
+    if not same_vertex(counted, got):
+        raise AssertionError("the counting build's vertex differs from the "
+                             "kernel's")
+    nee_ops, counted = counted_ops(nk, n, state.L.device)
+    if differing_lanes(counted, nk(), 0).any():
+        raise AssertionError("the counting build's nee_accumulate differs")
+    for name, fn, plain, kernel, nbytes, flops in (
+            ("shade_vertex", k, p, "shade_vertex_kernel",
+             vertex_bytes(meta, pack, n, nj, bounce >= depth), ops),
+            ("nee_accumulate", nk, npl, "nee_accumulate_kernel",
+             n * (12 + 12) + nj * n * (1 + 1 + 12), nee_ops)):
+        ms, _ = time_ms(fn, reps)
+        ev, host, host_max, stalls, _ = time_enqueue_ms(fn, reps)
+        (src, dev_ms), = profiled_ms(fn, reps, (kernel,)).items()
+        # the same calls each after a write of L2_FLUSH_BYTES: repeated
+        # calls find their inputs in the 50 MB L2, which the bound's bytes
+        # at HBM_BW do not count on
+        cold = lambda: (flush.fill_(0), fn())
+        (_, cold_ms), = profiled_ms(cold, reps, (kernel,)).items()
+        plain_ms, _ = time_ms(plain, 3)
+        b = bound(nbytes, flops)
+        out[name] = {"ms": ms, "enqueue_ms": host, "device_ms": dev_ms,
+                     "device_cold_ms": cold_ms,
+                     "device_source": "profiler" if src == kernel else src,
+                     "plain_ms": plain_ms, "bound_ms": b[0],
+                     "bound_by": b[1], "bytes": nbytes, "flops": flops,
+                     "lanes": n, "lights": nj, "bounce": bounce}
+        print(f"{label} {name} at bounce {bounce} ({n} lanes, {nj} NEE "
+              f"lights): kernel {ms:.4f} ms by events, host enqueue "
+              f"{host:.4f} ms (largest {host_max:.4f}), device "
+              f"{dev_ms:.4f} ms ({out[name]['device_source']}), "
+              f"{cold_ms:.4f} ms after an L2 flush each; plain "
+              f"{plain_ms:.3f} ms; bound {b[0]:.4f} ms by {b[1]} ({nbytes} "
+              f"bytes, {flops} float operations, "
+              f"{flops / n:.1f} a lane) [{smi}]", flush=True)
+    return out
+
+
+def torch_rules(dev, n: int = 1 << 20) -> dict:
+    """How torch's CUDA ops round what csrc/shade.cu mirrors, on n seeded
+    rows (wide exponents, signed zeros, cancellations): for torch.sum(p,
+    -1) over 3 and torch.linalg.cross, the rows each candidate rounding
+    order misses (the kernel takes the one that misses none; its gate is
+    the kernel-vs-plain comparison, this is the diagnosis)."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    rows = lambda: (torch.randn(n, 3, generator=g)
+                    * torch.exp(3 * torch.randn(n, 3, generator=g)))
+    a, b = rows(), rows()
+    a[:1000], b[:1000] = torch.tensor([0.0, -0.0, 1.0]), torch.tensor(
+        [-1.0, 0.0, 0.0])
+    a[1000:2000], b[1000:2000] = torch.tensor([1e8, -1e8, 1.0]), 1.0
+    a[2000:3000], b[2000:3000] = -0.0, 1.0
+    a, b = a.to(dev), b.to(dev)
+    p = a * b
+    bits = lambda x: x.view(torch.int32)
+    miss = lambda x, y: int((bits(x) != bits(y)).sum())
+    total = torch.sum(p, dim=-1)
+    p0, p1, p2 = p.unbind(-1)
+    out = {"sum (p0 + p1) + p2": miss((p0 + p1) + p2, total),
+           "sum (p0 + p2) + p1": miss((p0 + p2) + p1, total),
+           "sum ((0 + p0) + p2) + (0 + p1)": miss(
+               ((0.0 + p0) + p2) + (0.0 + p1), total)}
+    c = torch.linalg.cross(a, b, dim=-1)
+    (a0, a1, a2), (b0, b1, b2) = a.unbind(-1), b.unbind(-1)
+    # float64 holds each product exactly: one rounding, as fmaf's
+    fma = lambda x, y, z: (x.double() * y.double() + z.double()).float()
+    out["cross a1 b2 - a2 b1"] = miss(torch.stack(
+        [a1 * b2 - a2 * b1, a2 * b0 - a0 * b2, a0 * b1 - a1 * b0], -1), c)
+    out["cross fmaf(a1, b2, -(a2 b1))"] = miss(torch.stack(
+        [fma(a1, b2, -(a2 * b1)), fma(a2, b0, -(a0 * b2)),
+         fma(a0, b1, -(a1 * b0))], -1), c)
+    print(f"torch's CUDA rounding on {n} rows, rows each candidate misses: "
+          + ", ".join(f"{k} {v}" for k, v in out.items()), flush=True)
+    return out
+
+
+def vertex_phase(cases, dev, smi: str, time_case: str | None = None) -> dict:
+    """For each (label, scene, res) of cases: one eager 1-spp wave at
+    res^2, depth VERTEX_DEPTH, its shade_vertex and nee_accumulate calls
+    recorded (exactly depth + 1 and depth) and each held bit for bit
+    against its plain version (check_vertex_calls); then the frame of that
+    wave on the kernel route against the plain route (plain_vertex),
+    image and stats bit for bit. On the case labelled time_case, the
+    bounce-1 vertex is timed (time_vertex). Returns {label: counts} and,
+    where timed, "times"."""
+    out = {}
+    for label, scene, res in cases:
+        kw = dict(spp=1, max_depth=VERTEX_DEPTH, seed=1, clamp=False,
+                  device=dev, graph=False, with_stats=True)
+        calls = []
+        with torch.no_grad(), vertex_calls(calls):
+            img, st = render(scene, res, res, **kw)
+        got = collections.Counter(c[0] for c in calls)
+        want = {"shade_vertex": VERTEX_DEPTH + 1,
+                "nee_accumulate": VERTEX_DEPTH}
+        if dict(got) != want:
+            raise AssertionError(f"{label}: one wave made {dict(got)}, "
+                                 f"expected {want}")
+        out[label] = check_vertex_calls(label, calls)
+        if label == time_case:
+            sv = [c for c in calls if c[0] == "shade_vertex"]
+            na = [c for c in calls if c[0] == "nee_accumulate"]
+            out["times"] = time_vertex(label, (sv[1], na[1]), smi)
+        del calls
+        with plain_vertex():
+            pimg, pst = render(scene, res, res, **kw)
+        if not torch.equal(img, pimg) or st != pst:
+            raise AssertionError(
+                f"{label}: the kernel route's frame differs from the plain "
+                f"route's (max |diff| {float((img - pimg).abs().max())}, "
+                f"stats {st} vs {pst})")
+        print(f"{label} {res}^2 1-spp frame: the kernel route's image and "
+              f"stats equal the plain route's bit for bit ({st['rays']} "
+              "rays)", flush=True)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1315,23 +1794,32 @@ def _device_us(e):
                    getattr(e, "self_cuda_time_total", 0.0))
 
 
-def expected_launches(meta, res: int, spp: int, depth: int) -> dict:
+def expected_launches(meta, res: int, spp: int, depth: int,
+                       fused: bool = True) -> dict:
     """Each kernel's launches in render()'s res^2 frame: per wave, (depth +
     1) closest and depth x lights shadow casts of each BVH mesh on its
     route, and its lane keys, the camera's jitter and one set of uniforms
-    per vertex below max_depth, one Threefry launch each."""
+    per vertex below max_depth, one Threefry launch each; on the fused
+    vertex's route (ops/shade.py::kernel_route; fused=False for a path
+    that differentiates) one shade_vertex per vertex (depth + 1, the last
+    the emission alone) and one nee_accumulate per vertex below
+    max_depth."""
     lights = sum(1 for lt in meta.lights if not lt.static_black)
     waves = n_waves(res, res, spp, DEFAULT_CHUNK)
     casts = waves * ((depth + 1) + depth * lights)
     return {"wide_bvh": casts * (sum(meta.wide_blas) + int(meta.wide_bvh)),
             "sweep_bvh": casts * (sum(meta.pallas_blas)
                                   + int(meta.pallas_bvh)),
-            "threefry": waves * (2 + depth)}
+            "threefry": waves * (2 + depth),
+            "shade_vertex": waves * (depth + 1) if fused else 0,
+            "nee_accumulate": waves * depth if fused else 0}
 
 
 TRACED_KERNELS = {"wide_bvh": ("wide_walk_kernel",),
                   "sweep_bvh": ("sweep_bvh_kernel",),
-                  "threefry": ("lane_keys_kernel", "uniforms_kernel")}
+                  "threefry": ("lane_keys_kernel", "uniforms_kernel"),
+                  "shade_vertex": ("shade_vertex_kernel",),
+                  "nee_accumulate": ("nee_accumulate_kernel",)}
 
 
 def traced_launches(prof) -> dict:
@@ -1972,7 +2460,9 @@ def node_launches(nodes: dict) -> dict:
     launch_counts() names them."""
     return {"wide_bvh": nodes["wide_walk_kernel"],
             "sweep_bvh": nodes["sweep_bvh_kernel"],
-            "threefry": nodes["lane_keys_kernel"] + nodes["uniforms_kernel"]}
+            "threefry": nodes["lane_keys_kernel"] + nodes["uniforms_kernel"],
+            "shade_vertex": nodes["shade_vertex_kernel"],
+            "nee_accumulate": nodes["nee_accumulate_kernel"]}
 
 
 def max_diff(a: dict, b: dict) -> float:
@@ -2256,7 +2746,9 @@ def diff_phase(dev, smi: str, res: int = 1024):
                  device=dev, graph=True)
     loss = lambda img: torch.mean((img - target) ** 2)
     out = {"runs": []}
-    want = {"wide_bvh": 6 + 5 * 2, "sweep_bvh": 0, "threefry": 2 + 5}
+    # the gradient's forward takes the plain vertex (shade.kernel_route)
+    want = {"wide_bvh": 6 + 5 * 2, "sweep_bvh": 0, "threefry": 2 + 5,
+            "shade_vertex": 0, "nee_accumulate": 0}
     eager = []      # the eager gradients of the loss, by index_select
     for run in range(2):
         img, g, f_ms, b_ms, fwd, bwd, peak = fwd_bwd(
@@ -2398,13 +2890,17 @@ def deterministic():
         torch.use_deterministic_algorithms(was)
 
 
-def sharded_launches(shape, lights: int) -> dict:
+def sharded_launches(shape, lights: int, fused: bool = True) -> dict:
     """Launches per rank of the phase's frame on a (px, spp) mesh: one
     wave per local sample, each with (depth + 1) closest and depth x lights
-    shadow casts and 2 + depth Threefry draws."""
+    shadow casts, 2 + depth Threefry draws and, on the fused vertex's route
+    (the forward; fused=False for the train step's differentiated film),
+    depth + 1 shade_vertex and depth nee_accumulate launches."""
     local = SHARD_SPP // shape[1]
     return {"wide_bvh": local * (SHARD_DEPTH + 1 + SHARD_DEPTH * lights),
-            "sweep_bvh": 0, "threefry": local * (2 + SHARD_DEPTH)}
+            "sweep_bvh": 0, "threefry": local * (2 + SHARD_DEPTH),
+            "shade_vertex": local * (SHARD_DEPTH + 1) if fused else 0,
+            "nee_accumulate": local * SHARD_DEPTH if fused else 0}
 
 
 def free_port() -> int:
@@ -2537,7 +3033,9 @@ def card_rank(rank, scene, dev_type, res):
     dev = pmesh.rank_device(dev_type)
     scene = scene.to(dev)
     lights = sum(1 for lt in scene.meta.lights if not lt.static_black)
-    per_wave = sum(sharded_launches((1, SHARD_SPP), lights).values())
+    # the calls recorded_calls records: traversal and streams
+    per_wave = sum(sharded_launches((1, SHARD_SPP), lights,
+                                    fused=False).values())
     out = {"layouts": {}}
     for shape, ranks in CARD_LAYOUTS.items():
         mesh = pmesh.make_mesh(*shape, ranks=ranks, device=dev)
@@ -2679,7 +3177,7 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
         torch.cuda.synchronize()
         bwd = launch_counts()
         del part, leaves
-        want1 = sharded_launches((1, SHARD_SPP), lights)
+        want1 = sharded_launches((1, SHARD_SPP), lights, fused=False)
         nodes = train["graphed"]["capture"]["nodes"]
         if fwd != want1 or any(bwd.values()) or nodes != {
                 "forward": want1, "backward": dict.fromkeys(want1, 0)}:
@@ -2825,6 +3323,117 @@ GRAPH_TURNS = (False, True, True, False, False, True)
 GRAPH_DEPTH = 5
 
 
+# li_path's record_function ranges (models/integrators.py), in wave order
+WAVE_RANGES = ("li_path.intersect", "li_path.rng", "li_path.vertex",
+               "li_path.occluded", "li_path.nee_accumulate", "li_path.sort")
+# the routes of the vertex phase 13 splits a wave under, in turns
+SPLIT_TURNS = ("fused", "plain", "plain", "fused")
+
+
+def _device_ops(call):
+    """One traced call (after a discarded warm-up step, as profile_wave):
+    its device operations (kernels, memsets, copies) sorted by start, and
+    the device-side spans of li_path's ranges."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        call()
+        torch.cuda.synchronize()
+        prof.step()
+        call()
+        torch.cuda.synchronize()
+        prof.step()
+    dev_events = [e for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")]
+    ops = sorted((e for e in dev_events
+                  if not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.time_range.start)
+    spans = [e for e in dev_events if getattr(e, "is_user_annotation", False)
+             and e.name in WAVE_RANGES]
+    return ops, spans
+
+
+def replay_labels(eager: list, labels: list, replay: list):
+    """The ranges of a replay's operations (names, in order) from the
+    eager wave's (names and their ranges, in order): each replay operation
+    that is the next eager operation by name takes its range, any other is
+    the replay call's copy of an input into the graph's buffers ("graph
+    inputs"); None where not every eager operation is found so."""
+    out, i = [], 0
+    for name in replay:
+        if i < len(eager) and name == eager[i]:
+            out.append(labels[i])
+            i += 1
+        else:
+            out.append("graph inputs")
+    return out if i == len(eager) else None
+
+
+def wave_split(scene, dev, res: int, depth: int) -> dict:
+    """Device time of one 1-spp wave by li_path's range, eager and replayed
+    from its CUDA graph. The eager wave's operations fall in the device
+    spans of the ranges that launched them ("other": the camera, the lane
+    keys, the film); a replay carries no ranges, so its operations take
+    the ranges of the eager wave's in order (the graph replays the same
+    operations in the order they were captured; the replay call's own
+    copies of its inputs count as "graph inputs"), where every eager
+    operation is found in the replay by name in order; else the replay's
+    split is None. Returns
+    {"eager": {range: ms}, "replayed": {range: ms} or None, totals, op
+    counts}."""
+    call = lambda graph: render(scene, res, res, spp=1, max_depth=depth,
+                                seed=1, device=dev, graph=graph)
+    call(True)  # captures the wave
+    eager, spans = _device_ops(lambda: call(False))
+    replay, _ = _device_ops(lambda: call(True))
+    labels = []
+    for e in eager:
+        t = e.time_range.start
+        labels.append(next((s.name for s in spans
+                            if s.time_range.start <= t < s.time_range.end),
+                           "other"))
+    replayed = replay_labels([e.name for e in eager], labels,
+                             [e.name for e in replay])
+    keys = WAVE_RANGES + ("other", "graph inputs")
+    split = lambda evs, lbs: {k: sum(e.time_range.elapsed_us() for e, lb in
+                                     zip(evs, lbs) if lb == k) / 1e3
+                              for k in keys}
+    return {"eager": split(eager, labels),
+            "replayed": None if replayed is None else split(replay, replayed),
+            "eager_ms": sum(e.time_range.elapsed_us() for e in eager) / 1e3,
+            "replayed_ms": sum(e.time_range.elapsed_us() for e in replay)
+            / 1e3, "ops": len(eager), "replayed_ops": len(replay),
+            "spans": len(spans)}
+
+
+def module_split(scene, dev, label: str, res: int, depth: int,
+                 smi: str) -> dict:
+    """wave_split on the fused route and on the plain route (plain_vertex;
+    each route captures its own graph: the cache is cleared between
+    turns), in SPLIT_TURNS; prints each turn's replayed and eager device
+    ms per range. Returns {route: [turn's wave_split, ...]}."""
+    out = {"fused": [], "plain": []}
+    for route in SPLIT_TURNS:
+        graph_mod.clear()
+        ctx = plain_vertex() if route == "plain" else contextlib.nullcontext()
+        with ctx:
+            got = wave_split(scene, dev, res, depth)
+        out[route].append(got)
+        fmt = lambda d: ("not split (the replay's operations differ from "
+                         "the eager wave's)" if d is None else ", ".join(
+                             f"{k.replace('li_path.', '')} {v:.2f}"
+                             for k, v in d.items()))
+        print(f"{label} {res}^2 1-spp wave, {route} vertex: replayed "
+              f"{got['replayed_ms']:.2f} ms device ({got['replayed_ops']} "
+              f"operations): {fmt(got['replayed'])}; eager "
+              f"{got['eager_ms']:.2f} ms ({got['ops']} operations, "
+              f"{got['spans']} range spans): {fmt(got['eager'])} [{smi}]",
+              flush=True)
+    graph_mod.clear()
+    return out
+
+
 def compiled_phase(cases, dev, smi: str) -> dict:
     """render()'s frame with its waves replayed from CUDA graphs (graph=
     True) against the eager frame (graph=False), for each (label, scene,
@@ -2892,6 +3501,7 @@ def compiled_phase(cases, dev, smi: str) -> dict:
         wave = {mode: profile_wave(scene, dev, f"{label} {res}^2", res,
                                    GRAPH_DEPTH, table=graph, graph=graph)
                 for mode, graph in (("graphed", True), ("eager", False))}
+        split = module_split(scene, dev, label, 1024, GRAPH_DEPTH, smi)
         out[label] = {
             "res": res, "spp": spp, "rays": rays, "launches": want,
             "first_graphed_s": first_s, "first_default_s": first[None][0],
@@ -2900,7 +3510,8 @@ def compiled_phase(cases, dev, smi: str) -> dict:
             "median_s": {"graphed": med[True], "eager": med[False]},
             "peak_bytes": {"graphed": peaks[True], "eager": peaks[False]},
             "wave": {m: {"wall_ms": w[0], "device_ms": w[1], "source": w[2]}
-                     for m, w in wave.items()}}
+                     for m, w in wave.items()},
+            "modules": split}
         print(f"{label} {res}^2 spp {spp} depth {GRAPH_DEPTH}: graphed frame "
               f"equal to the eager one bit for bit (images and stats), "
               f"launches {want} a frame in both modes; first frame on the "
@@ -2935,10 +3546,10 @@ def main() -> int:
 
     phase("2 build")
     t0 = time.perf_counter()
-    cuda_build.build_libraries(LIBRARIES)
+    cuda_build.build_libraries(LIBRARIES + (COUNT_LIBRARY,))
     print(f"kernels built in {time.perf_counter() - t0:.2f} s, one nvcc each "
           "in parallel", flush=True)
-    for name, _ in LIBRARIES:
+    for name, *_ in LIBRARIES + (COUNT_LIBRARY,):
         secs, log = cuda_build.BUILD_LOG.get(name, (0.0, "(cached build)"))
         print(f"{name}: nvcc {secs:.2f} s", flush=True)
         for line in log.splitlines():
@@ -2951,6 +3562,18 @@ def main() -> int:
     bunny_s = time.perf_counter() - t0
     rng_s = 4 + 2 * bunny.meta.n_lights
     streams = rng_phase(dev, bunny.meta.n_lights)
+
+    phase("2c fused vertex kernel vs plain")
+    t0 = time.perf_counter()
+    torch_rules(dev)
+    cornell = cornell_box().to(dev)
+    vertex = vertex_phase(
+        (("bunny", bunny, 1024), ("cornell", cornell, 1024),
+         ("every-kind wide", every_kind_scene(False).to(dev), 256),
+         ("every-kind sweep", every_kind_scene(True).to(dev), 256),
+         ("many-lights", many_lights_scene().to(dev), 256)),
+        dev, smi.splitlines()[0], time_case="bunny")
+    print(f"phase 2c took {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("3 wide kernel vs plain")
     wide = wide_route(bunny)
@@ -3014,7 +3637,10 @@ def main() -> int:
 
     phase("7 main path (sweep route)")
     print(f"bunny 600k instanced: scene build {build_s:.2f} s", flush=True)
-    sweep_launches = main_path(inst600, dev, "bunny 600k")["sweep_bvh"]
+    vertex.update(vertex_phase((("bunny 600k", inst600, 1024),), dev,
+                               smi.splitlines()[0]))
+    sweep_frame = main_path(inst600, dev, "bunny 600k")
+    sweep_launches = sweep_frame["sweep_bvh"]
     sort_effect(inst600, dev, "bunny 600k")
 
     phase("8 sweep primitives")
@@ -3039,11 +3665,18 @@ def main() -> int:
 
     phase("13 compiled wave")
     t0 = time.perf_counter()
+    try:
+        import triton
+        triton_note = f"import triton works: triton {triton.__version__}"
+    except Exception as e:  # recorded, not needed: no kernel uses Triton
+        triton_note = f"import triton fails: {e!r}"
+    print(f"{triton_note} (torch {torch.__version__})", flush=True)
     compiled = compiled_phase((("bunny", bunny, 1024, 4),
                                ("bunny 600k", inst600, 1024, 4),
-                               ("cornell", cornell_box().to(dev), 512, 16)),
+                               ("cornell", cornell, 512, 16)),
                               dev, smi.splitlines()[0])
     compiled["phase_s"] = time.perf_counter() - t0
+    compiled["triton"] = triton_note
     print(f"phase 13 took {compiled['phase_s']:.1f} s", flush=True)
     print(json.dumps({"graph": compiled}), flush=True)
 
@@ -3106,7 +3739,26 @@ def main() -> int:
          | {"bound_ms": streams["lane_keys"]["bound"][0]},
          "lanes": 1 << 20, "s": rng_s,
          "sharded_launches": {k: v["threefry"]
-                              for k, v in sharded["launches"].items()}}]}),
+                              for k, v in sharded["launches"].items()}}]
+        + [{"name": name, "route": "cuda",
+            "source": "jet_pbrt_tpu_torch/csrc/shade.cu",
+            "replaces": "jet_pbrt_tpu/models/integrators.py:108 (li_path's "
+                        "vertex under jax.jit(wave): XLA fusion, no Pallas "
+                        "kernel)",
+            "launches": frame_launches[name],
+            "max_abs_err": max(v["max_abs_err"] for k, v in vertex.items()
+                               if k != "times"),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            # no single PyTorch call computes a path vertex
+            "library_ms": None, "device_ms": t["device_ms"],
+            "device_cold_ms": t["device_cold_ms"],
+            "enqueue_ms": t["enqueue_ms"], "bytes": t["bytes"],
+            "flops": t["flops"], "lanes": t["lanes"], "bounce": t["bounce"],
+            "sweep_launches": sweep_frame[name],
+            "sharded_launches": {k: v[name]
+                                 for k, v in sharded["launches"].items()}}
+           for name, t in vertex["times"].items()]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

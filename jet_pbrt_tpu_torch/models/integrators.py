@@ -15,6 +15,15 @@ emitter hits weighted against `pdf_li`, its NEE weighted against the BSDF
 pdf). `li_whitted` and `li_debug_normal` are the reference package's other
 two integrators (integrators.py:300-381).
 
+Each path vertex between two closest-hit casts (emission, material, lobe,
+NEE set-up, BSDF sample, roulette) is ops/shade.py's: `shade_vertex` and
+`nee_accumulate`, one fused kernel launch each on the card, where
+`shade.kernel_route` allows (NEE on, MIS off, nothing requiring grad), and their plain versions otherwise. The casts, the shadow
+tests and the sort stay here, each inside a `torch.profiler
+.record_function` range (li_path.intersect, .rng, .vertex, .occluded,
+.nee_accumulate, .sort) that a profile attributes the wave's device time
+by.
+
 Gradients (models/render.py::render_fn): sampled directions, pdfs, light
 sample points, MIS weights and the roulette probability are detached where
 the reference package stops their gradients, so the estimate is
@@ -24,14 +33,14 @@ carries a gradient (the kernels have no backward).
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..ops import bsdf as bsdf_ops
 from ..ops import lights as light_ops
 from ..ops import rng
+from ..ops import shade as shade_ops
 from ..ops import sort as sort_ops
-from ..ops.linalg import absdot, frame_from_z, to_local, to_world, \
-    max_component, is_black
-from ..ops.sampling import power_heuristic
+from ..ops.linalg import absdot, frame_from_z, to_local, to_world, is_black
 from ..scene import pack as scene_pack
 
 
@@ -78,136 +87,85 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     n_primary, n_bounce, n_shadow = zero, zero, zero
     sweep_stats = {} if with_stats else None
-    le_env = light_ops.env_radiance(meta, pack, n)
     # original lane of each row, to unsort the film at the end
     lane = torch.arange(n, device=dev)
 
+    fused = shade_ops.kernel_route(meta, pack, o, d, nee=nee, mis=mis)
+    lights = (shade_ops.light_table(meta, pack)
+              if fused and dev.type == "cuda" else None)
+    le_env = None if fused else light_ops.env_radiance(meta, pack, n)
+    state = shade_ops.VertexState(L, beta, active, prev_specular, prev_pdf,
+                                  ray_o, ray_d)
+
     for bounce in range(max_depth + 1):
         # dead lanes trace nothing: tmin=+inf / tmax=-1 miss at once
-        tmin = torch.where(active, eps, inf)
-        tmax = torch.where(active, inf, neg)
-        hit = scene_pack.intersect(meta, pack, ray_o, ray_d, tmin, tmax,
-                                   stats=sweep_stats)
+        tmin = torch.where(state.active, eps, inf)
+        tmax = torch.where(state.active, inf, neg)
+        with record_function("li_path.intersect"):
+            hit = scene_pack.intersect(meta, pack, state.ray_o, state.ray_d,
+                                       tmin, tmax, stats=sweep_stats)
         if with_stats:
-            cast = active.sum()
+            cast = state.active.sum()
             if bounce == 0:
                 n_primary = n_primary + cast
             else:
                 n_bounce = n_bounce + cast
 
-        # emission (reference: src/integrator.cc:328-337)
-        gate = (active if bounce == 0 else active & prev_specular) if nee \
-            else active
-        le = torch.where(hit.valid[:, None], scene_pack.emitted(pack, hit),
-                         le_env)
-        L = L + torch.where(gate[:, None], beta * le, torch.zeros_like(le))
-
-        if mis and bounce > 0:
-            # the BSDF-sampled emitter hits that NEE alone drops
-            w_area = torch.zeros((n,), dtype=torch.float32, device=dev)
-            for li_idx in range(nl):
-                kind = meta.lights[li_idx].kind
-                if kind not in (scene_pack.LIGHT_AREA, scene_pack.LIGHT_ENV):
-                    continue
-                pl = light_ops.pdf_li(meta, pack, li_idx, ray_o, ray_d)
-                w = power_heuristic(1.0, prev_pdf, 1.0, pl)
-                this = (hit.valid & (hit.light_id == li_idx)
-                        if kind == scene_pack.LIGHT_AREA else ~hit.valid)
-                w_area = torch.where(this, w, w_area)
-            L = L + torch.where((active & ~prev_specular)[:, None],
-                                beta * le * w_area.detach()[:, None],
-                                torch.zeros_like(le))
-
+        u_vertex = None
+        if bounce < max_depth:
+            with record_function("li_path.rng"):
+                u_vertex = rng.vertex_uniforms(u, bounce, nl)
+        with record_function("li_path.vertex"):
+            if fused:
+                v = shade_ops.shade_vertex(
+                    meta, pack, hit, state, None if u_vertex is None
+                    else u_vertex.contiguous(), bounce, max_depth,
+                    lights=lights)
+            else:
+                v = shade_ops.shade_vertex_plain(
+                    meta, pack, hit, state, u_vertex, bounce, max_depth,
+                    le_env=le_env, nee=nee, mis=mis)
         if bounce >= max_depth:
+            L = v.state.L
             break
-        cont = active & hit.valid
-
-        u_vertex = rng.vertex_uniforms(u, bounce, nl)
-        mat_kind, c0, c1, s0, s1, remap, tex_id, mf_kind = \
-            scene_pack.gather_material(pack, hit.mat_id)
-        c0 = scene_pack.effective_kd(meta, pack, hit, c0, tex_id)
-        lobe = bsdf_ops.make_lobe(mat_kind, c0, c1, s0, s1, remap,
-                                  rng.stream_lobe(u_vertex), mf_kind=mf_kind)
-        delta = bsdf_ops.is_delta(lobe)
-        frame = frame_from_z(hit.normal)
-        wo_local = to_local(frame, hit.wo)
-
-        # NEE over all lights (reference: src/integrator.cc:357-372)
-        for li_idx in range(nl if nee else 0):
-            if meta.lights[li_idx].static_black:
-                continue
-            ls = light_ops.sample_li(meta, pack, li_idx, hit.position,
-                                     rng.stream_nee(u_vertex, li_idx))
-            # the light sample's direction, pdf and point carry no gradient
-            wi, pdf = ls.wi.detach(), ls.pdf.detach()
-            wi_local = to_local(frame, wi)
-            f = bsdf_ops.eval_f(lobe, wo_local, wi_local,
-                                lobes=meta.present_lobes,
-                                mf_kinds=meta.present_mf_kinds)
-            useful = (cont & ~delta & (pdf > 0.0) & ~is_black(ls.li)
-                      & ~is_black(f))
-            if with_stats:
-                n_shadow = n_shadow + useful.sum()
-            contrib = beta * f * ls.li * (
-                absdot(wi, hit.normal) / torch.clamp_min(pdf, 1e-20))[:, None]
-            if mis and not scene_pack.light_is_delta(meta, li_idx):
-                pb = bsdf_ops.pdf(lobe, wo_local, wi_local,
-                                  lobes=meta.present_lobes,
-                                  mf_kinds=meta.present_mf_kinds)
-                contrib = contrib * power_heuristic(1.0, pdf, 1.0,
-                                                    pb.detach())[:, None]
-            occ = scene_pack.occluded(
-                meta, pack, hit.position, ls.pos.detach(), mask=useful,
+        if with_stats:
+            n_shadow = n_shadow + v.useful.sum()
+        with record_function("li_path.occluded"):
+            occ = [scene_pack.occluded(
+                meta, pack, hit.position, v.shadow_to[j], mask=v.useful[j],
                 sort=meta.kernel_routed and bounce < 2, stats=sweep_stats)
-            L = L + torch.where((useful & ~occ)[:, None], contrib,
-                                torch.zeros_like(contrib))
-
-        # BSDF sampling (reference: src/integrator.cc:375-379)
-        bs = bsdf_ops.sample(lobe, wo_local, rng.stream_bsdf(u_vertex, nl),
-                             lobes=meta.present_lobes,
-                             mf_kinds=meta.present_mf_kinds)
-        # the sampled direction and its pdf carry no gradient; f does
-        wi_world = to_world(frame, bs.wi).detach()
-        pdf_b = bs.pdf.detach()
-        sample_ok = (pdf_b > 0.0) & ~is_black(bs.f)
-
-        # Russian roulette (reference: src/integrator.cc:383-393)
-        if bounce >= 3:
-            q = torch.clamp_min(1.0 - max_component(bs.f.detach()), 0.05)
-            rr_die = rng.stream_rr(u_vertex, nl) < q
-            rr_scale = 1.0 / torch.clamp_min(1.0 - q, 1e-6)
-        else:
-            rr_die = torch.zeros_like(active)
-            rr_scale = torch.ones_like(pdf_b)
-
-        active = cont & sample_ok & ~rr_die
-        weight = (bs.f * (absdot(wi_world, hit.normal)
-                          / torch.clamp_min(pdf_b, 1e-20))[:, None]
-                  * rr_scale[:, None])
-        beta = torch.where(active[:, None], beta * weight, beta)
-        prev_specular = bs.is_specular
-        prev_pdf = pdf_b
-        ray_o = torch.where(active[:, None], hit.position, ray_o)
-        ray_d = torch.where(active[:, None], wi_world, ray_d)
+                for j in range(v.useful.shape[0])]
+        with record_function("li_path.nee_accumulate"):
+            occ = (torch.stack(occ) if occ
+                   else torch.zeros_like(v.useful))
+            accumulate = (shade_ops.nee_accumulate if fused
+                          else shade_ops.nee_accumulate_plain)
+            L = accumulate(v.state.L, v.useful, occ, v.contrib)
+        L, beta, active, prev_specular, prev_pdf, ray_o, ray_d = \
+            v.state._replace(L=L)
 
         if sort_rays and bounce < 3:
-            # regroup lanes for the next bounce's traversal (ops/sort.py);
-            # deep bounces keep the order: lanes only die from here, so the
-            # dead tail of the last sort persists
-            world_lo = (pack.world_center - pack.world_radius).detach()
-            world_inv = (1.0 / torch.clamp_min(2.0 * pack.world_radius,
-                                               1e-12)).detach().expand(3)
-            o_key, d_key = ray_o.detach(), ray_d.detach()
-            needs = sort_ops.bvh_needed(meta, pack, o_key, d_key,
-                                        torch.where(active, eps, inf),
-                                        torch.where(active, inf, neg))
-            key = sort_ops.ray_sort_key(active, o_key, d_key, world_lo,
-                                        world_inv, needs_bvh=needs)
-            perm = torch.argsort(key, stable=True)
-            L, beta, ray_o, ray_d, active, prev_specular, prev_pdf, lane = (
-                x[perm] for x in (L, beta, ray_o, ray_d, active,
-                                  prev_specular, prev_pdf, lane))
-            u = _permute(u, perm)
+            with record_function("li_path.sort"):
+                # regroup lanes for the next bounce's traversal (ops/sort.py);
+                # deep bounces keep the order: lanes only die from here, so the
+                # dead tail of the last sort persists
+                world_lo = (pack.world_center - pack.world_radius).detach()
+                world_inv = (1.0 / torch.clamp_min(2.0 * pack.world_radius,
+                                                   1e-12)).detach().expand(3)
+                o_key, d_key = ray_o.detach(), ray_d.detach()
+                needs = sort_ops.bvh_needed(meta, pack, o_key, d_key,
+                                            torch.where(active, eps, inf),
+                                            torch.where(active, inf, neg))
+                key = sort_ops.ray_sort_key(active, o_key, d_key, world_lo,
+                                            world_inv, needs_bvh=needs)
+                perm = torch.argsort(key, stable=True)
+                L, beta, ray_o, ray_d, active, prev_specular, prev_pdf, \
+                    lane = (x[perm] for x in (L, beta, ray_o, ray_d, active,
+                                              prev_specular, prev_pdf, lane))
+                u = _permute(u, perm)
+
+        state = shade_ops.VertexState(L, beta, active, prev_specular,
+                                      prev_pdf, ray_o, ray_d)
 
     if sort_rays:
         # undo the permutation: row i is lane i again (gather, no scatter)

@@ -1,0 +1,566 @@
+"""One path vertex of `li_path`: shading, NEE set-up, BSDF sampling and
+Russian roulette, as one fused kernel on the card.
+
+Counterpart of the vertex block of jet_pbrt_tpu/models/integrators.py:108-237
+(reference: src/integrator.cc:328-393) under jax.jit(wave): XLA fuses it
+into a few programs; the reference has no Pallas kernel for it. A vertex
+is everything li_path does between one closest-hit cast and the next but
+the shadow casts and the ray sort: the emission add, and below max_depth
+the material with its texture tap, the lobe, the shading frame, every
+non-black light's sample, f, `useful` mask, contribution and shadow
+endpoint, the BSDF sample, the roulette and the next bounce's state.
+
+Two functions and their plain versions:
+
+    shade_vertex     csrc/shade.cu shade_vertex_kernel on CUDA tensors, one
+                     thread per lane computing only the lane's own lobe and
+                     light branches; `shade_vertex_plain` on CPU tensors.
+    nee_accumulate   L + where(useful & ~occluded, contrib, 0), light after
+                     light in light order: nee_accumulate_kernel on CUDA
+                     tensors, `nee_accumulate_plain` on CPU tensors.
+
+On a CUDA tensor a wrapper launches its kernel or raises; nothing falls
+back. The plain versions are the torch code li_path ran before the
+kernel, and the kernel matches them bit for bit on the card (see the
+source's note on how its arithmetic is pinned).
+
+`kernel_route` is li_path's one routing decision: the wrappers (so the
+kernel on the card) where li_path runs with nee=True, mis=False and no
+input requires grad. The plain version everywhere else, declared scope
+and not a fallback: mis=True (its MIS emission weight re-intersects the
+light, and its NEE weight needs the BSDF pdf), nee=False, and every path
+that differentiates (render_fn, diff/, the train step: their packs
+require grad, and the kernel has no backward); li_whitted and
+li_debug_normal keep their own torch code. These are the next fusions.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from . import bsdf as bsdf_ops
+from . import lights as light_ops
+from . import microfacet as mf
+from . import rng
+from .intersect import no_grad_inputs
+from .launches import register
+from .linalg import PI, absdot, frame_from_z, is_black, length, cross, \
+    max_component, to_local, to_world
+from .sampling import power_heuristic
+
+# the light table's row widths (csrc/shade.cu TABLE_W, STATIC_W, EM_W)
+TABLE_W = 32
+STATIC_W = 5
+EM_W = 12
+
+
+class VertexState(NamedTuple):
+    """A path's per-lane state between two vertices."""
+    L: torch.Tensor              # [N,3]
+    beta: torch.Tensor           # [N,3]
+    active: torch.Tensor         # [N] bool
+    prev_specular: torch.Tensor  # [N] bool
+    prev_pdf: torch.Tensor       # [N] pdf of the last BSDF sample
+    ray_o: torch.Tensor          # [N,3]
+    ray_d: torch.Tensor          # [N,3]
+
+
+class Vertex(NamedTuple):
+    """One vertex's outputs: the state after it (on the last bounce only L
+    changes) and, per non-black light j in light order, the shadow ray's
+    inputs and what it adds where unoccluded."""
+    state: VertexState
+    useful: torch.Tensor     # [J, N] bool
+    contrib: torch.Tensor    # [J, N, 3]
+    shadow_to: torch.Tensor  # [J, N, 3] the light sample's point
+
+
+class LightTable(NamedTuple):
+    """The pack's lights for the kernel, on the pack's device. Per
+    non-black light j in light order: `rows[j]` [TABLE_W] float32 (radiance
+    at 0:3; then by kind the position or direction, the shape's rows and
+    per-light constants, computed by the plain version's own torch
+    expressions; 2 x the world radius last) and `statics[j]` [STATIC_W]
+    int32 (kind, shape kind, uniform slot 1 + 2 * light index, t_count,
+    first row in `em`); `em` [T, EM_W] the emissive instances' raw mesh
+    triangles (p0, e1, e2) and normals, each family once; `le_env` [3]
+    the environment lights' radiance summed in light order."""
+    rows: torch.Tensor
+    statics: torch.Tensor
+    em: torch.Tensor
+    le_env: torch.Tensor
+
+
+def _pack_tensors(pack):
+    for x in pack:
+        if torch.is_tensor(x):
+            yield x
+        elif isinstance(x, tuple):
+            yield from (t for t in x if torch.is_tensor(t))
+
+
+def kernel_route(meta, pack, *tensors, nee: bool, mis: bool) -> bool:
+    """Whether li_path's vertex takes the wrappers (`shade_vertex`,
+    `nee_accumulate`; on the card their kernels) rather than the plain
+    versions: with NEE, without MIS, and where neither the pack nor any of
+    `tensors` (the primary rays) requires grad. Any number of lights."""
+    return (nee and not mis
+            and not any(x.requires_grad
+                        for x in (*_pack_tensors(pack), *tensors)))
+
+
+# (statics rows, device) -> the int32 tensor; kept for the process, since
+# a captured wave reads it by address
+_STATICS: dict = {}
+
+
+def _statics(rows: tuple, dev) -> torch.Tensor:
+    """The light table's static part as an int32 [J, STATIC_W] tensor on
+    dev, made by a host copy at its first use and kept: a CUDA graph
+    cannot capture that copy, and every capture follows an eager warm-up
+    call (models/graph.py), which makes it."""
+    key = (rows, str(dev))
+    if key not in _STATICS:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("light_table: the lights' static table is "
+                               "made by an eager call before a capture")
+        _STATICS[key] = torch.tensor(rows, dtype=torch.int32,
+                                     device=dev).reshape(-1, STATIC_W)
+    return _STATICS[key]
+
+
+def light_table(meta, pack) -> LightTable:
+    """The kernel's table of the pack's lights (LightTable). Its numbers
+    are made by torch ops on the pack's device, with no host copy, inside
+    a captured wave too; its static part comes from meta and the pack's
+    shapes (_statics)."""
+    from ..scene.pack import LIGHT_POINT, LIGHT_DIRECTIONAL, LIGHT_AREA, \
+        KIND_TRI, KIND_RECT, KIND_DISK, KIND_SPHERE, KIND_INST
+
+    dev = pack.light_c.device
+    zero = torch.zeros((3,), dtype=torch.float32, device=dev)
+    one = torch.ones((1,), dtype=torch.float32, device=dev)
+    two_wr = (2.0 * pack.world_radius).reshape(1)
+    rows, statics, em_rows, em_first = [], [], [], {}
+    n_em = 0
+    for li, lm in enumerate(meta.lights):
+        if lm.static_black:
+            continue
+        a = b = c = nrm = zero
+        s15 = s16 = one
+        t_count = first = 0
+        if lm.kind == LIGHT_POINT:
+            a = pack.light_pos[li]
+        elif lm.kind == LIGHT_DIRECTIONAL:
+            a = pack.light_dir[li]
+        elif lm.kind == LIGHT_AREA:
+            sk, si = lm.shape_kind, lm.shape_idx
+            if sk == KIND_TRI:
+                a, b, c = pack.tri_p0[si], pack.tri_p1[si], pack.tri_p2[si]
+                nrm = pack.tri_n[si]
+                s15 = one / (0.5 * length(cross(b - a, c - a)))
+            elif sk == KIND_RECT:
+                q = pack.rect_q[si]
+                a, b, c = q[1], q[0] - q[1], q[2] - q[1]
+                nrm = pack.rect_n[si]
+                s15 = one / length(cross(q[0] - q[1], q[2] - q[1]))
+            elif sk == KIND_DISK:
+                nd, r = pack.disk_n[si], pack.disk_r[si]
+                s, t, _ = frame_from_z(nd[None, :])
+                a, b, c, nrm = pack.disk_c[si], s[0], t[0], nd
+                s15, s16 = one / (PI * r * r), r.reshape(1)
+            elif sk == KIND_SPHERE:
+                r = pack.sph_r[si]
+                a = pack.sph_c[si]
+                s15, s16 = one / (4.0 * PI * r * r), r.reshape(1)
+            elif sk >= KIND_INST:
+                mi = sk - KIND_INST
+                t_count = pack.inst_em_tris[mi].shape[0]
+                if mi not in em_first:
+                    em_first[mi] = n_em
+                    n_em += t_count
+                    em_rows.append(torch.cat([pack.inst_em_tris[mi],
+                                              pack.inst_em_n[mi]], dim=1))
+                first = em_first[mi]
+                a = pack.inst_off[mi][si]
+                s16 = pack.inst_scale[mi][si].reshape(1)
+            else:
+                raise ValueError(f"bad area-light shape kind {sk}")
+        rows.append(torch.cat([pack.light_c[li], a, b, c, nrm, s15.reshape(1),
+                               s16, torch.zeros((TABLE_W - 18,),
+                                                dtype=torch.float32,
+                                                device=dev), two_wr]))
+        statics.append((lm.kind, lm.shape_kind, 1 + 2 * li, t_count, first))
+    f32 = dict(dtype=torch.float32, device=dev)
+    le_env = torch.zeros((3,), **f32)
+    for i in meta.env_light_indices:
+        le_env = le_env + pack.light_c[i]
+    return LightTable(
+        rows=torch.stack(rows) if rows else torch.zeros((0, TABLE_W), **f32),
+        statics=_statics(tuple(v for row in statics for v in row), dev),
+        em=torch.cat(em_rows) if em_rows else torch.zeros((0, EM_W), **f32),
+        le_env=le_env)
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+def _stacks(usefuls, contribs, targets, n, dev):
+    """The per-light lists as [J, N] / [J, N, 3] tensors (J may be 0)."""
+    if usefuls:
+        return torch.stack(usefuls), torch.stack(contribs), \
+            torch.stack(targets)
+    return (torch.zeros((0, n), dtype=torch.bool, device=dev),
+            torch.zeros((0, n, 3), dtype=torch.float32, device=dev),
+            torch.zeros((0, n, 3), dtype=torch.float32, device=dev))
+
+
+def shade_vertex_plain(meta, pack, hit, state: VertexState, u_vertex,
+                       bounce: int, max_depth: int, *, le_env=None,
+                       nee: bool = True, mis: bool = False) -> Vertex:
+    """One vertex in torch ops (li_path's code before the kernel): hit is
+    the closest hit of the state's rays, u_vertex [N, 4 + 2 * lights] the
+    vertex's uniforms (unused on the last bounce), le_env the escaped
+    rays' radiance (default light_ops.env_radiance)."""
+    from ..scene import pack as scene_pack
+
+    L, beta, active, prev_specular, prev_pdf, ray_o, ray_d = state
+    n = L.shape[0]
+    dev = L.device
+    nl = meta.n_lights
+    if le_env is None:
+        le_env = light_ops.env_radiance(meta, pack, n)
+
+    # emission (reference: src/integrator.cc:328-337)
+    gate = (active if bounce == 0 else active & prev_specular) if nee \
+        else active
+    le = torch.where(hit.valid[:, None], scene_pack.emitted(pack, hit),
+                     le_env)
+    L = L + torch.where(gate[:, None], beta * le, torch.zeros_like(le))
+
+    if mis and bounce > 0:
+        # the BSDF-sampled emitter hits that NEE alone drops
+        w_area = torch.zeros((n,), dtype=torch.float32, device=dev)
+        for li_idx in range(nl):
+            kind = meta.lights[li_idx].kind
+            if kind not in (scene_pack.LIGHT_AREA, scene_pack.LIGHT_ENV):
+                continue
+            pl = light_ops.pdf_li(meta, pack, li_idx, ray_o, ray_d)
+            w = power_heuristic(1.0, prev_pdf, 1.0, pl)
+            this = (hit.valid & (hit.light_id == li_idx)
+                    if kind == scene_pack.LIGHT_AREA else ~hit.valid)
+            w_area = torch.where(this, w, w_area)
+        L = L + torch.where((active & ~prev_specular)[:, None],
+                            beta * le * w_area.detach()[:, None],
+                            torch.zeros_like(le))
+
+    usefuls, contribs, targets = [], [], []
+    if bounce >= max_depth:
+        return Vertex(state._replace(L=L),
+                      *_stacks(usefuls, contribs, targets, n, dev))
+    cont = active & hit.valid
+
+    mat_kind, c0, c1, s0, s1, remap, tex_id, mf_kind = \
+        scene_pack.gather_material(pack, hit.mat_id)
+    c0 = scene_pack.effective_kd(meta, pack, hit, c0, tex_id)
+    lobe = bsdf_ops.make_lobe(mat_kind, c0, c1, s0, s1, remap,
+                              rng.stream_lobe(u_vertex), mf_kind=mf_kind)
+    delta = bsdf_ops.is_delta(lobe)
+    frame = frame_from_z(hit.normal)
+    wo_local = to_local(frame, hit.wo)
+
+    # NEE over all lights (reference: src/integrator.cc:357-372)
+    for li_idx in range(nl if nee else 0):
+        if meta.lights[li_idx].static_black:
+            continue
+        ls = light_ops.sample_li(meta, pack, li_idx, hit.position,
+                                 rng.stream_nee(u_vertex, li_idx))
+        # the light sample's direction, pdf and point carry no gradient
+        wi, pdf = ls.wi.detach(), ls.pdf.detach()
+        wi_local = to_local(frame, wi)
+        f = bsdf_ops.eval_f(lobe, wo_local, wi_local,
+                            lobes=meta.present_lobes,
+                            mf_kinds=meta.present_mf_kinds)
+        useful = (cont & ~delta & (pdf > 0.0) & ~is_black(ls.li)
+                  & ~is_black(f))
+        contrib = beta * f * ls.li * (
+            absdot(wi, hit.normal) / torch.clamp_min(pdf, 1e-20))[:, None]
+        if mis and not scene_pack.light_is_delta(meta, li_idx):
+            pb = bsdf_ops.pdf(lobe, wo_local, wi_local,
+                              lobes=meta.present_lobes,
+                              mf_kinds=meta.present_mf_kinds)
+            contrib = contrib * power_heuristic(1.0, pdf, 1.0,
+                                                pb.detach())[:, None]
+        usefuls.append(useful)
+        contribs.append(contrib)
+        targets.append(ls.pos.detach())
+
+    # BSDF sampling (reference: src/integrator.cc:375-379)
+    bs = bsdf_ops.sample(lobe, wo_local, rng.stream_bsdf(u_vertex, nl),
+                         lobes=meta.present_lobes,
+                         mf_kinds=meta.present_mf_kinds)
+    # the sampled direction and its pdf carry no gradient; f does
+    wi_world = to_world(frame, bs.wi).detach()
+    pdf_b = bs.pdf.detach()
+    sample_ok = (pdf_b > 0.0) & ~is_black(bs.f)
+
+    # Russian roulette (reference: src/integrator.cc:383-393)
+    if bounce >= 3:
+        q = torch.clamp_min(1.0 - max_component(bs.f.detach()), 0.05)
+        rr_die = rng.stream_rr(u_vertex, nl) < q
+        rr_scale = 1.0 / torch.clamp_min(1.0 - q, 1e-6)
+    else:
+        rr_die = torch.zeros_like(active)
+        rr_scale = torch.ones_like(pdf_b)
+
+    active = cont & sample_ok & ~rr_die
+    weight = (bs.f * (absdot(wi_world, hit.normal)
+                      / torch.clamp_min(pdf_b, 1e-20))[:, None]
+              * rr_scale[:, None])
+    beta = torch.where(active[:, None], beta * weight, beta)
+    ray_o = torch.where(active[:, None], hit.position, ray_o)
+    ray_d = torch.where(active[:, None], wi_world, ray_d)
+    return Vertex(VertexState(L, beta, active, bs.is_specular, pdf_b, ray_o,
+                              ray_d),
+                  *_stacks(usefuls, contribs, targets, n, dev))
+
+
+def nee_accumulate_plain(L, useful, occ, contrib):
+    """L [N,3] plus each light's contribution [J,N,3] where useful [J,N]
+    and not occluded occ [J,N], one light after another."""
+    for j in range(useful.shape[0]):
+        L = L + torch.where((useful[j] & ~occ[j])[:, None], contrib[j],
+                            torch.zeros_like(contrib[j]))
+    return L
+
+
+# --------------------------------------------------------------------------
+# the kernels
+# --------------------------------------------------------------------------
+
+_INTS = ("n", "bounce", "last", "roulette", "lobes", "mf_mode", "n_tex",
+         "has_images", "n_light_rows", "th", "tw", "s", "n_nee")
+_PTRS = ("valid", "pos", "nrm", "wo", "uv", "mat_id", "light_id", "L",
+         "beta", "active", "prev_specular", "prev_pdf", "ray_o", "ray_d", "u",
+         "mat_kind", "mat_c0", "mat_c1", "mat_s0", "mat_s1", "mat_remap",
+         "mat_tex", "mat_mf", "tex_kind", "tex_c0", "tex_c1", "tex_scale",
+         "tex_image", "tex_wh", "light_c", "table", "statics", "em", "le_env",
+         "L_out", "beta_out",
+         "active_out", "spec_out", "pdf_out", "o_out", "d_out", "useful",
+         "contrib", "shadow_to")
+
+
+class _ShadeArgs(ctypes.Structure):
+    _fields_ = ([(k, ctypes.c_int) for k in _INTS]
+                + [(k, ctypes.c_void_p) for k in _PTRS])
+
+
+def _library():
+    from ..utils.cuda_build import load_library
+    return load_library("shade", ["shade.cu"], _declare)
+
+
+def _declare(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.shade_vertex.argtypes = [ctypes.POINTER(_ShadeArgs), vp]
+    lib.shade_vertex.restype = ci
+    lib.nee_accumulate.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
+    lib.nee_accumulate.restype = ci
+    for name in ("shade_args_size", "shade_table_width"):
+        getattr(lib, name).restype = ci
+    if (lib.shade_args_size(), lib.shade_table_width()) != (
+            ctypes.sizeof(_ShadeArgs), TABLE_W):
+        raise RuntimeError("csrc/shade.cu and ops/shade.py disagree on the "
+                           "kernel's argument layout")
+
+
+def _check(name, x, dtype, shape, dev):
+    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+            or not x.is_contiguous() or x.device != dev:
+        raise ValueError(f"{name}: expected a contiguous {dtype} "
+                         f"{list(shape)} tensor on {dev}, got {x.dtype} "
+                         f"{list(x.shape)} on {x.device}"
+                         + ("" if x.is_contiguous() else ", not contiguous"))
+
+
+def _table_check(name, x, dtype, dev):
+    if x.dtype != dtype or not x.is_contiguous() or x.device != dev:
+        raise ValueError(f"pack.{name}: expected a contiguous {dtype} tensor "
+                         f"on {dev}")
+
+
+def _mf_mode(kinds) -> int:
+    kinds = None if kinds is None else tuple(kinds)
+    return {(mf.GGX,): 1, (mf.BECKMANN,): 2}.get(kinds, 0)
+
+
+_TABLES = {"mat_kind": torch.int32, "mat_c0": torch.float32,
+           "mat_c1": torch.float32, "mat_s0": torch.float32,
+           "mat_s1": torch.float32, "mat_remap": torch.bool,
+           "mat_tex": torch.int32, "mat_mf": torch.int32,
+           "tex_kind": torch.int32, "tex_c0": torch.float32,
+           "tex_c1": torch.float32, "tex_scale": torch.float32,
+           "tex_image": torch.float32, "tex_wh": torch.int32,
+           "light_c": torch.float32}
+
+
+def check_vertex_inputs(meta, pack, hit, state: VertexState, u_vertex,
+                        bounce: int, max_depth: int, dev) -> None:
+    """Raise unless every tensor shade_vertex_kernel reads (the hit, the
+    state, the vertex's uniforms below max_depth, the pack's material,
+    texture and light tables) is contiguous, of its dtype and shape, on
+    dev, and off the autograd tape."""
+    n = state.L.shape[0]
+    f32, b8, i32 = torch.float32, torch.bool, torch.int32
+    ins = {"hit.valid": (hit.valid, b8, (n,)),
+           "hit.position": (hit.position, f32, (n, 3)),
+           "hit.normal": (hit.normal, f32, (n, 3)),
+           "hit.wo": (hit.wo, f32, (n, 3)), "hit.uv": (hit.uv, f32, (n, 2)),
+           "hit.mat_id": (hit.mat_id, i32, (n,)),
+           "hit.light_id": (hit.light_id, i32, (n,)),
+           "L": (state.L, f32, (n, 3)), "beta": (state.beta, f32, (n, 3)),
+           "active": (state.active, b8, (n,)),
+           "prev_specular": (state.prev_specular, b8, (n,)),
+           "prev_pdf": (state.prev_pdf, f32, (n,)),
+           "ray_o": (state.ray_o, f32, (n, 3)),
+           "ray_d": (state.ray_d, f32, (n, 3))}
+    if bounce < max_depth:
+        ins["u_vertex"] = (u_vertex, f32, (n, 4 + 2 * meta.n_lights))
+    for name, (x, dtype, shape) in ins.items():
+        _check(name, x, dtype, shape, dev)
+    for name, dtype in _TABLES.items():
+        _table_check(name, getattr(pack, name), dtype, dev)
+    no_grad_inputs("shade_vertex", **{k.replace(".", "_"): v[0]
+                                      for k, v in ins.items()},
+                   **{k: getattr(pack, k) for k in _TABLES})
+
+
+def check_accumulate_inputs(L, useful, occ, contrib, dev) -> int:
+    """Raise unless nee_accumulate's inputs are contiguous, of their dtype
+    and shape ([N,3], [J,N], [J,N], [J,N,3]), on dev and off the autograd
+    tape; returns J."""
+    n = L.shape[0]
+    j = useful.shape[0] if useful.dim() == 2 else -1
+    _check("L", L, torch.float32, (n, 3), dev)
+    _check("useful", useful, torch.bool, (j, n), dev)
+    _check("occ", occ, torch.bool, (j, n), dev)
+    _check("contrib", contrib, torch.float32, (j, n, 3), dev)
+    no_grad_inputs("nee_accumulate", L=L, contrib=contrib)
+    return j
+
+
+def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
+                 max_depth: int, *,
+                 lights: LightTable | None = None) -> Vertex:
+    """`shade_vertex_plain` with nee=True, mis=False: one launch of
+    shade_vertex_kernel on CUDA tensors (lights: the pack's light_table,
+    made here when not given), the plain version on CPU tensors."""
+    dev = state.L.device
+    if dev.type == "cpu":
+        return shade_vertex_plain(meta, pack, hit, state, u_vertex, bounce,
+                                  max_depth)
+    if dev.type != "cuda":
+        raise ValueError(f"no shade_vertex route for device {dev}")
+    check_vertex_inputs(meta, pack, hit, state, u_vertex, bounce, max_depth,
+                        dev)
+    n = state.L.shape[0]
+    last = bounce >= max_depth
+    s = 4 + 2 * meta.n_lights
+    f32, b8 = torch.float32, torch.bool
+    if lights is None:
+        lights = light_table(meta, pack)
+    n_nee = sum(not lm.static_black for lm in meta.lights)
+    _check("lights.rows", lights.rows, f32, (n_nee, TABLE_W), dev)
+    _check("lights.statics", lights.statics, torch.int32, (n_nee, STATIC_W),
+           dev)
+    _check("lights.em", lights.em, f32, (lights.em.shape[0], EM_W), dev)
+    _check("lights.le_env", lights.le_env, f32, (3,), dev)
+
+    L_out = torch.empty_like(state.L)
+    if last:
+        beta_out, active_out, spec_out, pdf_out, o_out, d_out = (
+            state.beta, state.active, state.prev_specular, state.prev_pdf,
+            state.ray_o, state.ray_d)
+        nj = 0
+    else:
+        beta_out = torch.empty_like(state.beta)
+        active_out = torch.empty_like(state.active)
+        spec_out = torch.empty_like(state.prev_specular)
+        pdf_out = torch.empty_like(state.prev_pdf)
+        o_out = torch.empty_like(state.ray_o)
+        d_out = torch.empty_like(state.ray_d)
+        nj = n_nee
+    useful = torch.empty((nj, n), dtype=b8, device=dev)
+    contrib = torch.empty((nj, n, 3), dtype=f32, device=dev)
+    shadow_to = torch.empty((nj, n, 3), dtype=f32, device=dev)
+
+    a = _ShadeArgs()
+    lobes = bsdf_ops.ALL_LOBES if meta.present_lobes is None \
+        else meta.present_lobes
+    ints = dict(n=n, bounce=bounce, last=int(last), roulette=int(bounce >= 3),
+                lobes=sum(1 << k for k in lobes),
+                mf_mode=_mf_mode(meta.present_mf_kinds), n_tex=meta.n_tex,
+                has_images=int(pack.tex_image.shape[0] > 0),
+                n_light_rows=pack.light_c.shape[0],
+                th=pack.tex_image.shape[1] if pack.tex_image.dim() == 4 else 0,
+                tw=pack.tex_image.shape[2] if pack.tex_image.dim() == 4 else 0,
+                s=s, n_nee=nj)
+    for k, v in ints.items():
+        setattr(a, k, int(v))
+    ptrs = dict(valid=hit.valid, pos=hit.position, nrm=hit.normal, wo=hit.wo,
+                uv=hit.uv, mat_id=hit.mat_id, light_id=hit.light_id,
+                L=state.L, beta=state.beta, active=state.active,
+                prev_specular=state.prev_specular, prev_pdf=state.prev_pdf,
+                ray_o=state.ray_o, ray_d=state.ray_d,
+                u=None if last else u_vertex, table=lights.rows,
+                statics=lights.statics, em=lights.em, le_env=lights.le_env,
+                L_out=L_out,
+                beta_out=beta_out, active_out=active_out, spec_out=spec_out,
+                pdf_out=pdf_out, o_out=o_out, d_out=d_out, useful=useful,
+                contrib=contrib, shadow_to=shadow_to,
+                **{k: getattr(pack, k) for k in _TABLES})
+    for k, v in ptrs.items():
+        setattr(a, k, None if v is None else v.data_ptr())
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.shade_vertex(ctypes.byref(a),
+                               torch.cuda.current_stream(dev).cuda_stream)
+    shade_vertex.launches += 1
+    if err != 0:
+        raise RuntimeError(f"shade_vertex launch failed: CUDA error {err}")
+    return Vertex(VertexState(L_out, beta_out, active_out, spec_out, pdf_out,
+                              o_out, d_out), useful, contrib, shadow_to)
+
+
+shade_vertex.launches = 0
+register(__name__, "shade_vertex", "shade_vertex_kernel")
+
+
+def nee_accumulate(L, useful, occ, contrib):
+    """`nee_accumulate_plain`: one launch of nee_accumulate_kernel on CUDA
+    tensors for all lights, the plain version on CPU tensors."""
+    dev = L.device
+    if dev.type == "cpu":
+        return nee_accumulate_plain(L, useful, occ, contrib)
+    if dev.type != "cuda":
+        raise ValueError(f"no nee_accumulate route for device {dev}")
+    j = check_accumulate_inputs(L, useful, occ, contrib, dev)
+    n = L.shape[0]
+    out = torch.empty_like(L)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.nee_accumulate(L.data_ptr(), useful.data_ptr(),
+                                 occ.data_ptr(), contrib.data_ptr(), n, j,
+                                 out.data_ptr(),
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    nee_accumulate.launches += 1
+    if err != 0:
+        raise RuntimeError(f"nee_accumulate launch failed: CUDA error {err}")
+    return out
+
+
+nee_accumulate.launches = 0
+register(__name__, "nee_accumulate", "nee_accumulate_kernel")

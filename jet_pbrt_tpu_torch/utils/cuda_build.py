@@ -4,8 +4,10 @@ through ctypes.
 Each library is compiled from jet_pbrt_tpu_torch/csrc/ into
 jet_pbrt_tpu_torch/_build/<name>-<hash>/, the hash taken over the sources
 and the flags, so an edited source rebuilds and an unchanged one is reused
-within a checkout. The sources have a plain C interface (no PyTorch
-headers), which keeps a build to seconds.
+within a checkout. A library named in FLAGS is built with those flags
+added (a variant of a source under a -D define of its own). The sources
+have a plain C interface (no PyTorch headers), which keeps a build to
+seconds.
 """
 from __future__ import annotations
 
@@ -23,6 +25,9 @@ BUILD = os.path.join(PKG_DIR, "_build")
 # --use_fast_math, so division and sqrt stay IEEE-exact
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# library name -> its flags beyond NVCC_FLAGS: shade_count is csrc/shade.cu
+# with every float operation counted per thread (the kernel's bound)
+FLAGS = {"shade_count": ("-DSHADE_COUNT_OPS",)}
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 # name -> (seconds, compiler log) of builds made by this process
@@ -45,7 +50,8 @@ def nvcc() -> str:
 
 def _lib_path(name: str, sources: list[str]) -> tuple[str, list[str]]:
     paths = [os.path.join(CSRC, s) for s in sources]
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(FLAGS.get(name, ())))
+                       .encode())
     for p in paths:
         with open(p, "rb") as f:
             h.update(f.read())
@@ -65,7 +71,9 @@ def build_libraries(specs) -> None:
         os.makedirs(os.path.dirname(lib_path), exist_ok=True)
         tmp = f"{lib_path}.{os.getpid()}.tmp"
         procs.append((name, lib_path, tmp, time.perf_counter(),
-                      subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, *paths],
+                      subprocess.Popen([nvcc(), *NVCC_FLAGS,
+                                        *FLAGS.get(name, ()), "-o", tmp,
+                                        *paths],
                                        stdout=subprocess.PIPE,
                                        stderr=subprocess.PIPE, text=True)))
     failed = []

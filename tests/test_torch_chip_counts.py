@@ -173,3 +173,51 @@ def test_profiled_ms_each_names_what_every_call_launches(monkeypatch):
                                   each=("wide_cull_kernel",)) == {
         "queued events": 0.2}
     assert len(made) == chip_smoke.PROFILER_TRIES
+
+
+def test_node_launches_count_the_fused_vertex():
+    """A graph's kernel nodes by device function, as launch_counts names
+    them: the fused vertex's two kernels beside the traversal and the
+    streams."""
+    from jet_pbrt_tpu_torch.ops.launches import REGISTRY
+    nodes = dict.fromkeys(REGISTRY, 0) | {
+        "wide_walk_kernel": 16, "lane_keys_kernel": 1, "uniforms_kernel": 6,
+        "shade_vertex_kernel": 6, "nee_accumulate_kernel": 5}
+    assert chip_smoke.node_launches(nodes) == {
+        "wide_bvh": 16, "sweep_bvh": 0, "threefry": 7, "shade_vertex": 6,
+        "nee_accumulate": 5}
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_expected_launches_count_one_vertex_per_bounce(fused):
+    """Per wave, depth + 1 shade_vertex launches (the last the emission
+    alone) and depth nee_accumulate launches on the fused route, none on
+    the plain one (a path that differentiates); per rank of a sharded
+    frame the same for each local sample."""
+    from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves
+    from jet_pbrt_tpu_torch.scene.scenes import cornell_box
+    meta = cornell_box().meta
+    waves = n_waves(64, 64, 4, DEFAULT_CHUNK)
+    got = chip_smoke.expected_launches(meta, 64, 4, 5, fused=fused)
+    assert (got["shade_vertex"], got["nee_accumulate"]) == (
+        (6 * waves, 5 * waves) if fused else (0, 0))
+    assert got["threefry"] == 7 * waves
+    local = chip_smoke.SHARD_SPP // 2
+    shard = chip_smoke.sharded_launches((2, 2), 2, fused=fused)
+    assert (shard["shade_vertex"], shard["nee_accumulate"]) == (
+        (local * (chip_smoke.SHARD_DEPTH + 1), local * chip_smoke.SHARD_DEPTH)
+        if fused else (0, 0))
+
+
+def test_replay_labels_follow_the_eager_waves_order():
+    """A replay's operations take the ranges of the eager wave's in order;
+    the replay call's input copies before them are "graph inputs"; a
+    replay missing an eager operation is not split."""
+    eager = ["fill", "walk", "shade", "walk"]
+    labels = ["other", "li_path.intersect", "li_path.vertex",
+              "li_path.occluded"]
+    replay = ["Memcpy DtoD", "Memcpy DtoD", "fill", "walk", "shade", "walk"]
+    assert chip_smoke.replay_labels(eager, labels, replay) == [
+        "graph inputs", "graph inputs", "other", "li_path.intersect",
+        "li_path.vertex", "li_path.occluded"]
+    assert chip_smoke.replay_labels(eager, labels, replay[:-1]) is None

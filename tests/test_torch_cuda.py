@@ -43,6 +43,12 @@ sweep-routed scene, its loss bit for bit with eager value_and_grad's and,
 under deterministic algorithms, its gradients too (else within float32's
 default tolerances: the atomic adds reorder); build_train_step graphed against eager at (1, 1)
 over NCCL; a failed capture raises and caches nothing.
+The fused path vertex (ops/shade.py, csrc/shade.cu): both kernels
+against their plain versions on every vertex of a wave of a scene with
+every material, texture, light and shape kind, on the wide and the sweep
+route, bit for bit; the kernel route's frame against the plain route's;
+the graphed frame replaying the kernels against the eager one; and
+render_fn's gradient (eager and graphed) running the plain vertex.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import contextlib
@@ -907,4 +913,137 @@ def test_failed_gradient_capture_raises_and_caches_nothing():
     assert _launches() == before
     val, g = P.value_and_grad(f, params)
     assert torch.allclose(g["a"], 2 * (params["a"] + 0.25))
+    G.clear()
+
+
+# the fused path vertex (ops/shade.py, csrc/shade.cu)
+
+def _shade_counts():
+    from jet_pbrt_tpu_torch.ops import shade as SH
+    return SH.shade_vertex.launches, SH.nee_accumulate.launches
+
+
+def _shade_scene(which: str):
+    import chip_smoke
+    if which == "many-lights":
+        return chip_smoke.many_lights_scene().to("cuda")
+    return chip_smoke.every_kind_scene(which == "sweep").to("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wide", "sweep", "many-lights"])
+def test_fused_vertex_matches_plain_on_card(which):
+    """Every vertex of a 64^2, 1-spp, depth-5 wave of chip_smoke's
+    every-kind scene (every material, texture, light and shape kind; the
+    instanced mesh on the wide kernel or forced onto the sweep) or its
+    scene of 46 lights: the kernels against their plain versions on the
+    recorded inputs, every output bit for bit (NaN equal to NaN), six
+    shade_vertex and five nee_accumulate calls; then the kernel route's
+    frame and stats against the plain route's, bit for bit
+    (chip_smoke.vertex_phase)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    scene = _shade_scene(which)
+    out = chip_smoke.vertex_phase(((which, scene, 64),), torch.device("cuda"),
+                                  "card")
+    assert out[which]["vertices"] == 6 and out[which]["accumulates"] == 5
+    assert out[which]["max_abs_err"] == 0.0
+
+
+@pytest.mark.cuda
+def test_fused_route_frame_equals_plain_route_on_card():
+    """The Cornell box at 32^2, 3 spp, eager: the frame through the
+    kernels equals the frame with the plain versions set in the wrappers'
+    places, image and stats bit for bit; the kernels launched once per
+    vertex."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    from jet_pbrt_tpu_torch.models.render import render
+    from jet_pbrt_tpu_torch.scene.scenes import cornell_box
+    kw = dict(spp=3, seed=2, max_depth=5, clamp=False, device="cuda",
+              with_stats=True, graph=False)
+    scene = cornell_box()
+    before = _shade_counts()
+    img, st = render(scene, 32, 32, **kw)
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip(_shade_counts(), before))
+    with chip_smoke.plain_vertex():
+        pimg, pst = render(scene, 32, 32, **kw)
+    assert torch.equal(img, pimg) and st == pst
+    assert launched == (6, 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wide", "many-lights"])
+def test_graphed_frame_replays_the_fused_vertex_on_card(which):
+    """The every-kind scene or the scene of 46 lights at 32^2, 2 spp: the
+    captured wave's graph holds depth + 1 shade_vertex and depth
+    nee_accumulate kernel nodes, a replayed frame counts them, and its
+    image and stats equal the eager frame's bit for bit. The light
+    table's static part is made anew here, by the capture's warm-up
+    call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import render
+    from jet_pbrt_tpu_torch.ops import shade as SH
+    scene = _shade_scene(which)
+    kw = dict(spp=2, seed=4, max_depth=5, clamp=False, device="cuda",
+              with_stats=True)
+    G.clear()
+    SH._STATICS.clear()
+    render(scene, 32, 32, graph=True, **kw)
+    (entry,) = G.CACHE.entries.values()
+    assert (entry.launches["shade_vertex_kernel"],
+            entry.launches["nee_accumulate_kernel"]) == (6, 5)
+    runs = {}
+    for graph in (True, False):
+        before = _shade_counts()
+        img, st = render(scene, 32, 32, graph=graph, **kw)
+        torch.cuda.synchronize()
+        runs[graph] = (img, st, tuple(a - b for a, b in
+                                      zip(_shade_counts(), before)))
+    (gi, gs, gl), (ei, es, el) = runs[True], runs[False]
+    assert torch.equal(gi, ei) and gs == es and gl == el == (6, 5)
+    G.clear()
+
+
+@pytest.mark.cuda
+def test_render_fn_gradient_takes_the_plain_vertex_on_card():
+    """render_fn's gradient (its params require grad) runs the plain
+    vertex: the eager value_and_grad launches no fused kernel, and the
+    graphed one's graph holds no shade_vertex or nee_accumulate node; the
+    same fn on a pack off the tape launches them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.diff import params as P
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import render_fn
+    from jet_pbrt_tpu_torch.scene.scenes import cornell_box
+    fn, pack = render_fn(cornell_box(), 16, 16, 1, seed=1, max_depth=3,
+                         device="cuda")
+    with torch.no_grad():
+        before = _shade_counts()
+        target = fn(pack._replace(light_c=pack.light_c * 1.2))
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(_shade_counts(), before)) == (4, 3)
+    f = P.loss_fn(fn, pack, target)
+    params = P.get_params(pack, ("mat_c0", "light_c"))
+    before = _shade_counts()
+    P.value_and_grad(f, params)
+    torch.cuda.synchronize()
+    assert _shade_counts() == before
+    G.clear()
+    vg = P.compile_value_and_grad(f)
+    for _ in range(2):
+        vg(params)
+    torch.cuda.synchronize()
+    entry = next(iter(G.GRAD_CACHE.entries.values()))
+    assert entry.launches["shade_vertex_kernel"] == 0
+    assert entry.launches["nee_accumulate_kernel"] == 0
+    assert entry.launches["uniforms_kernel"] > 0
+    assert _shade_counts() == before
+    vg.release()
     G.clear()

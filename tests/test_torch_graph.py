@@ -33,6 +33,7 @@ from jet_pbrt_tpu_torch.models import graph as G
 from jet_pbrt_tpu_torch.models import render as R
 from jet_pbrt_tpu_torch.ops import launches as L
 from jet_pbrt_tpu_torch.ops import rng as TR
+from jet_pbrt_tpu_torch.ops import shade as TSH
 from jet_pbrt_tpu_torch.ops import sweep_bvh as TS
 from jet_pbrt_tpu_torch.ops import wide_bvh as TW
 from jet_pbrt_tpu_torch.scene import scenes as tscenes
@@ -260,7 +261,9 @@ def test_every_kernel_wrapper_is_registered():
         "lane_keys_kernel": (TR.__name__, "lane_keys"),
         "uniforms_kernel": (TR.__name__, "uniforms"),
         "sweep_prims_kernel": (sweep_prims.__name__, "sweep_prims"),
-        "prim_micro_kernel": (prim_micro.__name__, "prim_micro")}
+        "prim_micro_kernel": (prim_micro.__name__, "prim_micro"),
+        "shade_vertex_kernel": (TSH.__name__, "shade_vertex"),
+        "nee_accumulate_kernel": (TSH.__name__, "nee_accumulate")}
     assert all(isinstance(v, int) for v in L.counts().values())
 
 
@@ -332,13 +335,16 @@ NODE_NAMES = [
     "_ZN2at6native29vectorized_elementwise_kernelILi4ENS0_11FillFunctorIfEENS_6detail5ArrayIPcLi1EEEEEviT0_T1_",
     "_Z21wide_walk_kernel_tailv",
     "sweep_bvh_kernel",
+    "_ZN12_GLOBAL__N_119shade_vertex_kernelE9ShadeArgs",
+    "_ZN12_GLOBAL__N_121nee_accumulate_kernelEPKfPKhS3_S1_iiPf",
 ]
 
 
 def test_graph_kernel_nodes_counted_by_device_function():
     assert L.kernel_nodes(NODE_NAMES) == {
         "wide_walk_kernel": 2, "sweep_bvh_kernel": 1, "lane_keys_kernel": 1,
-        "uniforms_kernel": 2, "sweep_prims_kernel": 0, "prim_micro_kernel": 0}
+        "uniforms_kernel": 2, "sweep_prims_kernel": 0, "prim_micro_kernel": 0,
+        "shade_vertex_kernel": 1, "nee_accumulate_kernel": 1}
     assert not L.is_function("wide_walk_kernel_tail", "wide_walk_kernel")
     assert not L.is_function("x16wide_walk_kernel", "wide_walk_kernel")
 
