@@ -5,7 +5,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: one nvcc per kernel library of jet_pbrt_tpu_torch/csrc, all
      started together (wide_bvh, sweep_bvh, sweep_prims, prim_micro,
-     threefry, shade, and shade.cu's operation-counting variant,
+     threefry, shade, brute, and shade.cu's operation-counting variant,
      COUNT_LIBRARY), with ptxas registers and spills;
   2b. the random streams' Threefry kernel (csrc/threefry.cu) against its
      plain version, bit for bit, at 2^20 lanes: the key words of
@@ -33,6 +33,24 @@ Phases, each printing its result; any failure raises and exits non-zero:
      time (warm, and after an L2 flush each), the plain version, and the
      bound from the call's bytes and its float operations, counted on its
      inputs by the counting build (counted_ops);
+  2d. the brute-force casts (ops/brute.py, csrc/brute.cu): the same five
+     eager 1-spp waves, each recording its brute_hits calls (one per
+     cast), each call held against brute_hits_plain on the same inputs,
+     closest hit (every kind's t, index and valid) and any hit, bit for
+     bit, the count of differing lanes printed; then edge sets built here
+     (brute_edges): coincident duplicate triangles and spheres, rays aimed
+     at the Cornell quads' shared diagonals and corners and the bunny's
+     rects', dead lanes with NaN and inf directions, finite tmax, and a
+     scene of more shapes than one shared-memory tile of each kind
+     (many_shapes_scene); the Cornell bounce-1 closest cast and its first
+     shadow cast timed (events, host enqueue, the profiler's device time
+     warm and after an L2 flush, the plain version), each against its
+     bound: BRUTE_OPS per (lane, shape) test the function needs on these
+     inputs (brute_work: every shape of a live lane in closest mode, each
+     live lane's shapes up to its first hit in any-hit mode) at F32_PEAK
+     against its bytes at HBM_BW; and the Cornell 512^2 16-spp and bunny
+     1024^2 4-spp frames on the kernel route against the plain route's
+     (plain_brute), image and stats bit for bit;
   3. wide kernel vs its plain PyTorch version on the default bunny's
      tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
      half bounce) and a targeted incoherent set, closest hit and any hit
@@ -100,7 +118,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
      of 4 samples and resumed, equal bit for bit to the uninterrupted one;
  11. the differentiable path (diff_phase): render_fn on the default bunny
      at 1024^2, 1 spp, depth 5, equal to render(clamp=False) bit for bit,
-     16 wide and 7 Threefry launches forward and none backward, forward and
+     16 wide, 16 brute_hits and 7 Threefry launches forward and none
+     backward, forward and
      backward times, their ratio and the tape's peak memory, the profiled
      backward and four backwards in turns with the gathers by index_select
      and by table[index]; check_grads on the emission (depth 5) and the red
@@ -131,8 +150,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
      built here: meshes (2, 1) and (4, 1) equal to (a)'s frame bit for bit,
      (2, 2) and (1, 4) within atol 2e-4, exact launches per rank, every
      rank's partial film equal bit for bit to its samples' single-card
-     waves on its block, the first wave's Threefry draws (and on (4, 1) its
-     16 wide casts) equal to the plain versions'; (2, 1) graphed train
+     waves on its block, the first wave's Threefry draws and brute-force
+     casts (and on (4, 1) its 16 wide casts) equal to the plain versions'; (2, 1) graphed train
      losses within 1e-5 relative of (1, 1)'s; (d) scaling_report at 1, 2
      and 4 ranks (ranks sharing one card: a check of the machinery, not of
      scaling); each rank's cached graphs (lanes, pool bytes) and gradient
@@ -159,13 +178,15 @@ Phases, each printing its result; any failure raises and exits non-zero:
      busy share; the replayed wave's top operations by device time); the
      1-spp wave at 1024^2 split by li_path's record_function ranges
      (module_split: intersect, rng, vertex, occluded, nee_accumulate,
-     sort, the rest), replayed and eager, on the fused and the plain
-     vertex in turns; whether `import triton` works; one {"graph": ...}
+     sort, the rest), replayed and eager, with both kernels, the plain
+     vertex and the plain brute-force casts in turns; whether `import triton` works; one {"graph": ...}
      JSON line.
 Phases 4, 7, 12 (the forward) and 13 count each frame's shade_vertex and
 nee_accumulate launches beside the others (expected_launches,
 sharded_launches); phases 11 and 12's gradients run the plain vertex and
-count none.
+count none. Every cast of a scene with a brute-force shape launches one
+brute_hits, on every path, the gradients' forwards included (none in a
+backward).
 Phases 4, 5, 7, 10, 11 and 12 run render() (and the sharded forward) on
 graphed waves: graph=True, or the default once a graph=True frame has
 captured the key; the recorders of kernel calls (phase 4's wide casts,
@@ -214,6 +235,8 @@ from jet_pbrt_tpu_torch.models import graph as graph_mod
 from jet_pbrt_tpu_torch.models import integrators
 from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, render, \
     render_fn, setup, wave_fn
+from jet_pbrt_tpu_torch.ops import brute as brute_ops
+from jet_pbrt_tpu_torch.ops import intersect as isect_ops
 from jet_pbrt_tpu_torch.ops import launches as launch_registry
 from jet_pbrt_tpu_torch.ops import linalg, rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops import shade as shade_ops
@@ -245,7 +268,8 @@ PLAIN_2_18_LIMIT_S = 5.0
 LIBRARIES = (("wide_bvh", ["wide_bvh.cu"]), ("sweep_bvh", ["sweep_bvh.cu"]),
              ("sweep_prims", ["sweep_prims.cu"]),
              ("prim_micro", ["prim_micro.cu"]),
-             ("threefry", ["threefry.cu"]), ("shade", ["shade.cu"]))
+             ("threefry", ["threefry.cu"]), ("shade", ["shade.cu"]),
+             ("brute", ["brute.cu"]))
 # the fused vertex built to count its float operations per lane (the
 # bound's operations on the timed call's own inputs; its flag is in
 # cuda_build.FLAGS); built beside the rest
@@ -545,10 +569,12 @@ def launch_counts() -> dict:
             "sweep_bvh": sweep_bvh.intersect_sweep.launches,
             "threefry": rng_launches(),
             "shade_vertex": shade_ops.shade_vertex.launches,
-            "nee_accumulate": shade_ops.nee_accumulate.launches}
+            "nee_accumulate": shade_ops.nee_accumulate.launches,
+            "brute_hits": brute_ops.brute_hits.launches}
 
 
 def reset_launches():
+    brute_ops.brute_hits.launches = 0
     wide_bvh.intersect_wide.launches = 0
     sweep_bvh.intersect_sweep.launches = 0
     shade_ops.shade_vertex.launches = 0
@@ -1191,6 +1217,410 @@ def vertex_phase(cases, dev, smi: str, time_case: str | None = None) -> dict:
 
 
 # --------------------------------------------------------------------------
+# 2d. the brute-force casts (ops/brute.py)
+# --------------------------------------------------------------------------
+
+# float operations per (lane, shape) test of each kind, counted on the
+# plain formula (ops/intersect.py): products, sums, the division, the
+# square root and clamp, |x| > eps, each comparison of the valid predicate
+# and the running minimum's. Triangle: p 9, det 5, |det| > eps 1, 1 / det
+# 1, o - p0 3, u 6, q 9, v 6, t 6, u + v and the 5 comparisons 6, minimum
+# 1. Sphere: c - o 3, b 5, det 8, clamp and sqrt 2, t_near and t_far 2,
+# 4 range comparisons, det >= 0 1, minimum 1. Rect: corners 12, four
+# cross-dot-d 56, 8 sign comparisons, denom 5, |denom| > eps 1, numerator
+# 5, division 1, range 2, minimum 1. Disk: denom 5, c - o 3, |denom| >
+# eps 1, numerator 5, division 1, o + t d - c 9, r2 5, r2 <= r^2 1, range
+# 2, minimum 1.
+BRUTE_OPS = {"tri": 53, "sph": 26, "rect": 91, "disk": 33}
+# the shapes' bytes per row as the kernel reads them
+BRUTE_SHAPE_BYTES = {"tri": 36, "sph": 16, "rect": 60, "disk": 28}
+# o, d, tmin, tmax of a live lane
+BRUTE_RAY_BYTES = 4 * (3 + 3 + 1 + 1)
+
+
+@contextlib.contextmanager
+def brute_calls(out: list):
+    """While open, each call of brute_ops.brute_hits appends (args,
+    keywords, output) to `out` (the wave makes no in-place change). The
+    wrapped function counts on the name in the module (functools.wraps
+    copies the count), as vertex_calls does."""
+    inner = brute_ops.brute_hits
+
+    @functools.wraps(inner)
+    def call(*a, **kw):
+        got = inner(*a, **kw)
+        out.append((a, kw, got))
+        return got
+
+    brute_ops.brute_hits = call
+    try:
+        yield out
+    finally:
+        brute_ops.brute_hits = inner
+
+
+@contextlib.contextmanager
+def plain_brute():
+    """While open, the plain version stands in the wrapper's place, so
+    every cast tests its brute-force shapes in torch ops (a measurement
+    only)."""
+    inner = brute_ops.brute_hits
+    brute_ops.brute_hits = isect_ops.brute_hits_plain
+    try:
+        yield
+    finally:
+        brute_ops.brute_hits = inner
+
+
+def brute_outputs(got, any_hit: bool) -> list:
+    """A brute_hits output as [(name, tensor)]: per kind its t, index and
+    valid, or the one any-hit flag."""
+    if any_hit:
+        return [("occluded", got)]
+    return [(f"{k}{j}", x) for j, h in enumerate(got)
+            for k, x in zip(("t", "index", "valid"), h)]
+
+
+def check_brute_call(label: str, a, kw, got) -> tuple:
+    """One brute_hits call against brute_hits_plain on the same inputs,
+    every output bit for bit; a differing lane is printed with its inputs
+    before the run fails. Returns (lanes, differing lanes, the largest
+    |t| difference on lanes finite in both)."""
+    o, d, tmin, tmax, shapes, any_hit = a
+    want = isect_ops.brute_hits_plain(o, d, tmin, tmax, shapes, any_hit)
+    g, w = brute_outputs(got, any_hit), brute_outputs(want, any_hit)
+    if [n for n, _ in g] != [n for n, _ in w]:
+        raise AssertionError(f"{label}: outputs {[n for n, _ in g]}, the "
+                             f"plain version's {[n for n, _ in w]}")
+    lanes = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
+    err = 0.0
+    for (name, x), (_, y) in zip(g, w):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{label} {name}: {x.dtype} "
+                                 f"{tuple(x.shape)} vs {y.dtype} "
+                                 f"{tuple(y.shape)}")
+        lanes |= differing_lanes(x, y, 0)
+        if x.dtype == torch.float32:
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            if fin.any():
+                err = max(err, float((x[fin] - y[fin]).abs().max()))
+    bad = int(lanes.sum())
+    for i in lanes.nonzero().flatten()[:4].tolist():
+        print(f"{label} lane {i}: o {o[i].tolist()} d {d[i].tolist()} tmin "
+              f"{float(tmin[i])} tmax {float(tmax[i])}; kernel "
+              f"{[(n, x[i].item()) for n, x in g]}, plain "
+              f"{[(n, x[i].item()) for n, x in w]}", flush=True)
+    return o.shape[0], bad, err
+
+
+def check_brute_calls(label: str, calls: list) -> dict:
+    """Each recorded call held against its plain version (check_brute_call);
+    prints the counts by mode and fails on any differing lane. Returns
+    {"calls", "lanes", "differing", "max_abs_err"}."""
+    out = {"calls": 0, "lanes": 0, "differing": 0, "max_abs_err": 0.0}
+    by_mode = collections.Counter()
+    for a, kw, got in calls:
+        any_hit = a[5]
+        n, bad, err = check_brute_call(label, a, kw, got)
+        out["calls"] += 1
+        out["lanes"] += n
+        out["differing"] += bad
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        by_mode["any hit" if any_hit else "closest"] += 1
+    print(f"{label}: {out['calls']} brute_hits calls ({dict(by_mode)}), "
+          f"{out['lanes']} lanes, {out['differing']} lanes differ from the "
+          "plain version", flush=True)
+    if out["differing"]:
+        raise AssertionError(f"{label}: the brute-force kernel differs from "
+                             f"its plain version on {out['differing']} lanes")
+    return out
+
+
+def brute_both_modes(label: str, o, d, tmin, tmax, shapes) -> dict:
+    """The kernel against the plain version on one ray set, closest hit
+    and any hit with tmax 10% short of the closest hit (the plain
+    version's; tmax kept on dead lanes)."""
+    o, d, tmin, tmax = (x.contiguous() for x in (o, d, tmin, tmax))
+    calls = []
+    with brute_calls(calls):
+        brute_ops.brute_hits(o, d, tmin, tmax, shapes, False)
+        want = isect_ops.brute_hits_plain(o, d, tmin, tmax, shapes, False)
+        t = torch.stack([h.t for h in want]).amin(0)
+        tm = torch.where(torch.isfinite(t), t * 0.9,
+                         torch.full_like(t, 1e3))
+        tm = torch.where(tmax < 0, tmax, tm).contiguous()
+        brute_ops.brute_hits(o, d, tmin, tm, shapes, True)
+    torch.cuda.synchronize()
+    return check_brute_calls(label, calls)
+
+
+def brute_wave(label: str, scene, res: int, dev) -> tuple:
+    """One eager 1-spp wave of scene at res^2, depth VERTEX_DEPTH, its
+    brute_hits calls recorded: exactly one per cast, (depth + 1) + depth x
+    lights. Returns (calls, image)."""
+    meta = scene.meta
+    calls = []
+    with torch.no_grad(), brute_calls(calls):
+        img = render(scene, res, res, spp=1, max_depth=VERTEX_DEPTH, seed=1,
+                     clamp=False, device=dev, graph=False)
+    lights = sum(1 for lt in meta.lights if not lt.static_black)
+    want = n_waves(res, res, 1, DEFAULT_CHUNK) * (
+        (VERTEX_DEPTH + 1) + VERTEX_DEPTH * lights)
+    if len(calls) != want:
+        raise AssertionError(f"{label}: one wave made {len(calls)} "
+                             f"brute_hits calls, expected {want}")
+    return calls, img
+
+
+def brute_work(o, d, tmin, tmax, shapes, any_hit: bool) -> dict:
+    """The (lane, shape) tests the function needs on these inputs, per
+    kind, from the plain version's [M, N] valid masks: every shape of
+    every live lane (tmin < tmax) in closest mode; in any-hit mode each
+    live lane's shapes in kind and index order up to its first valid one.
+    Returns {kind: tests}, "flops" (BRUTE_OPS each), "live"."""
+    masks = []
+    inner = isect_ops._closest_mn
+
+    def keep(t, v):
+        masks.append(v)
+        return inner(t, v)
+
+    isect_ops._closest_mn = keep
+    try:
+        isect_ops.brute_hits_plain(o, d, tmin, tmax, shapes, False)
+    finally:
+        isect_ops._closest_mn = inner
+    live = tmin < tmax
+    testing = live.clone()
+    out = {"live": int(live.sum()), "flops": 0}
+    for f, v in zip(shapes.present, masks):
+        m = v.shape[0]
+        if any_hit:
+            v = v & testing[None]
+            hit = v.any(0)
+            first = torch.argmax(v.to(torch.uint8), 0) + 1
+            tests = int(torch.where(testing, torch.where(hit, first, m),
+                                    0).sum())
+            testing &= ~hit
+        else:
+            tests = out["live"] * m
+        out[f] = tests
+        out["flops"] += tests * BRUTE_OPS[f]
+    return out
+
+
+def brute_bytes(o, tmin, tmax, shapes, any_hit: bool) -> int:
+    """Bytes one cast must move: o, d, tmin, tmax of a live lane (tmin,
+    tmax of a dead one) and the shapes read once; per lane t, index and
+    valid of each kind written once (closest), or one flag (any hit)."""
+    n = o.shape[0]
+    live = int((tmin < tmax).sum())
+    shape_bytes = sum(BRUTE_SHAPE_BYTES[f] * getattr(shapes, f)[0].shape[0]
+                      for f in shapes.present)
+    out = n * (1 if any_hit else 9 * len(shapes.present))
+    return live * BRUTE_RAY_BYTES + (n - live) * 8 + shape_bytes + out
+
+
+def time_brute(label: str, calls: list, smi: str, reps: int = 20) -> dict:
+    """The bounce-1 closest cast and the first shadow cast after it, each
+    timed: the kernel by events, host enqueue and the profiler's device
+    time (warm, and after an L2 flush each), the plain version by events,
+    and the bound (brute_work's float operations at F32_PEAK against
+    brute_bytes at HBM_BW)."""
+    i = [k for k, c in enumerate(calls) if not c[0][5]][1]
+    shadow = next(c for c in calls[i + 1:] if c[0][5])
+    out = {}
+    flush = None
+    for mode, (a, kw, _) in (("closest", calls[i]), ("shadow", shadow)):
+        o, d, tmin, tmax, shapes, any_hit = a
+        if flush is None:
+            flush = torch.empty((L2_FLUSH_BYTES // 4,), dtype=torch.int32,
+                                device=o.device)
+        k = lambda: brute_ops.brute_hits(*a)
+        p = lambda: isect_ops.brute_hits_plain(*a)
+        work = brute_work(o, d, tmin, tmax, shapes, any_hit)
+        nbytes = brute_bytes(o, tmin, tmax, shapes, any_hit)
+        ms, _ = time_ms(k, reps)
+        ev, host, host_max, _, _ = time_enqueue_ms(k, reps)
+        (src, dev_ms), = profiled_ms(k, reps, ("brute_hits_kernel",)).items()
+        cold = lambda: (flush.fill_(0), k())
+        (_, cold_ms), = profiled_ms(cold, reps,
+                                    ("brute_hits_kernel",)).items()
+        plain_ms, _ = time_ms(p, 3)
+        b = bound(nbytes, work["flops"])
+        out[mode] = {"ms": ms, "enqueue_ms": host, "device_ms": dev_ms,
+                     "device_cold_ms": cold_ms,
+                     "device_source": "profiler" if src == "brute_hits_kernel"
+                     else src, "plain_ms": plain_ms, "bound_ms": b[0],
+                     "bound_by": b[1], "bytes": nbytes, "work": work,
+                     "lanes": o.shape[0]}
+        print(f"{label} brute_hits {mode} cast ({o.shape[0]} lanes, "
+              f"{work['live']} live, shapes "
+              f"{ {f: getattr(shapes, f)[0].shape[0] for f in shapes.present} }"
+              f"): kernel {ms:.4f} ms by events, host enqueue {host:.4f} ms "
+              f"(largest {host_max:.4f}), device {dev_ms:.4f} ms "
+              f"({out[mode]['device_source']}), {cold_ms:.4f} ms after an L2 "
+              f"flush each; plain {plain_ms:.3f} ms; bound {b[0]:.4f} ms by "
+              f"{b[1]} ({nbytes} bytes, {work['flops']} float operations: "
+              f"tests by kind "
+              f"{ {f: work[f] for f in shapes.present} }) [{smi}]",
+              flush=True)
+    return out
+
+
+def many_shapes_scene(builder=SceneBuilder):
+    """More brute-force shapes than one of the kernel's shared-memory
+    tiles of each kind: 3,000 spheres, 2,000 triangles (use_bvh=False),
+    300 rects and 300 disks in a box, an area light and an env light."""
+    g = np.random.default_rng(11)
+    b = builder("many-shapes")
+    b.set_camera(lookfrom=(0, 0, 30), lookat=(0, 0, 0), vfov=50)
+    white = b.add_matte((0.7, 0.7, 0.7))
+    red = b.add_plastic((0.6, 0.2, 0.2), (0.4, 0.4, 0.4), 0.3)
+    for c, r in zip(g.uniform(-10, 10, (3000, 3)), g.uniform(0.1, 0.5, 3000)):
+        b.add_sphere(tuple(c), float(r), red)
+    b.add_mesh(g.uniform(-10, 10, (2000, 1, 3))
+               + g.uniform(-0.6, 0.6, (2000, 3, 3)), white)
+    for x, z in g.uniform(-10, 9, (300, 2)):
+        b.add_rect_xz(x, x + 0.7, z, z + 0.7, float(g.uniform(-10, 10)),
+                      white)
+    for c, n in zip(g.uniform(-10, 10, (300, 3)), g.normal(size=(300, 3))):
+        b.add_disk(tuple(c), tuple(n), 0.4, white)
+    b.add_area_light(b.add_rect_xz(-3, 3, -3, 3, 12, white,
+                                   flip_normal=True), (6.0, 6.0, 6.0))
+    b.add_env_light((0.2, 0.2, 0.25))
+    return b.build(use_bvh=False)
+
+
+def edge_rays(shapes, n: int, lo, hi, seed: int, dev):
+    """n rays from seeded points in the box [lo, hi] aimed at the shapes'
+    edges and corners: each triangle's vertices and points on its edges
+    (a quad's two triangles share their diagonal), each rect's corners and
+    diagonals."""
+    g = np.random.default_rng(seed)
+    targets = []
+    if shapes.tri is not None:
+        p = np.stack([x.cpu().numpy() for x in shapes.tri], 1)  # [T,3,3]
+        for a, b in ((0, 1), (1, 2), (2, 0)):
+            for s in (0.0, 0.25, 0.5, 1.0 / 3.0):
+                targets.append(p[:, a] + np.float32(s) * (p[:, b] - p[:, a]))
+    if shapes.rect is not None:
+        q = shapes.rect[0].cpu().numpy()
+        for a, b in ((0, 2), (1, 3), (0, 1)):
+            for s in (0.0, 0.5, 0.3):
+                targets.append(q[:, a] + np.float32(s) * (q[:, b] - q[:, a]))
+    targets = np.concatenate(targets)
+    t = targets[g.integers(0, len(targets), n)]
+    o = g.uniform(lo, hi, (n, 3)).astype(np.float32)
+    d = (t - o).astype(np.float64)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32, device=dev)
+    return (f(o).contiguous(), f(d).contiguous(),
+            torch.full((n,), 1e-3, device=dev),
+            torch.full((n,), float("inf"), device=dev))
+
+
+def brute_edges(cornell, bunny, dev, many_res: int = 128) -> dict:
+    """The kernel against the plain version, both modes, on edge sets:
+    coincident duplicate triangles and spheres (the tie rule); rays aimed
+    at the shared diagonals and corners of the Cornell box's quads and the
+    bunny's rects; dead lanes with NaN and inf directions and a live lane
+    with a NaN one; finite tmax, equal to a closest hit's t on some lanes
+    and to tmin on others; the many-shapes scene (more shapes than a tile
+    of each kind). Returns {set: check_brute_calls' counts}."""
+    out = {}
+    cs = scene_pack.brute_shapes(cornell.meta, cornell.pack)
+    bs = scene_pack.brute_shapes(bunny.meta, bunny.pack)
+    wo, wd, wt0, wt1 = wave_rays(cornell, 256, 21, dev)
+    # coincident duplicates: every Cornell triangle twice, and 3 spheres
+    # twice each at the box's centre
+    dup_tri = tuple(torch.cat([x, x]).contiguous() for x in cs.tri)
+    c = torch.tensor([[278.0, 273.0, 280.0], [200.0, 100.0, 300.0],
+                      [350.0, 300.0, 200.0]], device=dev)
+    r = torch.tensor([80.0, 40.0, 60.0], device=dev)
+    dup = isect_ops.BruteShapes(
+        tri=dup_tri, sph=(torch.cat([c, c]), torch.cat([r, r])), rect=None,
+        disk=None)
+    out["duplicates"] = brute_both_modes("duplicate triangles and spheres",
+                                         wo, wd, wt0, wt1, dup)
+    o, d, t0, t1 = edge_rays(cs, 1 << 16, (1.0, 1.0, 1.0),
+                             (555.0, 548.0, 558.0), 22, dev)
+    out["cornell edges"] = brute_both_modes("cornell quad diagonals and "
+                                            "corners", o, d, t0, t1, cs)
+    o, d, t0, t1 = edge_rays(bs, 1 << 16, (-8.0, 0.5, -8.0),
+                             (8.0, 12.0, 8.0), 23, dev)
+    out["bunny edges"] = brute_both_modes("bunny rect diagonals and corners",
+                                          o, d, t0, t1, bs)
+    # dead lanes with NaN and inf directions, a live lane with a NaN one
+    n = wo.shape[0]
+    k = torch.arange(n, device=dev) % 4
+    bad_d = torch.where((k == 1)[:, None], torch.full_like(wd, float("nan")),
+                        torch.where((k == 2)[:, None],
+                                    torch.full_like(wd, float("inf")), wd))
+    dead = (k == 1) | (k == 2)
+    t0 = torch.where(dead, torch.full_like(wt0, float("inf")), wt0)
+    t1 = torch.where(dead, torch.full_like(wt1, -1.0), wt1)
+    bad_d[7] = float("nan")
+    t0[7], t1[7] = 1e-3, float("inf")
+    out["dead"] = brute_both_modes("dead lanes (NaN, inf directions)", wo,
+                                   bad_d, t0, t1, cs)
+    # finite tmax: a closest hit's own t (t < tmax fails), its t as tmin,
+    # and half of it
+    hit = isect_ops.brute_hits_plain(wo, wd, wt0, wt1, cs, False)[0]
+    th = torch.where(hit.valid, hit.t, torch.full_like(hit.t, 100.0))
+    t1 = torch.where(k == 0, th, torch.where(k == 1, th * 0.5, th * 4.0))
+    t0 = torch.where(k == 2, th, wt0)
+    t1 = torch.where(wt1 < 0, wt1, t1)
+    out["finite tmax"] = brute_both_modes("finite tmax", wo, wd, t0, t1, cs)
+    many = many_shapes_scene().to(dev)
+    ms = scene_pack.brute_shapes(many.meta, many.pack)
+    o, d, t0, t1 = wave_rays(many, many_res, 24, dev)
+    out["many shapes"] = brute_both_modes(
+        f"many shapes ({ {f: getattr(ms, f)[0].shape[0] for f in ms.present} })",
+        o, d, t0, t1, ms)
+    calls, _ = brute_wave("many shapes wave", many, many_res, dev)
+    out["many shapes wave"] = check_brute_calls(
+        f"many-shapes {many_res}^2 wave", calls)
+    return out
+
+
+def brute_frames(cases, dev) -> None:
+    """Each (label, scene, res, spp) frame, eager, on the kernel route
+    against the same frame on the plain route (plain_brute), image and
+    stats bit for bit."""
+    for label, scene, res, spp in cases:
+        kw = dict(spp=spp, max_depth=VERTEX_DEPTH, seed=0, clamp=False,
+                  device=dev, graph=False, with_stats=True)
+        img, st = render(scene, res, res, **kw)
+        with plain_brute():
+            pimg, pst = render(scene, res, res, **kw)
+        if not torch.equal(img, pimg) or st != pst:
+            raise AssertionError(
+                f"{label}: the brute-force kernel's frame differs from the "
+                f"plain version's (max |diff| "
+                f"{float((img - pimg).abs().max())}, stats {st} vs {pst})")
+        print(f"{label} {res}^2 {spp}-spp frame: the brute-force kernel "
+              f"route's image and stats equal the plain route's bit for bit "
+              f"({st['rays']} rays)", flush=True)
+
+
+def brute_phase(cases, dev, smi: str, time_case: str | None = None) -> dict:
+    """For each (label, scene, res) of cases one eager 1-spp wave, its
+    brute_hits calls recorded (brute_wave) and each held bit for bit
+    against the plain version (check_brute_calls); on the case labelled
+    time_case its bounce-1 closest and shadow casts timed (time_brute).
+    Returns {label: counts} and, where timed, "times"."""
+    out = {}
+    for label, scene, res in cases:
+        calls, _ = brute_wave(label, scene, res, dev)
+        out[label] = check_brute_calls(f"{label} {res}^2 wave", calls)
+        if label == time_case:
+            out["times"] = time_brute(label, calls, smi)
+        del calls
+    return out
+
+
+# --------------------------------------------------------------------------
 # 3, 6. kernel vs plain
 # --------------------------------------------------------------------------
 
@@ -1803,23 +2233,28 @@ def expected_launches(meta, res: int, spp: int, depth: int,
     vertex's route (ops/shade.py::kernel_route; fused=False for a path
     that differentiates) one shade_vertex per vertex (depth + 1, the last
     the emission alone) and one nee_accumulate per vertex below
-    max_depth."""
+    max_depth; one brute_hits per cast where the scene has a brute-force
+    shape (scene_pack.brute_shapes)."""
     lights = sum(1 for lt in meta.lights if not lt.static_black)
     waves = n_waves(res, res, spp, DEFAULT_CHUNK)
     casts = waves * ((depth + 1) + depth * lights)
+    brute = bool(meta.n_sph or meta.n_rect or meta.n_disk or (
+        meta.n_tri and not (meta.wide_bvh or meta.pallas_bvh)))
     return {"wide_bvh": casts * (sum(meta.wide_blas) + int(meta.wide_bvh)),
             "sweep_bvh": casts * (sum(meta.pallas_blas)
                                   + int(meta.pallas_bvh)),
             "threefry": waves * (2 + depth),
             "shade_vertex": waves * (depth + 1) if fused else 0,
-            "nee_accumulate": waves * depth if fused else 0}
+            "nee_accumulate": waves * depth if fused else 0,
+            "brute_hits": casts if brute else 0}
 
 
 TRACED_KERNELS = {"wide_bvh": ("wide_walk_kernel",),
                   "sweep_bvh": ("sweep_bvh_kernel",),
                   "threefry": ("lane_keys_kernel", "uniforms_kernel"),
                   "shade_vertex": ("shade_vertex_kernel",),
-                  "nee_accumulate": ("nee_accumulate_kernel",)}
+                  "nee_accumulate": ("nee_accumulate_kernel",),
+                  "brute_hits": ("brute_hits_kernel",)}
 
 
 def traced_launches(prof) -> dict:
@@ -1977,7 +2412,8 @@ def profile_wave(scene, dev, label, res=1024, depth=5, table=True,
              for name, keys in (("wide_bvh", WIDE_KERNELS),
                                 ("sweep_bvh", ("sweep_bvh_kernel",)),
                                 ("threefry", ("lane_keys_kernel",
-                                              "uniforms_kernel")))}
+                                              "uniforms_kernel")),
+                                ("brute_hits", ("brute_hits_kernel",)))}
     mode = "replayed from its CUDA graph" if graph else "eager"
     if total is None:
         print(f"{label} profiled 1-spp wave ({mode}): wall "
@@ -2462,7 +2898,8 @@ def node_launches(nodes: dict) -> dict:
             "sweep_bvh": nodes["sweep_bvh_kernel"],
             "threefry": nodes["lane_keys_kernel"] + nodes["uniforms_kernel"],
             "shade_vertex": nodes["shade_vertex_kernel"],
-            "nee_accumulate": nodes["nee_accumulate_kernel"]}
+            "nee_accumulate": nodes["nee_accumulate_kernel"],
+            "brute_hits": nodes["brute_hits_kernel"]}
 
 
 def max_diff(a: dict, b: dict) -> float:
@@ -2722,8 +3159,9 @@ def graphed_fits(fn, pack, target, smi: str) -> dict:
 
 def diff_phase(dev, smi: str, res: int = 1024):
     """render_fn on the default bunny (wide route) at res^2, 1 spp, depth 5:
-    its image equal to render(clamp=False) bit for bit, 16 wide and 7
-    Threefry launches in the forward and none in the backward of the loss
+    its image equal to render(clamp=False) bit for bit, 16 wide, 16
+    brute_hits (the bunny's rects) and 7 Threefry launches in the forward
+    and none in the backward of the loss
     mean((img - target)^2) over mat_c0 and light_c (target: light_c x
     1.2), forward and backward ms, their ratio and peak memory (two runs);
     finite gradients, the red bunny's albedo row non-zero; the backward
@@ -2748,7 +3186,7 @@ def diff_phase(dev, smi: str, res: int = 1024):
     out = {"runs": []}
     # the gradient's forward takes the plain vertex (shade.kernel_route)
     want = {"wide_bvh": 6 + 5 * 2, "sweep_bvh": 0, "threefry": 2 + 5,
-            "shade_vertex": 0, "nee_accumulate": 0}
+            "shade_vertex": 0, "nee_accumulate": 0, "brute_hits": 6 + 5 * 2}
     eager = []      # the eager gradients of the loss, by index_select
     for run in range(2):
         img, g, f_ms, b_ms, fwd, bwd, peak = fwd_bwd(
@@ -2895,12 +3333,15 @@ def sharded_launches(shape, lights: int, fused: bool = True) -> dict:
     wave per local sample, each with (depth + 1) closest and depth x lights
     shadow casts, 2 + depth Threefry draws and, on the fused vertex's route
     (the forward; fused=False for the train step's differentiated film),
-    depth + 1 shade_vertex and depth nee_accumulate launches."""
+    depth + 1 shade_vertex and depth nee_accumulate launches; one
+    brute_hits per cast (the bunny's rects), on every path."""
     local = SHARD_SPP // shape[1]
-    return {"wide_bvh": local * (SHARD_DEPTH + 1 + SHARD_DEPTH * lights),
-            "sweep_bvh": 0, "threefry": local * (2 + SHARD_DEPTH),
+    casts = local * (SHARD_DEPTH + 1 + SHARD_DEPTH * lights)
+    return {"wide_bvh": casts, "sweep_bvh": 0,
+            "threefry": local * (2 + SHARD_DEPTH),
             "shade_vertex": local * (SHARD_DEPTH + 1) if fused else 0,
-            "nee_accumulate": local * SHARD_DEPTH if fused else 0}
+            "nee_accumulate": local * SHARD_DEPTH if fused else 0,
+            "brute_hits": casts}
 
 
 def free_port() -> int:
@@ -2912,14 +3353,14 @@ def free_port() -> int:
 @contextlib.contextmanager
 def recorded_calls(out: list, limit: int):
     """While open, the first `limit` calls of wide_bvh.intersect_wide,
-    rng.lane_keys and rng.uniforms append (name, inputs, keywords,
-    output) to `out`, their inputs cloned."""
+    rng.lane_keys, rng.uniforms and brute_ops.brute_hits append (name,
+    inputs, keywords, output) to `out`, their input tensors cloned."""
     copy = lambda a: tuple(
         rng.LaneKeys(*(k.clone() for k in x)) if isinstance(x, rng.LaneKeys)
         else x.clone() if torch.is_tensor(x) else x for x in a)
     saved = []
     for mod, name in ((wide_bvh, "intersect_wide"), (rng, "lane_keys"),
-                      (rng, "uniforms")):
+                      (rng, "uniforms"), (brute_ops, "brute_hits")):
         inner = getattr(mod, name)
 
         # the wrapped function counts its launches on its module's name, so
@@ -2951,6 +3392,9 @@ def replay_plain(calls) -> dict:
             seed, sample, pixel = a
             want = rng.lane_keys_plain(seed, torch.as_tensor(
                 sample, device=pixel.device).expand(pixel.shape), pixel)
+        elif name == "brute_hits":
+            got, want = ([x for _, x in brute_outputs(out, a[5])] for out in
+                         (got, isect_ops.brute_hits_plain(*a, **kw)))
         else:
             got, want = (got.view(torch.int32),), (rng.uniforms_plain(
                 *a).view(torch.int32),)
@@ -3326,8 +3770,12 @@ GRAPH_DEPTH = 5
 # li_path's record_function ranges (models/integrators.py), in wave order
 WAVE_RANGES = ("li_path.intersect", "li_path.rng", "li_path.vertex",
                "li_path.occluded", "li_path.nee_accumulate", "li_path.sort")
-# the routes of the vertex phase 13 splits a wave under, in turns
-SPLIT_TURNS = ("fused", "plain", "plain", "fused")
+# the routes phase 13 splits a wave under, in turns: both kernels, the
+# plain vertex (plain_vertex), the plain brute-force casts (plain_brute)
+SPLIT_TURNS = ("fused", "plain vertex", "plain brute", "plain brute",
+               "plain vertex", "fused")
+SPLIT_ROUTES = {"fused": contextlib.nullcontext, "plain vertex": plain_vertex,
+                "plain brute": plain_brute}
 
 
 def _device_ops(call):
@@ -3409,22 +3857,21 @@ def wave_split(scene, dev, res: int, depth: int) -> dict:
 
 def module_split(scene, dev, label: str, res: int, depth: int,
                  smi: str) -> dict:
-    """wave_split on the fused route and on the plain route (plain_vertex;
-    each route captures its own graph: the cache is cleared between
-    turns), in SPLIT_TURNS; prints each turn's replayed and eager device
-    ms per range. Returns {route: [turn's wave_split, ...]}."""
-    out = {"fused": [], "plain": []}
+    """wave_split on each route of SPLIT_ROUTES (each route captures its
+    own graph: the cache is cleared between turns), in SPLIT_TURNS; prints
+    each turn's replayed and eager device ms per range. Returns {route:
+    [turn's wave_split, ...]}."""
+    out = {route: [] for route in SPLIT_ROUTES}
     for route in SPLIT_TURNS:
         graph_mod.clear()
-        ctx = plain_vertex() if route == "plain" else contextlib.nullcontext()
-        with ctx:
+        with SPLIT_ROUTES[route]():
             got = wave_split(scene, dev, res, depth)
         out[route].append(got)
         fmt = lambda d: ("not split (the replay's operations differ from "
                          "the eager wave's)" if d is None else ", ".join(
                              f"{k.replace('li_path.', '')} {v:.2f}"
                              for k, v in d.items()))
-        print(f"{label} {res}^2 1-spp wave, {route} vertex: replayed "
+        print(f"{label} {res}^2 1-spp wave, route {route}: replayed "
               f"{got['replayed_ms']:.2f} ms device ({got['replayed_ops']} "
               f"operations): {fmt(got['replayed'])}; eager "
               f"{got['eager_ms']:.2f} ms ({got['ops']} operations, "
@@ -3567,13 +4014,21 @@ def main() -> int:
     t0 = time.perf_counter()
     torch_rules(dev)
     cornell = cornell_box().to(dev)
-    vertex = vertex_phase(
-        (("bunny", bunny, 1024), ("cornell", cornell, 1024),
-         ("every-kind wide", every_kind_scene(False).to(dev), 256),
-         ("every-kind sweep", every_kind_scene(True).to(dev), 256),
-         ("many-lights", many_lights_scene().to(dev), 256)),
-        dev, smi.splitlines()[0], time_case="bunny")
+    cases = (("bunny", bunny, 1024), ("cornell", cornell, 1024),
+             ("every-kind wide", every_kind_scene(False).to(dev), 256),
+             ("every-kind sweep", every_kind_scene(True).to(dev), 256),
+             ("many-lights", many_lights_scene().to(dev), 256))
+    vertex = vertex_phase(cases, dev, smi.splitlines()[0], time_case="bunny")
     print(f"phase 2c took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("2d brute-force kernel vs plain")
+    t0 = time.perf_counter()
+    brute = brute_phase(cases, dev, smi.splitlines()[0], time_case="cornell")
+    edges = brute_edges(cornell, bunny, dev)
+    brute_frames((("cornell", cornell, 512, 16), ("bunny", bunny, 1024, 4)),
+                 dev)
+    del cases
+    print(f"phase 2d took {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("3 wide kernel vs plain")
     wide = wide_route(bunny)
@@ -3758,7 +4213,30 @@ def main() -> int:
             "sweep_launches": sweep_frame[name],
             "sharded_launches": {k: v[name]
                                  for k, v in sharded["launches"].items()}}
-           for name, t in vertex["times"].items()]}),
+           for name, t in vertex["times"].items()]
+        + [{"name": "brute_hits", "route": "cuda",
+            "source": "jet_pbrt_tpu_torch/csrc/brute.cu",
+            "replaces": "jet_pbrt_tpu/ops/intersect.py:72 (the brute-force "
+                        "[M, N] shape tests, :72-215, under jax.jit(wave): "
+                        "XLA fusion, no Pallas kernel)",
+            "launches": frame_launches["brute_hits"],
+            "max_abs_err": max(v["max_abs_err"] for k, v in
+                               (*brute.items(), *edges.items())
+                               if k != "times"),
+            "ms": bt["ms"], "plain_ms": bt["plain_ms"],
+            "bound_ms": bt["bound_ms"], "bound_by": bt["bound_by"],
+            # no PyTorch call intersects rays with shapes
+            "library_ms": None, "device_ms": bt["device_ms"],
+            "device_cold_ms": bt["device_cold_ms"],
+            "enqueue_ms": bt["enqueue_ms"], "bytes": bt["bytes"],
+            "flops": bt["work"]["flops"], "lanes": bt["lanes"],
+            "shadow": {k: brute["times"]["shadow"][k] for k in (
+                "ms", "device_ms", "device_cold_ms", "plain_ms", "bound_ms",
+                "bound_by")},
+            "sweep_launches": sweep_frame["brute_hits"],
+            "sharded_launches": {k: v["brute_hits"]
+                                 for k, v in sharded["launches"].items()}}
+           for bt in (brute["times"]["closest"],)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

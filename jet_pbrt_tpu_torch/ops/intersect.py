@@ -3,7 +3,9 @@
 PyTorch counterpart of jet_pbrt_tpu/ops/intersect.py (reference:
 src/shape.h). Candidate math is shape-major [M, N]; a "kind hit" is the
 per-ray closest (t, index, valid) among the shapes of one kind, and
-`merge_hits` min-merges kinds.
+`merge_hits` min-merges kinds. `brute_hits_plain` is the plain version of
+the brute-force kernel (ops/brute.py): every brute-force kind of a scene
+in one call.
 """
 from __future__ import annotations
 
@@ -171,6 +173,45 @@ def intersect_disks(o, d, tmin, tmax, center, n, radius) -> KindHit:
     valid = (par & (t > tmin[None, :]) & (t < tmax[None, :])
              & (r2 <= (radius[:, None] * radius[:, None])))
     return _closest_mn(t, valid)
+
+
+class BruteShapes(NamedTuple):
+    """A scene's brute-force shapes, each kind None where the scene has
+    none (or, for triangles, where a BVH kernel takes them)."""
+    tri: tuple | None    # (p0, p1, p2), each [T,3]
+    sph: tuple | None    # (center [S,3], radius [S])
+    rect: tuple | None   # (corners [R,4,3], normal [R,3])
+    disk: tuple | None   # (center [D,3], normal [D,3], radius [D])
+
+    @property
+    def present(self) -> tuple:
+        """The fields of the kinds present, in `_kind_hits` order."""
+        return tuple(f for f in self._fields if getattr(self, f) is not None)
+
+
+def brute_hits_plain(o, d, tmin, tmax, shapes: BruteShapes,
+                     any_hit: bool):
+    """Every brute-force kind of `shapes` against rays o, d [N,3] in (tmin,
+    tmax) [N]: closest mode, one KindHit per kind present in
+    `shapes.present` order (the intersect_* functions above); any-hit mode,
+    the [N] bool OR of their valid."""
+    hits = []
+    if shapes.tri is not None:
+        hits.append(intersect_triangles(o, d, tmin, tmax, *shapes.tri))
+    if shapes.sph is not None:
+        hits.append(intersect_spheres(o, d, tmin, tmax, *shapes.sph))
+    if shapes.rect is not None:
+        q, n = shapes.rect
+        hits.append(intersect_rects(o, d, tmin, tmax, q[:, 0], q[:, 1],
+                                    q[:, 2], q[:, 3], n))
+    if shapes.disk is not None:
+        hits.append(intersect_disks(o, d, tmin, tmax, *shapes.disk))
+    if not any_hit:
+        return hits
+    occ = torch.zeros(o.shape[:1], dtype=torch.bool, device=o.device)
+    for h in hits:
+        occ = occ | h.valid
+    return occ
 
 
 def merge_hits(hits: list[KindHit], kinds: list[int]):

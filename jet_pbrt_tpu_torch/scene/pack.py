@@ -7,7 +7,8 @@ kinds present. Meshes with a BVH (a triangle soup built with use_bvh, and
 every instanced family) are traversed by ops/wide_bvh.py or, when the
 builder routes them there (meshes beyond the reference's wide-kernel
 budget, scene/builder.py), by ops/sweep_bvh.py; spheres, rects, disks and
-small soups are tested by brute force.
+small soups are tested by brute force, all of them in one ops/brute.py call
+per cast.
 
 `SceneMeta` and `LightMeta` carry the reference's fields; they are copies
 because the reference module imports JAX.
@@ -20,6 +21,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import brute as brute_ops
 from ..ops import intersect as isect_ops
 from ..ops import sweep_bvh
 from ..ops import wide_bvh
@@ -205,25 +207,50 @@ def _sweep(tables, n_tris, o, d, tmin, tmax, any_hit, stats):
     return hit
 
 
+def brute_shapes(meta: SceneMeta, pack: ScenePack) -> isect_ops.BruteShapes:
+    """The pack's brute-force shapes: the triangles where no BVH kernel
+    takes them, the spheres, rects and disks; None for a kind it lacks."""
+    tri_brute = meta.n_tri > 0 and not (meta.pallas_bvh or meta.wide_bvh)
+    return isect_ops.BruteShapes(
+        tri=(pack.tri_p0, pack.tri_p1, pack.tri_p2) if tri_brute else None,
+        sph=(pack.sph_c, pack.sph_r) if meta.n_sph else None,
+        rect=(pack.rect_q, pack.rect_n) if meta.n_rect else None,
+        disk=(pack.disk_c, pack.disk_n, pack.disk_r) if meta.n_disk
+        else None)
+
+
 def _kind_hits(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
                any_hit: bool = False, stats: dict | None = None):
-    """Closest (or any) hit per shape kind present in the scene. A BVH mesh
-    takes the kernel its build routed it to (meta.pallas_* -> sweep,
-    otherwise the wide kernel)."""
+    """Closest (or any) hit per shape kind present in the scene: (hits,
+    kinds). A BVH mesh takes the kernel its build routed it to
+    (meta.pallas_* -> sweep, otherwise the wide kernel); the brute-force
+    kinds are one brute_hits call, whose KindHits take their kinds' places
+    (brute-force triangles first, then the instanced families, spheres,
+    rects, disks). With any_hit, hits are [N] bool occlusion flags: one per
+    BVH mesh, and one for all brute-force kinds together (kind None)."""
     o, d, tmin, tmax = (x.contiguous() for x in (o, d, tmin, tmax))
     hits, kinds = [], []
-    if meta.n_tri:
-        if meta.pallas_bvh:
-            hits.append(_sweep(pack.bvh_sweep, meta.n_bvh_tris, o, d, tmin,
-                               tmax, any_hit, stats))
-        elif meta.wide_bvh:
-            hits.append(wide_bvh.intersect_wide(
-                pack.bvh_wide, o, d, tmin, tmax, any_hit=any_hit,
-                has_inst=False, leaf_size=meta.bvh_leaf_size,
-                n_tris=meta.n_bvh_tris))
+    shapes = brute_shapes(meta, pack)
+    brute = {}
+    if shapes.present:
+        got = brute_ops.brute_hits(o, d, tmin, tmax, shapes, any_hit)
+        if any_hit:
+            hits.append(got)
+            kinds.append(None)
         else:
-            hits.append(isect_ops.intersect_triangles(
-                o, d, tmin, tmax, pack.tri_p0, pack.tri_p1, pack.tri_p2))
+            brute = dict(zip(shapes.present, got))
+    if meta.n_tri and meta.pallas_bvh:
+        hits.append(_sweep(pack.bvh_sweep, meta.n_bvh_tris, o, d, tmin,
+                           tmax, any_hit, stats))
+        kinds.append(KIND_TRI)
+    elif meta.n_tri and meta.wide_bvh:
+        hits.append(wide_bvh.intersect_wide(
+            pack.bvh_wide, o, d, tmin, tmax, any_hit=any_hit,
+            has_inst=False, leaf_size=meta.bvh_leaf_size,
+            n_tris=meta.n_bvh_tris))
+        kinds.append(KIND_TRI)
+    elif "tri" in brute:
+        hits.append(brute["tri"])
         kinds.append(KIND_TRI)
     for mi in range(len(meta.n_inst)):
         if meta.pallas_blas[mi]:
@@ -235,20 +262,14 @@ def _kind_hits(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
                 has_inst=True, leaf_size=meta.blas_leaf_size[mi],
                 n_tris=meta.n_blas_tris[mi]))
         kinds.append(KIND_INST + mi)
-    if meta.n_sph:
-        hits.append(isect_ops.intersect_spheres(o, d, tmin, tmax, pack.sph_c,
-                                                pack.sph_r))
-        kinds.append(KIND_SPHERE)
-    if meta.n_rect:
-        q = pack.rect_q
-        hits.append(isect_ops.intersect_rects(o, d, tmin, tmax, q[:, 0],
-                                              q[:, 1], q[:, 2], q[:, 3],
-                                              pack.rect_n))
-        kinds.append(KIND_RECT)
-    if meta.n_disk:
-        hits.append(isect_ops.intersect_disks(o, d, tmin, tmax, pack.disk_c,
-                                              pack.disk_n, pack.disk_r))
-        kinds.append(KIND_DISK)
+    for f, k in (("sph", KIND_SPHERE), ("rect", KIND_RECT),
+                 ("disk", KIND_DISK)):
+        if f in brute:
+            hits.append(brute[f])
+            kinds.append(k)
+    if any_hit:
+        hits = [h.valid if isinstance(h, isect_ops.KindHit) else h
+                for h in hits]
     return hits, kinds
 
 
@@ -409,13 +430,13 @@ def occluded(meta: SceneMeta, pack: ScenePack, p_from, p_to,
                                        tmax)
         perm = torch.argsort(key, stable=True)
         o, d, tmin, tmax = o[perm], d[perm], tmin[perm], tmax[perm]
-    hits, _ = _kind_hits(meta, pack, o, d, tmin, tmax, any_hit=True,
-                         stats=stats)
-    if not hits:
+    flags, _ = _kind_hits(meta, pack, o, d, tmin, tmax, any_hit=True,
+                          stats=stats)
+    if not flags:
         return torch.zeros(dist.shape, dtype=torch.bool, device=dist.device)
-    occ = hits[0].valid
-    for h in hits[1:]:
-        occ = occ | h.valid
+    occ = flags[0]
+    for f in flags[1:]:
+        occ = occ | f
     if sort:
         occ = occ[torch.argsort(perm)]
     return occ

@@ -177,15 +177,16 @@ def test_profiled_ms_each_names_what_every_call_launches(monkeypatch):
 
 def test_node_launches_count_the_fused_vertex():
     """A graph's kernel nodes by device function, as launch_counts names
-    them: the fused vertex's two kernels beside the traversal and the
-    streams."""
+    them: the fused vertex's two kernels and the brute-force casts' beside
+    the traversal and the streams."""
     from jet_pbrt_tpu_torch.ops.launches import REGISTRY
     nodes = dict.fromkeys(REGISTRY, 0) | {
         "wide_walk_kernel": 16, "lane_keys_kernel": 1, "uniforms_kernel": 6,
-        "shade_vertex_kernel": 6, "nee_accumulate_kernel": 5}
+        "shade_vertex_kernel": 6, "nee_accumulate_kernel": 5,
+        "brute_hits_kernel": 16}
     assert chip_smoke.node_launches(nodes) == {
         "wide_bvh": 16, "sweep_bvh": 0, "threefry": 7, "shade_vertex": 6,
-        "nee_accumulate": 5}
+        "nee_accumulate": 5, "brute_hits": 16}
 
 
 @pytest.mark.parametrize("fused", [True, False])
@@ -207,6 +208,32 @@ def test_expected_launches_count_one_vertex_per_bounce(fused):
     assert (shard["shade_vertex"], shard["nee_accumulate"]) == (
         (local * (chip_smoke.SHARD_DEPTH + 1), local * chip_smoke.SHARD_DEPTH)
         if fused else (0, 0))
+
+
+@pytest.mark.parametrize("which", ["cornell", "bunny", "cornell bvh"])
+def test_expected_launches_count_one_brute_cast_per_cast(which):
+    """One brute_hits per cast, (depth + 1) + depth x lights a wave, where
+    the scene has a brute-force shape: the Cornell box's triangles, the
+    bunny's two rects; none where every shape is in a BVH (the Cornell
+    box built with use_bvh); per rank of the sharded bunny frame the
+    same on the forward and the train step's film."""
+    from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves
+    from jet_pbrt_tpu_torch.scene import scenes
+    meta = {"cornell": lambda: scenes.cornell_box(),
+            "bunny": lambda: scenes.bunny_scene(),
+            "cornell bvh": lambda: scenes.cornell_box(use_bvh=True)}[
+        which]().meta
+    lights = sum(1 for lt in meta.lights if not lt.static_black)
+    waves = n_waves(512, 512, 16, DEFAULT_CHUNK)
+    got = chip_smoke.expected_launches(meta, 512, 16, 5)
+    casts = waves * (6 + 5 * lights)
+    assert got["brute_hits"] == (0 if which == "cornell bvh" else casts)
+    assert got["wide_bvh"] == (0 if which == "cornell" else casts)
+    for fused in (True, False):
+        shard = chip_smoke.sharded_launches((2, 1), 2, fused=fused)
+        assert shard["brute_hits"] == shard["wide_bvh"] == (
+            chip_smoke.SHARD_SPP * (chip_smoke.SHARD_DEPTH + 1
+                                    + chip_smoke.SHARD_DEPTH * 2))
 
 
 def test_replay_labels_follow_the_eager_waves_order():

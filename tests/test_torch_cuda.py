@@ -49,6 +49,13 @@ every material, texture, light and shape kind, on the wide and the sweep
 route, bit for bit; the kernel route's frame against the plain route's;
 the graphed frame replaying the kernels against the eager one; and
 render_fn's gradient (eager and graphed) running the plain vertex.
+The brute-force casts (ops/brute.py, csrc/brute.cu): the kernel against
+its plain version on 65,536 rays for each kind alone and all four, closest
+hit and any hit, with dead lanes, NaN directions, finite tmax and tied
+duplicate shapes, bit for bit; more shapes of each kind than one
+shared-memory tile; a captured cast's replay against the eager cast; a
+ray or geometry input that requires grad refused; render_fn's gradient
+casting its forward, and none of its backward, through the kernel.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import contextlib
@@ -1045,5 +1052,190 @@ def test_render_fn_gradient_takes_the_plain_vertex_on_card():
     assert entry.launches["nee_accumulate_kernel"] == 0
     assert entry.launches["uniforms_kernel"] > 0
     assert _shade_counts() == before
+    vg.release()
+    G.clear()
+
+
+def _brute_inputs(kinds, n, seed, counts=None):
+    """Seeded rays (three in four aimed into the shapes' box; a tenth of
+    the lanes dead, some with NaN directions; a fifth with finite tmax)
+    and brute-force shapes of `kinds` on the card, `counts` shapes per
+    kind (default 24), each kind's first 4 shapes present twice."""
+    from jet_pbrt_tpu_torch.ops.intersect import BruteShapes
+    rs = np.random.default_rng(seed)
+    counts = counts or {}
+    f = lambda x: torch.from_numpy(np.ascontiguousarray(
+        x, dtype=np.float32)).to("cuda")
+    shapes = {}
+    for k in kinds:
+        m = counts.get(k, 24)
+        if k == "tri":
+            p0 = rs.uniform(-2, 2, (m, 3))
+            x = (p0, p0 + rs.uniform(-1, 1, (m, 3)),
+                 p0 + rs.uniform(-1, 1, (m, 3)))
+        elif k == "sph":
+            x = (rs.uniform(-2, 2, (m, 3)), rs.uniform(0.05, 0.6, m))
+        elif k == "rect":
+            c = rs.uniform(-2, 2, (m, 1, 3))
+            sq = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]])
+            x = (c + sq[None] * rs.uniform(0.2, 1.0, (m, 1, 1)),
+                 np.tile([[0.0, 0.0, 1.0]], (m, 1)))
+        else:
+            nrm = rs.normal(size=(m, 3))
+            x = (rs.uniform(-2, 2, (m, 3)),
+                 nrm / np.linalg.norm(nrm, axis=1, keepdims=True),
+                 rs.uniform(0.2, 1.0, m))
+        shapes[k] = tuple(f(np.concatenate([a[:4], a])) for a in x)
+    o = rs.uniform(-3, 3, (n, 3))
+    d = np.where((np.arange(n) % 4 != 0)[:, None],
+                 rs.uniform(-1.5, 1.5, (n, 3)) - o, rs.normal(size=(n, 3)))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.full(n, 1e-3)
+    tmax = np.where(rs.uniform(size=n) < 0.8, np.inf, rs.uniform(0.5, 5, n))
+    dead = np.arange(n) % 10 == 3
+    d[dead & (np.arange(n) % 20 == 3)] = np.nan
+    tmin[dead], tmax[dead] = np.inf, -1.0
+    return ((f(o), f(d), f(tmin), f(tmax)),
+            BruteShapes(**{k: shapes.get(k) for k in BruteShapes._fields}))
+
+
+def _brute_equal(got, want, any_hit):
+    if any_hit:
+        assert got.dtype == torch.bool and torch.equal(got, want)
+        return int(got.sum())
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g.t.view(torch.int32), w.t.view(torch.int32))
+        assert torch.equal(g.index, w.index) and torch.equal(g.valid, w.valid)
+    return sum(int(g.valid.sum()) for g in got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kinds", ["tri", "sph", "rect", "disk", "all"])
+def test_brute_kernel_matches_plain_on_card(kinds, any_hit):
+    """The brute-force kernel against its plain version on 65,536 rays,
+    each kind alone and all four, closest hit (every kind's t bits, index
+    and valid) and any hit, bit for bit, one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.ops import brute as TBR
+    from jet_pbrt_tpu_torch.ops.intersect import brute_hits_plain
+    ks = ("tri", "sph", "rect", "disk") if kinds == "all" else (kinds,)
+    rays, shapes = _brute_inputs(ks, 1 << 16, 31)
+    before = TBR.brute_hits.launches
+    got = TBR.brute_hits(*rays, shapes, any_hit)
+    assert TBR.brute_hits.launches == before + 1
+    hits = _brute_equal(got, brute_hits_plain(*rays, shapes, any_hit),
+                        any_hit)
+    assert hits > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_brute_kernel_beyond_one_tile_on_card(any_hit):
+    """More shapes of each kind than one shared-memory tile (3,000
+    spheres, 2,000 triangles, 600 rects, 300 disks): bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.ops import brute as TBR
+    from jet_pbrt_tpu_torch.ops.intersect import brute_hits_plain
+    rays, shapes = _brute_inputs(
+        ("tri", "sph", "rect", "disk"), 8192, 32,
+        {"tri": 2000, "sph": 3000, "rect": 600, "disk": 300})
+    got = TBR.brute_hits(*rays, shapes, any_hit)
+    hits = _brute_equal(got, brute_hits_plain(*rays, shapes, any_hit),
+                        any_hit)
+    assert hits > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_brute_cast_replays_from_a_graph_on_card(any_hit):
+    """A captured brute-force cast (the graph holds one brute_hits_kernel
+    node), replayed on new rays copied into its inputs, equals the eager
+    cast on those rays bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.ops import brute as TBR
+    ks = ("tri", "sph", "rect", "disk")
+    rays, shapes = _brute_inputs(ks, 4096, 33)
+    new, _ = _brute_inputs(ks, 4096, 34)
+    static = [x.clone() for x in rays]
+    cast = lambda: TBR.brute_hits(*static, shapes, any_hit)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cast()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        out = cast()
+    from jet_pbrt_tpu_torch.ops.launches import is_function
+    assert sum(is_function(name, "brute_hits_kernel")
+               for name in G.kernel_names(g)) == 1
+    for x, y in zip(static, new):
+        x.copy_(y)
+    g.replay()
+    torch.cuda.synchronize()
+    _brute_equal(out, TBR.brute_hits(*new, shapes, any_hit), any_hit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arg", ["o", "tmin", "tri_p0", "sph_r"])
+def test_brute_kernel_refuses_inputs_that_require_grad(arg):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.ops import brute as TBR
+    rays, shapes = _brute_inputs(("tri", "sph"), 300, 35)
+    t = dict(zip(("o", "d", "tmin", "tmax"), rays))
+    t["tri_p0"], t["sph_r"] = shapes.tri[0], shapes.sph[1]
+    t[arg] = t[arg].clone().requires_grad_(True)
+    shapes = shapes._replace(tri=(t["tri_p0"], *shapes.tri[1:]),
+                             sph=(shapes.sph[0], t["sph_r"]))
+    before = TBR.brute_hits.launches
+    with pytest.raises(ValueError, match="require grad"):
+        TBR.brute_hits(t["o"], t["d"], t["tmin"], t["tmax"], shapes, False)
+    assert TBR.brute_hits.launches == before
+
+
+@pytest.mark.cuda
+def test_gradient_forward_casts_through_the_brute_kernel_on_card():
+    """render_fn's gradient on the Cornell box (depth 3, its two light
+    triangles): the eager value_and_grad launches one brute_hits per cast
+    of its forward, (3 + 1) + 3 x 2, and none in its backward; the
+    graphed one's graph holds the same number of brute_hits_kernel
+    nodes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.diff import params as P
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import render_fn
+    from jet_pbrt_tpu_torch.ops import brute as TBR
+    from jet_pbrt_tpu_torch.scene.scenes import cornell_box
+    fn, pack = render_fn(cornell_box(), 16, 16, 1, seed=1, max_depth=3,
+                         device="cuda")
+    with torch.no_grad():
+        target = fn(pack._replace(light_c=pack.light_c * 1.2))
+    f = P.loss_fn(fn, pack, target)
+    params = P.get_params(pack, ("mat_c0", "light_c"))
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    before = TBR.brute_hits.launches
+    loss = f(leaves)
+    torch.cuda.synchronize()
+    assert TBR.brute_hits.launches - before == 4 + 3 * 2
+    before = TBR.brute_hits.launches
+    torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    assert TBR.brute_hits.launches == before
+    G.clear()
+    vg = P.compile_value_and_grad(f)
+    for _ in range(2):
+        vg(params)
+    torch.cuda.synchronize()
+    entry = next(iter(G.GRAD_CACHE.entries.values()))
+    assert entry.launches["brute_hits_kernel"] == 4 + 3 * 2
     vg.release()
     G.clear()

@@ -31,6 +31,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from jet_pbrt_tpu_torch.models import graph as G
 from jet_pbrt_tpu_torch.models import render as R
+from jet_pbrt_tpu_torch.ops import brute as TB
 from jet_pbrt_tpu_torch.ops import launches as L
 from jet_pbrt_tpu_torch.ops import rng as TR
 from jet_pbrt_tpu_torch.ops import shade as TSH
@@ -263,7 +264,8 @@ def test_every_kernel_wrapper_is_registered():
         "sweep_prims_kernel": (sweep_prims.__name__, "sweep_prims"),
         "prim_micro_kernel": (prim_micro.__name__, "prim_micro"),
         "shade_vertex_kernel": (TSH.__name__, "shade_vertex"),
-        "nee_accumulate_kernel": (TSH.__name__, "nee_accumulate")}
+        "nee_accumulate_kernel": (TSH.__name__, "nee_accumulate"),
+        "brute_hits_kernel": (TB.__name__, "brute_hits")}
     assert all(isinstance(v, int) for v in L.counts().values())
 
 
@@ -337,6 +339,8 @@ NODE_NAMES = [
     "sweep_bvh_kernel",
     "_ZN12_GLOBAL__N_119shade_vertex_kernelE9ShadeArgs",
     "_ZN12_GLOBAL__N_121nee_accumulate_kernelEPKfPKhS3_S1_iiPf",
+    "_ZN12_GLOBAL__N_117brute_hits_kernelILb0EEEvNS_4ArgsE",
+    "_ZN12_GLOBAL__N_117brute_hits_kernelILb1EEEvNS_4ArgsE",
 ]
 
 
@@ -344,7 +348,8 @@ def test_graph_kernel_nodes_counted_by_device_function():
     assert L.kernel_nodes(NODE_NAMES) == {
         "wide_walk_kernel": 2, "sweep_bvh_kernel": 1, "lane_keys_kernel": 1,
         "uniforms_kernel": 2, "sweep_prims_kernel": 0, "prim_micro_kernel": 0,
-        "shade_vertex_kernel": 1, "nee_accumulate_kernel": 1}
+        "shade_vertex_kernel": 1, "nee_accumulate_kernel": 1,
+        "brute_hits_kernel": 2}
     assert not L.is_function("wide_walk_kernel_tail", "wide_walk_kernel")
     assert not L.is_function("x16wide_walk_kernel", "wide_walk_kernel")
 
