@@ -40,17 +40,23 @@ Phases, each printing its result; any failure raises and exits non-zero:
      bit, the count of differing lanes printed; then edge sets built here
      (brute_edges): coincident duplicate triangles and spheres, rays aimed
      at the Cornell quads' shared diagonals and corners and the bunny's
-     rects', dead lanes with NaN and inf directions, finite tmax, and a
-     scene of more shapes than one shared-memory tile of each kind
-     (many_shapes_scene); the Cornell bounce-1 closest cast and its first
-     shadow cast timed (events, host enqueue, the profiler's device time
-     warm and after an L2 flush, the plain version), each against its
-     bound: BRUTE_OPS per (lane, shape) test the function needs on these
-     inputs (brute_work: every shape of a live lane in closest mode, each
-     live lane's shapes up to its first hit in any-hit mode) at F32_PEAK
-     against its bytes at HBM_BW; and the Cornell 512^2 16-spp and bunny
-     1024^2 4-spp frames on the kernel route against the plain route's
-     (plain_brute), image and stats bit for bit;
+     rects', dead lanes with NaN and inf directions, finite tmax, the
+     lane compaction's cases (all-dead blocks, one live lane in a block,
+     live lanes at a block's last slots, 257^2 lanes, NaN and inf
+     directions on live lanes), an any-hit whose only hit is in the last
+     tile, the triangle division's edges, a scene of more shapes than one
+     shared-memory tile of each kind (many_shapes_scene) and its first 256
+     and 257 shapes of each kind; the Cornell bounce-1 closest cast and
+     its first shadow cast timed (events, host enqueue, the profiler's
+     device time warm and after an L2 flush, the plain version), each
+     against its bound: BRUTE_OPS per (lane, shape) test the function
+     needs on these inputs (brute_work: every shape of a live lane in
+     closest mode, each live lane's shapes up to its first hit in any-hit
+     mode), one issued instruction each at the card's issue rate (none
+     can be contracted into an FMA), against its bytes at HBM_BW, printed
+     beside the same operations at F32_PEAK; and the Cornell 512^2
+     16-spp and bunny 1024^2 4-spp frames on the kernel route against the
+     plain route's (plain_brute), image and stats bit for bit;
   3. wide kernel vs its plain PyTorch version on the default bunny's
      tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
      half bounce) and a targeted incoherent set, closest hit and any hit
@@ -1336,19 +1342,26 @@ def check_brute_calls(label: str, calls: list) -> dict:
     return out
 
 
-def brute_both_modes(label: str, o, d, tmin, tmax, shapes) -> dict:
+def short_of_closest(o, d, tmin, tmax, shapes):
+    """An any-hit tmax for the rays: 10% short of the plain version's
+    closest hit, 1e3 where there is none, tmax kept on dead lanes
+    (tmax < 0)."""
+    want = isect_ops.brute_hits_plain(o, d, tmin, tmax, shapes, False)
+    t = torch.stack([h.t for h in want]).amin(0)
+    tm = torch.where(torch.isfinite(t), t * 0.9, torch.full_like(t, 1e3))
+    return torch.where(tmax < 0, tmax, tm).contiguous()
+
+
+def brute_both_modes(label: str, o, d, tmin, tmax, shapes,
+                     any_tmax=None) -> dict:
     """The kernel against the plain version on one ray set, closest hit
-    and any hit with tmax 10% short of the closest hit (the plain
-    version's; tmax kept on dead lanes)."""
+    and any hit with tmax `any_tmax` (default short_of_closest)."""
     o, d, tmin, tmax = (x.contiguous() for x in (o, d, tmin, tmax))
     calls = []
     with brute_calls(calls):
         brute_ops.brute_hits(o, d, tmin, tmax, shapes, False)
-        want = isect_ops.brute_hits_plain(o, d, tmin, tmax, shapes, False)
-        t = torch.stack([h.t for h in want]).amin(0)
-        tm = torch.where(torch.isfinite(t), t * 0.9,
-                         torch.full_like(t, 1e3))
-        tm = torch.where(tmax < 0, tmax, tm).contiguous()
+        tm = (short_of_closest(o, d, tmin, tmax, shapes) if any_tmax is None
+              else any_tmax.contiguous())
         brute_ops.brute_hits(o, d, tmin, tm, shapes, True)
     torch.cuda.synchronize()
     return check_brute_calls(label, calls)
@@ -1421,25 +1434,45 @@ def brute_bytes(o, tmin, tmax, shapes, any_hit: bool) -> int:
     return live * BRUTE_RAY_BYTES + (n - live) * 8 + shape_bytes + out
 
 
+def brute_bounds(o, d, tmin, tmax, shapes, any_hit: bool) -> dict:
+    """A cast's bound, both ways: "bound" prices brute_work's operations
+    as one issued instruction each (int_rates' issue rate: none of them
+    can be contracted into an FMA, since the kernel must round each as the
+    plain version does), "flop_bound" at F32_PEAK (which counts an FMA as
+    two), each against brute_bytes at HBM_BW. Returns those (ms, what
+    binds) pairs, "work" and "bytes"."""
+    work = brute_work(o, d, tmin, tmax, shapes, any_hit)
+    nbytes = brute_bytes(o, tmin, tmax, shapes, any_hit)
+    return {"work": work, "bytes": nbytes,
+            "bound": bound(nbytes, work["flops"], (0, 0, work["flops"])),
+            "flop_bound": bound(nbytes, work["flops"])}
+
+
+def timed_brute_calls(calls: list) -> tuple:
+    """Of a wave's recorded brute_hits calls, the bounce-1 closest cast's
+    and the first shadow cast's after it (each (args, kw, output))."""
+    i = [k for k, c in enumerate(calls) if not c[0][5]][1]
+    return calls[i], next(c for c in calls[i + 1:] if c[0][5])
+
+
 def time_brute(label: str, calls: list, smi: str, reps: int = 20) -> dict:
     """The bounce-1 closest cast and the first shadow cast after it, each
     timed: the kernel by events, host enqueue and the profiler's device
     time (warm, and after an L2 flush each), the plain version by events,
-    and the bound (brute_work's float operations at F32_PEAK against
-    brute_bytes at HBM_BW)."""
-    i = [k for k, c in enumerate(calls) if not c[0][5]][1]
-    shadow = next(c for c in calls[i + 1:] if c[0][5])
+    and the bounds (brute_bounds)."""
     out = {}
     flush = None
-    for mode, (a, kw, _) in (("closest", calls[i]), ("shadow", shadow)):
+    for mode, (a, kw, _) in zip(("closest", "shadow"),
+                                timed_brute_calls(calls)):
         o, d, tmin, tmax, shapes, any_hit = a
         if flush is None:
             flush = torch.empty((L2_FLUSH_BYTES // 4,), dtype=torch.int32,
                                 device=o.device)
         k = lambda: brute_ops.brute_hits(*a)
         p = lambda: isect_ops.brute_hits_plain(*a)
-        work = brute_work(o, d, tmin, tmax, shapes, any_hit)
-        nbytes = brute_bytes(o, tmin, tmax, shapes, any_hit)
+        bb = brute_bounds(o, d, tmin, tmax, shapes, any_hit)
+        work, nbytes, b, fb = bb["work"], bb["bytes"], bb["bound"], \
+            bb["flop_bound"]
         ms, _ = time_ms(k, reps)
         ev, host, host_max, _, _ = time_enqueue_ms(k, reps)
         (src, dev_ms), = profiled_ms(k, reps, ("brute_hits_kernel",)).items()
@@ -1447,13 +1480,12 @@ def time_brute(label: str, calls: list, smi: str, reps: int = 20) -> dict:
         (_, cold_ms), = profiled_ms(cold, reps,
                                     ("brute_hits_kernel",)).items()
         plain_ms, _ = time_ms(p, 3)
-        b = bound(nbytes, work["flops"])
         out[mode] = {"ms": ms, "enqueue_ms": host, "device_ms": dev_ms,
                      "device_cold_ms": cold_ms,
                      "device_source": "profiler" if src == "brute_hits_kernel"
                      else src, "plain_ms": plain_ms, "bound_ms": b[0],
-                     "bound_by": b[1], "bytes": nbytes, "work": work,
-                     "lanes": o.shape[0]}
+                     "bound_by": b[1], "flop_bound_ms": fb[0],
+                     "bytes": nbytes, "work": work, "lanes": o.shape[0]}
         print(f"{label} brute_hits {mode} cast ({o.shape[0]} lanes, "
               f"{work['live']} live, shapes "
               f"{ {f: getattr(shapes, f)[0].shape[0] for f in shapes.present} }"
@@ -1461,9 +1493,11 @@ def time_brute(label: str, calls: list, smi: str, reps: int = 20) -> dict:
               f"(largest {host_max:.4f}), device {dev_ms:.4f} ms "
               f"({out[mode]['device_source']}), {cold_ms:.4f} ms after an L2 "
               f"flush each; plain {plain_ms:.3f} ms; bound {b[0]:.4f} ms by "
-              f"{b[1]} ({nbytes} bytes, {work['flops']} float operations: "
-              f"tests by kind "
-              f"{ {f: work[f] for f in shapes.present} }) [{smi}]",
+              f"{b[1]} ({nbytes} bytes, {work['flops']} float operations, "
+              f"one issued instruction each: tests by kind "
+              f"{ {f: work[f] for f in shapes.present} }), device time "
+              f"{dev_ms / b[0]:.2f}x it; at {F32_PEAK / 1e12:.0f} TFLOP/s "
+              f"{fb[0]:.4f} ms by {fb[1]}, {dev_ms / fb[0]:.2f}x [{smi}]",
               flush=True)
     return out
 
@@ -1520,14 +1554,103 @@ def edge_rays(shapes, n: int, lo, hi, seed: int, dev):
             torch.full((n,), float("inf"), device=dev))
 
 
+def compaction_lanes(o, d, tmin, tmax):
+    """The rays in four quarters for the kernel's lane compaction: all
+    dead; one live lane in 2,048 (blocks with one live lane and blocks
+    with none); live only at the last 6 of every 256 lanes (a span's last
+    slots, for any span that is a multiple of 256); all kept, with NaN and
+    inf directions mixed into the live lanes. Lanes made dead get tmin =
+    inf, tmax = -1."""
+    n = o.shape[0]
+    i = torch.arange(n, device=o.device)
+    q = n // 4
+    keep = torch.where(i < 2 * q, (i >= q) & (i % 2048 == 1234),
+                       (i >= 3 * q) | (i % 256 >= 250))
+    tmin = torch.where(keep, tmin, torch.full_like(tmin, float("inf")))
+    tmax = torch.where(keep, tmax, torch.full_like(tmax, -1.0))
+    d = d.clone()
+    last = i >= 3 * q
+    d[last & (i % 7 == 3)] = float("nan")
+    d[last & (i % 11 == 5)] = float("inf")
+    d[(last & (i % 13 == 2)).nonzero().flatten(), 1] = float("-inf")
+    return o, d.contiguous(), tmin.contiguous(), tmax.contiguous()
+
+
+def cut_shapes(shapes, m: int):
+    """The first m shapes of every kind present."""
+    return isect_ops.BruteShapes(*(
+        None if x is None else tuple(y[:m].contiguous() for y in x)
+        for x in shapes))
+
+
+def last_tile_set(n: int, dev):
+    """n rays from near the origin towards +z and 300 spheres, the first
+    299 behind the rays' origins and the last one in front of them, so
+    that an any-hit ray's only hit is in the last tile. Returns (o, d,
+    tmin, tmax, shapes)."""
+    g = np.random.default_rng(27)
+    f = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                  device=dev)
+    c = np.concatenate([g.uniform(-50, 50, (299, 3)) - [0, 0, 100],
+                        [[0.0, 0.0, 50.0]]])
+    r = np.concatenate([g.uniform(1, 5, 299), [20.0]])
+    o = g.uniform(-1, 1, (n, 3)) * [1, 1, 0]
+    d = np.concatenate([g.uniform(-0.4, 0.4, (n, 2)), np.ones((n, 1))], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (f(o), f(d), torch.full((n,), 1e-3, device=dev),
+            torch.full((n,), float("inf"), device=dev),
+            isect_ops.BruteShapes(tri=None, sph=(f(c), f(r)), rect=None,
+                                  disk=None))
+
+
+def division_set(n: int, dev):
+    """The triangle test's division edges: axis-aligned right triangles of
+    side a in the planes z = 10 + k, det = -a^2 for a ray along +z. a =
+    1.2e19 and 1.6e19 give 1 / det subnormal, 3e19 an infinite det (1 /
+    det = -0, so u, v and t are zeros or NaN), 1e-6 and its neighbours
+    det at the 1e-12 threshold; one triangle has a NaN vertex. A quarter
+    of the rays start 1e-30 off a vertex (u and v round to zero or
+    underflow against a subnormal 1 / det; tmin 1e-3), the rest from the
+    plane z = 0, half of those with tmin = -1 (a valid t = +-0 on the
+    infinite det). Returns (o, d, tmin, tmax, shapes)."""
+    g = np.random.default_rng(28)
+    f = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                  device=dev)
+    a = np.array([1.2e19, 1.6e19, 3e19, 1e-6, 1.0000001e-6, 0.9999999e-6,
+                  1.0, 1e10])
+    k = np.arange(len(a))
+    p0 = np.stack([-a / 3, -a / 3, 10.0 + k], 1)
+    p1, p2 = p0 + a[:, None] * [1, 0, 0], p0 + a[:, None] * [0, 1, 0]
+    p0, p1, p2 = (np.concatenate([p, [[np.nan, 0.0, 20.0]]])
+                  for p in (p0, p1, p2))
+    i = np.arange(n)
+    on = i % 4 == 0
+    o = g.uniform(-1, 1, (n, 3)) * [1, 1, 0]
+    o[on] = p0[(i[on] // 4) % len(a)].astype(np.float32) + 1e-30 * np.sign(
+        g.normal(size=(on.sum(), 3)))
+    d = np.concatenate([g.uniform(-0.1, 0.1, (n, 2)), np.ones((n, 1))], 1)
+    d[on] = [0.0, 0.0, 1.0]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tmin = np.where(~on & (i % 2 == 1), -1.0, 1e-3)
+    return (f(o), f(d), f(tmin), torch.full((n,), float("inf"), device=dev),
+            isect_ops.BruteShapes(tri=(f(p0), f(p1), f(p2)), sph=None,
+                                  rect=None, disk=None))
+
+
 def brute_edges(cornell, bunny, dev, many_res: int = 128) -> dict:
     """The kernel against the plain version, both modes, on edge sets:
     coincident duplicate triangles and spheres (the tie rule); rays aimed
     at the shared diagonals and corners of the Cornell box's quads and the
     bunny's rects; dead lanes with NaN and inf directions and a live lane
     with a NaN one; finite tmax, equal to a closest hit's t on some lanes
-    and to tmin on others; the many-shapes scene (more shapes than a tile
-    of each kind). Returns {set: check_brute_calls' counts}."""
+    and to tmin on others; the lane compaction's cases (compaction_lanes
+    on 257^2 lanes, and on 1025^2 lanes against 129 shapes of each kind:
+    counts no block span divides, the kernel's small and large spans); an
+    any-hit whose only
+    hit is in the last tile (last_tile_set); the triangle division's edges
+    (division_set); the many-shapes scene (more shapes than a tile of each
+    kind), and its first 256 and 257 shapes of each kind. Returns {set:
+    check_brute_calls' counts}."""
     out = {}
     cs = scene_pack.brute_shapes(cornell.meta, cornell.pack)
     bs = scene_pack.brute_shapes(bunny.meta, bunny.pack)
@@ -1572,12 +1695,31 @@ def brute_edges(cornell, bunny, dev, many_res: int = 128) -> dict:
     t0 = torch.where(k == 2, th, wt0)
     t1 = torch.where(wt1 < 0, wt1, t1)
     out["finite tmax"] = brute_both_modes("finite tmax", wo, wd, t0, t1, cs)
+    out["compaction"] = brute_both_modes(
+        "compaction (dead blocks, lone and last-slot live lanes, NaN and "
+        "inf directions; 257^2 lanes)",
+        *compaction_lanes(*wave_rays(cornell, 257, 25, dev)), cs)
     many = many_shapes_scene().to(dev)
     ms = scene_pack.brute_shapes(many.meta, many.pack)
+    out["compaction 1025^2"] = brute_both_modes(
+        "compaction on 1025^2 lanes (the kernel's large span), 129 "
+        "shapes of each kind", *compaction_lanes(*wave_rays(
+            many, 1025, 26, dev)), cut_shapes(ms, 129))
+    *rays, ls = last_tile_set(1 << 14, dev)
+    out["last tile"] = brute_both_modes(
+        "only hit in the last tile (300 spheres)", *rays, ls,
+        any_tmax=rays[3])
+    *rays, ds = division_set(1 << 14, dev)
+    out["division"] = brute_both_modes(
+        "triangle division edges (subnormal and infinite 1 / det, det at "
+        "the threshold, NaN vertex)", *rays, ds)
     o, d, t0, t1 = wave_rays(many, many_res, 24, dev)
     out["many shapes"] = brute_both_modes(
         f"many shapes ({ {f: getattr(ms, f)[0].shape[0] for f in ms.present} })",
         o, d, t0, t1, ms)
+    for m in (256, 257):
+        out[f"{m} shapes"] = brute_both_modes(
+            f"{m} shapes of each kind", o, d, t0, t1, cut_shapes(ms, m))
     calls, _ = brute_wave("many shapes wave", many, many_res, dev)
     out["many shapes wave"] = check_brute_calls(
         f"many-shapes {many_res}^2 wave", calls)
@@ -4230,9 +4372,10 @@ def main() -> int:
             "device_cold_ms": bt["device_cold_ms"],
             "enqueue_ms": bt["enqueue_ms"], "bytes": bt["bytes"],
             "flops": bt["work"]["flops"], "lanes": bt["lanes"],
+            "flop_bound_ms": bt["flop_bound_ms"],
             "shadow": {k: brute["times"]["shadow"][k] for k in (
                 "ms", "device_ms", "device_cold_ms", "plain_ms", "bound_ms",
-                "bound_by")},
+                "bound_by", "flop_bound_ms")},
             "sweep_launches": sweep_frame["brute_hits"],
             "sharded_launches": {k: v["brute_hits"]
                                  for k, v in sharded["launches"].items()}}

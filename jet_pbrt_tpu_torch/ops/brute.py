@@ -7,8 +7,12 @@ its reduction; the reference has no Pallas kernel for it. One call tests
 the rays of one cast against the triangles (those no BVH kernel takes),
 spheres, rects and disks of a scene (`intersect.BruteShapes`):
 
-    brute_hits   csrc/brute.cu brute_hits_kernel on CUDA tensors, one
-                 thread per ray, the shapes staged through shared memory;
+    brute_hits   csrc/brute.cu brute_hits_kernel on CUDA tensors: each
+                 block lists the live lanes of its span and writes the
+                 dead ones at once, then tests the live rays in rounds,
+                 one a thread, against every shape, the shapes staged
+                 through shared memory as float4 rows while the previous
+                 tile is tested;
                  `intersect.brute_hits_plain` on CPU tensors.
 
 Closest mode returns one KindHit per kind present, as the intersect_*

@@ -5,11 +5,13 @@
     python3 sweep_ab.py --wide OTHER.cu            # the wide-BVH kernel (K1)
     python3 sweep_ab.py --lib threefry OTHER.cu    # the random streams' kernel
     python3 sweep_ab.py --lib sweep_prims OTHER.cu # the sweep primitives (K3)
+    python3 sweep_ab.py --lib brute OTHER.cu       # the brute-force casts
 
 OTHER.cu is another version of the kernel's source, for example an earlier
 commit's, written into a directory that .gitignore lists:
 
     git show <commit>:jet_pbrt_tpu_torch/csrc/sweep_bvh.cu > _ab/other.cu
+    git show 9f3021c:jet_pbrt_tpu_torch/csrc/brute.cu > _ab/brute_old.cu
 
 Each kernel is timed in the order other, this, this, other (CUDA events).
 Prints the card's name and power limit first. Needs one GPU.
@@ -60,7 +62,15 @@ bound; then the default bunny's 1024^2, 4-spp, depth-5 frame through
 each build (frames equal bit for bit) and each build's profiled 1-spp
 wave (chip_smoke.profile_wave, the Threefry share of device time).
 sweep_prims: chip_smoke.prims' six inputs held equal, the harness's
-inputs timed.
+inputs timed. brute: the Cornell box's bounce-1 closest cast and its first
+shadow cast of a 1024^2 wave (2^20 lanes, as chip_smoke.time_brute records
+them) and the many-shapes scene's 256^2 wave rays (more than one tile of
+each kind), closest hit and any hit (tmax 10% short of the closest hit),
+each against both bounds (chip_smoke.brute_bounds: one issued instruction
+per operation, and F32_PEAK); then the Cornell 512^2, 16-spp, depth-5
+frame through each build (frames equal bit for bit) and each build's
+profiled 1024^2 1-spp Cornell wave. Each build's ptxas registers, shared
+memory and spills are printed where this process built it.
 
 Frames replay their waves from CUDA graphs (models/graph.py), and a graph
 keeps the kernels it captured: each turn empties the graph cache and
@@ -82,9 +92,12 @@ import torch
 import chip_smoke
 from jet_pbrt_tpu_torch.models import graph as graph_mod
 from jet_pbrt_tpu_torch.models.render import render
+from jet_pbrt_tpu_torch.ops import brute as brute_ops
+from jet_pbrt_tpu_torch.ops import intersect as isect_ops
 from jet_pbrt_tpu_torch.ops import rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops.intersect import KindHit
-from jet_pbrt_tpu_torch.scene.scenes import bunny_scene
+from jet_pbrt_tpu_torch.scene import pack as scene_pack
+from jet_pbrt_tpu_torch.scene.scenes import bunny_scene, cornell_box
 from jet_pbrt_tpu_torch.scripts import sweep_prims
 from jet_pbrt_tpu_torch.utils import cuda_build
 
@@ -432,49 +445,93 @@ def prims_cases(dev):
     return cases
 
 
-def _frames(module, libs, dev):
-    """The default bunny's frame through each build, equal bit for bit,
-    then each build's profiled 1-spp wave."""
-    bunny = bunny_scene().to(dev)
+def brute_cases(dev):
+    """--lib brute: the Cornell box's bounce-1 closest and first shadow
+    casts at 2^20 lanes, and the many-shapes scene's 256^2 wave rays in
+    both modes, each output as its t bits, index and valid per kind (or
+    the any-hit flag)."""
+    cornell = cornell_box().to(dev)
+    calls, _ = chip_smoke.brute_wave("cornell", cornell, 1024, dev)
+    (closest, _, _), (shadow, _, _) = chip_smoke.timed_brute_calls(calls)
+    del calls
+    many = chip_smoke.many_shapes_scene().to(dev)
+    ms = scene_pack.brute_shapes(many.meta, many.pack)
+    o, d, tmin, tmax = chip_smoke.wave_rays(many, 256, 24, dev)
+    any_tmax = chip_smoke.short_of_closest(o, d, tmin, tmax, ms)
+    cases = []
+    for label, a in (("Cornell bounce-1 closest", closest),
+                     ("Cornell first shadow", shadow),
+                     ("many-shapes closest", (o, d, tmin, tmax, ms, False)),
+                     ("many-shapes any-hit",
+                      (o, d, tmin, any_tmax, ms, True))):
+        b = chip_smoke.brute_bounds(*a)
+        (bms, bby), (fms, fby) = b["bound"], b["flop_bound"]
+        counts = {f: getattr(a[4], f)[0].shape[0] for f in a[4].present}
+        cases.append((
+            f"{label} cast ({a[0].shape[0]} lanes, {b['work']['live']} live, "
+            f"shapes {counts}; bound {bms:.6f} ms by {bby}, one issued "
+            f"instruction an operation; {fms:.6f} ms by {fby} at "
+            f"{chip_smoke.F32_PEAK / 1e12:.0f} TFLOP/s)",
+            lambda a=a: _brute_bits(brute_ops.brute_hits(*a), a[5]),
+            _brute_bits(isect_ops.brute_hits_plain(*a), a[5]),
+            ("brute_hits_kernel",), 20))
+    return cases
+
+
+def _brute_bits(got, any_hit: bool) -> tuple:
+    """A brute_hits output as exact tensors: t as its bits."""
+    if any_hit:
+        return (got,)
+    return tuple(x for h in got for x in (h.t.view(torch.int32), h.index,
+                                          h.valid))
+
+
+def _frames(module, libs, dev, label, scene, res, spp):
+    """The scene's res^2, spp frame through each build, equal bit for
+    bit, then each build's profiled 1024^2 1-spp wave."""
     imgs, walls = {}, {"this": [], "other": []}
-    render(bunny, 64, 64, spp=1, max_depth=5, device=dev)  # warm-up
+    render(scene, 64, 64, spp=1, max_depth=5, device=dev)  # warm-up
     for who in ORDER:
         with _using(module, libs[who]):
-            _captured_frame(bunny, dev)
+            _captured_frame(scene, dev, res, spp)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            img = render(bunny, 1024, 1024, spp=4, max_depth=5, seed=0,
+            img = render(scene, res, res, spp=spp, max_depth=5, seed=0,
                          clamp=False, device=dev)
             torch.cuda.synchronize()
             walls[who].append(time.perf_counter() - t0)
         imgs.setdefault(who, img)
     if not torch.equal(imgs["this"], imgs["other"]):
         raise AssertionError("the two builds render different frames")
-    print(f"A/B frame 1024^2 spp 4 depth 5 (order other, this, this, "
-          f"other): other {walls['other'][0]:.3f} / "
-          f"{walls['other'][1]:.3f} s, this {walls['this'][0]:.3f} / "
-          f"{walls['this'][1]:.3f} s; frames equal bit for bit", flush=True)
+    print(f"A/B {label} frame {res}^2 spp {spp} depth 5 (order other, this, "
+          f"this, other): other {walls['other'][0]:.4f} / "
+          f"{walls['other'][1]:.4f} s, this {walls['this'][0]:.4f} / "
+          f"{walls['this'][1]:.4f} s; frames equal bit for bit", flush=True)
     for who in ORDER:
         with _using(module, libs[who]):
             graph_mod.clear()
-            chip_smoke.profile_wave(bunny, dev, f"A/B {who}:", table=False)
+            chip_smoke.profile_wave(scene, dev, f"A/B {who} {label}:",
+                                    table=False)
     graph_mod.clear()
 
 
-def _captured_frame(scene, dev):
+def _captured_frame(scene, dev, res=1024, spp=4):
     """The turn's frame captured under the build in place (untimed): the
     graph cache emptied, then one frame rendered."""
     graph_mod.clear()
-    return render(scene, 1024, 1024, spp=4, max_depth=5, seed=0, clamp=False,
+    return render(scene, res, res, spp=spp, max_depth=5, seed=0, clamp=False,
                   device=dev, graph=True)
 
 
 # name: (wrapper module, its cases, per-lane SASS of a build or None,
-# whether the frame goes through it)
+# the frame that goes through it, (label, scene, res, spp), or None)
 LIB_AB = {
     "threefry": (rng, threefry_cases, lambda lib: chip_smoke.sass_line(
-        chip_smoke.threefry_sass(lib, 8)), True),
-    "sweep_prims": (sweep_prims, prims_cases, None, False)}
+        chip_smoke.threefry_sass(lib, 8)),
+        lambda dev: ("bunny", bunny_scene().to(dev), 1024, 4)),
+    "sweep_prims": (sweep_prims, prims_cases, None, None),
+    "brute": (brute_ops, brute_cases, None,
+              lambda dev: ("Cornell", cornell_box().to(dev), 512, 16))}
 
 
 def lib_main(name, path) -> int:
@@ -484,6 +541,10 @@ def lib_main(name, path) -> int:
             "other": cuda_build.load_library(f"{name}_other", [path],
                                              module._declare)}
     print(f"other kernel: {path}", flush=True)
+    for who, built in (("other", f"{name}_other"), ("this", name)):
+        for line in cuda_build.BUILD_LOG.get(built, (0, ""))[1].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"{who} build: {line.strip()}", flush=True)
     for label, call, want, names, reps in cases(dev):
         outs = [want]
         for who in ORDER[:2]:
@@ -504,7 +565,7 @@ def lib_main(name, path) -> int:
             print(f"{name} A/B {who} SASS per lane (ALU-pipe / "
                   f"FMA-heavy-pipe / all) at S = 8: {sass(lib)}", flush=True)
     if frame:
-        _frames(module, libs, dev)
+        _frames(module, libs, dev, *frame(dev))
     return 0
 
 

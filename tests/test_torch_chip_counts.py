@@ -1,11 +1,14 @@
 """chip_smoke's count of a kernel's SASS instructions, which prices the
 integer kernels (Threefry, K4 srt) on the card: each opcode on the pipe
 NVIDIA documents for it, loops scaled by the slots they store, and the
-bound the largest of the pipes, the issue rate and the bytes; and how it
+bound the largest of the pipes, the issue rate and the bytes (the
+brute-force casts' float operations at the issue rate); and how it
 reads device time from the profiler, which now and then drops records. On
 synthetic SASS and a stand-in profiler, so it runs without the CUDA
 toolkit or a card."""
+import numpy as np
 import pytest
+import torch
 
 import chip_smoke
 
@@ -87,6 +90,46 @@ def test_threefry_bound_binds_on_the_alu_pipe(monkeypatch):
     assert by == "operations" and ms == pytest.approx(n * 386 / pipe * 1e3)
     assert kby == "bytes" and kms == pytest.approx(
         n * 24 / chip_smoke.HBM_BW * 1e3)
+
+
+def test_brute_bound_prices_each_operation_as_an_issued_instruction(
+        monkeypatch):
+    """brute_bounds' "bound": brute_work's (lane, shape) tests x BRUTE_OPS,
+    one issued instruction each at the issue rate (128 per SM clock: the
+    kernel rounds each operation as the plain version does, so none is an
+    FMA), binding over the same operations at F32_PEAK (an FMA counted
+    twice) and over the bytes; "flop_bound" keeps the F32_PEAK price.
+    Rates of an H100 SXM: 132 SMs at 1,980 MHz."""
+    from jet_pbrt_tpu_torch.ops.intersect import BruteShapes
+    issue = 128 * 132 * 1.98e9
+    monkeypatch.setattr(chip_smoke, "int_rates",
+                        lambda: (issue / 2, issue / 2, issue))
+    g = np.random.default_rng(3)
+    f = lambda x: torch.as_tensor(x, dtype=torch.float32)
+    n, tris, sphs = 64, 100, 10
+    o = f(g.uniform(-1, 1, (n, 3)))
+    d = f(g.normal(size=(n, 3)))
+    d = d / d.norm(dim=1, keepdim=True)
+    tmin, tmax = torch.full((n,), 1e-3), torch.full((n,), float("inf"))
+    tmin[::8], tmax[::8] = float("inf"), -1.0
+    p0 = g.uniform(-2, 2, (tris, 3))
+    shapes = BruteShapes(
+        tri=(f(p0), f(p0 + g.uniform(-1, 1, (tris, 3))),
+             f(p0 + g.uniform(-1, 1, (tris, 3)))),
+        sph=(f(g.uniform(-2, 2, (sphs, 3))), f(g.uniform(0.1, 0.5, sphs))),
+        rect=None, disk=None)
+    b = chip_smoke.brute_bounds(o, d, tmin, tmax, shapes, False)
+    live = n - n // 8
+    ops = live * (tris * chip_smoke.BRUTE_OPS["tri"]
+                  + sphs * chip_smoke.BRUTE_OPS["sph"])
+    assert (b["work"]["live"], b["work"]["tri"], b["work"]["sph"]) == (
+        live, live * tris, live * sphs)
+    assert b["work"]["flops"] == ops
+    assert b["bound"] == (pytest.approx(ops / issue * 1e3), "operations")
+    assert b["flop_bound"] == (
+        pytest.approx(ops / chip_smoke.F32_PEAK * 1e3), "operations")
+    assert b["bound"][0] > 1.9 * b["flop_bound"][0]
+    assert b["bytes"] / chip_smoke.HBM_BW * 1e3 < b["bound"][0]
 
 
 class _Event:

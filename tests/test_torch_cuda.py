@@ -53,9 +53,12 @@ The brute-force casts (ops/brute.py, csrc/brute.cu): the kernel against
 its plain version on 65,536 rays for each kind alone and all four, closest
 hit and any hit, with dead lanes, NaN directions, finite tmax and tied
 duplicate shapes, bit for bit; more shapes of each kind than one
-shared-memory tile; a captured cast's replay against the eager cast; a
-ray or geometry input that requires grad refused; render_fn's gradient
-casting its forward, and none of its backward, through the kernel.
+shared-memory tile; the kernel's own edges (lane compaction on 257^2
+and 1025^2 lanes, an any-hit's only hit in the last tile, the triangle
+division's edges, 256 and 257 shapes of a kind); a captured cast's replay
+against the eager cast; a ray or geometry input that requires grad
+refused; render_fn's gradient casting its forward, and none of its
+backward, through the kernel.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import contextlib
@@ -1147,6 +1150,54 @@ def test_brute_kernel_beyond_one_tile_on_card(any_hit):
     hits = _brute_equal(got, brute_hits_plain(*rays, shapes, any_hit),
                         any_hit)
     assert hits > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["compaction", "compaction 1025^2",
+                                  "last tile", "division", "256 shapes",
+                                  "257 shapes"])
+def test_brute_kernel_edge_cases_on_card(case):
+    """The kernel's own edge cases, closest hit and any hit, bit for bit
+    with the plain version: 257^2 lanes, and 1025^2 lanes (the kernel's
+    large span) against 129 shapes of each kind (two tiles), in
+    chip_smoke.compaction_lanes' quarters (all-dead blocks, one live lane
+    in 2,048, live lanes only at the last slots of every 256, NaN and inf
+    directions on live lanes; no block span divides either count); an
+    any-hit whose only hit is the last of
+    300 spheres (last_tile_set); the triangle division's edges
+    (division_set: subnormal and infinite 1 / det, det at the 1e-12
+    threshold, a NaN vertex); exactly 256 and 257 shapes of each kind."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    from jet_pbrt_tpu_torch.ops import brute as TBR
+    from jet_pbrt_tpu_torch.ops.intersect import brute_hits_plain
+    dev = torch.device("cuda")
+    ks = ("tri", "sph", "rect", "disk")
+    any_tmax = None
+    if case.startswith("compaction"):
+        rays, shapes = (
+            _brute_inputs(ks, 257 * 257, 36) if case == "compaction"
+            else _brute_inputs(ks, 1025 * 1025, 38, dict.fromkeys(ks, 129)))
+        rays = chip_smoke.compaction_lanes(*rays)
+    elif case == "last tile":
+        *rays, shapes = chip_smoke.last_tile_set(1 << 14, dev)
+        any_tmax = rays[3]
+    elif case == "division":
+        *rays, shapes = chip_smoke.division_set(1 << 14, dev)
+    else:
+        m = int(case.split()[0])
+        rays, shapes = _brute_inputs(ks, 8192, 37, dict.fromkeys(ks, m))
+    if any_tmax is None:
+        any_tmax = chip_smoke.short_of_closest(*rays, shapes)
+    hits = 0
+    for any_hit, tmax in ((False, rays[3]), (True, any_tmax)):
+        args = (*rays[:3], tmax, shapes, any_hit)
+        before = TBR.brute_hits.launches
+        got = TBR.brute_hits(*args)
+        assert TBR.brute_hits.launches == before + 1
+        hits += _brute_equal(got, brute_hits_plain(*args), any_hit)
+    assert hits > 100
 
 
 @pytest.mark.cuda
