@@ -5,8 +5,8 @@ Phases, each printing its result; any failure raises and exits non-zero:
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: one nvcc per kernel library of jet_pbrt_tpu_torch/csrc, all
      started together (wide_bvh, sweep_bvh, sweep_prims, prim_micro,
-     threefry, shade, brute, and shade.cu's operation-counting variant,
-     COUNT_LIBRARY), with ptxas registers and spills;
+     threefry, shade, brute, rays, and shade.cu's operation-counting
+     variant, COUNT_LIBRARY), with ptxas registers and spills;
   2b. the random streams' Threefry kernel (csrc/threefry.cu) against its
      plain version, bit for bit, at 2^20 lanes: the key words of
      lane_keys, and the [2^20, S] uniforms of vertex_uniforms and
@@ -57,6 +57,31 @@ Phases, each printing its result; any failure raises and exits non-zero:
      beside the same operations at F32_PEAK; and the Cornell 512^2
      16-spp and bunny 1024^2 4-spp frames on the kernel route against the
      plain route's (plain_brute), image and stats bit for bit;
+  2e. the casts' set-up and the hit reconstruction (ops/rays.py,
+     csrc/rays.cu): the same five eager 1-spp waves (and in phase 7 the
+     600k bunny's), each recording its shadow_key, shadow_segments,
+     occlusion_merge and hit_reconstruct calls (rays_wave: as many as
+     rays_launches counts), each call held against its plain version on
+     the same inputs, every output bit for bit, the count of differing
+     lanes printed; edge sets (rays_edges) on the Cornell box (no BVH
+     root), the bunny (instances scaled by 500), the every-kind scene
+     (0.8, 0.3) and a scene of 16 instanced families (19 kinds a closest
+     cast) at 65,536 and 2^20 + 1 lanes: masked lanes, zero-length
+     segments, NaN and inf endpoints, inactive lanes of the bounce key,
+     one, three and 17 flags merged sorted and not, seeded hits of every kind
+     with misses, NaN t, ties across kinds, indices past either end of
+     their tables and NaN directions; the bunny wave's calls at 2^20
+     lanes timed (time_rays: the first sorted shadow cast's key,
+     segments and merge, the first bounce sort's key, the bounce-1
+     closest cast's reconstruction; events, host enqueue, the profiler's
+     device time warm and after an L2 flush, the plain version), each
+     against its bytes at HBM_BW (rays_bytes) and beside the PyTorch
+     calls that compute the same function, as yardsticks (rays_library:
+     out[perm] = occ and argsort-then-gather for the merge, an
+     index_select of the packed [N, 8] segments for the segments); and
+     the Cornell 512^2 16-spp, bunny 1024^2 4-spp and 16-family 256^2
+     2-spp frames against the plain versions' (plain_rays), image and
+     stats bit for bit;
   3. wide kernel vs its plain PyTorch version on the default bunny's
      tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
      half bounce) and a targeted incoherent set, closest hit and any hit
@@ -184,15 +209,20 @@ Phases, each printing its result; any failure raises and exits non-zero:
      busy share; the replayed wave's top operations by device time); the
      1-spp wave at 1024^2 split by li_path's record_function ranges
      (module_split: intersect, rng, vertex, occluded, nee_accumulate,
-     sort, the rest), replayed and eager, with both kernels, the plain
-     vertex and the plain brute-force casts in turns; whether `import triton` works; one {"graph": ...}
+     sort, the rest), replayed and eager, with the kernels, the plain
+     vertex, the plain brute-force casts and the plain casts' set-up and
+     hit reconstruction in turns; whether `import triton` works; one {"graph": ...}
      JSON line.
 Phases 4, 7, 12 (the forward) and 13 count each frame's shade_vertex and
 nee_accumulate launches beside the others (expected_launches,
 sharded_launches); phases 11 and 12's gradients run the plain vertex and
 count none. Every cast of a scene with a brute-force shape launches one
 brute_hits, on every path, the gradients' forwards included (none in a
-backward).
+backward); so do ops/rays.py's kernels (rays_launches): one
+hit_reconstruct per closest cast, one shadow_segments and one
+occlusion_merge per shadow cast, and in a kernel-routed scene one
+shadow_key per sorted shadow cast and per sort between bounces. Phase
+13's module_split adds turns with their plain versions (plain_rays).
 Phases 4, 5, 7, 10, 11 and 12 run render() (and the sharded forward) on
 graphed waves: graph=True, or the default once a graph=True frame has
 captured the key; the recorders of kernel calls (phase 4's wide casts,
@@ -245,6 +275,7 @@ from jet_pbrt_tpu_torch.ops import brute as brute_ops
 from jet_pbrt_tpu_torch.ops import intersect as isect_ops
 from jet_pbrt_tpu_torch.ops import launches as launch_registry
 from jet_pbrt_tpu_torch.ops import linalg, rng, sweep_bvh, wide_bvh
+from jet_pbrt_tpu_torch.ops import rays as rays_ops
 from jet_pbrt_tpu_torch.ops import shade as shade_ops
 from jet_pbrt_tpu_torch.ops.linalg import frame_from_z, to_world
 from jet_pbrt_tpu_torch.ops.sampling import sample_cosine_hemisphere
@@ -275,7 +306,7 @@ LIBRARIES = (("wide_bvh", ["wide_bvh.cu"]), ("sweep_bvh", ["sweep_bvh.cu"]),
              ("sweep_prims", ["sweep_prims.cu"]),
              ("prim_micro", ["prim_micro.cu"]),
              ("threefry", ["threefry.cu"]), ("shade", ["shade.cu"]),
-             ("brute", ["brute.cu"]))
+             ("brute", ["brute.cu"]), ("rays", ["rays.cu"]))
 # the fused vertex built to count its float operations per lane (the
 # bound's operations on the timed call's own inputs; its flag is in
 # cuda_build.FLAGS); built beside the rest
@@ -561,6 +592,10 @@ def sweep_route(scene) -> Route:
 # 2b. the random streams' kernel
 # --------------------------------------------------------------------------
 
+# ops/rays.py's wrappers, each counting its csrc/rays.cu kernel's launches
+RAYS = ("shadow_key", "shadow_segments", "occlusion_merge", "hit_reconstruct")
+
+
 def rng_launches() -> int:
     return rng.lane_keys.launches + rng.uniforms.launches
 
@@ -576,11 +611,14 @@ def launch_counts() -> dict:
             "threefry": rng_launches(),
             "shade_vertex": shade_ops.shade_vertex.launches,
             "nee_accumulate": shade_ops.nee_accumulate.launches,
-            "brute_hits": brute_ops.brute_hits.launches}
+            "brute_hits": brute_ops.brute_hits.launches,
+            **{name: getattr(rays_ops, name).launches for name in RAYS}}
 
 
 def reset_launches():
     brute_ops.brute_hits.launches = 0
+    for name in RAYS:
+        getattr(rays_ops, name).launches = 0
     wide_bvh.intersect_wide.launches = 0
     sweep_bvh.intersect_sweep.launches = 0
     shade_ops.shade_vertex.launches = 0
@@ -860,6 +898,38 @@ def every_kind_scene(sweep: bool = False, builder=SceneBuilder):
     if builder is SceneBuilder and scene.meta.pallas_blas != (sweep,):
         raise AssertionError("the every-kind scene is not on the route asked")
     return scene
+
+
+def many_families_scene(n_families: int = 16, builder=SceneBuilder):
+    """More instanced mesh families than a cast has kinds in most scenes:
+    n_families meshes of 24 triangles with uvs in a 4-wide grid, two
+    instances each (scales 1 and 0.5), over a checker-textured floor rect
+    beside a sphere and a disk, lit by an area rect and a point light. A
+    closest cast has n_families + 3 kinds and a shadow cast n_families +
+    1 flags, each cast's merge one launch. `builder` is a SceneBuilder
+    class."""
+    g = np.random.default_rng(11)
+    b = builder("many-families")
+    b.set_camera(lookfrom=(0, 4, 11), lookat=(0, 0, 0), vfov=55)
+    checker = b.add_checker_texture((0.8, 0.8, 0.8), (0.3, 0.3, 0.3), 4.0)
+    b.add_rect_xz(-9, 9, -9, 9, -1, b.add_matte((0.7, 0.7, 0.7),
+                                                tex=checker))
+    b.add_sphere((0.0, -0.3, 4.0), 0.7, b.add_plastic(
+        (0.5, 0.3, 0.2), (0.4, 0.4, 0.4), 0.3))
+    b.add_disk((2.0, -0.95, 4.0), (0, 1, 0), 0.6,
+               b.add_mirror((0.9, 0.9, 0.9)))
+    for f in range(n_families):
+        x, z = -4.5 + 3.0 * (f % 4), -4.5 + 3.0 * (f // 4)
+        tris = (g.uniform(-0.6, 0.6, (24, 1, 3))
+                + g.uniform(-0.25, 0.25, (24, 3, 3)))
+        mat = b.add_matte(tuple(g.uniform(0.2, 0.9, 3)), tex=checker)
+        b.add_instanced_mesh(tris, [((x, 0.0, z), 1.0, mat),
+                                    ((x, 1.3, z), 0.5, mat)],
+                             uvs=g.uniform(0, 1, (24, 3, 2)))
+    b.add_area_light(b.add_rect_xz(-1, 1, -1, 1, 5, b.add_matte(
+        (0.6, 0.6, 0.6)), flip_normal=True), (10.0, 10.0, 10.0))
+    b.add_point_light((3, 4, 3), (6.0, 6.0, 6.0))
+    return b.build()
 
 
 def many_lights_scene(builder=SceneBuilder):
@@ -1763,6 +1833,437 @@ def brute_phase(cases, dev, smi: str, time_case: str | None = None) -> dict:
 
 
 # --------------------------------------------------------------------------
+# 2e. the casts' set-up and the hit reconstruction
+# --------------------------------------------------------------------------
+
+# what each of ops/rays.py's kernels replaces (the kernels line)
+RAYS_REPLACES = {
+    "shadow_key": "jet_pbrt_tpu/ops/sort.py:77 (bvh_needed and the sort keys, "
+                  ":45-127, with occluded's segment, scene/pack.py:537-562, "
+                  "and li_path's key, models/integrators.py:250-260, under "
+                  "jax.jit(wave): XLA fusion, no Pallas kernel)",
+    "shadow_segments": "jet_pbrt_tpu/scene/pack.py:537 (occluded's segment "
+                       "and its permuting gather, :537-569, under "
+                       "jax.jit(wave): XLA fusion, no Pallas kernel)",
+    "occlusion_merge": "jet_pbrt_tpu/scene/pack.py:572 (the flags' OR and "
+                       "the un-permute, :570-578, under jax.jit(wave): XLA "
+                       "fusion, no Pallas kernel)",
+    "hit_reconstruct": "jet_pbrt_tpu/scene/pack.py:333 (intersect's merge "
+                       "and hit reconstruction, :333-507, under "
+                       "jax.jit(wave): XLA fusion, no Pallas kernel)"}
+# the module of each of the slice's wrappers (scene/pack.py routes the hit
+# reconstruction, whose kernel ops/rays.py launches), its plain version and
+# its outputs' names
+RAYS_MODULE = {"shadow_key": rays_ops, "shadow_segments": rays_ops,
+               "occlusion_merge": rays_ops, "hit_reconstruct": scene_pack}
+RAYS_PLAIN = {"shadow_key": rays_ops.shadow_key_plain,
+              "shadow_segments": rays_ops.shadow_segments_plain,
+              "occlusion_merge": rays_ops.occlusion_merge_plain,
+              "hit_reconstruct": scene_pack.hit_reconstruct_plain}
+RAYS_OUTPUTS = {"shadow_key": ("key",),
+                "shadow_segments": ("o", "d", "tmin", "tmax"),
+                "occlusion_merge": ("occluded",),
+                "hit_reconstruct": scene_pack.Hit._fields}
+
+
+@contextlib.contextmanager
+def rays_calls(out: list):
+    """While open, each call of the slice's wrappers (RAYS_MODULE) appends
+    (name, args, keywords, output) to `out` (the wave makes no in-place
+    change). The launches count in ops/rays.py, which stays as it is."""
+    saved = {name: getattr(RAYS_MODULE[name], name) for name in RAYS}
+    for name, inner in saved.items():
+        @functools.wraps(inner)
+        def call(*a, _inner=inner, _name=name, **kw):
+            got = _inner(*a, **kw)
+            out.append((_name, a, kw, got))
+            return got
+
+        setattr(RAYS_MODULE[name], name, call)
+    try:
+        yield out
+    finally:
+        for name, inner in saved.items():
+            setattr(RAYS_MODULE[name], name, inner)
+
+
+@contextlib.contextmanager
+def plain_rays():
+    """While open, the plain versions stand in the wrappers' places, so
+    every cast's set-up and hit reconstruction runs in torch ops (a
+    measurement only)."""
+    saved = {name: getattr(RAYS_MODULE[name], name) for name in RAYS}
+    for name in RAYS:
+        setattr(RAYS_MODULE[name], name, RAYS_PLAIN[name])
+    try:
+        yield
+    finally:
+        for name, inner in saved.items():
+            setattr(RAYS_MODULE[name], name, inner)
+
+
+def rays_outputs(name: str, got) -> list:
+    """A wrapper's output as [(name, tensor)], each with its lanes first."""
+    got = (got,) if torch.is_tensor(got) else tuple(got)
+    return list(zip(RAYS_OUTPUTS[name], got))
+
+
+def check_rays_call(label: str, name: str, a, kw, got) -> tuple:
+    """One recorded call against its plain version on the same inputs,
+    every output bit for bit (NaN equal to NaN); a differing lane is
+    printed with both values before the run fails. Returns (lanes,
+    differing lanes, the largest |difference| on float outputs finite in
+    both)."""
+    want = RAYS_PLAIN[name](*a, **kw)
+    g, w = rays_outputs(name, got), rays_outputs(name, want)
+    lanes = None
+    err = 0.0
+    for (field, x), (_, y) in zip(g, w):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{label} {name} {field}: {x.dtype} "
+                                 f"{tuple(x.shape)} vs {y.dtype} "
+                                 f"{tuple(y.shape)}")
+        diff = differing_lanes(x, y, 0)
+        lanes = diff if lanes is None else lanes | diff
+        if x.is_floating_point():
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            if fin.any():
+                err = max(err, float((x[fin] - y[fin]).abs().max()))
+    bad = int(lanes.sum())
+    for i in lanes.nonzero().flatten()[:4].tolist():
+        print(f"{label} {name} lane {i}: kernel "
+              f"{[(f, x[i].tolist()) for f, x in g]}, plain "
+              f"{[(f, x[i].tolist()) for f, x in w]}", flush=True)
+    return lanes.shape[0], bad, err
+
+
+def check_rays_calls(label: str, calls: list) -> dict:
+    """Each recorded call held against its plain version (check_rays_call);
+    prints the calls by wrapper and fails on any differing lane. Returns
+    {"calls", "lanes", "differing", "max_abs_err"}."""
+    out = {"calls": collections.Counter(), "lanes": 0, "differing": 0,
+           "max_abs_err": 0.0}
+    for name, a, kw, got in calls:
+        n, bad, err = check_rays_call(label, name, a, kw, got)
+        out["calls"][name] += 1
+        out["lanes"] += n
+        out["differing"] += bad
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+    out["calls"] = dict(out["calls"])
+    print(f"{label}: ops/rays.py calls {out['calls']}, {out['lanes']} lanes, "
+          f"{out['differing']} lanes differ from the plain versions",
+          flush=True)
+    if out["differing"]:
+        raise AssertionError(f"{label}: ops/rays.py's kernels differ from "
+                             f"their plain versions on {out['differing']} "
+                             "lanes")
+    return out
+
+
+def rays_wave(label: str, scene, res: int, dev) -> list:
+    """One eager 1-spp wave of scene at res^2, depth VERTEX_DEPTH, its
+    ops/rays.py calls recorded: as many of each as rays_launches counts."""
+    calls = []
+    with torch.no_grad(), rays_calls(calls):
+        render(scene, res, res, spp=1, max_depth=VERTEX_DEPTH, seed=1,
+               clamp=False, device=dev, graph=False)
+    got = collections.Counter(name for name, *_ in calls)
+    want = rays_launches(scene.meta, n_waves(res, res, 1, DEFAULT_CHUNK),
+                         VERTEX_DEPTH)
+    if dict(got) != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{label}: one wave made the calls {dict(got)},"
+                             f" expected {want}")
+    return calls
+
+
+def rays_bytes(name: str, a, kw, got) -> int:
+    """Bytes one call must move: every lane's inputs read once and its
+    outputs written once; of the tables, the root table and pack scalars
+    whole, and of hit_reconstruct's, its int64 table of the kinds' tables
+    whole and the rows this call's lanes need (one read of each distinct
+    row of each table the winning kind reads)."""
+    if name == "shadow_key":
+        meta, pack, x, y, *rest = a
+        live = rest[0] if rest else kw.get("live")
+        n = x.shape[0]
+        roots = rays_ops.root_table(meta, pack)
+        return (n * (12 + 12 + 4) + (n if live is not None else 0)
+                + roots.numel() * 4 + 4 * 5)
+    if name == "shadow_segments":
+        _, p_from, _, mask, perm = (*a, *(None,) * (5 - len(a)))
+        n = p_from.shape[0]
+        return (n * (24 + 32) + (n if mask is not None else 0)
+                + (8 * n if perm is not None else 0) + 4)
+    if name == "occlusion_merge":
+        flags = a[0]
+        perm = a[1] if len(a) > 1 else kw.get("perm")
+        n = flags[0].shape[0]
+        return n * (len(flags) + 1) + (8 * n if perm is not None else 0)
+    meta, pack, o, d, hits, kinds = a
+    n = o.shape[0]
+    n_fams = len(meta.n_inst)
+    nbytes = (n * (24 + 8 * len(hits) + 1 + 4 + 36 + 8 + 4 + 4)
+              + 8 * (2 * len(rays_ops.HIT_TABLES) + len(kinds)
+                     + n_fams * (1 + 2 * len(rays_ops.FAMILY_TABLES))))
+    _, kind, index, _ = isect_ops.merge_hits(hits, kinds)
+    index = index.to(torch.int64)
+    want_uv = meta.n_tex > 0
+    for name, _, _, k, uv_only in rays_ops.HIT_TABLES:
+        if k in kinds and (want_uv or not uv_only):
+            x = getattr(pack, name)
+            rows = index[kind == k].clamp(0, x.shape[0] - 1).unique().numel()
+            nbytes += rows * x[0].numel() * x.element_size()
+    for mi in range(n_fams):
+        sel = index[kind == scene_pack.KIND_INST + mi]
+        nb = meta.n_blas_tris[mi]
+        for name, _, _, uv_only in rays_ops.FAMILY_TABLES:
+            if want_uv or not uv_only:
+                x = getattr(pack, name)[mi]
+                by = sel // nb if name.startswith("inst_") else sel % nb
+                rows = by.clamp(0, x.shape[0] - 1).unique().numel()
+                nbytes += rows * x[0].numel() * x.element_size()
+    return nbytes
+
+
+def timed_rays_calls(calls: list) -> dict:
+    """Of a wave's recorded calls: the first sorted shadow cast's key, the
+    first sort's key between bounces, the bounce-1 closest cast's
+    reconstruction and the first sorted shadow cast's segments and
+    merge."""
+    named = lambda name, pred=lambda c: True: next(
+        c for c in calls if c[0] == name and pred(c))
+    bounce = lambda c: bool(c[2].get("bounce"))
+    return {"shadow_key": named("shadow_key", lambda c: not bounce(c)),
+            "shadow_key bounce": named("shadow_key", bounce),
+            "shadow_segments": named(
+                "shadow_segments", lambda c: c[1][4] is not None),
+            "occlusion_merge": named(
+                "occlusion_merge", lambda c: c[1][1] is not None),
+            "hit_reconstruct": [c for c in calls
+                                if c[0] == "hit_reconstruct"][1]}
+
+
+def rays_library(name: str, a) -> dict:
+    """The PyTorch calls timed beside a kernel as yardsticks (the port
+    calls none of them): for occlusion_merge the scatter out[perm] = occ
+    (one index_put) and argsort-then-gather, for shadow_segments one
+    index_select of the cast's packed [N, 8] (o, d, tmin, tmax) rows."""
+    if name == "occlusion_merge":
+        flags, perm = a
+        occ = functools.reduce(torch.bitwise_or, flags)
+        out = torch.empty_like(occ)
+
+        def put():
+            out[perm] = occ
+        return {"index_put": put,
+                "argsort_gather": lambda: occ[torch.argsort(perm)]}
+    if name == "shadow_segments":
+        pack, p_from, p_to, mask, perm = a
+        o, d, tmin, tmax = rays_ops.shadow_segments_plain(pack, p_from, p_to,
+                                                          mask, None)
+        packed = torch.cat([o, d, tmin[:, None], tmax[:, None]], 1)
+        return {"index_select": lambda: torch.index_select(packed, 0, perm)}
+    return {}
+
+
+def time_rays(label: str, calls: list, smi: str, reps: int = 20) -> dict:
+    """Each timed call (timed_rays_calls) at the wave's 2^20 lanes: the
+    kernel by events, host enqueue and the profiler's device time (warm,
+    and after an L2 flush each), the plain version by events, the library
+    yardsticks (rays_library) by events and by the profiler's device time
+    of all they launch, and the bound: its bytes (rays_bytes) at
+    HBM_BW."""
+    out = {}
+    flush = None
+    for case, (name, a, kw, got) in timed_rays_calls(calls).items():
+        dev = got[0].device if not torch.is_tensor(got) else got.device
+        if flush is None:
+            flush = torch.empty((L2_FLUSH_BYTES // 4,), dtype=torch.int32,
+                                device=dev)
+        wrapper = getattr(RAYS_MODULE[name], name)
+        k = lambda: wrapper(*a, **kw)
+        p = lambda: RAYS_PLAIN[name](*a, **kw)
+        kernel = f"{name}_kernel"
+        nbytes = rays_bytes(name, a, kw, got)
+        b = bound(nbytes, 0)
+        ms, _ = time_ms(k, reps)
+        ev, host, host_max, _, _ = time_enqueue_ms(k, reps)
+        (src, dev_ms), = profiled_ms(k, reps, (kernel,)).items()
+        cold = lambda: (flush.fill_(0), k())
+        (_, cold_ms), = profiled_ms(cold, reps, (kernel,)).items()
+        plain_ms, _ = time_ms(p, 3)
+        lib = {}
+        for lname, fn in rays_library(name, a).items():
+            # every device operation the call makes (its names are torch's)
+            (_, lib_dev), = profiled_ms(fn, reps, ("",)).items()
+            lib[lname] = {"ms": time_ms(fn, reps)[0], "device_ms": lib_dev}
+        n = (a[2] if name in ("shadow_key", "hit_reconstruct")
+             else a[1] if name == "shadow_segments" else a[0][0]).shape[0]
+        out[case] = {"ms": ms, "enqueue_ms": host, "device_ms": dev_ms,
+                     "device_cold_ms": cold_ms,
+                     "device_source": "profiler" if src == kernel else src,
+                     "plain_ms": plain_ms, "bound_ms": b[0],
+                     "bound_by": b[1], "bytes": nbytes, "lanes": n,
+                     "library_ms": lib}
+        print(f"{label} {case} ({n} lanes): kernel {ms:.4f} ms by events, "
+              f"host enqueue {host:.4f} ms (largest {host_max:.4f}), device "
+              f"{dev_ms:.4f} ms ({out[case]['device_source']}), "
+              f"{cold_ms:.4f} ms after an L2 flush each; plain "
+              f"{plain_ms:.3f} ms; bound {b[0]:.4f} ms by {b[1]} ({nbytes} "
+              f"bytes), device time {dev_ms / b[0]:.2f}x it"
+              + "".join(f"; library {k_} {v['ms']:.4f} ms by events, "
+                        f"{v['device_ms']:.4f} ms device"
+                        for k_, v in lib.items()) + f" [{smi}]", flush=True)
+    return out
+
+
+def edge_segments(scene, n: int, seed: int, dev):
+    """n seeded segments in the scene's world sphere for shadow_key and
+    shadow_segments, by lane k % 8: 0 plain, 1 masked off, 2 p_to equal to
+    p_from, 3 a NaN p_to, 4 an inf p_to, 5 a -inf p_from, 6 a NaN p_from,
+    7 from far outside the world. Returns (p_from, p_to, mask)."""
+    g = np.random.default_rng(seed)
+    c = scene.pack.world_center.cpu().numpy()
+    r = float(scene.pack.world_radius)
+    p_from = (c + g.uniform(-0.8, 0.8, (n, 3)) * r).astype(np.float32)
+    p_to = (c + g.uniform(-0.8, 0.8, (n, 3)) * r).astype(np.float32)
+    k = np.arange(n) % 8
+    p_to[k == 2] = p_from[k == 2]
+    p_to[k == 3, 1] = np.nan
+    p_to[k == 4, 0] = np.inf
+    p_from[k == 5, 2] = -np.inf
+    p_from[k == 6, 0] = np.nan
+    p_from[k == 7] = c + 4.0 * r
+    f = lambda x: torch.as_tensor(x, device=dev).contiguous()
+    return f(p_from), f(p_to), f(k != 1)
+
+
+def edge_hits(meta, pack, n: int, seed: int, dev):
+    """n lanes of seeded closest hits of every kind the scene has, for
+    hit_reconstruct: per kind t in [0.5, 5) on about half the lanes, inf on
+    the others, NaN on every 97th, equal t across kinds on every 13th (the
+    tie rule), indices over the kind's rows and a few past either end (the
+    clamp); rays from the world sphere, NaN directions on every 89th.
+    Returns (o, d, hits, kinds)."""
+    g = np.random.default_rng(seed)
+    # the kinds in _kind_hits order, each with its count of indices
+    rows = ([(scene_pack.KIND_TRI, meta.n_tri)] if meta.n_tri else []) + [
+        (scene_pack.KIND_INST + mi, ni * meta.n_blas_tris[mi])
+        for mi, ni in enumerate(meta.n_inst)] + [
+        (k, m) for k, m in ((scene_pack.KIND_SPHERE, meta.n_sph),
+                            (scene_pack.KIND_RECT, meta.n_rect),
+                            (scene_pack.KIND_DISK, meta.n_disk)) if m]
+    kinds = [k for k, _ in rows]
+    lanes = np.arange(n)
+    tie = g.uniform(0.5, 5.0, n)
+    hits = []
+    for k, m in rows:
+        t = np.where(g.uniform(size=n) < 0.5, g.uniform(0.5, 5.0, n),
+                     np.inf)
+        t[lanes % 13 == 0] = tie[lanes % 13 == 0]
+        t[lanes % 97 == 0] = np.nan
+        index = g.integers(0, m, n)
+        index[lanes % 211 == 0] = -3
+        index[lanes % 223 == 0] = m + 5
+        hits.append(isect_ops.KindHit(
+            t=torch.as_tensor(t.astype(np.float32), device=dev),
+            index=torch.as_tensor(index.astype(np.int32), device=dev),
+            valid=torch.as_tensor(np.isfinite(t), device=dev)))
+    c = pack.world_center.cpu().numpy()
+    r = float(pack.world_radius)
+    o = (c + g.uniform(-0.8, 0.8, (n, 3)) * r).astype(np.float32)
+    d = g.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    d[lanes % 89 == 0] = np.nan
+    f = lambda x: torch.as_tensor(x, device=dev).contiguous()
+    return f(o), f(d), hits, kinds
+
+
+# flags of the edge sets' largest merge: more than the 16 the kernel once
+# took by value
+MERGE_EDGE_FLAGS = 17
+
+
+def rays_edges(scenes, dev, sizes=(1 << 16, (1 << 20) + 1)) -> dict:
+    """Each wrapper against its plain version on edge sets, for each
+    (label, scene) of scenes, at 65,536 and 2^20 + 1 lanes: occluded's
+    key sorted and its segments sorted and not, on edge_segments (masked
+    lanes, zero-length segments, NaN and inf endpoints; the Cornell box's
+    key has no BVH root, the bunny's instances a scale of 500, the
+    every-kind scene's of 0.8 and 0.3); the bounce key on the same points
+    as origins and directions with a third of the lanes inactive; the
+    merge of one, three and MERGE_EDGE_FLAGS seeded flags, sorted and not;
+    hit_reconstruct on edge_hits (with many_families_scene, more kinds
+    than the by-value tables the kernels once took). Returns {label:
+    check_rays_calls' counts}."""
+    out = {}
+    for label, scene in scenes:
+        meta, pack = scene.meta, scene.pack
+        for n in sizes:
+            calls = []
+            with rays_calls(calls):
+                p_from, p_to, mask = edge_segments(scene, n, 31, dev)
+                key = rays_ops.shadow_key(meta, pack, p_from, p_to, mask)
+                perm = torch.argsort(key, stable=True)
+                for pm in (perm, None):
+                    rays_ops.shadow_segments(pack, p_from, p_to, mask, pm)
+                    rays_ops.shadow_segments(pack, p_from, p_to, None, pm)
+                rays_ops.shadow_key(meta, pack, p_from, p_to)
+                d = (p_to - p_from).contiguous()
+                active = (torch.arange(n, device=dev) % 3) != 0
+                rays_ops.shadow_key(meta, pack, p_from, d, active,
+                                    bounce=True)
+                g = torch.Generator(device=dev).manual_seed(32)
+                flags = [torch.rand(n, generator=g, device=dev) < 0.2
+                         for _ in range(MERGE_EDGE_FLAGS)]
+                for j in (1, 3, MERGE_EDGE_FLAGS):
+                    rays_ops.occlusion_merge(flags[:j], perm)
+                    rays_ops.occlusion_merge(flags[:j], None)
+                scene_pack.hit_reconstruct(meta, pack,
+                                           *edge_hits(meta, pack, n, 33, dev))
+            torch.cuda.synchronize()
+            out[f"{label} {n}"] = check_rays_calls(
+                f"{label} edge sets, {n} lanes", calls)
+    return out
+
+
+def rays_frames(cases, dev) -> None:
+    """Each (label, scene, res, spp) frame, eager, on the kernels' route
+    against the same frame with ops/rays.py's plain versions
+    (plain_rays), image and stats bit for bit."""
+    for label, scene, res, spp in cases:
+        kw = dict(spp=spp, max_depth=VERTEX_DEPTH, seed=0, clamp=False,
+                  device=dev, graph=False, with_stats=True)
+        img, st = render(scene, res, res, **kw)
+        with plain_rays():
+            pimg, pst = render(scene, res, res, **kw)
+        if not torch.equal(img, pimg) or st != pst:
+            raise AssertionError(
+                f"{label}: the frame through ops/rays.py's kernels differs "
+                f"from the plain versions' (max |diff| "
+                f"{float((img - pimg).abs().max())}, stats {st} vs {pst})")
+        print(f"{label} {res}^2 {spp}-spp frame: ops/rays.py's kernels' "
+              f"image and stats equal the plain versions' bit for bit "
+              f"({st['rays']} rays)", flush=True)
+
+
+def rays_phase(cases, dev, smi: str, time_case: str | None = None) -> dict:
+    """For each (label, scene, res) of cases one eager 1-spp wave, its
+    ops/rays.py calls recorded (rays_wave) and each held bit for bit
+    against its plain version (check_rays_calls); on the case labelled
+    time_case its calls timed (time_rays). Returns {label: counts} and,
+    where timed, "times"."""
+    out = {}
+    for label, scene, res in cases:
+        calls = rays_wave(label, scene, res, dev)
+        out[label] = check_rays_calls(f"{label} {res}^2 wave", calls)
+        if label == time_case:
+            out["times"] = time_rays(label, calls, smi)
+        del calls
+    return out
+
+
+# --------------------------------------------------------------------------
 # 3, 6. kernel vs plain
 # --------------------------------------------------------------------------
 
@@ -2376,7 +2877,8 @@ def expected_launches(meta, res: int, spp: int, depth: int,
     that differentiates) one shade_vertex per vertex (depth + 1, the last
     the emission alone) and one nee_accumulate per vertex below
     max_depth; one brute_hits per cast where the scene has a brute-force
-    shape (scene_pack.brute_shapes)."""
+    shape (scene_pack.brute_shapes); and on every path (rays_launches)
+    ops/rays.py's kernels."""
     lights = sum(1 for lt in meta.lights if not lt.static_black)
     waves = n_waves(res, res, spp, DEFAULT_CHUNK)
     casts = waves * ((depth + 1) + depth * lights)
@@ -2388,7 +2890,26 @@ def expected_launches(meta, res: int, spp: int, depth: int,
             "threefry": waves * (2 + depth),
             "shade_vertex": waves * (depth + 1) if fused else 0,
             "nee_accumulate": waves * depth if fused else 0,
-            "brute_hits": casts if brute else 0}
+            "brute_hits": casts if brute else 0,
+            **rays_launches(meta, waves, depth)}
+
+
+def rays_launches(meta, waves: int, depth: int) -> dict:
+    """ops/rays.py's launches in `waves` waves of li_path at max_depth
+    `depth` (the forward of every path: their inputs never require grad):
+    per wave one hit_reconstruct per closest cast (depth + 1), one
+    shadow_segments and one occlusion_merge per shadow cast (depth x
+    lights), and, in a kernel-routed scene (meta.kernel_routed, where the
+    sorts default on), one shadow_key per sorted shadow cast (bounces 0
+    and 1 below depth, x lights) and per sort between bounces (bounces 0
+    to 2 below depth)."""
+    lights = sum(1 for lt in meta.lights if not lt.static_black)
+    keys = (min(2, depth) * lights + min(3, depth)
+            if meta.kernel_routed else 0)
+    return {"shadow_key": waves * keys,
+            "shadow_segments": waves * depth * lights,
+            "occlusion_merge": waves * depth * lights,
+            "hit_reconstruct": waves * (depth + 1)}
 
 
 TRACED_KERNELS = {"wide_bvh": ("wide_walk_kernel",),
@@ -2396,7 +2917,8 @@ TRACED_KERNELS = {"wide_bvh": ("wide_walk_kernel",),
                   "threefry": ("lane_keys_kernel", "uniforms_kernel"),
                   "shade_vertex": ("shade_vertex_kernel",),
                   "nee_accumulate": ("nee_accumulate_kernel",),
-                  "brute_hits": ("brute_hits_kernel",)}
+                  "brute_hits": ("brute_hits_kernel",),
+                  **{name: (f"{name}_kernel",) for name in RAYS}}
 
 
 def traced_launches(prof) -> dict:
@@ -3041,7 +3563,8 @@ def node_launches(nodes: dict) -> dict:
             "threefry": nodes["lane_keys_kernel"] + nodes["uniforms_kernel"],
             "shade_vertex": nodes["shade_vertex_kernel"],
             "nee_accumulate": nodes["nee_accumulate_kernel"],
-            "brute_hits": nodes["brute_hits_kernel"]}
+            "brute_hits": nodes["brute_hits_kernel"],
+            **{name: nodes[f"{name}_kernel"] for name in RAYS}}
 
 
 def max_diff(a: dict, b: dict) -> float:
@@ -3328,7 +3851,8 @@ def diff_phase(dev, smi: str, res: int = 1024):
     out = {"runs": []}
     # the gradient's forward takes the plain vertex (shade.kernel_route)
     want = {"wide_bvh": 6 + 5 * 2, "sweep_bvh": 0, "threefry": 2 + 5,
-            "shade_vertex": 0, "nee_accumulate": 0, "brute_hits": 6 + 5 * 2}
+            "shade_vertex": 0, "nee_accumulate": 0, "brute_hits": 6 + 5 * 2,
+            **rays_launches(scene.meta, 1, 5)}
     eager = []      # the eager gradients of the loss, by index_select
     for run in range(2):
         img, g, f_ms, b_ms, fwd, bwd, peak = fwd_bwd(
@@ -3476,20 +4000,29 @@ def sharded_launches(shape, lights: int, fused: bool = True) -> dict:
     shadow casts, 2 + depth Threefry draws and, on the fused vertex's route
     (the forward; fused=False for the train step's differentiated film),
     depth + 1 shade_vertex and depth nee_accumulate launches; one
-    brute_hits per cast (the bunny's rects), on every path."""
+    brute_hits per cast (the bunny's rects) and ops/rays.py's kernels
+    (rays_launches of the kernel-routed bunny), on every path."""
     local = SHARD_SPP // shape[1]
     casts = local * (SHARD_DEPTH + 1 + SHARD_DEPTH * lights)
+    keys = min(2, SHARD_DEPTH) * lights + min(3, SHARD_DEPTH)
     return {"wide_bvh": casts, "sweep_bvh": 0,
             "threefry": local * (2 + SHARD_DEPTH),
             "shade_vertex": local * (SHARD_DEPTH + 1) if fused else 0,
             "nee_accumulate": local * SHARD_DEPTH if fused else 0,
-            "brute_hits": casts}
+            "brute_hits": casts, "shadow_key": local * keys,
+            "shadow_segments": local * SHARD_DEPTH * lights,
+            "occlusion_merge": local * SHARD_DEPTH * lights,
+            "hit_reconstruct": local * (SHARD_DEPTH + 1)}
 
 
 def free_port() -> int:
     with contextlib.closing(socket.socket()) as s:
         s.bind(("localhost", 0))
         return s.getsockname()[1]
+
+
+# the kernels whose calls recorded_calls records
+RECORDED = ("wide_bvh", "sweep_bvh", "threefry", "brute_hits")
 
 
 @contextlib.contextmanager
@@ -3619,9 +4152,9 @@ def card_rank(rank, scene, dev_type, res):
     dev = pmesh.rank_device(dev_type)
     scene = scene.to(dev)
     lights = sum(1 for lt in scene.meta.lights if not lt.static_black)
-    # the calls recorded_calls records: traversal and streams
-    per_wave = sum(sharded_launches((1, SHARD_SPP), lights,
-                                    fused=False).values())
+    # the calls recorded_calls records: traversal, streams, brute force
+    per_wave = sum(v for k, v in sharded_launches(
+        (1, SHARD_SPP), lights, fused=False).items() if k in RECORDED)
     out = {"layouts": {}}
     for shape, ranks in CARD_LAYOUTS.items():
         mesh = pmesh.make_mesh(*shape, ranks=ranks, device=dev)
@@ -3912,12 +4445,13 @@ GRAPH_DEPTH = 5
 # li_path's record_function ranges (models/integrators.py), in wave order
 WAVE_RANGES = ("li_path.intersect", "li_path.rng", "li_path.vertex",
                "li_path.occluded", "li_path.nee_accumulate", "li_path.sort")
-# the routes phase 13 splits a wave under, in turns: both kernels, the
-# plain vertex (plain_vertex), the plain brute-force casts (plain_brute)
-SPLIT_TURNS = ("fused", "plain vertex", "plain brute", "plain brute",
-               "plain vertex", "fused")
+# the routes phase 13 splits a wave under, in turns: the kernels, the
+# plain vertex (plain_vertex), the plain brute-force casts (plain_brute),
+# the plain casts' set-up and hit reconstruction (plain_rays)
+SPLIT_TURNS = ("fused", "plain vertex", "plain brute", "plain rays",
+               "plain rays", "plain brute", "plain vertex", "fused")
 SPLIT_ROUTES = {"fused": contextlib.nullcontext, "plain vertex": plain_vertex,
-                "plain brute": plain_brute}
+                "plain brute": plain_brute, "plain rays": plain_rays}
 
 
 def _device_ops(call):
@@ -4169,8 +4703,20 @@ def main() -> int:
     edges = brute_edges(cornell, bunny, dev)
     brute_frames((("cornell", cornell, 512, 16), ("bunny", bunny, 1024, 4)),
                  dev)
-    del cases
     print(f"phase 2d took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("2e casts' set-up and hit reconstruction kernels vs plain")
+    t0 = time.perf_counter()
+    rays = rays_phase(cases, dev, smi.splitlines()[0], time_case="bunny")
+    families = many_families_scene().to(dev)
+    rays_edge = rays_edges((("cornell", cornell), ("bunny", bunny),
+                            ("every-kind", cases[2][1]),
+                            ("many-families", families)), dev)
+    rays_frames((("cornell", cornell, 512, 16), ("bunny", bunny, 1024, 4),
+                 ("many-families", families, 256, 2)), dev)
+    del families
+    del cases
+    print(f"phase 2e took {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("3 wide kernel vs plain")
     wide = wide_route(bunny)
@@ -4236,6 +4782,8 @@ def main() -> int:
     print(f"bunny 600k instanced: scene build {build_s:.2f} s", flush=True)
     vertex.update(vertex_phase((("bunny 600k", inst600, 1024),), dev,
                                smi.splitlines()[0]))
+    rays.update(rays_phase((("bunny 600k", inst600, 1024),), dev,
+                           smi.splitlines()[0]))
     sweep_frame = main_path(inst600, dev, "bunny 600k")
     sweep_launches = sweep_frame["sweep_bvh"]
     sort_effect(inst600, dev, "bunny 600k")
@@ -4379,7 +4927,29 @@ def main() -> int:
             "sweep_launches": sweep_frame["brute_hits"],
             "sharded_launches": {k: v["brute_hits"]
                                  for k, v in sharded["launches"].items()}}
-           for bt in (brute["times"]["closest"],)]}),
+           for bt in (brute["times"]["closest"],)]
+        + [{"name": name, "route": "cuda",
+            "source": "jet_pbrt_tpu_torch/csrc/rays.cu",
+            "replaces": RAYS_REPLACES[name],
+            "launches": frame_launches[name],
+            "max_abs_err": max(v["max_abs_err"] for k, v in
+                               (*rays.items(), *rays_edge.items())
+                               if k != "times"),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": next((v["ms"] for v in t["library_ms"].values()),
+                               None),
+            "library": t["library_ms"], "device_ms": t["device_ms"],
+            "device_cold_ms": t["device_cold_ms"],
+            "enqueue_ms": t["enqueue_ms"], "bytes": t["bytes"],
+            "lanes": t["lanes"],
+            **({"bounce": {k: rays["times"]["shadow_key bounce"][k] for k in (
+                "ms", "device_ms", "device_cold_ms", "plain_ms", "bound_ms",
+                "bytes")}} if name == "shadow_key" else {}),
+            "sweep_launches": sweep_frame[name],
+            "sharded_launches": {k: v[name]
+                                 for k, v in sharded["launches"].items()}}
+           for name in RAYS for t in (rays["times"][name],)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -22,7 +22,9 @@ NEE set-up, BSDF sample, roulette) is ops/shade.py's: `shade_vertex` and
 tests and the sort stay here, each inside a `torch.profiler
 .record_function` range (li_path.intersect, .rng, .vertex, .occluded,
 .nee_accumulate, .sort) that a profile attributes the wave's device time
-by.
+by; the work around the casts (the hit reconstruction, the shadow
+segments, their sort key and merge, the sort key between bounces) is
+ops/rays.py's, one kernel launch each on the card.
 
 Gradients (models/render.py::render_fn): sampled directions, pdfs, light
 sample points, MIS weights and the roulette probability are detached where
@@ -39,7 +41,7 @@ from ..ops import bsdf as bsdf_ops
 from ..ops import lights as light_ops
 from ..ops import rng
 from ..ops import shade as shade_ops
-from ..ops import sort as sort_ops
+from ..ops import rays as rays_ops
 from ..ops.linalg import absdot, frame_from_z, to_local, to_world, is_black
 from ..scene import pack as scene_pack
 
@@ -94,6 +96,11 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
     lights = (shade_ops.light_table(meta, pack)
               if fused and dev.type == "cuda" else None)
     le_env = None if fused else light_ops.env_radiance(meta, pack, n)
+    # the BVH root spheres of the sort keys' kernel, made once a wave (a
+    # captured wave makes them from the pack it replays)
+    roots = (rays_ops.root_table(meta, pack)
+             if dev.type == "cuda" and (sort_rays or meta.kernel_routed)
+             else None)
     state = shade_ops.VertexState(L, beta, active, prev_specular, prev_pdf,
                                   ray_o, ray_d)
 
@@ -133,7 +140,8 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
         with record_function("li_path.occluded"):
             occ = [scene_pack.occluded(
                 meta, pack, hit.position, v.shadow_to[j], mask=v.useful[j],
-                sort=meta.kernel_routed and bounce < 2, stats=sweep_stats)
+                sort=meta.kernel_routed and bounce < 2, stats=sweep_stats,
+                roots=roots)
                 for j in range(v.useful.shape[0])]
         with record_function("li_path.nee_accumulate"):
             occ = (torch.stack(occ) if occ
@@ -146,18 +154,15 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
 
         if sort_rays and bounce < 3:
             with record_function("li_path.sort"):
-                # regroup lanes for the next bounce's traversal (ops/sort.py);
-                # deep bounces keep the order: lanes only die from here, so the
+                # regroup lanes for the next bounce's traversal (ops/sort.py's
+                # key, ops/rays.py::shadow_key's kernel on the card); deep
+                # bounces keep the order: lanes only die from here, so the
                 # dead tail of the last sort persists
-                world_lo = (pack.world_center - pack.world_radius).detach()
-                world_inv = (1.0 / torch.clamp_min(2.0 * pack.world_radius,
-                                                   1e-12)).detach().expand(3)
-                o_key, d_key = ray_o.detach(), ray_d.detach()
-                needs = sort_ops.bvh_needed(meta, pack, o_key, d_key,
-                                            torch.where(active, eps, inf),
-                                            torch.where(active, inf, neg))
-                key = sort_ops.ray_sort_key(active, o_key, d_key, world_lo,
-                                            world_inv, needs_bvh=needs)
+                key = rays_ops.shadow_key(meta, pack,
+                                          ray_o.detach().contiguous(),
+                                          ray_d.detach().contiguous(),
+                                          active.contiguous(), bounce=True,
+                                          roots=roots)
                 perm = torch.argsort(key, stable=True)
                 L, beta, ray_o, ray_d, active, prev_specular, prev_pdf, \
                     lane = (x[perm] for x in (L, beta, ray_o, ray_d, active,

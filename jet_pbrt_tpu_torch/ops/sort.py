@@ -7,6 +7,8 @@ origin Morton code and direction octant, so that a packet's rays cull to
 nearly the same groups. Keys are int32 tensors equal to the reference's;
 callers sort them with `torch.argsort(..., stable=True)`, which gives
 `jnp.argsort`'s permutation. The permutation never changes the estimate.
+These are the plain versions of ops/rays.py::shadow_key, whose kernel
+computes the shadow and between-bounce keys on the card.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ every instanced family) are traversed by ops/wide_bvh.py or, when the
 builder routes them there (meshes beyond the reference's wide-kernel
 budget, scene/builder.py), by ops/sweep_bvh.py; spheres, rects, disks and
 small soups are tested by brute force, all of them in one ops/brute.py call
-per cast.
+per cast. The work around the casts (the shadow segments, their sort key
+and merge, the closest hit's reconstruction) is ops/rays.py's.
 
 `SceneMeta` and `LightMeta` carry the reference's fields; they are copies
 because the reference module imports JAX.
@@ -26,6 +27,7 @@ from ..ops import intersect as isect_ops
 from ..ops import sweep_bvh
 from ..ops import wide_bvh
 from ..ops import linalg
+from ..ops import rays as rays_ops
 from ..ops import texture as tex_ops
 from ..ops.linalg import dot, frame_from_z, normalize, to_local
 
@@ -297,23 +299,60 @@ def _bary_uv(a, e1, e2, p, uvs):
 
 def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
               stats: dict | None = None) -> Hit:
-    """Closest hit over the whole scene (reference: src/scene.cc:25-33).
+    """Closest hit over the whole scene (reference: src/scene.cc:25-33):
+    the kinds' casts (`_kind_hits`), then their merge and the hit's
+    reconstruction (`hit_reconstruct`: ops/rays.py's kernel on the card).
     UVs are computed only when the scene has textures. stats: optional
     dict that collects the sweep kernel's counters."""
+    o, d = o.contiguous(), d.contiguous()
+    hits, kinds = _kind_hits(meta, pack, o, d, tmin, tmax, stats=stats)
+    if hits:
+        return hit_reconstruct(meta, pack, o, d, hits, kinds)
+    n = o.shape[0]
+    dev = o.device
+    z3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    return Hit(valid=torch.zeros((n,), dtype=torch.bool, device=dev),
+               t=torch.full((n,), math.inf, device=dev), position=z3,
+               normal=z3, wo=-d,
+               uv=torch.zeros((n, 2), dtype=torch.float32, device=dev),
+               mat_id=torch.zeros((n,), dtype=torch.int32, device=dev),
+               light_id=torch.full((n,), -1, dtype=torch.int32, device=dev))
+
+
+def hit_reconstruct(meta: SceneMeta, pack: ScenePack, o, d, hits,
+                    kinds) -> Hit:
+    """The closest Hit of rays o, d [N,3] from each kind's KindHit (hits,
+    in `_kind_hits` order, kinds their kind ids): `hit_reconstruct_plain`
+    on CPU tensors; on CUDA tensors one launch of
+    ops/rays.py::hit_reconstruct's kernel over the pack's tables, which
+    raises on what the kernel cannot take."""
+    if o.device.type == "cpu":
+        return hit_reconstruct_plain(meta, pack, o, d, hits, kinds)
+    return Hit(*rays_ops.hit_reconstruct(o, d, hits, kinds,
+                                         *hit_tables(meta, pack),
+                                         meta.n_tex > 0))
+
+
+def hit_tables(meta: SceneMeta, pack: ScenePack) -> tuple:
+    """The pack's tables in ops/rays.py::hit_reconstruct's terms: ({shape
+    table name: tensor}, [(triangles per instance, {family table name:
+    tensor}) per instanced family])."""
+    return ({name: getattr(pack, name) for name, *_ in rays_ops.HIT_TABLES},
+            [(meta.n_blas_tris[mi], {name: getattr(pack, name)[mi]
+                                     for name, *_ in rays_ops.FAMILY_TABLES})
+             for mi in range(len(meta.n_inst))])
+
+
+def hit_reconstruct_plain(meta: SceneMeta, pack: ScenePack, o, d, hits,
+                          kinds) -> Hit:
+    """ops/rays.py::hit_reconstruct's plain version: merge_hits, p = o +
+    t_safe * d, and per kind its normal, material, light and, where the
+    scene has textures, uv; material and light masked where nothing
+    hits."""
     n = o.shape[0]
     dev = o.device
     uv = torch.zeros((n, 2), dtype=torch.float32, device=dev)
     want_uv = meta.n_tex > 0
-    hits, kinds = _kind_hits(meta, pack, o, d, tmin, tmax, stats=stats)
-    if not hits:
-        z3 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-        return Hit(valid=torch.zeros((n,), dtype=torch.bool, device=dev),
-                   t=torch.full((n,), math.inf, device=dev), position=z3,
-                   normal=z3, wo=-d, uv=uv,
-                   mat_id=torch.zeros((n,), dtype=torch.int32, device=dev),
-                   light_id=torch.full((n,), -1, dtype=torch.int32,
-                                       device=dev))
-
     t, kind, index, valid = isect_ops.merge_hits(hits, kinds)
     t_safe = torch.where(valid, t, torch.ones_like(t))
     p = o + t_safe[:, None] * d
@@ -403,43 +442,38 @@ def intersect(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
 
 def occluded(meta: SceneMeta, pack: ScenePack, p_from, p_to,
              mask=None, sort: bool | None = None,
-             stats: dict | None = None) -> torch.Tensor:
+             stats: dict | None = None, roots=None) -> torch.Tensor:
     """Visibility between two point batches over the ray range
     [eps, dist - eps] (reference: src/scene.h:36-52); lanes with
     mask=False trace nothing and report unoccluded.
 
     sort (default: meta.kernel_routed, as in the reference) permutes the
     batch by (dead, needs-BVH, direction octant, origin Morton) before the
-    casts and un-permutes the result, argsort plus gather (never a
-    scatter); the permutation never changes the result. stats: optional
-    dict that collects the sweep kernel's counters."""
-    delta = p_to - p_from
-    dist = torch.sqrt(torch.clamp_min(dot(delta, delta), 1e-20))
-    d = delta / dist[:, None]
-    tmin = pack.ray_eps.expand(dist.shape)
-    tmax = dist - pack.ray_eps
-    if mask is not None:
-        tmin = torch.where(mask, tmin, torch.full_like(dist, math.inf))
-        tmax = torch.where(mask, tmax, torch.full_like(dist, -1.0))
-    o = p_from
+    casts and un-permutes the result; the permutation never changes the
+    result. The set-up around the casts is ops/rays.py's (its kernels on
+    the card): the key (`shadow_key`), then argsort, the permuted segments
+    (`shadow_segments`), the casts, and the flags' OR scattered back to
+    their lanes (`occlusion_merge`). stats: optional dict that collects the
+    sweep kernel's counters. roots: the key's `rays_ops.root_table`, made
+    here where None."""
     if sort is None:
         sort = meta.kernel_routed
+    p_from, p_to = p_from.contiguous(), p_to.contiguous()
+    if mask is not None:
+        mask = mask.contiguous()
+    perm = None
     if sort:
-        from ..ops import sort as sort_ops
-        key = sort_ops.shadow_sort_key(meta, pack, tmax > 0.0, o, d, tmin,
-                                       tmax)
+        key = rays_ops.shadow_key(meta, pack, p_from, p_to, mask,
+                                  roots=roots)
         perm = torch.argsort(key, stable=True)
-        o, d, tmin, tmax = o[perm], d[perm], tmin[perm], tmax[perm]
+    o, d, tmin, tmax = rays_ops.shadow_segments(pack, p_from, p_to, mask,
+                                                perm)
     flags, _ = _kind_hits(meta, pack, o, d, tmin, tmax, any_hit=True,
                           stats=stats)
     if not flags:
-        return torch.zeros(dist.shape, dtype=torch.bool, device=dist.device)
-    occ = flags[0]
-    for f in flags[1:]:
-        occ = occ | f
-    if sort:
-        occ = occ[torch.argsort(perm)]
-    return occ
+        return torch.zeros(p_from.shape[:1], dtype=torch.bool,
+                           device=p_from.device)
+    return rays_ops.occlusion_merge(flags, perm)
 
 
 def emitted(pack: ScenePack, hit: Hit) -> torch.Tensor:

@@ -7,7 +7,10 @@ none), closest hit (each kind's KindHit, then `merge_hits`) and any hit
 (the OR of the kinds' valid), on random rays with finite tmax on a fifth
 of the lanes, on shapes each present twice (ties: the lowest index keeps
 the hit) and on a batch half of dead lanes (tmin = inf, tmax = -1) with
-NaN and inf directions; `scene/pack.py::intersect` and `occluded` against
+NaN and inf directions; on the closest-hit cases, every decision (index,
+valid) equal to a float64 evaluation's and unmoved by a change of 2^-20 in
+the rays, so that no rounding can make the reference and the port
+disagree on them; `scene/pack.py::intersect` and `occluded` against
 the reference's on a 4,096-ray Cornell batch and on the every-kind scene
 (chip_smoke.every_kind_scene), and `_kind_hits`' kinds in the reference's
 order, one brute_hits call per cast; the wrapper's input checks. The
@@ -118,10 +121,18 @@ def _port_shapes(shapes: dict) -> tis.BruteShapes:
 
 
 def _same_hit(a, b):
-    np.testing.assert_allclose(b.t.numpy(), np.asarray(a.t), rtol=RTOL,
-                               atol=ATOL)
-    np.testing.assert_array_equal(b.index.numpy(), np.asarray(a.index))
-    np.testing.assert_array_equal(b.valid.numpy(), np.asarray(a.valid))
+    """The reference's KindHit a and the port's b agree; a failure names
+    the first lanes that differ with both sides' t, index and valid."""
+    ta, ia, va = (np.asarray(x) for x in (a.t, a.index, a.valid))
+    tb, ib, vb = b.t.numpy(), b.index.numpy(), b.valid.numpy()
+    bad = (~np.isclose(tb, ta, rtol=RTOL, atol=ATOL, equal_nan=True)
+           | (ib != ia) | (vb != va))
+    msg = "; ".join(f"lane {i}: reference t {ta[i]!r} index {ia[i]} valid "
+                    f"{va[i]}, port t {tb[i]!r} index {ib[i]} valid {vb[i]}"
+                    for i in np.nonzero(bad)[0][:8])
+    np.testing.assert_allclose(tb, ta, rtol=RTOL, atol=ATOL, err_msg=msg)
+    np.testing.assert_array_equal(ib, ia, err_msg=msg)
+    np.testing.assert_array_equal(vb, va, err_msg=msg)
 
 
 @pytest.mark.parametrize("case", ["random", "duplicates", "dead"])
@@ -165,6 +176,39 @@ def test_brute_hits_matches_reference(kinds, any_hit, case):
         # each shape's copy sits M rows later: the first keeps a tie
         assert all((h.index.numpy()[h.valid.numpy()] < M).all()
                    for h in got)
+
+
+@pytest.mark.parametrize("case", ["random", "duplicates", "dead"])
+@pytest.mark.parametrize("kinds", ["all", "rects", "triangles"])
+def test_brute_hits_decisions_hold_under_rounding(kinds, case):
+    """The cases above hold no lane whose closest hit a rounding could
+    move: every kind's index and valid equal a float64 evaluation of the
+    same tests (the shapes and rays widened exactly), and a relative change
+    of 2^-20 in o and d (several ulps of each) moves none of them. So the
+    reference and the port, each op by op in float32 on any CPU, must agree
+    on them, and a disagreement is a fault of one side, not a near-tie."""
+    rs = np.random.default_rng(zlib.crc32(f"{kinds} {case}".encode()))
+    shapes = _shapes(rs, KINDS[kinds], case == "duplicates")
+    rays = _rays(rs, case)
+    got = TB.brute_hits(*(torch.from_numpy(x) for x in rays),
+                        _port_shapes(shapes), False)
+    wide = tis.brute_hits_plain(
+        *(torch.from_numpy(x).double() for x in rays),
+        _port_shapes({f: tuple(x.astype(np.float64) for x in v)
+                      for f, v in shapes.items()}), False)
+    o, d, tmin, tmax = rays
+    moved = [TB.brute_hits(torch.from_numpy(o * np.float32(s)),
+                           torch.from_numpy(d * np.float32(s)),
+                           torch.from_numpy(tmin), torch.from_numpy(tmax),
+                           _port_shapes(shapes), False)
+             for s in (1 + 2.0 ** -20, 1 - 2.0 ** -20)]
+    for j, h in enumerate(got):
+        for other in (wide[j], *(m[j] for m in moved)):
+            np.testing.assert_array_equal(h.index.numpy(),
+                                          other.index.numpy())
+            np.testing.assert_array_equal(h.valid.numpy(),
+                                          other.valid.numpy())
+        assert h.valid.numpy().any()
 
 
 # --------------------------------------------------------------------------

@@ -220,16 +220,54 @@ def test_profiled_ms_each_names_what_every_call_launches(monkeypatch):
 
 def test_node_launches_count_the_fused_vertex():
     """A graph's kernel nodes by device function, as launch_counts names
-    them: the fused vertex's two kernels and the brute-force casts' beside
-    the traversal and the streams."""
+    them: the fused vertex's two kernels, the brute-force casts' and
+    ops/rays.py's four beside the traversal and the streams."""
     from jet_pbrt_tpu_torch.ops.launches import REGISTRY
     nodes = dict.fromkeys(REGISTRY, 0) | {
         "wide_walk_kernel": 16, "lane_keys_kernel": 1, "uniforms_kernel": 6,
         "shade_vertex_kernel": 6, "nee_accumulate_kernel": 5,
-        "brute_hits_kernel": 16}
+        "brute_hits_kernel": 16, "shadow_key_kernel": 7,
+        "shadow_segments_kernel": 10, "occlusion_merge_kernel": 10,
+        "hit_reconstruct_kernel": 6}
     assert chip_smoke.node_launches(nodes) == {
         "wide_bvh": 16, "sweep_bvh": 0, "threefry": 7, "shade_vertex": 6,
-        "nee_accumulate": 5, "brute_hits": 16}
+        "nee_accumulate": 5, "brute_hits": 16, "shadow_key": 7,
+        "shadow_segments": 10, "occlusion_merge": 10, "hit_reconstruct": 6}
+    assert set(chip_smoke.launch_counts()) == set(chip_smoke.TRACED_KERNELS)
+
+
+@pytest.mark.parametrize("which", ["cornell", "bunny", "many-lights"])
+def test_expected_launches_count_the_rays_kernels(which):
+    """Per wave one hit_reconstruct per closest cast, one shadow_segments
+    and one occlusion_merge per shadow cast, and, where a mesh is
+    kernel-routed (the sorts' default), one shadow_key per sorted shadow
+    cast (bounces 0 and 1) and per sort between bounces (bounces 0-2); at
+    depth 1 one sorted bounce and one sort. Per rank of the sharded bunny
+    frame the same, on the forward and the train step's film alike."""
+    from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves
+    from jet_pbrt_tpu_torch.scene import scenes
+    meta = {"cornell": lambda: scenes.cornell_box(),
+            "bunny": lambda: scenes.bunny_scene(),
+            "many-lights": chip_smoke.many_lights_scene}[which]().meta
+    lights = sum(1 for lt in meta.lights if not lt.static_black)
+    waves = n_waves(512, 512, 16, DEFAULT_CHUNK)
+    got = chip_smoke.expected_launches(meta, 512, 16, 5)
+    keys = 2 * lights + 3 if meta.kernel_routed else 0
+    assert {k: got[k] for k in chip_smoke.RAYS} == {
+        "shadow_key": waves * keys, "shadow_segments": waves * 5 * lights,
+        "occlusion_merge": waves * 5 * lights, "hit_reconstruct": waves * 6}
+    assert (which == "cornell") != meta.kernel_routed
+    one = chip_smoke.rays_launches(meta, 1, 1)
+    assert one["shadow_key"] == (lights + 1 if meta.kernel_routed else 0)
+    assert one["hit_reconstruct"] == 2
+    for fused in (True, False):
+        shard = chip_smoke.sharded_launches((2, 1), 2, fused=fused)
+        local = chip_smoke.SHARD_SPP
+        assert {k: shard[k] for k in chip_smoke.RAYS} == {
+            "shadow_key": local * (2 * 2 + 3),
+            "shadow_segments": local * chip_smoke.SHARD_DEPTH * 2,
+            "occlusion_merge": local * chip_smoke.SHARD_DEPTH * 2,
+            "hit_reconstruct": local * (chip_smoke.SHARD_DEPTH + 1)}
 
 
 @pytest.mark.parametrize("fused", [True, False])

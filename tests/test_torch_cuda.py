@@ -59,6 +59,16 @@ division's edges, 256 and 257 shapes of a kind); a captured cast's replay
 against the eager cast; a ray or geometry input that requires grad
 refused; render_fn's gradient casting its forward, and none of its
 backward, through the kernel.
+The casts' set-up and hit reconstruction (ops/rays.py, csrc/rays.cu): the
+four kernels against their plain versions on every call of a wave of the
+every-kind scene on both routes, the scene of 46 lights and the Cornell
+box, and on chip_smoke's edge sets, bit for bit; 16 instanced families
+(19 kinds a closest cast, 17 flags a shadow cast) on the edge sets, a
+frame and a graphed wave; the kernels' frame against the plain versions';
+the graphed wave's kernel nodes and frame against the eager ones; an
+input that requires grad, or one the kernels cannot take, refused;
+render_fn's gradient running its forward, and none of its backward,
+through them.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import contextlib
@@ -1290,3 +1300,187 @@ def test_gradient_forward_casts_through_the_brute_kernel_on_card():
     assert entry.launches["brute_hits_kernel"] == 4 + 3 * 2
     vg.release()
     G.clear()
+
+
+# the casts' set-up and hit reconstruction (ops/rays.py, csrc/rays.cu)
+
+def _rays_counts() -> dict:
+    from jet_pbrt_tpu_torch.ops import rays as TRY
+    return {k: getattr(TRY, k).launches for k in (
+        "shadow_key", "shadow_segments", "occlusion_merge",
+        "hit_reconstruct")}
+
+
+def _rays_scene(which: str):
+    from jet_pbrt_tpu_torch.scene.scenes import cornell_box
+    if which == "cornell":
+        return cornell_box().to("cuda")
+    if which == "many-families":
+        import chip_smoke
+        return chip_smoke.many_families_scene().to("cuda")
+    return _shade_scene(which)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wide", "sweep", "many-lights", "cornell"])
+def test_rays_kernels_match_plain_on_card(which):
+    """Every shadow_key, shadow_segments, occlusion_merge and
+    hit_reconstruct call of a 64^2, 1-spp, depth-5 wave against its plain
+    version on the recorded inputs, every output bit for bit, as many
+    calls of each as chip_smoke.rays_launches counts
+    (chip_smoke.rays_phase)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    scene = _rays_scene(which)
+    out = chip_smoke.rays_phase(((which, scene, 64),), torch.device("cuda"),
+                                "card")
+    want = chip_smoke.rays_launches(scene.meta, 1, 5)
+    assert out[which]["calls"] == {k: v for k, v in want.items() if v}
+    assert out[which]["differing"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wide", "cornell", "many-families"])
+def test_rays_kernels_edge_sets_on_card(which):
+    """chip_smoke.rays_edges at 4,097 lanes: masked lanes, zero-length
+    segments, NaN and inf endpoints, inactive lanes, one, three and 17
+    flags sorted and not, and seeded hits with misses, NaN t, ties across
+    kinds (19 of them with 16 families) and indices past their tables,
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    out = chip_smoke.rays_edges(((which, _rays_scene(which)),),
+                                torch.device("cuda"), sizes=(4097,))
+    assert out[f"{which} 4097"]["differing"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["cornell", "wide", "many-families"])
+def test_rays_route_frame_equals_plain_route_on_card(which):
+    """A 32^2, 3-spp frame through the kernels equals the frame with the
+    plain versions in the wrappers' places, image and stats bit for bit;
+    the kernels launched as rays_launches counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, \
+        render
+    scene = _rays_scene(which)
+    kw = dict(spp=3, seed=2, max_depth=5, clamp=False, device="cuda",
+              with_stats=True, graph=False)
+    before = _rays_counts()
+    img, st = render(scene, 32, 32, **kw)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in _rays_counts().items()}
+    with chip_smoke.plain_rays():
+        pimg, pst = render(scene, 32, 32, **kw)
+    assert torch.equal(img, pimg) and st == pst
+    assert launched == chip_smoke.rays_launches(
+        scene.meta, n_waves(32, 32, 3, DEFAULT_CHUNK), 5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wide", "many-families"])
+def test_graphed_wave_replays_the_rays_kernels_on_card(which):
+    """The every-kind scene and the 16 families at 32^2, 2 spp: the
+    captured wave's graph holds the kernel nodes rays_launches counts for
+    one wave, a replayed frame counts them, and its image and stats equal
+    the eager frame's bit for bit. The kinds' table is made anew here, by
+    the capture's warm-up call; the root table is captured with the
+    wave."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, \
+        render
+    from jet_pbrt_tpu_torch.ops import rays as TRY
+    scene = _rays_scene(which)
+    kw = dict(spp=2, seed=4, max_depth=5, clamp=False, device="cuda",
+              with_stats=True)
+    G.clear()
+    TRY._HIT_TABLE_CACHE.clear()
+    render(scene, 32, 32, graph=True, **kw)
+    (entry,) = G.CACHE.entries.values()
+    one = chip_smoke.rays_launches(scene.meta, 1, 5)
+    assert {k: entry.launches[f"{k}_kernel"] for k in one} == one
+    runs = {}
+    for graph in (True, False):
+        before = _rays_counts()
+        img, st = render(scene, 32, 32, graph=graph, **kw)
+        torch.cuda.synchronize()
+        runs[graph] = (img, st, {k: v - before[k]
+                                 for k, v in _rays_counts().items()})
+    (gi, gs, gl), (ei, es, el) = runs[True], runs[False]
+    assert torch.equal(gi, ei) and gs == es
+    assert gl == el == chip_smoke.rays_launches(
+        scene.meta, n_waves(32, 32, 2, DEFAULT_CHUNK), 5)
+    G.clear()
+
+
+@pytest.mark.cuda
+def test_rays_kernels_route_and_refuse_on_card():
+    """A CUDA float input that requires grad is refused (the kernels have
+    no backward; the merge takes bool flags, which cannot), as is one the
+    kernel cannot take; neither launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.ops import rays as TRY
+    from jet_pbrt_tpu_torch.scene import pack as TPK
+    scene = _rays_scene("wide")
+    meta, pack = scene.meta, scene.pack
+    g = torch.Generator(device="cuda").manual_seed(3)
+    p_from = torch.randn(1000, 3, device="cuda", generator=g)
+    p_to = torch.randn(1000, 3, device="cuda", generator=g)
+    hits, kinds = TPK._kind_hits(meta, pack, p_from, p_to,
+                                 torch.full((1000,), 1e-3, device="cuda"),
+                                 torch.full((1000,), float("inf"),
+                                            device="cuda"))
+    before = _rays_counts()
+    o = p_from.clone().requires_grad_(True)
+    with pytest.raises(ValueError, match="require grad"):
+        TPK.hit_reconstruct(meta, pack, o, p_to, hits, kinds)
+    with pytest.raises(ValueError, match="require grad"):
+        TRY.shadow_key(meta, pack, o, p_to)
+    with pytest.raises(ValueError, match="require grad"):
+        TRY.shadow_segments(pack, p_from, o)
+    assert _rays_counts() == before
+    with pytest.raises(ValueError, match="not contiguous"):
+        TRY.shadow_segments(pack, p_from, p_to.t().contiguous().t())
+    with pytest.raises(ValueError, match="torch.int64"):
+        TRY.occlusion_merge([hits[0].valid], hits[0].index)
+    with pytest.raises(ValueError, match="torch.float32"):
+        TPK.hit_reconstruct(meta, pack, p_from.double(), p_to, hits, kinds)
+    assert _rays_counts() == before
+
+
+@pytest.mark.cuda
+def test_gradient_forward_runs_the_rays_kernels_on_card():
+    """render_fn's gradient on the Cornell box (depth 3, two lights): its
+    forward reconstructs each closest hit and sets up and merges each
+    shadow cast through the kernels ((3 + 1) hit_reconstruct, 3 x 2 of the
+    others; no key: the box sorts nothing), its backward launches none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.diff import params as P
+    from jet_pbrt_tpu_torch.models.render import render_fn
+    from jet_pbrt_tpu_torch.scene.scenes import cornell_box
+    fn, pack = render_fn(cornell_box(), 16, 16, 1, seed=1, max_depth=3,
+                         device="cuda")
+    with torch.no_grad():
+        target = fn(pack._replace(light_c=pack.light_c * 1.2))
+    f = P.loss_fn(fn, pack, target)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in P.get_params(pack, ("mat_c0", "light_c")).items()}
+    before = _rays_counts()
+    loss = f(leaves)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _rays_counts().items()} == {
+        "shadow_key": 0, "shadow_segments": 6, "occlusion_merge": 6,
+        "hit_reconstruct": 4}
+    before = _rays_counts()
+    torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    assert _rays_counts() == before

@@ -33,6 +33,7 @@ from jet_pbrt_tpu_torch.models import graph as G
 from jet_pbrt_tpu_torch.models import render as R
 from jet_pbrt_tpu_torch.ops import brute as TB
 from jet_pbrt_tpu_torch.ops import launches as L
+from jet_pbrt_tpu_torch.ops import rays as TRAY
 from jet_pbrt_tpu_torch.ops import rng as TR
 from jet_pbrt_tpu_torch.ops import shade as TSH
 from jet_pbrt_tpu_torch.ops import sweep_bvh as TS
@@ -265,7 +266,11 @@ def test_every_kernel_wrapper_is_registered():
         "prim_micro_kernel": (prim_micro.__name__, "prim_micro"),
         "shade_vertex_kernel": (TSH.__name__, "shade_vertex"),
         "nee_accumulate_kernel": (TSH.__name__, "nee_accumulate"),
-        "brute_hits_kernel": (TB.__name__, "brute_hits")}
+        "brute_hits_kernel": (TB.__name__, "brute_hits"),
+        "shadow_key_kernel": (TRAY.__name__, "shadow_key"),
+        "shadow_segments_kernel": (TRAY.__name__, "shadow_segments"),
+        "occlusion_merge_kernel": (TRAY.__name__, "occlusion_merge"),
+        "hit_reconstruct_kernel": (TRAY.__name__, "hit_reconstruct")}
     assert all(isinstance(v, int) for v in L.counts().values())
 
 
@@ -341,6 +346,11 @@ NODE_NAMES = [
     "_ZN12_GLOBAL__N_121nee_accumulate_kernelEPKfPKhS3_S1_iiPf",
     "_ZN12_GLOBAL__N_117brute_hits_kernelILb0EEEvNS_4ArgsE",
     "_ZN12_GLOBAL__N_117brute_hits_kernelILb1EEEvNS_4ArgsE",
+    "_ZN12_GLOBAL__N_117shadow_key_kernelILb0EEEv7KeyArgs",
+    "_ZN12_GLOBAL__N_117shadow_key_kernelILb1EEEv7KeyArgs",
+    "_ZN12_GLOBAL__N_122shadow_segments_kernelE7SegArgs",
+    "_ZN12_GLOBAL__N_122occlusion_merge_kernelE9MergeArgs",
+    "_ZN12_GLOBAL__N_122hit_reconstruct_kernelE7HitArgs",
 ]
 
 
@@ -349,7 +359,9 @@ def test_graph_kernel_nodes_counted_by_device_function():
         "wide_walk_kernel": 2, "sweep_bvh_kernel": 1, "lane_keys_kernel": 1,
         "uniforms_kernel": 2, "sweep_prims_kernel": 0, "prim_micro_kernel": 0,
         "shade_vertex_kernel": 1, "nee_accumulate_kernel": 1,
-        "brute_hits_kernel": 2}
+        "brute_hits_kernel": 2, "shadow_key_kernel": 2,
+        "shadow_segments_kernel": 1, "occlusion_merge_kernel": 1,
+        "hit_reconstruct_kernel": 1}
     assert not L.is_function("wide_walk_kernel_tail", "wide_walk_kernel")
     assert not L.is_function("x16wide_walk_kernel", "wide_walk_kernel")
 
