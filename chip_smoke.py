@@ -5,7 +5,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: one nvcc per kernel library of jet_pbrt_tpu_torch/csrc, all
      started together (wide_bvh, sweep_bvh, sweep_prims, prim_micro,
-     threefry, shade, brute, rays, and shade.cu's operation-counting
+     threefry, shade, brute, rays, wave, and shade.cu's operation-counting
      variant, COUNT_LIBRARY), with ptxas registers and spills;
   2b. the random streams' Threefry kernel (csrc/threefry.cu) against its
      plain version, bit for bit, at 2^20 lanes: the key words of
@@ -82,6 +82,25 @@ Phases, each printing its result; any failure raises and exits non-zero:
      the Cornell 512^2 16-spp, bunny 1024^2 4-spp and 16-family 256^2
      2-spp frames against the plain versions' (plain_rays), image and
      stats bit for bit;
+  2f. the wave's glue (ops/wave.py, csrc/wave.cu): the same five eager
+     1-spp waves (and in phase 7 the 600k bunny's), each recording its
+     camera_rays, permute_state and unsort_guard calls (wave_glue_calls:
+     as many as wave_launches counts), each held against its plain
+     version on the same inputs, every row bit for bit; edge sets
+     (wave_edges) at 1, 1,000 and 2^20 + 1 lanes: pixel ids from 0 and
+     past 2^24 on a film of odd width under the random, stratified and
+     debug samplers' jitter, states with NaN and inf colours and dead
+     lanes permuted by the identity, a reversal and a seeded perm with
+     their LaneKeys and with the debug sampler's uniforms, the un-sort by
+     those perms and without a sort; the bunny wave's calls at 2^20 lanes
+     timed (time_wave: events, host enqueue, the profiler's device time
+     warm and after an L2 flush, the plain version, the bytes bound, and
+     the yardsticks of wave_library: the permute's eleven gathers and one
+     index_select of the packed state, the un-sort's index_put_ and
+     L[argsort(lane)]); the Cornell 512^2 16-spp and bunny 1024^2 4-spp
+     frames and the bunny's debug- and stratified-sampler frames against
+     the plain versions' (plain_wave) and the plain glue's (plain_glue),
+     image and stats bit for bit;
   3. wide kernel vs its plain PyTorch version on the default bunny's
      tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
      half bounce) and a targeted incoherent set, closest hit and any hit
@@ -209,9 +228,15 @@ Phases, each printing its result; any failure raises and exits non-zero:
      busy share; the replayed wave's top operations by device time); the
      1-spp wave at 1024^2 split by li_path's record_function ranges
      (module_split: intersect, rng, vertex, occluded, nee_accumulate,
-     sort, the rest), replayed and eager, with the kernels, the plain
-     vertex, the plain brute-force casts and the plain casts' set-up and
-     hit reconstruction in turns; whether `import triton` works; one {"graph": ...}
+     sort, camera/init, between, end, render()'s frame), replayed and
+     eager, with the kernels, the plain glue, the plain vertex, the plain
+     brute-force casts and the plain casts' set-up and hit reconstruction
+     in turns, each range's replayed operations and device ms by class
+     (scripts/wave_nodes.py: port kernel, argsort, memset, copy, other)
+     and the names of the others, and the host's ms per replay in
+     graph._copy_in and graph.wave_key (host_replay_ms); the graphed frame
+     and the profiled replayed 1-spp wave in turns with the plain glue
+     (glue_turns); whether `import triton` works; one {"graph": ...}
      JSON line.
 Phases 4, 7, 12 (the forward) and 13 count each frame's shade_vertex and
 nee_accumulate launches beside the others (expected_launches,
@@ -221,8 +246,11 @@ brute_hits, on every path, the gradients' forwards included (none in a
 backward); so do ops/rays.py's kernels (rays_launches): one
 hit_reconstruct per closest cast, one shadow_segments and one
 occlusion_merge per shadow cast, and in a kernel-routed scene one
-shadow_key per sorted shadow cast and per sort between bounces. Phase
-13's module_split adds turns with their plain versions (plain_rays).
+shadow_key per sorted shadow cast and per sort between bounces; and
+ops/wave.py's (wave_launches): one camera_rays a wave on every path, and
+on the fused vertex's route one permute_state per sort between bounces
+and one unsort_guard a wave. Phase 13's module_split adds turns with
+their plain versions (plain_rays) and with the plain glue (plain_glue).
 Phases 4, 5, 7, 10, 11 and 12 run render() (and the sharded forward) on
 graphed waves: graph=True, or the default once a graph=True frame has
 captured the key; the recorders of kernel calls (phase 4's wide casts,
@@ -277,6 +305,7 @@ from jet_pbrt_tpu_torch.ops import launches as launch_registry
 from jet_pbrt_tpu_torch.ops import linalg, rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops import rays as rays_ops
 from jet_pbrt_tpu_torch.ops import shade as shade_ops
+from jet_pbrt_tpu_torch.ops import wave as wave_ops
 from jet_pbrt_tpu_torch.ops.linalg import frame_from_z, to_world
 from jet_pbrt_tpu_torch.ops.sampling import sample_cosine_hemisphere
 from jet_pbrt_tpu_torch.parallel import mesh as pmesh
@@ -286,7 +315,7 @@ from jet_pbrt_tpu_torch.parallel import train as ptrain
 from jet_pbrt_tpu_torch.scene import pack as scene_pack
 from jet_pbrt_tpu_torch.scene.builder import SceneBuilder
 from jet_pbrt_tpu_torch.scene.scenes import bunny_obj, bunny_scene, cornell_box
-from jet_pbrt_tpu_torch.scripts import prim_micro, sweep_prims
+from jet_pbrt_tpu_torch.scripts import prim_micro, sweep_prims, wave_nodes
 from jet_pbrt_tpu_torch.utils import checkpoint, cuda_build
 from jet_pbrt_tpu_torch.utils import image as image_io
 
@@ -306,7 +335,8 @@ LIBRARIES = (("wide_bvh", ["wide_bvh.cu"]), ("sweep_bvh", ["sweep_bvh.cu"]),
              ("sweep_prims", ["sweep_prims.cu"]),
              ("prim_micro", ["prim_micro.cu"]),
              ("threefry", ["threefry.cu"]), ("shade", ["shade.cu"]),
-             ("brute", ["brute.cu"]), ("rays", ["rays.cu"]))
+             ("brute", ["brute.cu"]), ("rays", ["rays.cu"]),
+             ("wave", ["wave.cu"]))
 # the fused vertex built to count its float operations per lane (the
 # bound's operations on the timed call's own inputs; its flag is in
 # cuda_build.FLAGS); built beside the rest
@@ -594,6 +624,8 @@ def sweep_route(scene) -> Route:
 
 # ops/rays.py's wrappers, each counting its csrc/rays.cu kernel's launches
 RAYS = ("shadow_key", "shadow_segments", "occlusion_merge", "hit_reconstruct")
+# ops/wave.py's wrappers, each counting its csrc/wave.cu kernel's launches
+WAVE = ("camera_rays", "permute_state", "unsort_guard")
 
 
 def rng_launches() -> int:
@@ -612,13 +644,16 @@ def launch_counts() -> dict:
             "shade_vertex": shade_ops.shade_vertex.launches,
             "nee_accumulate": shade_ops.nee_accumulate.launches,
             "brute_hits": brute_ops.brute_hits.launches,
-            **{name: getattr(rays_ops, name).launches for name in RAYS}}
+            **{name: getattr(rays_ops, name).launches for name in RAYS},
+            **{name: getattr(wave_ops, name).launches for name in WAVE}}
 
 
 def reset_launches():
     brute_ops.brute_hits.launches = 0
     for name in RAYS:
         getattr(rays_ops, name).launches = 0
+    for name in WAVE:
+        getattr(wave_ops, name).launches = 0
     wide_bvh.intersect_wide.launches = 0
     sweep_bvh.intersect_sweep.launches = 0
     shade_ops.shade_vertex.launches = 0
@@ -984,8 +1019,9 @@ def many_lights_scene(builder=SceneBuilder):
 def vertex_calls(out: list):
     """While open, each call of shade_ops.shade_vertex and
     shade_ops.nee_accumulate appends (name, args, keywords, output) to
-    `out` (the wave makes no in-place change, so the inputs are kept as
-    they were). The wrapped function counts on the name in the module
+    `out` (the wave changes no input in place but the ray counters
+    shade_vertex adds to, which are recorded as copies made before and
+    after the call). The wrapped function counts on the name in the module
     (functools.wraps copies the count), as recorded_calls does."""
     saved = []
     for name in ("shade_vertex", "nee_accumulate"):
@@ -993,8 +1029,12 @@ def vertex_calls(out: list):
 
         @functools.wraps(inner)
         def call(*a, _inner=inner, _name=name, **kw):
+            rec = dict(kw)
+            if rec.get("counts") is not None:
+                rec["counts"] = rec["counts"].clone()
             got = _inner(*a, **kw)
-            out.append((_name, a, kw, got))
+            out.append((_name, a, rec, got if getattr(got, "counts", None)
+                        is None else got._replace(counts=got.counts.clone())))
             return got
 
         setattr(shade_ops, name, call)
@@ -1012,7 +1052,8 @@ def plain_vertex():
     li_path's kernel route runs the plain vertex (a measurement only)."""
     sv, na = shade_ops.shade_vertex, shade_ops.nee_accumulate
     shade_ops.shade_vertex = (
-        lambda *a, lights=None: shade_ops.shade_vertex_plain(*a))
+        lambda *a, lights=None, counts=None: shade_ops.shade_vertex_plain(
+            *a, counts=counts))
     shade_ops.nee_accumulate = shade_ops.nee_accumulate_plain
     try:
         yield
@@ -1044,11 +1085,20 @@ def check_vertex_calls(label: str, calls: list) -> dict:
         if name == "shade_vertex":
             meta, pack, hit, state, u, bounce, depth = a
             want = shade_ops.shade_vertex_plain(meta, pack, hit, state, u,
-                                                bounce, depth)
+                                                bounce, depth,
+                                                counts=kw.get("counts"))
+            if (got.counts is None) != (want.counts is None) or (
+                    got.counts is not None
+                    and not torch.equal(got.counts, want.counts)):
+                raise AssertionError(
+                    f"{label} bounce {bounce}: ray counters {got.counts}, "
+                    f"plain {want.counts}")
             pairs = [(f, getattr(got.state, f), getattr(want.state, f), 0)
                      for f in shade_ops.VertexState._fields] + [
                 (f, getattr(got, f), getattr(want, f), 1)
-                for f in ("useful", "contrib", "shadow_to")]
+                for f in ("useful", "contrib", "shadow_to")] + [
+                (f, getattr(got, f), getattr(want, f), 0)
+                for f in ("tmin", "tmax") if getattr(want, f) is not None]
             out["vertices"] += 1
             live = int(state.active.sum())
             per = {}
@@ -1117,8 +1167,10 @@ def vertex_bytes(meta, pack, n: int, lights: int, last: bool) -> int:
     if last:
         return n * (hit + 12 + 1 + 1 + 12 + 12) + tables
     u = 4 * (4 + 2 * meta.n_lights)
-    outs = 12 + 12 + 1 + 1 + 4 + 12 + 12 + lights * (1 + 12 + 12)
-    return n * (hit + state + u + outs) + tables
+    # the state, the next cast's bounds, per light its mask, contribution
+    # and endpoint
+    outs = 12 + 12 + 1 + 1 + 4 + 12 + 12 + 4 + 4 + lights * (1 + 12 + 12)
+    return n * (hit + state + u + outs) + tables + 4
 
 
 def count_library():
@@ -1335,13 +1387,37 @@ def brute_calls(out: list):
         brute_ops.brute_hits = inner
 
 
+def into_out(plain):
+    """plain taking the out (and rows) arguments its wrapper takes, its
+    output copied there: the plain routes' stand-in for a wrapper that
+    writes its caller's slab rows."""
+    def call(*a, out=None, rows=None, **kw):
+        got = plain(*a, **kw)
+        if out is None:
+            return got
+        if torch.is_tensor(got):
+            return out.copy_(got)
+        rows = range(len(got)) if rows is None else rows
+        for j, h in zip(rows, got):
+            for slab, x in zip(out, h):
+                slab[j].copy_(x)
+        return [isect_ops.KindHit(*(slab[j] for slab in out)) for j in rows]
+    return call
+
+
+def without_out(kw: dict) -> dict:
+    """A recorded call's keywords but the slab rows its wrapper wrote
+    (the plain version returns what it computes)."""
+    return {k: v for k, v in kw.items() if k not in ("out", "rows")}
+
+
 @contextlib.contextmanager
 def plain_brute():
     """While open, the plain version stands in the wrapper's place, so
     every cast tests its brute-force shapes in torch ops (a measurement
     only)."""
     inner = brute_ops.brute_hits
-    brute_ops.brute_hits = isect_ops.brute_hits_plain
+    brute_ops.brute_hits = into_out(isect_ops.brute_hits_plain)
     try:
         yield
     finally:
@@ -1894,7 +1970,7 @@ def plain_rays():
     measurement only)."""
     saved = {name: getattr(RAYS_MODULE[name], name) for name in RAYS}
     for name in RAYS:
-        setattr(RAYS_MODULE[name], name, RAYS_PLAIN[name])
+        setattr(RAYS_MODULE[name], name, into_out(RAYS_PLAIN[name]))
     try:
         yield
     finally:
@@ -1914,7 +1990,7 @@ def check_rays_call(label: str, name: str, a, kw, got) -> tuple:
     printed with both values before the run fails. Returns (lanes,
     differing lanes, the largest |difference| on float outputs finite in
     both)."""
-    want = RAYS_PLAIN[name](*a, **kw)
+    want = RAYS_PLAIN[name](*a, **without_out(kw))
     g, w = rays_outputs(name, got), rays_outputs(name, want)
     lanes = None
     err = 0.0
@@ -2082,7 +2158,7 @@ def time_rays(label: str, calls: list, smi: str, reps: int = 20) -> dict:
                                 device=dev)
         wrapper = getattr(RAYS_MODULE[name], name)
         k = lambda: wrapper(*a, **kw)
-        p = lambda: RAYS_PLAIN[name](*a, **kw)
+        p = lambda: RAYS_PLAIN[name](*a, **without_out(kw))
         kernel = f"{name}_kernel"
         nbytes = rays_bytes(name, a, kw, got)
         b = bound(nbytes, 0)
@@ -2259,6 +2335,397 @@ def rays_phase(cases, dev, smi: str, time_case: str | None = None) -> dict:
         out[label] = check_rays_calls(f"{label} {res}^2 wave", calls)
         if label == time_case:
             out["times"] = time_rays(label, calls, smi)
+        del calls
+    return out
+
+
+# --------------------------------------------------------------------------
+# 2f. the wave's glue (ops/wave.py)
+# --------------------------------------------------------------------------
+
+WAVE_REPLACES = {
+    "camera_rays": "jet_pbrt_tpu/models/render.py:39 (the film position, "
+                   "models/camera.py:56-70's generate_rays and li_path's "
+                   "initial state, integrators.py:237-250, under "
+                   "jax.jit(wave): XLA fusion, no Pallas kernel)",
+    "permute_state": "jet_pbrt_tpu/models/integrators.py:272 (the state's "
+                     "packed [N, 19] gather between bounces, :259-285, under "
+                     "jax.jit(wave): XLA fusion, no Pallas kernel)",
+    "unsort_guard": "jet_pbrt_tpu/models/integrators.py:291 (the un-sort "
+                    "L[argsort(lane)] and the invalid-sample guard, "
+                    ":288-292, under jax.jit(wave): XLA fusion, no Pallas "
+                    "kernel)"}
+WAVE_PLAIN = {"camera_rays": wave_ops.camera_rays_plain,
+              "permute_state": wave_ops.permute_state_plain,
+              "unsort_guard": wave_ops.unsort_guard_plain}
+
+
+@contextlib.contextmanager
+def wave_calls(out: list):
+    """While open, each call of ops/wave.py's wrappers appends (name, args,
+    keywords, output) to `out`; unsort_guard's L is recorded as a copy
+    (without a sort it guards L in place). The launches count in
+    ops/wave.py, which stays as it is."""
+    saved = {name: getattr(wave_ops, name) for name in WAVE}
+    for name, inner in saved.items():
+        @functools.wraps(inner)
+        def call(*a, _inner=inner, _name=name, **kw):
+            rec = (a[0].clone(), *a[1:]) if _name == "unsort_guard" else a
+            got = _inner(*a, **kw)
+            out.append((_name, rec, kw, got))
+            return got
+
+        setattr(wave_ops, name, call)
+    try:
+        yield out
+    finally:
+        for name, inner in saved.items():
+            setattr(wave_ops, name, inner)
+
+
+@contextlib.contextmanager
+def plain_wave():
+    """While open, the plain versions stand in ops/wave.py's wrappers'
+    places, so li_path's kernel route runs its camera, permutes and
+    un-sort in torch ops (a measurement only)."""
+    saved = {name: getattr(wave_ops, name) for name in WAVE}
+    for name in WAVE:
+        setattr(wave_ops, name, WAVE_PLAIN[name])
+    try:
+        yield
+    finally:
+        for name, inner in saved.items():
+            setattr(wave_ops, name, inner)
+
+
+@contextlib.contextmanager
+def plain_glue():
+    """While open, the wave's glue is the torch code it was before
+    ops/wave.py: the camera's plain version, and on li_path's kernel route
+    integrators._li_path_plain with the fused vertex (the torch fills,
+    bounds, counts, stacks, gathers and un-sort between the kernels; the
+    casts still write their slab rows). A measurement only."""
+    kernels, camera = integrators._li_path_kernels, wave_ops.camera_rays
+
+    def glue(meta, pack, u, max_depth, with_stats, sort_rays, state):
+        return integrators._li_path_plain(
+            meta, pack, state.ray_o, state.ray_d, u, max_depth, False, True,
+            with_stats, sort_rays, True)
+
+    integrators._li_path_kernels = glue
+    wave_ops.camera_rays = wave_ops.camera_rays_plain
+    try:
+        yield
+    finally:
+        integrators._li_path_kernels, wave_ops.camera_rays = kernels, camera
+
+
+def wave_state_rows(x) -> list:
+    """A WaveState's rows, or (state, u), or a tensor, as [(name, tensor)]
+    with the lanes first (the counters apart, as one row)."""
+    if torch.is_tensor(x):
+        return [("L", x)]
+    if isinstance(x, wave_ops.WaveState):
+        return [(f, getattr(x, f)) for f in wave_ops.WaveState._fields]
+    state, u = x
+    rows = wave_state_rows(state)
+    if isinstance(u, rng.LaneKeys):
+        return rows + [(f"u.{f}", getattr(u, f)) for f in u._fields]
+    return rows + [("u", u)]
+
+
+def check_wave_call(label: str, name: str, a, kw, got) -> tuple:
+    """One recorded call against its plain version on the same inputs,
+    every row bit for bit (NaN equal to NaN), the counters equal; a
+    differing lane is printed with both values before the run fails.
+    Returns (lanes, differing lanes, the largest |difference| on float
+    rows finite in both)."""
+    want = WAVE_PLAIN[name](*a, **kw)
+    g, w = wave_state_rows(got), wave_state_rows(want)
+    lanes, err = None, 0.0
+    for (field, x), (_, y) in zip(g, w):
+        if x.shape != y.shape or x.dtype != y.dtype:
+            raise AssertionError(f"{label} {name} {field}: {x.dtype} "
+                                 f"{tuple(x.shape)} vs {y.dtype} "
+                                 f"{tuple(y.shape)}")
+        if field == "counts":
+            if not torch.equal(x, y):
+                raise AssertionError(f"{label} {name}: counters {x.tolist()}"
+                                     f", plain {y.tolist()}")
+            continue
+        if x.dtype == torch.int64:
+            diff = (x != y).reshape(x.shape[0], -1).any(dim=1)
+        else:
+            diff = differing_lanes(x, y, 0)
+        lanes = diff if lanes is None else lanes | diff
+        if x.is_floating_point():
+            fin = torch.isfinite(x) & torch.isfinite(y)
+            if fin.any():
+                err = max(err, float((x[fin] - y[fin]).abs().max()))
+    bad = int(lanes.sum())
+    for i in lanes.nonzero().flatten()[:4].tolist():
+        print(f"{label} {name} lane {i}: kernel "
+              f"{[(f, x[i].tolist()) for f, x in g if f != 'counts']}, plain "
+              f"{[(f, x[i].tolist()) for f, x in w if f != 'counts']}",
+              flush=True)
+    return lanes.shape[0], bad, err
+
+
+def check_wave_calls(label: str, calls: list) -> dict:
+    """Each recorded call held against its plain version (check_wave_call);
+    prints the calls by wrapper and fails on any differing lane. Returns
+    {"calls", "lanes", "differing", "max_abs_err"}."""
+    out = {"calls": collections.Counter(), "lanes": 0, "differing": 0,
+           "max_abs_err": 0.0}
+    for name, a, kw, got in calls:
+        n, bad, err = check_wave_call(label, name, a, kw, got)
+        out["calls"][name] += 1
+        out["lanes"] += n
+        out["differing"] += bad
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+    out["calls"] = dict(out["calls"])
+    print(f"{label}: ops/wave.py calls {out['calls']}, {out['lanes']} lanes, "
+          f"{out['differing']} lanes differ from the plain versions",
+          flush=True)
+    if out["differing"]:
+        raise AssertionError(f"{label}: ops/wave.py's kernels differ from "
+                             f"their plain versions on {out['differing']} "
+                             "lanes")
+    return out
+
+
+def wave_glue_calls(label: str, scene, res: int, dev, **kw) -> list:
+    """One eager 1-spp wave of scene at res^2, depth VERTEX_DEPTH, its
+    ops/wave.py calls recorded: as many of each as wave_launches counts."""
+    calls = []
+    with torch.no_grad(), wave_calls(calls):
+        render(scene, res, res, spp=1, max_depth=VERTEX_DEPTH, seed=1,
+               clamp=False, device=dev, graph=False, **kw)
+    got = collections.Counter(name for name, *_ in calls)
+    want = wave_launches(scene.meta, n_waves(res, res, 1, DEFAULT_CHUNK),
+                         VERTEX_DEPTH)
+    if dict(got) != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{label}: one wave made the calls {dict(got)},"
+                             f" expected {want}")
+    return calls
+
+
+def wave_bytes(name: str, a, kw, got) -> int:
+    """Bytes one call must move: each input read once, each output written
+    once (the camera's rows and ray_eps whole; the permute's perm, every
+    state row and the streams in and out; the un-sort's L and lane in, L
+    out)."""
+    nb = lambda xs: sum(x.numel() * x.element_size() for _, x in xs)
+    if name == "camera_rays":
+        cam, pixel, _, jitter, eps = a
+        return (nb([(0, pixel), (0, jitter), (0, eps)])
+                + nb([(0, getattr(cam, f)) for f in cam._fields])
+                + nb(wave_state_rows(got)))
+    if name == "permute_state":
+        state, u, perm = a
+        rows = [r for r in wave_state_rows((state, u)) if r[0] != "counts"]
+        return nb([(0, perm)]) + 2 * nb(rows)
+    L, lane = a[0], (a[1] if len(a) > 1 else kw.get("lane"))
+    return 2 * nb([(0, L)]) + (0 if lane is None else nb([(0, lane)]))
+
+
+def wave_library(name: str, a) -> dict:
+    """The PyTorch calls timed beside a kernel as yardsticks (the port
+    calls none of them): for permute_state its plain version's eleven
+    x[perm] gathers and one index_select of the state packed as [N, 16]
+    int32 words (L, beta, o, d, pdf, tmin, tmax as their bits, the flags,
+    lane and key words widened); for unsort_guard the scatter out[lane] =
+    L (one index_put_) and L[argsort(lane)]."""
+    if name == "permute_state":
+        state, u, perm = a
+        i32 = lambda x: x.reshape(x.shape[0], -1).view(torch.int32) \
+            if x.dtype == torch.float32 else x.reshape(x.shape[0], -1).to(
+                torch.int32)
+        packed = torch.cat([i32(x) for _, x in wave_state_rows((state, u))
+                            if _ != "counts"], dim=1)
+        return {"gathers": lambda: wave_ops.permute_state_plain(state, u,
+                                                                perm),
+                "index_select": lambda: torch.index_select(packed, 0, perm)}
+    if name == "unsort_guard":
+        L, lane = a[0], a[1]
+        out = torch.empty_like(L)
+
+        def put():
+            out[lane] = L
+        return {"index_put": put,
+                "argsort_gather": lambda: L[torch.argsort(lane)]}
+    return {}
+
+
+def timed_wave_calls(calls: list) -> dict:
+    """Of a wave's recorded calls: the camera, the first permute and the
+    un-sort."""
+    return {name: next(c for c in calls if c[0] == name) for name in WAVE}
+
+
+def time_wave(label: str, calls: list, smi: str, reps: int = 20) -> dict:
+    """Each timed call (timed_wave_calls) at the wave's 2^20 lanes: the
+    kernel by events, host enqueue and the profiler's device time (warm,
+    and after an L2 flush each), the plain version by events, the library
+    yardsticks (wave_library) by events and by the profiler's device time
+    of all they launch, and the bound: its bytes (wave_bytes) at
+    HBM_BW."""
+    out = {}
+    flush = None
+    for case, (name, a, kw, got) in timed_wave_calls(calls).items():
+        lanes = a[1].shape[0] if name == "camera_rays" else a[-1].shape[0] \
+            if name == "permute_state" else a[0].shape[0]
+        dev = a[1].device if name == "camera_rays" else a[0].L.device \
+            if name == "permute_state" else a[0].device
+        if flush is None:
+            flush = torch.empty((L2_FLUSH_BYTES // 4,), dtype=torch.int32,
+                                device=dev)
+        wrapper = getattr(wave_ops, name)
+        if name == "unsort_guard" and a[1] is None:
+            a = (a[0].clone(), None)    # in place: time it on a copy
+        k = lambda: wrapper(*a, **kw)
+        p = lambda: WAVE_PLAIN[name](*a, **kw)
+        kernel = f"{name}_kernel"
+        nbytes = wave_bytes(name, a, kw, got)
+        b = bound(nbytes, 0)
+        ms, _ = time_ms(k, reps)
+        ev, host, host_max, _, _ = time_enqueue_ms(k, reps)
+        (src, dev_ms), = profiled_ms(k, reps, (kernel,)).items()
+        cold = lambda: (flush.fill_(0), k())
+        (_, cold_ms), = profiled_ms(cold, reps, (kernel,)).items()
+        plain_ms, _ = time_ms(p, 3)
+        lib = {}
+        for lname, fn in wave_library(name, a).items():
+            (_, lib_dev), = profiled_ms(fn, reps, ("",)).items()
+            lib[lname] = {"ms": time_ms(fn, reps)[0], "device_ms": lib_dev}
+        out[case] = {"ms": ms, "enqueue_ms": host, "device_ms": dev_ms,
+                     "device_cold_ms": cold_ms,
+                     "device_source": "profiler" if src == kernel else src,
+                     "plain_ms": plain_ms, "bound_ms": b[0],
+                     "bound_by": b[1], "bytes": nbytes, "lanes": lanes,
+                     "library_ms": lib}
+        print(f"{label} {case} ({lanes} lanes): kernel {ms:.4f} ms by "
+              f"events, host enqueue {host:.4f} ms (largest {host_max:.4f}),"
+              f" device {dev_ms:.4f} ms ({out[case]['device_source']}), "
+              f"{cold_ms:.4f} ms after an L2 flush each; plain "
+              f"{plain_ms:.3f} ms; bound {b[0]:.4f} ms by {b[1]} ({nbytes} "
+              f"bytes), device time {dev_ms / b[0]:.2f}x it"
+              + "".join(f"; library {k_} {v['ms']:.4f} ms by events, "
+                        f"{v['device_ms']:.4f} ms device"
+                        for k_, v in lib.items()) + f" [{smi}]", flush=True)
+    return out
+
+
+def wave_edge_state(n: int, seed: int, dev, keys: bool, depth: int = 5,
+                    s: int = 8):
+    """A seeded WaveState of n lanes and its streams for the permute and the
+    un-sort: NaN, +inf and -inf in L on every 7th, 11th and 13th lane,
+    dead lanes (inactive, tmin inf, tmax -1) on a third, -0.0 on every
+    17th; u LaneKeys (keys) or the debug sampler's [n, depth + 1, s]
+    uniforms."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = lambda *sh: torch.randn(sh, generator=g, device=dev)
+    lanes = torch.arange(n, device=dev)
+    L = f(n, 3)
+    L[lanes % 7 == 0, 0] = float("nan")
+    L[lanes % 11 == 3, 1] = float("inf")
+    L[lanes % 13 == 5, 2] = -float("inf")
+    L[lanes % 17 == 1] = -0.0
+    active = (lanes % 3) != 0
+    inf = torch.full((n,), float("inf"), device=dev)
+    state = wave_ops.WaveState(
+        L=L, beta=f(n, 3), active=active,
+        prev_specular=torch.rand(n, generator=g, device=dev) < 0.3,
+        prev_pdf=f(n), ray_o=f(n, 3), ray_d=f(n, 3),
+        lane=torch.randperm(n, generator=g, device=dev),
+        tmin=torch.where(active, torch.rand(n, generator=g, device=dev), inf),
+        tmax=torch.where(active, inf, -torch.ones(n, device=dev)),
+        counts=torch.arange(4, device=dev, dtype=torch.int64))
+    if keys:
+        u = rng.lane_keys(seed, torch.randint(0, 9, (n,), generator=g,
+                                              device=dev), lanes)
+    else:
+        u = torch.rand((n, depth + 1, s), generator=g, device=dev)
+    return state, u
+
+
+
+def wave_edges(scene, dev, sizes=(1, 1000, (1 << 20) + 1)) -> dict:
+    """Each wrapper against its plain version on edge sets, for each of
+    sizes lanes (one lane, a count short of a block, one past 2^20): the
+    camera on pixel ids from 0 and from past 2^24 (their float32 cast
+    rounds) on a film of odd width, with the random, stratified and debug
+    samplers' jitter; the permute of a wave_edge_state with its LaneKeys
+    and with the debug sampler's uniforms, by the identity, the reversal
+    and a seeded perm; the un-sort of its L with NaN and inf lanes by
+    those perms as lanes, and without a sort (in place). Returns {label:
+    check_wave_calls' counts}."""
+    out = {}
+    width = 1021
+    cam = camera_mod.make_camera(scene.camera.lookfrom, scene.camera.front,
+                                 scene.camera.vup, scene.camera.vfov,
+                                 (width, 977), device=dev)
+    for n in sizes:
+        calls = []
+        with wave_calls(calls):
+            for first in (0, (1 << 24) + 3):
+                pixel = torch.arange(first, first + n, device=dev)
+                keys = rng.lane_keys(5, 2, pixel)
+                for sampler in ("random", "stratified", "debug"):
+                    jit = rng.camera_jitter(keys, sampler=sampler, spp=6)
+                    wave_ops.camera_rays(cam, pixel, width, jit,
+                                         scene.pack.ray_eps)
+            g = torch.Generator(device=dev).manual_seed(n)
+            perms = (torch.arange(n, device=dev),
+                     torch.arange(n - 1, -1, -1, device=dev),
+                     torch.randperm(n, generator=g, device=dev))
+            for keys in (True, False):
+                state, u = wave_edge_state(n, 40 + n, dev, keys)
+                for perm in perms:
+                    wave_ops.permute_state(state, u, perm)
+            for perm in (None, *perms):
+                wave_ops.unsort_guard(state.L.clone(), perm)
+        torch.cuda.synchronize()
+        out[f"edges {n}"] = check_wave_calls(f"edge sets, {n} lanes", calls)
+    return out
+
+
+def wave_frames(cases, dev) -> None:
+    """Each (label, scene, res, spp, keywords) frame, eager, on the glue
+    kernels' route against the same frame with ops/wave.py's plain
+    versions (plain_wave) and with the glue as it was before them
+    (plain_glue), image and stats bit for bit."""
+    for label, scene, res, spp, extra in cases:
+        kw = dict(spp=spp, max_depth=VERTEX_DEPTH, seed=0, clamp=False,
+                  device=dev, graph=False, with_stats=True, **extra)
+        img, st = render(scene, res, res, **kw)
+        for route, ctx in (("plain versions", plain_wave),
+                           ("plain glue", plain_glue)):
+            with ctx():
+                pimg, pst = render(scene, res, res, **kw)
+            if not torch.equal(img, pimg) or st != pst:
+                raise AssertionError(
+                    f"{label}: the frame through ops/wave.py's kernels "
+                    f"differs from the {route}' (max |diff| "
+                    f"{float((img - pimg).abs().max())}, stats {st} vs "
+                    f"{pst})")
+        print(f"{label} {res}^2 {spp}-spp frame {extra}: ops/wave.py's "
+              f"kernels' image and stats equal the plain versions' and the "
+              f"plain glue's bit for bit ({st['rays']} rays)", flush=True)
+
+
+def wave_phase(cases, dev, smi: str, time_case: str | None = None) -> dict:
+    """For each (label, scene, res) of cases one eager 1-spp wave, its
+    ops/wave.py calls recorded (wave_glue_calls) and each held bit for bit
+    against its plain version (check_wave_calls); on the case labelled
+    time_case its calls timed (time_wave). Returns {label: counts} and,
+    where timed, "times"."""
+    out = {}
+    for label, scene, res in cases:
+        calls = wave_glue_calls(label, scene, res, dev)
+        out[label] = check_wave_calls(f"{label} {res}^2 wave", calls)
+        if label == time_case:
+            out["times"] = time_wave(label, calls, smi)
         del calls
     return out
 
@@ -2714,8 +3181,10 @@ def wide_casts(scene, dev, res=1024, depth=5, seed=1):
 
     @functools.wraps(inner)  # the wrapper counts its launches on `record`
     def record(tables, o, d, tmin, tmax, **kw):
+        # a replay writes outputs of its own, not the wave's slab rows
         casts.append((tables, o.clone(), d.clone(), tmin.clone(),
-                      tmax.clone(), kw))
+                      tmax.clone(), {k: v for k, v in kw.items()
+                                     if k != "out"}))
         return inner(tables, o, d, tmin, tmax, **kw)
 
     wide_bvh.intersect_wide = record
@@ -2877,8 +3346,8 @@ def expected_launches(meta, res: int, spp: int, depth: int,
     that differentiates) one shade_vertex per vertex (depth + 1, the last
     the emission alone) and one nee_accumulate per vertex below
     max_depth; one brute_hits per cast where the scene has a brute-force
-    shape (scene_pack.brute_shapes); and on every path (rays_launches)
-    ops/rays.py's kernels."""
+    shape (scene_pack.brute_shapes); and on every path (rays_launches,
+    wave_launches) ops/rays.py's and ops/wave.py's kernels."""
     lights = sum(1 for lt in meta.lights if not lt.static_black)
     waves = n_waves(res, res, spp, DEFAULT_CHUNK)
     casts = waves * ((depth + 1) + depth * lights)
@@ -2891,7 +3360,21 @@ def expected_launches(meta, res: int, spp: int, depth: int,
             "shade_vertex": waves * (depth + 1) if fused else 0,
             "nee_accumulate": waves * depth if fused else 0,
             "brute_hits": casts if brute else 0,
-            **rays_launches(meta, waves, depth)}
+            **rays_launches(meta, waves, depth),
+            **wave_launches(meta, waves, depth, fused)}
+
+
+def wave_launches(meta, waves: int, depth: int, fused: bool = True) -> dict:
+    """ops/wave.py's launches in `waves` waves of the path integrator at
+    max_depth `depth`: one camera_rays a wave on every path, and on the
+    fused vertex's route (fused=False for a path that differentiates) one
+    permute_state per sort between bounces (bounces 0 to 2 below depth,
+    where the sorts default on: a kernel-routed scene) and one
+    unsort_guard a wave."""
+    sorts = min(3, depth) if meta.kernel_routed else 0
+    return {"camera_rays": waves,
+            "permute_state": waves * sorts if fused else 0,
+            "unsort_guard": waves if fused else 0}
 
 
 def rays_launches(meta, waves: int, depth: int) -> dict:
@@ -2918,7 +3401,7 @@ TRACED_KERNELS = {"wide_bvh": ("wide_walk_kernel",),
                   "shade_vertex": ("shade_vertex_kernel",),
                   "nee_accumulate": ("nee_accumulate_kernel",),
                   "brute_hits": ("brute_hits_kernel",),
-                  **{name: (f"{name}_kernel",) for name in RAYS}}
+                  **{name: (f"{name}_kernel",) for name in RAYS + WAVE}}
 
 
 def traced_launches(prof) -> dict:
@@ -3564,7 +4047,7 @@ def node_launches(nodes: dict) -> dict:
             "shade_vertex": nodes["shade_vertex_kernel"],
             "nee_accumulate": nodes["nee_accumulate_kernel"],
             "brute_hits": nodes["brute_hits_kernel"],
-            **{name: nodes[f"{name}_kernel"] for name in RAYS}}
+            **{name: nodes[f"{name}_kernel"] for name in RAYS + WAVE}}
 
 
 def max_diff(a: dict, b: dict) -> float:
@@ -3852,7 +4335,8 @@ def diff_phase(dev, smi: str, res: int = 1024):
     # the gradient's forward takes the plain vertex (shade.kernel_route)
     want = {"wide_bvh": 6 + 5 * 2, "sweep_bvh": 0, "threefry": 2 + 5,
             "shade_vertex": 0, "nee_accumulate": 0, "brute_hits": 6 + 5 * 2,
-            **rays_launches(scene.meta, 1, 5)}
+            **rays_launches(scene.meta, 1, 5),
+            **wave_launches(scene.meta, 1, 5, fused=False)}
     eager = []      # the eager gradients of the loss, by index_select
     for run in range(2):
         img, g, f_ms, b_ms, fwd, bwd, peak = fwd_bwd(
@@ -4001,10 +4485,13 @@ def sharded_launches(shape, lights: int, fused: bool = True) -> dict:
     (the forward; fused=False for the train step's differentiated film),
     depth + 1 shade_vertex and depth nee_accumulate launches; one
     brute_hits per cast (the bunny's rects) and ops/rays.py's kernels
-    (rays_launches of the kernel-routed bunny), on every path."""
+    (rays_launches of the kernel-routed bunny), on every path; one
+    camera_rays a wave, and on the fused route one permute_state per sort
+    and one unsort_guard (wave_launches)."""
     local = SHARD_SPP // shape[1]
     casts = local * (SHARD_DEPTH + 1 + SHARD_DEPTH * lights)
     keys = min(2, SHARD_DEPTH) * lights + min(3, SHARD_DEPTH)
+    sorts = min(3, SHARD_DEPTH)
     return {"wide_bvh": casts, "sweep_bvh": 0,
             "threefry": local * (2 + SHARD_DEPTH),
             "shade_vertex": local * (SHARD_DEPTH + 1) if fused else 0,
@@ -4012,7 +4499,10 @@ def sharded_launches(shape, lights: int, fused: bool = True) -> dict:
             "brute_hits": casts, "shadow_key": local * keys,
             "shadow_segments": local * SHARD_DEPTH * lights,
             "occlusion_merge": local * SHARD_DEPTH * lights,
-            "hit_reconstruct": local * (SHARD_DEPTH + 1)}
+            "hit_reconstruct": local * (SHARD_DEPTH + 1),
+            "camera_rays": local,
+            "permute_state": local * sorts if fused else 0,
+            "unsort_guard": local if fused else 0}
 
 
 def free_port() -> int:
@@ -4061,6 +4551,7 @@ def replay_plain(calls) -> dict:
     the number of calls checked by name."""
     n = collections.Counter()
     for name, a, kw, got in calls:
+        kw = without_out(kw)
         if name == "intersect_wide":
             want = wide_bvh.intersect_wide_plain(*a, **kw)
         elif name == "lane_keys":
@@ -4442,118 +4933,137 @@ GRAPH_TURNS = (False, True, True, False, False, True)
 GRAPH_DEPTH = 5
 
 
-# li_path's record_function ranges (models/integrators.py), in wave order
-WAVE_RANGES = ("li_path.intersect", "li_path.rng", "li_path.vertex",
-               "li_path.occluded", "li_path.nee_accumulate", "li_path.sort")
 # the routes phase 13 splits a wave under, in turns: the kernels, the
-# plain vertex (plain_vertex), the plain brute-force casts (plain_brute),
-# the plain casts' set-up and hit reconstruction (plain_rays)
-SPLIT_TURNS = ("fused", "plain vertex", "plain brute", "plain rays",
-               "plain rays", "plain brute", "plain vertex", "fused")
-SPLIT_ROUTES = {"fused": contextlib.nullcontext, "plain vertex": plain_vertex,
-                "plain brute": plain_brute, "plain rays": plain_rays}
+# wave's glue as it was before ops/wave.py (plain_glue), the plain vertex
+# (plain_vertex), the plain brute-force casts (plain_brute), the plain
+# casts' set-up and hit reconstruction (plain_rays)
+SPLIT_TURNS = ("fused", "plain glue", "plain vertex", "plain brute",
+               "plain rays", "plain rays", "plain brute", "plain vertex",
+               "plain glue", "fused")
+SPLIT_ROUTES = {"fused": contextlib.nullcontext, "plain glue": plain_glue,
+                "plain vertex": plain_vertex, "plain brute": plain_brute,
+                "plain rays": plain_rays}
+def host_replay_ms(scene, dev, res: int, depth: int, reps: int = 20) -> dict:
+    """The host's time per replayed wave in models/graph.py's _copy_in (the
+    inputs copied into the graph's buffers) and wave_key (the cache key of
+    the call's inputs), by perf_counter around each over reps replays of
+    the 1-spp wave, and the replay call's whole host time; nothing is
+    changed."""
+    spent = collections.defaultdict(float)
+    saved = {name: getattr(graph_mod, name) for name in ("_copy_in",
+                                                         "wave_key")}
 
+    def timed(name, inner):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return inner(*a, **kw)
+            finally:
+                spent[name] += time.perf_counter() - t0
+        return call
 
-def _device_ops(call):
-    """One traced call (after a discarded warm-up step, as profile_wave):
-    its device operations (kernels, memsets, copies) sorted by start, and
-    the device-side spans of li_path's ranges."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1,
-                                   repeat=1)) as prof:
-        call()
+    render(scene, res, res, spp=1, max_depth=depth, seed=1, device=dev,
+           graph=True)
+    torch.cuda.synchronize()
+    for name, inner in saved.items():
+        setattr(graph_mod, name, timed(name, inner))
+    try:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            render(scene, res, res, spp=1, max_depth=depth, seed=1,
+                   device=dev, graph=True)
         torch.cuda.synchronize()
-        prof.step()
-        call()
-        torch.cuda.synchronize()
-        prof.step()
-    dev_events = [e for e in prof.events()
-                  if str(e.device_type).endswith("CUDA")]
-    ops = sorted((e for e in dev_events
-                  if not getattr(e, "is_user_annotation", False)),
-                 key=lambda e: e.time_range.start)
-    spans = [e for e in dev_events if getattr(e, "is_user_annotation", False)
-             and e.name in WAVE_RANGES]
-    return ops, spans
-
-
-def replay_labels(eager: list, labels: list, replay: list):
-    """The ranges of a replay's operations (names, in order) from the
-    eager wave's (names and their ranges, in order): each replay operation
-    that is the next eager operation by name takes its range, any other is
-    the replay call's copy of an input into the graph's buffers ("graph
-    inputs"); None where not every eager operation is found so."""
-    out, i = [], 0
-    for name in replay:
-        if i < len(eager) and name == eager[i]:
-            out.append(labels[i])
-            i += 1
-        else:
-            out.append("graph inputs")
-    return out if i == len(eager) else None
-
-
-def wave_split(scene, dev, res: int, depth: int) -> dict:
-    """Device time of one 1-spp wave by li_path's range, eager and replayed
-    from its CUDA graph. The eager wave's operations fall in the device
-    spans of the ranges that launched them ("other": the camera, the lane
-    keys, the film); a replay carries no ranges, so its operations take
-    the ranges of the eager wave's in order (the graph replays the same
-    operations in the order they were captured; the replay call's own
-    copies of its inputs count as "graph inputs"), where every eager
-    operation is found in the replay by name in order; else the replay's
-    split is None. Returns
-    {"eager": {range: ms}, "replayed": {range: ms} or None, totals, op
-    counts}."""
-    call = lambda graph: render(scene, res, res, spp=1, max_depth=depth,
-                                seed=1, device=dev, graph=graph)
-    call(True)  # captures the wave
-    eager, spans = _device_ops(lambda: call(False))
-    replay, _ = _device_ops(lambda: call(True))
-    labels = []
-    for e in eager:
-        t = e.time_range.start
-        labels.append(next((s.name for s in spans
-                            if s.time_range.start <= t < s.time_range.end),
-                           "other"))
-    replayed = replay_labels([e.name for e in eager], labels,
-                             [e.name for e in replay])
-    keys = WAVE_RANGES + ("other", "graph inputs")
-    split = lambda evs, lbs: {k: sum(e.time_range.elapsed_us() for e, lb in
-                                     zip(evs, lbs) if lb == k) / 1e3
-                              for k in keys}
-    return {"eager": split(eager, labels),
-            "replayed": None if replayed is None else split(replay, replayed),
-            "eager_ms": sum(e.time_range.elapsed_us() for e in eager) / 1e3,
-            "replayed_ms": sum(e.time_range.elapsed_us() for e in replay)
-            / 1e3, "ops": len(eager), "replayed_ops": len(replay),
-            "spans": len(spans)}
+        wall = time.perf_counter() - t0
+    finally:
+        for name, inner in saved.items():
+            setattr(graph_mod, name, inner)
+    return {**{k: v * 1e3 / reps for k, v in spent.items()},
+            "frame_ms": wall * 1e3 / reps}
 
 
 def module_split(scene, dev, label: str, res: int, depth: int,
                  smi: str) -> dict:
-    """wave_split on each route of SPLIT_ROUTES (each route captures its
+    """scripts/wave_nodes.py's wave_nodes (one 1-spp wave's device time
+    and operations by range and class, eager and replayed) on each route
+    of SPLIT_ROUTES (each route captures its
     own graph: the cache is cleared between turns), in SPLIT_TURNS; prints
-    each turn's replayed and eager device ms per range. Returns {route:
-    [turn's wave_split, ...]}."""
+    each turn's replayed and eager device ms per range, the replay's
+    operations by range and class (and, for the kernels' first turn, the
+    names of those of class other) and each range's device ms by class;
+    then the host's time per replay (host_replay_ms). Returns {route:
+    [turn's wave_nodes, ...], "host": host_replay_ms}."""
     out = {route: [] for route in SPLIT_ROUTES}
     for route in SPLIT_TURNS:
         graph_mod.clear()
         with SPLIT_ROUTES[route]():
-            got = wave_split(scene, dev, res, depth)
+            got = wave_nodes.wave_nodes(scene, dev, res, depth)
         out[route].append(got)
         fmt = lambda d: ("not split (the replay's operations differ from "
                          "the eager wave's)" if d is None else ", ".join(
                              f"{k.replace('li_path.', '')} {v:.2f}"
                              for k, v in d.items()))
+        cls = lambda d: "; ".join(
+            f"{k.replace('li_path.', '')} " + ", ".join(
+                f"{c} {n}" for c, n in v.items() if n)
+            for k, v in d.items() if any(v.values()))
         print(f"{label} {res}^2 1-spp wave, route {route}: replayed "
               f"{got['replayed_ms']:.2f} ms device ({got['replayed_ops']} "
               f"operations): {fmt(got['replayed'])}; eager "
               f"{got['eager_ms']:.2f} ms ({got['ops']} operations, "
-              f"{got['spans']} range spans): {fmt(got['eager'])} [{smi}]",
-              flush=True)
+              f"{got['spans']} range spans): {fmt(got['eager'])}; replayed "
+              f"operations by class: {cls(got['nodes'])}; device ms by "
+              f"class: " + "; ".join(
+                  f"{k.replace('li_path.', '')} " + ", ".join(
+                      f"{c} {v:.3f}" for c, v in d.items() if v)
+                  for k, d in got["class_ms"].items() if any(d.values()))
+              + f" [{smi}]", flush=True)
+        if route == "fused" and len(out[route]) == 1:
+            print(f"{label} the kernels' replayed wave's operations of class "
+                  f"other, by range and name: {got['other']}", flush=True)
     graph_mod.clear()
+    out["host"] = host_replay_ms(scene, dev, res, depth)
+    print(f"{label} {res}^2 1-spp wave replayed: host ms per replay in "
+          f"graph._copy_in {out['host'].get('_copy_in', 0.0):.4f}, in "
+          f"graph.wave_key {out['host'].get('wave_key', 0.0):.4f}, the "
+          f"whole render() call {out['host']['frame_ms']:.3f} [{smi}]",
+          flush=True)
+    graph_mod.clear()
+    return out
+
+
+# the wave's glue in turns: the kernels and the glue as it was before
+# ops/wave.py (plain_glue)
+GLUE_TURNS = ("fused", "plain glue", "plain glue", "fused")
+
+
+def glue_turns(scene, dev, label: str, res: int, kw: dict, img, st) -> dict:
+    """The graphed frame (render(graph=True, **kw)) and the profiled
+    replayed 1-spp wave (profile_wave) on the glue kernels' route and on
+    the plain glue's, in GLUE_TURNS, each route capturing its own graphs
+    (the cache is cleared between turns): each frame's image and stats
+    equal to img, st (the kernels' graphed frame) bit for bit. Returns
+    {route: {"frame_s": [...], "wave": [(wall ms, device ms, source)]}}."""
+    out = {route: {"frame_s": [], "wave": []} for route in GLUE_TURNS}
+    for route in GLUE_TURNS:
+        graph_mod.clear()
+        with SPLIT_ROUTES[route]():
+            render(scene, res, res, graph=True, **kw)   # captures
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got, gst = render(scene, res, res, graph=True, **kw)
+            torch.cuda.synchronize()
+            out[route]["frame_s"].append(time.perf_counter() - t0)
+            if not torch.equal(got, img) or gst != st:
+                raise AssertionError(f"{label}: the graphed frame on route "
+                                     f"{route} differs from the kernels'")
+            out[route]["wave"].append(profile_wave(
+                scene, dev, f"{label} {res}^2 ({route})", res, GRAPH_DEPTH,
+                table=False, graph=True))
+    graph_mod.clear()
+    print(f"{label} {res}^2 graphed frames in turns {GLUE_TURNS}: "
+          + "; ".join(f"{r} {v['frame_s']} s, replayed 1-spp wave (wall, "
+                      f"device ms) {[w[:2] for w in v['wave']]}"
+                      for r, v in out.items()), flush=True)
     return out
 
 
@@ -4624,6 +5134,7 @@ def compiled_phase(cases, dev, smi: str) -> dict:
         wave = {mode: profile_wave(scene, dev, f"{label} {res}^2", res,
                                    GRAPH_DEPTH, table=graph, graph=graph)
                 for mode, graph in (("graphed", True), ("eager", False))}
+        glue = glue_turns(scene, dev, label, res, kw, gi, gs)
         split = module_split(scene, dev, label, 1024, GRAPH_DEPTH, smi)
         out[label] = {
             "res": res, "spp": spp, "rays": rays, "launches": want,
@@ -4634,7 +5145,7 @@ def compiled_phase(cases, dev, smi: str) -> dict:
             "peak_bytes": {"graphed": peaks[True], "eager": peaks[False]},
             "wave": {m: {"wall_ms": w[0], "device_ms": w[1], "source": w[2]}
                      for m, w in wave.items()},
-            "modules": split}
+            "glue_turns": glue, "modules": split}
         print(f"{label} {res}^2 spp {spp} depth {GRAPH_DEPTH}: graphed frame "
               f"equal to the eager one bit for bit (images and stats), "
               f"launches {want} a frame in both modes; first frame on the "
@@ -4715,8 +5226,20 @@ def main() -> int:
     rays_frames((("cornell", cornell, 512, 16), ("bunny", bunny, 1024, 4),
                  ("many-families", families, 256, 2)), dev)
     del families
-    del cases
     print(f"phase 2e took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("2f the wave's glue kernels vs plain")
+    t0 = time.perf_counter()
+    glue = wave_phase(cases, dev, smi.splitlines()[0], time_case="bunny")
+    glue.update(wave_edges(bunny, dev))
+    wave_frames((("cornell", cornell, 512, 16, {}),
+                 ("bunny", bunny, 1024, 4, {}),
+                 ("bunny debug sampler", bunny, 256, 2,
+                  {"sampler": "debug"}),
+                 ("bunny stratified sampler", bunny, 256, 4,
+                  {"sampler": "stratified"})), dev)
+    del cases
+    print(f"phase 2f took {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("3 wide kernel vs plain")
     wide = wide_route(bunny)
@@ -4783,6 +5306,8 @@ def main() -> int:
     vertex.update(vertex_phase((("bunny 600k", inst600, 1024),), dev,
                                smi.splitlines()[0]))
     rays.update(rays_phase((("bunny 600k", inst600, 1024),), dev,
+                           smi.splitlines()[0]))
+    glue.update(wave_phase((("bunny 600k", inst600, 1024),), dev,
                            smi.splitlines()[0]))
     sweep_frame = main_path(inst600, dev, "bunny 600k")
     sweep_launches = sweep_frame["sweep_bvh"]
@@ -4949,7 +5474,25 @@ def main() -> int:
             "sweep_launches": sweep_frame[name],
             "sharded_launches": {k: v[name]
                                  for k, v in sharded["launches"].items()}}
-           for name in RAYS for t in (rays["times"][name],)]}),
+           for name in RAYS for t in (rays["times"][name],)]
+        + [{"name": name, "route": "cuda",
+            "source": "jet_pbrt_tpu_torch/csrc/wave.cu",
+            "replaces": WAVE_REPLACES[name],
+            "launches": frame_launches[name],
+            "max_abs_err": max(v["max_abs_err"] for k, v in glue.items()
+                               if k != "times"),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            # the camera: no PyTorch call makes camera rays
+            "library_ms": next((v["ms"] for k, v in t["library_ms"].items()
+                                if k != "gathers"), None),
+            "library": t["library_ms"], "device_ms": t["device_ms"],
+            "device_cold_ms": t["device_cold_ms"],
+            "enqueue_ms": t["enqueue_ms"], "bytes": t["bytes"],
+            "lanes": t["lanes"], "sweep_launches": sweep_frame[name],
+            "sharded_launches": {k: v[name]
+                                 for k, v in sharded["launches"].items()}}
+           for name in WAVE for t in (glue["times"][name],)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -106,9 +106,11 @@ struct BruteArgs {
   const float* disk_c;         // [D,3]
   const float* disk_n;         // [D,3]
   const float* disk_r;         // [D]
-  float* t;                    // closest: [K,n]
-  int32_t* index;              // closest: [K,n]
-  uint8_t* valid;              // closest: [K,n]; any hit: [n]
+  float* t;                    // closest: [*,n]
+  int32_t* index;              // closest: [*,n]
+  uint8_t* valid;              // closest: [*,n]; any hit: [n]
+  int row[4];                  // closest: the output row of the k-th kind
+                               // present (the caller's slab order)
 };
 
 namespace {
@@ -277,6 +279,12 @@ __device__ __forceinline__ void fetch(const BruteArgs& a, int kind, int m, float
     for (int c = 0; c < len[p]; ++c) copy_async(raw + f++, src[p] + c);
 }
 
+// The output row of the k-th kind present, by selects (no dynamic index
+// into the kernel's parameters, which would copy them to local memory).
+__device__ __forceinline__ int out_row(const BruteArgs& a, int k) {
+  return k == 0 ? a.row[0] : k == 1 ? a.row[1] : k == 2 ? a.row[2] : a.row[3];
+}
+
 // The float4 row of a shape from its raw floats (this thread's own copies).
 __device__ __forceinline__ void build(int kind, const float* x, float4* row) {
   if (kind == TRI) {
@@ -379,7 +387,7 @@ __global__ void __launch_bounds__(BLOCK) brute_hits_kernel(const BruteArgs a) {
       if (!live && ANY) a.valid[i] = 0;
       if (!live && !ANY)
         for (int k = 0; k < kinds; ++k) {
-          const long long o = (long long)k * a.n + i;
+          const long long o = (long long)out_row(a, k) * a.n + i;
           a.t[o] = INFINITY;
           a.index[o] = 0;
           a.valid[o] = 0;
@@ -451,7 +459,7 @@ __global__ void __launch_bounds__(BLOCK) brute_hits_kernel(const BruteArgs a) {
     bool done = !busy;  // any hit: this ray needs no more tests
     F best = K(INFINITY);
     int best_j = 0;
-    int slot = 0;  // closest: the kind's row in the outputs
+    int slot = 0;  // closest: the kind's place among those present
     for (int t = 0; t < tiles; ++t) {
       if (!done) {
         const int cnt = min(TILE, m[cur.kind] - cur.first);
@@ -463,7 +471,7 @@ __global__ void __launch_bounds__(BLOCK) brute_hits_kernel(const BruteArgs a) {
       }
       if (!ANY && (t == tiles - 1 || nxt.kind != cur.kind)) {  // the kind's outputs
         if (busy) {
-          const long long o = (long long)slot * a.n + lane;
+          const long long o = (long long)out_row(a, slot) * a.n + lane;
           a.t[o] = best.v;
           a.index[o] = best_j;
           a.valid[o] = isfinite(best.v);

@@ -12,9 +12,13 @@
 //                          NEE light's sample, f, `useful` mask,
 //                          contribution and shadow endpoint, the BSDF
 //                          sample, Russian roulette and the next bounce's
-//                          state. Only the lane's own lobe and light
-//                          branches run (the plain version computes every
-//                          present kind and selects).
+//                          state with the next cast's bounds. Only the
+//                          lane's own lobe and light branches run (the
+//                          plain version computes every present kind and
+//                          selects). Where the wave counts its rays, each
+//                          block adds its live lanes and useful shadow rays
+//                          to the wave's int64 counters, one atomic add per
+//                          counter (the sums are exact: integers).
 //   nee_accumulate_kernel  L + where(useful & ~occluded, contrib, 0), one
 //                          light after another in light order.
 //
@@ -788,6 +792,7 @@ enum { TEX_SOLID = 0, TEX_CHECKER, TEX_IMAGE, TEX_IMAGE_BILINEAR };
 struct ShadeArgs {
   int n, bounce, last, roulette, lobes, mf_mode, n_tex, has_images;
   int n_light_rows, th, tw, s, n_nee;
+  int u_stride;  // floats from one lane's uniforms to the next (s where contiguous)
   // hit
   const uint8_t* valid; const float* pos; const float* nrm; const float* wo;
   const float* uv; const int32_t* mat_id; const int32_t* light_id;
@@ -810,6 +815,13 @@ struct ShadeArgs {
   float* L_out; float* beta_out; uint8_t* active_out; uint8_t* spec_out;
   float* pdf_out; float* o_out; float* d_out; uint8_t* useful;
   float* contrib; float* shadow_to;
+  // the next cast's bounds where(active_out, ray_eps, inf) and
+  // where(active_out, inf, -1) (null on the last bounce)
+  const float* ray_eps; float* tmin_out; float* tmax_out;
+  // null, or the wave's int64 ray counters (primary, bounce, shadow, all):
+  // this vertex adds its live lanes (the cast that found its hits) and its
+  // useful shadow rays
+  long long* counts;
 };
 
 namespace {
@@ -851,11 +863,13 @@ __device__ F3 tex_sample(const ShadeArgs& a, int tex, F uu, F uv, F3 p) {
   return out;
 }
 
-__global__ void __launch_bounds__(128) shade_vertex_kernel(const __grid_constant__ ShadeArgs a) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= a.n) return;
+// One lane's vertex; live and n_useful take its counts (the lane's own
+// cast, its useful shadow rays).
+__device__ __forceinline__ void shade_lane(const ShadeArgs& a, int i, int& live,
+                                           int& n_useful) {
   bool valid = a.valid[i];
   bool active = a.active[i];
+  live = active;
   F3 p = ld3(a.pos + 3 * i), n = ld3(a.nrm + 3 * i), wo = ld3(a.wo + 3 * i);
   F3 beta = ld3(a.beta + 3 * i);
   int lid = a.light_id[i];
@@ -877,7 +891,7 @@ __global__ void __launch_bounds__(128) shade_vertex_kernel(const __grid_constant
   if (a.last) return;
 
   bool cont = active && valid;
-  const float* u = a.u + (long long)i * a.s;
+  const float* u = a.u + (long long)i * a.u_stride;
   int mat = a.mat_id[i];
   F3 c0 = ld3(a.mat_c0 + 3 * mat);
   if (a.n_tex) {
@@ -900,6 +914,7 @@ __global__ void __launch_bounds__(128) shade_vertex_kernel(const __grid_constant
     F3 contrib = beta * f * smp.li * (fabs_(dot(smp.wi, n)) / cmin(smp.pdf, K(1e-20)));
     long long j = (long long)k * a.n + i;
     a.useful[j] = useful;
+    n_useful += useful;
     st3(a.contrib + 3 * j, contrib);
     st3(a.shadow_to + 3 * j, smp.pos);
   }
@@ -926,6 +941,38 @@ __global__ void __launch_bounds__(128) shade_vertex_kernel(const __grid_constant
   a.pdf_out[i] = bs.pdf.v;
   st3(a.o_out + 3 * i, next ? p : ld3(a.ray_o + 3 * i));
   st3(a.d_out + 3 * i, next ? wi_world : ld3(a.ray_d + 3 * i));
+  a.tmin_out[i] = next ? *a.ray_eps : INFINITY;
+  a.tmax_out[i] = next ? INFINITY : -1.0f;
+}
+
+// The block's counts added to the wave's counters: a sum per warp, per
+// block in shared memory, then one atomic add per counter and block.
+__device__ __forceinline__ void count_block(const ShadeArgs& a, int live, int n_useful) {
+  __shared__ int sums[2];
+  if (threadIdx.x < 2) sums[threadIdx.x] = 0;
+  __syncthreads();
+  const int wl = __reduce_add_sync(0xffffffffu, live);
+  const int wu = __reduce_add_sync(0xffffffffu, n_useful);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(&sums[0], wl);
+    atomicAdd(&sums[1], wu);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    unsigned long long* c = reinterpret_cast<unsigned long long*>(a.counts);
+    const unsigned long long l = sums[0], u = sums[1];
+    if (l) atomicAdd(c + (a.bounce == 0 ? 0 : 1), l);
+    if (u) atomicAdd(c + 2, u);
+    if (l + u) atomicAdd(c + 3, l + u);
+  }
+}
+
+__global__ void __launch_bounds__(128) shade_vertex_kernel(const __grid_constant__ ShadeArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  int live = 0, n_useful = 0;
+  if (i < a.n) shade_lane(a, i, live, n_useful);
+  // every thread of the block comes here: count_block has barriers
+  if (a.counts) count_block(a, live, n_useful);
 }
 
 __global__ void nee_accumulate_kernel(const float* L, const uint8_t* useful, const uint8_t* occ,

@@ -162,6 +162,7 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
                  const float* __restrict__ d, const float* __restrict__ tmin_in,
                  const float* __restrict__ tmax_in, int n,
                  float* __restrict__ t_out, int* __restrict__ idx_out,
+                 uint8_t* __restrict__ valid_out,
                  long long* __restrict__ stats_out) {
   extern __shared__ float4 smem[];
   float4* s_ray = smem;                                        // [RAYS][3]
@@ -377,6 +378,7 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
   if (i_ray < n) {
     t_out[i_ray] = best;
     idx_out[i_ray] = ANY_HIT ? 0 : best_idx;
+    if (valid_out) valid_out[i_ray] = isfinite(best);
   }
   if (STATS && tid == 0) {
     long long* row = stats_out + 6 * blockIdx.x;
@@ -398,11 +400,11 @@ int launch(const float* sph, int gp, const float* bw, const float* inst,
            int n_inst, const float* root, int n_groups, int n_tris,
            const float* o, const float* d, const float* tmin,
            const float* tmax, int n, float* t_out, int* idx_out,
-           long long* stats, cudaStream_t stream) {
+           uint8_t* valid_out, long long* stats, cudaStream_t stream) {
   const int grid = (n + RAYS - 1) / RAYS;
   sweep_bvh_kernel<ANY_HIT, STATS><<<grid, RAYS, shmem_bytes(gp), stream>>>(
       sph, gp, bw, inst, n_inst, root, n_groups, n_tris, o, d, tmin, tmax, n,
-      t_out, idx_out, stats);
+      t_out, idx_out, valid_out, stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,29 +420,32 @@ int blocks_per_sm(int gp) {
 
 // Plain C entry point, loaded through ctypes. Launches on `stream` without
 // synchronising and returns cudaGetLastError() of the launch. stats is
-// [ceil(n/128), 6] int64 or null.
+// [ceil(n/128), 6] int64 or null; valid_out is null or [n] bool,
+// isfinite(t_out) (the last argument, so a build of the entry without it
+// takes the same call and leaves it).
 extern "C" int sweep_bvh_launch(const float* sph, int gp, const float* bw,
                                 const float* inst, int n_inst,
                                 const float* root, int n_groups, int n_tris,
                                 const float* o, const float* d,
                                 const float* tmin, const float* tmax, int n,
                                 int any_hit, float* t_out, int* idx_out,
-                                long long* stats, void* stream) {
+                                long long* stats, void* stream,
+                                uint8_t* valid_out) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit)
     return stats ? launch<true, true>(sph, gp, bw, inst, n_inst, root, n_groups,
                                       n_tris, o, d, tmin, tmax, n, t_out,
-                                      idx_out, stats, s)
+                                      idx_out, valid_out, stats, s)
                  : launch<true, false>(sph, gp, bw, inst, n_inst, root,
                                        n_groups, n_tris, o, d, tmin, tmax, n,
-                                       t_out, idx_out, stats, s);
+                                       t_out, idx_out, valid_out, stats, s);
   return stats ? launch<false, true>(sph, gp, bw, inst, n_inst, root, n_groups,
                                      n_tris, o, d, tmin, tmax, n, t_out,
-                                     idx_out, stats, s)
+                                     idx_out, valid_out, stats, s)
                : launch<false, false>(sph, gp, bw, inst, n_inst, root,
                                       n_groups, n_tris, o, d, tmin, tmax, n,
-                                      t_out, idx_out, stats, s);
+                                      t_out, idx_out, valid_out, stats, s);
 }
 
 // Resident blocks per SM of the closest-hit kernel without counters at

@@ -223,6 +223,7 @@ wide_cull_kernel(const float4* __restrict__ planar,
                  const float* __restrict__ d, const float* __restrict__ tmin,
                  const float* __restrict__ tmax, int n,
                  float* __restrict__ t_out, int* __restrict__ idx_out,
+                 uint8_t* __restrict__ valid_out,
                  int* __restrict__ survivors, int* __restrict__ counter,
                  unsigned long long* __restrict__ stats) {
   const int i = blockIdx.x * CULL_BLOCK + threadIdx.x;
@@ -245,6 +246,7 @@ wide_cull_kernel(const float4* __restrict__ planar,
     if (!keep) {
       t_out[i] = INFINITY;
       idx_out[i] = 0;
+      if (valid_out) valid_out[i] = 0;
     }
   }
   const unsigned m = __ballot_sync(FULL, keep);
@@ -288,7 +290,8 @@ wide_walk_kernel(const float4* __restrict__ planar,
                  const float* __restrict__ tmax_in, int blas_root,
                  int leaf_size, int n_tris, const int* __restrict__ survivors,
                  int* __restrict__ counter, float* __restrict__ t_out,
-                 int* __restrict__ idx_out, long long* __restrict__ stats) {
+                 int* __restrict__ idx_out, uint8_t* __restrict__ valid_out,
+                 long long* __restrict__ stats) {
   const int lane = threadIdx.x & 31;
   const int warp = (blockIdx.x * WALK_BLOCK + threadIdx.x) >> 5;
   const int count = counter[0];  // written by the cull pass on this stream
@@ -431,9 +434,11 @@ wide_walk_kernel(const float4* __restrict__ planar,
       if (ANY_HIT) {
         t_out[i] = occluded ? 0.0f : INFINITY;
         idx_out[i] = 0;
+        if (valid_out) valid_out[i] = occluded;
       } else {
         t_out[i] = best;
         idx_out[i] = best_idx;
+        if (valid_out) valid_out[i] = isfinite(best);
       }
     }
     __syncwarp();
@@ -486,6 +491,7 @@ struct Args {
   float* t_out;
   int *idx_out, *survivors, *counter;
   long long* stats;
+  uint8_t* valid_out;
 };
 
 template <bool ANY_HIT, bool HAS_INST, bool STATS>
@@ -495,7 +501,7 @@ int cast(const Args& a, cudaStream_t s) {
   wide_cull_kernel<STATS><<<(a.n + CULL_BLOCK - 1) / CULL_BLOCK, CULL_BLOCK, 0,
                             s>>>(
       a.planar, a.child, a.o, a.d, a.tmin, a.tmax, a.n, a.t_out, a.idx_out,
-      a.survivors, a.counter,
+      a.valid_out, a.survivors, a.counter,
       reinterpret_cast<unsigned long long*>(a.stats));
   const int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
@@ -503,7 +509,7 @@ int cast(const Args& a, cudaStream_t s) {
       <<<walk_grid<ANY_HIT, HAS_INST, STATS>(), WALK_BLOCK, 0, s>>>(
           a.planar, a.child, a.tris, a.inst, a.o, a.d, a.tmin, a.tmax,
           a.blas_root, a.leaf_size, a.n_tris, a.survivors, a.counter,
-          a.t_out, a.idx_out, a.stats);
+          a.t_out, a.idx_out, a.valid_out, a.stats);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -525,7 +531,9 @@ int cast_stats(const Args& a, cudaStream_t s) {
 // the walk, on `stream` without synchronising; returns the first
 // cudaGetLastError() that is not 0. survivors is [n] int32 and counter
 // [2] int32 scratch (zeroed here); stats is null or
-// [1 + wide_bvh_walk_warps(...), STATS_COLS] int64, row 0 the cull's.
+// [1 + wide_bvh_walk_warps(...), STATS_COLS] int64, row 0 the cull's;
+// valid_out is null or [n] bool, isfinite(t_out) (the last argument, so a
+// build of the entry without it takes the same call and leaves it).
 extern "C" int wide_bvh_cast(const float* planar, const int* child,
                              const float* tris, const float* inst,
                              const float* o, const float* d,
@@ -533,13 +541,14 @@ extern "C" int wide_bvh_cast(const float* planar, const int* child,
                              int blas_root, int leaf_size, int n_tris,
                              int any_hit, int has_inst, float* t_out,
                              int* idx_out, int* survivors, int* counter,
-                             long long* stats, void* stream) {
+                             long long* stats, void* stream,
+                             uint8_t* valid_out) {
   if (n <= 0) return 0;
   const Args a{reinterpret_cast<const float4*>(planar),
                reinterpret_cast<const int4*>(child), tris,
                reinterpret_cast<const float4*>(inst), o, d, tmin, tmax, n,
                blas_root, leaf_size, n_tris, t_out, idx_out, survivors,
-               counter, stats};
+               counter, stats, valid_out};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit)
     return has_inst ? cast_stats<true, true>(a, s)

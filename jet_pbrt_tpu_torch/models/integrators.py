@@ -24,7 +24,13 @@ tests and the sort stay here, each inside a `torch.profiler
 .nee_accumulate, .sort) that a profile attributes the wave's device time
 by; the work around the casts (the hit reconstruction, the shadow
 segments, their sort key and merge, the sort key between bounces) is
-ops/rays.py's, one kernel launch each on the card.
+ops/rays.py's, one kernel launch each on the card. On the vertex kernels'
+route the state between the casts is ops/wave.py's WaveState: the camera
+kernel makes it (models/render.py::wave_fn), shade_vertex writes the next
+cast's bounds and adds to the ray counters, the casts write their rows in
+place into slabs (scene/pack.py::_kind_hits), one permute_state launch
+moves every row at a sort and unsort_guard scatters the colours back to
+their lanes; the other routes keep the torch glue (`_li_path_plain`).
 
 Gradients (models/render.py::render_fn): sampled directions, pdfs, light
 sample points, MIS weights and the roulette probability are detached where
@@ -42,6 +48,7 @@ from ..ops import lights as light_ops
 from ..ops import rng
 from ..ops import shade as shade_ops
 from ..ops import rays as rays_ops
+from ..ops import wave as wave_ops
 from ..ops.linalg import absdot, frame_from_z, to_local, to_world, is_black
 from ..scene import pack as scene_pack
 
@@ -56,7 +63,8 @@ def _permute(u, perm):
 
 def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
             nee: bool = True, with_stats: bool = False,
-            sort_rays: bool | None = None):
+            sort_rays: bool | None = None,
+            init: wave_ops.WaveState | None = None):
     """Path-traced radiance L [N,3] of rays o, d [N,3].
 
     u is `rng.LaneKeys` or pregenerated uniforms [N, max_depth+1, S].
@@ -70,9 +78,29 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
     for sweep-routed meshes, the sweep kernel's counters (pack._sweep).
     sort_rays permutes lanes after bounces 0-2 (default meta.kernel_routed,
     as in the reference); shadow batches of bounces 0-1 of kernel-routed
-    scenes are sorted inside `occluded` either way."""
+    scenes are sorted inside `occluded` either way. init: the state before
+    the first cast (ops/wave.py::WaveState, as camera_rays makes it with o
+    and d as its rays), else made here."""
     if sort_rays is None:
         sort_rays = meta.kernel_routed
+    fused = shade_ops.kernel_route(meta, pack, o, d, nee=nee, mis=mis)
+    if fused:
+        if init is None:
+            init = wave_ops.initial_state_plain(o, d, pack.ray_eps)
+        return _li_path_kernels(meta, pack, u, max_depth, with_stats,
+                                sort_rays, init)
+    return _li_path_plain(meta, pack, o, d, u, max_depth, mis, nee,
+                          with_stats, sort_rays, fused)
+
+
+def _li_path_plain(meta, pack, o, d, u, max_depth: int, mis: bool,
+                   nee: bool, with_stats: bool, sort_rays: bool,
+                   fused: bool):
+    """li_path in the torch glue it ran before the glue kernels: the
+    route of every path shade.kernel_route refuses (MIS, no NEE, a
+    gradient), with the plain vertex; with fused, the vertex through
+    shade_vertex and nee_accumulate (the wave as it was before
+    ops/wave.py)."""
     n = o.shape[0]
     dev = o.device
     nl = meta.n_lights
@@ -92,7 +120,6 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
     # original lane of each row, to unsort the film at the end
     lane = torch.arange(n, device=dev)
 
-    fused = shade_ops.kernel_route(meta, pack, o, d, nee=nee, mis=mis)
     lights = (shade_ops.light_table(meta, pack)
               if fused and dev.type == "cuda" else None)
     le_env = None if fused else light_ops.env_radiance(meta, pack, n)
@@ -172,15 +199,84 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
         state = shade_ops.VertexState(L, beta, active, prev_specular,
                                       prev_pdf, ray_o, ray_d)
 
-    if sort_rays:
-        # undo the permutation: row i is lane i again (gather, no scatter)
-        L = L[torch.argsort(lane)]
-    # invalid-sample guard (reference: src/integrator.cc:104)
-    L = torch.where(torch.isfinite(L), L, torch.zeros_like(L))
+    # undo the permutation (row i is lane i again) and the invalid-sample
+    # guard (reference: src/integrator.cc:104)
+    L = wave_ops.unsort_guard_plain(L, lane if sort_rays else None)
     if with_stats:
         return L, {"rays_primary": n_primary, "rays_bounce": n_bounce,
                    "rays_shadow": n_shadow,
                    "rays": n_primary + n_bounce + n_shadow, **sweep_stats}
+    return L
+
+
+def _li_path_kernels(meta, pack, u, max_depth: int, with_stats: bool,
+                     sort_rays: bool, state: wave_ops.WaveState):
+    """li_path on the glue kernels' route (shade.kernel_route: NEE on, MIS
+    off, nothing requiring grad): the state between the casts is a
+    WaveState the kernels hand on. shade_vertex writes the next cast's
+    bounds and adds to the ray counters, each vertex's shadow casts write
+    their rows of one [J, N] flag slab, one permute_state moves every row
+    at a sort, and unsort_guard scatters the rows back to their lanes. On
+    the card no torch op runs between the kernels but the sorts' argsort;
+    on the CPU each wrapper runs its plain version."""
+    dev = state.L.device
+    nl = meta.n_lights
+    sweep_stats = {} if with_stats else None
+    counts = state.counts if with_stats else None
+    lights = (shade_ops.light_table(meta, pack) if dev.type == "cuda"
+              else None)
+    # the BVH root spheres of the sort keys' kernel, made once a wave (a
+    # captured wave makes them from the pack it replays)
+    roots = (rays_ops.root_table(meta, pack)
+             if dev.type == "cuda" and (sort_rays or meta.kernel_routed)
+             else None)
+    for bounce in range(max_depth + 1):
+        with record_function("li_path.intersect"):
+            hit = scene_pack.intersect(meta, pack, state.ray_o, state.ray_d,
+                                       state.tmin, state.tmax,
+                                       stats=sweep_stats)
+        u_vertex = None
+        if bounce < max_depth:
+            with record_function("li_path.rng"):
+                u_vertex = rng.vertex_uniforms(u, bounce, nl)
+        with record_function("li_path.vertex"):
+            v = shade_ops.shade_vertex(
+                meta, pack, hit, shade_ops.VertexState(*state[:7]), u_vertex,
+                bounce, max_depth, lights=lights, counts=counts)
+        counts = v.counts
+        if bounce >= max_depth:
+            L = v.state.L
+            break
+        with record_function("li_path.occluded"):
+            occ = torch.empty_like(v.useful)
+            for j in range(v.useful.shape[0]):
+                scene_pack.occluded(
+                    meta, pack, hit.position, v.shadow_to[j],
+                    mask=v.useful[j], sort=meta.kernel_routed and bounce < 2,
+                    stats=sweep_stats, roots=roots, out=occ[j])
+        with record_function("li_path.nee_accumulate"):
+            L = shade_ops.nee_accumulate(v.state.L, v.useful, occ, v.contrib)
+        state = wave_ops.WaveState(*v.state._replace(L=L), state.lane, v.tmin,
+                                   v.tmax, state.counts if counts is None
+                                   else counts)
+        if sort_rays and bounce < 3:
+            with record_function("li_path.sort"):
+                # regroup lanes for the next bounce's traversal (ops/sort.py's
+                # key, ops/rays.py::shadow_key's kernel on the card); deep
+                # bounces keep the order: lanes only die from here, so the
+                # dead tail of the last sort persists
+                key = rays_ops.shadow_key(meta, pack, state.ray_o,
+                                          state.ray_d, state.active,
+                                          bounce=True, roots=roots)
+                perm = torch.argsort(key, stable=True)
+                state, u = wave_ops.permute_state(state, u, perm)
+
+    # undo the permutation (row i is lane i again: a scatter) and the
+    # invalid-sample guard (reference: src/integrator.cc:104)
+    L = wave_ops.unsort_guard(L, state.lane if sort_rays else None)
+    if with_stats:
+        return L, {**dict(zip(wave_ops.COUNTS, counts.unbind(0))),
+                   **sweep_stats}
     return L
 
 

@@ -15,8 +15,10 @@ reference's.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 from ..ops import rng
+from ..ops import wave as wave_ops
 from . import camera as camera_mod
 from . import film as film_mod
 from . import graph as graph_mod
@@ -63,10 +65,11 @@ def wave_fn(meta, width: int, max_depth: int, integrator: str = "path",
     def wave(pack, cam, sample, pixel):
         keys = rng.lane_keys(seed, sample, pixel)
         jitter = rng.camera_jitter(keys, sampler=sampler, spp=spp)
-        # pixel + in-pixel jitter (reference: src/sampler.h:148-155)
-        x = (pixel % width).to(torch.float32) + jitter[:, 0]
-        y = (pixel // width).to(torch.float32) + jitter[:, 1]
-        o, d = camera_mod.generate_rays(cam, torch.stack([x, y], dim=-1))
+        # the camera rays through pixel + in-pixel jitter (reference:
+        # src/sampler.h:148-155) and li_path's initial state, one kernel
+        # launch on the card (ops/wave.py)
+        init = wave_ops.camera_rays(cam, pixel, width, jitter, pack.ray_eps)
+        o, d = init.ray_o, init.ray_d
         if integrator == "debug":
             return integrators.li_debug_normal(meta, pack, o, d)
         u = keys
@@ -77,7 +80,7 @@ def wave_fn(meta, width: int, max_depth: int, integrator: str = "path",
             return integrators.li_whitted(meta, pack, o, d, u, max_depth)
         return integrators.li_path(meta, pack, o, d, u, max_depth, mis=mis,
                                    nee=nee, with_stats=with_stats,
-                                   sort_rays=sort_rays)
+                                   sort_rays=sort_rays, init=init)
 
     return wave
 
@@ -157,7 +160,9 @@ def render(scene, width: int, height: int, spp: int, seed: int = 0,
     for s0, ns, p0, npx in _waves(n_pixels, samples, chunk):
         sample = torch.arange(s0, s0 + ns, device=device).repeat_interleave(npx)
         pixel = torch.arange(p0, p0 + npx, device=device).repeat(ns)
-        out = wave(pack, cam, sample, pixel)
+        # the wave's range in a profile (scripts/wave_nodes.py)
+        with record_function("render.wave"):
+            out = wave(pack, cam, sample, pixel)
         if with_stats:
             out, st = out
             for k, v in st.items():

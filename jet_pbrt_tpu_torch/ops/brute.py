@@ -49,7 +49,8 @@ _PTRS = ("o", "d", "tmin", "tmax") + tuple(
 class _BruteArgs(ctypes.Structure):
     _fields_ = ([("n", ctypes.c_int)]
                 + [(c, ctypes.c_int) for c in _COUNTS.values()]
-                + [(k, ctypes.c_void_p) for k in _PTRS])
+                + [(k, ctypes.c_void_p) for k in _PTRS]
+                + [("row", ctypes.c_int * 4)])
 
 
 def _library():
@@ -113,30 +114,80 @@ def check_inputs(o, d, tmin, tmax, shapes: BruteShapes) -> dict:
     return counts
 
 
-def brute_hits(o, d, tmin, tmax, shapes: BruteShapes, any_hit: bool):
+def check_out(out, rows, n: int, kinds: int, any_hit: bool, dev):
+    """Raise unless `out` can take the outputs: in any-hit mode a
+    contiguous bool [N]; in closest mode (t, index, valid) slabs, float32,
+    int32 and bool [R, N] contiguous, and rows one distinct slab row per
+    kind present. Returns the rows (0..K-1 where out is None)."""
+    if out is None:
+        return list(range(kinds))
+    if any_hit:
+        if out.dtype != torch.bool or tuple(out.shape) != (n,) \
+                or not out.is_contiguous() or out.device != dev:
+            raise ValueError(f"out: expected a contiguous bool [{n}] tensor "
+                             f"on {dev}")
+        return [0]
+    r = out[0].shape[0] if out[0].dim() == 2 else -1
+    for name, x, dtype in zip(("t", "index", "valid"), out,
+                              (torch.float32, torch.int32, torch.bool)):
+        if x.dtype != dtype or tuple(x.shape) != (r, n) \
+                or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"out {name}: expected a contiguous {dtype} "
+                             f"[R, {n}] slab on {dev}")
+    rows = list(range(kinds)) if rows is None else [int(j) for j in rows]
+    if len(rows) != kinds or len(set(rows)) != kinds \
+            or any(not 0 <= j < r for j in rows):
+        raise ValueError(f"rows {rows}: one distinct row of the {r}-row "
+                         f"slabs for each of the {kinds} kinds")
+    return rows
+
+
+def brute_hits(o, d, tmin, tmax, shapes: BruteShapes, any_hit: bool,
+               out=None, rows=None):
     """`intersect.brute_hits_plain`: one launch of brute_hits_kernel on
     CUDA tensors (none for an empty batch), the plain version on CPU
     tensors. Closest mode: [KindHit per kind present], each kind's t,
-    index and valid rows of one [K, N] output; any-hit mode: [N] bool."""
+    index and valid rows of one [K, N] output, or, with out = (t, index,
+    valid) [R, N] slabs, rows `rows` of them (one per kind present, in
+    order; default 0..K-1); any-hit mode: [N] bool, written into out where
+    given. The plain version's outputs are copied into out."""
     counts = check_inputs(o, d, tmin, tmax, shapes)
     dev = o.device
-    if dev.type == "cpu":
-        return brute_hits_plain(o, d, tmin, tmax, shapes, any_hit)
-    if dev.type != "cuda":
-        raise ValueError(f"no brute_hits route for device {dev}")
     n = o.shape[0]
     k = 1 if any_hit else len(shapes.present)
-    t = torch.empty((0 if any_hit else k, n), dtype=torch.float32,
-                    device=dev)
-    index = torch.empty((0 if any_hit else k, n), dtype=torch.int32,
+    rows = check_out(out, rows, n, k, any_hit, dev)
+    if dev.type == "cpu":
+        got = brute_hits_plain(o, d, tmin, tmax, shapes, any_hit)
+        if out is None:
+            return got
+        if any_hit:
+            return out.copy_(got)
+        for j, h in zip(rows, got):
+            for slab, x in zip(out, h):
+                slab[j].copy_(x)
+        return [KindHit(*(slab[j] for slab in out)) for j in rows]
+    if dev.type != "cuda":
+        raise ValueError(f"no brute_hits route for device {dev}")
+    if out is None:
+        t = torch.empty((0 if any_hit else k, n), dtype=torch.float32,
                         device=dev)
-    valid = torch.empty((k, n), dtype=torch.bool, device=dev)
+        index = torch.empty((0 if any_hit else k, n), dtype=torch.int32,
+                            device=dev)
+        valid = torch.empty((k, n), dtype=torch.bool, device=dev)
+    elif any_hit:
+        t = index = None
+        valid = out
+    else:
+        t, index, valid = out
     if n and shapes.present:
         a = _BruteArgs(n=n, **counts)
         ptrs = dict(o=o, d=d, tmin=tmin, tmax=tmax, t=t, index=index,
                     valid=valid, **shape_tensors(shapes))
         for name, x in ptrs.items():
-            setattr(a, name, x.data_ptr() if x.numel() else None)
+            setattr(a, name, x.data_ptr() if x is not None and x.numel()
+                    else None)
+        for j, r in enumerate(rows):
+            a.row[j] = r
         lib = _library()
         with torch.cuda.device(dev):
             err = lib.brute_hits(ctypes.byref(a), int(any_hit),
@@ -147,9 +198,8 @@ def brute_hits(o, d, tmin, tmax, shapes: BruteShapes, any_hit: bool):
     elif any_hit:
         valid.zero_()
     if any_hit:
-        return valid[0]
-    return [KindHit(t=t[j], index=index[j], valid=valid[j])
-            for j in range(k)]
+        return valid if out is not None else valid[0]
+    return [KindHit(t=t[j], index=index[j], valid=valid[j]) for j in rows]
 
 
 brute_hits.launches = 0

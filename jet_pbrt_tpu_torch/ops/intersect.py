@@ -25,6 +25,19 @@ class KindHit(NamedTuple):
     valid: torch.Tensor  # [N] bool
 
 
+def check_hit_out(out, n: int, dev) -> None:
+    """Raise unless out is None or (t, index, valid): contiguous float32,
+    int32 and bool [N] tensors on dev (rows of a cast's slabs)."""
+    if out is None:
+        return
+    for name, x, dtype in zip(("t", "index", "valid"), out,
+                              (torch.float32, torch.int32, torch.bool)):
+        if x.dtype != dtype or tuple(x.shape) != (n,) \
+                or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"out {name}: expected a contiguous {dtype} "
+                             f"[{n}] tensor on {dev}")
+
+
 def no_grad_inputs(kernel: str, **inputs):
     """Raise where a traversal kernel's input requires grad: its launch
     reads raw pointers and has no backward, so the gradient would be lost

@@ -404,21 +404,26 @@ def check_merge_inputs(flags, perm, dev) -> int:
     return n
 
 
-def occlusion_merge(flags, perm=None):
+def occlusion_merge(flags, perm=None, out=None):
     """`occlusion_merge_plain`: one launch of occlusion_merge_kernel on
     CUDA tensors (flags: one or more [N] bool, as one [F, N] slab; perm
-    [N] int64, a permutation of the lanes, or None), the plain version on
-    CPU tensors."""
+    [N] int64, a permutation of the lanes, or None; out: None or the
+    contiguous [N] bool tensor to write), the plain version on CPU tensors
+    (its result copied into out)."""
     if not flags:
         raise ValueError("occlusion_merge: a cast with no flag has nothing "
                          "to merge")
     dev = flags[0].device
+    if out is not None:
+        _check("out", out, torch.bool, (flags[0].shape[0],), dev)
     if not _route("occlusion_merge", dev,
                   **{f"flags[{j}]": f for j, f in enumerate(flags)}):
-        return occlusion_merge_plain(flags, perm)
+        got = occlusion_merge_plain(flags, perm)
+        return got if out is None else out.copy_(got)
     n = check_merge_inputs(flags, perm, dev)
     slab = _slab(flags)
-    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    if out is None:
+        out = torch.empty((n,), dtype=torch.bool, device=dev)
     args = _MergeArgs(n=n, n_flags=len(flags), flags=_ptr(slab),
                       perm=_ptr(perm), out=_ptr(out))
     lib = _library()

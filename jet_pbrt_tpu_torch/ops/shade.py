@@ -36,6 +36,7 @@ li_debug_normal keep their own torch code. These are the next fusions.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -69,12 +70,17 @@ class VertexState(NamedTuple):
 
 class Vertex(NamedTuple):
     """One vertex's outputs: the state after it (on the last bounce only L
-    changes) and, per non-black light j in light order, the shadow ray's
-    inputs and what it adds where unoccluded."""
+    changes); per non-black light j in light order, the shadow ray's inputs
+    and what it adds where unoccluded; below max_depth the next cast's
+    bounds; and, where the wave counts its rays, its counters after this
+    vertex."""
     state: VertexState
     useful: torch.Tensor     # [J, N] bool
     contrib: torch.Tensor    # [J, N, 3]
     shadow_to: torch.Tensor  # [J, N, 3] the light sample's point
+    tmin: torch.Tensor | None = None   # [N] where(active, eps, inf)
+    tmax: torch.Tensor | None = None   # [N] where(active, inf, -1)
+    counts: torch.Tensor | None = None  # [4] int64 (ops/wave.py COUNTS)
 
 
 class LightTable(NamedTuple):
@@ -218,13 +224,37 @@ def _stacks(usefuls, contribs, targets, n, dev):
             torch.zeros((0, n, 3), dtype=torch.float32, device=dev))
 
 
+def _bounds(pack, active):
+    """The next cast's (tmin, tmax): dead lanes trace nothing, tmin = +inf
+    and tmax = -1 miss at once."""
+    n = active.shape[0]
+    inf = torch.full((n,), math.inf, device=active.device)
+    neg = torch.full((n,), -1.0, device=active.device)
+    return (torch.where(active, pack.ray_eps.expand(n), inf),
+            torch.where(active, inf, neg))
+
+
+def _counted(counts, bounce: int, live, useful):
+    """counts [4] plus this vertex's live lanes (primary at bounce 0, else
+    bounce), its useful shadow rays, and both in the total."""
+    cast = live.sum()
+    shadow = useful.sum()
+    zero = torch.zeros_like(cast)
+    return counts + torch.stack([cast if bounce == 0 else zero,
+                                 zero if bounce == 0 else cast, shadow,
+                                 cast + shadow])
+
+
 def shade_vertex_plain(meta, pack, hit, state: VertexState, u_vertex,
                        bounce: int, max_depth: int, *, le_env=None,
-                       nee: bool = True, mis: bool = False) -> Vertex:
+                       nee: bool = True, mis: bool = False,
+                       counts=None) -> Vertex:
     """One vertex in torch ops (li_path's code before the kernel): hit is
     the closest hit of the state's rays, u_vertex [N, 4 + 2 * lights] the
     vertex's uniforms (unused on the last bounce), le_env the escaped
-    rays' radiance (default light_ops.env_radiance)."""
+    rays' radiance (default light_ops.env_radiance). Below max_depth it
+    also returns the next cast's bounds; with counts (the wave's [4] ray
+    counters) the counters after this vertex."""
     from ..scene import pack as scene_pack
 
     L, beta, active, prev_specular, prev_pdf, ray_o, ray_d = state
@@ -259,8 +289,10 @@ def shade_vertex_plain(meta, pack, hit, state: VertexState, u_vertex,
 
     usefuls, contribs, targets = [], [], []
     if bounce >= max_depth:
-        return Vertex(state._replace(L=L),
-                      *_stacks(usefuls, contribs, targets, n, dev))
+        stacks = _stacks(usefuls, contribs, targets, n, dev)
+        return Vertex(state._replace(L=L), *stacks, counts=None
+                      if counts is None else _counted(counts, bounce, active,
+                                                      stacks[0]))
     cont = active & hit.valid
 
     mat_kind, c0, c1, s0, s1, remap, tex_id, mf_kind = \
@@ -323,9 +355,12 @@ def shade_vertex_plain(meta, pack, hit, state: VertexState, u_vertex,
     beta = torch.where(active[:, None], beta * weight, beta)
     ray_o = torch.where(active[:, None], hit.position, ray_o)
     ray_d = torch.where(active[:, None], wi_world, ray_d)
+    stacks = _stacks(usefuls, contribs, targets, n, dev)
     return Vertex(VertexState(L, beta, active, bs.is_specular, pdf_b, ray_o,
                               ray_d),
-                  *_stacks(usefuls, contribs, targets, n, dev))
+                  *stacks, *_bounds(pack, active),
+                  counts=None if counts is None
+                  else _counted(counts, bounce, state.active, stacks[0]))
 
 
 def nee_accumulate_plain(L, useful, occ, contrib):
@@ -342,7 +377,7 @@ def nee_accumulate_plain(L, useful, occ, contrib):
 # --------------------------------------------------------------------------
 
 _INTS = ("n", "bounce", "last", "roulette", "lobes", "mf_mode", "n_tex",
-         "has_images", "n_light_rows", "th", "tw", "s", "n_nee")
+         "has_images", "n_light_rows", "th", "tw", "s", "n_nee", "u_stride")
 _PTRS = ("valid", "pos", "nrm", "wo", "uv", "mat_id", "light_id", "L",
          "beta", "active", "prev_specular", "prev_pdf", "ray_o", "ray_d", "u",
          "mat_kind", "mat_c0", "mat_c1", "mat_s0", "mat_s1", "mat_remap",
@@ -350,7 +385,7 @@ _PTRS = ("valid", "pos", "nrm", "wo", "uv", "mat_id", "light_id", "L",
          "tex_image", "tex_wh", "light_c", "table", "statics", "em", "le_env",
          "L_out", "beta_out",
          "active_out", "spec_out", "pdf_out", "o_out", "d_out", "useful",
-         "contrib", "shadow_to")
+         "contrib", "shadow_to", "ray_eps", "tmin_out", "tmax_out", "counts")
 
 
 class _ShadeArgs(ctypes.Structure):
@@ -408,11 +443,13 @@ _TABLES = {"mat_kind": torch.int32, "mat_c0": torch.float32,
 
 
 def check_vertex_inputs(meta, pack, hit, state: VertexState, u_vertex,
-                        bounce: int, max_depth: int, dev) -> None:
+                        bounce: int, max_depth: int, dev,
+                        counts=None) -> None:
     """Raise unless every tensor shade_vertex_kernel reads (the hit, the
-    state, the vertex's uniforms below max_depth, the pack's material,
-    texture and light tables) is contiguous, of its dtype and shape, on
-    dev, and off the autograd tape."""
+    state, the vertex's uniforms below max_depth, rows of S floats with a
+    stride of their own, the pack's material, texture and light tables and
+    ray_eps, the counters where given) is contiguous, of its dtype and
+    shape, on dev, and off the autograd tape."""
     n = state.L.shape[0]
     f32, b8, i32 = torch.float32, torch.bool, torch.int32
     ins = {"hit.valid": (hit.valid, b8, (n,)),
@@ -427,10 +464,22 @@ def check_vertex_inputs(meta, pack, hit, state: VertexState, u_vertex,
            "prev_pdf": (state.prev_pdf, f32, (n,)),
            "ray_o": (state.ray_o, f32, (n, 3)),
            "ray_d": (state.ray_d, f32, (n, 3))}
-    if bounce < max_depth:
-        ins["u_vertex"] = (u_vertex, f32, (n, 4 + 2 * meta.n_lights))
     for name, (x, dtype, shape) in ins.items():
         _check(name, x, dtype, shape, dev)
+    if bounce < max_depth:
+        s = 4 + 2 * meta.n_lights
+        if u_vertex.dtype != f32 or tuple(u_vertex.shape) != (n, s) \
+                or u_vertex.stride(1) != 1 or u_vertex.device != dev \
+                or (n > 1 and u_vertex.stride(0) < s):
+            raise ValueError(f"u_vertex: expected float32 [{n}, {s}] rows of "
+                             f"contiguous floats on {dev}, got "
+                             f"{u_vertex.dtype} {list(u_vertex.shape)} "
+                             f"strides {u_vertex.stride()} on "
+                             f"{u_vertex.device}")
+        ins["u_vertex"] = (u_vertex, f32, (n, s))
+    _check("pack.ray_eps", pack.ray_eps, f32, (), dev)
+    if counts is not None:
+        _check("counts", counts, torch.int64, (4,), dev)
     for name, dtype in _TABLES.items():
         _table_check(name, getattr(pack, name), dtype, dev)
     no_grad_inputs("shade_vertex", **{k.replace(".", "_"): v[0]
@@ -453,19 +502,21 @@ def check_accumulate_inputs(L, useful, occ, contrib, dev) -> int:
 
 
 def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
-                 max_depth: int, *,
-                 lights: LightTable | None = None) -> Vertex:
+                 max_depth: int, *, lights: LightTable | None = None,
+                 counts=None) -> Vertex:
     """`shade_vertex_plain` with nee=True, mis=False: one launch of
     shade_vertex_kernel on CUDA tensors (lights: the pack's light_table,
-    made here when not given), the plain version on CPU tensors."""
+    made here when not given; counts: None or the wave's [4] int64 ray
+    counters, which the kernel adds to in place and returns), the plain
+    version on CPU tensors."""
     dev = state.L.device
     if dev.type == "cpu":
         return shade_vertex_plain(meta, pack, hit, state, u_vertex, bounce,
-                                  max_depth)
+                                  max_depth, counts=counts)
     if dev.type != "cuda":
         raise ValueError(f"no shade_vertex route for device {dev}")
     check_vertex_inputs(meta, pack, hit, state, u_vertex, bounce, max_depth,
-                        dev)
+                        dev, counts)
     n = state.L.shape[0]
     last = bounce >= max_depth
     s = 4 + 2 * meta.n_lights
@@ -484,6 +535,7 @@ def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
         beta_out, active_out, spec_out, pdf_out, o_out, d_out = (
             state.beta, state.active, state.prev_specular, state.prev_pdf,
             state.ray_o, state.ray_d)
+        tmin = tmax = None
         nj = 0
     else:
         beta_out = torch.empty_like(state.beta)
@@ -492,6 +544,8 @@ def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
         pdf_out = torch.empty_like(state.prev_pdf)
         o_out = torch.empty_like(state.ray_o)
         d_out = torch.empty_like(state.ray_d)
+        tmin = torch.empty((n,), dtype=f32, device=dev)
+        tmax = torch.empty((n,), dtype=f32, device=dev)
         nj = n_nee
     useful = torch.empty((nj, n), dtype=b8, device=dev)
     contrib = torch.empty((nj, n, 3), dtype=f32, device=dev)
@@ -507,7 +561,8 @@ def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
                 n_light_rows=pack.light_c.shape[0],
                 th=pack.tex_image.shape[1] if pack.tex_image.dim() == 4 else 0,
                 tw=pack.tex_image.shape[2] if pack.tex_image.dim() == 4 else 0,
-                s=s, n_nee=nj)
+                s=s, n_nee=nj,
+                u_stride=0 if last else u_vertex.stride(0))
     for k, v in ints.items():
         setattr(a, k, int(v))
     ptrs = dict(valid=hit.valid, pos=hit.position, nrm=hit.normal, wo=hit.wo,
@@ -520,7 +575,8 @@ def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
                 L_out=L_out,
                 beta_out=beta_out, active_out=active_out, spec_out=spec_out,
                 pdf_out=pdf_out, o_out=o_out, d_out=d_out, useful=useful,
-                contrib=contrib, shadow_to=shadow_to,
+                contrib=contrib, shadow_to=shadow_to, ray_eps=pack.ray_eps,
+                tmin_out=tmin, tmax_out=tmax, counts=counts,
                 **{k: getattr(pack, k) for k in _TABLES})
     for k, v in ptrs.items():
         setattr(a, k, None if v is None else v.data_ptr())
@@ -532,7 +588,8 @@ def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
     if err != 0:
         raise RuntimeError(f"shade_vertex launch failed: CUDA error {err}")
     return Vertex(VertexState(L_out, beta_out, active_out, spec_out, pdf_out,
-                              o_out, d_out), useful, contrib, shadow_to)
+                              o_out, d_out), useful, contrib, shadow_to,
+                  tmin, tmax, counts)
 
 
 shade_vertex.launches = 0

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .intersect import KindHit, no_grad_inputs
+from .intersect import KindHit, check_hit_out, no_grad_inputs
 from .launches import register
 from .linalg import fma32
 
@@ -202,7 +202,7 @@ def _check(tables: SweepTables, o, d, tmin, tmax, n_tris):
 
 
 def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
-                    n_tris: int, with_stats: bool = False):
+                    n_tris: int, with_stats: bool = False, out=None):
     """Closest hit (or any hit) of rays o, d [N,3] in (tmin, tmax) [N].
 
     Index = inst * n_tris + triangle row (inst 0 for a soup); an any-hit
@@ -211,14 +211,20 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
     groups tested, the rays past the root test summed over the culled
     instances, the rays that test a group summed over the groups tested
     (the (ray, group) tests), and thread 0's clock64() cycles in the culls
-    and in the scans. CUDA tensors launch the kernel of csrc/sweep_bvh.cu;
-    CPU tensors take `intersect_sweep_plain` (whose counters are not the
-    kernel's: it has no packets, so it returns zeros)."""
+    and in the scans. CUDA tensors launch the kernel of csrc/sweep_bvh.cu,
+    which writes t, index and valid (isfinite(t)); CPU tensors take
+    `intersect_sweep_plain` (whose counters are not the kernel's: it has no
+    packets, so it returns zeros). out: None, or the (t, index, valid) [N]
+    tensors to write (rows of the caller's slabs; the plain version's
+    outputs are copied there)."""
     _check(tables, o, d, tmin, tmax, n_tris)
+    check_hit_out(out, o.shape[0], o.device)
     n_packets = (o.shape[0] + RAYS - 1) // RAYS
     if o.device.type == "cpu":
         hit = intersect_sweep_plain(tables, o, d, tmin, tmax,
                                     any_hit=any_hit, n_tris=n_tris)
+        if out is not None:
+            hit = KindHit(*(y.copy_(x) for x, y in zip(hit, out)))
         if with_stats:
             return hit, torch.zeros((n_packets, 6), dtype=torch.int64)
         return hit
@@ -227,10 +233,15 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
     no_grad_inputs("sweep_bvh", o=o, d=d, tmin=tmin, tmax=tmax)
     stats = (torch.empty((n_packets, 6), dtype=torch.int64, device=o.device)
              if with_stats else None)
-    t, idx = launch(load_kernel(), tables, o, d, tmin, tmax, any_hit=any_hit,
-                    n_tris=n_tris, stats=stats)
+    if out is None:
+        n = o.shape[0]
+        out = (torch.empty((n,), dtype=torch.float32, device=o.device),
+               torch.empty((n,), dtype=torch.int32, device=o.device),
+               torch.empty((n,), dtype=torch.bool, device=o.device))
+    launch(load_kernel(), tables, o, d, tmin, tmax, any_hit=any_hit,
+           n_tris=n_tris, stats=stats, out=out)
     intersect_sweep.launches += 1
-    hit = KindHit(t=t, index=idx, valid=torch.isfinite(t))
+    hit = KindHit(*out)
     return (hit, stats) if with_stats else hit
 
 
@@ -247,14 +258,19 @@ def load_kernel(source: str = "sweep_bvh.cu", name: str = "sweep_bvh"):
 
 
 def launch(lib, tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
-           n_tris: int, stats=None):
+           n_tris: int, stats=None, out=None):
     """One launch of `lib`'s sweep_bvh_launch on the current stream, on
-    arguments `_check` has passed; returns (t, index) and raises when the
-    launch fails. `stats` is None or the counters' [packets, 6] int64
-    output."""
+    arguments `_check` has passed; returns (t, index) (allocated, or out's
+    where out = (t, index, valid) is given, valid being isfinite(t)) and
+    raises when the launch fails. `stats` is None or the counters'
+    [packets, 6] int64 output."""
     n = o.shape[0]
-    t = torch.empty((n,), dtype=torch.float32, device=o.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=o.device)
+    if out is None:
+        t = torch.empty((n,), dtype=torch.float32, device=o.device)
+        idx = torch.empty((n,), dtype=torch.int32, device=o.device)
+        valid = None
+    else:
+        t, idx, valid = out
     with torch.cuda.device(o.device):
         err = lib.sweep_bvh_launch(
             tables.sph.data_ptr(), tables.sph.shape[1], tables.bw.data_ptr(),
@@ -263,7 +279,8 @@ def launch(lib, tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
             tmin.data_ptr(), tmax.data_ptr(), n, int(any_hit),
             t.data_ptr(), idx.data_ptr(),
             None if stats is None else stats.data_ptr(),
-            torch.cuda.current_stream(o.device).cuda_stream)
+            torch.cuda.current_stream(o.device).cuda_stream,
+            None if valid is None else valid.data_ptr())
     if err != 0:
         raise RuntimeError(f"sweep_bvh kernel launch failed: CUDA error {err}")
     return t, idx
@@ -278,7 +295,7 @@ def blocks_per_sm(gp: int) -> int:
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.sweep_bvh_launch.argtypes = [vp, ci, vp, vp, ci, vp, ci, ci, vp, vp,
-                                     vp, vp, ci, ci, vp, vp, vp, vp]
+                                     vp, vp, ci, ci, vp, vp, vp, vp, vp]
     lib.sweep_bvh_launch.restype = ci
 
 

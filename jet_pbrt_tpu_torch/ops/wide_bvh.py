@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .intersect import KindHit, no_grad_inputs
+from .intersect import KindHit, check_hit_out, no_grad_inputs
 from .launches import register
 
 WIDTH = 8
@@ -274,20 +274,27 @@ def _check(tables: WideTables, o, d, tmin, tmax, leaf_size, n_tris):
 
 def intersect_wide(tables: WideTables, o, d, tmin, tmax, *, any_hit: bool,
                    has_inst: bool, leaf_size: int, n_tris: int,
-                   with_stats: bool = False):
+                   with_stats: bool = False, out=None):
     """Closest hit (or any hit) of rays o, d [N,3] in (tmin, tmax) [N].
 
     Index = inst * n_tris + triangle row (inst 0 without instancing); an
     any-hit reports t = 0 when occluded. CUDA tensors launch the kernel of
-    csrc/wide_bvh.cu (a cull pass, then the walk; one launch counted);
-    CPU tensors take `intersect_wide_plain`. with_stats (CUDA only: the
-    counters are the kernel's) also returns them, [1 + walk warps,
-    STATS_COLS] int64 (see STATS_COLS; `stats_summary` adds them up)."""
+    csrc/wide_bvh.cu (a cull pass, then the walk; one launch counted),
+    which writes t, index and valid (isfinite(t)); CPU tensors take
+    `intersect_wide_plain`. out: None, or the (t, index, valid) [N]
+    tensors to write (rows of the caller's slabs; the plain version's
+    outputs are copied there). with_stats (CUDA only: the counters are the
+    kernel's) also returns them, [1 + walk warps, STATS_COLS] int64 (see
+    STATS_COLS; `stats_summary` adds them up)."""
     _check(tables, o, d, tmin, tmax, leaf_size, n_tris)
+    check_hit_out(out, o.shape[0], o.device)
     if o.device.type == "cpu" and not with_stats:
-        return intersect_wide_plain(tables, o, d, tmin, tmax, any_hit=any_hit,
-                                    has_inst=has_inst, leaf_size=leaf_size,
-                                    n_tris=n_tris)
+        hit = intersect_wide_plain(tables, o, d, tmin, tmax, any_hit=any_hit,
+                                   has_inst=has_inst, leaf_size=leaf_size,
+                                   n_tris=n_tris)
+        if out is None:
+            return hit
+        return KindHit(*(y.copy_(x) for x, y in zip(hit, out)))
     if o.device.type != "cuda":
         raise ValueError(f"no wide-BVH kernel for device {o.device}"
                          + (" (with_stats counts the kernel's work)"
@@ -300,11 +307,16 @@ def intersect_wide(tables: WideTables, o, d, tmin, tmax, *, any_hit: bool,
             warps = lib.wide_bvh_walk_warps(int(any_hit), int(has_inst), 1)
         stats = torch.empty((1 + warps, STATS_COLS), dtype=torch.int64,
                             device=o.device)
-    t, idx = launch(lib, tables, o, d, tmin, tmax, any_hit=any_hit,
-                    has_inst=has_inst, leaf_size=leaf_size, n_tris=n_tris,
-                    stats=stats)
+    if out is None:
+        n = o.shape[0]
+        out = (torch.empty((n,), dtype=torch.float32, device=o.device),
+               torch.empty((n,), dtype=torch.int32, device=o.device),
+               torch.empty((n,), dtype=torch.bool, device=o.device))
+    launch(lib, tables, o, d, tmin, tmax, any_hit=any_hit,
+           has_inst=has_inst, leaf_size=leaf_size, n_tris=n_tris,
+           stats=stats, out=out)
     intersect_wide.launches += 1
-    hit = KindHit(t=t, index=idx, valid=torch.isfinite(t))
+    hit = KindHit(*out)
     return (hit, stats) if with_stats else hit
 
 
@@ -322,16 +334,22 @@ def load_kernel(source: str = "wide_bvh.cu", name: str = "wide_bvh"):
 
 
 def launch(lib, tables: WideTables, o, d, tmin, tmax, *, any_hit: bool,
-           has_inst: bool, leaf_size: int, n_tris: int, stats=None):
+           has_inst: bool, leaf_size: int, n_tris: int, stats=None,
+           out=None):
     """One cast through `lib`'s wide_bvh_cast on the current stream, on
-    arguments `_check` has passed: allocates the outputs and, in one
-    tensor, the survivor list and its two counters (the C entry zeroes the
-    counters on the stream; nothing is read back), returns (t, index) and
-    raises when a launch fails. `stats` is None or the counters' output."""
+    arguments `_check` has passed: allocates the outputs (or writes out =
+    (t, index, valid), valid being isfinite(t)) and, in one tensor, the
+    survivor list and its two counters (the C entry zeroes the counters on
+    the stream; nothing is read back), returns (t, index) and raises when
+    a launch fails. `stats` is None or the counters' output."""
     n = o.shape[0]
     dev = o.device
-    t = torch.empty((n,), dtype=torch.float32, device=dev)
-    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    if out is None:
+        t = torch.empty((n,), dtype=torch.float32, device=dev)
+        idx = torch.empty((n,), dtype=torch.int32, device=dev)
+        valid = None
+    else:
+        t, idx, valid = out
     scratch = torch.empty((n + 2,), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.wide_bvh_cast(
@@ -342,7 +360,8 @@ def launch(lib, tables: WideTables, o, d, tmin, tmax, *, any_hit: bool,
             int(has_inst), t.data_ptr(), idx.data_ptr(),
             scratch.data_ptr(), scratch.data_ptr() + 4 * n,
             None if stats is None else stats.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            torch.cuda.current_stream(dev).cuda_stream,
+            None if valid is None else valid.data_ptr())
     if err != 0:
         raise RuntimeError(f"wide_bvh kernel launch failed: CUDA error {err}")
     return t, idx
@@ -357,7 +376,7 @@ def blocks_per_sm() -> int:
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.wide_bvh_cast.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                  ci, ci, ci, vp, vp, vp, vp, vp, vp]
+                                  ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
     lib.wide_bvh_cast.restype = ci
     lib.wide_bvh_walk_warps.argtypes = [ci, ci, ci]
     lib.wide_bvh_walk_warps.restype = ci

@@ -191,16 +191,18 @@ class Hit(NamedTuple):
     light_id: torch.Tensor  # [N] int32, -1 = not an emitter
 
 
-def _sweep(tables, n_tris, o, d, tmin, tmax, any_hit, stats):
-    """One sweep cast; with a stats dict, adds the kernel's per-packet
-    counters to it under sweep_<closest|shadow>_<packets|culls|tests>
-    (packets: those that culled at least one instance)."""
+def _sweep(tables, n_tris, o, d, tmin, tmax, any_hit, stats, out=None):
+    """One sweep cast, written into out where given (ops/sweep_bvh.py's);
+    with a stats dict, adds the kernel's per-packet counters to it under
+    sweep_<closest|shadow>_<packets|culls|tests> (packets: those that
+    culled at least one instance)."""
     if stats is None:
         return sweep_bvh.intersect_sweep(tables, o, d, tmin, tmax,
-                                         any_hit=any_hit, n_tris=n_tris)
+                                         any_hit=any_hit, n_tris=n_tris,
+                                         out=out)
     hit, c = sweep_bvh.intersect_sweep(tables, o, d, tmin, tmax,
                                        any_hit=any_hit, n_tris=n_tris,
-                                       with_stats=True)
+                                       with_stats=True, out=out)
     cls = "shadow" if any_hit else "closest"
     for k, v in (("packets", (c[:, 0] > 0).sum()), ("culls", c[:, 0].sum()),
                  ("tests", c[:, 1].sum())):
@@ -221,6 +223,24 @@ def brute_shapes(meta: SceneMeta, pack: ScenePack) -> isect_ops.BruteShapes:
         else None)
 
 
+def _kind_order(meta: SceneMeta, shapes) -> list:
+    """The kinds of a scene's closest hit in `_kind_hits` order, which is
+    merge_hits' tie order (an earlier kind keeps a tie): brute-force
+    triangles or the soup's BVH first, then the instanced families,
+    spheres, rects, disks. Each entry is (kind id, "brute" field or the
+    BVH mesh: "soup" or the family index)."""
+    out = []
+    if meta.n_tri and (meta.pallas_bvh or meta.wide_bvh):
+        out.append((KIND_TRI, "soup"))
+    elif shapes.tri is not None:
+        out.append((KIND_TRI, "tri"))
+    out += [(KIND_INST + mi, mi) for mi in range(len(meta.n_inst))]
+    out += [(k, f) for f, k in (("sph", KIND_SPHERE), ("rect", KIND_RECT),
+                                ("disk", KIND_DISK))
+            if getattr(shapes, f) is not None]
+    return out
+
+
 def _kind_hits(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
                any_hit: bool = False, stats: dict | None = None):
     """Closest (or any) hit per shape kind present in the scene: (hits,
@@ -228,51 +248,65 @@ def _kind_hits(meta: SceneMeta, pack: ScenePack, o, d, tmin, tmax,
     (meta.pallas_* -> sweep, otherwise the wide kernel); the brute-force
     kinds are one brute_hits call, whose KindHits take their kinds' places
     (brute-force triangles first, then the instanced families, spheres,
-    rects, disks). With any_hit, hits are [N] bool occlusion flags: one per
-    BVH mesh, and one for all brute-force kinds together (kind None)."""
+    rects, disks). With any_hit, hits are [N] bool occlusion flags: one for
+    all brute-force kinds together (kind None), then one per BVH mesh.
+    Every cast writes its rows in place into slabs allocated here, one
+    [K, N] t, index and valid slab (closest) or one [F, N] flag slab (any
+    hit), each row a kind's in this order, so the merge and the hit
+    reconstruction read them without a stack."""
     o, d, tmin, tmax = (x.contiguous() for x in (o, d, tmin, tmax))
-    hits, kinds = [], []
+    n = o.shape[0]
+    dev = o.device
     shapes = brute_shapes(meta, pack)
-    brute = {}
-    if shapes.present:
-        got = brute_ops.brute_hits(o, d, tmin, tmax, shapes, any_hit)
-        if any_hit:
-            hits.append(got)
-            kinds.append(None)
-        else:
-            brute = dict(zip(shapes.present, got))
-    if meta.n_tri and meta.pallas_bvh:
-        hits.append(_sweep(pack.bvh_sweep, meta.n_bvh_tris, o, d, tmin,
-                           tmax, any_hit, stats))
-        kinds.append(KIND_TRI)
-    elif meta.n_tri and meta.wide_bvh:
-        hits.append(wide_bvh.intersect_wide(
-            pack.bvh_wide, o, d, tmin, tmax, any_hit=any_hit,
-            has_inst=False, leaf_size=meta.bvh_leaf_size,
-            n_tris=meta.n_bvh_tris))
-        kinds.append(KIND_TRI)
-    elif "tri" in brute:
-        hits.append(brute["tri"])
-        kinds.append(KIND_TRI)
-    for mi in range(len(meta.n_inst)):
-        if meta.pallas_blas[mi]:
-            hits.append(_sweep(pack.inst_sweep[mi], meta.n_blas_tris[mi], o, d,
-                               tmin, tmax, any_hit, stats))
-        else:
-            hits.append(wide_bvh.intersect_wide(
-                pack.inst_wide[mi], o, d, tmin, tmax, any_hit=any_hit,
-                has_inst=True, leaf_size=meta.blas_leaf_size[mi],
-                n_tris=meta.n_blas_tris[mi]))
-        kinds.append(KIND_INST + mi)
-    for f, k in (("sph", KIND_SPHERE), ("rect", KIND_RECT),
-                 ("disk", KIND_DISK)):
-        if f in brute:
-            hits.append(brute[f])
-            kinds.append(k)
+    order = _kind_order(meta, shapes)
+    meshes = [m for _, m in order if not isinstance(m, str) or m == "soup"]
+
+    def bvh_cast(mesh, out):
+        if mesh == "soup" and meta.pallas_bvh:
+            return _sweep(pack.bvh_sweep, meta.n_bvh_tris, o, d, tmin, tmax,
+                          any_hit, stats, out)
+        if mesh == "soup":
+            return wide_bvh.intersect_wide(
+                pack.bvh_wide, o, d, tmin, tmax, any_hit=any_hit,
+                has_inst=False, leaf_size=meta.bvh_leaf_size,
+                n_tris=meta.n_bvh_tris, out=out)
+        if meta.pallas_blas[mesh]:
+            return _sweep(pack.inst_sweep[mesh], meta.n_blas_tris[mesh], o,
+                          d, tmin, tmax, any_hit, stats, out)
+        return wide_bvh.intersect_wide(
+            pack.inst_wide[mesh], o, d, tmin, tmax, any_hit=any_hit,
+            has_inst=True, leaf_size=meta.blas_leaf_size[mesh],
+            n_tris=meta.n_blas_tris[mesh], out=out)
+
     if any_hit:
-        hits = [h.valid if isinstance(h, isect_ops.KindHit) else h
-                for h in hits]
-    return hits, kinds
+        brute = bool(shapes.present)
+        flags = torch.empty((brute + len(meshes), n), dtype=torch.bool,
+                            device=dev)
+        if brute:
+            brute_ops.brute_hits(o, d, tmin, tmax, shapes, True, out=flags[0])
+        if meshes:
+            # the BVH casts' t and index, which no caller reads
+            scratch = (torch.empty((n,), dtype=torch.float32, device=dev),
+                       torch.empty((n,), dtype=torch.int32, device=dev))
+        for j, mesh in enumerate(meshes):
+            bvh_cast(mesh, (*scratch, flags[brute + j]))
+        return (list(flags.unbind(0)),
+                [None] * brute + [KIND_TRI if m == "soup" else KIND_INST + m
+                                  for m in meshes])
+    k = len(order)
+    slabs = (torch.empty((k, n), dtype=torch.float32, device=dev),
+             torch.empty((k, n), dtype=torch.int32, device=dev),
+             torch.empty((k, n), dtype=torch.bool, device=dev))
+    if shapes.present:
+        rows = [next(j for j, (_, m) in enumerate(order) if m == f)
+                for f in shapes.present]
+        brute_ops.brute_hits(o, d, tmin, tmax, shapes, False, out=slabs,
+                             rows=rows)
+    for j, (_, m) in enumerate(order):
+        if not isinstance(m, str) or m == "soup":
+            bvh_cast(m, tuple(x[j] for x in slabs))
+    return ([isect_ops.KindHit(*(x[j] for x in slabs)) for j in range(k)],
+            [kind for kind, _ in order])
 
 
 def _rows(table, index):
@@ -442,7 +476,8 @@ def hit_reconstruct_plain(meta: SceneMeta, pack: ScenePack, o, d, hits,
 
 def occluded(meta: SceneMeta, pack: ScenePack, p_from, p_to,
              mask=None, sort: bool | None = None,
-             stats: dict | None = None, roots=None) -> torch.Tensor:
+             stats: dict | None = None, roots=None,
+             out=None) -> torch.Tensor:
     """Visibility between two point batches over the ray range
     [eps, dist - eps] (reference: src/scene.h:36-52); lanes with
     mask=False trace nothing and report unoccluded.
@@ -455,7 +490,9 @@ def occluded(meta: SceneMeta, pack: ScenePack, p_from, p_to,
     (`shadow_segments`), the casts, and the flags' OR scattered back to
     their lanes (`occlusion_merge`). stats: optional dict that collects the
     sweep kernel's counters. roots: the key's `rays_ops.root_table`, made
-    here where None."""
+    here where None. out: None, or the [N] bool tensor the result is
+    written into (a row of li_path's [J, N] slab of a vertex's shadow
+    casts)."""
     if sort is None:
         sort = meta.kernel_routed
     p_from, p_to = p_from.contiguous(), p_to.contiguous()
@@ -471,9 +508,11 @@ def occluded(meta: SceneMeta, pack: ScenePack, p_from, p_to,
     flags, _ = _kind_hits(meta, pack, o, d, tmin, tmax, any_hit=True,
                           stats=stats)
     if not flags:
+        if out is not None:
+            return out.zero_()
         return torch.zeros(p_from.shape[:1], dtype=torch.bool,
                            device=p_from.device)
-    return rays_ops.occlusion_merge(flags, perm)
+    return rays_ops.occlusion_merge(flags, perm, out=out)
 
 
 def emitted(pack: ScenePack, hit: Hit) -> torch.Tensor:

@@ -211,8 +211,19 @@ def _declare_wide(lib):
 
 
 def wide_call(lib, tables, o, d, tmin, tmax, *, any_hit, has_inst,
-              leaf_size, n_tris, stats=None):
-    """One cast through lib on the current stream -> KindHit."""
+              leaf_size, n_tris, stats=None, out=None):
+    """One cast through lib on the current stream -> KindHit, copied into
+    out = (t, index, valid) where the caller hands its slab rows."""
+    hit = _wide_call(lib, tables, o, d, tmin, tmax, any_hit=any_hit,
+                     has_inst=has_inst, leaf_size=leaf_size, n_tris=n_tris,
+                     stats=stats)
+    if out is None:
+        return hit
+    return KindHit(*(y.copy_(x) for x, y in zip(hit, out)))
+
+
+def _wide_call(lib, tables, o, d, tmin, tmax, *, any_hit, has_inst,
+               leaf_size, n_tris, stats=None):
     entry = _entry(lib)
     if entry == "wide_bvh_cast":
         t, idx = wide_bvh.launch(lib, tables, o, d, tmin, tmax,

@@ -220,19 +220,22 @@ def test_profiled_ms_each_names_what_every_call_launches(monkeypatch):
 
 def test_node_launches_count_the_fused_vertex():
     """A graph's kernel nodes by device function, as launch_counts names
-    them: the fused vertex's two kernels, the brute-force casts' and
-    ops/rays.py's four beside the traversal and the streams."""
+    them: the fused vertex's two kernels, the brute-force casts',
+    ops/rays.py's four and ops/wave.py's three beside the traversal and
+    the streams."""
     from jet_pbrt_tpu_torch.ops.launches import REGISTRY
     nodes = dict.fromkeys(REGISTRY, 0) | {
         "wide_walk_kernel": 16, "lane_keys_kernel": 1, "uniforms_kernel": 6,
         "shade_vertex_kernel": 6, "nee_accumulate_kernel": 5,
         "brute_hits_kernel": 16, "shadow_key_kernel": 7,
         "shadow_segments_kernel": 10, "occlusion_merge_kernel": 10,
-        "hit_reconstruct_kernel": 6}
+        "hit_reconstruct_kernel": 6, "camera_rays_kernel": 1,
+        "permute_state_kernel": 3, "unsort_guard_kernel": 1}
     assert chip_smoke.node_launches(nodes) == {
         "wide_bvh": 16, "sweep_bvh": 0, "threefry": 7, "shade_vertex": 6,
         "nee_accumulate": 5, "brute_hits": 16, "shadow_key": 7,
-        "shadow_segments": 10, "occlusion_merge": 10, "hit_reconstruct": 6}
+        "shadow_segments": 10, "occlusion_merge": 10, "hit_reconstruct": 6,
+        "camera_rays": 1, "permute_state": 3, "unsort_guard": 1}
     assert set(chip_smoke.launch_counts()) == set(chip_smoke.TRACED_KERNELS)
 
 
@@ -325,7 +328,72 @@ def test_replay_labels_follow_the_eager_waves_order():
     labels = ["other", "li_path.intersect", "li_path.vertex",
               "li_path.occluded"]
     replay = ["Memcpy DtoD", "Memcpy DtoD", "fill", "walk", "shade", "walk"]
-    assert chip_smoke.replay_labels(eager, labels, replay) == [
+    from jet_pbrt_tpu_torch.scripts import wave_nodes
+    assert wave_nodes.replay_labels(eager, labels, replay) == [
         "graph inputs", "graph inputs", "other", "li_path.intersect",
         "li_path.vertex", "li_path.occluded"]
-    assert chip_smoke.replay_labels(eager, labels, replay[:-1]) is None
+    assert wave_nodes.replay_labels(eager, labels, replay[:-1]) is None
+
+
+@pytest.mark.parametrize("which", ["cornell", "bunny"])
+@pytest.mark.parametrize("fused", [True, False])
+def test_expected_launches_count_the_wave_kernels(which, fused):
+    """Per wave one camera_rays on every path; on the fused route one
+    unsort_guard and, where the sorts default on (a kernel-routed scene),
+    one permute_state per sort between bounces (bounces 0-2 below depth);
+    none of the two on a path that differentiates. Per rank of the sharded
+    bunny frame the same for each local sample."""
+    from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves
+    from jet_pbrt_tpu_torch.scene import scenes
+    meta = {"cornell": lambda: scenes.cornell_box(),
+            "bunny": lambda: scenes.bunny_scene()}[which]().meta
+    waves = n_waves(512, 512, 16, DEFAULT_CHUNK)
+    got = chip_smoke.expected_launches(meta, 512, 16, 5, fused=fused)
+    sorts = 3 if meta.kernel_routed else 0
+    assert {k: got[k] for k in chip_smoke.WAVE} == {
+        "camera_rays": waves, "permute_state": waves * sorts if fused else 0,
+        "unsort_guard": waves if fused else 0}
+    assert chip_smoke.wave_launches(meta, 1, 2, fused)["permute_state"] == (
+        (2 if meta.kernel_routed else 0) if fused else 0)
+    local = chip_smoke.SHARD_SPP // 2
+    shard = chip_smoke.sharded_launches((2, 2), 2, fused=fused)
+    assert {k: shard[k] for k in chip_smoke.WAVE} == {
+        "camera_rays": local,
+        "permute_state": local * min(3, chip_smoke.SHARD_DEPTH) if fused
+        else 0, "unsort_guard": local if fused else 0}
+
+
+def test_wave_nodes_classes_and_ranges():
+    """scripts/wave_nodes.py: an operation's class by its profiler name
+    (the port's kernels by their registered device functions and the wide
+    kernel's cull pass, CUB's radix-sort passes, memsets, copies, the
+    rest); an eager operation's range by its start (li_path's ranges, the
+    wave span's camera/init before them, end after them and between
+    between them, render()'s frame outside the wave); and the counts and
+    ms by range and class."""
+    from jet_pbrt_tpu_torch.scripts import wave_nodes as WN
+    names = {
+        "(anonymous namespace)::camera_rays_kernel(CameraArgs)":
+            "port kernel",
+        "void wide_cull_kernel<false>(float4 const*)": "port kernel",
+        "void cub::CUB_200700_900_NS::DeviceRadixSortOnesweepKernel<int>()":
+            "argsort",
+        "Memset (Device)": "memset", "Memcpy DtoD (Device -> Device)": "copy",
+        "void at::native::vectorized_elementwise_kernel<4, FillFunctor>()":
+            "other"}
+    assert {n: WN.node_class(n) for n in names} == names
+    spans = [("render.wave", 10, 100), ("li_path.intersect", 20, 30),
+             ("li_path.sort", 40, 50)]
+    starts = [5, 12, 25, 35, 45, 60, 120]
+    assert WN.op_labels(starts, spans) == [
+        "frame", "camera/init", "li_path.intersect", "between",
+        "li_path.sort", "end", "frame"]
+    assert WN.op_labels([1, 2], spans[1:])[0] == "frame"
+    nodes, ms, other = WN.by_class(list(names), [1.0] * 6, [
+        "camera/init", "li_path.intersect", "li_path.sort", "li_path.sort",
+        "graph inputs", "end"])
+    assert nodes["li_path.sort"] == {"port kernel": 0, "argsort": 1,
+                                     "memset": 1, "copy": 0, "other": 0}
+    assert ms["camera/init"]["port kernel"] == 1.0
+    assert other == {"end: void at::native::vectorized_elementwise_kernel"
+                     "<4, FillFunctor>()": 1}

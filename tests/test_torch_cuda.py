@@ -69,6 +69,16 @@ the graphed wave's kernel nodes and frame against the eager ones; an
 input that requires grad, or one the kernels cannot take, refused;
 render_fn's gradient running its forward, and none of its backward,
 through them.
+The wave's glue (ops/wave.py, csrc/wave.cu): the camera, the state permute
+and the un-sort against their plain versions on every call of a wave of
+the every-kind scene on both routes, the scene of 46 lights and the
+Cornell box, and on chip_smoke's edge sets (one lane, ragged counts, pixel
+ids past 2^24, every sampler's jitter, NaN and inf colours, dead lanes,
+the identity, reversed and seeded perms, the keys' and the debug sampler's
+streams), bit for bit; the frames through them against their plain
+versions' and the plain glue's; the graphed wave's kernel nodes and frame
+against the eager ones; an input that requires grad refused; render_fn's
+gradient running the camera, and nothing else of them, in its forward.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import contextlib
@@ -1484,3 +1494,164 @@ def test_gradient_forward_runs_the_rays_kernels_on_card():
     torch.autograd.grad(loss, list(leaves.values()))
     torch.cuda.synchronize()
     assert _rays_counts() == before
+
+
+# the wave's glue (ops/wave.py, csrc/wave.cu)
+
+def _wave_counts() -> dict:
+    from jet_pbrt_tpu_torch.ops import wave as TWV
+    return {k: getattr(TWV, k).launches for k in (
+        "camera_rays", "permute_state", "unsort_guard")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wide", "sweep", "many-lights", "cornell"])
+def test_wave_kernels_match_plain_on_card(which):
+    """Every camera_rays, permute_state and unsort_guard call of a 64^2,
+    1-spp, depth-5 wave against its plain version on the recorded inputs,
+    every row bit for bit, as many calls of each as chip_smoke
+    .wave_launches counts (chip_smoke.wave_phase)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    scene = _rays_scene(which)
+    out = chip_smoke.wave_phase(((which, scene, 64),), torch.device("cuda"),
+                                "card")
+    want = chip_smoke.wave_launches(scene.meta, 1, 5)
+    assert out[which]["calls"] == {k: v for k, v in want.items() if v}
+    assert out[which]["differing"] == 0
+
+
+@pytest.mark.cuda
+def test_wave_kernels_edge_sets_on_card():
+    """chip_smoke.wave_edges at 1, 300 and 4,097 lanes, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    out = chip_smoke.wave_edges(_rays_scene("cornell"), torch.device("cuda"),
+                                sizes=(1, 300, 4097))
+    assert all(v["differing"] == 0 for v in out.values()) and len(out) == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["cornell", "wide", "sweep"])
+def test_wave_route_frame_equals_plain_on_card(which):
+    """A 32^2, 3-spp frame through the glue kernels equals the frame with
+    their plain versions and with the plain glue, image and stats bit for
+    bit, and the debug and stratified samplers' frames likewise; the
+    kernels launched as wave_launches counts."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, \
+        render
+    scene = _rays_scene(which)
+    before = _wave_counts()
+    render(scene, 32, 32, spp=3, seed=2, max_depth=5, device="cuda",
+           graph=False)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _wave_counts().items()} == \
+        chip_smoke.wave_launches(scene.meta, n_waves(32, 32, 3,
+                                                     DEFAULT_CHUNK), 5)
+    chip_smoke.wave_frames(((which, scene, 32, 3, {}),
+                            (which, scene, 16, 2, {"sampler": "debug"}),
+                            (which, scene, 16, 4,
+                             {"sampler": "stratified"})),
+                           torch.device("cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wide", "cornell"])
+def test_graphed_wave_replays_the_wave_kernels_on_card(which):
+    """The captured wave's graph holds the kernel nodes wave_launches
+    counts for one wave, a replayed frame counts them, and its image and
+    stats (the counters the vertices add to) equal the eager frame's bit
+    for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, \
+        render
+    scene = _rays_scene(which)
+    kw = dict(spp=2, seed=4, max_depth=5, clamp=False, device="cuda",
+              with_stats=True)
+    G.clear()
+    render(scene, 32, 32, graph=True, **kw)
+    (entry,) = G.CACHE.entries.values()
+    one = chip_smoke.wave_launches(scene.meta, 1, 5)
+    assert {k: entry.launches[f"{k}_kernel"] for k in one} == one
+    runs = {}
+    for graph in (True, False):
+        before = _wave_counts()
+        img, st = render(scene, 32, 32, graph=graph, **kw)
+        torch.cuda.synchronize()
+        runs[graph] = (img, st, {k: v - before[k]
+                                 for k, v in _wave_counts().items()})
+    (gi, gs, gl), (ei, es, el) = runs[True], runs[False]
+    assert torch.equal(gi, ei) and gs == es and gs["rays"] > 0
+    assert gl == el == chip_smoke.wave_launches(
+        scene.meta, n_waves(32, 32, 2, DEFAULT_CHUNK), 5)
+    G.clear()
+
+
+@pytest.mark.cuda
+def test_wave_kernels_refuse_on_card():
+    """A CUDA float input that requires grad, or one the kernels cannot
+    take, is refused and launches nothing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    from jet_pbrt_tpu_torch.models import camera as TC
+    from jet_pbrt_tpu_torch.ops import wave as TWV
+    dev = torch.device("cuda")
+    state, u = chip_smoke.wave_edge_state(100, 1, dev, True)
+    perm = torch.randperm(100, device=dev)
+    scene = _rays_scene("cornell")
+    cam = TC.make_camera(scene.camera.lookfrom, scene.camera.front,
+                         scene.camera.vup, scene.camera.vfov, (10, 10),
+                         device=dev)
+    before = _wave_counts()
+    with pytest.raises(ValueError, match="require grad"):
+        TWV.permute_state(state._replace(L=state.L.requires_grad_()), u,
+                          perm)
+    with pytest.raises(ValueError, match="require grad"):
+        TWV.unsort_guard(state.L.detach().requires_grad_(), perm)
+    with pytest.raises(ValueError, match="require grad"):
+        TWV.camera_rays(cam, perm, 10,
+                        torch.full((100, 2), 0.5, device=dev,
+                                   requires_grad=True), scene.pack.ray_eps)
+    with pytest.raises(ValueError, match="torch.int64"):
+        TWV.permute_state(state._replace(L=state.L.detach()), u, perm.int())
+    with pytest.raises(ValueError, match="not contiguous"):
+        TWV.unsort_guard(state.L.detach().t().contiguous().t(), perm)
+    assert _wave_counts() == before
+
+
+@pytest.mark.cuda
+def test_gradient_forward_runs_the_camera_kernel_on_card():
+    """render_fn's gradient on the Cornell box: its forward makes the
+    camera rays through the kernel (one launch a sample) and keeps the
+    torch glue between the casts (its L and beta require grad: no permute,
+    no un-sort kernel); its backward launches none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.diff import params as P
+    from jet_pbrt_tpu_torch.models.render import render_fn
+    from jet_pbrt_tpu_torch.scene.scenes import cornell_box
+    fn, pack = render_fn(cornell_box(), 16, 16, 2, seed=1, max_depth=3,
+                         device="cuda")
+    with torch.no_grad():
+        target = fn(pack._replace(light_c=pack.light_c * 1.2))
+    f = P.loss_fn(fn, pack, target)
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in P.get_params(pack, ("mat_c0", "light_c")).items()}
+    before = _wave_counts()
+    loss = f(leaves)
+    torch.cuda.synchronize()
+    assert {k: v - before[k] for k, v in _wave_counts().items()} == {
+        "camera_rays": 2, "permute_state": 0, "unsort_guard": 0}
+    before = _wave_counts()
+    torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    assert _wave_counts() == before

@@ -34,6 +34,7 @@ from jet_pbrt_tpu_torch.models import render as R
 from jet_pbrt_tpu_torch.ops import brute as TB
 from jet_pbrt_tpu_torch.ops import launches as L
 from jet_pbrt_tpu_torch.ops import rays as TRAY
+from jet_pbrt_tpu_torch.ops import wave as TWAVE
 from jet_pbrt_tpu_torch.ops import rng as TR
 from jet_pbrt_tpu_torch.ops import shade as TSH
 from jet_pbrt_tpu_torch.ops import sweep_bvh as TS
@@ -270,7 +271,10 @@ def test_every_kernel_wrapper_is_registered():
         "shadow_key_kernel": (TRAY.__name__, "shadow_key"),
         "shadow_segments_kernel": (TRAY.__name__, "shadow_segments"),
         "occlusion_merge_kernel": (TRAY.__name__, "occlusion_merge"),
-        "hit_reconstruct_kernel": (TRAY.__name__, "hit_reconstruct")}
+        "hit_reconstruct_kernel": (TRAY.__name__, "hit_reconstruct"),
+        "camera_rays_kernel": (TWAVE.__name__, "camera_rays"),
+        "permute_state_kernel": (TWAVE.__name__, "permute_state"),
+        "unsort_guard_kernel": (TWAVE.__name__, "unsort_guard")}
     assert all(isinstance(v, int) for v in L.counts().values())
 
 
@@ -351,6 +355,9 @@ NODE_NAMES = [
     "_ZN12_GLOBAL__N_122shadow_segments_kernelE7SegArgs",
     "_ZN12_GLOBAL__N_122occlusion_merge_kernelE9MergeArgs",
     "_ZN12_GLOBAL__N_122hit_reconstruct_kernelE7HitArgs",
+    "_ZN12_GLOBAL__N_118camera_rays_kernelE10CameraArgs",
+    "_ZN12_GLOBAL__N_120permute_state_kernelE11PermuteArgs",
+    "_ZN12_GLOBAL__N_119unsort_guard_kernelE10UnsortArgs",
 ]
 
 
@@ -361,7 +368,8 @@ def test_graph_kernel_nodes_counted_by_device_function():
         "shade_vertex_kernel": 1, "nee_accumulate_kernel": 1,
         "brute_hits_kernel": 2, "shadow_key_kernel": 2,
         "shadow_segments_kernel": 1, "occlusion_merge_kernel": 1,
-        "hit_reconstruct_kernel": 1}
+        "hit_reconstruct_kernel": 1, "camera_rays_kernel": 1,
+        "permute_state_kernel": 1, "unsort_guard_kernel": 1}
     assert not L.is_function("wide_walk_kernel_tail", "wide_walk_kernel")
     assert not L.is_function("x16wide_walk_kernel", "wide_walk_kernel")
 
