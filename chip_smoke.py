@@ -5,8 +5,9 @@ Phases, each printing its result; any failure raises and exits non-zero:
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: one nvcc per kernel library of jet_pbrt_tpu_torch/csrc, all
      started together (wide_bvh, sweep_bvh, sweep_prims, prim_micro,
-     threefry, shade, brute, rays, wave, and shade.cu's operation-counting
-     variant, COUNT_LIBRARY), with ptxas registers and spills;
+     threefry, shade, brute, rays, wave, shade_grad, and shade.cu's
+     operation-counting variant, COUNT_LIBRARY), with ptxas registers and
+     spills;
   2b. the random streams' Threefry kernel (csrc/threefry.cu) against its
      plain version, bit for bit, at 2^20 lanes: the key words of
      lane_keys, and the [2^20, S] uniforms of vertex_uniforms and
@@ -101,6 +102,25 @@ Phases, each printing its result; any failure raises and exits non-zero:
      frames and the bunny's debug- and stratified-sampler frames against
      the plain versions' (plain_wave) and the plain glue's (plain_glue),
      image and stats bit for bit;
+  2g. the gradient's kernels (ops/shade.py, csrc/shade_grad.cu:
+     vertex_backward and grad_reduce; csrc/wave.cu: permute_state_backward
+     and unsort_guard_backward): the forward of one differentiated 1-spp
+     wave of the five 2c scenes, the 16-family scene and the textured
+     floor (image and checker), every appearance field on the tape
+     (grad_wave_calls: as many vertex, permute and un-sort calls as
+     grad_launches counts), each call's backward on the kernels against
+     its plain version for seeded upstream gradients (check_grad_calls:
+     d loss / d beta per lane within rtol 1e-5 or explained by a float64
+     recomputation of the lane, each field within 1e-4 of its largest
+     |gradient| (where the whole wave's plain backward is NaN, over the
+     lanes where own_branch_plain's is a number, the others printed with
+     the kernel's finite values), the permute's and un-sort's bit for bit,
+     grad_reduce bit for bit); edge sets (grad_edges) at 1, 1,000 and 2^20
+     + 1 lanes; the bunny's timed at 2^20 lanes (time_grads: events, host
+     enqueue, the profiler's device time warm and after an L2 flush, the
+     plain version, the bytes bound against the forward vertex's float
+     operations, and the PyTorch yardsticks torch.sum and index_add_ for the
+     reduction, index_copy_ for the permute's backward);
   3. wide kernel vs its plain PyTorch version on the default bunny's
      tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
      half bounce) and a targeted incoherent set, closest hit and any hit
@@ -168,20 +188,25 @@ Phases, each printing its result; any failure raises and exits non-zero:
      of 4 samples and resumed, equal bit for bit to the uninterrupted one;
  11. the differentiable path (diff_phase): render_fn on the default bunny
      at 1024^2, 1 spp, depth 5, equal to render(clamp=False) bit for bit,
-     16 wide, 16 brute_hits and 7 Threefry launches forward and none
-     backward, forward and
+     the fused wave's launches forward (expected_launches: 16 wide, 16
+     brute_hits, 7 Threefry, 6 shade_vertex, 5 nee_accumulate, the rays'
+     and the glue's) and exactly the backward kernels' backward
+     (grad_launches: 6 vertex_backward, 6 grad_reduce, 3
+     permute_state_backward, 1 unsort_guard_backward), forward and
      backward times, their ratio and the tape's peak memory, the profiled
-     backward and four backwards in turns with the gathers by index_select
-     and by table[index]; check_grads on the emission (depth 5) and the red
-     bunny's albedo (depth 2); the graphed value_and_grad
-     (compile_value_and_grad, one CUDA graph of forward and backward): its
-     kernel nodes one forward's launches, its loss bit for bit with eager's
-     and its gradient within the spread of the eager ones (bit for bit
-     under deterministic algorithms), wall in turns, device time and busy
+     backward with every device operation listed, and forward, backward
+     and peak memory in turns with the plain route (plain_grad), each
+     plain gradient within 1e-4 of the kernels'; check_grads on the
+     emission (depth 5) and the red bunny's albedo (depth 2); the graphed
+     value_and_grad (compile_value_and_grad, one CUDA graph of forward and
+     backward): its kernel nodes one forward's and one backward's
+     launches, its loss and gradient bit for bit with eager's (under
+     deterministic algorithms too), wall in turns, device time and busy
      share, capture seconds and pool bytes; fits graphed and eager in
      turns, ms per step with the capture step apart, bit for bit under
      deterministic algorithms; texel and checker-colour gradients against
-     finite differences (texture_grads); one {"diff": ...} JSON line.
+     finite differences with their launches exact (texture_grads); one
+     {"diff": ...} JSON line.
  12. sharded render and train (sharded_phase, parallel/): (a) a world of
      one rank over NCCL (multihost.initialize), mesh (1, 1): render_sharded
      of the default bunny at 1024^2, 4 spp, depth 5 equal to render_fn's
@@ -190,8 +215,9 @@ Phases, each printing its result; any failure raises and exits non-zero:
      build_train_step at (1, 1), 1 spp, graphed (its partial film and that
      film's backward replayed from two CUDA graphs of one pool) and eager
      in turns, ms per step with the capture step apart: the partial film's
-     16 + 7 launches and none in its backward, the forward graph's kernel
-     nodes the same and the backward graph's none, the first losses equal
+     forward launches (sharded_launches) and its backward's (sharded_grad:
+     the backward kernels), the graphs' kernel nodes the same, the first
+     losses equal
      bit for bit and each route's loss falling; under deterministic
      algorithms the graphed step's loss and gradient equal the eager
      step's bit for bit, and the gradient lies within rtol 1e-6 of
@@ -238,18 +264,19 @@ Phases, each printing its result; any failure raises and exits non-zero:
      and the profiled replayed 1-spp wave in turns with the plain glue
      (glue_turns); whether `import triton` works; one {"graph": ...}
      JSON line.
-Phases 4, 7, 12 (the forward) and 13 count each frame's shade_vertex and
-nee_accumulate launches beside the others (expected_launches,
-sharded_launches); phases 11 and 12's gradients run the plain vertex and
-count none. Every cast of a scene with a brute-force shape launches one
+Phases 4, 7, 11, 12 and 13 count each frame's or gradient forward's
+shade_vertex and nee_accumulate launches beside the others
+(expected_launches, sharded_launches), and phases 11 and 12 their
+backwards' kernels (grad_launches, sharded_grad). Every cast of a scene with a brute-force shape launches one
 brute_hits, on every path, the gradients' forwards included (none in a
 backward); so do ops/rays.py's kernels (rays_launches): one
 hit_reconstruct per closest cast, one shadow_segments and one
 occlusion_merge per shadow cast, and in a kernel-routed scene one
 shadow_key per sorted shadow cast and per sort between bounces; and
 ops/wave.py's (wave_launches): one camera_rays a wave on every path, and
-on the fused vertex's route one permute_state per sort between bounces
-and one unsort_guard a wave. Phase 13's module_split adds turns with
+on the fused vertex's route (gradients in the appearance fields
+included) one permute_state per sort between bounces and one
+unsort_guard a wave. Phase 13's module_split adds turns with
 their plain versions (plain_rays) and with the plain glue (plain_glue).
 Phases 4, 5, 7, 10, 11 and 12 run render() (and the sharded forward) on
 graphed waves: graph=True, or the default once a graph=True frame has
@@ -273,6 +300,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import dataclasses
 import datetime
 import functools
 import gc
@@ -300,6 +328,7 @@ from jet_pbrt_tpu_torch.models import integrators
 from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, render, \
     render_fn, setup, wave_fn
 from jet_pbrt_tpu_torch.ops import brute as brute_ops
+from jet_pbrt_tpu_torch.ops import bsdf as bsdf_ops
 from jet_pbrt_tpu_torch.ops import intersect as isect_ops
 from jet_pbrt_tpu_torch.ops import launches as launch_registry
 from jet_pbrt_tpu_torch.ops import linalg, rng, sweep_bvh, wide_bvh
@@ -336,7 +365,7 @@ LIBRARIES = (("wide_bvh", ["wide_bvh.cu"]), ("sweep_bvh", ["sweep_bvh.cu"]),
              ("prim_micro", ["prim_micro.cu"]),
              ("threefry", ["threefry.cu"]), ("shade", ["shade.cu"]),
              ("brute", ["brute.cu"]), ("rays", ["rays.cu"]),
-             ("wave", ["wave.cu"]))
+             ("wave", ["wave.cu"]), ("shade_grad", ["shade_grad.cu"]))
 # the fused vertex built to count its float operations per lane (the
 # bound's operations on the timed call's own inputs; its flag is in
 # cuda_build.FLAGS); built beside the rest
@@ -645,15 +674,20 @@ def launch_counts() -> dict:
             "nee_accumulate": shade_ops.nee_accumulate.launches,
             "brute_hits": brute_ops.brute_hits.launches,
             **{name: getattr(rays_ops, name).launches for name in RAYS},
-            **{name: getattr(wave_ops, name).launches for name in WAVE}}
+            **{name: getattr(wave_ops, name).launches for name in WAVE},
+            **{name: getattr(shade_ops, name).launches
+               for name in GRAD_SHADE},
+            **{name: getattr(wave_ops, name).launches for name in GRAD_WAVE}}
 
 
 def reset_launches():
     brute_ops.brute_hits.launches = 0
     for name in RAYS:
         getattr(rays_ops, name).launches = 0
-    for name in WAVE:
+    for name in WAVE + GRAD_WAVE:
         getattr(wave_ops, name).launches = 0
+    for name in GRAD_SHADE:
+        getattr(shade_ops, name).launches = 0
     wide_bvh.intersect_wide.launches = 0
     sweep_bvh.intersect_sweep.launches = 0
     shade_ops.shade_vertex.launches = 0
@@ -2731,6 +2765,589 @@ def wave_phase(cases, dev, smi: str, time_case: str | None = None) -> dict:
 
 
 # --------------------------------------------------------------------------
+# 2g. the gradient's kernels
+# --------------------------------------------------------------------------
+
+# ops/shade.py's and ops/wave.py's backward wrappers, each counting its
+# csrc/shade_grad.cu or csrc/wave.cu kernel's launches
+GRAD_SHADE = ("vertex_backward", "grad_reduce")
+GRAD_WAVE = ("permute_state_backward", "unsort_guard_backward")
+GRAD = GRAD_SHADE + GRAD_WAVE
+GRAD_SOURCE = {"vertex_backward": "jet_pbrt_tpu_torch/csrc/shade_grad.cu",
+               "grad_reduce": "jet_pbrt_tpu_torch/csrc/shade_grad.cu",
+               "permute_state_backward": "jet_pbrt_tpu_torch/csrc/wave.cu",
+               "unsort_guard_backward": "jet_pbrt_tpu_torch/csrc/wave.cu"}
+GRAD_REPLACES = {
+    "vertex_backward": "jet_pbrt_tpu/models/integrators.py:108 (the "
+                       "transpose of li_path's vertex, :108-237, under "
+                       "jax.jit(jax.value_and_grad(loss)), "
+                       "diff/params.py:55: XLA fusion, no custom_vjp and no "
+                       "Pallas kernel)",
+    "grad_reduce": "jet_pbrt_tpu/models/integrators.py:108 (the parameter "
+                   "gradients' sum over the lanes in that transpose: XLA's "
+                   "reduction, no Pallas kernel)",
+    "permute_state_backward": "jet_pbrt_tpu/models/integrators.py:272 (the "
+                              "transpose of the state's gather between "
+                              "bounces under jax.value_and_grad: XLA, no "
+                              "Pallas kernel)",
+    "unsort_guard_backward": "jet_pbrt_tpu/models/integrators.py:291 (the "
+                             "transpose of the un-sort and the guard under "
+                             "jax.value_and_grad: XLA, no Pallas kernel)"}
+# the backward against its plain version (autograd through the plain
+# vertex): a lane's d loss / d beta within GRAD_LANE_RTOL of the plain one,
+# or no farther from a float64 recomputation of the lane than the plain
+# one is (the two sum the same terms in other orders, and take f's
+# derivatives by other float operations than autograd's); each field's
+# gradient within GRAD_FIELD_TOL of that field's largest |gradient|
+GRAD_LANE_RTOL = 1e-5
+GRAD_FIELD_TOL = 1e-4
+# the fields the phase's waves differentiate
+GRAD_WAVE_FIELDS = ("mat_c0", "mat_c1", "mat_s0", "mat_s1", "light_c")
+
+
+def grad_launches(meta, waves: int, depth: int) -> dict:
+    """The backward kernels' launches in the backward of `waves`
+    differentiated waves on the kernel route at max_depth `depth`: per
+    wave one vertex_backward and one grad_reduce per vertex (depth + 1),
+    one permute_state_backward per sort between bounces (bounces 0 to 2
+    below depth, in a kernel-routed scene) and one unsort_guard_backward
+    (the forward's launches are expected_launches')."""
+    sorts = min(3, depth) if meta.kernel_routed else 0
+    return {"vertex_backward": waves * (depth + 1),
+            "grad_reduce": waves * (depth + 1),
+            "permute_state_backward": waves * sorts,
+            "unsort_guard_backward": waves}
+
+
+def detached_pack(pack):
+    return pack._replace(**{f: getattr(pack, f).detach()
+                            for f in shade_ops.GRAD_FIELDS})
+
+
+@contextlib.contextmanager
+def grad_calls(out: list):
+    """While open, each shade_ops.vertex call appends ("vertex", (meta,
+    pack, hit, state, u_vertex, bounce, max_depth, lights, occ)), each
+    wave_ops.permute ("permute", perm) and each wave_ops.unsort ("unsort",
+    (L, lane)), every tensor off the tape."""
+    vertex, permute, unsort = shade_ops.vertex, wave_ops.permute, \
+        wave_ops.unsort
+
+    def rec_vertex(meta, pack, hit, state, u_vertex, bounce, max_depth, *,
+                   lights=None, counts=None, occlude=None):
+        v, occ = vertex(meta, pack, hit, state, u_vertex, bounce, max_depth,
+                        lights=lights, counts=counts, occlude=occlude)
+        out.append(("vertex", (
+            meta, detached_pack(pack), hit,
+            shade_ops.VertexState(*(x.detach() for x in state)), u_vertex,
+            bounce, max_depth,
+            lights if lights is None
+            else lights._replace(le_env=lights.le_env.detach()), occ)))
+        return v, occ
+
+    def rec_permute(state, u, perm):
+        out.append(("permute", perm))
+        return permute(state, u, perm)
+
+    def rec_unsort(L, lane=None):
+        out.append(("unsort", (L.detach(), lane)))
+        return unsort(L, lane)
+
+    shade_ops.vertex, wave_ops.permute, wave_ops.unsort = \
+        rec_vertex, rec_permute, rec_unsort
+    try:
+        yield out
+    finally:
+        shade_ops.vertex, wave_ops.permute, wave_ops.unsort = \
+            vertex, permute, unsort
+
+
+def grad_wave_calls(label: str, scene, res: int, dev) -> list:
+    """The forward of one differentiated 1-spp wave (render_fn at res^2,
+    depth VERTEX_DEPTH, GRAD_WAVE_FIELDS of the pack on the tape, and
+    tex_image, tex_c0 and tex_c1 where the scene has textures), its
+    vertex, permute and un-sort calls recorded: as many as grad_launches
+    counts their backwards."""
+    fields = GRAD_WAVE_FIELDS + (("tex_image", "tex_c0", "tex_c1")
+                                 if scene.meta.n_tex else ())
+    fn, pack = render_fn(scene, res, res, 1, seed=1, max_depth=VERTEX_DEPTH,
+                         device=dev)
+    leaves = {f: getattr(pack, f).detach().clone().requires_grad_(True)
+              for f in fields}
+    calls = []
+    with grad_calls(calls):
+        img = fn(dparams.with_params(pack, leaves))
+    del img
+    got = collections.Counter(name for name, _ in calls)
+    want = grad_launches(scene.meta, n_waves(res, res, 1, DEFAULT_CHUNK),
+                         VERTEX_DEPTH)
+    if got != collections.Counter({"vertex": want["vertex_backward"],
+                                   "permute": want["permute_state_backward"],
+                                   "unsort": want["unsort_guard_backward"]}):
+        raise AssertionError(f"{label}: one differentiated wave made the "
+                             f"calls {dict(got)}, expected {want}")
+    return calls
+
+
+def kernel_state(state):
+    """The rows of a vertex's state its backward kernel reads (on the CPU,
+    where the plain backward stands in for it, all of them)."""
+    if state.L.device.type == "cpu":
+        return state
+    return state._replace(L=None, prev_pdf=None, ray_o=None, ray_d=None)
+
+
+def seeded_grads(n: int, seed: int, dev, last: bool):
+    """d loss / d L and d loss / d beta [n,3] for a vertex's backward,
+    seeded (gbeta None on the last bounce, whose beta is no output)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gL = torch.randn((n, 3), generator=g, device=dev)
+    gbeta = None if last else torch.randn((n, 3), generator=g, device=dev)
+    return gL, gbeta
+
+
+def lanes_of(rec, idx):
+    """A recorded vertex call with its per-lane inputs taken at lanes idx."""
+    meta, pack, hit, state, u, bounce, depth, lights, occ = rec
+    take = lambda x: None if x is None else x[idx].contiguous()
+    return (meta, pack, type(hit)(*(take(x) for x in hit)),
+            shade_ops.VertexState(*(take(x) for x in state)), take(u), bounce,
+            depth, lights, None if occ is None else occ[:, idx].contiguous())
+
+
+def f64_lanes(rec, idx, gL, gbeta):
+    """The plain backward's d loss / d beta of the lanes idx recomputed in
+    float64 (every float input of those lanes and the pack's float tables
+    widened; the sums then round far below float32's steps), and the same
+    for |gL| and |gbeta|: every term of d loss / d beta is an upstream
+    gradient times factors that are not negative (f, Li, |cos| / pdf, the
+    roulette's scale, le), so that is the sum of the terms' magnitudes,
+    which bounds a float32 sum's rounding in any order."""
+    meta, pack, hit, state, u, bounce, depth, lights, occ = lanes_of(rec, idx)
+    wide = lambda x: x.double() if x is not None and x.is_floating_point() \
+        else x
+    pack64 = pack._replace(**{f: wide(x) for f, x in zip(pack._fields, pack)
+                              if torch.is_tensor(x)})
+    run = lambda gl, gb: shade_ops.vertex_backward_plain(
+        meta, pack64, type(hit)(*(wide(x) for x in hit)),
+        shade_ops.VertexState(*(wide(x) for x in state)), wide(u), bounce,
+        depth, occ, gl, gb,
+        None if lights is None else lights.le_env.double())[1]
+    gl, gb = gL[idx].double(), None if gbeta is None else gbeta[idx].double()
+    return run(gl, gb), run(gl.abs(), None if gb is None else gb.abs())
+
+
+def defined_plain(rec, gL, gbeta, idx, meta=None):
+    """The plain backward's field gradients over the lanes idx where it is
+    a number: where a lane's are NaN the lanes are halved until the NaN
+    ones stand alone. Returns ({field: gradient} summed over the lanes
+    kept, the lanes left out)."""
+    sub = lanes_of(rec, idx)
+    _, _, g, _ = shade_ops.vertex_backward_plain(
+        meta or sub[0], *sub[1:7], sub[8], gL[idx],
+        None if gbeta is None else gbeta[idx],
+        None if rec[7] is None else rec[7].le_env)
+    if not any(bool(torch.isnan(v).any()) for v in g.values()):
+        return g, idx[:0]
+    if idx.numel() == 1:
+        return {f: torch.zeros_like(v) for f, v in g.items()}, idx
+    half = idx.numel() // 2
+    (a, na), (b, nb) = (defined_plain(rec, gL, gbeta, part, meta)
+                        for part in (idx[:half], idx[half:]))
+    return {f: a[f] + b[f] for f in a}, torch.cat([na, nb])
+
+
+def own_branch_plain(rec, gL, gbeta):
+    """The plain backward's field gradients with each lane computing only
+    its own lobe, as the kernel does, over the live lanes where it is a
+    number: the live lanes grouped by their lobe kind and microfacet
+    distribution, each group's plain backward run on its lanes alone with
+    the scene's present lobes and distributions cut to its own
+    (defined_plain), summed over the groups. Returns (the fields, the live
+    lanes kept, the lanes left out). Where the whole wave's plain
+    backward computes every present lobe on every lane, where()'s zero
+    gradient times an infinite slope of a lobe a lane does not take gives
+    NaN (the every-kind scene's glass eta and metal roughness); within a
+    lane's own lobe, reverse mode's zero gradient into a sqrt of 0 whose
+    every use is masked (a direction along the normal, _trig's sin_theta)
+    gives 0 / 0: those lanes are left out, and the kernel's forward-mode
+    tangents, which a masked use does not reach, are held finite there."""
+    meta, pack, hit, state, u, bounce, depth, lights, occ = rec
+    mat_kind, c0, c1, s0, s1, remap, tex, mf_kind = \
+        scene_pack.gather_material(pack, hit.mat_id)
+    c0 = scene_pack.effective_kd(meta, pack, hit, c0, tex)
+    lobe = bsdf_ops.make_lobe(mat_kind, c0, c1, s0, s1, remap,
+                              rng.stream_lobe(u), mf_kind=mf_kind)
+    live = state.active & hit.valid
+    key = lobe.kind.long() * 2 + lobe.mf_kind.long()
+    total = {f: torch.zeros_like(getattr(pack, f))
+             for f in shade_ops.GRAD_FIELDS}
+    kept, out = [], []
+    for k in key[live].unique().tolist():
+        idx = (live & (key == k)).nonzero().flatten()
+        m = dataclasses.replace(meta, present_lobes=(k // 2,),
+                                present_mf_kinds=(k % 2,))
+        g, nan = defined_plain(rec, gL, gbeta, idx, m)
+        for f in total:
+            total[f] = total[f] + g[f]
+        kept.append(idx[~torch.isin(idx, nan)])
+        out.append(nan)
+    return total, torch.cat(kept), torch.cat(out)
+
+
+def check_vertex_grad(label: str, rec, seed: int) -> dict:
+    """One recorded vertex's backward on the kernels (shade.vertex_grads:
+    vertex_backward, grad_reduce) against its plain version
+    (vertex_backward_plain, autograd through the plain vertex) for seeded
+    upstream gradients: d loss / d L equal bit for bit (it passes through);
+    d loss / d beta per lane within GRAD_LANE_RTOL, a lane further off
+    explained by the float64 recomputation of the lane: kernel and plain
+    sum the same float32 terms in other orders, so each lies within (J +
+    6) unit roundoffs of the terms' magnitudes (J NEE lights; the
+    recomputation with |gL| and |gbeta| gives those magnitudes' sum) of
+    the exact sum, and the two within twice that of each other; the
+    explained lanes printed with the float64 value; each field's
+    gradient and the environment radiance's within GRAD_FIELD_TOL of its
+    largest |gradient|; where the whole wave's plain backward is NaN, the
+    fields are held over the live lanes where own_branch_plain's is a
+    number, kernel against it, the lanes left out printed with the
+    kernel's finite gradient there. Returns the
+    lanes, the lanes outside rtol, the largest field error relative to its
+    scale, the largest |difference| of d loss / d beta and the fields held
+    against the lanes' own lobes."""
+    meta, pack, hit, state, u, bounce, depth, lights, occ = rec
+    n = state.L.shape[0]
+    gL, gbeta = seeded_grads(n, seed, state.L.device, bounce >= depth)
+    slim = kernel_state(state)
+    gl, gb, gk, ge = shade_ops.vertex_grads(
+        meta, pack, hit, slim, u, bounce, depth, lights, occ, gL, gbeta)
+    pl, pb, gp, pe = shade_ops.vertex_backward_plain(
+        meta, pack, hit, state, u, bounce, depth, occ, gL, gbeta,
+        None if lights is None else lights.le_env)
+    torch.cuda.synchronize()
+    if not torch.equal(gl, pl):
+        raise AssertionError(f"{label} bounce {bounce}: d loss / d L differs "
+                             "from the plain backward's")
+    both_nan = torch.isnan(gb) & torch.isnan(pb)
+    off = ~(((gb - pb).abs() <= GRAD_LANE_RTOL * pb.abs()) | both_nan)
+    lanes = off.any(dim=1).nonzero().flatten()
+    explained = 0
+    if lanes.numel():
+        g64, mag = f64_lanes(rec, lanes, gL, gbeta)
+        k, p = gb[lanes].double(), pb[lanes].double()
+        terms = (0 if occ is None else occ.shape[0]) + 6
+        # both sum the same float32 terms, each within terms * U32 * mag of
+        # their exact sum: together twice that apart
+        ok = ((k - p).abs() <= 2 * terms * U32 * mag).all(dim=1)
+        shown = list(range(min(4, lanes.numel()))) + [
+            j for j in (~ok).nonzero().flatten()[:4].tolist() if j >= 4]
+        for j in shown:
+            print(f"{label} bounce {bounce} lane {int(lanes[j])}: d loss / d "
+                  f"beta kernel {k[j].tolist()}, plain {p[j].tolist()}, "
+                  f"float64 {g64[j].tolist()}, their bound apart "
+                  f"{(2 * terms * U32 * mag[j]).tolist()} "
+                  f"({'explained' if ok[j] else 'NOT explained'})",
+                  flush=True)
+        if not bool(ok.all()):
+            raise AssertionError(f"{label} bounce {bounce}: "
+                                 f"{int((~ok).sum())} lanes of d loss / d "
+                                 "beta differ from the plain backward beyond "
+                                 "the float64 recomputation")
+        explained = lanes.numel()
+    worst, nan_fields = 0.0, []
+    if any(bool(torch.isnan(gp[f]).any()) for f in shade_ops.GRAD_FIELDS):
+        # the plain backward is NaN somewhere: the fields are held over the
+        # live lanes where each lane's own lobe's plain backward is a number
+        own, kept, dropped = own_branch_plain(rec, gL, gbeta)
+        nan_fields = [f for f in shade_ops.GRAD_FIELDS
+                      if bool(torch.isnan(gp[f]).any())]
+        sub = lanes_of(rec, kept)
+        _, _, gk, _ = shade_ops.vertex_grads(
+            *sub[:3], kernel_state(sub[3]), *sub[4:7], lights, sub[8],
+            gL[kept], None if gbeta is None else gbeta[kept])
+        gp, pe = own, None
+        shown = {}
+        if dropped.numel():
+            sub = lanes_of(rec, dropped)
+            _, _, gd, _ = shade_ops.vertex_grads(
+                *sub[:3], kernel_state(sub[3]), *sub[4:7], lights, sub[8],
+                gL[dropped], None if gbeta is None else gbeta[dropped])
+            if not all(bool(torch.isfinite(v).all()) for v in gd.values()):
+                raise AssertionError(f"{label} bounce {bounce}: the kernel's "
+                                     "gradient is not finite on the lanes "
+                                     "the plain backward makes NaN")
+            shown = {f: gd[f].flatten()[:8].tolist() for f in nan_fields}
+        print(f"{label} bounce {bounce}: the plain backward's "
+              f"{nan_fields} are NaN; held on the {kept.numel()} live lanes "
+              f"where each lane's own lobe's plain backward is a number; "
+              f"{dropped.numel()} lanes left out "
+              f"{dropped[:8].tolist()}, where the kernel's is finite: "
+              f"{shown}", flush=True)
+    for f in (*shade_ops.GRAD_FIELDS, "le_env"):
+        if f == "le_env" and pe is None:
+            continue
+        a, b = (ge, pe) if f == "le_env" else (gk[f], gp[f])
+        scale = float(b.abs().max()) if b.numel() else 0.0
+        err = float((a - b).abs().max()) if b.numel() else 0.0
+        if not (err <= GRAD_FIELD_TOL * scale or err == 0.0) \
+                or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{label} bounce {bounce}: d loss / d {f} "
+                                 f"differs from the plain backward's by "
+                                 f"{err} (largest |gradient| {scale}): "
+                                 f"kernel {a.flatten()[:12].tolist()}, plain "
+                                 f"{b.flatten()[:12].tolist()}")
+        worst = max(worst, err / scale if scale else 0.0)
+    fin = torch.isfinite(gb) & torch.isfinite(pb)
+    return {"lanes": n, "explained": explained, "field_rel": worst,
+            "max_abs_err": float((gb - pb)[fin].abs().max())
+            if fin.any() else 0.0, "nan_fields": nan_fields}
+
+
+def check_glue_grad(label: str, name: str, args, seed: int) -> int:
+    """One recorded permute (args: perm) or un-sort (args: (L, lane)):
+    its backward kernel against the plain version for seeded upstream
+    gradients, bit for bit (NaN equal to NaN). Returns the lanes."""
+    if name == "permute":
+        perm = args
+        n = perm.shape[0]
+        g = torch.Generator(device=perm.device).manual_seed(seed)
+        gL, gbeta = (torch.randn((n, 3), generator=g, device=perm.device)
+                     for _ in range(2))
+        got = wave_ops.permute_state_backward(perm, gL, gbeta)
+        want = wave_ops.permute_state_backward_plain(perm, gL, gbeta)
+    else:
+        L, lane = args
+        n = L.shape[0]
+        g = torch.Generator(device=L.device).manual_seed(seed)
+        gL = torch.randn((n, 3), generator=g, device=L.device)
+        got = (wave_ops.unsort_guard_backward(L, lane, gL),)
+        want = (wave_ops.unsort_guard_backward_plain(L, lane, gL),)
+    for x, y in zip(got, want):
+        bad = int(differing_lanes(x, y, 0).sum())
+        if bad:
+            raise AssertionError(f"{label} {name} backward: {bad} lanes "
+                                 "differ from the plain version")
+    return n
+
+
+def check_reduce(label: str, rec, seed: int) -> None:
+    """The recorded vertex's partial sums (vertex_backward) summed by
+    grad_reduce and by its plain version, bit for bit."""
+    meta, pack, hit, state, u, bounce, depth, lights, occ = rec
+    if state.L.device.type != "cuda":
+        return      # a rehearsal on the CPU: there is no kernel
+    gL, gbeta = seeded_grads(state.L.shape[0], seed, state.L.device,
+                             bounce >= depth)
+    slim = kernel_state(state)
+    _, partials, _, _ = shade_ops.vertex_backward(
+        meta, pack, hit, slim, u, bounce, depth, lights, occ, gL, gbeta)
+    got = shade_ops.grad_reduce(partials)
+    if not torch.equal(got, shade_ops.grad_reduce_plain(partials)):
+        raise AssertionError(f"{label}: grad_reduce differs from its plain "
+                             "version")
+
+
+def check_grad_calls(label: str, calls: list) -> dict:
+    """Each recorded call's backward held against its plain version
+    (check_vertex_grad, check_glue_grad; the first vertex's reduction also
+    against grad_reduce_plain). Returns the counts and errors."""
+    out = {"calls": collections.Counter(), "lanes": 0, "explained": 0,
+           "field_rel": 0.0, "max_abs_err": 0.0, "nan_fields": []}
+    for i, (name, args) in enumerate(calls):
+        if name == "vertex":
+            got = check_vertex_grad(label, args, 100 + i)
+            out["lanes"] += got["lanes"]
+            out["explained"] += got["explained"]
+            out["field_rel"] = max(out["field_rel"], got["field_rel"])
+            out["max_abs_err"] = max(out["max_abs_err"], got["max_abs_err"])
+            out["nan_fields"] += [f"bounce {args[5]} {f}"
+                                  for f in got["nan_fields"]]
+            if out["calls"]["vertex"] == 0:
+                check_reduce(label, args, 100 + i)
+        else:
+            out["lanes"] += check_glue_grad(label, name, args, 100 + i)
+        out["calls"][name] += 1
+    out["calls"] = dict(out["calls"])
+    print(f"{label}: backward calls {out['calls']}, {out['lanes']} lanes, "
+          f"d loss / d beta outside rtol {GRAD_LANE_RTOL} on "
+          f"{out['explained']} lanes, each explained by float64; fields "
+          f"within {out['field_rel']:.2e} of their largest |gradient| "
+          f"(gate {GRAD_FIELD_TOL})", flush=True)
+    return out
+
+
+def grad_bytes(name: str, args) -> int:
+    """Bytes one backward call must move: each input read once, each
+    output written once (vertex_backward: the hit, beta, active,
+    prev_specular, uniforms, shadow flags, gL and gbeta in, gbeta and its
+    blocks' partial sums out; grad_reduce: the partials in, the vector out;
+    the permute's perm and two gradients in, two out; the un-sort's L,
+    lane and gradient in, one out)."""
+    nb = lambda *xs: sum(x.numel() * x.element_size() for x in xs
+                         if x is not None)
+    if name == "vertex_backward":
+        rec, gL, gbeta, partials = args
+        meta, pack, hit, state, u, bounce, depth, lights, occ = rec
+        return (nb(hit.valid, hit.position, hit.normal, hit.wo, hit.mat_id,
+                   hit.light_id, state.beta, state.active,
+                   state.prev_specular, u, occ, gL, gbeta, gL, partials)
+                + (nb(hit.uv) if meta.n_tex else 0))
+    if name == "grad_reduce":
+        (partials,) = args
+        return nb(partials) + partials.shape[1] * 4
+    if name == "permute_state_backward":
+        perm, gL, gbeta = args
+        return nb(perm, gL, gbeta) * 1 + nb(gL, gbeta)
+    L, lane, g = args
+    return nb(L, lane, g, g)
+
+
+def time_grads(label: str, calls: list, smi: str, reps: int = 20) -> dict:
+    """The backward kernels at the wave's 2^20 lanes, on the first bounce
+    below max_depth's vertex (and its partial sums), the first permute and
+    the un-sort, with seeded upstream gradients: each kernel by events,
+    host enqueue and the profiler's device time (warm, and after an L2
+    flush each), its plain version by events, beside the PyTorch calls
+    that compute the same function as yardsticks (grad_reduce: index_add_
+    of one [N, 8] row of parameter gradients a lane into the material
+    rows, what the reduction by rows from the lanes costs in one call, the
+    kernels line's library_ms; and torch.sum(partials, 0), its second pass
+    alone; the permute's backward: index_copy_ of the two gradients packed
+    as [N, 6]), and its bound: bytes (grad_bytes) at
+    HBM_BW against, for vertex_backward, the forward vertex's float
+    operations on the same inputs (counted_ops; the backward recomputes
+    every one of them) at F32_PEAK."""
+    rec = next(a for n_, a in calls if n_ == "vertex" and a[5] == 1)
+    perm = next(a for n_, a in calls if n_ == "permute")
+    L, lane = next(a for n_, a in calls if n_ == "unsort")
+    meta, pack, hit, state, u, bounce, depth, lights, occ = rec
+    n = state.L.shape[0]
+    dev = state.L.device
+    gL, gbeta = seeded_grads(n, 7, dev, False)
+    slim = kernel_state(state)
+    partials = shade_ops.vertex_backward(meta, pack, hit, slim, u, bounce,
+                                         depth, lights, occ, gL, gbeta)[1]
+    fwd_ops, _ = counted_ops(lambda: shade_ops.shade_vertex(
+        meta, pack, hit, state, u, bounce, depth, lights=lights), n, dev)
+    mat = hit.mat_id.long()
+    rows8 = torch.randn((n, 8), device=dev)
+    table8 = torch.zeros((pack.mat_c0.shape[0], 8), device=dev)
+    packed = torch.cat([gL, gbeta], dim=1)
+    into = torch.empty_like(packed)
+    flush = torch.empty((L2_FLUSH_BYTES // 4,), dtype=torch.int32, device=dev)
+    cases = {
+        "vertex_backward": (
+            lambda: shade_ops.vertex_backward(meta, pack, hit, slim, u,
+                                              bounce, depth, lights, occ, gL,
+                                              gbeta),
+            lambda: shade_ops.vertex_backward_plain(
+                meta, pack, hit, state, u, bounce, depth, occ, gL, gbeta,
+                lights.le_env),
+            (rec, gL, gbeta, partials), fwd_ops, {}),
+        "grad_reduce": (
+            lambda: shade_ops.grad_reduce(partials),
+            lambda: shade_ops.grad_reduce_plain(partials), (partials,), 0,
+            {"index_add_ [N, 8] by material": lambda: table8.index_add_(
+                0, mat, rows8),
+             "torch.sum": lambda: torch.sum(partials, 0)}),
+        "permute_state_backward": (
+            lambda: wave_ops.permute_state_backward(perm, gL, gbeta),
+            lambda: wave_ops.permute_state_backward_plain(perm, gL, gbeta),
+            (perm, gL, gbeta), 0,
+            {"index_copy_ [N, 6]": lambda: into.index_copy_(0, perm,
+                                                             packed)}),
+        "unsort_guard_backward": (
+            lambda: wave_ops.unsort_guard_backward(L, lane, gL),
+            lambda: wave_ops.unsort_guard_backward_plain(L, lane, gL),
+            (L, lane, gL), 0, {})}
+    out = {}
+    for name, (k, p, args, flops, lib) in cases.items():
+        kernel = f"{name}_kernel"
+        nbytes = grad_bytes(name, args)
+        b = bound(nbytes, flops)
+        ms, _ = time_ms(k, reps)
+        _, host, host_max, _, _ = time_enqueue_ms(k, reps)
+        (src, dev_ms), = profiled_ms(k, reps, (kernel,)).items()
+        cold = lambda k=k: (flush.fill_(0), k())
+        (_, cold_ms), = profiled_ms(cold, reps, (kernel,)).items()
+        plain_ms, _ = time_ms(p, 3)
+        libs = {}
+        for lname, fn in lib.items():
+            (_, lib_dev), = profiled_ms(fn, reps, ("",)).items()
+            libs[lname] = {"ms": time_ms(fn, reps)[0], "device_ms": lib_dev}
+        out[name] = {"ms": ms, "enqueue_ms": host, "device_ms": dev_ms,
+                     "device_cold_ms": cold_ms,
+                     "device_source": "profiler" if src == kernel else src,
+                     "plain_ms": plain_ms, "bound_ms": b[0],
+                     "bound_by": b[1], "bytes": nbytes, "flops": flops,
+                     "lanes": n, "library_ms": libs}
+        print(f"{label} {name} ({n} lanes, bounce {bounce}): kernel "
+              f"{ms:.4f} ms by events, host enqueue {host:.4f} ms (largest "
+              f"{host_max:.4f}), device {dev_ms:.4f} ms "
+              f"({out[name]['device_source']}), {cold_ms:.4f} ms after an "
+              f"L2 flush each; plain {plain_ms:.3f} ms; bound {b[0]:.4f} ms "
+              f"by {b[1]} ({nbytes} bytes, {flops} float operations), device "
+              f"time {dev_ms / b[0]:.2f}x it"
+              + "".join(f"; library {k_} {v['ms']:.4f} ms by events, "
+                        f"{v['device_ms']:.4f} ms device"
+                        for k_, v in libs.items()) + f" [{smi}]", flush=True)
+    return out
+
+
+def grad_edges(cases, dev, sizes=(1, 1000, (1 << 20) + 1)) -> dict:
+    """The backward kernels against their plain versions at each of sizes
+    lanes: each case's (label, recorded calls) first bounce-1 and last
+    vertices with their lanes cut or repeated to the size (the bunny's
+    alone past 2^20); the permute's backward by the identity, a reversal
+    and a seeded perm, and the un-sort's by those perms as lanes and
+    without a sort, on wave_edge_state's colours with NaN and inf lanes.
+    Returns {label: counts}."""
+    out = {}
+    for n in sizes:
+        calls = []
+        for label, recorded in cases:
+            if n > (1 << 20) and label != "bunny":
+                continue
+            for rec in (next(a for k, a in recorded
+                             if k == "vertex" and a[5] == 1),
+                        next(a for k, a in recorded
+                             if k == "vertex" and a[5] == a[6])):
+                m = rec[3].L.shape[0]
+                idx = torch.arange(n, device=dev) % m
+                calls.append(("vertex", lanes_of(rec, idx)))
+        g = torch.Generator(device=dev).manual_seed(n)
+        perms = (torch.arange(n, device=dev),
+                 torch.arange(n - 1, -1, -1, device=dev),
+                 torch.randperm(n, generator=g, device=dev))
+        state, _ = wave_edge_state(n, 60 + n, dev, True)
+        for perm in perms:
+            calls.append(("permute", perm))
+        for lane in (None, *perms):
+            calls.append(("unsort", (state.L, lane)))
+        out[f"edges {n}"] = check_grad_calls(f"gradient edge sets, {n} lanes",
+                                             calls)
+    return out
+
+
+def grad_phase(cases, dev, smi: str, time_case: str | None = None) -> dict:
+    """For each (label, scene, res) of cases the forward of one
+    differentiated 1-spp wave, its vertex, permute and un-sort calls
+    recorded (grad_wave_calls) and each call's backward held against its
+    plain version (check_grad_calls); the case labelled time_case timed
+    (time_grads); then the edge sets (grad_edges). Returns {label: counts}
+    and "times"."""
+    out, recorded = {}, []
+    for label, scene, res in cases:
+        calls = grad_wave_calls(label, scene, res, dev)
+        out[label] = check_grad_calls(f"{label} {res}^2 gradient wave", calls)
+        if label == time_case:
+            out["times"] = time_grads(label, calls, smi)
+        recorded.append((label, calls))
+    out.update(grad_edges(recorded, dev))
+    return out
+
+
+# --------------------------------------------------------------------------
 # 3, 6. kernel vs plain
 # --------------------------------------------------------------------------
 
@@ -3338,16 +3955,20 @@ def _device_us(e):
 
 def expected_launches(meta, res: int, spp: int, depth: int,
                        fused: bool = True) -> dict:
-    """Each kernel's launches in render()'s res^2 frame: per wave, (depth +
-    1) closest and depth x lights shadow casts of each BVH mesh on its
-    route, and its lane keys, the camera's jitter and one set of uniforms
-    per vertex below max_depth, one Threefry launch each; on the fused
-    vertex's route (ops/shade.py::kernel_route; fused=False for a path
-    that differentiates) one shade_vertex per vertex (depth + 1, the last
-    the emission alone) and one nee_accumulate per vertex below
-    max_depth; one brute_hits per cast where the scene has a brute-force
-    shape (scene_pack.brute_shapes); and on every path (rays_launches,
-    wave_launches) ops/rays.py's and ops/wave.py's kernels."""
+    """Each kernel's launches in render()'s res^2 frame (or a gradient's
+    forward of it): per wave, (depth + 1) closest and depth x lights
+    shadow casts of each BVH mesh on its route, and its lane keys, the
+    camera's jitter and one set of uniforms per vertex below max_depth,
+    one Threefry launch each; on the fused vertex's route
+    (ops/shade.py::kernel_route, gradients in the appearance fields
+    included; fused=False for the plain route: MIS, no NEE, a gradient in
+    another field, plain_grad) one shade_vertex per vertex (depth + 1, the
+    last the emission alone) and one nee_accumulate per vertex below
+    max_depth;
+    one brute_hits per cast where the scene has a brute-force shape
+    (scene_pack.brute_shapes); on every path (rays_launches,
+    wave_launches) ops/rays.py's and ops/wave.py's kernels; and no
+    backward kernel (grad_launches counts a backward's)."""
     lights = sum(1 for lt in meta.lights if not lt.static_black)
     waves = n_waves(res, res, spp, DEFAULT_CHUNK)
     casts = waves * ((depth + 1) + depth * lights)
@@ -3361,13 +3982,14 @@ def expected_launches(meta, res: int, spp: int, depth: int,
             "nee_accumulate": waves * depth if fused else 0,
             "brute_hits": casts if brute else 0,
             **rays_launches(meta, waves, depth),
-            **wave_launches(meta, waves, depth, fused)}
+            **wave_launches(meta, waves, depth, fused),
+            **dict.fromkeys(GRAD, 0)}
 
 
 def wave_launches(meta, waves: int, depth: int, fused: bool = True) -> dict:
     """ops/wave.py's launches in `waves` waves of the path integrator at
     max_depth `depth`: one camera_rays a wave on every path, and on the
-    fused vertex's route (fused=False for a path that differentiates) one
+    fused vertex's route (fused=False for the plain route) one
     permute_state per sort between bounces (bounces 0 to 2 below depth,
     where the sorts default on: a kernel-routed scene) and one
     unsort_guard a wave."""
@@ -3401,7 +4023,8 @@ TRACED_KERNELS = {"wide_bvh": ("wide_walk_kernel",),
                   "shade_vertex": ("shade_vertex_kernel",),
                   "nee_accumulate": ("nee_accumulate_kernel",),
                   "brute_hits": ("brute_hits_kernel",),
-                  **{name: (f"{name}_kernel",) for name in RAYS + WAVE}}
+                  **{name: (f"{name}_kernel",)
+                     for name in RAYS + WAVE + GRAD}}
 
 
 def traced_launches(prof) -> dict:
@@ -3958,45 +4581,86 @@ def fwd_bwd(fn, pack, fields, loss):
 
 
 @contextlib.contextmanager
-def indexed_gathers():
-    """While open, linalg.gather_rows gathers by table[index], whose
-    backward sorts the indices and adds each row's lanes in turn (the
-    port's gathers before they went through index_select): a measurement
-    of this script only; the port never takes it."""
-    inner = linalg.gather_rows
-    linalg.gather_rows = lambda table, index: table[index]
+def plain_calls(out: list):
+    """While open, each call of shade_vertex_plain or nee_accumulate_plain
+    appends its name to `out` (the kernel route on the card calls
+    neither)."""
+    saved = {name: getattr(shade_ops, name) for name in (
+        "shade_vertex_plain", "nee_accumulate_plain")}
+    for name, inner in saved.items():
+        def call(*a, _inner=inner, _name=name, **kw):
+            out.append(_name)
+            return _inner(*a, **kw)
+        setattr(shade_ops, name, call)
+    try:
+        yield out
+    finally:
+        for name, inner in saved.items():
+            setattr(shade_ops, name, inner)
+
+
+@contextlib.contextmanager
+def plain_grad():
+    """While open, a pack with a field on the tape takes li_path's plain
+    route (integrators._li_path_plain: the plain vertex and the torch glue,
+    differentiated by autograd op by op, the gradient's route before the
+    backward kernels): shade.kernel_route refuses any gradient. A
+    measurement of this script only; the port never takes it."""
+    inner = shade_ops.kernel_route
+
+    def route(meta, pack, *tensors, nee, mis):
+        return inner(meta, pack, *tensors, nee=nee, mis=mis) and not any(
+            x.requires_grad for _, x in shade_ops._pack_tensors(pack))
+
+    shade_ops.kernel_route = route
     try:
         yield
     finally:
-        linalg.gather_rows = inner
+        shade_ops.kernel_route = inner
 
 
 def profile_backward(fn, pack, fields, loss, label):
     """Where one backward of loss(fn(pack)) over the fields spends its
-    time, by the profiler (the forward runs before it starts): wall,
-    device kernel time, busy share and the device operations with the
-    most device time."""
+    time, by the profiler: two tapes made first (their forwards outside
+    the trace), a warm-up backward of the first (the profiler loses a
+    trace's first launches), then the measured backward of the second in
+    a range of its own: its wall, and every device operation that starts
+    after the range does, by name with its device time and count (device
+    kernel time, busy share)."""
     from torch.profiler import ProfilerActivity, profile
-    leaves = {k: v.detach().clone().requires_grad_(True)
-              for k, v in dparams.get_params(pack, fields).items()}
-    val = loss(fn(dparams.with_params(pack, leaves)))
+    tapes = []
+    for _ in range(2):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in dparams.get_params(pack, fields).items()}
+        tapes.append((loss(fn(dparams.with_params(pack, leaves))), leaves))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
-        t0 = time.perf_counter()
-        torch.autograd.grad(val, list(leaves.values()))
+        torch.autograd.grad(tapes[0][0], list(tapes[0][1].values()))
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    total = sum(_device_us(e) for e in kernels)
-    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+        with torch.profiler.record_function("chip_smoke.measured_backward"):
+            t0 = time.perf_counter()
+            torch.autograd.grad(tapes[1][0], list(tapes[1][1].values()))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    events = prof.events()
+    # the range's host record (and its annotation on the device's timeline)
+    start = min(e.time_range.start for e in events
+                if e.name == "chip_smoke.measured_backward")
+    ops = collections.defaultdict(lambda: [0.0, 0])
+    for e in events:
+        if str(e.device_type).endswith("CUDA") and e.time_range.start >= start \
+                and e.name != "chip_smoke.measured_backward":
+            ops[e.name[:70]][0] += e.time_range.elapsed_us() / 1e3
+            ops[e.name[:70]][1] += 1
+    total = sum(ms for ms, _ in ops.values())
+    every = sorted(ops.items(), key=lambda kv: -kv[1][0])
     print(f"{label} profiled backward: wall {wall * 1e3:.1f} ms, device "
-          f"kernel time {total / 1e3:.1f} ms (busy {total / 1e4 / wall:.1f}%); "
-          "most device time: " + "; ".join(
-              f"{e.key[:60]} {_device_us(e) / 1e3:.2f} ms x {e.count}"
-              for e in top), flush=True)
-    return wall * 1e3, total / 1e3
+          f"kernel time {total:.2f} ms (busy {100 * total / 1e3 / wall:.1f}%); "
+          f"every device operation by device time ({len(every)}): " + "; ".join(
+              f"{name} {ms:.3f} ms x {count}" for name, (ms, count) in every),
+          flush=True)
+    return wall * 1e3, total, dict(every)
 
 
 def grad_scene(texture: str):
@@ -4047,7 +4711,7 @@ def node_launches(nodes: dict) -> dict:
             "shade_vertex": nodes["shade_vertex_kernel"],
             "nee_accumulate": nodes["nee_accumulate_kernel"],
             "brute_hits": nodes["brute_hits_kernel"],
-            **{name: nodes[f"{name}_kernel"] for name in RAYS + WAVE}}
+            **{name: nodes[f"{name}_kernel"] for name in RAYS + WAVE + GRAD}}
 
 
 def max_diff(a: dict, b: dict) -> float:
@@ -4095,10 +4759,12 @@ def graphed_value_and_grad(fn, pack, target, fields, eager: list,
     one eager forward's launches `want` (so its backward adds none), a
     replay's loss bit for bit with eager's and its gradient within the
     eager gradients' spread (spread_check over `eager`, the phase's runs,
-    and one more); wall in GRAPH_TURNS after a warm-up each, device time
-    and busy share of each, peak memory of a call; then under
-    deterministic(), where the backward sums in a fixed order, the
-    replay's gradient bit for bit with eager's. Returns a summary dict."""
+    and one more) and, the backward kernels' sums being in a fixed order,
+    bit for bit with eager's for every field; wall in GRAPH_TURNS after a
+    warm-up each, device time and busy share of each, peak memory of a
+    call; then under deterministic() the replay's gradient bit for bit
+    with eager's. `want`: one eager forward and backward's launches, which
+    the graph's kernel nodes must equal. Returns a summary dict."""
     f = dparams.loss_fn(fn, pack, target)
     params = dparams.get_params(pack, fields)
     graph_mod.clear()
@@ -4116,7 +4782,7 @@ def graphed_value_and_grad(fn, pack, target, fields, eager: list,
                                  for k, v in want.items()}:
         raise AssertionError(f"the gradient graph's kernel nodes {nodes}, "
                              f"its warm-ups' launches {warm}; one forward "
-                             f"launches {want}, its backward none")
+                             f"and backward launch {want}")
     val, g = vg(params)
     val, g = val.clone(), {k: v.clone() for k, v in g.items()}
     loss_e, g_e = dparams.value_and_grad(f, params)
@@ -4125,6 +4791,10 @@ def graphed_value_and_grad(fn, pack, target, fields, eager: list,
                              f"eager {float(loss_e)}")
     spread = spread_check(f"bunny value_and_grad [{smi}]", g,
                           eager + [g_e])
+    if not all(torch.equal(g[k], g_e[k]) for k in g_e):
+        raise AssertionError(f"the graphed gradient differs from eager's "
+                             f"(largest difference {max_diff(g, g_e)}); the "
+                             "backward kernels sum in a fixed order")
     walls = {True: [], False: []}
     call = {True: lambda: vg(params),
             False: lambda: dparams.value_and_grad(f, params)}
@@ -4161,8 +4831,9 @@ def graphed_value_and_grad(fn, pack, target, fields, eager: list,
           f"call {first_s:.3f} s ({graph_mod.GRAD_WARMUPS} warm-ups "
           f"{entry.warmup_s:.3f} s, capture {entry.capture_s:.3f} s), pool "
           f"{entry.pool_bytes} bytes; kernel nodes {nodes} (one forward's "
-          f"launches: the backward adds none); loss {float(val)} equal to "
-          f"eager bit for bit; wall in turns after a warm-up each, graphed "
+          f"and one backward's launches); loss {float(val)} and gradient "
+          f"equal to eager's bit for bit; wall in turns after a warm-up "
+          f"each, graphed "
           f"{[round(x * 1e3, 1) for x in walls[True][1:]]} ms, eager "
           f"{[round(x * 1e3, 1) for x in walls[False][1:]]} ms, medians "
           f"{med[True]:.1f} / {med[False]:.1f} ms; under the profiler, "
@@ -4305,23 +4976,32 @@ def graphed_fits(fn, pack, target, smi: str) -> dict:
             "deterministic_losses": lg, "deterministic_s": det_s}
 
 
+GRAD_TURNS = ("kernels", "plain", "plain", "kernels")
+
+
 def diff_phase(dev, smi: str, res: int = 1024):
     """render_fn on the default bunny (wide route) at res^2, 1 spp, depth 5:
-    its image equal to render(clamp=False) bit for bit, 16 wide, 16
-    brute_hits (the bunny's rects) and 7 Threefry launches in the forward
-    and none in the backward of the loss
-    mean((img - target)^2) over mat_c0 and light_c (target: light_c x
-    1.2), forward and backward ms, their ratio and peak memory (two runs);
-    finite gradients, the red bunny's albedo row non-zero; the backward
-    profiled, and timed in turns with the gathers by index_select and by
-    table[index] (indexed_gathers); check_grads
-    for light_c at depth 5 (rtol 1e-2) and mat_c0[0] at depth 2 (no
-    roulette, rtol 5e-2); the same loss's value and gradient graphed
-    (graphed_value_and_grad: loss bit for bit, gradient within the eager
-    runs' spread, and bit for bit under deterministic algorithms; kernel
-    nodes, times, capture, pool); fits of mat_c0 from a wrong red albedo,
-    graphed and eager in turns (graphed_fits); then texture_grads. Returns
-    a summary dict."""
+    its image equal to render(clamp=False) bit for bit; the forward of the
+    loss mean((img - target)^2) over mat_c0 and light_c (target: light_c x
+    1.2) launching one fused wave's kernels (expected_launches: 16 wide, 16
+    brute_hits, 7 Threefry, 6 shade_vertex, 5 nee_accumulate, the rays and
+    wave glue) and its backward exactly grad_launches' backward kernels
+    (6 vertex_backward, 6 grad_reduce, 3 permute_state_backward, 1
+    unsort_guard_backward) and no other port kernel, no call of the plain
+    vertex (plain_calls), forward and backward ms, their ratio and the
+    tape's peak memory (two runs); finite
+    gradients, the red bunny's albedo row non-zero; the backward profiled
+    (every device operation listed); in GRAD_TURNS with the plain route
+    (plain_grad: the plain vertex and glue under autograd, no shade_vertex,
+    permute or backward kernel) forward and backward ms and peak memory,
+    each plain gradient within GRAD_FIELD_TOL of the kernels' for each
+    field; check_grads for light_c at depth 5 (rtol 1e-2) and mat_c0[0]
+    at depth 2 (no roulette, rtol 5e-2); the same loss's value and
+    gradient graphed (graphed_value_and_grad: loss and gradient bit for
+    bit, also under deterministic algorithms; kernel nodes, times,
+    capture, pool); fits of mat_c0 from a wrong red albedo, graphed and
+    eager in turns (graphed_fits); then texture_grads. Returns a summary
+    dict."""
     scene = bunny_scene()
     fn, pack = render_fn(scene, res, res, spp=1, seed=0, max_depth=5,
                          device=dev)
@@ -4331,20 +5011,23 @@ def diff_phase(dev, smi: str, res: int = 1024):
     ref = render(scene, res, res, spp=1, seed=0, max_depth=5, clamp=False,
                  device=dev, graph=True)
     loss = lambda img: torch.mean((img - target) ** 2)
+    fields = ("mat_c0", "light_c")
     out = {"runs": []}
-    # the gradient's forward takes the plain vertex (shade.kernel_route)
-    want = {"wide_bvh": 6 + 5 * 2, "sweep_bvh": 0, "threefry": 2 + 5,
-            "shade_vertex": 0, "nee_accumulate": 0, "brute_hits": 6 + 5 * 2,
-            **rays_launches(scene.meta, 1, 5),
-            **wave_launches(scene.meta, 1, 5, fused=False)}
-    eager = []      # the eager gradients of the loss, by index_select
+    want = expected_launches(scene.meta, res, 1, 5)
+    want_bwd = {**dict.fromkeys(want, 0), **grad_launches(scene.meta, 1, 5)}
+    # the plain route: no fused vertex, glue or backward kernel
+    want_plain = expected_launches(scene.meta, res, 1, 5, fused=False)
+    eager = []      # the eager gradients of the loss
     for run in range(2):
-        img, g, f_ms, b_ms, fwd, bwd, peak = fwd_bwd(
-            fn, pack, ("mat_c0", "light_c"), loss)
+        with plain_calls([]) as plain:
+            img, g, f_ms, b_ms, fwd, bwd, peak = fwd_bwd(fn, pack, fields,
+                                                         loss)
         eager.append(g)
-        if fwd != want or any(bwd.values()):
+        if fwd != want or bwd != want_bwd or plain:
             raise AssertionError(f"render_fn launches: forward {fwd} (expected "
-                                 f"{want}), backward {bwd} (expected none)")
+                                 f"{want}), backward {bwd} (expected "
+                                 f"{want_bwd}); plain vertex calls {plain} "
+                                 "(expected none)")
         if not torch.equal(img, ref):
             diff = float((img - ref).abs().max())
             raise AssertionError(f"render_fn differs from render(clamp=False) "
@@ -4353,7 +5036,9 @@ def diff_phase(dev, smi: str, res: int = 1024):
                 or not bool((g["mat_c0"][0] != 0).any()):
             raise AssertionError(f"bunny gradients: {g}")
         out["runs"].append({"forward_ms": f_ms, "backward_ms": b_ms,
-                            "ratio": b_ms / f_ms, "peak_bytes": peak})
+                            "ratio": b_ms / f_ms, "peak_bytes": peak,
+                            "forward_launches": fwd,
+                            "backward_launches": bwd})
         print(f"bunny render_fn {res}^2 1 spp depth 5, run {run + 1}: forward "
               f"{f_ms:.1f} ms, backward {b_ms:.1f} ms (backward/forward "
               f"{b_ms / f_ms:.2f}), peak memory of the tape {peak} bytes; "
@@ -4362,19 +5047,39 @@ def diff_phase(dev, smi: str, res: int = 1024):
               f"{g['mat_c0'][0].tolist()}, d loss / d light_c "
               f"{g['light_c'].tolist()} [{smi}]", flush=True)
 
-    out["backward_profile"] = profile_backward(
-        fn, pack, ("mat_c0", "light_c"), loss, f"bunny [{smi}]")
+    prof = profile_backward(fn, pack, fields, loss, f"bunny [{smi}]")
+    out["backward_profile"] = {"wall_ms": prof[0], "device_ms": prof[1],
+                               "operations": prof[2]}
     turns = []
-    for indexed in (False, True, True, False):
-        with indexed_gathers() if indexed else contextlib.nullcontext():
-            got = fwd_bwd(fn, pack, ("mat_c0", "light_c"), loss)
-        turns.append(got[3])
-        if not indexed:
-            eager.append(got[1])
-    out["backward_turns_ms"] = turns
-    print(f"bunny backward ms in turns, gathers by index_select / table[index]"
-          f" / table[index] / index_select: "
-          f"{' / '.join(f'{x:.1f}' for x in turns)} [{smi}]", flush=True)
+    for route in GRAD_TURNS:
+        with plain_grad() if route == "plain" else contextlib.nullcontext():
+            img, g, f_ms, b_ms, fwd, bwd, peak = fwd_bwd(fn, pack, fields,
+                                                         loss)
+        plain = route == "plain"
+        if fwd != (want_plain if plain else want) or bwd != (
+                dict.fromkeys(want, 0) if plain else want_bwd) \
+                or not torch.equal(img, ref):
+            raise AssertionError(f"the {route} route's launches: forward {fwd},"
+                                 f" backward {bwd}, or its image differs")
+        for k in fields:
+            err = float((g[k] - eager[0][k]).abs().max())
+            scale = float(eager[0][k].abs().max())
+            if not err <= GRAD_FIELD_TOL * scale:
+                raise AssertionError(f"the {route} route's d loss / d {k} "
+                                     f"differs from the kernels' by {err} "
+                                     f"(largest |gradient| {scale})")
+        turns.append({"route": route, "forward_ms": f_ms, "backward_ms": b_ms,
+                      "peak_bytes": peak})
+        if not plain:
+            eager.append(g)
+    out["route_turns"] = turns
+    print(f"bunny forward / backward ms and the tape's peak bytes in turns, "
+          f"kernel route and plain route (autograd through the plain vertex "
+          f"and glue): " + "; ".join(
+              f"{t['route']} {t['forward_ms']:.1f} / {t['backward_ms']:.1f} "
+              f"ms, {t['peak_bytes']} bytes" for t in turns)
+          + f"; each plain gradient within {GRAD_FIELD_TOL} of the "
+          f"kernels' largest |gradient| [{smi}]", flush=True)
     t0 = time.perf_counter()
     ga, gf = check_grads(mean64(fn, pack), {"light_c": pack.light_c},
                          rtol=1e-2, eps=1e-2)
@@ -4392,7 +5097,8 @@ def diff_phase(dev, smi: str, res: int = 1024):
     del fn2, pack2, rest
 
     out["graphed_vg"] = graphed_value_and_grad(
-        fn, pack, target, ("mat_c0", "light_c"), eager, want, smi)
+        fn, pack, target, fields, eager,
+        {k: want[k] + want_bwd[k] for k in want}, smi)
     wrong = pack.mat_c0.clone()
     wrong[0] = torch.tensor([0.9, 0.1, 0.7], device=dev)
     with torch.no_grad():
@@ -4408,14 +5114,22 @@ def diff_phase(dev, smi: str, res: int = 1024):
 def texture_grads(dev, smi: str, res: int = 1024) -> dict:
     """The textured scene's texels and its checker variant's two colours
     at res^2, 1 spp, depth 1: autograd against finite differences (rtol
-    5e-2), one forward and backward of the mean pixel timed."""
+    5e-2), one forward and backward of the mean pixel timed, their
+    launches exact (the fused wave forward, the backward kernels
+    backward)."""
     out = {}
     for texture, fields in (("image", ("tex_image",)),
                             ("checker", ("tex_c0", "tex_c1"))):
-        fn, pk = render_fn(grad_scene(texture), res, res, spp=1, seed=0,
-                           max_depth=1, device=dev)
+        scene = grad_scene(texture)
+        fn, pk = render_fn(scene, res, res, spp=1, seed=0, max_depth=1,
+                           device=dev)
         _, g, f_ms, b_ms, fwd, bwd, peak = fwd_bwd(
             fn, pk, fields, lambda img: img.double().mean())
+        want = expected_launches(scene.meta, res, 1, 1)
+        if fwd != want or bwd != {**dict.fromkeys(want, 0),
+                                  **grad_launches(scene.meta, 1, 1)}:
+            raise AssertionError(f"{texture} texture launches: forward {fwd}"
+                                 f", backward {bwd}")
         t0 = time.perf_counter()
         ga, gf = check_grads(mean64(fn, pk), dparams.get_params(pk, fields),
                              rtol=5e-2)
@@ -4479,15 +5193,16 @@ def deterministic():
 
 
 def sharded_launches(shape, lights: int, fused: bool = True) -> dict:
-    """Launches per rank of the phase's frame on a (px, spp) mesh: one
-    wave per local sample, each with (depth + 1) closest and depth x lights
-    shadow casts, 2 + depth Threefry draws and, on the fused vertex's route
-    (the forward; fused=False for the train step's differentiated film),
-    depth + 1 shade_vertex and depth nee_accumulate launches; one
-    brute_hits per cast (the bunny's rects) and ops/rays.py's kernels
-    (rays_launches of the kernel-routed bunny), on every path; one
-    camera_rays a wave, and on the fused route one permute_state per sort
-    and one unsort_guard (wave_launches)."""
+    """Launches per rank of the phase's frame on a (px, spp) mesh (or of
+    the train step's differentiated partial film's forward): one wave per
+    local sample, each with (depth + 1) closest and depth x lights shadow
+    casts, 2 + depth Threefry draws and, on the fused vertex's route
+    (fused=False for the plain route), depth + 1 shade_vertex and depth
+    nee_accumulate launches; one brute_hits per cast (the bunny's rects)
+    and ops/rays.py's kernels (rays_launches of the kernel-routed bunny),
+    on every path; one camera_rays a wave, and on the fused route one
+    permute_state per sort and one unsort_guard (wave_launches); no
+    backward kernel (sharded_grad counts the train step's backward)."""
     local = SHARD_SPP // shape[1]
     casts = local * (SHARD_DEPTH + 1 + SHARD_DEPTH * lights)
     keys = min(2, SHARD_DEPTH) * lights + min(3, SHARD_DEPTH)
@@ -4502,7 +5217,15 @@ def sharded_launches(shape, lights: int, fused: bool = True) -> dict:
             "hit_reconstruct": local * (SHARD_DEPTH + 1),
             "camera_rays": local,
             "permute_state": local * sorts if fused else 0,
-            "unsort_guard": local if fused else 0}
+            "unsort_guard": local if fused else 0, **dict.fromkeys(GRAD, 0)}
+
+
+def sharded_grad(shape) -> dict:
+    """The backward kernels' launches per rank in the backward of the
+    train step's partial film on a (px, spp) mesh: grad_launches of its
+    local samples' waves of the kernel-routed bunny."""
+    return grad_launches(bunny_scene().meta, SHARD_SPP // shape[1],
+                         SHARD_DEPTH)
 
 
 def free_port() -> int:
@@ -4645,7 +5368,7 @@ def card_rank(rank, scene, dev_type, res):
     lights = sum(1 for lt in scene.meta.lights if not lt.static_black)
     # the calls recorded_calls records: traversal, streams, brute force
     per_wave = sum(v for k, v in sharded_launches(
-        (1, SHARD_SPP), lights, fused=False).items() if k in RECORDED)
+        (1, SHARD_SPP), lights).items() if k in RECORDED)
     out = {"layouts": {}}
     for shape, ranks in CARD_LAYOUTS.items():
         mesh = pmesh.make_mesh(*shape, ranks=ranks, device=dev)
@@ -4787,13 +5510,16 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
         torch.cuda.synchronize()
         bwd = launch_counts()
         del part, leaves
-        want1 = sharded_launches((1, SHARD_SPP), lights, fused=False)
+        want1 = sharded_launches((1, SHARD_SPP), lights)
+        bwant = {**dict.fromkeys(want1, 0), **sharded_grad((1, SHARD_SPP))}
         nodes = train["graphed"]["capture"]["nodes"]
-        if fwd != want1 or any(bwd.values()) or nodes != {
-                "forward": want1, "backward": dict.fromkeys(want1, 0)}:
+        if fwd != want1 or bwd != bwant or nodes != {
+                "forward": want1, "backward": bwant}:
             raise AssertionError(f"train launches: forward {fwd} (expected "
-                                 f"{want1}), backward {bwd} (expected none); "
-                                 f"the graphs' kernel nodes {nodes}")
+                                 f"{want1}), backward {bwd} (expected "
+                                 f"{bwant}); the graphs' kernel nodes "
+                                 f"{nodes}")
+        out["train_launches"] = {"forward": fwd, "backward": bwd}
         fn1, pk1 = render_fn(sdev, res, res, 1, max_depth=SHARD_DEPTH,
                              device=dev)
         timg = target.view(res, res, 3)
@@ -4801,9 +5527,10 @@ def sharded_phase(dev, smi: str, res: int = 1024) -> dict:
             reset_launches()
             loss_s, g_s = ptrain.value_and_grad(rend, tpack, tcam, params,
                                                 target)
-            if launch_counts() != want1:
+            if launch_counts() != {k: want1[k] + bwant[k] for k in want1}:
                 raise AssertionError(f"a gradient launched {launch_counts()}"
-                                     f", one forward wave is {want1}")
+                                     f", one forward wave is {want1} and "
+                                     f"its backward {bwant}")
             graphed = ptrain.GraphedValueAndGrad(rend, tpack, tcam, params,
                                                  target)
             loss_g, g_g = graphed((params, target))
@@ -5238,8 +5965,17 @@ def main() -> int:
                   {"sampler": "debug"}),
                  ("bunny stratified sampler", bunny, 256, 4,
                   {"sampler": "stratified"})), dev)
-    del cases
     print(f"phase 2f took {time.perf_counter() - t0:.1f} s", flush=True)
+
+    phase("2g gradient kernels vs plain")
+    t0 = time.perf_counter()
+    grads = grad_phase(
+        cases + (("many-families", many_families_scene().to(dev), 256),
+                 ("textured image", grad_scene("image").to(dev), 64),
+                 ("textured checker", grad_scene("checker").to(dev), 64)),
+        dev, smi.splitlines()[0], time_case="bunny")
+    del cases
+    print(f"phase 2g took {time.perf_counter() - t0:.1f} s", flush=True)
 
     phase("3 wide kernel vs plain")
     wide = wide_route(bunny)
@@ -5492,7 +6228,27 @@ def main() -> int:
             "lanes": t["lanes"], "sweep_launches": sweep_frame[name],
             "sharded_launches": {k: v[name]
                                  for k, v in sharded["launches"].items()}}
-           for name in WAVE for t in (glue["times"][name],)]}),
+           for name in WAVE for t in (glue["times"][name],)]
+        + [{"name": name, "route": "cuda", "source": GRAD_SOURCE[name],
+            "replaces": GRAD_REPLACES[name],
+            # the main path of the gradient: phase 11's backward of the
+            # bunny's loss
+            "launches": diff["runs"][0]["backward_launches"][name],
+            "max_abs_err": max(v["max_abs_err"] for k, v in grads.items()
+                               if k != "times"),
+            "field_rel_err": max(v["field_rel"] for k, v in grads.items()
+                                 if k != "times"),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": next((v["ms"] for v in t["library_ms"].values()),
+                               None),
+            "library": t["library_ms"], "device_ms": t["device_ms"],
+            "device_cold_ms": t["device_cold_ms"],
+            "enqueue_ms": t["enqueue_ms"], "bytes": t["bytes"],
+            "flops": t["flops"], "lanes": t["lanes"],
+            "sharded_backward_launches": sharded["train_launches"][
+                "backward"][name]}
+           for name in GRAD for t in (grads["times"][name],)]}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

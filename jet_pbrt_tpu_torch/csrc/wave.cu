@@ -1,5 +1,5 @@
 // The wave's glue between the casts, the vertices and the sorts, as three
-// CUDA kernels for sm_90a.
+// CUDA kernels for sm_90a, and the backward of two of them.
 //
 // Replaces the per-lane torch work of models/render.py::wave_fn and
 // models/integrators.py::li_path that is neither a cast, a vertex nor a
@@ -30,13 +30,26 @@
 //       scatter equals the inverse permutation's gather and needs no sort;
 //       without a sort (lane null) it is the guard alone, in place.
 //
+// Two more are the backward of the permute and the un-sort, where the
+// state's colours and throughputs carry a gradient (models/render.py::
+// render_fn differentiated, diff/, the train step; ops/wave.py's Functions):
+//
+//   permute_state_backward_kernel   g_in[perm[j]] = g_out[j] for L and beta
+//       (the transpose of the gather x[perm]); a permutation writes each
+//       row once, so no atomics. A null g_out row is a zero gradient.
+//   unsort_guard_backward_kernel    gL[i] = isfinite(L[i]) ? g[lane[i]] : 0
+//       per channel (the transpose of the scatter and the guard; lane null:
+//       the guard alone).
+//
 // Bound: bytes. Per lane at 2^20 lanes and 3.35 TB/s: the camera reads 16
 // B (pixel id, jitter) and writes 70 (o, d, L, beta, the flags, pdf, lane,
 // bounds), about 0.027 ms; the permute reads the perm and every state row
 // once and writes each once, 2 x 86 + 8 B with the stream keys (about 0.056
 // ms); the un-sort reads 20 B and writes 12 (about 0.010 ms). Each is one
 // pass in which a thread owns a lane (the un-sort a source row); there is
-// no reuse to stage.
+// no reuse to stage. The permute's backward reads the perm and two [N, 3]
+// gradients and writes two (56 B a lane, about 0.018 ms), the un-sort's
+// reads L, lane and the gradient and writes one (44 B, about 0.014 ms).
 //
 // Bit for bit with the plain version on the card: every float operation is
 // the one a separate torch kernel rounds (__fmul_rn / __fadd_rn / __fsub_rn
@@ -110,6 +123,23 @@ struct UnsortArgs {
   const float* L;          // [n,3]
   const int64_t* lane;     // [n] or null (no sort)
   float* out;              // [n,3], L itself where lane is null
+};
+
+struct PermuteGradArgs {
+  int n;
+  const int64_t* perm;     // [n] a permutation of the lanes
+  const float* gL;         // [n,3] d loss / d the permuted L, or null (0)
+  const float* gbeta;      // [n,3] d loss / d the permuted beta, or null (0)
+  float* gL_in;            // [n,3]
+  float* gbeta_in;         // [n,3]
+};
+
+struct UnsortGradArgs {
+  int n;
+  const float* L;          // [n,3] the un-sort's input
+  const int64_t* lane;     // [n] or null (no sort)
+  const float* g;          // [n,3] d loss / d its output
+  float* gL;               // [n,3]
 };
 
 namespace {
@@ -247,6 +277,34 @@ __global__ void __launch_bounds__(BLOCK) unsort_guard_kernel(const __grid_consta
   for (int c = 0; c < 3; ++c) a.out[3 * k + c] = v[c];
 }
 
+// ------------------------------------------------- the backward passes
+
+__device__ __forceinline__ void scatter_row(const float* g, float* out, long long k, int j) {
+  for (int c = 0; c < 3; ++c) out[3 * k + c] = g ? g[3 * (size_t)j + c] : 0.0f;
+}
+
+__global__ void __launch_bounds__(BLOCK) permute_state_backward_kernel(
+    const __grid_constant__ PermuteGradArgs a) {
+  const int j = lanes_index();
+  if (j >= a.n) return;
+  const long long i = a.perm[j];
+  if (i < 0 || i >= a.n) return;
+  scatter_row(a.gL, a.gL_in, i, j);
+  scatter_row(a.gbeta, a.gbeta_in, i, j);
+}
+
+__global__ void __launch_bounds__(BLOCK) unsort_guard_backward_kernel(
+    const __grid_constant__ UnsortGradArgs a) {
+  const int i = lanes_index();
+  if (i >= a.n) return;
+  const long long k = a.lane ? a.lane[i] : i;
+  const bool in = k >= 0 && k < a.n;
+  for (int c = 0; c < 3; ++c) {
+    const float x = a.L[3 * (size_t)i + c];
+    a.gL[3 * (size_t)i + c] = in && isfinite(x) ? a.g[3 * k + c] : 0.0f;
+  }
+}
+
 inline int blocks(int n) { return (n + BLOCK - 1) / BLOCK; }
 
 }  // namespace
@@ -256,6 +314,8 @@ extern "C" {
 int wave_camera_args_size() { return (int)sizeof(CameraArgs); }
 int wave_permute_args_size() { return (int)sizeof(PermuteArgs); }
 int wave_unsort_args_size() { return (int)sizeof(UnsortArgs); }
+int wave_permute_grad_args_size() { return (int)sizeof(PermuteGradArgs); }
+int wave_unsort_grad_args_size() { return (int)sizeof(UnsortGradArgs); }
 
 // Each launches on `stream` and returns cudaGetLastError(). The camera
 // launches for an empty batch too (it zeroes the counters).
@@ -273,6 +333,18 @@ int permute_state(const PermuteArgs* a, void* stream) {
 int unsort_guard(const UnsortArgs* a, void* stream) {
   if (a->n == 0) return 0;
   unsort_guard_kernel<<<blocks(a->n), BLOCK, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+int permute_state_backward(const PermuteGradArgs* a, void* stream) {
+  if (a->n == 0) return 0;
+  permute_state_backward_kernel<<<blocks(a->n), BLOCK, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+
+int unsort_guard_backward(const UnsortGradArgs* a, void* stream) {
+  if (a->n == 0) return 0;
+  unsort_guard_backward_kernel<<<blocks(a->n), BLOCK, 0, (cudaStream_t)stream>>>(*a);
   return (int)cudaGetLastError();
 }
 

@@ -18,11 +18,12 @@ two integrators (integrators.py:300-381).
 Each path vertex between two closest-hit casts (emission, material, lobe,
 NEE set-up, BSDF sample, roulette) is ops/shade.py's: `shade_vertex` and
 `nee_accumulate`, one fused kernel launch each on the card, where
-`shade.kernel_route` allows (NEE on, MIS off, nothing requiring grad), and their plain versions otherwise. The casts, the shadow
-tests and the sort stay here, each inside a `torch.profiler
-.record_function` range (li_path.intersect, .rng, .vertex, .occluded,
-.nee_accumulate, .sort) that a profile attributes the wave's device time
-by; the work around the casts (the hit reconstruction, the shadow
+`shade.kernel_route` allows (NEE on, MIS off, no gradient outside the
+appearance fields shade.GRAD_FIELDS), and their plain versions otherwise.
+The casts, the shadow tests and the sort stay here, each inside a
+`torch.profiler.record_function` range (li_path.intersect, .rng, .vertex,
+.occluded, .nee_accumulate, .sort) that a profile attributes the wave's
+device time by; the work around the casts (the hit reconstruction, the shadow
 segments, their sort key and merge, the sort key between bounces) is
 ops/rays.py's, one kernel launch each on the card. On the vertex kernels'
 route the state between the casts is ops/wave.py's WaveState: the camera
@@ -36,7 +37,12 @@ Gradients (models/render.py::render_fn): sampled directions, pdfs, light
 sample points, MIS weights and the roulette probability are detached where
 the reference package stops their gradients, so the estimate is
 differentiable through f, Li and emission alone and no traversal input
-carries a gradient (the kernels have no backward).
+carries a gradient. On the kernel route each vertex with its shadow casts
+and NEE is one autograd Function (ops/shade.py::vertex, its backward
+csrc/shade_grad.cu's kernels on the card) and the permutes and the
+un-sort are ops/wave.py's Functions, so a gradient's forward runs the
+fused wave and its backward a few launches a vertex; the plain route
+(_li_path_plain) is differentiated by autograd op by op.
 """
 from __future__ import annotations
 
@@ -212,13 +218,16 @@ def _li_path_plain(meta, pack, o, d, u, max_depth: int, mis: bool,
 def _li_path_kernels(meta, pack, u, max_depth: int, with_stats: bool,
                      sort_rays: bool, state: wave_ops.WaveState):
     """li_path on the glue kernels' route (shade.kernel_route: NEE on, MIS
-    off, nothing requiring grad): the state between the casts is a
-    WaveState the kernels hand on. shade_vertex writes the next cast's
-    bounds and adds to the ray counters, each vertex's shadow casts write
-    their rows of one [J, N] flag slab, one permute_state moves every row
-    at a sort, and unsort_guard scatters the rows back to their lanes. On
-    the card no torch op runs between the kernels but the sorts' argsort;
-    on the CPU each wrapper runs its plain version."""
+    off, no gradient outside shade.GRAD_FIELDS): the state between the
+    casts is a WaveState the kernels hand on. shade_vertex writes the next
+    cast's bounds and adds to the ray counters, each vertex's shadow casts
+    write their rows of one [J, N] flag slab, one permute_state moves every
+    row at a sort, and unsort_guard scatters the rows back to their lanes.
+    On the card no torch op runs between the kernels but the sorts'
+    argsort; on the CPU each wrapper runs its plain version. The vertex,
+    the permutes and the un-sort go through their autograd Functions
+    (shade.vertex, wave.permute, wave.unsort), which record a backward
+    where L and beta carry a gradient."""
     dev = state.L.device
     nl = meta.n_lights
     sweep_stats = {} if with_stats else None
@@ -239,25 +248,28 @@ def _li_path_kernels(meta, pack, u, max_depth: int, with_stats: bool,
         if bounce < max_depth:
             with record_function("li_path.rng"):
                 u_vertex = rng.vertex_uniforms(u, bounce, nl)
-        with record_function("li_path.vertex"):
-            v = shade_ops.shade_vertex(
-                meta, pack, hit, shade_ops.VertexState(*state[:7]), u_vertex,
-                bounce, max_depth, lights=lights, counts=counts)
-        counts = v.counts
-        if bounce >= max_depth:
-            L = v.state.L
-            break
-        with record_function("li_path.occluded"):
+
+        def occlude(v, hit=hit, bounce=bounce):
+            # the bounce's shadow casts, each writing its row of the flags
             occ = torch.empty_like(v.useful)
             for j in range(v.useful.shape[0]):
                 scene_pack.occluded(
                     meta, pack, hit.position, v.shadow_to[j],
                     mask=v.useful[j], sort=meta.kernel_routed and bounce < 2,
                     stats=sweep_stats, roots=roots, out=occ[j])
-        with record_function("li_path.nee_accumulate"):
-            L = shade_ops.nee_accumulate(v.state.L, v.useful, occ, v.contrib)
-        state = wave_ops.WaveState(*v.state._replace(L=L), state.lane, v.tmin,
-                                   v.tmax, state.counts if counts is None
+            return occ
+
+        # shade_vertex, the shadow casts and nee_accumulate, each in its
+        # li_path range (li_path.vertex, .occluded, .nee_accumulate)
+        v, _ = shade_ops.vertex(
+            meta, pack, hit, shade_ops.VertexState(*state[:7]), u_vertex,
+            bounce, max_depth, lights=lights, counts=counts, occlude=occlude)
+        counts = v.counts
+        if bounce >= max_depth:
+            L = v.state.L
+            break
+        state = wave_ops.WaveState(*v.state, state.lane, v.tmin, v.tmax,
+                                   state.counts if counts is None
                                    else counts)
         if sort_rays and bounce < 3:
             with record_function("li_path.sort"):
@@ -269,11 +281,11 @@ def _li_path_kernels(meta, pack, u, max_depth: int, with_stats: bool,
                                           state.ray_d, state.active,
                                           bounce=True, roots=roots)
                 perm = torch.argsort(key, stable=True)
-                state, u = wave_ops.permute_state(state, u, perm)
+                state, u = wave_ops.permute(state, u, perm)
 
     # undo the permutation (row i is lane i again: a scatter) and the
     # invalid-sample guard (reference: src/integrator.cc:104)
-    L = wave_ops.unsort_guard(L, state.lane if sort_rays else None)
+    L = wave_ops.unsort(L, state.lane if sort_rays else None)
     if with_stats:
         return L, {**dict(zip(wave_ops.COUNTS, counts.unbind(0))),
                    **sweep_stats}

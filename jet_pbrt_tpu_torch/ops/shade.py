@@ -24,13 +24,24 @@ back. The plain versions are the torch code li_path ran before the
 kernel, and the kernel matches them bit for bit on the card (see the
 source's note on how its arithmetic is pinned).
 
+`vertex` is li_path's whole vertex on the kernel route: shade_vertex, the
+bounce's shadow casts (a callable of li_path's) and nee_accumulate as one
+torch.autograd.Function, whose backward is one launch of
+csrc/shade_grad.cu's vertex_backward_kernel and one of its
+grad_reduce_kernel (the wrappers `vertex_backward` and `grad_reduce`) on
+the card, and autograd through the plain vertex on the CPU
+(`vertex_backward_plain`). The backward reads only what the forward
+saved, the vertex's inputs and the bounce's shadow flags, and recomputes
+the rest; it covers the pack's GRAD_FIELDS and the light table's summed
+environment radiance.
+
 `kernel_route` is li_path's one routing decision: the wrappers (so the
-kernel on the card) where li_path runs with nee=True, mis=False and no
-input requires grad. The plain version everywhere else, declared scope
-and not a fallback: mis=True (its MIS emission weight re-intersects the
-light, and its NEE weight needs the BSDF pdf), nee=False, and every path
-that differentiates (render_fn, diff/, the train step: their packs
-require grad, and the kernel has no backward); li_whitted and
+kernels on the card) where li_path runs with nee=True and mis=False, the
+primary rays do not require grad and no pack field outside GRAD_FIELDS
+does. The plain version everywhere else, declared scope and not a
+fallback: mis=True (its MIS emission weight re-intersects the light, and
+its NEE weight needs the BSDF pdf), nee=False, and a gradient in the
+scene's geometry (the reference differentiates none); li_whitted and
 li_debug_normal keep their own torch code. These are the next fusions.
 """
 from __future__ import annotations
@@ -40,6 +51,7 @@ import math
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from . import bsdf as bsdf_ops
 from . import lights as light_ops
@@ -51,10 +63,19 @@ from .linalg import PI, absdot, frame_from_z, is_black, length, cross, \
     max_component, to_local, to_world
 from .sampling import power_heuristic
 
-# the light table's row widths (csrc/shade.cu TABLE_W, STATIC_W, EM_W)
+# the light table's row widths (csrc/shade.cuh TABLE_W, STATIC_W, EM_W)
 TABLE_W = 32
 STATIC_W = 5
 EM_W = 12
+
+# the pack's fields the vertex's backward covers: diff/params.py's
+# DIFFERENTIABLE_FIELDS and the texture colours; the kernel's parameter
+# gradients are one vector of these fields' rows in _SLOT_FIELDS' order,
+# then the environment's summed radiance (3)
+GRAD_FIELDS = ("mat_c0", "mat_c1", "mat_s0", "mat_s1", "light_c",
+               "tex_image", "tex_c0", "tex_c1")
+_SLOT_FIELDS = ("mat_c0", "mat_c1", "mat_s0", "mat_s1", "tex_c0", "tex_c1",
+                "light_c")
 
 
 class VertexState(NamedTuple):
@@ -100,21 +121,24 @@ class LightTable(NamedTuple):
 
 
 def _pack_tensors(pack):
-    for x in pack:
+    """(field, tensor) of every tensor of the pack, a tuple field's each."""
+    for name, x in zip(pack._fields, pack):
         if torch.is_tensor(x):
-            yield x
+            yield name, x
         elif isinstance(x, tuple):
-            yield from (t for t in x if torch.is_tensor(t))
+            yield from ((name, t) for t in x if torch.is_tensor(t))
 
 
 def kernel_route(meta, pack, *tensors, nee: bool, mis: bool) -> bool:
-    """Whether li_path's vertex takes the wrappers (`shade_vertex`,
-    `nee_accumulate`; on the card their kernels) rather than the plain
-    versions: with NEE, without MIS, and where neither the pack nor any of
-    `tensors` (the primary rays) requires grad. Any number of lights."""
+    """Whether li_path's vertex takes `vertex` (the wrappers; on the card
+    their kernels and, under autograd, the backward's) rather than the
+    plain versions: with NEE, without MIS, where none of `tensors` (the
+    primary rays) requires grad and no pack field outside GRAD_FIELDS
+    does. Any number of lights."""
     return (nee and not mis
-            and not any(x.requires_grad
-                        for x in (*_pack_tensors(pack), *tensors)))
+            and not any(x.requires_grad for x in tensors)
+            and not any(x.requires_grad for name, x in _pack_tensors(pack)
+                        if name not in GRAD_FIELDS))
 
 
 # (statics rows, device) -> the int32 tensor; kept for the process, since
@@ -141,7 +165,27 @@ def light_table(meta, pack) -> LightTable:
     """The kernel's table of the pack's lights (LightTable). Its numbers
     are made by torch ops on the pack's device, with no host copy, inside
     a captured wave too; its static part comes from meta and the pack's
-    shapes (_statics)."""
+    shapes (_statics). The rows are made off the autograd tape (the
+    kernels read them alone, and the backward adds each light's radiance
+    gradient to its row of light_c itself); le_env, the environment
+    lights' sum, stays on it."""
+    f32 = dict(dtype=torch.float32, device=pack.light_c.device)
+    with torch.no_grad():
+        rows, statics, em = _light_rows(meta, pack)
+    le_env = torch.zeros((3,), **f32)
+    for i in meta.env_light_indices:
+        le_env = le_env + pack.light_c[i]
+    return LightTable(
+        rows=torch.stack(rows) if rows else torch.zeros((0, TABLE_W), **f32),
+        statics=_statics(tuple(v for row in statics for v in row),
+                         pack.light_c.device),
+        em=torch.cat(em) if em else torch.zeros((0, EM_W), **f32),
+        le_env=le_env)
+
+
+def _light_rows(meta, pack):
+    """light_table's float rows, static rows and emissive-triangle blocks,
+    as lists."""
     from ..scene.pack import LIGHT_POINT, LIGHT_DIRECTIONAL, LIGHT_AREA, \
         KIND_TRI, KIND_RECT, KIND_DISK, KIND_SPHERE, KIND_INST
 
@@ -199,15 +243,7 @@ def light_table(meta, pack) -> LightTable:
                                                 dtype=torch.float32,
                                                 device=dev), two_wr]))
         statics.append((lm.kind, lm.shape_kind, 1 + 2 * li, t_count, first))
-    f32 = dict(dtype=torch.float32, device=dev)
-    le_env = torch.zeros((3,), **f32)
-    for i in meta.env_light_indices:
-        le_env = le_env + pack.light_c[i]
-    return LightTable(
-        rows=torch.stack(rows) if rows else torch.zeros((0, TABLE_W), **f32),
-        statics=_statics(tuple(v for row in statics for v in row), dev),
-        em=torch.cat(em_rows) if em_rows else torch.zeros((0, EM_W), **f32),
-        le_env=le_env)
+    return rows, statics, em_rows
 
 
 # --------------------------------------------------------------------------
@@ -501,6 +537,55 @@ def check_accumulate_inputs(L, useful, occ, contrib, dev) -> int:
     return j
 
 
+def _shade_args(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
+                max_depth: int, lights: LightTable, n_nee: int,
+                outs: dict) -> _ShadeArgs:
+    """The kernels' ShadeArgs of one vertex: its sizes and flags, the hit,
+    the state's rows (a None row is a null pointer), the uniforms, the
+    pack's tables, the light table and the outputs `outs`."""
+    n = hit.valid.shape[0]
+    last = bounce >= max_depth
+    a = _ShadeArgs()
+    lobes = bsdf_ops.ALL_LOBES if meta.present_lobes is None \
+        else meta.present_lobes
+    ints = dict(n=n, bounce=bounce, last=int(last), roulette=int(bounce >= 3),
+                lobes=sum(1 << k for k in lobes),
+                mf_mode=_mf_mode(meta.present_mf_kinds), n_tex=meta.n_tex,
+                has_images=int(pack.tex_image.shape[0] > 0),
+                n_light_rows=pack.light_c.shape[0],
+                th=pack.tex_image.shape[1] if pack.tex_image.dim() == 4 else 0,
+                tw=pack.tex_image.shape[2] if pack.tex_image.dim() == 4 else 0,
+                s=4 + 2 * meta.n_lights, n_nee=n_nee,
+                u_stride=0 if last else u_vertex.stride(0))
+    for k, v in ints.items():
+        setattr(a, k, int(v))
+    ptrs = dict(valid=hit.valid, pos=hit.position, nrm=hit.normal, wo=hit.wo,
+                uv=hit.uv, mat_id=hit.mat_id, light_id=hit.light_id,
+                L=state.L, beta=state.beta, active=state.active,
+                prev_specular=state.prev_specular, prev_pdf=state.prev_pdf,
+                ray_o=state.ray_o, ray_d=state.ray_d,
+                u=None if last else u_vertex, table=lights.rows,
+                statics=lights.statics, em=lights.em, le_env=lights.le_env,
+                ray_eps=pack.ray_eps, **outs,
+                **{k: getattr(pack, k) for k in _TABLES})
+    for k, v in ptrs.items():
+        setattr(a, k, None if v is None else v.data_ptr())
+    return a
+
+
+def _check_lights(meta, lights: LightTable, dev) -> int:
+    """Raise unless the light table's tensors are contiguous, of their
+    dtype and shape, on dev; returns the NEE lights' count."""
+    n_nee = sum(not lm.static_black for lm in meta.lights)
+    _check("lights.rows", lights.rows, torch.float32, (n_nee, TABLE_W), dev)
+    _check("lights.statics", lights.statics, torch.int32, (n_nee, STATIC_W),
+           dev)
+    _check("lights.em", lights.em, torch.float32, (lights.em.shape[0], EM_W),
+           dev)
+    _check("lights.le_env", lights.le_env, torch.float32, (3,), dev)
+    return n_nee
+
+
 def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
                  max_depth: int, *, lights: LightTable | None = None,
                  counts=None) -> Vertex:
@@ -519,16 +604,10 @@ def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
                         dev, counts)
     n = state.L.shape[0]
     last = bounce >= max_depth
-    s = 4 + 2 * meta.n_lights
     f32, b8 = torch.float32, torch.bool
     if lights is None:
         lights = light_table(meta, pack)
-    n_nee = sum(not lm.static_black for lm in meta.lights)
-    _check("lights.rows", lights.rows, f32, (n_nee, TABLE_W), dev)
-    _check("lights.statics", lights.statics, torch.int32, (n_nee, STATIC_W),
-           dev)
-    _check("lights.em", lights.em, f32, (lights.em.shape[0], EM_W), dev)
-    _check("lights.le_env", lights.le_env, f32, (3,), dev)
+    n_nee = _check_lights(meta, lights, dev)
 
     L_out = torch.empty_like(state.L)
     if last:
@@ -551,35 +630,13 @@ def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
     contrib = torch.empty((nj, n, 3), dtype=f32, device=dev)
     shadow_to = torch.empty((nj, n, 3), dtype=f32, device=dev)
 
-    a = _ShadeArgs()
-    lobes = bsdf_ops.ALL_LOBES if meta.present_lobes is None \
-        else meta.present_lobes
-    ints = dict(n=n, bounce=bounce, last=int(last), roulette=int(bounce >= 3),
-                lobes=sum(1 << k for k in lobes),
-                mf_mode=_mf_mode(meta.present_mf_kinds), n_tex=meta.n_tex,
-                has_images=int(pack.tex_image.shape[0] > 0),
-                n_light_rows=pack.light_c.shape[0],
-                th=pack.tex_image.shape[1] if pack.tex_image.dim() == 4 else 0,
-                tw=pack.tex_image.shape[2] if pack.tex_image.dim() == 4 else 0,
-                s=s, n_nee=nj,
-                u_stride=0 if last else u_vertex.stride(0))
-    for k, v in ints.items():
-        setattr(a, k, int(v))
-    ptrs = dict(valid=hit.valid, pos=hit.position, nrm=hit.normal, wo=hit.wo,
-                uv=hit.uv, mat_id=hit.mat_id, light_id=hit.light_id,
-                L=state.L, beta=state.beta, active=state.active,
-                prev_specular=state.prev_specular, prev_pdf=state.prev_pdf,
-                ray_o=state.ray_o, ray_d=state.ray_d,
-                u=None if last else u_vertex, table=lights.rows,
-                statics=lights.statics, em=lights.em, le_env=lights.le_env,
-                L_out=L_out,
-                beta_out=beta_out, active_out=active_out, spec_out=spec_out,
-                pdf_out=pdf_out, o_out=o_out, d_out=d_out, useful=useful,
-                contrib=contrib, shadow_to=shadow_to, ray_eps=pack.ray_eps,
-                tmin_out=tmin, tmax_out=tmax, counts=counts,
-                **{k: getattr(pack, k) for k in _TABLES})
-    for k, v in ptrs.items():
-        setattr(a, k, None if v is None else v.data_ptr())
+    a = _shade_args(meta, pack, hit, state, u_vertex, bounce, max_depth,
+                    lights, nj, dict(
+                        L_out=L_out, beta_out=beta_out,
+                        active_out=active_out, spec_out=spec_out,
+                        pdf_out=pdf_out, o_out=o_out, d_out=d_out,
+                        useful=useful, contrib=contrib, shadow_to=shadow_to,
+                        tmin_out=tmin, tmax_out=tmax, counts=counts))
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.shade_vertex(ctypes.byref(a),
@@ -621,3 +678,341 @@ def nee_accumulate(L, useful, occ, contrib):
 
 nee_accumulate.launches = 0
 register(__name__, "nee_accumulate", "nee_accumulate_kernel")
+
+
+# --------------------------------------------------------------------------
+# the backward
+# --------------------------------------------------------------------------
+
+class _GradArgs(ctypes.Structure):
+    _fields_ = ([("a", _ShadeArgs)]
+                + [(k, ctypes.c_void_p) for k in (
+                    "gL", "gbeta", "occ", "gbeta_in", "partials", "taps",
+                    "tap_rows")]
+                + [(k, ctypes.c_int) for k in ("n_mat", "n_tex_rows",
+                                               "n_slots")])
+
+
+# the most accumulators a block of vertex_backward_kernel holds: its four
+# warps' copies in 227 KB of shared memory
+MAX_SLOTS = 232448 // (4 * 4)
+
+
+def _grad_library():
+    from ..utils.cuda_build import load_library
+    return load_library("shade_grad", ["shade_grad.cu"], _declare_grad)
+
+
+def _declare_grad(lib):
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.vertex_backward.argtypes = [ctypes.POINTER(_GradArgs), vp]
+    lib.vertex_backward.restype = ci
+    lib.grad_reduce.argtypes = [vp, ci, ci, vp, vp]
+    lib.grad_reduce.restype = ci
+    for name in ("shade_grad_args_size", "vertex_backward_grid"):
+        getattr(lib, name).restype = ci
+    lib.vertex_backward_grid.argtypes = [ci]
+    if lib.shade_grad_args_size() != ctypes.sizeof(_GradArgs):
+        raise RuntimeError("csrc/shade_grad.cu and ops/shade.py disagree on "
+                           "the backward's argument layout")
+
+
+def grad_slots(pack) -> dict:
+    """{field: (first slot, shape)} of the backward's parameter-gradient
+    vector (_SLOT_FIELDS' rows in order, then "le_env", 3 slots)."""
+    out, at = {}, 0
+    for f in _SLOT_FIELDS:
+        shape = tuple(getattr(pack, f).shape)
+        out[f] = (at, shape)
+        at += math.prod(shape)
+    out["le_env"] = (at, (3,))
+    return out
+
+
+def n_grad_slots(pack) -> int:
+    return sum(math.prod(shape) for _, shape in grad_slots(pack).values())
+
+
+def split_grads(flat, pack) -> dict:
+    """The backward's parameter-gradient vector as {field: view} (and
+    "le_env")."""
+    return {f: flat[at:at + math.prod(shape)].view(shape)
+            for f, (at, shape) in grad_slots(pack).items()}
+
+
+def check_backward_inputs(meta, pack, hit, state: VertexState, u_vertex,
+                          bounce: int, max_depth: int, occ, gL, gbeta,
+                          dev) -> None:
+    """Raise unless every tensor vertex_backward_kernel reads is contiguous,
+    of its dtype and shape, on dev, and off the autograd tape: the hit,
+    beta, active and prev_specular, the uniforms and [J, N] shadow flags
+    below max_depth, the pack's tables, gL [N,3] and gbeta [N,3] or None."""
+    n = state.beta.shape[0]
+    f32, b8, i32 = torch.float32, torch.bool, torch.int32
+    ins = {"hit.valid": (hit.valid, b8, (n,)),
+           "hit.position": (hit.position, f32, (n, 3)),
+           "hit.normal": (hit.normal, f32, (n, 3)),
+           "hit.wo": (hit.wo, f32, (n, 3)), "hit.uv": (hit.uv, f32, (n, 2)),
+           "hit.mat_id": (hit.mat_id, i32, (n,)),
+           "hit.light_id": (hit.light_id, i32, (n,)),
+           "beta": (state.beta, f32, (n, 3)),
+           "active": (state.active, b8, (n,)),
+           "prev_specular": (state.prev_specular, b8, (n,)),
+           "gL": (gL, f32, (n, 3))}
+    if gbeta is not None:
+        ins["gbeta"] = (gbeta, f32, (n, 3))
+    if bounce < max_depth:
+        ins["u_vertex"] = (u_vertex, f32, (n, 4 + 2 * meta.n_lights))
+        ins["occ"] = (occ, b8, (occ.shape[0], n))
+    for name, (x, dtype, shape) in ins.items():
+        if name == "u_vertex":
+            if x.dtype != dtype or tuple(x.shape) != shape \
+                    or x.stride(1) != 1 or x.device != dev:
+                raise ValueError(f"u_vertex: expected float32 {list(shape)} "
+                                 f"rows of contiguous floats on {dev}")
+        else:
+            _check(name, x, dtype, shape, dev)
+    for name, dtype in _TABLES.items():
+        _table_check(name, getattr(pack, name), dtype, dev)
+    no_grad_inputs("vertex_backward", **{k.replace(".", "_"): v[0]
+                                         for k, v in ins.items()},
+                   **{k: getattr(pack, k) for k in _TABLES})
+
+
+def vertex_backward(meta, pack, hit, state: VertexState, u_vertex,
+                    bounce: int, max_depth: int, lights: LightTable, occ, gL,
+                    gbeta=None, taps: bool = False):
+    """One launch of vertex_backward_kernel (CUDA tensors only; CPU tensors
+    take `vertex_backward_plain` whole): from the vertex's inputs (the hit,
+    state.beta, .active, .prev_specular, the uniforms, the light table and
+    the bounce's [J, N] shadow flags occ) and d loss / d its outputs (gL
+    [N,3], gbeta [N,3] or None for 0), returns (d loss / d beta [N,3], the
+    blocks' partial parameter gradients [G, n_grad_slots], and with taps
+    an image texture's per-lane texel gradients [N, 4, 3] and flat rows of
+    tex_image [N, 4], else None, None)."""
+    dev = gL.device
+    if dev.type != "cuda":
+        raise ValueError(f"no vertex_backward kernel for device {dev}")
+    check_backward_inputs(meta, pack, hit, state, u_vertex, bounce,
+                          max_depth, occ, gL, gbeta, dev)
+    n = gL.shape[0]
+    last = bounce >= max_depth
+    n_nee = _check_lights(meta, lights, dev)
+    slots = n_grad_slots(pack)
+    if slots > MAX_SLOTS:
+        raise ValueError(f"vertex_backward: {slots} parameter slots, more "
+                         f"than a block's shared memory holds ({MAX_SLOTS})")
+    lib = _grad_library()
+    grid = lib.vertex_backward_grid(n)
+    f32 = dict(dtype=torch.float32, device=dev)
+    gbeta_in = torch.empty((n, 3), **f32)
+    partials = torch.empty((grid, slots), **f32)
+    tap_g = torch.empty((n, 4, 3), **f32) if taps else None
+    tap_rows = torch.empty((n, 4), dtype=torch.int64, device=dev) \
+        if taps else None
+    g = _GradArgs()
+    g.a = _shade_args(meta, pack, hit, state, u_vertex, bounce, max_depth,
+                      lights, 0 if last else n_nee, {})
+    for k, v in dict(gL=gL, gbeta=gbeta, occ=None if last else occ,
+                     gbeta_in=gbeta_in, partials=partials, taps=tap_g,
+                     tap_rows=tap_rows).items():
+        setattr(g, k, None if v is None else v.data_ptr())
+    g.n_mat, g.n_tex_rows = pack.mat_c0.shape[0], pack.tex_c0.shape[0]
+    g.n_slots = slots
+    with torch.cuda.device(dev):
+        err = lib.vertex_backward(ctypes.byref(g),
+                                  torch.cuda.current_stream(dev).cuda_stream)
+    vertex_backward.launches += 1
+    if err != 0:
+        raise RuntimeError(f"vertex_backward launch failed: CUDA error {err}")
+    return gbeta_in, partials, tap_g, tap_rows
+
+
+vertex_backward.launches = 0
+register(__name__, "vertex_backward", "vertex_backward_kernel")
+
+
+def grad_reduce_plain(partials):
+    """The columns of partials [G, P] summed over G in row order."""
+    out = partials[0].clone()
+    for b in range(1, partials.shape[0]):
+        out = out + partials[b]
+    return out
+
+
+def grad_reduce(partials):
+    """`grad_reduce_plain`: one launch of grad_reduce_kernel on a CUDA
+    tensor [G, P] (float32, contiguous), the plain version on a CPU
+    tensor."""
+    dev = partials.device
+    if dev.type == "cpu":
+        return grad_reduce_plain(partials)
+    if dev.type != "cuda":
+        raise ValueError(f"no grad_reduce route for device {dev}")
+    _check("partials", partials, torch.float32, tuple(partials.shape), dev)
+    no_grad_inputs("grad_reduce", partials=partials)
+    grid, slots = partials.shape
+    out = torch.empty((slots,), dtype=torch.float32, device=dev)
+    lib = _grad_library()
+    with torch.cuda.device(dev):
+        err = lib.grad_reduce(partials.data_ptr(), grid, slots,
+                              out.data_ptr(),
+                              torch.cuda.current_stream(dev).cuda_stream)
+    grad_reduce.launches += 1
+    if err != 0:
+        raise RuntimeError(f"grad_reduce launch failed: CUDA error {err}")
+    return out
+
+
+grad_reduce.launches = 0
+register(__name__, "grad_reduce", "grad_reduce_kernel")
+
+
+def vertex_backward_plain(meta, pack, hit, state: VertexState, u_vertex,
+                          bounce: int, max_depth: int, occ, gL, gbeta=None,
+                          le_env=None):
+    """One vertex's backward by autograd through its plain versions
+    (shade_vertex_plain, then below max_depth nee_accumulate_plain with the
+    shadow flags occ) recomputed on the same inputs: returns (d loss / d L,
+    d loss / d beta, {field of GRAD_FIELDS: its gradient}, d loss / d
+    le_env or None) for d loss / d the vertex's L gL and beta gbeta (None:
+    0). le_env: the environment's radiance the forward took (None: the
+    plain version's own, from light_c)."""
+    with torch.enable_grad():
+        leaves = {f: getattr(pack, f).detach().requires_grad_(True)
+                  for f in GRAD_FIELDS}
+        L = state.L.detach().requires_grad_(True)
+        beta = state.beta.detach().requires_grad_(True)
+        le = None if le_env is None else le_env.detach().requires_grad_(True)
+        v = shade_vertex_plain(meta, pack._replace(**leaves), hit,
+                               state._replace(L=L, beta=beta), u_vertex,
+                               bounce, max_depth, le_env=le)
+        outs, gouts = [v.state.L], [gL]
+        if bounce < max_depth:
+            outs[0] = nee_accumulate_plain(v.state.L, v.useful, occ, v.contrib)
+            if gbeta is not None:
+                outs.append(v.state.beta)
+                gouts.append(gbeta)
+        ins = (L, beta, *leaves.values(), *(() if le is None else (le,)))
+        grads = torch.autograd.grad(outs, ins, gouts, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(ins, grads)]
+    return (grads[0], grads[1], dict(zip(GRAD_FIELDS, grads[2:10])),
+            grads[10] if le is not None else None)
+
+
+def vertex_grads(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
+                 max_depth: int, lights, occ, gL, gbeta=None,
+                 fields=GRAD_FIELDS):
+    """(d loss / d L, d loss / d beta, {field: gradient} for `fields`, d
+    loss / d lights.le_env or None) of one vertex: on the card
+    vertex_backward and grad_reduce (and, where "tex_image" is among the
+    fields and the pack has images, index_add_ of the texel taps), on the
+    CPU vertex_backward_plain."""
+    if gL.device.type == "cpu":
+        gl, gb, g, ge = vertex_backward_plain(
+            meta, pack, hit, state, u_vertex, bounce, max_depth, occ, gL,
+            gbeta, None if lights is None else lights.le_env)
+        return gl, gb, {f: g[f] for f in fields}, ge
+    # the last bounce reads no material: no texel tap
+    taps = "tex_image" in fields and pack.tex_image.shape[0] > 0 \
+        and bounce < max_depth
+    gb, partials, tap_g, tap_rows = vertex_backward(
+        meta, pack, hit, state, u_vertex, bounce, max_depth, lights, occ, gL,
+        gbeta, taps)
+    flat = split_grads(grad_reduce(partials), pack)
+    g = {f: flat[f] for f in fields if f in flat}
+    if "tex_image" in fields:
+        img = pack.tex_image
+        g["tex_image"] = torch.zeros_like(img) if not taps else \
+            torch.zeros((img.numel() // 3, 3), dtype=img.dtype,
+                        device=img.device).index_add_(
+                0, tap_rows.view(-1), tap_g.view(-1, 3)).view(img.shape)
+    return gL, gb, g, flat["le_env"]
+
+
+class _VertexCall:
+    """What `vertex` hands its Function besides the tensors autograd
+    tracks: the vertex's other inputs, and after the forward its outputs
+    (`vertex`, the Vertex; `occ`, the shadow flags)."""
+
+    def __init__(self, meta, pack, hit, state, u_vertex, bounce, max_depth,
+                 lights, counts, occlude):
+        self.meta, self.pack, self.hit, self.state = meta, pack, hit, state
+        self.u_vertex, self.bounce, self.max_depth = u_vertex, bounce, \
+            max_depth
+        self.lights, self.counts, self.occlude = lights, counts, occlude
+        self.vertex = self.occ = None
+
+
+class _Vertex(torch.autograd.Function):
+    """shade_vertex, the shadow casts and nee_accumulate of one vertex:
+    (L, beta, le_env, *GRAD_FIELDS) -> L after the NEE and, below
+    max_depth, the next beta. The forward runs the wrappers on detached
+    inputs; the backward is vertex_grads on what it saved."""
+
+    @staticmethod
+    def forward(ctx, call, L, beta, le_env, *fields):
+        pack = call.pack._replace(**{f: x.detach()
+                                     for f, x in zip(GRAD_FIELDS, fields)})
+        state = call.state._replace(L=L.detach(), beta=beta.detach())
+        lights = call.lights if le_env is None \
+            else call.lights._replace(le_env=le_env.detach())
+        last = call.bounce >= call.max_depth
+        with record_function("li_path.vertex"):
+            v = shade_vertex(call.meta, pack, call.hit, state, call.u_vertex,
+                             call.bounce, call.max_depth, lights=lights,
+                             counts=call.counts)
+        L_out, occ = v.state.L, None
+        if not last:
+            with record_function("li_path.occluded"):
+                occ = call.occlude(v)
+            with record_function("li_path.nee_accumulate"):
+                L_out = nee_accumulate(v.state.L, v.useful, occ, v.contrib)
+        call.vertex, call.occ = v, occ
+        if any(ctx.needs_input_grad):
+            if L.device.type == "cuda":
+                # what the backward kernel reads of the state
+                state = state._replace(L=None, prev_pdf=None, ray_o=None,
+                                       ray_d=None)
+            ctx.saved = (call.meta, pack, call.hit, state, call.u_vertex,
+                         call.bounce, call.max_depth, lights, occ)
+            ctx.set_materialize_grads(False)
+        return L_out if last else (L_out, v.state.beta)
+
+    @staticmethod
+    def backward(ctx, gL, gbeta=None):
+        meta, pack, hit, state, u_vertex, bounce, max_depth, lights, occ = \
+            ctx.saved
+        need = ctx.needs_input_grad
+        if gL is None:
+            gL = torch.zeros_like(state.beta)
+        fields = tuple(f for f, k in zip(GRAD_FIELDS, need[4:]) if k)
+        gl, gb, g, ge = vertex_grads(meta, pack, hit, state, u_vertex,
+                                     bounce, max_depth, lights, occ, gL,
+                                     gbeta, fields)
+        return (None, gl if need[1] else None, gb if need[2] else None,
+                ge if need[3] else None, *(g.get(f) for f in GRAD_FIELDS))
+
+
+def vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
+           max_depth: int, *, lights: LightTable | None = None, counts=None,
+           occlude=None):
+    """li_path's vertex on the kernel route, differentiable: shade_vertex
+    (`lights` as it takes them; on the card li_path's light_table), then
+    below max_depth the bounce's shadow casts, occlude(v) -> [J, N] bool
+    flags, and nee_accumulate. Returns (the Vertex with its state's L after
+    the NEE, the flags or None). Under autograd, where state.L, .beta,
+    lights.le_env or a pack field of GRAD_FIELDS requires grad, the whole
+    vertex is one torch.autograd.Function whose backward is vertex_grads
+    (on the card one vertex_backward and one grad_reduce launch)."""
+    call = _VertexCall(meta, pack, hit, state, u_vertex, bounce, max_depth,
+                       lights, counts, occlude)
+    le_env = None if lights is None else lights.le_env
+    out = _Vertex.apply(call, state.L, state.beta, le_env,
+                        *(getattr(pack, f) for f in GRAD_FIELDS))
+    v = call.vertex
+    if bounce >= max_depth:
+        return v._replace(state=v.state._replace(L=out)), None
+    return v._replace(state=v.state._replace(L=out[0], beta=out[1])), \
+        call.occ

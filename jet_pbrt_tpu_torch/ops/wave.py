@@ -20,9 +20,21 @@ reference has no Pallas kernel for it. Three functions:
                     `unsort_guard_plain` (argsort, then a gather, then the
                     guard).
 
+Under autograd (li_path's kernel route with a pack that requires grad) the
+state's L and beta carry a gradient through the permutes and the un-sort:
+`permute` and `unsort` are torch.autograd.Functions around permute_state
+and unsort_guard whose backwards are two more kernels of csrc/wave.cu,
+
+    permute_state_backward   g_in[perm[j]] = g_out[j] for L and beta;
+                             `permute_state_backward_plain` (index_copy_).
+    unsort_guard_backward    gL[i] = isfinite(L[i]) ? g[lane[i]] : 0;
+                             `unsort_guard_backward_plain` (a gather and
+                             the guard's where).
+
 On a CUDA tensor a wrapper launches its kernel or raises on what the kernel
 cannot take (dtype, shape, device, contiguity, an input that requires
-grad: the kernels have no backward); nothing falls back. The plain
+grad: a wrapper reads raw pointers, so a differentiable input goes through
+the Functions); nothing falls back. The plain
 versions are the torch code wave_fn and li_path ran before the kernels,
 and the kernels match them bit for bit on the card (see the source's note
 on how their arithmetic is pinned). Each kernel launches on the current
@@ -97,9 +109,21 @@ class _UnsortArgs(ctypes.Structure):
                 ("lane", ctypes.c_void_p), ("out", ctypes.c_void_p)]
 
 
+class _PermuteGradArgs(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int)] + [(k, ctypes.c_void_p) for k in (
+        "perm", "gL", "gbeta", "gL_in", "gbeta_in")]
+
+
+class _UnsortGradArgs(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int)] + [(k, ctypes.c_void_p) for k in (
+        "L", "lane", "g", "gL")]
+
+
 _ARGS = {"wave_camera_args_size": _CameraArgs,
          "wave_permute_args_size": _PermuteArgs,
-         "wave_unsort_args_size": _UnsortArgs}
+         "wave_unsort_args_size": _UnsortArgs,
+         "wave_permute_grad_args_size": _PermuteGradArgs,
+         "wave_unsort_grad_args_size": _UnsortGradArgs}
 
 
 def _library():
@@ -110,7 +134,9 @@ def _library():
 def _declare(lib):
     for name, args in (("camera_rays", _CameraArgs),
                        ("permute_state", _PermuteArgs),
-                       ("unsort_guard", _UnsortArgs)):
+                       ("unsort_guard", _UnsortArgs),
+                       ("permute_state_backward", _PermuteGradArgs),
+                       ("unsort_guard_backward", _UnsortGradArgs)):
         getattr(lib, name).argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
         getattr(lib, name).restype = ctypes.c_int
     for name, args in _ARGS.items():
@@ -357,16 +383,19 @@ def check_unsort_inputs(L, lane, dev) -> int:
     return n
 
 
-def unsort_guard(L, lane=None):
+def unsort_guard(L, lane=None, out=None):
     """`unsort_guard_plain`: one launch of unsort_guard_kernel on CUDA
     tensors (L [N, 3] float32; lane [N] int64, the pixel row of each row, a
-    permutation, or None without a sort, when L is guarded in place), the
-    plain version on CPU tensors."""
+    permutation, or None without a sort, when L is guarded in place unless
+    `out` is given), the plain version on CPU tensors."""
     dev = L.device
     if not _route("unsort_guard", dev, L=L):
         return unsort_guard_plain(L, lane)
     n = check_unsort_inputs(L, lane, dev)
-    out = L if lane is None else torch.empty_like(L)
+    if out is None:
+        out = L if lane is None else torch.empty_like(L)
+    else:
+        _check("out", out, torch.float32, (n, 3), dev)
     args = _UnsortArgs(n=n, L=_ptr(L), lane=_ptr(lane), out=_ptr(out))
     lib = _library()
     with torch.cuda.device(dev):
@@ -377,3 +406,143 @@ def unsort_guard(L, lane=None):
 
 unsort_guard.launches = 0
 register(__name__, "unsort_guard", "unsort_guard_kernel")
+
+
+# --------------------------------------------------------------------------
+# the backward
+# --------------------------------------------------------------------------
+
+def permute_state_backward_plain(perm, gL, gbeta):
+    """(d loss / d L, d loss / d beta) before permute_state from those
+    after it, gL and gbeta [N,3] (None: 0): the transpose of x[perm], row
+    perm[j] taking row j (perm a permutation)."""
+    def back(g):
+        if g is None:
+            return None
+        return torch.zeros_like(g).index_copy_(0, perm, g)
+    return back(gL), back(gbeta)
+
+
+def permute_state_backward(perm, gL, gbeta):
+    """`permute_state_backward_plain`: one launch of
+    permute_state_backward_kernel on CUDA tensors (perm [N] int64 a
+    permutation of the lanes, as argsort gives; gL, gbeta [N,3] float32 or
+    None for 0), returning both gradients (zeros for a None one; None
+    where both are None), the plain version on CPU tensors."""
+    dev = perm.device
+    if not _route("permute_state_backward", dev, gL=gL, gbeta=gbeta):
+        return permute_state_backward_plain(perm, gL, gbeta)
+    n = perm.shape[0] if perm.dim() == 1 else -1
+    _check("perm", perm, torch.int64, (n,), dev)
+    for name, g in (("gL", gL), ("gbeta", gbeta)):
+        if g is not None:
+            _check(name, g, torch.float32, (n, 3), dev)
+    _check_lanes(n)
+    if gL is None and gbeta is None:
+        return None, None
+    gl = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    gb = torch.empty_like(gl)
+    args = _PermuteGradArgs(n=n, perm=_ptr(perm), gL=_ptr(gL),
+                            gbeta=_ptr(gbeta), gL_in=_ptr(gl),
+                            gbeta_in=_ptr(gb))
+    lib = _library()
+    with torch.cuda.device(dev):
+        _launch("permute_state_backward", lib.permute_state_backward, args)
+    permute_state_backward.launches += 1
+    return gl, gb
+
+
+permute_state_backward.launches = 0
+register(__name__, "permute_state_backward", "permute_state_backward_kernel")
+
+
+def unsort_guard_backward_plain(L, lane, g):
+    """d loss / d L before unsort_guard from g [N,3] after it: g[lane[i]]
+    where L[i] is finite, else 0 (lane None: g where L is finite)."""
+    if lane is not None:
+        g = g[lane]
+    return torch.where(torch.isfinite(L), g, torch.zeros_like(g))
+
+
+def unsort_guard_backward(L, lane, g):
+    """`unsort_guard_backward_plain`: one launch of
+    unsort_guard_backward_kernel on CUDA tensors (L [N,3] float32 the
+    un-sort's input, lane [N] int64 or None, g [N,3] float32), the plain
+    version on CPU tensors."""
+    dev = L.device
+    if not _route("unsort_guard_backward", dev, L=L, g=g):
+        return unsort_guard_backward_plain(L, lane, g)
+    n = check_unsort_inputs(L, lane, dev)
+    _check("g", g, torch.float32, (n, 3), dev)
+    out = torch.empty_like(L)
+    args = _UnsortGradArgs(n=n, L=_ptr(L), lane=_ptr(lane), g=_ptr(g),
+                           gL=_ptr(out))
+    lib = _library()
+    with torch.cuda.device(dev):
+        _launch("unsort_guard_backward", lib.unsort_guard_backward, args)
+    unsort_guard_backward.launches += 1
+    return out
+
+
+unsort_guard_backward.launches = 0
+register(__name__, "unsort_guard_backward", "unsort_guard_backward_kernel")
+
+
+class _Permute(torch.autograd.Function):
+    """permute_state with the state's L and beta tracked: (perm, state, u,
+    holder, L, beta) -> the permuted (L, beta); the permuted (state, u)
+    goes to holder["out"]. Backward: permute_state_backward."""
+
+    @staticmethod
+    def forward(ctx, perm, state, u, holder, L, beta):
+        moved, u_out = permute_state(
+            state._replace(L=L.detach(), beta=beta.detach()), u, perm)
+        holder["out"] = (moved, u_out)
+        ctx.save_for_backward(perm)
+        ctx.set_materialize_grads(False)
+        return moved.L, moved.beta
+
+    @staticmethod
+    def backward(ctx, gL, gbeta):
+        (perm,) = ctx.saved_tensors
+        gl, gb = permute_state_backward(perm, gL, gbeta)
+        return None, None, None, None, gl, gb
+
+
+def permute(state: WaveState, u, perm):
+    """permute_state(state, u, perm), differentiable in state.L and
+    state.beta (the _Permute Function; its forward is permute_state's
+    launch, its backward permute_state_backward's)."""
+    holder = {}
+    L, beta = _Permute.apply(perm, state, u, holder, state.L, state.beta)
+    moved, u_out = holder["out"]
+    return moved._replace(L=L, beta=beta), u_out
+
+
+class _Unsort(torch.autograd.Function):
+    """unsort_guard into a fresh tensor with L tracked: (lane, L) -> the
+    un-sorted, guarded L. Backward: unsort_guard_backward."""
+
+    @staticmethod
+    def forward(ctx, lane, L):
+        L = L.detach()
+        out = unsort_guard(L, lane, out=torch.empty_like(L)) \
+            if L.device.type == "cuda" else unsort_guard(L, lane)
+        ctx.save_for_backward(L, lane)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        L, lane = ctx.saved_tensors
+        return None, unsort_guard_backward(L, lane, g.contiguous())
+
+
+def unsort(L, lane=None):
+    """unsort_guard(L, lane), differentiable in L where it requires grad
+    (the _Unsort Function, into a fresh tensor; its backward is
+    unsort_guard_backward); off the tape unsort_guard itself, which
+    guards in place where there was no sort."""
+    if torch.is_grad_enabled() and L.requires_grad:
+        return _Unsort.apply(lane, L)
+    return unsort_guard(L, lane)
+

@@ -2,9 +2,9 @@
 through ctypes.
 
 Each library is compiled from jet_pbrt_tpu_torch/csrc/ into
-jet_pbrt_tpu_torch/_build/<name>-<hash>/, the hash taken over the sources
-and the flags, so an edited source rebuilds and an unchanged one is reused
-within a checkout. A library named in FLAGS is built with those flags
+jet_pbrt_tpu_torch/_build/<name>-<hash>/, the hash taken over the sources,
+the headers of csrc/ and the flags, so an edited source or header rebuilds
+and an unchanged one is reused within a checkout. A library named in FLAGS is built with those flags
 added (a variant of a source under a -D define of its own). The sources
 have a plain C interface (no PyTorch headers), which keeps a build to
 seconds.
@@ -52,7 +52,10 @@ def _lib_path(name: str, sources: list[str]) -> tuple[str, list[str]]:
     paths = [os.path.join(CSRC, s) for s in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS + list(FLAGS.get(name, ())))
                        .encode())
-    for p in paths:
+    # the sources and every header they may include
+    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                     if f.endswith(".cuh"))
+    for p in paths + headers:
         with open(p, "rb") as f:
             h.update(f.read())
     out_dir = os.path.join(BUILD, f"{name}-{h.hexdigest()[:16]}")

@@ -221,8 +221,8 @@ def test_profiled_ms_each_names_what_every_call_launches(monkeypatch):
 def test_node_launches_count_the_fused_vertex():
     """A graph's kernel nodes by device function, as launch_counts names
     them: the fused vertex's two kernels, the brute-force casts',
-    ops/rays.py's four and ops/wave.py's three beside the traversal and
-    the streams."""
+    ops/rays.py's four, ops/wave.py's three and the gradient's four
+    backward kernels beside the traversal and the streams."""
     from jet_pbrt_tpu_torch.ops.launches import REGISTRY
     nodes = dict.fromkeys(REGISTRY, 0) | {
         "wide_walk_kernel": 16, "lane_keys_kernel": 1, "uniforms_kernel": 6,
@@ -230,12 +230,17 @@ def test_node_launches_count_the_fused_vertex():
         "brute_hits_kernel": 16, "shadow_key_kernel": 7,
         "shadow_segments_kernel": 10, "occlusion_merge_kernel": 10,
         "hit_reconstruct_kernel": 6, "camera_rays_kernel": 1,
-        "permute_state_kernel": 3, "unsort_guard_kernel": 1}
+        "permute_state_kernel": 3, "unsort_guard_kernel": 1,
+        "vertex_backward_kernel": 6, "grad_reduce_kernel": 6,
+        "permute_state_backward_kernel": 3,
+        "unsort_guard_backward_kernel": 1}
     assert chip_smoke.node_launches(nodes) == {
         "wide_bvh": 16, "sweep_bvh": 0, "threefry": 7, "shade_vertex": 6,
         "nee_accumulate": 5, "brute_hits": 16, "shadow_key": 7,
         "shadow_segments": 10, "occlusion_merge": 10, "hit_reconstruct": 6,
-        "camera_rays": 1, "permute_state": 3, "unsort_guard": 1}
+        "camera_rays": 1, "permute_state": 3, "unsort_guard": 1,
+        "vertex_backward": 6, "grad_reduce": 6, "permute_state_backward": 3,
+        "unsort_guard_backward": 1}
     assert set(chip_smoke.launch_counts()) == set(chip_smoke.TRACED_KERNELS)
 
 
@@ -397,3 +402,27 @@ def test_wave_nodes_classes_and_ranges():
     assert ms["camera/init"]["port kernel"] == 1.0
     assert other == {"end: void at::native::vectorized_elementwise_kernel"
                      "<4, FillFunctor>()": 1}
+
+
+@pytest.mark.parametrize("which", ["cornell", "bunny"])
+def test_grad_launches_count_one_backward_per_vertex(which):
+    """A differentiated wave's backward: one vertex_backward and one
+    grad_reduce per vertex, one permute_state_backward per sort (a
+    kernel-routed scene's bounces 0 to 2) and one unsort_guard_backward;
+    the train step's backward the same per local sample; a forward
+    launches none of them."""
+    from jet_pbrt_tpu_torch.scene import scenes
+    meta = (scenes.cornell_box() if which == "cornell"
+            else scenes.bunny_scene()).meta
+    sorts = 3 if meta.kernel_routed else 0
+    assert chip_smoke.grad_launches(meta, 2, 5) == {
+        "vertex_backward": 12, "grad_reduce": 12,
+        "permute_state_backward": 2 * sorts, "unsort_guard_backward": 2}
+    assert chip_smoke.grad_launches(meta, 1, 1)["permute_state_backward"] \
+        == (1 if meta.kernel_routed else 0)
+    assert all(chip_smoke.expected_launches(meta, 64, 4, 5)[k] == 0
+               for k in chip_smoke.GRAD)
+    if which == "bunny":
+        assert chip_smoke.sharded_grad((2, 2)) == chip_smoke.grad_launches(
+            meta, chip_smoke.SHARD_SPP // 2, chip_smoke.SHARD_DEPTH)
+

@@ -897,7 +897,10 @@ def test_graphed_train_step_on_card(mode):
     eager ones. The first loss is bit for bit in both modes (the forward
     is); under deterministic algorithms every loss and the fitted params
     too. The forward graph holds the wave's kernels, the backward graph
-    none; the pool holds the tape."""
+    the backward kernels (per sample one vertex_backward and one
+    grad_reduce a vertex, one permute_state_backward a sort, one
+    unsort_guard_backward) and no forward kernel; the pool holds the
+    tape."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
     from test_torch_multihost import run_world
@@ -914,7 +917,11 @@ def test_graphed_train_step_on_card(mode):
     launches, pool = got["entry"]
     assert launches["forward"]["wide_walk_kernel"] > 0
     assert launches["forward"]["lane_keys_kernel"] == 2
-    assert not any(launches["backward"].values()) and pool > 0
+    back = {"vertex_backward_kernel": 8, "grad_reduce_kernel": 8,
+            "permute_state_backward_kernel": 6,
+            "unsort_guard_backward_kernel": 2}
+    assert {k: v for k, v in launches["backward"].items() if v} == back
+    assert pool > 0
 
 
 @pytest.mark.cuda
@@ -1042,10 +1049,13 @@ def test_graphed_frame_replays_the_fused_vertex_on_card(which):
 
 @pytest.mark.cuda
 def test_render_fn_gradient_takes_the_plain_vertex_on_card():
-    """render_fn's gradient (its params require grad) runs the plain
-    vertex: the eager value_and_grad launches no fused kernel, and the
-    graphed one's graph holds no shade_vertex or nee_accumulate node; the
-    same fn on a pack off the tape launches them."""
+    """render_fn's gradient in the appearance fields runs the fused
+    vertex forward and its backward kernels: the eager value_and_grad
+    launches one shade_vertex a vertex and one nee_accumulate a vertex
+    below max_depth, and its backward one vertex_backward and one
+    grad_reduce a vertex; the graphed one's graph holds both as kernel
+    nodes; with a field outside them on the tape (the lights' positions)
+    it runs the plain vertex and no backward kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
     from jet_pbrt_tpu_torch.diff import params as P
@@ -1061,20 +1071,31 @@ def test_render_fn_gradient_takes_the_plain_vertex_on_card():
         assert tuple(a - b for a, b in zip(_shade_counts(), before)) == (4, 3)
     f = P.loss_fn(fn, pack, target)
     params = P.get_params(pack, ("mat_c0", "light_c"))
-    before = _shade_counts()
+    from jet_pbrt_tpu_torch.ops import shade as SH
+    grads = lambda: (SH.vertex_backward.launches, SH.grad_reduce.launches)
+    before, gbefore = _shade_counts(), grads()
     P.value_and_grad(f, params)
     torch.cuda.synchronize()
-    assert _shade_counts() == before
+    assert tuple(a - b for a, b in zip(_shade_counts(), before)) == (4, 3)
+    assert tuple(a - b for a, b in zip(grads(), gbefore)) == (4, 4)
+    before, gbefore = _shade_counts(), grads()
+    fn(pack._replace(light_pos=pack.light_pos.clone().requires_grad_()))
+    torch.cuda.synchronize()
+    assert _shade_counts() == before and grads() == gbefore
     G.clear()
     vg = P.compile_value_and_grad(f)
     for _ in range(2):
         vg(params)
     torch.cuda.synchronize()
     entry = next(iter(G.GRAD_CACHE.entries.values()))
-    assert entry.launches["shade_vertex_kernel"] == 0
-    assert entry.launches["nee_accumulate_kernel"] == 0
+    assert entry.launches["shade_vertex_kernel"] == 4
+    assert entry.launches["nee_accumulate_kernel"] == 3
+    assert entry.launches["vertex_backward_kernel"] == 4
+    assert entry.launches["grad_reduce_kernel"] == 4
     assert entry.launches["uniforms_kernel"] > 0
-    assert _shade_counts() == before
+    # the capture's warm-ups ran eagerly, the second call replayed
+    assert tuple(a - b for a, b in zip(_shade_counts(), before)) == (
+        (G.GRAD_WARMUPS + 1) * 4, (G.GRAD_WARMUPS + 1) * 3)
     vg.release()
     G.clear()
 
@@ -1631,9 +1652,10 @@ def test_wave_kernels_refuse_on_card():
 @pytest.mark.cuda
 def test_gradient_forward_runs_the_camera_kernel_on_card():
     """render_fn's gradient on the Cornell box: its forward makes the
-    camera rays through the kernel (one launch a sample) and keeps the
-    torch glue between the casts (its L and beta require grad: no permute,
-    no un-sort kernel); its backward launches none."""
+    camera rays through the kernel (one launch a sample) and guards each
+    sample's colours through the un-sort kernel (the box sorts nothing:
+    no permute); its backward launches none of them, and one
+    unsort_guard_backward a sample."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
     from jet_pbrt_tpu_torch.diff import params as P
@@ -1650,8 +1672,90 @@ def test_gradient_forward_runs_the_camera_kernel_on_card():
     loss = f(leaves)
     torch.cuda.synchronize()
     assert {k: v - before[k] for k, v in _wave_counts().items()} == {
-        "camera_rays": 2, "permute_state": 0, "unsort_guard": 0}
-    before = _wave_counts()
+        "camera_rays": 2, "permute_state": 0, "unsort_guard": 2}
+    from jet_pbrt_tpu_torch.ops import wave as TWV
+    before, back = _wave_counts(), TWV.unsort_guard_backward.launches
     torch.autograd.grad(loss, list(leaves.values()))
     torch.cuda.synchronize()
     assert _wave_counts() == before
+    assert TWV.unsort_guard_backward.launches == back + 2
+
+
+# the gradient's kernels (ops/shade.py, csrc/shade_grad.cu; ops/wave.py's
+# backward kernels)
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["wide", "sweep", "many-lights", "cornell",
+                                   "textured"])
+def test_gradient_kernels_match_plain_on_card(which):
+    """The forward of one differentiated 1-spp wave at 32^2, depth 5 (the
+    every-kind scene on the wide kernel and on the sweep, the 46 lights,
+    the Cornell box, the bilinear-textured floor), its vertex, permute and
+    un-sort calls recorded; each call's backward kernels against their
+    plain versions for seeded upstream gradients
+    (chip_smoke.check_grad_calls): d loss / d beta per lane within rtol
+    1e-5 or explained by float64, each field within 1e-4 of its largest
+    |gradient| (NaN fields of the plain backward against the lanes' own
+    lobes), the permute's and un-sort's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    scene = (chip_smoke.cornell_box() if which == "cornell"
+             else chip_smoke.grad_scene("image") if which == "textured"
+             else _shade_scene(which).to("cpu"))
+    out = chip_smoke.grad_phase(((which, scene.to("cuda"), 32),),
+                                torch.device("cuda"), "card")
+    assert out[which]["calls"]["vertex"] == 6
+
+
+@pytest.mark.cuda
+def test_render_fn_gradient_kernel_route_matches_plain_route_on_card():
+    """value_and_grad of a 32^2, 1-spp, depth-5 render_fn loss over
+    albedo, roughness, emission and texels on the textured instanced scene:
+    the kernel route's loss equal to the plain route's
+    (chip_smoke.plain_grad) bit for bit, each field within 1e-4 of its
+    largest |gradient|; the kernel route's gradient the same bit for bit
+    in a second run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    from jet_pbrt_tpu_torch.diff import params as P
+    from jet_pbrt_tpu_torch.models.render import render_fn
+    fn, pack = render_fn(_grad_scene(), 32, 32, 1, seed=2, max_depth=5,
+                         device="cuda")
+    with torch.no_grad():
+        target = fn(pack._replace(light_c=pack.light_c * 1.2))
+    f = P.loss_fn(fn, pack, target)
+    params = P.get_params(pack, ("mat_c0", "mat_s0", "light_c",
+                                 "tex_image"))
+    val, g = P.value_and_grad(f, params)
+    val2, g2 = P.value_and_grad(f, params)
+    with chip_smoke.plain_grad():
+        pval, pg = P.value_and_grad(f, params)
+    assert torch.equal(val, pval) and torch.equal(val, val2)
+    for k in ("mat_c0", "mat_s0", "light_c"):
+        assert torch.equal(g[k], g2[k]), k
+    for k in params:
+        scale = float(pg[k].abs().max())
+        assert scale > 0 and float((g[k] - pg[k]).abs().max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.cuda
+def test_gradient_kernels_edge_sets_on_card():
+    """The backward kernels on the edge sets of chip_smoke.grad_edges at 1
+    and 1,000 lanes: a recorded Cornell and every-kind wave's bounce-1 and
+    last vertices cut or repeated to the size, the permute's backward by
+    the identity, a reversal and a seeded perm, the un-sort's with NaN and
+    inf colours, by those perms and without a sort."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    dev = torch.device("cuda")
+    cases = [(label, chip_smoke.grad_wave_calls(label, scene.to(dev), 16,
+                                                dev))
+             for label, scene in (("cornell", chip_smoke.cornell_box()),
+                                  ("every-kind", _shade_scene("wide")))]
+    out = chip_smoke.grad_edges(cases, dev, sizes=(1, 1000))
+    assert out["edges 1000"]["calls"] == {"vertex": 4, "permute": 3,
+                                          "unsort": 4}
+

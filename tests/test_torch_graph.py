@@ -274,7 +274,13 @@ def test_every_kernel_wrapper_is_registered():
         "hit_reconstruct_kernel": (TRAY.__name__, "hit_reconstruct"),
         "camera_rays_kernel": (TWAVE.__name__, "camera_rays"),
         "permute_state_kernel": (TWAVE.__name__, "permute_state"),
-        "unsort_guard_kernel": (TWAVE.__name__, "unsort_guard")}
+        "unsort_guard_kernel": (TWAVE.__name__, "unsort_guard"),
+        "vertex_backward_kernel": (TSH.__name__, "vertex_backward"),
+        "grad_reduce_kernel": (TSH.__name__, "grad_reduce"),
+        "permute_state_backward_kernel": (TWAVE.__name__,
+                                          "permute_state_backward"),
+        "unsort_guard_backward_kernel": (TWAVE.__name__,
+                                         "unsort_guard_backward")}
     assert all(isinstance(v, int) for v in L.counts().values())
 
 
@@ -369,7 +375,10 @@ def test_graph_kernel_nodes_counted_by_device_function():
         "brute_hits_kernel": 2, "shadow_key_kernel": 2,
         "shadow_segments_kernel": 1, "occlusion_merge_kernel": 1,
         "hit_reconstruct_kernel": 1, "camera_rays_kernel": 1,
-        "permute_state_kernel": 1, "unsort_guard_kernel": 1}
+        "permute_state_kernel": 1, "unsort_guard_kernel": 1,
+        "vertex_backward_kernel": 0, "grad_reduce_kernel": 0,
+        "permute_state_backward_kernel": 0,
+        "unsort_guard_backward_kernel": 0}
     assert not L.is_function("wide_walk_kernel_tail", "wide_walk_kernel")
     assert not L.is_function("x16wide_walk_kernel", "wide_walk_kernel")
 

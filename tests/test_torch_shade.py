@@ -249,14 +249,17 @@ def test_nee_accumulate_matches_reference_adds():
     (True, False, True, 2, False), (True, False, False, 33, True),
     (True, False, False, 200, True)])
 def test_kernel_route(nee, mis, grad, lights, fused):
-    """The wrappers with NEE, without MIS, off the tape, whatever the
-    number of lights; the plain version otherwise."""
+    """The wrappers with NEE, without MIS, with no gradient outside the
+    appearance fields (grad: the lights' positions require it), whatever
+    the number of lights; the plain version otherwise
+    (tests/test_torch_vertex_grad.py holds each appearance field that
+    keeps the wrappers)."""
     scene = tscenes.cornell_box()
     meta = dataclasses.replace(scene.meta,
                                lights=(scene.meta.lights[0],) * lights)
     pack = scene.pack
     if grad:
-        pack = pack._replace(mat_c0=pack.mat_c0.clone().requires_grad_())
+        pack = pack._replace(light_pos=pack.light_pos.clone().requires_grad_())
     o = torch.zeros((4, 3))
     assert S.kernel_route(meta, pack, o, o, nee=nee, mis=mis) is fused
 
@@ -302,16 +305,21 @@ def test_entry_points_take_their_route(case, calls):
 
 
 def test_gradient_path_takes_the_plain_vertex(calls):
-    """render_fn differentiated (its pack's fields require grad) runs the
-    plain vertex; the same fn on a pack off the tape takes the
-    wrappers."""
+    """render_fn differentiated in an appearance field takes the wrappers
+    (shade.vertex's Function; on the CPU each wrapper runs its plain
+    version, and the plain backward the plain vertex again); with a field
+    outside the appearance fields on the tape (the lights' positions) it
+    runs the plain vertex alone; off the tape it takes the wrappers."""
     fn, pack = R.render_fn(tscenes.cornell_box(), 4, 4, 1, max_depth=2,
                            device="cpu")
     loss, grads = dparams.value_and_grad(
         lambda p: fn(dparams.with_params(pack, p)).mean(),
         dparams.get_params(pack, ("mat_c0",)))
-    assert set(calls) == {"shade_vertex_plain", "nee_accumulate_plain"}
+    assert set(calls) == {*FUSED[0], *FUSED[1]}
     assert float(grads["mat_c0"].abs().sum()) > 0
+    del calls[:]
+    fn(pack._replace(light_pos=pack.light_pos.clone().requires_grad_()))
+    assert set(calls) == {"shade_vertex_plain", "nee_accumulate_plain"}
     del calls[:]
     fn(pack)
     assert set(calls) == {*FUSED[0], *FUSED[1]}
