@@ -104,9 +104,12 @@ Phases, each printing its result; any failure raises and exits non-zero:
      image and stats bit for bit;
   2g. the gradient's kernels (ops/shade.py, csrc/shade_grad.cu:
      vertex_backward and grad_reduce; csrc/wave.cu: permute_state_backward
-     and unsort_guard_backward): the forward of one differentiated 1-spp
-     wave of the five 2c scenes, the 16-family scene and the textured
-     floor (image and checker), every appearance field on the tape
+     and unsort_guard_backward): the kernel's tangent table against
+     ops/shade.py's (check_tangents); the forward of one differentiated
+     1-spp wave of the five 2c scenes, the 16-family scene, the textured
+     floor (image and checker) and the many-slots scene (more parameter
+     slots than a block's shared memory holds), every appearance field on
+     the tape
      (grad_wave_calls: as many vertex, permute and un-sort calls as
      grad_launches counts), each call's backward on the kernels against
      its plain version for seeded upstream gradients (check_grad_calls:
@@ -120,7 +123,9 @@ Phases, each printing its result; any failure raises and exits non-zero:
      enqueue, the profiler's device time warm and after an L2 flush, the
      plain version, the bytes bound against the forward vertex's float
      operations, and the PyTorch yardsticks torch.sum and index_add_ for the
-     reduction, index_copy_ for the permute's backward);
+     reduction, index_copy_ for the permute's backward); the many-slots
+     scene's value_and_grad on the kernels against the plain route
+     (many_slots_grads);
   3. wide kernel vs its plain PyTorch version on the default bunny's
      tables (66k-row BLAS, 4 instances), on about 65k rays (half primary,
      half bounce) and a targeted incoherent set, closest hit and any hit
@@ -191,8 +196,10 @@ Phases, each printing its result; any failure raises and exits non-zero:
      the fused wave's launches forward (expected_launches: 16 wide, 16
      brute_hits, 7 Threefry, 6 shade_vertex, 5 nee_accumulate, the rays'
      and the glue's) and exactly the backward kernels' backward
-     (grad_launches: 6 vertex_backward, 6 grad_reduce, 3
-     permute_state_backward, 1 unsort_guard_backward), forward and
+     (grad_launches: 11 vertex_backward, two tangent sets a vertex below
+     depth 5 and one on the last, 6 grad_reduce, 3
+     permute_state_backward, 1 unsort_guard_backward), each run's
+     gradient bit for bit with the first's, forward and
      backward times, their ratio and the tape's peak memory, the profiled
      backward with every device operation listed, and forward, backward
      and peak memory in turns with the plain route (plain_grad), each
@@ -1049,6 +1056,37 @@ def many_lights_scene(builder=SceneBuilder):
     return b.build()
 
 
+# the many-slots scene's materials: more parameter slots (8 a material)
+# than the kernel of commit feed372 held in a block's shared memory
+# (14,528)
+MANY_SLOTS_MATERIALS = 2000
+
+
+def many_slots_scene(grid: int = 16, builder=SceneBuilder):
+    """MANY_SLOTS_MATERIALS matte materials of seeded colours, the floor a
+    grid x grid of rects with one of them each (spread over the table),
+    under an area light, beside a metal sphere (the second tangent set):
+    more parameter slots than a block's accumulators hold in shared
+    memory, so the backward accumulates in device memory, and many rows
+    in a warp. `builder` is a SceneBuilder class."""
+    g = np.random.default_rng(11)
+    b = builder("many-slots")
+    b.set_camera(lookfrom=(0, 4, 8), lookat=(0, 0, 0), vfov=50)
+    mats = [b.add_matte(tuple(g.uniform(0.2, 0.9, 3)))
+            for _ in range(MANY_SLOTS_MATERIALS)]
+    step = 12.0 / grid
+    for k in range(grid * grid):
+        x, z = -6 + step * (k % grid), -6 + step * (k // grid)
+        b.add_rect_xz(x, x + step, z, z + step, 0,
+                      mats[k * (MANY_SLOTS_MATERIALS // (grid * grid))])
+    b.add_sphere((0, 1, 0), 1.0, b.add_metal((0.2, 0.9, 1.1),
+                                            (3.9, 2.4, 2.1), 0.3, 0.3))
+    b.add_area_light(b.add_rect_xz(-1, 1, -1, 1, 5, b.add_matte(
+        (0.6, 0.6, 0.6)), flip_normal=True), (6.0, 6.0, 6.0))
+    b.add_env_light((0.1, 0.1, 0.15))
+    return b.build(use_bvh=False)
+
+
 @contextlib.contextmanager
 def vertex_calls(out: list):
     """While open, each call of shade_ops.shade_vertex and
@@ -1284,7 +1322,7 @@ def time_vertex(label, call, smi: str, reps: int = 20) -> dict:
         b = bound(nbytes, flops)
         out[name] = {"ms": ms, "enqueue_ms": host, "device_ms": dev_ms,
                      "device_cold_ms": cold_ms,
-                     "device_source": "profiler" if src == kernel else src,
+                     "device_source": src,
                      "plain_ms": plain_ms, "bound_ms": b[0],
                      "bound_by": b[1], "bytes": nbytes, "flops": flops,
                      "lanes": n, "lights": nj, "bounce": bounce}
@@ -2211,7 +2249,7 @@ def time_rays(label: str, calls: list, smi: str, reps: int = 20) -> dict:
              else a[1] if name == "shadow_segments" else a[0][0]).shape[0]
         out[case] = {"ms": ms, "enqueue_ms": host, "device_ms": dev_ms,
                      "device_cold_ms": cold_ms,
-                     "device_source": "profiler" if src == kernel else src,
+                     "device_source": src,
                      "plain_ms": plain_ms, "bound_ms": b[0],
                      "bound_by": b[1], "bytes": nbytes, "lanes": n,
                      "library_ms": lib}
@@ -2634,7 +2672,7 @@ def time_wave(label: str, calls: list, smi: str, reps: int = 20) -> dict:
             lib[lname] = {"ms": time_ms(fn, reps)[0], "device_ms": lib_dev}
         out[case] = {"ms": ms, "enqueue_ms": host, "device_ms": dev_ms,
                      "device_cold_ms": cold_ms,
-                     "device_source": "profiler" if src == kernel else src,
+                     "device_source": src,
                      "plain_ms": plain_ms, "bound_ms": b[0],
                      "bound_by": b[1], "bytes": nbytes, "lanes": lanes,
                      "library_ms": lib}
@@ -2808,12 +2846,15 @@ GRAD_WAVE_FIELDS = ("mat_c0", "mat_c1", "mat_s0", "mat_s1", "light_c")
 def grad_launches(meta, waves: int, depth: int) -> dict:
     """The backward kernels' launches in the backward of `waves`
     differentiated waves on the kernel route at max_depth `depth`: per
-    wave one vertex_backward and one grad_reduce per vertex (depth + 1),
-    one permute_state_backward per sort between bounces (bounces 0 to 2
-    below depth, in a kernel-routed scene) and one unsort_guard_backward
-    (the forward's launches are expected_launches')."""
+    wave one vertex_backward per tangent set (shade.backward_sets) at
+    each vertex below depth and one on the last, one grad_reduce per
+    vertex (depth + 1), one permute_state_backward per sort between
+    bounces (bounces 0 to 2 below depth, in a kernel-routed scene) and one
+    unsort_guard_backward (the forward's launches are
+    expected_launches')."""
     sorts = min(3, depth) if meta.kernel_routed else 0
-    return {"vertex_backward": waves * (depth + 1),
+    sets = len(shade_ops.backward_sets(meta))
+    return {"vertex_backward": waves * (depth * sets + 1),
             "grad_reduce": waves * (depth + 1),
             "permute_state_backward": waves * sorts,
             "unsort_guard_backward": waves}
@@ -2867,7 +2908,7 @@ def grad_wave_calls(label: str, scene, res: int, dev) -> list:
     depth VERTEX_DEPTH, GRAD_WAVE_FIELDS of the pack on the tape, and
     tex_image, tex_c0 and tex_c1 where the scene has textures), its
     vertex, permute and un-sort calls recorded: as many as grad_launches
-    counts their backwards."""
+    counts their backwards (a vertex call's one grad_reduce)."""
     fields = GRAD_WAVE_FIELDS + (("tex_image", "tex_c0", "tex_c1")
                                  if scene.meta.n_tex else ())
     fn, pack = render_fn(scene, res, res, 1, seed=1, max_depth=VERTEX_DEPTH,
@@ -2881,7 +2922,7 @@ def grad_wave_calls(label: str, scene, res: int, dev) -> list:
     got = collections.Counter(name for name, _ in calls)
     want = grad_launches(scene.meta, n_waves(res, res, 1, DEFAULT_CHUNK),
                          VERTEX_DEPTH)
-    if got != collections.Counter({"vertex": want["vertex_backward"],
+    if got != collections.Counter({"vertex": want["grad_reduce"],
                                    "permute": want["permute_state_backward"],
                                    "unsort": want["unsort_guard_backward"]}):
         raise AssertionError(f"{label}: one differentiated wave made the "
@@ -3208,11 +3249,12 @@ def time_grads(label: str, calls: list, smi: str, reps: int = 20) -> dict:
     the un-sort, with seeded upstream gradients: each kernel by events,
     host enqueue and the profiler's device time (warm, and after an L2
     flush each), its plain version by events, beside the PyTorch calls
-    that compute the same function as yardsticks (grad_reduce: index_add_
-    of one [N, 8] row of parameter gradients a lane into the material
-    rows, what the reduction by rows from the lanes costs in one call, the
-    kernels line's library_ms; and torch.sum(partials, 0), its second pass
-    alone; the permute's backward: index_copy_ of the two gradients packed
+    that compute the same function as yardsticks (grad_reduce:
+    torch.sum(partials, 0), the same sum in another order, the kernels
+    line's library_ms; and index_add_ of one [N, 8] row of parameter
+    gradients a lane into the material rows, what the reduction by rows
+    from the lanes costs in one call; the permute's backward: index_copy_
+    of the two gradients packed
     as [N, 6]), and its bound: bytes (grad_bytes) at
     HBM_BW against, for vertex_backward, the forward vertex's float
     operations on the same inputs (counted_ops; the backward recomputes
@@ -3247,9 +3289,9 @@ def time_grads(label: str, calls: list, smi: str, reps: int = 20) -> dict:
         "grad_reduce": (
             lambda: shade_ops.grad_reduce(partials),
             lambda: shade_ops.grad_reduce_plain(partials), (partials,), 0,
-            {"index_add_ [N, 8] by material": lambda: table8.index_add_(
-                0, mat, rows8),
-             "torch.sum": lambda: torch.sum(partials, 0)}),
+            {"torch.sum": lambda: torch.sum(partials, 0),
+             "index_add_ [N, 8] by material": lambda: table8.index_add_(
+                 0, mat, rows8)}),
         "permute_state_backward": (
             lambda: wave_ops.permute_state_backward(perm, gL, gbeta),
             lambda: wave_ops.permute_state_backward_plain(perm, gL, gbeta),
@@ -3263,21 +3305,31 @@ def time_grads(label: str, calls: list, smi: str, reps: int = 20) -> dict:
     out = {}
     for name, (k, p, args, flops, lib) in cases.items():
         kernel = f"{name}_kernel"
+        # the vertex's backward launches one kernel a tangent set: each
+        # must be recorded once a call, and the device time is their sum
+        names = tuple(f"{kernel}<{s}>" for s in shade_ops.backward_sets(
+            meta)) if name == "vertex_backward" else (kernel,)
         nbytes = grad_bytes(name, args)
         b = bound(nbytes, flops)
         ms, _ = time_ms(k, reps)
         _, host, host_max, _, _ = time_enqueue_ms(k, reps)
-        (src, dev_ms), = profiled_ms(k, reps, (kernel,)).items()
+        dev = profiled_ms(k, reps, names)
+        dev_ms = sum(dev.values())
+        src = "profiler" if set(dev) == set(names) else next(iter(dev))
         cold = lambda k=k: (flush.fill_(0), k())
-        (_, cold_ms), = profiled_ms(cold, reps, (kernel,)).items()
+        cold_ms = sum(profiled_ms(cold, reps, names).values())
         plain_ms, _ = time_ms(p, 3)
         libs = {}
         for lname, fn in lib.items():
             (_, lib_dev), = profiled_ms(fn, reps, ("",)).items()
             libs[lname] = {"ms": time_ms(fn, reps)[0], "device_ms": lib_dev}
+        # each tangent set's launch apart
+        per_set = {int(nm[len(kernel) + 1:-1]): v for nm, v in dev.items()
+                   if len(names) > 1 and nm in names}
         out[name] = {"ms": ms, "enqueue_ms": host, "device_ms": dev_ms,
+                     "set_device_ms": per_set,
                      "device_cold_ms": cold_ms,
-                     "device_source": "profiler" if src == kernel else src,
+                     "device_source": src,
                      "plain_ms": plain_ms, "bound_ms": b[0],
                      "bound_by": b[1], "bytes": nbytes, "flops": flops,
                      "lanes": n, "library_ms": libs}
@@ -3290,7 +3342,10 @@ def time_grads(label: str, calls: list, smi: str, reps: int = 20) -> dict:
               f"time {dev_ms / b[0]:.2f}x it"
               + "".join(f"; library {k_} {v['ms']:.4f} ms by events, "
                         f"{v['device_ms']:.4f} ms device"
-                        for k_, v in libs.items()) + f" [{smi}]", flush=True)
+                        for k_, v in libs.items())
+              + "".join(f"; tangent set {s_}'s launch {v:.4f} ms device"
+                        for s_, v in per_set.items()) + f" [{smi}]",
+              flush=True)
     return out
 
 
@@ -3329,13 +3384,79 @@ def grad_edges(cases, dev, sizes=(1, 1000, (1 << 20) + 1)) -> dict:
     return out
 
 
+def check_tangents(dev) -> None:
+    """The backward kernel's own tangent table (shade.kernel_tangents: each
+    instantiation's parameters and each material kind's set) equal to
+    ops/shade.py's TANGENT_SETS and tangent_set (on the card; the CPU has
+    no kernel)."""
+    if dev.type != "cuda":
+        return
+    sets, of = shade_ops.kernel_tangents()
+    want = {k: shade_ops.tangent_set(k) for k in shade_ops.TANGENTS}
+    if sets != shade_ops.TANGENT_SETS or of != want:
+        raise AssertionError(f"the kernel's tangent sets {sets} and kinds' "
+                             f"sets {of}; ops/shade.py's "
+                             f"{shade_ops.TANGENT_SETS} and {want}")
+    print(f"the backward kernel's tangent sets {sets} (parameters 0-2 c0, "
+          f"3-5 c1, 6 s0, 7 s1) and material kinds' sets {of} equal "
+          "ops/shade.py's", flush=True)
+
+
+def many_slots_grads(dev, smi: str, res: int = 256, depth: int = 3) -> dict:
+    """value_and_grad of the mean pixel of the many-slots scene at res^2,
+    1 spp, over the material and light fields, on the kernel route (its
+    backward through vertex_backward's device-memory accumulators, with
+    the exact launches grad_launches counts) against the plain route
+    (plain_grad): each field within GRAD_FIELD_TOL of its largest
+    |gradient|, finite, and at least 16 of the floor's material rows with
+    a gradient."""
+    scene = many_slots_scene().to(dev)
+    slots = shade_ops.n_grad_slots(scene.pack)
+    fields = GRAD_WAVE_FIELDS
+    fn, pack = render_fn(scene, res, res, 1, seed=3, max_depth=depth,
+                         device=dev)
+    loss = lambda img: img.mean()
+    _, g, _, b_ms, _, bwd, _ = fwd_bwd(fn, pack, fields, loss)
+    want = grad_launches(scene.meta, n_waves(res, res, 1, DEFAULT_CHUNK),
+                         depth)
+    if any(bwd[k] != want[k] for k in want):
+        raise AssertionError(f"many-slots backward launches {bwd}, expected "
+                             f"{want}")
+    with plain_grad():
+        _, gp, _, pb_ms, _, _, _ = fwd_bwd(fn, pack, fields, loss)
+    worst = 0.0
+    for k in fields:
+        scale = float(gp[k].abs().max())
+        err = float((g[k] - gp[k]).abs().max())
+        if not (err <= GRAD_FIELD_TOL * scale or err == 0.0) \
+                or not bool(torch.isfinite(g[k]).all()):
+            raise AssertionError(f"many-slots d loss / d {k}: the kernels' "
+                                 f"differ from the plain route's by {err} "
+                                 f"(largest |gradient| {scale})")
+        worst = max(worst, err / scale if scale else 0.0)
+    rows = int((g["mat_c0"].abs().sum(1) > 0).sum())
+    if rows < 16:
+        raise AssertionError(f"many-slots: {rows} material rows with a "
+                             "gradient")
+    print(f"many-slots scene ({scene.meta.n_mat} materials, {slots} "
+          f"parameter slots) {res}^2 1 spp depth {depth}: value_and_grad on "
+          f"the kernels, backward {b_ms:.1f} ms, launches {bwd}; {rows} "
+          f"material rows with a gradient; every field within "
+          f"{worst:.2e} of its largest |gradient| of the plain route's "
+          f"(gate {GRAD_FIELD_TOL}; plain backward {pb_ms:.1f} ms) [{smi}]",
+          flush=True)
+    return {"slots": slots, "field_rel": worst, "backward_ms": b_ms,
+            "plain_backward_ms": pb_ms, "rows": rows}
+
+
 def grad_phase(cases, dev, smi: str, time_case: str | None = None) -> dict:
-    """For each (label, scene, res) of cases the forward of one
-    differentiated 1-spp wave, its vertex, permute and un-sort calls
-    recorded (grad_wave_calls) and each call's backward held against its
-    plain version (check_grad_calls); the case labelled time_case timed
-    (time_grads); then the edge sets (grad_edges). Returns {label: counts}
-    and "times"."""
+    """The kernel's tangent table (check_tangents); for each (label, scene,
+    res) of cases the forward of one differentiated 1-spp wave, its
+    vertex, permute and un-sort calls recorded (grad_wave_calls) and each
+    call's backward held against its plain version (check_grad_calls); the
+    case labelled time_case timed (time_grads); then the edge sets
+    (grad_edges). Returns {label: counts} and "times"."""
+    check_tangents(dev)
     out, recorded = {}, []
     for label, scene, res in cases:
         calls = grad_wave_calls(label, scene, res, dev)
@@ -5035,6 +5156,11 @@ def diff_phase(dev, smi: str, res: int = 1024):
         if not all(bool(torch.isfinite(x).all()) for x in g.values()) \
                 or not bool((g["mat_c0"][0] != 0).any()):
             raise AssertionError(f"bunny gradients: {g}")
+        if not all(torch.equal(g[k], eager[0][k]) for k in g):
+            raise AssertionError(f"bunny run {run + 1}'s gradient differs "
+                                 f"from run 1's (largest difference "
+                                 f"{max_diff(g, eager[0])}): the backward "
+                                 "kernels sum in a fixed order")
         out["runs"].append({"forward_ms": f_ms, "backward_ms": b_ms,
                             "ratio": b_ms / f_ms, "peak_bytes": peak,
                             "forward_launches": fwd,
@@ -5972,8 +6098,10 @@ def main() -> int:
     grads = grad_phase(
         cases + (("many-families", many_families_scene().to(dev), 256),
                  ("textured image", grad_scene("image").to(dev), 64),
-                 ("textured checker", grad_scene("checker").to(dev), 64)),
+                 ("textured checker", grad_scene("checker").to(dev), 64),
+                 ("many-slots", many_slots_scene().to(dev), 64)),
         dev, smi.splitlines()[0], time_case="bunny")
+    many_slots_grads(dev, smi.splitlines()[0])
     del cases
     print(f"phase 2g took {time.perf_counter() - t0:.1f} s", flush=True)
 

@@ -7,8 +7,9 @@
 // sample, the Fresnel and microfacet terms they call) is a template over
 // its scalar type T. The forward instantiates it with F, whose every
 // operation rounds as torch's eager op does (see csrc/shade.cu's note); the
-// backward instantiates it once more with D, F's value and NT forward-mode
-// tangents over the lane's own material row (c0 rgb, c1 rgb, s0, s1). A
+// backward instantiates it once more with D<N>, F's value and N forward-mode
+// tangents over the parameters of the lane's own material row (of c0 rgb,
+// c1 rgb, s0, s1) that its kind's tangent set carries. A
 // D's value is computed by the same F operation as the forward's, so the
 // backward's branch decisions and values equal the forward's bit for bit;
 // its tangents follow the derivative rules of torch's autograd at the
@@ -19,6 +20,9 @@
 // depend on is absent from torch's tape. The light sample and the texture
 // tap carry no tangent: the radiance enters the estimate linearly and the
 // tap's texels by its weights, which csrc/shade_grad.cu applies itself.
+// The lobe's evaluation and sampling are inlined: called with a lobe by
+// reference, an outlined D<8> instance put the lobe on the stack (an 800 B
+// frame in csrc/shade_grad.cu's kernels).
 
 #pragma once
 
@@ -92,145 +96,153 @@ const double PI = 3.14159265358979323846;
 
 // ------------------------------------------------------------ dual numbers
 
-// D: a value rounded as F rounds it and NT tangents (d value / d each of
-// the lane's material parameters). The tangents' own arithmetic is plain
+// D<N>: a value rounded as F rounds it and N tangents (d value / d each of
+// the lane material parameters the backward carries for the lane's kind:
+// csrc/shade_grad.cu's tangent sets). The tangents' own arithmetic is plain
 // float: the backward's gradients are held to a tolerance, its values and
-// branches to the forward's bits.
-constexpr int NT = 8;
-
-struct D {
-  float v;
-  float d[NT];
-  __device__ __forceinline__ D() {}
-  __device__ __forceinline__ D(F a) : v(a.v) {
-#pragma unroll
-    for (int k = 0; k < NT; ++k) d[k] = 0.0f;
-  }
-};
+// branches to the forward's bits. Each tangent's arithmetic reads only its
+// own tangents and the values, so a tangent's result does not depend on
+// how many others are carried. The binary operations are friends found by
+// argument-dependent lookup, so an F operand converts to D<N> as it did
+// when N was fixed.
 
 // t * s, 0 where the tangent t is 0 (a parameter the operand does not
 // depend on contributes nothing, even through an infinite slope)
 __device__ __forceinline__ float tm(float t, float s) { return t == 0.0f ? 0.0f : t * s; }
 
+template <int N> struct D {
+  float v;
+  float d[N];
+  __device__ __forceinline__ D() {}
+  __device__ __forceinline__ D(F a) : v(a.v) {
+#pragma unroll
+    for (int k = 0; k < N; ++k) d[k] = 0.0f;
+  }
+
+  friend __device__ __forceinline__ D operator+(D a, D b) {
+    D r;
+    r.v = __fadd_rn(a.v, b.v);
+#pragma unroll
+    for (int k = 0; k < N; ++k) r.d[k] = a.d[k] + b.d[k];
+    return r;
+  }
+  friend __device__ __forceinline__ D operator-(D a, D b) {
+    D r;
+    r.v = __fsub_rn(a.v, b.v);
+#pragma unroll
+    for (int k = 0; k < N; ++k) r.d[k] = a.d[k] - b.d[k];
+    return r;
+  }
+  friend __device__ __forceinline__ D operator*(D a, D b) {
+    D r;
+    r.v = __fmul_rn(a.v, b.v);
+#pragma unroll
+    for (int k = 0; k < N; ++k) r.d[k] = tm(a.d[k], b.v) + tm(b.d[k], a.v);
+    return r;
+  }
+  friend __device__ __forceinline__ D operator/(D a, D b) {
+    D r;
+    r.v = __fdiv_rn(a.v, b.v);
+    const float inv = 1.0f / b.v, q = r.v / b.v;
+#pragma unroll
+    for (int k = 0; k < N; ++k) r.d[k] = tm(a.d[k], inv) - tm(b.d[k], q);
+    return r;
+  }
+  friend __device__ __forceinline__ bool operator<(D a, D b) { return a.v < b.v; }
+  friend __device__ __forceinline__ bool operator>(D a, D b) { return a.v > b.v; }
+  friend __device__ __forceinline__ bool operator<=(D a, D b) { return a.v <= b.v; }
+  friend __device__ __forceinline__ bool operator>=(D a, D b) { return a.v >= b.v; }
+  friend __device__ __forceinline__ bool operator==(D a, D b) { return a.v == b.v; }
+  friend __device__ __forceinline__ bool operator!=(D a, D b) { return a.v != b.v; }
+  friend __device__ __forceinline__ D sel(bool c, D a, D b) { return c ? a : b; }
+  // torch.pow's backward: the base's slope b a^(b-1), 0 where b is 0; the
+  // exponent's a^b log(a), 0 where a is 0 and b >= 0
+  friend __device__ __forceinline__ D pow_(D a, D b) {
+    D r;
+    r.v = powf(a.v, b.v);
+    const float sa = b.v == 0.0f ? 0.0f : b.v * powf(a.v, b.v - 1.0f);
+    const float sb = (a.v == 0.0f && b.v >= 0.0f) ? 0.0f : r.v * logf(a.v);
+#pragma unroll
+    for (int k = 0; k < N; ++k) r.d[k] = tm(a.d[k], sa) + tm(b.d[k], sb);
+    return r;
+  }
+  friend __device__ __forceinline__ D fma_(D a, D b, D c) {
+    D r;
+    r.v = __fmaf_rn(a.v, b.v, c.v);
+#pragma unroll
+    for (int k = 0; k < N; ++k) r.d[k] = tm(a.d[k], b.v) + tm(b.d[k], a.v) + c.d[k];
+    return r;
+  }
+  // torch.clamp_min: the input's tangent where it is >= lo (NaN: lo's)
+  friend __device__ __forceinline__ D cmin(D a, D lo) {
+    if (isnan(a.v)) return take(a.v, lo);
+    return a.v >= lo.v ? a : lo;
+  }
+  friend __device__ __forceinline__ D clamp_(D a, D lo, D hi) {
+    if (isnan(a.v)) return take(a.v, lo);
+    if (a.v < lo.v) return lo;
+    if (a.v > hi.v) return hi;
+    return a;
+  }
+  // a value that takes the tangents of `from`
+  static __device__ __forceinline__ D take(float v, const D& from) {
+    D r = from;
+    r.v = v;
+    return r;
+  }
+};
+
 // a value with every tangent scaled by its slope
-__device__ __forceinline__ D chain(float v, const D& a, float slope) {
-  D r;
+template <int N> __device__ __forceinline__ D<N> chain(float v, const D<N>& a, float slope) {
+  D<N> r;
   r.v = v;
 #pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = tm(a.d[k], slope);
-  return r;
-}
-// a value that takes the tangents of `from`
-__device__ __forceinline__ D take(float v, const D& from) {
-  D r = from;
-  r.v = v;
+  for (int k = 0; k < N; ++k) r.d[k] = tm(a.d[k], slope);
   return r;
 }
 
-__device__ __forceinline__ D operator+(D a, D b) {
-  D r;
-  r.v = __fadd_rn(a.v, b.v);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = a.d[k] + b.d[k];
-  return r;
-}
-__device__ __forceinline__ D operator-(D a, D b) {
-  D r;
-  r.v = __fsub_rn(a.v, b.v);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = a.d[k] - b.d[k];
-  return r;
-}
-__device__ __forceinline__ D operator*(D a, D b) {
-  D r;
-  r.v = __fmul_rn(a.v, b.v);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = tm(a.d[k], b.v) + tm(b.d[k], a.v);
-  return r;
-}
-__device__ __forceinline__ D operator/(D a, D b) {
-  D r;
-  r.v = __fdiv_rn(a.v, b.v);
-  const float inv = 1.0f / b.v, q = r.v / b.v;
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = tm(a.d[k], inv) - tm(b.d[k], q);
-  return r;
-}
-__device__ __forceinline__ D operator-(D a) {
+template <int N> __device__ __forceinline__ D<N> operator-(D<N> a) {
   a.v = -a.v;
 #pragma unroll
-  for (int k = 0; k < NT; ++k) a.d[k] = -a.d[k];
+  for (int k = 0; k < N; ++k) a.d[k] = -a.d[k];
   return a;
 }
-__device__ __forceinline__ bool operator<(D a, D b) { return a.v < b.v; }
-__device__ __forceinline__ bool operator>(D a, D b) { return a.v > b.v; }
-__device__ __forceinline__ bool operator<=(D a, D b) { return a.v <= b.v; }
-__device__ __forceinline__ bool operator>=(D a, D b) { return a.v >= b.v; }
-__device__ __forceinline__ bool operator==(D a, D b) { return a.v == b.v; }
-__device__ __forceinline__ bool operator!=(D a, D b) { return a.v != b.v; }
-
-__device__ __forceinline__ D sel(bool c, D a, D b) { return c ? a : b; }
 // torch.abs: slope sign(x), 0 at 0
-__device__ __forceinline__ D fabs_(D a) {
+template <int N> __device__ __forceinline__ D<N> fabs_(D<N> a) {
   return chain(fabsf(a.v), a, a.v > 0.0f ? 1.0f : (a.v < 0.0f ? -1.0f : 0.0f));
 }
-__device__ __forceinline__ D sqrt_(D a) {
+template <int N> __device__ __forceinline__ D<N> sqrt_(D<N> a) {
   const float r = __fsqrt_rn(a.v);
   return chain(r, a, 0.5f / r);
 }
-__device__ __forceinline__ D rcp(D a) {
+template <int N> __device__ __forceinline__ D<N> rcp(D<N> a) {
   const float r = __fdiv_rn(1.0f, a.v);
   return chain(r, a, -(r * r));
 }
-__device__ __forceinline__ D sin_(D a) { return chain(sinf(a.v), a, cosf(a.v)); }
-__device__ __forceinline__ D cos_(D a) { return chain(cosf(a.v), a, -sinf(a.v)); }
-__device__ __forceinline__ D exp_(D a) {
+template <int N> __device__ __forceinline__ D<N> sin_(D<N> a) { return chain(sinf(a.v), a, cosf(a.v)); }
+template <int N> __device__ __forceinline__ D<N> cos_(D<N> a) { return chain(cosf(a.v), a, -sinf(a.v)); }
+template <int N> __device__ __forceinline__ D<N> exp_(D<N> a) {
   const float r = expf(a.v);
   return chain(r, a, r);
 }
-__device__ __forceinline__ D log_(D a) { return chain(logf(a.v), a, 1.0f / a.v); }
-__device__ __forceinline__ D log1p_(D a) { return chain(log1pf(a.v), a, 1.0f / (1.0f + a.v)); }
-__device__ __forceinline__ D erf_(D a) {
+template <int N> __device__ __forceinline__ D<N> log_(D<N> a) { return chain(logf(a.v), a, 1.0f / a.v); }
+template <int N> __device__ __forceinline__ D<N> log1p_(D<N> a) {
+  return chain(log1pf(a.v), a, 1.0f / (1.0f + a.v));
+}
+template <int N> __device__ __forceinline__ D<N> erf_(D<N> a) {
   return chain(erff(a.v), a, 1.12837916709551257f * expf(-a.v * a.v));
 }
-__device__ __forceinline__ D erfinv_(D a) {
+template <int N> __device__ __forceinline__ D<N> erfinv_(D<N> a) {
   const float r = erfinvf(a.v);
   return chain(r, a, 0.886226925452758014f * expf(r * r));
 }
-__device__ __forceinline__ D acos_(D a) {
+template <int N> __device__ __forceinline__ D<N> acos_(D<N> a) {
   return chain(acosf(a.v), a, -rsqrtf(1.0f - a.v * a.v));
 }
-// torch.pow's backward: the base's slope b a^(b-1), 0 where b is 0; the
-// exponent's a^b log(a), 0 where a is 0 and b >= 0
-__device__ __forceinline__ D pow_(D a, D b) {
-  D r;
-  r.v = powf(a.v, b.v);
-  const float sa = b.v == 0.0f ? 0.0f : b.v * powf(a.v, b.v - 1.0f);
-  const float sb = (a.v == 0.0f && b.v >= 0.0f) ? 0.0f : r.v * logf(a.v);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = tm(a.d[k], sa) + tm(b.d[k], sb);
-  return r;
+template <int N> __device__ __forceinline__ bool isfinite_(D<N> a) { return isfinite(a.v); }
+template <int N> __device__ __forceinline__ D<N> ssqrt(D<N> x) {
+  return x > K(0.0) ? sqrt_(x) : D<N>(K(0.0));
 }
-__device__ __forceinline__ D fma_(D a, D b, D c) {
-  D r;
-  r.v = __fmaf_rn(a.v, b.v, c.v);
-#pragma unroll
-  for (int k = 0; k < NT; ++k) r.d[k] = tm(a.d[k], b.v) + tm(b.d[k], a.v) + c.d[k];
-  return r;
-}
-__device__ __forceinline__ bool isfinite_(D a) { return isfinite(a.v); }
-// torch.clamp_min: the input's tangent where it is >= lo (NaN: lo's)
-__device__ __forceinline__ D cmin(D a, D lo) {
-  if (isnan(a.v)) return take(a.v, lo);
-  return a.v >= lo.v ? a : lo;
-}
-__device__ __forceinline__ D clamp_(D a, D lo, D hi) {
-  if (isnan(a.v)) return take(a.v, lo);
-  if (a.v < lo.v) return lo;
-  if (a.v > hi.v) return hi;
-  return a;
-}
-__device__ __forceinline__ D ssqrt(D x) { return x > K(0.0) ? sqrt_(x) : D(K(0.0)); }
 
 // ---------------------------------------------------------------- vectors
 
@@ -242,7 +254,7 @@ __device__ __forceinline__ F3 v3(F x, F y, F z) { return {x, y, z}; }
 __device__ __forceinline__ F3 ld3(const float* p) { return {{p[0]}, {p[1]}, {p[2]}}; }
 __device__ __forceinline__ void st3(float* p, F3 a) { p[0] = a.x.v; p[1] = a.y.v; p[2] = a.z.v; }
 template <class T> __device__ __forceinline__ V3<T> up3(F3 a) { return {T(a.x), T(a.y), T(a.z)}; }
-__device__ __forceinline__ F3 value3(const V3<D>& a) { return {{a.x.v}, {a.y.v}, {a.z.v}}; }
+template <int N> __device__ __forceinline__ F3 value3(const V3<D<N>>& a) { return {{a.x.v}, {a.y.v}, {a.z.v}}; }
 __device__ __forceinline__ F3 value3(const F3& a) { return a; }
 template <class T> __device__ __forceinline__ V3<T> operator+(V3<T> a, V3<T> b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
 template <class T> __device__ __forceinline__ V3<T> operator-(V3<T> a, V3<T> b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
@@ -431,7 +443,7 @@ template <class T> __device__ T mf_g1(int mode, int kind, V3<T> w, T ax, T ay) {
 template <class T> __device__ T mf_g(int mode, int kind, V3<T> wo, V3<T> wi, T ax, T ay) {
   return rcp(mf_lam(mode, kind, wo, ax, ay) + K(1.0) + mf_lam(mode, kind, wi, ax, ay));
 }
-template <class T> __device__ T pdf_wh(int mode, int kind, V3<T> wo, V3<T> wh, T ax, T ay) {
+template <class T> __device__ __forceinline__ T pdf_wh(int mode, int kind, V3<T> wo, V3<T> wh, T ax, T ay) {
   return mf_d(mode, kind, wh, ax, ay) * mf_g1(mode, kind, wo, ax, ay)
          * fabs_(dot(wo, wh)) / cmin(fabs_(wo.z), K(1e-12));
 }
@@ -502,7 +514,7 @@ template <class T> __device__ V3<T> sample_beckmann_vndf(V3<T> wo_up, T ax, T ay
   return normalize(V3<T>{-ax * rx, -ay * ry, K(1.0)});
 }
 
-template <class T> __device__ V3<T> sample_wh(int mode, int kind, V3<T> wo, T ax, T ay, F u0, F u1) {
+template <class T> __device__ __forceinline__ V3<T> sample_wh(int mode, int kind, V3<T> wo, T ax, T ay, F u0, F u1) {
   bool flip = wo.z < K(0.0);
   V3<T> wo_up = flip ? -wo : wo;
   V3<T> wh = use_ggx(mode, kind) ? sample_ggx_vndf(wo_up, ax, ay, u0, u1)
@@ -605,7 +617,7 @@ template <class T> __device__ V3<T> microfacet_fresnel(const LobeT<T>& L, T cos_
   return {f, f, f};
 }
 
-template <class T> __device__ V3<T> eval_microfacet(const LobeT<T>& L, int mode, V3<T> wo, V3<T> wi) {
+template <class T> __device__ __forceinline__ V3<T> eval_microfacet(const LobeT<T>& L, int mode, V3<T> wo, V3<T> wi) {
   T cos_o = fabs_(wo.z);
   T cos_i = fabs_(wi.z);
   V3<T> wh_raw = wo + wi;
@@ -641,7 +653,7 @@ template <class T> __device__ __forceinline__ T trans_eta(const LobeT<T>& L, V3<
   return wo.z > K(0.0) ? L.eta_t / L.eta_i : L.eta_i / L.eta_t;
 }
 
-template <class T> __device__ V3<T> eval_microfacet_trans(const LobeT<T>& L, int mode, V3<T> wo, V3<T> wi) {
+template <class T> __device__ __forceinline__ V3<T> eval_microfacet_trans(const LobeT<T>& L, int mode, V3<T> wo, V3<T> wi) {
   T cos_o = wo.z, cos_i = wi.z;
   T eta = trans_eta(L, wo);
   V3<T> wh = normalize(wo + wi * eta);
@@ -661,7 +673,7 @@ template <class T> __device__ V3<T> eval_microfacet_trans(const LobeT<T>& L, int
   return invalid ? zero3<T>() : f;
 }
 
-template <class T> __device__ T pdf_microfacet_trans(const LobeT<T>& L, int mode, V3<T> wo, V3<T> wi) {
+template <class T> __device__ __forceinline__ T pdf_microfacet_trans(const LobeT<T>& L, int mode, V3<T> wo, V3<T> wi) {
   T eta = trans_eta(L, wo);
   V3<T> wh = normalize(wo + wi * eta);
   T dot_o = dot(wo, wh);
@@ -675,7 +687,7 @@ template <class T> __device__ T pdf_microfacet_trans(const LobeT<T>& L, int mode
 }
 
 // eval_f of the lane's own lobe; a kind the scene does not hold gives 0
-template <class T> __device__ V3<T> eval_f(const LobeT<T>& L, int lobes, int mode, V3<T> wo, V3<T> wi) {
+template <class T> __device__ __forceinline__ V3<T> eval_f(const LobeT<T>& L, int lobes, int mode, V3<T> wo, V3<T> wi) {
   if (!((lobes >> L.kind) & 1)) return zero3<T>();
   switch (L.kind) {
     case LOBE_LAMBERT: return eval_lambert(L, wo, wi);
@@ -690,7 +702,7 @@ template <class T> struct BSDFSampleT { V3<T> wi, f; T pdf; };
 using BSDFSample = BSDFSampleT<F>;
 
 template <class T>
-__device__ BSDFSampleT<T> sample_bsdf(const LobeT<T>& L, int lobes, int mode, V3<T> wo, F u0, F u1) {
+__device__ __forceinline__ BSDFSampleT<T> sample_bsdf(const LobeT<T>& L, int lobes, int mode, V3<T> wo, F u0, F u1) {
   BSDFSampleT<T> s = {zero3<T>(), zero3<T>(), T(K(0.0))};
   if (!((lobes >> L.kind) & 1)) return s;
   switch (L.kind) {

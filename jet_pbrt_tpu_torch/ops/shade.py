@@ -26,14 +26,14 @@ source's note on how its arithmetic is pinned).
 
 `vertex` is li_path's whole vertex on the kernel route: shade_vertex, the
 bounce's shadow casts (a callable of li_path's) and nee_accumulate as one
-torch.autograd.Function, whose backward is one launch of
-csrc/shade_grad.cu's vertex_backward_kernel and one of its
-grad_reduce_kernel (the wrappers `vertex_backward` and `grad_reduce`) on
-the card, and autograd through the plain vertex on the CPU
-(`vertex_backward_plain`). The backward reads only what the forward
-saved, the vertex's inputs and the bounce's shadow flags, and recomputes
-the rest; it covers the pack's GRAD_FIELDS and the light table's summed
-environment radiance.
+torch.autograd.Function, whose backward is csrc/shade_grad.cu's
+vertex_backward_kernel, one launch per tangent set the scene's materials
+need (`backward_sets`; one on the last bounce), and one grad_reduce_kernel
+launch (the wrappers `vertex_backward` and `grad_reduce`) on the card, and
+autograd through the plain vertex on the CPU (`vertex_backward_plain`).
+The backward reads only what the forward saved, the vertex's inputs and
+the bounce's shadow flags, and recomputes the rest; it covers the pack's
+GRAD_FIELDS and the light table's summed environment radiance.
 
 `kernel_route` is li_path's one routing decision: the wrappers (so the
 kernels on the card) where li_path runs with nee=True and mis=False, the
@@ -690,12 +690,50 @@ class _GradArgs(ctypes.Structure):
                     "gL", "gbeta", "occ", "gbeta_in", "partials", "taps",
                     "tap_rows")]
                 + [(k, ctypes.c_int) for k in ("n_mat", "n_tex_rows",
-                                               "n_slots")])
+                                               "n_slots", "first",
+                                               "device_acc")])
 
 
-# the most accumulators a block of vertex_backward_kernel holds: its four
-# warps' copies in 227 KB of shared memory
-MAX_SLOTS = 232448 // (4 * 4)
+# A material row's parameters by index: 0-2 c0 rgb, 3-5 c1 rgb, 6 s0, 7 s1.
+# Material kind -> the parameters a lane's f and BSDF sample depend on
+# (make_lobe's uses; rough glass takes c0 or c1 by its lobe, and a
+# texture takes c0's three): the backward's tangents. Any other parameter's
+# gradient from the lane is exactly 0.
+_C0, _C1 = (0, 1, 2), (3, 4, 5)
+TANGENTS = {bsdf_ops.MAT_MATTE: _C0, bsdf_ops.MAT_MIRROR: _C0,
+            bsdf_ops.MAT_PHONG: _C0 + (6,),
+            bsdf_ops.MAT_GLASS: _C0 + _C1 + (6,),
+            bsdf_ops.MAT_PLASTIC: _C0 + _C1 + (6,),
+            bsdf_ops.MAT_ROUGHGLASS: _C0 + _C1 + (6, 7),
+            bsdf_ops.MAT_METAL: _C0 + _C1 + (6, 7)}
+# vertex_backward_kernel's instantiations, smallest first: the parameters
+# each carries tangents for; a kind takes the first set that holds its row
+TANGENT_SETS = (_C0, _C0 + (6,), tuple(range(8)))
+
+
+def tangent_set(kind: int) -> int:
+    """The set of TANGENT_SETS whose kernel computes a lane of this
+    material kind."""
+    return next(i for i, ps in enumerate(TANGENT_SETS)
+                if set(TANGENTS[kind]) <= set(ps))
+
+
+# the lobes each set's kinds make (scene/builder.py's _LOBES_OF)
+_SET_LOBES = ({bsdf_ops.LOBE_LAMBERT, bsdf_ops.LOBE_SPECULAR},
+              {bsdf_ops.LOBE_PHONG},
+              {bsdf_ops.LOBE_FRESNEL, bsdf_ops.LOBE_MICROFACET,
+               bsdf_ops.LOBE_MICROFACET_TRANS})
+
+
+def backward_sets(meta) -> tuple:
+    """The tangent sets vertex_backward launches below max_depth: those of
+    the lobes meta.present_lobes holds (every set where it is None), a
+    superset of its materials' sets (a plastic makes a Lambert lobe and a
+    microfacet one, so its set is launched; a matte one's is launched too
+    though no matte material is in the scene)."""
+    lobes = set(bsdf_ops.ALL_LOBES if meta.present_lobes is None
+                else meta.present_lobes)
+    return tuple(i for i, ls in enumerate(_SET_LOBES) if lobes & ls)
 
 
 def _grad_library():
@@ -705,16 +743,32 @@ def _grad_library():
 
 def _declare_grad(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.vertex_backward.argtypes = [ctypes.POINTER(_GradArgs), vp]
+    lib.vertex_backward.argtypes = [ctypes.POINTER(_GradArgs), ci, ci, vp]
     lib.vertex_backward.restype = ci
     lib.grad_reduce.argtypes = [vp, ci, ci, vp, vp]
     lib.grad_reduce.restype = ci
-    for name in ("shade_grad_args_size", "vertex_backward_grid"):
+    for name in ("shade_grad_args_size", "vertex_backward_rows",
+                 "vertex_backward_sets", "vertex_backward_set_of",
+                 "vertex_backward_set_params"):
         getattr(lib, name).restype = ci
-    lib.vertex_backward_grid.argtypes = [ci]
+    lib.vertex_backward_rows.argtypes = [ci, ci]
+    lib.vertex_backward_set_of.argtypes = [ci]
+    lib.vertex_backward_set_params.argtypes = [ci, ctypes.POINTER(ci)]
     if lib.shade_grad_args_size() != ctypes.sizeof(_GradArgs):
         raise RuntimeError("csrc/shade_grad.cu and ops/shade.py disagree on "
                            "the backward's argument layout")
+
+
+def kernel_tangents() -> tuple:
+    """The kernel's own tangent table: (its sets' parameters, each
+    material kind's set), for holding against TANGENT_SETS and
+    tangent_set."""
+    lib = _grad_library()
+    sets = []
+    for s in range(lib.vertex_backward_sets()):
+        params = (ctypes.c_int * 8)()
+        sets.append(tuple(params[:lib.vertex_backward_set_params(s, params)]))
+    return tuple(sets), {k: lib.vertex_backward_set_of(k) for k in TANGENTS}
 
 
 def grad_slots(pack) -> dict:
@@ -782,14 +836,17 @@ def check_backward_inputs(meta, pack, hit, state: VertexState, u_vertex,
 def vertex_backward(meta, pack, hit, state: VertexState, u_vertex,
                     bounce: int, max_depth: int, lights: LightTable, occ, gL,
                     gbeta=None, taps: bool = False):
-    """One launch of vertex_backward_kernel (CUDA tensors only; CPU tensors
-    take `vertex_backward_plain` whole): from the vertex's inputs (the hit,
-    state.beta, .active, .prev_specular, the uniforms, the light table and
-    the bounce's [J, N] shadow flags occ) and d loss / d its outputs (gL
-    [N,3], gbeta [N,3] or None for 0), returns (d loss / d beta [N,3], the
-    blocks' partial parameter gradients [G, n_grad_slots], and with taps
-    an image texture's per-lane texel gradients [N, 4, 3] and flat rows of
-    tex_image [N, 4], else None, None)."""
+    """vertex_backward_kernel, one launch per tangent set of
+    backward_sets(meta) below max_depth and one on the last bounce (CUDA
+    tensors only; CPU tensors take `vertex_backward_plain` whole): from the
+    vertex's inputs (the hit, state.beta, .active, .prev_specular, the
+    uniforms, the light table and the bounce's [J, N] shadow flags occ) and
+    d loss / d its outputs (gL [N,3], gbeta [N,3] or None for 0), returns
+    (d loss / d beta [N,3], the partial parameter gradients [G,
+    n_grad_slots] for grad_reduce, and with taps an image texture's
+    per-lane texel gradients [N, 4, 3] and flat rows of tex_image [N, 4],
+    else None, None). Any number of parameter slots: past a block's shared
+    memory the kernel accumulates in the partials' rows."""
     dev = gL.device
     if dev.type != "cuda":
         raise ValueError(f"no vertex_backward kernel for device {dev}")
@@ -799,14 +856,10 @@ def vertex_backward(meta, pack, hit, state: VertexState, u_vertex,
     last = bounce >= max_depth
     n_nee = _check_lights(meta, lights, dev)
     slots = n_grad_slots(pack)
-    if slots > MAX_SLOTS:
-        raise ValueError(f"vertex_backward: {slots} parameter slots, more "
-                         f"than a block's shared memory holds ({MAX_SLOTS})")
     lib = _grad_library()
-    grid = lib.vertex_backward_grid(n)
     f32 = dict(dtype=torch.float32, device=dev)
     gbeta_in = torch.empty((n, 3), **f32)
-    partials = torch.empty((grid, slots), **f32)
+    partials = torch.empty((lib.vertex_backward_rows(n, slots), slots), **f32)
     tap_g = torch.empty((n, 4, 3), **f32) if taps else None
     tap_rows = torch.empty((n, 4), dtype=torch.int64, device=dev) \
         if taps else None
@@ -819,12 +872,17 @@ def vertex_backward(meta, pack, hit, state: VertexState, u_vertex,
         setattr(g, k, None if v is None else v.data_ptr())
     g.n_mat, g.n_tex_rows = pack.mat_c0.shape[0], pack.tex_c0.shape[0]
     g.n_slots = slots
+    # the first launch writes every lane's cheap part and the partials'
+    # rows, the later ones add theirs
+    sets = backward_sets(meta)[:1 if last else None]
     with torch.cuda.device(dev):
-        err = lib.vertex_backward(ctypes.byref(g),
-                                  torch.cuda.current_stream(dev).cuda_stream)
-    vertex_backward.launches += 1
-    if err != 0:
-        raise RuntimeError(f"vertex_backward launch failed: CUDA error {err}")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        for k, s in enumerate(sets):
+            err = lib.vertex_backward(ctypes.byref(g), s, int(k == 0), stream)
+            vertex_backward.launches += 1
+            if err != 0:
+                raise RuntimeError(f"vertex_backward launch failed: CUDA "
+                                   f"error {err}")
     return gbeta_in, partials, tap_g, tap_rows
 
 
@@ -832,12 +890,27 @@ vertex_backward.launches = 0
 register(__name__, "vertex_backward", "vertex_backward_kernel")
 
 
+# grad_reduce's chains (csrc/shade_grad.cu CHAINS)
+REDUCE_CHAINS = 64
+
+
 def grad_reduce_plain(partials):
-    """The columns of partials [G, P] summed over G in row order."""
-    out = partials[0].clone()
-    for b in range(1, partials.shape[0]):
-        out = out + partials[b]
-    return out
+    """The columns of partials [G, P] summed in a fixed order: REDUCE_CHAINS
+    chains, chain c the rows c, c + REDUCE_CHAINS, ... added in order (the
+    rows padded with zeros to a multiple of the chains), then a pairwise
+    tree over the chains, chain c plus chain c + h for h = REDUCE_CHAINS / 2
+    down to 1."""
+    g, p = partials.shape
+    per = max(1, -(-g // REDUCE_CHAINS))
+    rows = torch.cat([partials, partials.new_zeros(
+        (per * REDUCE_CHAINS - g, p))]).view(per, REDUCE_CHAINS, p)
+    acc = rows[0].clone()
+    for r in range(1, per):
+        acc = acc + rows[r]
+    while acc.shape[0] > 1:
+        h = acc.shape[0] // 2
+        acc = acc[:h] + acc[h:]
+    return acc[0]
 
 
 def grad_reduce(partials):
@@ -906,9 +979,9 @@ def vertex_grads(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
                  fields=GRAD_FIELDS):
     """(d loss / d L, d loss / d beta, {field: gradient} for `fields`, d
     loss / d lights.le_env or None) of one vertex: on the card
-    vertex_backward and grad_reduce (and, where "tex_image" is among the
-    fields and the pack has images, index_add_ of the texel taps), on the
-    CPU vertex_backward_plain."""
+    vertex_backward's launches and grad_reduce (and, where "tex_image" is
+    among the fields and the pack has images, index_add_ of the texel
+    taps), on the CPU vertex_backward_plain."""
     if gL.device.type == "cpu":
         gl, gb, g, ge = vertex_backward_plain(
             meta, pack, hit, state, u_vertex, bounce, max_depth, occ, gL,
@@ -1005,7 +1078,7 @@ def vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
     the NEE, the flags or None). Under autograd, where state.L, .beta,
     lights.le_env or a pack field of GRAD_FIELDS requires grad, the whole
     vertex is one torch.autograd.Function whose backward is vertex_grads
-    (on the card one vertex_backward and one grad_reduce launch)."""
+    (on the card vertex_backward's launches and one grad_reduce)."""
     call = _VertexCall(meta, pack, hit, state, u_vertex, bounce, max_depth,
                        lights, counts, occlude)
     le_env = None if lights is None else lights.le_env

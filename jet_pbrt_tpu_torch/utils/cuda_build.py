@@ -52,9 +52,11 @@ def _lib_path(name: str, sources: list[str]) -> tuple[str, list[str]]:
     paths = [os.path.join(CSRC, s) for s in sources]
     h = hashlib.sha256(" ".join(NVCC_FLAGS + list(FLAGS.get(name, ())))
                        .encode())
-    # the sources and every header they may include
-    headers = sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
-                     if f.endswith(".cuh"))
+    # the sources and every header they may include: csrc's and those
+    # beside a source
+    dirs = sorted({CSRC} | {os.path.dirname(p) for p in paths})
+    headers = [os.path.join(d, f) for d in dirs for f in sorted(os.listdir(d))
+               if f.endswith(".cuh")]
     for p in paths + headers:
         with open(p, "rb") as f:
             h.update(f.read())

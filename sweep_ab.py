@@ -6,12 +6,22 @@
     python3 sweep_ab.py --lib threefry OTHER.cu    # the random streams' kernel
     python3 sweep_ab.py --lib sweep_prims OTHER.cu # the sweep primitives (K3)
     python3 sweep_ab.py --lib brute OTHER.cu       # the brute-force casts
+    python3 sweep_ab.py --lib shade_grad OTHER.cu  # the vertex's backward
 
 OTHER.cu is another version of the kernel's source, for example an earlier
 commit's, written into a directory that .gitignore lists:
 
     git show <commit>:jet_pbrt_tpu_torch/csrc/sweep_bvh.cu > _ab/other.cu
     git show 9f3021c:jet_pbrt_tpu_torch/csrc/brute.cu > _ab/brute_old.cu
+
+A source that includes a header takes the one beside it, so an earlier
+commit's shade_grad.cu goes into a directory of its own with that
+commit's shade.cuh:
+
+    mkdir -p _ab/feed372
+    cd _ab/feed372
+    git show feed372:jet_pbrt_tpu_torch/csrc/shade_grad.cu > shade_grad.cu
+    git show feed372:jet_pbrt_tpu_torch/csrc/shade.cuh > shade.cuh
 
 Each kernel is timed in the order other, this, this, other (CUDA events).
 Prints the card's name and power limit first. Needs one GPU.
@@ -72,6 +82,30 @@ frame through each build (frames equal bit for bit) and each build's
 profiled 1024^2 1-spp Cornell wave. Each build's ptxas registers, shared
 memory and spills are printed where this process built it.
 
+shade_grad: OTHER.cu has this source's C entry points (a variant: one
+launch per tangent set) or commit feed372's (one vertex_backward launch a
+vertex, its grid by lanes, grad_reduce in block order); ops/shade.py's
+vertex_backward and grad_reduce are swapped per turn for the other
+build's. Both builds' ptxas lines per kernel first. On the bunny's and
+the Cornell box's 1024^2 1-spp gradient waves (chip_smoke.grad_wave_calls,
+every appearance field on the tape): the bounce-1 vertex's backward at
+2^20 lanes with seeded upstream gradients, d loss / d beta equal bit
+for bit between the builds and each parameter field within
+chip_smoke.GRAD_FIELD_TOL of its largest |gradient|; its vertex_backward
+call timed per turn (events over 20 calls, host enqueue, and the device
+time by events behind a held stream, warm and after an L2 flush each:
+shade_grad_times), its grad_reduce on that build's partials and
+torch.sum(partials, 0) on the same; every vertex of the wave's backward
+(vertex_grads of the six, both kernels) per turn. Then the bunny's loss
+mean((img - target)^2) over mat_c0 and light_c at 1024^2, 1 spp, depth
+5 (chip_smoke.diff_phase's): each build's profiled backward
+(chip_smoke.profile_backward: every device operation), and in turns
+the eager and the graphed value_and_grad (the graph captured anew under
+each build; medians of 5 calls after a warm-up), a 6-step fit graphed
+and eager (median ms a step) and the (1, 1) train step of chip_smoke's
+phase 12 (train_steps over a one-rank NCCL world), graphed and eager;
+each turn's gradient against the other build's within GRAD_FIELD_TOL.
+
 Frames replay their waves from CUDA graphs (models/graph.py), and a graph
 keeps the kernels it captured: each turn empties the graph cache and
 renders the frame once under its build with graph=True (the capture,
@@ -83,19 +117,26 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import os
+import re
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 import chip_smoke
+from jet_pbrt_tpu_torch.diff import params as dparams
 from jet_pbrt_tpu_torch.models import graph as graph_mod
-from jet_pbrt_tpu_torch.models.render import render
+from jet_pbrt_tpu_torch.models.render import render, render_fn
 from jet_pbrt_tpu_torch.ops import brute as brute_ops
 from jet_pbrt_tpu_torch.ops import intersect as isect_ops
 from jet_pbrt_tpu_torch.ops import rng, sweep_bvh, wide_bvh
+from jet_pbrt_tpu_torch.ops import shade as shade_ops
 from jet_pbrt_tpu_torch.ops.intersect import KindHit
+from jet_pbrt_tpu_torch.parallel import mesh as pmesh
+from jet_pbrt_tpu_torch.parallel import multihost
 from jet_pbrt_tpu_torch.scene import pack as scene_pack
 from jet_pbrt_tpu_torch.scene.scenes import bunny_scene, cornell_box
 from jet_pbrt_tpu_torch.scripts import sweep_prims
@@ -534,6 +575,302 @@ def _captured_frame(scene, dev, res=1024, spp=4):
                   device=dev, graph=True)
 
 
+# --lib shade_grad: the vertex's backward
+# --------------------------------------------------------------------------
+
+class _OneLaunchArgs(ctypes.Structure):
+    """Commit feed372's argument layout: this one's without first and
+    device_acc."""
+    _fields_ = [f for f in shade_ops._GradArgs._fields_
+                if f[0] not in ("first", "device_acc")]
+
+
+def _declare_shade_grad(lib):
+    """Declares a build of this source's entry points, or commit
+    feed372's."""
+    if hasattr(lib, "vertex_backward_rows"):
+        shade_ops._declare_grad(lib)
+        return
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.vertex_backward.argtypes = [ctypes.POINTER(_OneLaunchArgs), vp]
+    lib.grad_reduce.argtypes = [vp, ci, ci, vp, vp]
+    lib.vertex_backward_grid.argtypes = [ci]
+    for name in ("vertex_backward", "grad_reduce", "vertex_backward_grid",
+                 "shade_grad_args_size"):
+        getattr(lib, name).restype = ci
+    if lib.shade_grad_args_size() != ctypes.sizeof(_OneLaunchArgs):
+        raise RuntimeError("OTHER.cu's argument layout is neither this "
+                           "source's nor feed372's")
+
+
+def _one_launch_wrappers(lib):
+    """vertex_backward and grad_reduce on a build of feed372's entry points:
+    one launch a vertex, partials [grid, slots] summed in block order."""
+    def vertex_backward(meta, pack, hit, state, u_vertex, bounce, max_depth,
+                        lights, occ, gL, gbeta=None, taps=False):
+        dev = gL.device
+        shade_ops.check_backward_inputs(meta, pack, hit, state, u_vertex,
+                                        bounce, max_depth, occ, gL, gbeta,
+                                        dev)
+        n, last = gL.shape[0], bounce >= max_depth
+        n_nee = shade_ops._check_lights(meta, lights, dev)
+        slots = shade_ops.n_grad_slots(pack)
+        f32 = dict(dtype=torch.float32, device=dev)
+        gbeta_in = torch.empty((n, 3), **f32)
+        partials = torch.empty((lib.vertex_backward_grid(n), slots), **f32)
+        tap_g = torch.empty((n, 4, 3), **f32) if taps else None
+        tap_rows = torch.empty((n, 4), dtype=torch.int64, device=dev) \
+            if taps else None
+        g = _OneLaunchArgs()
+        g.a = shade_ops._shade_args(meta, pack, hit, state, u_vertex, bounce,
+                                    max_depth, lights, 0 if last else n_nee,
+                                    {})
+        for k, v in dict(gL=gL, gbeta=gbeta, occ=None if last else occ,
+                         gbeta_in=gbeta_in, partials=partials, taps=tap_g,
+                         tap_rows=tap_rows).items():
+            setattr(g, k, None if v is None else v.data_ptr())
+        g.n_mat, g.n_tex_rows = pack.mat_c0.shape[0], pack.tex_c0.shape[0]
+        g.n_slots = slots
+        if lib.vertex_backward(ctypes.byref(g),
+                               torch.cuda.current_stream(dev).cuda_stream):
+            raise RuntimeError("the other build's vertex_backward launch "
+                               "failed")
+        vertex_backward.launches += 1
+        return gbeta_in, partials, tap_g, tap_rows
+
+    def grad_reduce(partials):
+        grid, slots = partials.shape
+        out = torch.empty((slots,), dtype=torch.float32,
+                          device=partials.device)
+        if lib.grad_reduce(partials.data_ptr(), grid, slots, out.data_ptr(),
+                           torch.cuda.current_stream().cuda_stream):
+            raise RuntimeError("the other build's grad_reduce launch failed")
+        grad_reduce.launches += 1
+        return out
+
+    vertex_backward.launches = grad_reduce.launches = 0
+    return vertex_backward, grad_reduce
+
+
+@contextlib.contextmanager
+def _grad_build(lib):
+    """While open, ops/shade.py's backward runs on lib (this source's
+    entry points through _grad_library, feed372's through its wrappers) and
+    no graph captured under another build is replayed."""
+    saved = (shade_ops._grad_library, shade_ops.vertex_backward,
+             shade_ops.grad_reduce)
+    if hasattr(lib, "vertex_backward_rows"):
+        shade_ops._grad_library = lambda: lib
+    else:
+        shade_ops.vertex_backward, shade_ops.grad_reduce = \
+            _one_launch_wrappers(lib)
+    graph_mod.clear()
+    try:
+        yield
+    finally:
+        graph_mod.clear()
+        (shade_ops._grad_library, shade_ops.vertex_backward,
+         shade_ops.grad_reduce) = saved
+
+
+def _ptxas(name: str, log: str, who: str) -> None:
+    """Each kernel's ptxas registers, stack and spills in a build log."""
+    kernel = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)[-48:]
+        elif kernel and ("registers" in line or "spill" in line):
+            print(f"{who} {name} {kernel}: {line.strip()}", flush=True)
+
+
+def shade_grad_times(call, flush, reps: int = 20) -> dict:
+    """One build's call: events ms over reps calls, host enqueue ms a call,
+    device ms by events behind a held stream (chip_smoke.queued_events_ms),
+    and the same after an L2 flush each (the flush's own time taken
+    off)."""
+    ms, host = chip_smoke.time_enqueue_ms(call, reps)[:2]
+    dev = chip_smoke.queued_events_ms(call, reps)
+    cold = chip_smoke.queued_events_ms(lambda: (flush.fill_(0), call()),
+                                       reps) \
+        - chip_smoke.queued_events_ms(lambda: flush.fill_(0), reps)
+    return {"ms": ms, "enqueue_ms": host, "device_ms": dev,
+            "device_cold_ms": cold}
+
+
+def _grads_close(label, a: dict, b: dict) -> float:
+    """Each field of a within GRAD_FIELD_TOL of b's largest |gradient|;
+    returns the largest error relative to it."""
+    worst = 0.0
+    for k in (k for k in b if b[k].numel()):
+        scale = float(b[k].abs().max())
+        err = float((a[k] - b[k]).abs().max())
+        if not (err <= chip_smoke.GRAD_FIELD_TOL * scale or err == 0.0) \
+                or not bool(torch.isfinite(a[k]).all()):
+            raise AssertionError(f"{label}: d loss / d {k} of the builds "
+                                 f"differ by {err} (largest {scale})")
+        worst = max(worst, err / scale if scale else 0.0)
+    return worst
+
+
+def _line(label, times) -> str:
+    t = lambda x: (f"{x['ms']:.4f} ms (device {x['device_ms']:.4f}, after "
+                   f"an L2 flush {x['device_cold_ms']:.4f}, enqueue "
+                   f"{x['enqueue_ms']:.4f})")
+    return (f"shade_grad A/B {label} (order other, this, this, other): other "
+            f"{t(times['other'][0])} / {t(times['other'][1])}, this "
+            f"{t(times['this'][0])} / {t(times['this'][1])}")
+
+
+def shade_grad_main(path) -> int:
+    dev = _card()
+    # both builds at once: each takes minutes
+    cuda_build.build_libraries([("shade_grad", ["shade_grad.cu"]),
+                                ("shade_grad_other", [path])])
+    libs = {"this": shade_ops._grad_library(),
+            "other": cuda_build.load_library("shade_grad_other", [path],
+                                             _declare_shade_grad)}
+    print(f"other kernel: {path}", flush=True)
+    for who, built in (("other", "shade_grad_other"), ("this", "shade_grad")):
+        _ptxas("shade_grad", cuda_build.BUILD_LOG.get(built, (0, ""))[1],
+               who)
+    flush = torch.empty((chip_smoke.L2_FLUSH_BYTES // 4,), dtype=torch.int32,
+                        device=dev)
+    for label, scene in (("bunny", bunny_scene()), ("Cornell",
+                                                    cornell_box())):
+        calls = chip_smoke.grad_wave_calls(label, scene.to(dev), 1024, dev)
+        vertices = [a for k, a in calls if k == "vertex"]
+        seeded = [chip_smoke.seeded_grads(r[3].L.shape[0], 7 + r[5], dev,
+                                          r[5] >= r[6]) for r in vertices]
+        run = lambda r, g: shade_ops.vertex_grads(
+            *r[:3], chip_smoke.kernel_state(r[3]), *r[4:], *g)
+        rec, grads = vertices[1], seeded[1]
+        outs = {}
+        for who in ORDER[:2]:
+            with _grad_build(libs[who]):
+                gl, gb, g, ge = run(rec, grads)
+                outs[who] = (gb, {**g, "le_env": ge})
+        if not torch.equal(outs["this"][0], outs["other"][0]):
+            raise AssertionError(f"{label}: the builds' d loss / d beta "
+                                 "differ")
+        worst = _grads_close(label, outs["this"][1], outs["other"][1])
+        meta, pack, hit, state, u, bounce, depth, lights, occ = rec
+        kernel = lambda: shade_ops.vertex_backward(
+            meta, pack, hit, chip_smoke.kernel_state(state), u, bounce,
+            depth, lights, occ, *grads)
+        times = {"this": [], "other": []}
+        reduce_times = {"this": [], "other": []}
+        wave_times = {"this": [], "other": []}
+        for who in ORDER:
+            with _grad_build(libs[who]):
+                times[who].append(shade_grad_times(kernel, flush))
+                partials = kernel()[1]
+                reduce_times[who].append(shade_grad_times(
+                    lambda: shade_ops.grad_reduce(partials), flush))
+                wave_times[who].append(chip_smoke.queued_events_ms(
+                    lambda: [run(r, g) for r, g in zip(vertices, seeded)],
+                    5))
+        partials = kernel()[1]
+        lib_ms = shade_grad_times(lambda: torch.sum(partials, 0), flush)
+        print(_line(f"{label} bounce-1 vertex_backward ({state.L.shape[0]} "
+                    "lanes)", times) + f"; d loss / d beta equal bit for bit, "
+              f"fields within {worst:.2e} of their largest |gradient|",
+              flush=True)
+        print(_line(f"{label} grad_reduce (each build's partials)",
+                    reduce_times) + f"; torch.sum(partials, 0) on this "
+              f"build's {list(partials.shape)}: {lib_ms['device_ms']:.4f} "
+              "ms device", flush=True)
+        print(f"shade_grad A/B {label} the wave's {len(vertices)} vertices' "
+              f"backward (vertex_backward and grad_reduce, device ms by "
+              f"events behind a held stream; order other, this, this, "
+              f"other): other {wave_times['other'][0]:.4f} / "
+              f"{wave_times['other'][1]:.4f}, this "
+              f"{wave_times['this'][0]:.4f} / {wave_times['this'][1]:.4f}",
+              flush=True)
+        del calls, vertices, rec, partials
+    _shade_grad_steps(libs, dev)
+    return 0
+
+
+def _shade_grad_steps(libs, dev, res: int = 1024) -> None:
+    """The bunny loss's profiled backward under each build, then in turns
+    eager and graphed value_and_grad, a fit and the (1, 1) train step."""
+    scene = bunny_scene().to(dev)
+    fn, pack = render_fn(scene, res, res, spp=1, seed=0, max_depth=5,
+                         device=dev)
+    with torch.no_grad():
+        target = fn(dparams.with_params(pack,
+                                        {"light_c": pack.light_c * 1.2}))
+    loss = lambda img: torch.mean((img - target) ** 2)
+    fields = ("mat_c0", "light_c")
+    for who in ORDER[:2]:
+        with _grad_build(libs[who]):
+            chip_smoke.profile_backward(fn, pack, fields, loss,
+                                        f"shade_grad A/B {who} bunny")
+    f = dparams.loss_fn(fn, pack, target)
+    params = dparams.get_params(pack, fields)
+    wrong = pack.mat_c0.clone()
+    wrong[0] = torch.tensor([0.9, 0.1, 0.7], device=dev)
+    with torch.no_grad():
+        fit_target = fn(pack)
+    world = multihost.initialize(f"localhost:{chip_smoke.free_port()}", 1, 0,
+                                 device=dev,
+                                 timeout=chip_smoke.RANK_TIMEOUT)
+    assert world == 1
+    mesh = pmesh.make_mesh(device=dev)
+    got, steps = {}, {"this": [], "other": []}
+    try:
+        for who in ORDER:
+            with _grad_build(libs[who]):
+                walls = {}
+                vg = dparams.compile_value_and_grad(f)
+                for name, call in (("eager", lambda: dparams.value_and_grad(
+                        f, params)), ("graphed", lambda: vg(params))):
+                    w = []
+                    for _ in range(6):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        val, g = call()
+                        torch.cuda.synchronize()
+                        w.append((time.perf_counter() - t0) * 1e3)
+                    walls[name] = float(np.median(w[1:]))
+                    got.setdefault(who, g)
+                vg.release()
+                for graph in (True, False):
+                    with chip_smoke.timed_fit({}) as t:
+                        dparams.fit(fn, pack._replace(mat_c0=wrong),
+                                    fit_target, fields=("mat_c0",), steps=6,
+                                    lr=chip_smoke.FIT_LR,
+                                    graph=None if graph else False)
+                    ms = [(b - a) * 1e3 for a, b in zip(t["marks"],
+                                                          t["marks"][1:])]
+                    walls["fit graphed" if graph else "fit eager"] = float(
+                        np.median(ms[int(graph):]))
+                train, _ = chip_smoke.train_steps(
+                    scene, mesh, dev, res, (True, True, True, True, False,
+                                            False, False))
+                walls["train graphed"] = float(np.median(
+                    train["graphed"]["ms"][1:]))
+                walls["train eager"] = float(np.median(
+                    train["eager"]["ms"][1:]))
+                steps[who].append(walls)
+        worst = _grads_close("bunny value_and_grad", got["this"],
+                             got["other"])
+    finally:
+        dist.destroy_process_group()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip()
+    for key in steps["this"][0]:
+        print(f"shade_grad A/B bunny {res}^2 1 spp depth 5 {key} ms a step "
+              f"(median; order other, this, this, other): other "
+              f"{steps['other'][0][key]:.2f} / {steps['other'][1][key]:.2f}, "
+              f"this {steps['this'][0][key]:.2f} / "
+              f"{steps['this'][1][key]:.2f} [{smi}]", flush=True)
+    print(f"shade_grad A/B bunny value_and_grad: the builds' gradients within "
+          f"{worst:.2e} of their largest |gradient|", flush=True)
+
+
 # name: (wrapper module, its cases, per-lane SASS of a build or None,
 # the frame that goes through it, (label, scene, res, spp), or None)
 LIB_AB = {
@@ -581,7 +918,9 @@ def lib_main(name, path) -> int:
 
 
 def main(argv) -> int:
-    if argv[:1] == ["--lib"] and len(argv) == 3 and argv[1] in LIB_AB:
+    if argv[:2] == ["--lib", "shade_grad"] and len(argv) == 3:
+        args, run = argv[2:], shade_grad_main
+    elif argv[:1] == ["--lib"] and len(argv) == 3 and argv[1] in LIB_AB:
         name, args = argv[1], argv[2:]
         run = lambda path: lib_main(name, path)
     else:

@@ -231,7 +231,7 @@ def test_node_launches_count_the_fused_vertex():
         "shadow_segments_kernel": 10, "occlusion_merge_kernel": 10,
         "hit_reconstruct_kernel": 6, "camera_rays_kernel": 1,
         "permute_state_kernel": 3, "unsort_guard_kernel": 1,
-        "vertex_backward_kernel": 6, "grad_reduce_kernel": 6,
+        "vertex_backward_kernel": 11, "grad_reduce_kernel": 6,
         "permute_state_backward_kernel": 3,
         "unsort_guard_backward_kernel": 1}
     assert chip_smoke.node_launches(nodes) == {
@@ -239,7 +239,7 @@ def test_node_launches_count_the_fused_vertex():
         "nee_accumulate": 5, "brute_hits": 16, "shadow_key": 7,
         "shadow_segments": 10, "occlusion_merge": 10, "hit_reconstruct": 6,
         "camera_rays": 1, "permute_state": 3, "unsort_guard": 1,
-        "vertex_backward": 6, "grad_reduce": 6, "permute_state_backward": 3,
+        "vertex_backward": 11, "grad_reduce": 6, "permute_state_backward": 3,
         "unsort_guard_backward": 1}
     assert set(chip_smoke.launch_counts()) == set(chip_smoke.TRACED_KERNELS)
 
@@ -406,17 +406,20 @@ def test_wave_nodes_classes_and_ranges():
 
 @pytest.mark.parametrize("which", ["cornell", "bunny"])
 def test_grad_launches_count_one_backward_per_vertex(which):
-    """A differentiated wave's backward: one vertex_backward and one
-    grad_reduce per vertex, one permute_state_backward per sort (a
-    kernel-routed scene's bounces 0 to 2) and one unsort_guard_backward;
-    the train step's backward the same per local sample; a forward
-    launches none of them."""
+    """A differentiated wave's backward: one vertex_backward per tangent
+    set (two in both scenes: matte, and metal with plastic and glass) at
+    each vertex below max_depth and one on the last, one grad_reduce per
+    vertex, one permute_state_backward per sort (a kernel-routed scene's
+    bounces 0 to 2) and one unsort_guard_backward; the train step's
+    backward the same per local sample; a forward launches none of
+    them."""
     from jet_pbrt_tpu_torch.scene import scenes
     meta = (scenes.cornell_box() if which == "cornell"
             else scenes.bunny_scene()).meta
     sorts = 3 if meta.kernel_routed else 0
+    assert chip_smoke.shade_ops.backward_sets(meta) == (0, 2)
     assert chip_smoke.grad_launches(meta, 2, 5) == {
-        "vertex_backward": 12, "grad_reduce": 12,
+        "vertex_backward": 22, "grad_reduce": 12,
         "permute_state_backward": 2 * sorts, "unsort_guard_backward": 2}
     assert chip_smoke.grad_launches(meta, 1, 1)["permute_state_backward"] \
         == (1 if meta.kernel_routed else 0)

@@ -897,10 +897,11 @@ def test_graphed_train_step_on_card(mode):
     eager ones. The first loss is bit for bit in both modes (the forward
     is); under deterministic algorithms every loss and the fitted params
     too. The forward graph holds the wave's kernels, the backward graph
-    the backward kernels (per sample one vertex_backward and one
-    grad_reduce a vertex, one permute_state_backward a sort, one
-    unsort_guard_backward) and no forward kernel; the pool holds the
-    tape."""
+    the backward kernels (per sample one vertex_backward a tangent set,
+    matte and metal with plastic, at each vertex below max_depth and one
+    on the last, one grad_reduce a vertex, one permute_state_backward a
+    sort, one unsort_guard_backward) and no forward kernel; the pool holds
+    the tape."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
     from test_torch_multihost import run_world
@@ -917,7 +918,7 @@ def test_graphed_train_step_on_card(mode):
     launches, pool = got["entry"]
     assert launches["forward"]["wide_walk_kernel"] > 0
     assert launches["forward"]["lane_keys_kernel"] == 2
-    back = {"vertex_backward_kernel": 8, "grad_reduce_kernel": 8,
+    back = {"vertex_backward_kernel": 14, "grad_reduce_kernel": 8,
             "permute_state_backward_kernel": 6,
             "unsort_guard_backward_kernel": 2}
     assert {k: v for k, v in launches["backward"].items() if v} == back
@@ -1052,7 +1053,8 @@ def test_render_fn_gradient_takes_the_plain_vertex_on_card():
     """render_fn's gradient in the appearance fields runs the fused
     vertex forward and its backward kernels: the eager value_and_grad
     launches one shade_vertex a vertex and one nee_accumulate a vertex
-    below max_depth, and its backward one vertex_backward and one
+    below max_depth, and its backward one vertex_backward a tangent set
+    (matte, metal) a vertex below max_depth and one on the last, and one
     grad_reduce a vertex; the graphed one's graph holds both as kernel
     nodes; with a field outside them on the tape (the lights' positions)
     it runs the plain vertex and no backward kernel."""
@@ -1077,7 +1079,7 @@ def test_render_fn_gradient_takes_the_plain_vertex_on_card():
     P.value_and_grad(f, params)
     torch.cuda.synchronize()
     assert tuple(a - b for a, b in zip(_shade_counts(), before)) == (4, 3)
-    assert tuple(a - b for a, b in zip(grads(), gbefore)) == (4, 4)
+    assert tuple(a - b for a, b in zip(grads(), gbefore)) == (7, 4)
     before, gbefore = _shade_counts(), grads()
     fn(pack._replace(light_pos=pack.light_pos.clone().requires_grad_()))
     torch.cuda.synchronize()
@@ -1090,7 +1092,7 @@ def test_render_fn_gradient_takes_the_plain_vertex_on_card():
     entry = next(iter(G.GRAD_CACHE.entries.values()))
     assert entry.launches["shade_vertex_kernel"] == 4
     assert entry.launches["nee_accumulate_kernel"] == 3
-    assert entry.launches["vertex_backward_kernel"] == 4
+    assert entry.launches["vertex_backward_kernel"] == 7
     assert entry.launches["grad_reduce_kernel"] == 4
     assert entry.launches["uniforms_kernel"] > 0
     # the capture's warm-ups ran eagerly, the second call replayed
@@ -1686,11 +1688,12 @@ def test_gradient_forward_runs_the_camera_kernel_on_card():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["wide", "sweep", "many-lights", "cornell",
-                                   "textured"])
+                                   "textured", "many-slots"])
 def test_gradient_kernels_match_plain_on_card(which):
     """The forward of one differentiated 1-spp wave at 32^2, depth 5 (the
     every-kind scene on the wide kernel and on the sweep, the 46 lights,
-    the Cornell box, the bilinear-textured floor), its vertex, permute and
+    the Cornell box, the bilinear-textured floor, the many-slots scene
+    whose accumulators live in device memory), its vertex, permute and
     un-sort calls recorded; each call's backward kernels against their
     plain versions for seeded upstream gradients
     (chip_smoke.check_grad_calls): d loss / d beta per lane within rtol
@@ -1702,6 +1705,7 @@ def test_gradient_kernels_match_plain_on_card(which):
     import chip_smoke
     scene = (chip_smoke.cornell_box() if which == "cornell"
              else chip_smoke.grad_scene("image") if which == "textured"
+             else chip_smoke.many_slots_scene() if which == "many-slots"
              else _shade_scene(which).to("cpu"))
     out = chip_smoke.grad_phase(((which, scene.to("cuda"), 32),),
                                 torch.device("cuda"), "card")
@@ -1738,6 +1742,53 @@ def test_render_fn_gradient_kernel_route_matches_plain_route_on_card():
     for k in params:
         scale = float(pg[k].abs().max())
         assert scale > 0 and float((g[k] - pg[k]).abs().max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.cuda
+def test_gradient_tangent_table_on_card():
+    """The backward kernel's own tangent sets and material kinds' sets
+    (shade.kernel_tangents) equal ops/shade.py's TANGENT_SETS and
+    tangent_set."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.ops import shade as SH
+    sets, of = SH.kernel_tangents()
+    assert sets == SH.TANGENT_SETS
+    assert of == {k: SH.tangent_set(k) for k in SH.TANGENTS}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols", [(1, 5), (63, 57), (64, 57),
+                                       (1024, 57), (1000, 16025)])
+def test_grad_reduce_matches_its_plain_order_on_card(rows, cols):
+    """grad_reduce_kernel against grad_reduce_plain bit for bit (its chains
+    and tree), for row counts below, at and above the chain count and not
+    dividing it, and many slots; two launches equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.ops import shade as SH
+    g = torch.Generator(device="cuda").manual_seed(rows + cols)
+    partials = torch.randn((rows, cols), generator=g, device="cuda") * 1e3
+    before = SH.grad_reduce.launches
+    got = SH.grad_reduce(partials)
+    again = SH.grad_reduce(partials)
+    torch.cuda.synchronize()
+    assert SH.grad_reduce.launches == before + 2
+    assert torch.equal(got, SH.grad_reduce_plain(partials))
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_many_slots_gradient_on_card():
+    """The many-slots scene (more parameter slots than a block's shared
+    memory holds) differentiated at 32^2, depth 3, through the kernels
+    (the exact backward launches) against the plain route
+    (chip_smoke.many_slots_grads)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    out = chip_smoke.many_slots_grads(torch.device("cuda"), "card", res=32)
+    assert out["slots"] > 14528 and out["rows"] >= 16
 
 
 @pytest.mark.cuda

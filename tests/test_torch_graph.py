@@ -364,6 +364,9 @@ NODE_NAMES = [
     "_ZN12_GLOBAL__N_118camera_rays_kernelE10CameraArgs",
     "_ZN12_GLOBAL__N_120permute_state_kernelE11PermuteArgs",
     "_ZN12_GLOBAL__N_119unsort_guard_kernelE10UnsortArgs",
+    "_ZN12_GLOBAL__N_122vertex_backward_kernelILi0EEEv8GradArgs",
+    "_ZN12_GLOBAL__N_122vertex_backward_kernelILi2EEEv8GradArgs",
+    "_ZN12_GLOBAL__N_118grad_reduce_kernelEPKfiiPf",
 ]
 
 
@@ -376,7 +379,7 @@ def test_graph_kernel_nodes_counted_by_device_function():
         "shadow_segments_kernel": 1, "occlusion_merge_kernel": 1,
         "hit_reconstruct_kernel": 1, "camera_rays_kernel": 1,
         "permute_state_kernel": 1, "unsort_guard_kernel": 1,
-        "vertex_backward_kernel": 0, "grad_reduce_kernel": 0,
+        "vertex_backward_kernel": 2, "grad_reduce_kernel": 1,
         "permute_state_backward_kernel": 0,
         "unsort_guard_backward_kernel": 0}
     assert not L.is_function("wide_walk_kernel_tail", "wide_walk_kernel")

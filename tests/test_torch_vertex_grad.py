@@ -22,6 +22,12 @@ vertex here) and ops/wave.py's permute and unsort.
 - shade.kernel_route's decisions; the permute's and un-sort's plain
   backward against autograd of x[perm] and L[argsort(lane)] with the
   guard.
+- The backward kernel's tangent table (shade.TANGENTS): per material
+  kind, the plain backward's gradients of the material parameters
+  outside the kind's row exactly 0; the tangent sets and the sets each
+  scene launches; grad_reduce's fixed order of chains and a tree; a scene
+  of more parameter slots than commit feed372's kernel held takes the kernel
+  route and matches the reference.
 
 Scenes: tests/test_torch_diff.py's tiny, metal and textured scenes and
 chip_smoke's every-kind scene (every lobe), 16^2, depth up to 5.
@@ -68,34 +74,44 @@ def _leaves(pack, fields):
             for f in fields}
 
 
+def _record_calls(make, res, depth, fields):
+    """The inputs of each shade.vertex call of one differentiated 1-spp
+    wave of make() at res^2, and its shadow flags."""
+    inner = S.vertex
+    calls = []
+
+    def record(meta, pack, hit, state, u, bounce, max_depth, **kw):
+        v, occ = inner(meta, pack, hit, state, u, bounce, max_depth, **kw)
+        calls.append((meta, pack._replace(**{
+            f: getattr(pack, f).detach() for f in S.GRAD_FIELDS}), hit,
+            S.VertexState(*(x.detach() for x in state)), u, bounce,
+            max_depth, occ))
+        return v, occ
+
+    S.vertex = record
+    try:
+        fn, pack = render_fn(make(), res, res, 1, seed=2, max_depth=depth,
+                             device="cpu")
+        fn(TP.with_params(pack, _leaves(pack, fields)))
+    finally:
+        S.vertex = inner
+    assert len(calls) == depth + 1
+    return calls
+
+
+@pytest.fixture(scope="module")
+def kind_calls():
+    """The every-kind scene's vertex calls at 48^2, depth 2: some lanes of
+    every material kind below max_depth (its small phong mesh too)."""
+    return _record_calls(chip_smoke.every_kind_scene, 48, 2, S.GRAD_FIELDS)
+
+
 @pytest.fixture(scope="module")
 def vertex_calls():
     """{scene: [the inputs of each shade.vertex call of one
     differentiated 1-spp wave, and its shadow flags]}."""
-    out = {}
-    inner = S.vertex
-    for name, (make, depth, fields) in SCENES.items():
-        calls = []
-
-        def record(meta, pack, hit, state, u, bounce, max_depth, **kw):
-            v, occ = inner(meta, pack, hit, state, u, bounce, max_depth,
-                           **kw)
-            calls.append((meta, pack._replace(**{
-                f: getattr(pack, f).detach() for f in S.GRAD_FIELDS}), hit,
-                S.VertexState(*(x.detach() for x in state)), u, bounce,
-                max_depth, occ))
-            return v, occ
-
-        S.vertex = record
-        try:
-            fn, pack = render_fn(make(), RES, RES, 1, seed=2,
-                                 max_depth=depth, device="cpu")
-            fn(TP.with_params(pack, _leaves(pack, fields)))
-        finally:
-            S.vertex = inner
-        assert len(calls) == depth + 1
-        out[name] = calls
-    return out
+    return {name: _record_calls(make, RES, depth, fields)
+            for name, (make, depth, fields) in SCENES.items()}
 
 
 def _upstream(n, bounce, depth, seed):
@@ -285,7 +301,11 @@ def test_gradients_match_reference(case):
     shade.vertex) against jax.grad of the reference's render_fn op by op,
     at 8^2, the params perturbed by the same numpy-seeded noise in both:
     rtol 1e-3 where |g| > 1e-4 (tests/test_torch_diff.py's tolerance)."""
-    scene, depth, fields, rtol = JAX_CASES[case]
+    _match_reference(*JAX_CASES[case])
+
+
+def _match_reference(scene, depth, fields, rtol):
+    """test_gradients_match_reference's comparison for scene(builder)."""
     rng = np.random.default_rng(17)
     jfn, jpk = jrender.render_fn(scene(JBuilder), 8, 8, 1, seed=0,
                                  max_depth=depth)
@@ -319,6 +339,23 @@ def test_gradients_match_reference(case):
         assert big.any() and np.isfinite(b).all()
         np.testing.assert_allclose(b[big], a[big], rtol=rtol)
         np.testing.assert_allclose(b[~big], a[~big], rtol=0, atol=1e-4 * rtol)
+
+
+def test_many_slots_scene_takes_the_kernel_route_and_matches_reference():
+    """chip_smoke's many-slots scene (2,000 matte materials, the floor a
+    4 x 4 grid of them, a metal sphere): more parameter slots than commit
+    feed372's kernel held in a block's shared memory (14,528), the kernel
+    route all the same, and its gradient in the floor's albedos, the
+    metal's roughness and the emission against the reference's as
+    test_gradients_match_reference holds it."""
+    scene = chip_smoke.many_slots_scene(4)
+    assert S.n_grad_slots(scene.pack) > 14528
+    pack = scene.pack._replace(mat_c0=scene.pack.mat_c0.clone()
+                               .requires_grad_(True))
+    o = torch.zeros((4, 3))
+    assert S.kernel_route(scene.meta, pack, o, o, nee=True, mis=False)
+    _match_reference(lambda b: chip_smoke.many_slots_scene(4, b), 2,
+                     ("mat_c0", "mat_s0", "light_c"), 1e-3)
 
 
 # the route
@@ -416,15 +453,41 @@ def test_unsort_backward_plain_equals_autograd(n, sorted_):
     _same(got, want)
 
 
+def _chains_then_tree(p):
+    """Column sums of p [G, P] (numpy float32) in grad_reduce's order:
+    chain c adds rows c, c + C, ... in order from 0 (a missing row adds
+    0), then chain c adds chain c + h for h = C / 2 down to 1."""
+    c_ = S.REDUCE_CHAINS
+    per = max(1, -(-p.shape[0] // c_))
+    zero = np.zeros(p.shape[1], np.float32)
+    chains = []
+    for c in range(c_):
+        acc = p[c] if c < p.shape[0] else zero
+        for r in range(1, per):
+            b = c + r * c_
+            acc = acc + (p[b] if b < p.shape[0] else zero)
+        chains.append(acc)
+    h = c_ // 2
+    while h:
+        chains = [chains[c] + chains[c + h] for c in range(h)]
+        h //= 2
+    return chains[0]
+
+
 def test_grad_reduce_plain_sums_in_row_order():
-    """grad_reduce on CPU tensors sums the partial rows in order; the slot
-    layout covers each field's rows once, then the environment's three."""
+    """grad_reduce on CPU tensors sums the partial rows in its fixed order
+    (REDUCE_CHAINS chains of rows in order, then a pairwise tree), for
+    row counts below, at and above the chain count and not dividing it,
+    bit for bit with the order written out in numpy and under repetition;
+    the slot layout covers each field's rows once, then the environment's
+    three."""
     g = torch.Generator().manual_seed(0)
-    partials = torch.randn((9, 17), generator=g)
-    want = partials[0].clone()
-    for b in range(1, 9):
-        want = want + partials[b]
-    _same(S.grad_reduce(partials), want)
+    for rows, cols in ((9, 17), (S.REDUCE_CHAINS, 5), (130, 3), (1024, 57),
+                       (1, 4)):
+        partials = torch.randn((rows, cols), generator=g) * 1e3
+        got = S.grad_reduce(partials)
+        _same(got, torch.from_numpy(_chains_then_tree(partials.numpy())))
+        _same(S.grad_reduce(partials.clone()), got)
     pack = tscenes.cornell_box().pack
     slots = S.grad_slots(pack)
     flat = torch.arange(S.n_grad_slots(pack), dtype=torch.float32)
@@ -457,3 +520,100 @@ def test_backward_checks_pass_and_raise(vertex_calls):
     with pytest.raises(ValueError, match="no vertex_backward kernel"):
         S.vertex_backward(meta, pack, hit, state, u, bounce, depth, None,
                           occ, gL, gb)
+
+
+# the backward kernel's tangent sets
+
+def _lobe_kinds(call, idx):
+    """The lobe kind of each lane idx of a recorded vertex call."""
+    from jet_pbrt_tpu_torch.ops import bsdf, rng as trng
+    from jet_pbrt_tpu_torch.scene import pack as tpack
+    meta, pack, hit, state, u, bounce, depth, occ = call
+    kind, c0, c1, s0, s1, remap, tex, mf = tpack.gather_material(
+        pack, hit.mat_id)
+    c0 = tpack.effective_kd(meta, pack, hit, c0, tex)
+    lobe = bsdf.make_lobe(kind, c0, c1, s0, s1, remap, trng.stream_lobe(u),
+                          mf_kind=mf)
+    return lobe.kind[idx]
+
+
+# material kind of the every-kind scene -> its lobes (the builder's)
+_KIND_LOBES = {0: (0,), 1: (1,), 2: (2,), 3: (0, 3), 4: (3,), 5: (3, 5),
+               6: (4,)}
+
+
+@pytest.mark.parametrize("kind", sorted(S.TANGENTS))
+def test_tangents_hold_every_nonzero_material_gradient(kind_calls, kind):
+    """Per material kind, over the every-kind scene's vertices below
+    max_depth: the plain backward of the live lanes of that kind (with the
+    scene's lobes cut to the kind's own, as the kernel computes only a
+    lane's own lobe; lanes whose plain backward is NaN left out, as
+    chip_smoke.defined_plain does) gives exactly 0 in every material
+    parameter outside the kind's row of shade.TANGENTS, and not 0 in
+    every one of them somewhere; rough glass per lobe (c0 on reflection,
+    c1 on transmission); a textured kind's c0 rows exactly 0, the texture
+    taking their gradient; the kind's tangent set holds its row."""
+    import dataclasses
+    params = ("mat_c0", "mat_c0", "mat_c0", "mat_c1", "mat_c1", "mat_c1",
+              "mat_s0", "mat_s1")
+    seen = np.zeros(8, bool)
+    for call in kind_calls:
+        meta, pack, hit, state, u, bounce, depth, occ = call
+        if bounce >= depth:
+            continue
+        live = state.active & hit.valid
+        kinds = pack.mat_kind[hit.mat_id.long()]
+        idx = (live & (kinds == kind)).nonzero().flatten()
+        if not idx.numel():
+            continue
+        lobes = _lobe_kinds(call, idx)
+        gL, gb = _upstream(state.L.shape[0], bounce, depth, 30 + bounce)
+        for lobe in lobes.unique().tolist():
+            sub = idx[lobes == lobe]
+            allowed = set(S.TANGENTS[kind])
+            if kind == 5:
+                allowed -= {3, 4, 5} if lobe == 3 else {0, 1, 2}
+            m = dataclasses.replace(meta, present_lobes=_KIND_LOBES[kind])
+            g, _ = chip_smoke.defined_plain((*call[:7], None, occ), gL, gb,
+                                            sub, m)
+            rows = hit.mat_id[sub].long().unique()
+            textured = pack.mat_tex[rows] >= 0
+            for p, field in enumerate(params):
+                x = g[field][rows]
+                x = x[:, p % 3] if x.dim() == 2 else x
+                if p not in allowed:
+                    assert not bool((x != 0).any()), (kind, lobe, p, x)
+                elif p < 3:
+                    # a texture takes a textured material's c0
+                    assert not bool((x[textured] != 0).any()), (kind, p)
+                    seen[p] |= bool((x[~textured] != 0).any())
+                else:
+                    seen[p] |= bool((x != 0).any())
+            if bool(textured.any()) and not {0, 1, 2} - allowed:
+                seen[:3] |= sum(float(g[t].abs().sum()) for t in (
+                    "tex_c0", "tex_c1", "tex_image")) > 0
+    want = np.zeros(8, bool)
+    want[list(S.TANGENTS[kind])] = True
+    assert (seen == want).all(), (kind, seen)
+    assert set(S.TANGENTS[kind]) <= set(S.TANGENT_SETS[S.tangent_set(kind)])
+
+
+def test_tangent_sets_and_the_sets_a_scene_launches():
+    """The sets are nested, the smallest first; each kind takes the first
+    that holds its row; backward_sets launches those of a scene's lobes:
+    one for a matte scene, the matte and full sets for the bunny and the
+    Cornell box (plastic, metal, glass), all three for the every-kind
+    scene and for a meta without lobes."""
+    import dataclasses
+    sets = S.TANGENT_SETS
+    assert [len(x) for x in sets] == [3, 4, 8]
+    assert all(set(a) < set(b) for a, b in zip(sets, sets[1:]))
+    assert {k: S.tangent_set(k) for k in S.TANGENTS} == {
+        0: 0, 1: 0, 2: 2, 3: 2, 4: 2, 5: 2, 6: 1}
+    assert S.backward_sets(tiny_scene(TBuilder).meta) == (0,)
+    for scene in (tscenes.bunny_scene(), tscenes.cornell_box()):
+        assert S.backward_sets(scene.meta) == (0, 2)
+    meta = chip_smoke.every_kind_scene().meta
+    assert S.backward_sets(meta) == (0, 1, 2)
+    assert S.backward_sets(dataclasses.replace(meta, present_lobes=None)) \
+        == (0, 1, 2)
