@@ -117,13 +117,18 @@ Phases, each printing its result; any failure raises and exits non-zero:
      recomputation of the lane, each field within 1e-4 of its largest
      |gradient| (where the whole wave's plain backward is NaN, over the
      lanes where own_branch_plain's is a number, the others printed with
-     the kernel's finite values), the permute's and un-sort's bit for bit,
-     grad_reduce bit for bit); edge sets (grad_edges) at 1, 1,000 and 2^20
-     + 1 lanes; the bunny's timed at 2^20 lanes (time_grads: events, host
-     enqueue, the profiler's device time warm and after an L2 flush, the
-     plain version, the bytes bound against the forward vertex's float
-     operations, and the PyTorch yardsticks torch.sum and index_add_ for the
-     reduction, index_copy_ for the permute's backward); the many-slots
+     the kernel's finite values), the un-sort's bit for bit, the
+     permute's every word on gradients with NaN payloads, infinities and
+     negative zeros, with both given, gL alone and gbeta alone
+     (check_permute_grad), grad_reduce bit for bit); edge sets
+     (grad_edges) at 1, 97 (a partial warp tile of the permute's
+     backward), 1,000 and 2^20 + 1 lanes; the bunny's timed at 2^20 lanes
+     (time_grads: events, host enqueue, the profiler's device time warm and
+     after an L2 flush, the plain version, the bytes bound against the
+     forward vertex's float operations, and the PyTorch yardsticks
+     torch.sum and index_add_ for the reduction, index_copy_ of the two
+     gradients packed as [N, 6] and torch.cat with it for the permute's
+     backward); the many-slots
      scene's value_and_grad on the kernels against the plain route
      (many_slots_grads);
   3. wide kernel vs its plain PyTorch version on the default bunny's
@@ -3144,30 +3149,60 @@ def check_vertex_grad(label: str, rec, seed: int) -> dict:
             if fin.any() else 0.0, "nan_fields": nan_fields}
 
 
-def check_glue_grad(label: str, name: str, args, seed: int) -> int:
-    """One recorded permute (args: perm) or un-sort (args: (L, lane)):
-    its backward kernel against the plain version for seeded upstream
-    gradients, bit for bit (NaN equal to NaN). Returns the lanes."""
-    if name == "permute":
-        perm = args
-        n = perm.shape[0]
-        g = torch.Generator(device=perm.device).manual_seed(seed)
-        gL, gbeta = (torch.randn((n, 3), generator=g, device=perm.device)
-                     for _ in range(2))
-        got = wave_ops.permute_state_backward(perm, gL, gbeta)
-        want = wave_ops.permute_state_backward_plain(perm, gL, gbeta)
-    else:
-        L, lane = args
-        n = L.shape[0]
-        g = torch.Generator(device=L.device).manual_seed(seed)
-        gL = torch.randn((n, 3), generator=g, device=L.device)
-        got = (wave_ops.unsort_guard_backward(L, lane, gL),)
-        want = (wave_ops.unsort_guard_backward_plain(L, lane, gL),)
-    for x, y in zip(got, want):
-        bad = int(differing_lanes(x, y, 0).sum())
+def special_grads(n: int, seed: int, dev):
+    """Seeded gL and gbeta [n,3] with NaNs of two payloads, infinities of
+    both signs and negative zeros in strided lanes."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    gL, gbeta = (torch.randn((n, 3), generator=g, device=dev)
+                 for _ in range(2))
+    gL.view(torch.int32)[::7, 1] = 0x7FC00123
+    gL.view(torch.int32)[5::19, 0] = -0x00400001   # 0xFFBFFFFF, a NaN
+    gbeta[1::11, 0] = float("inf")
+    gbeta[2::13, 2] = float("-inf")
+    gL[3::17, 2] = -0.0
+    return gL, gbeta
+
+
+def check_permute_grad(label: str, perm, seed: int) -> int:
+    """The permute's backward kernel against its plain version on
+    special_grads' gradients, every word equal (NaN payloads included),
+    with both gradients given, gL alone and gbeta alone (a None gradient's
+    output all zeros). Returns the lanes."""
+    n = perm.shape[0]
+    gL, gbeta = special_grads(n, seed, perm.device)
+    words = lambda x: (torch.zeros((n, 3), dtype=torch.int32,
+                                   device=perm.device) if x is None
+                       else x.view(torch.int32))
+    given = lambda x: "None" if x is None else "given"
+    for a, b in ((gL, gbeta), (gL, None), (None, gbeta)):
+        got = wave_ops.permute_state_backward(perm, a, b)
+        want = wave_ops.permute_state_backward_plain(perm, a, b)
+        bad = sum(int((words(x) != words(y)).any(1).sum())
+                  for x, y in zip(got, want))
         if bad:
-            raise AssertionError(f"{label} {name} backward: {bad} lanes "
-                                 "differ from the plain version")
+            raise AssertionError(
+                f"{label} permute backward (gL {given(a)}, gbeta "
+                f"{given(b)}): {bad} rows differ from the plain version")
+    return n
+
+
+def check_glue_grad(label: str, name: str, args, seed: int) -> int:
+    """One recorded permute (args: perm; check_permute_grad) or un-sort
+    (args: (L, lane)): its backward kernel against the plain version for
+    seeded upstream gradients, bit for bit (the un-sort's NaN equal to
+    NaN). Returns the lanes."""
+    if name == "permute":
+        return check_permute_grad(label, args, seed)
+    L, lane = args
+    n = L.shape[0]
+    g = torch.Generator(device=L.device).manual_seed(seed)
+    gL = torch.randn((n, 3), generator=g, device=L.device)
+    got = wave_ops.unsort_guard_backward(L, lane, gL)
+    bad = int(differing_lanes(
+        got, wave_ops.unsort_guard_backward_plain(L, lane, gL), 0).sum())
+    if bad:
+        raise AssertionError(f"{label} {name} backward: {bad} lanes differ "
+                             "from the plain version")
     return n
 
 
@@ -3254,8 +3289,10 @@ def time_grads(label: str, calls: list, smi: str, reps: int = 20) -> dict:
     line's library_ms; and index_add_ of one [N, 8] row of parameter
     gradients a lane into the material rows, what the reduction by rows
     from the lanes costs in one call; the permute's backward: index_copy_
-    of the two gradients packed
-    as [N, 6]), and its bound: bytes (grad_bytes) at
+    of the two gradients packed as [N, 6], the kernels line's library_ms,
+    and torch.cat of autograd's two [N, 3] tensors with that index_copy_,
+    the one call that computes the function from them), and its bound:
+    bytes (grad_bytes) at
     HBM_BW against, for vertex_backward, the forward vertex's float
     operations on the same inputs (counted_ops; the backward recomputes
     every one of them) at F32_PEAK."""
@@ -3297,7 +3334,9 @@ def time_grads(label: str, calls: list, smi: str, reps: int = 20) -> dict:
             lambda: wave_ops.permute_state_backward_plain(perm, gL, gbeta),
             (perm, gL, gbeta), 0,
             {"index_copy_ [N, 6]": lambda: into.index_copy_(0, perm,
-                                                             packed)}),
+                                                             packed),
+             "torch.cat + index_copy_": lambda: into.index_copy_(
+                 0, perm, torch.cat([gL, gbeta], dim=1))}),
         "unsort_guard_backward": (
             lambda: wave_ops.unsort_guard_backward(L, lane, gL),
             lambda: wave_ops.unsort_guard_backward_plain(L, lane, gL),
@@ -3349,7 +3388,7 @@ def time_grads(label: str, calls: list, smi: str, reps: int = 20) -> dict:
     return out
 
 
-def grad_edges(cases, dev, sizes=(1, 1000, (1 << 20) + 1)) -> dict:
+def grad_edges(cases, dev, sizes=(1, 97, 1000, (1 << 20) + 1)) -> dict:
     """The backward kernels against their plain versions at each of sizes
     lanes: each case's (label, recorded calls) first bounce-1 and last
     vertices with their lanes cut or repeated to the size (the bunny's

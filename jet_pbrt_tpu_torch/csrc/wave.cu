@@ -36,7 +36,9 @@
 //
 //   permute_state_backward_kernel   g_in[perm[j]] = g_out[j] for L and beta
 //       (the transpose of the gather x[perm]); a permutation writes each
-//       row once, so no atomics. A null g_out row is a zero gradient.
+//       row once, so no atomics. A null g_out is a zero gradient. A warp
+//       owns a tile of 32 rows and its lanes store adjacent words of one
+//       destination row (see the kernel's note).
 //   unsort_guard_backward_kernel    gL[i] = isfinite(L[i]) ? g[lane[i]] : 0
 //       per channel (the transpose of the scatter and the guard; lane null:
 //       the guard alone).
@@ -48,8 +50,10 @@
 // ms); the un-sort reads 20 B and writes 12 (about 0.010 ms). Each is one
 // pass in which a thread owns a lane (the un-sort a source row); there is
 // no reuse to stage. The permute's backward reads the perm and two [N, 3]
-// gradients and writes two (56 B a lane, about 0.018 ms), the un-sort's
-// reads L, lane and the gradient and writes one (44 B, about 0.014 ms).
+// gradients and writes two (56 B a lane, about 0.018 ms; its scattered
+// 12-byte rows make L2 sector writes the limit where a thread owns a row,
+// hence its warp tiles), the un-sort's reads L, lane and the gradient and
+// writes one (44 B, about 0.014 ms).
 //
 // Bit for bit with the plain version on the card: every float operation is
 // the one a separate torch kernel rounds (__fmul_rn / __fadd_rn / __fsub_rn
@@ -279,18 +283,55 @@ __global__ void __launch_bounds__(BLOCK) unsort_guard_kernel(const __grid_consta
 
 // ------------------------------------------------- the backward passes
 
-__device__ __forceinline__ void scatter_row(const float* g, float* out, long long k, int j) {
-  for (int c = 0; c < 3; ++c) out[3 * k + c] = g ? g[3 * (size_t)j + c] : 0.0f;
+// The permute's backward by warp tiles. A thread a row would store each of
+// its row's three words in an instruction of its own, whose 32 addresses
+// lie in 32 unrelated rows: six store instructions a row pair, each
+// touching up to 32 L2 sectors, and the call paced by sector writes, not
+// bytes. Here a warp owns a tile of 32 consecutive rows j0.. (96 contiguous
+// words of each gradient): lane t loads perm[j0 + t] and words t, t + 32
+// and t + 64 of the tile (row e / 3, component e % 3), all coalesced, and
+// takes word e's destination row from lane e / 3 by a shuffle, so adjacent
+// lanes store adjacent words of one destination row: about 11 rows a store
+// instruction at about 1.25 sectors a row. Loads and stores share the
+// mapping, so nothing is staged in shared memory. The loads are streaming
+// (__ldcs, evict first): the inputs are read once, and the output rows'
+// sectors, each written in parts by several warps, stay in L2 until they
+// are whole (a fifth less device time than cached loads at 2^20 lanes on
+// an H100, measured in turns). Words are copied as uint32_t, so every bit
+// pattern (NaN payloads included) passes unchanged.
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// words base, base + 32 and base + 64 of g below end (null g: zeros)
+__device__ __forceinline__ void load_tile(const uint32_t* g, long long base, long long end,
+                                          uint32_t v[3]) {
+#pragma unroll
+  for (int q = 0; q < 3; ++q) v[q] = g && base + 32 * q < end ? __ldcs(g + base + 32 * q) : 0u;
 }
 
 __global__ void __launch_bounds__(BLOCK) permute_state_backward_kernel(
     const __grid_constant__ PermuteGradArgs a) {
-  const int j = lanes_index();
-  if (j >= a.n) return;
-  const long long i = a.perm[j];
-  if (i < 0 || i >= a.n) return;
-  scatter_row(a.gL, a.gL_in, i, j);
-  scatter_row(a.gbeta, a.gbeta_in, i, j);
+  const int lane = threadIdx.x & 31;
+  const long long j0 = lanes_index() - lane;
+  const long long end = 3 * (long long)a.n;
+  const long long* perm = reinterpret_cast<const long long*>(a.perm);
+  // every lane reaches the shuffles: a row past n, or whose perm entry is
+  // out of range, carries -1 and stores nothing
+  const long long i = j0 + lane < a.n ? __ldcs(perm + j0 + lane) : -1;
+  const int k = i >= 0 && i < a.n ? (int)i : -1;
+  uint32_t l[3], b[3];
+  load_tile(reinterpret_cast<const uint32_t*>(a.gL), 3 * j0 + lane, end, l);
+  load_tile(reinterpret_cast<const uint32_t*>(a.gbeta), 3 * j0 + lane, end, b);
+  uint32_t* gL_in = reinterpret_cast<uint32_t*>(a.gL_in);
+  uint32_t* gb_in = reinterpret_cast<uint32_t*>(a.gbeta_in);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int e = lane + 32 * q;
+    const int row = __shfl_sync(FULL_MASK, k, e / 3);
+    if (row < 0) continue;
+    const size_t at = 3 * (size_t)row + e % 3;
+    gL_in[at] = l[q];
+    gb_in[at] = b[q];
+  }
 }
 
 __global__ void __launch_bounds__(BLOCK) unsort_guard_backward_kernel(

@@ -505,7 +505,10 @@ class _Permute(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gL, gbeta):
         (perm,) = ctx.saved_tensors
-        gl, gb = permute_state_backward(perm, gL, gbeta)
+        # autograd may hand a strided gradient (an expanded one, say)
+        gl, gb = permute_state_backward(
+            perm, *(None if g is None else g.contiguous()
+                    for g in (gL, gbeta)))
         return None, None, None, None, gl, gb
 
 

@@ -7,12 +7,14 @@
     python3 sweep_ab.py --lib sweep_prims OTHER.cu # the sweep primitives (K3)
     python3 sweep_ab.py --lib brute OTHER.cu       # the brute-force casts
     python3 sweep_ab.py --lib shade_grad OTHER.cu  # the vertex's backward
+    python3 sweep_ab.py --lib wave OTHER.cu        # the wave's glue
 
 OTHER.cu is another version of the kernel's source, for example an earlier
 commit's, written into a directory that .gitignore lists:
 
     git show <commit>:jet_pbrt_tpu_torch/csrc/sweep_bvh.cu > _ab/other.cu
     git show 9f3021c:jet_pbrt_tpu_torch/csrc/brute.cu > _ab/brute_old.cu
+    git show b0b088d:jet_pbrt_tpu_torch/csrc/wave.cu > _ab/wave_old.cu
 
 A source that includes a header takes the one beside it, so an earlier
 commit's shade_grad.cu goes into a directory of its own with that
@@ -63,7 +65,8 @@ library through _library(), which is swapped per turn (LIB_AB). OTHER.cu
 has the same C entry points. Each case's output of both builds is held
 equal to the plain version's bit for bit, and the timed cases run 20 or
 100 calls per turn (chip_smoke.kernel_times: events, host enqueue, and
-the profiler's device time). threefry, at chip_smoke's 2^20 lanes
+the profiler's device time, also after an L2 flush by a write and by a
+read before each call). threefry, at chip_smoke's 2^20 lanes
 (rng_phase's keys): a lane_keys call and a uniforms call at S = 2, 6, 8,
 10 and 13 (the camera, 1-3 lights, and a width of the generic
 instantiation); each build's SASS per lane at S = 8 (ALU-pipe,
@@ -79,8 +82,16 @@ each kind), closest hit and any hit (tmax 10% short of the closest hit),
 each against both bounds (chip_smoke.brute_bounds: one issued instruction
 per operation, and F32_PEAK); then the Cornell 512^2, 16-spp, depth-5
 frame through each build (frames equal bit for bit) and each build's
-profiled 1024^2 1-spp Cornell wave. Each build's ptxas registers, shared
-memory and spills are printed where this process built it.
+profiled 1024^2 1-spp Cornell wave. wave: the permute's backward
+(permute_state_backward) on the bunny's first sort of a 1024^2 gradient
+wave at 2^20 lanes with seeded gL and gbeta, gL alone and gbeta alone,
+each output's words equal to the plain version's, beside the bound and
+the PyTorch yardsticks (index_copy_ of the gradients packed as [N, 6],
+and torch.cat with it); then the bunny's 1024^2, 4-spp frame and each
+build's profiled wave, the bunny loss's steps as for shade_grad
+(gradients equal bit for bit), and phase 2g's time_grads in turns. Each
+build's ptxas registers, shared memory and spills per kernel are printed
+where this process built it.
 
 shade_grad: OTHER.cu has this source's C entry points (a variant: one
 launch per tangent set) or commit feed372's (one vertex_backward launch a
@@ -121,6 +132,7 @@ import re
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -134,6 +146,7 @@ from jet_pbrt_tpu_torch.ops import brute as brute_ops
 from jet_pbrt_tpu_torch.ops import intersect as isect_ops
 from jet_pbrt_tpu_torch.ops import rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops import shade as shade_ops
+from jet_pbrt_tpu_torch.ops import wave as wave_ops
 from jet_pbrt_tpu_torch.ops.intersect import KindHit
 from jet_pbrt_tpu_torch.parallel import mesh as pmesh
 from jet_pbrt_tpu_torch.parallel import multihost
@@ -145,13 +158,18 @@ from jet_pbrt_tpu_torch.utils import cuda_build
 ORDER = ("other", "this", "this", "other")
 
 
+def _smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
 def _card():
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is false")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0], flush=True)
+    print(_smi(), flush=True)
     return torch.device("cuda")
 
 
@@ -438,19 +456,30 @@ def _using(module, lib):
         module._library = this
 
 
-def _turns(module, libs, call, names, reps):
+def _turns(module, libs, call, names, reps, flush):
     """{who: [kernel_times of each turn]} of call() with module's wrapper
-    on each build, in ORDER."""
+    on each build, in ORDER, each also with the profiler's device time
+    after an L2 flush before each call (flush, a tensor larger than L2):
+    by a write (flush.fill_(0), which leaves L2 full of dirty lines) and
+    by a read (flush.sum(), which leaves it clean). The flush's own
+    kernels are not among names."""
     times = {"this": [], "other": []}
     for who in ORDER:
         with _using(module, libs[who]):
-            times[who].append(chip_smoke.kernel_times(call, names, reps))
+            t = chip_smoke.kernel_times(call, names, reps)
+            for key, fill in (("device_cold_ms", lambda: flush.fill_(0)),
+                              ("device_read_cold_ms", flush.sum)):
+                t[key] = sum(chip_smoke.profiled_ms(
+                    lambda: (fill(), call()), reps, names).values())
+            times[who].append(t)
     return times
 
 
 def _turns_line(times) -> str:
     turn = lambda t: (f"{t['ms']:.4f} ms (device {t['device_ms']:.4f}, "
-                      f"enqueue {t['enqueue_ms']:.4f})")
+                      f"after an L2 flush {t['device_cold_ms']:.4f}, by a "
+                      f"read {t['device_read_cold_ms']:.4f}, enqueue "
+                      f"{t['enqueue_ms']:.4f})")
     return (f"other {turn(times['other'][0])} / {turn(times['other'][1])}, "
             f"this {turn(times['this'][0])} / {turn(times['this'][1])}")
 
@@ -536,6 +565,71 @@ def _brute_bits(got, any_hit: bool) -> tuple:
         return (got,)
     return tuple(x for h in got for x in (h.t.view(torch.int32), h.index,
                                           h.valid))
+
+
+def wave_cases(dev):
+    """--lib wave: the permute's backward on the bunny's first sort of a
+    1024^2 gradient wave (2^20 lanes, chip_smoke.grad_wave_calls), with
+    seeded gL and gbeta (chip_smoke.seeded_grads, as time_grads), gL
+    alone and gbeta alone; each output as its words (a None gradient's
+    output all zeros). Prints the PyTorch yardsticks on the same inputs
+    first: index_copy_ of the two gradients packed as [N, 6], and
+    torch.cat of autograd's two [N, 3] tensors with that index_copy_."""
+    calls = chip_smoke.grad_wave_calls("bunny", bunny_scene().to(dev), 1024,
+                                       dev)
+    perm = next(a for k, a in calls if k == "permute")
+    del calls
+    n = perm.shape[0]
+    gL, gbeta = chip_smoke.seeded_grads(n, 7, dev, False)
+    packed = torch.cat([gL, gbeta], 1)
+    into = torch.empty_like(packed)
+    for label, fn in (("index_copy_ [N, 6]",
+                       lambda: into.index_copy_(0, perm, packed)),
+                      ("torch.cat + index_copy_",
+                       lambda: into.index_copy_(0, perm,
+                                                torch.cat([gL, gbeta], 1)))):
+        ms = chip_smoke.time_ms(fn, 20)[0]
+        (_, device), = chip_smoke.profiled_ms(fn, 20, ("",)).items()
+        print(f"wave A/B yardstick {label} at {n} lanes: {ms:.4f} ms by "
+              f"events, {device:.4f} ms device", flush=True)
+    zero = torch.zeros((n, 3), device=dev)
+    words = lambda out: tuple((zero if x is None else x).view(torch.int32)
+                              for x in out)
+    cases = []
+    for label, a, b in (("gL and gbeta", gL, gbeta), ("gL alone", gL, None),
+                        ("gbeta alone", None, gbeta)):
+        # perm and the given gradients read once, both outputs written once
+        nbytes = sum(x.numel() * x.element_size() for x in (perm, a, b)
+                     if x is not None) + 2 * n * 12
+        ms, by = chip_smoke.bound(nbytes, 0)
+        cases.append((
+            f"permute_state_backward, {label}, the bunny's first sort "
+            f"({n} lanes; bound {ms:.6f} ms by {by}, {nbytes} B)",
+            lambda a=a, b=b: words(wave_ops.permute_state_backward(perm, a,
+                                                                   b)),
+            words(wave_ops.permute_state_backward_plain(perm, a, b)),
+            ("permute_state_backward_kernel",), 20))
+    return cases
+
+
+def _wave_steps(module, libs, dev, res: int = 1024) -> None:
+    """The bunny loss's steps through each build (_bunny_steps), their
+    gradients equal bit for bit; then phase 2g's timing of the backward
+    kernels (chip_smoke.time_grads) on a recorded gradient wave under each
+    build in turns."""
+    using = lambda lib: _using(module, lib)
+    scene, got = _bunny_steps("wave", using, libs, dev, res)
+    for k in got["this"]:
+        if not torch.equal(got["this"][k], got["other"][k]):
+            raise AssertionError(f"wave A/B: the builds' d loss / d {k} "
+                                 "differ")
+    print("wave A/B bunny value_and_grad: the builds' gradients equal bit "
+          "for bit", flush=True)
+    calls = chip_smoke.grad_wave_calls("bunny", scene, res, dev)
+    smi = _smi()
+    for who in ORDER:
+        with using(libs[who]):
+            chip_smoke.time_grads(f"wave A/B {who} bunny", calls, smi)
 
 
 def _frames(module, libs, dev, label, scene, res, spp):
@@ -788,13 +882,20 @@ def shade_grad_main(path) -> int:
               f"{wave_times['this'][0]:.4f} / {wave_times['this'][1]:.4f}",
               flush=True)
         del calls, vertices, rec, partials
-    _shade_grad_steps(libs, dev)
+    _, got = _bunny_steps("shade_grad", _grad_build, libs, dev)
+    worst = _grads_close("bunny value_and_grad", got["this"], got["other"])
+    print(f"shade_grad A/B bunny value_and_grad: the builds' gradients within "
+          f"{worst:.2e} of their largest |gradient|", flush=True)
     return 0
 
 
-def _shade_grad_steps(libs, dev, res: int = 1024) -> None:
-    """The bunny loss's profiled backward under each build, then in turns
-    eager and graphed value_and_grad, a fit and the (1, 1) train step."""
+def _bunny_steps(name, using, libs, dev, res: int = 1024):
+    """The bunny loss mean((img - target)^2) over mat_c0 and light_c at
+    res^2, 1 spp, depth 5, its target the image under light_c x 1.2:
+    each build's profiled backward (chip_smoke.profile_backward), then in
+    turns eager and graphed value_and_grad, a fit and the (1, 1) train
+    step (medians after a warm-up). using(lib) swaps a build in. Returns
+    the scene and each build's value_and_grad gradients."""
     scene = bunny_scene().to(dev)
     fn, pack = render_fn(scene, res, res, spp=1, seed=0, max_depth=5,
                          device=dev)
@@ -804,9 +905,9 @@ def _shade_grad_steps(libs, dev, res: int = 1024) -> None:
     loss = lambda img: torch.mean((img - target) ** 2)
     fields = ("mat_c0", "light_c")
     for who in ORDER[:2]:
-        with _grad_build(libs[who]):
+        with using(libs[who]):
             chip_smoke.profile_backward(fn, pack, fields, loss,
-                                        f"shade_grad A/B {who} bunny")
+                                        f"{name} A/B {who} bunny")
     f = dparams.loss_fn(fn, pack, target)
     params = dparams.get_params(pack, fields)
     wrong = pack.mat_c0.clone()
@@ -821,10 +922,10 @@ def _shade_grad_steps(libs, dev, res: int = 1024) -> None:
     got, steps = {}, {"this": [], "other": []}
     try:
         for who in ORDER:
-            with _grad_build(libs[who]):
+            with using(libs[who]):
                 walls = {}
                 vg = dparams.compile_value_and_grad(f)
-                for name, call in (("eager", lambda: dparams.value_and_grad(
+                for mode, call in (("eager", lambda: dparams.value_and_grad(
                         f, params)), ("graphed", lambda: vg(params))):
                     w = []
                     for _ in range(6):
@@ -833,7 +934,7 @@ def _shade_grad_steps(libs, dev, res: int = 1024) -> None:
                         val, g = call()
                         torch.cuda.synchronize()
                         w.append((time.perf_counter() - t0) * 1e3)
-                    walls[name] = float(np.median(w[1:]))
+                    walls[mode] = float(np.median(w[1:]))
                     got.setdefault(who, g)
                 vg.release()
                 for graph in (True, False):
@@ -854,45 +955,60 @@ def _shade_grad_steps(libs, dev, res: int = 1024) -> None:
                 walls["train eager"] = float(np.median(
                     train["eager"]["ms"][1:]))
                 steps[who].append(walls)
-        worst = _grads_close("bunny value_and_grad", got["this"],
-                             got["other"])
     finally:
         dist.destroy_process_group()
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
+    smi = _smi()
     for key in steps["this"][0]:
-        print(f"shade_grad A/B bunny {res}^2 1 spp depth 5 {key} ms a step "
+        print(f"{name} A/B bunny {res}^2 1 spp depth 5 {key} ms a step "
               f"(median; order other, this, this, other): other "
               f"{steps['other'][0][key]:.2f} / {steps['other'][1][key]:.2f}, "
               f"this {steps['this'][0][key]:.2f} / "
               f"{steps['this'][1][key]:.2f} [{smi}]", flush=True)
-    print(f"shade_grad A/B bunny value_and_grad: the builds' gradients within "
-          f"{worst:.2e} of their largest |gradient|", flush=True)
+    return scene, got
 
 
-# name: (wrapper module, its cases, per-lane SASS of a build or None,
-# the frame that goes through it, (label, scene, res, spp), or None)
+class LibAB(NamedTuple):
+    """A --lib entry: the wrapper's module (its _library() swapped per
+    turn), cases(dev) -> [(label, call, plain output, kernel names,
+    reps)], a build's per-lane SASS line or None, frame(dev) -> (label,
+    scene, res, spp) of the frame through each build or None, and
+    steps(module, libs, dev) run after it or None."""
+    module: object
+    cases: Callable
+    sass: Callable | None = None
+    frame: Callable | None = None
+    steps: Callable | None = None
+
+
 LIB_AB = {
-    "threefry": (rng, threefry_cases, lambda lib: chip_smoke.sass_line(
+    "threefry": LibAB(rng, threefry_cases, lambda lib: chip_smoke.sass_line(
         chip_smoke.threefry_sass(lib, 8)),
         lambda dev: ("bunny", bunny_scene().to(dev), 1024, 4)),
-    "sweep_prims": (sweep_prims, prims_cases, None, None),
-    "brute": (brute_ops, brute_cases, None,
-              lambda dev: ("Cornell", cornell_box().to(dev), 512, 16))}
+    "sweep_prims": LibAB(sweep_prims, prims_cases),
+    "brute": LibAB(brute_ops, brute_cases,
+                   frame=lambda dev: ("Cornell", cornell_box().to(dev), 512,
+                                      16)),
+    "wave": LibAB(wave_ops, wave_cases,
+                  frame=lambda dev: ("bunny", bunny_scene().to(dev), 1024, 4),
+                  steps=_wave_steps)}
 
 
 def lib_main(name, path) -> int:
-    module, cases, sass, frame = LIB_AB[name]
+    module, cases, sass, frame, steps = LIB_AB[name]
     dev = _card()
+    if steps:
+        # the steps run every library: all built at once with the other
+        cuda_build.build_libraries(chip_smoke.LIBRARIES
+                                   + (chip_smoke.COUNT_LIBRARY,
+                                      (f"{name}_other", [path])))
     libs = {"this": module._library(),
             "other": cuda_build.load_library(f"{name}_other", [path],
                                              module._declare)}
     print(f"other kernel: {path}", flush=True)
     for who, built in (("other", f"{name}_other"), ("this", name)):
-        for line in cuda_build.BUILD_LOG.get(built, (0, ""))[1].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"{who} build: {line.strip()}", flush=True)
+        _ptxas(name, cuda_build.BUILD_LOG.get(built, (0, ""))[1], who)
+    flush = torch.empty((chip_smoke.L2_FLUSH_BYTES // 4,), dtype=torch.int32,
+                        device=dev)
     for label, call, want, names, reps in cases(dev):
         outs = [want]
         for who in ORDER[:2]:
@@ -901,7 +1017,8 @@ def lib_main(name, path) -> int:
         _held_equal(label, outs)
         if reps:
             print(f"{name} A/B {label} (order other, this, this, other): "
-                  + _turns_line(_turns(module, libs, call, names, reps))
+                  + _turns_line(_turns(module, libs, call, names, reps,
+                                       flush))
                   + "; outputs equal to the plain version bit for bit",
                   flush=True)
         else:
@@ -914,6 +1031,8 @@ def lib_main(name, path) -> int:
                   f"FMA-heavy-pipe / all) at S = 8: {sass(lib)}", flush=True)
     if frame:
         _frames(module, libs, dev, *frame(dev))
+    if steps:
+        steps(module, libs, dev)
     return 0
 
 

@@ -1810,3 +1810,57 @@ def test_gradient_kernels_edge_sets_on_card():
     assert out["edges 1000"]["calls"] == {"vertex": 4, "permute": 3,
                                           "unsort": 4}
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 33, 95, 97, 1000])
+def test_permute_backward_kernel_matches_plain_on_card(n):
+    """permute_state_backward_kernel against permute_state_backward_plain,
+    every word equal, at lane counts below, at and past a warp tile of 32
+    rows (a partial tail tile), for the identity, the reversal and a seeded
+    perm, on gradients with NaNs of two payloads, infinities and negative
+    zeros (chip_smoke.special_grads), with both given, gL alone and gbeta
+    alone (a None gradient's output all zeros); one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    from jet_pbrt_tpu_torch.ops import wave as TWV
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(n)
+    perms = (torch.arange(n, device=dev),
+             torch.arange(n - 1, -1, -1, device=dev),
+             torch.randperm(n, generator=g, device=dev))
+    for i, perm in enumerate(perms):
+        before = TWV.permute_state_backward.launches
+        assert chip_smoke.check_permute_grad(f"{n} lanes", perm,
+                                             10 * n + i) == n
+        assert TWV.permute_state_backward.launches == before + 3
+
+
+@pytest.mark.cuda
+def test_permute_function_takes_an_expanded_gradient_on_card():
+    """ops/wave.py's _Permute on the card, its backward handed an expanded
+    (stride-0) gradient for L and a contiguous one for beta: one
+    permute_state_backward launch, its gradients equal to the plain
+    backward of the contiguous copies bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    from jet_pbrt_tpu_torch.ops import wave as TWV
+    dev = torch.device("cuda")
+    n = 1000
+    g = torch.Generator(device=dev).manual_seed(4)
+    perm = torch.randperm(n, generator=g, device=dev)
+    state, u = chip_smoke.wave_edge_state(n, 5, dev, True)
+    L = state.L.clone().requires_grad_()
+    beta = state.beta.clone().requires_grad_()
+    moved, _ = TWV.permute(state._replace(L=L, beta=beta), u, perm)
+    gL = torch.randn(3, generator=g, device=dev).expand(n, 3)
+    gb = torch.randn((n, 3), generator=g, device=dev)
+    before = TWV.permute_state_backward.launches
+    got = torch.autograd.grad((moved.L, moved.beta), (L, beta), (gL, gb))
+    torch.cuda.synchronize()
+    assert TWV.permute_state_backward.launches == before + 1
+    want = TWV.permute_state_backward_plain(perm, gL.contiguous(), gb)
+    for a, b in zip(got, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -431,6 +431,72 @@ def test_permute_backward_plain_equals_autograd(n):
         _same(a, b)
 
 
+@pytest.mark.parametrize("given", ["both", "gL", "gbeta"])
+@pytest.mark.parametrize("n", [1, 7, 300])
+def test_permute_backward_plain_equals_reference_vjp(n, given):
+    """permute_state_backward_plain against jax.vjp of the reference's own
+    packed gather between bounces (jet_pbrt_tpu/models/integrators.py:
+    267-273: L, beta and the state's other columns concatenated, gathered
+    by perm, L and beta read back as columns 0:3 and 3:6) on the same
+    numpy inputs: the given gradients' cotangents bit for bit, a None
+    gradient's a cotangent of zeros."""
+    rs = np.random.default_rng(n)
+    perm = rs.permutation(n)
+    L, beta, gL, gb = (rs.standard_normal((n, 3)).astype(np.float32)
+                       for _ in range(4))
+    rest = rs.standard_normal((n, 13)).astype(np.float32)
+    gL = gL if given in ("both", "gL") else None
+    gb = gb if given in ("both", "gbeta") else None
+
+    def gather(L, beta):
+        state = jnp.concatenate([L, beta, jnp.asarray(rest)], axis=1)[perm]
+        return state[:, 0:3], state[:, 3:6]
+
+    _, vjp = jax.vjp(gather, jnp.asarray(L), jnp.asarray(beta))
+    zero = np.zeros((n, 3), np.float32)
+    want = vjp(tuple(jnp.asarray(zero if g is None else g)
+                     for g in (gL, gb)))
+    got = W.permute_state_backward_plain(
+        torch.from_numpy(perm), *(None if g is None else torch.from_numpy(g)
+                                  for g in (gL, gb)))
+    for g, w, up in zip(got, want, (gL, gb)):
+        if up is None:
+            assert g is None and not np.any(np.asarray(w))
+        else:
+            _same(g, torch.from_numpy(np.array(w)))
+
+
+def test_permute_function_hands_its_wrapper_contiguous_gradients(
+        monkeypatch):
+    """_Permute.backward passes autograd's gradients on contiguous (the
+    card's wrapper refuses a strided one): an expanded gradient reaches
+    permute_state_backward contiguous, and the result equals the plain
+    backward of its contiguous copy."""
+    n = 9
+    seen = []
+    wrapped = W.permute_state_backward
+
+    def record(perm, gL, gbeta):
+        seen.append([g.is_contiguous() for g in (gL, gbeta)
+                     if g is not None])
+        return wrapped(perm, gL, gbeta)
+
+    monkeypatch.setattr(W, "permute_state_backward", record)
+    g = torch.Generator().manual_seed(3)
+    perm = torch.randperm(n, generator=g)
+    state, u = chip_smoke.wave_edge_state(n, 5, torch.device("cpu"), True)
+    L = state.L.clone().requires_grad_()
+    beta = state.beta.clone().requires_grad_()
+    moved, _ = W.permute(state._replace(L=L, beta=beta), u, perm)
+    gL, gb = (torch.randn(3, generator=g).expand(n, 3) for _ in range(2))
+    assert not gL.is_contiguous()
+    got = torch.autograd.grad((moved.L, moved.beta), (L, beta), (gL, gb))
+    assert seen == [[True, True]]
+    for a, b in zip(got, W.permute_state_backward_plain(
+            perm, gL.contiguous(), gb.contiguous())):
+        _same(a, b)
+
+
 @pytest.mark.parametrize("sorted_", [True, False])
 @pytest.mark.parametrize("n", [1, 13, 300])
 def test_unsort_backward_plain_equals_autograd(n, sorted_):
