@@ -1,0 +1,7 @@
+"""device_idle_pct.fit: 100 x (1 - the union of the device's operation
+intervals / the traced window), from the torch.profiler trace of the
+fit cells' window."""
+
+
+def read(trace):
+    return trace.idle_pct()
