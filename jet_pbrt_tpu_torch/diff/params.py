@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..models import graph as graph_mod
+from ..utils.log import span
 
 # ScenePack fields that are optimisation targets
 DIFFERENTIABLE_FIELDS = (
@@ -90,19 +91,22 @@ def compile_value_and_grad(f):
     spp tapes until the backward), plus the backward's transients; it stays
     in graph.GRAD_CACHE (MAX_GRAD_GRAPHS entries) until vg.release(),
     eviction or graph.clear(). Runs on the card only; a failed capture
-    raises."""
+    raises. Under torch.profiler each call is a "diff.value_and_grad" span
+    around its graph.* spans (models/graph.py)."""
 
     owner = object()    # the keys' first element: holds nothing of f
 
     def vg(params: dict):
-        graph_mod.capture_after(True, next(iter(params.values())).device)
-        fields = tuple(params)
-        leaves = tuple(v.detach().requires_grad_(True)
-                       for v in params.values())
-        val, grads = graph_mod.GRAD_CACHE.run(
-            graph_mod.grad_key(owner, params), _value_and_grad(f, fields),
-            leaves, 0)
-        return val, dict(zip(fields, grads))
+        with span("diff.value_and_grad"):
+            graph_mod.capture_after(True, next(iter(params.values())).device)
+            fields = tuple(params)
+            leaves = tuple(v.detach().requires_grad_(True)
+                           for v in params.values())
+            with span("graph.key"):
+                key = graph_mod.grad_key(owner, params)
+            val, grads = graph_mod.GRAD_CACHE.run(
+                key, _value_and_grad(f, fields), leaves, 0)
+            return val, dict(zip(fields, grads))
 
     vg.release = lambda: graph_mod.GRAD_CACHE.drop(owner)
     return vg

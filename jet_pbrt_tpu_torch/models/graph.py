@@ -52,6 +52,12 @@ graph: one launch of the whole wave.
   peak (a gradient's: its tape, about 5.4 GB per 2^20-lane depth-5 wave);
   the caches keep MAX_GRAPHS waves and MAX_GRAD_GRAPHS gradients, least
   recently used out first, and `clear()` drops them all.
+- Spans: under torch.profiler each step of a call is a span
+  (utils/log.py::span): "graph.key" (a wave's key; diff/params.py draws
+  the gradient's), "graph.eager" (a key's call op by op before its
+  capture), "graph.capture" (a new entry's warm-up and capture), and per
+  replay "graph.copy_in" (the caller's values into the static buffers),
+  "graph.launch" (`replay()`) and "graph.count" (`launches.add`).
 """
 from __future__ import annotations
 
@@ -62,6 +68,7 @@ import time
 import torch
 
 from ..ops import launches
+from ..utils.log import span
 
 # a frame captures at most two shapes (a short last pixel range, a short
 # last sample group); four also keep a second frame's
@@ -239,7 +246,8 @@ class CapturedCall:
 
     def __init__(self, fn, inputs, grad: bool = False):
         dev = _device(inputs)
-        with torch.cuda.device(dev), torch.autograd.set_grad_enabled(grad):
+        with span("graph.capture"), torch.cuda.device(dev), \
+                torch.autograd.set_grad_enabled(grad):
             self.inputs = _clone(inputs)
             side, self.warmup_outputs, self.warmup_s = _warm_up(
                 lambda: fn(*self.inputs), dev, GRAD_WARMUPS if grad else 1)
@@ -253,9 +261,12 @@ class CapturedCall:
         self.capture_s = time.perf_counter() - t0
 
     def __call__(self, inputs):
-        _copy_in(self.inputs, inputs)
-        self.graph.replay()
-        launches.add(self.launches)
+        with span("graph.copy_in"):
+            _copy_in(self.inputs, inputs)
+        with span("graph.launch"):
+            self.graph.replay()
+        with span("graph.count"):
+            launches.add(self.launches)
         return self.outputs
 
     def release(self) -> None:
@@ -282,7 +293,8 @@ class CapturedForwardBackward:
 
     def __init__(self, forward, inputs):
         dev = _device(inputs)
-        with torch.cuda.device(dev), torch.enable_grad():
+        with span("graph.capture"), torch.cuda.device(dev), \
+                torch.enable_grad():
             self.inputs = _clone(inputs)
             leaves = [x for x in _tensors(self.inputs) if x.requires_grad]
 
@@ -315,9 +327,12 @@ class CapturedForwardBackward:
         self._taped = False
 
     def forward(self, inputs) -> torch.Tensor:
-        _copy_in(self.inputs, inputs)
-        self.forward_graph.replay()
-        launches.add(self.launches["forward"])
+        with span("graph.copy_in"):
+            _copy_in(self.inputs, inputs)
+        with span("graph.launch"):
+            self.forward_graph.replay()
+        with span("graph.count"):
+            launches.add(self.launches["forward"])
         self._taped = True
         return self.outputs.detach()
 
@@ -326,9 +341,12 @@ class CapturedForwardBackward:
             raise RuntimeError("the backward graph replays after its forward "
                                "graph, once per forward")
         self._taped = False
-        self.grad_outputs.copy_(grad_outputs)
-        self.backward_graph.replay()
-        launches.add(self.launches["backward"])
+        with span("graph.copy_in"):
+            self.grad_outputs.copy_(grad_outputs)
+        with span("graph.launch"):
+            self.backward_graph.replay()
+        with span("graph.count"):
+            launches.add(self.launches["backward"])
         return self.grads
 
     def release(self) -> None:
@@ -381,7 +399,8 @@ class GraphCache:
         if entry is not None:
             return entry(inputs)
         if self.count_eager(key) < capture_after:
-            with torch.autograd.set_grad_enabled(self.grad):
+            with span("graph.eager"), \
+                    torch.autograd.set_grad_enabled(self.grad):
                 return fn(*inputs)
         entry = (capture(fn, inputs) if capture is not None
                  else CapturedCall(fn, inputs, self.grad))
@@ -472,7 +491,8 @@ def compile_wave(wave, static: tuple, capture_after: int = 0):
         if pixel.device.type != "cuda":
             raise ValueError(f"the compiled wave runs on the card, not "
                              f"{pixel.device}; use the eager wave (wave_fn)")
-        return CACHE.run(wave_key(static, *inputs), wave, inputs,
-                         capture_after)
+        with span("graph.key"):
+            key = wave_key(static, *inputs)
+        return CACHE.run(key, wave, inputs, capture_after)
 
     return compiled

@@ -21,7 +21,7 @@ NEE set-up, BSDF sample, roulette) is ops/shade.py's: `shade_vertex` and
 `shade.kernel_route` allows (NEE on, MIS off, no gradient outside the
 appearance fields shade.GRAD_FIELDS), and their plain versions otherwise.
 The casts, the shadow tests and the sort stay here, each inside a
-`torch.profiler.record_function` range (li_path.intersect, .rng, .vertex,
+profiler span (utils/log.py::span: li_path.intersect, .rng, .vertex,
 .occluded, .nee_accumulate, .sort) that a profile attributes the wave's
 device time by; the work around the casts (the hit reconstruction, the shadow
 segments, their sort key and merge, the sort key between bounces) is
@@ -47,7 +47,6 @@ fused wave and its backward a few launches a vertex; the plain route
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..ops import bsdf as bsdf_ops
 from ..ops import lights as light_ops
@@ -57,6 +56,7 @@ from ..ops import rays as rays_ops
 from ..ops import wave as wave_ops
 from ..ops.linalg import absdot, frame_from_z, to_local, to_world, is_black
 from ..scene import pack as scene_pack
+from ..utils.log import span
 
 
 def _permute(u, perm):
@@ -141,7 +141,7 @@ def _li_path_plain(meta, pack, o, d, u, max_depth: int, mis: bool,
         # dead lanes trace nothing: tmin=+inf / tmax=-1 miss at once
         tmin = torch.where(state.active, eps, inf)
         tmax = torch.where(state.active, inf, neg)
-        with record_function("li_path.intersect"):
+        with span("li_path.intersect"):
             hit = scene_pack.intersect(meta, pack, state.ray_o, state.ray_d,
                                        tmin, tmax, stats=sweep_stats)
         if with_stats:
@@ -153,9 +153,9 @@ def _li_path_plain(meta, pack, o, d, u, max_depth: int, mis: bool,
 
         u_vertex = None
         if bounce < max_depth:
-            with record_function("li_path.rng"):
+            with span("li_path.rng"):
                 u_vertex = rng.vertex_uniforms(u, bounce, nl)
-        with record_function("li_path.vertex"):
+        with span("li_path.vertex"):
             if fused:
                 v = shade_ops.shade_vertex(
                     meta, pack, hit, state, None if u_vertex is None
@@ -170,13 +170,13 @@ def _li_path_plain(meta, pack, o, d, u, max_depth: int, mis: bool,
             break
         if with_stats:
             n_shadow = n_shadow + v.useful.sum()
-        with record_function("li_path.occluded"):
+        with span("li_path.occluded"):
             occ = [scene_pack.occluded(
                 meta, pack, hit.position, v.shadow_to[j], mask=v.useful[j],
                 sort=meta.kernel_routed and bounce < 2, stats=sweep_stats,
                 roots=roots)
                 for j in range(v.useful.shape[0])]
-        with record_function("li_path.nee_accumulate"):
+        with span("li_path.nee_accumulate"):
             occ = (torch.stack(occ) if occ
                    else torch.zeros_like(v.useful))
             accumulate = (shade_ops.nee_accumulate if fused
@@ -186,7 +186,7 @@ def _li_path_plain(meta, pack, o, d, u, max_depth: int, mis: bool,
             v.state._replace(L=L)
 
         if sort_rays and bounce < 3:
-            with record_function("li_path.sort"):
+            with span("li_path.sort"):
                 # regroup lanes for the next bounce's traversal (ops/sort.py's
                 # key, ops/rays.py::shadow_key's kernel on the card); deep
                 # bounces keep the order: lanes only die from here, so the
@@ -240,13 +240,13 @@ def _li_path_kernels(meta, pack, u, max_depth: int, with_stats: bool,
              if dev.type == "cuda" and (sort_rays or meta.kernel_routed)
              else None)
     for bounce in range(max_depth + 1):
-        with record_function("li_path.intersect"):
+        with span("li_path.intersect"):
             hit = scene_pack.intersect(meta, pack, state.ray_o, state.ray_d,
                                        state.tmin, state.tmax,
                                        stats=sweep_stats)
         u_vertex = None
         if bounce < max_depth:
-            with record_function("li_path.rng"):
+            with span("li_path.rng"):
                 u_vertex = rng.vertex_uniforms(u, bounce, nl)
 
         def occlude(v, hit=hit, bounce=bounce):
@@ -272,7 +272,7 @@ def _li_path_kernels(meta, pack, u, max_depth: int, with_stats: bool,
                                    state.counts if counts is None
                                    else counts)
         if sort_rays and bounce < 3:
-            with record_function("li_path.sort"):
+            with span("li_path.sort"):
                 # regroup lanes for the next bounce's traversal (ops/sort.py's
                 # key, ops/rays.py::shadow_key's kernel on the card); deep
                 # bounces keep the order: lanes only die from here, so the

@@ -10,15 +10,18 @@ package's for the same seed up to the rounding of libm functions. On the
 card a wave shape that recurs is replayed from a CUDA graph
 (models/graph.py, the counterpart of the reference's `jax.jit(wave)`);
 graph=False runs it op by op, as `jax.disable_jit()` does the
-reference's.
+reference's. Under torch.profiler a frame is a "render.frame" span
+(utils/log.py::span) around "render.setup", "render.film" (the film's
+zeros and each wave's adds), one "render.wave" a wave and
+"render.finalize".
 """
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
 
 from ..ops import rng
 from ..ops import wave as wave_ops
+from ..utils.log import span
 from . import camera as camera_mod
 from . import film as film_mod
 from . import graph as graph_mod
@@ -149,31 +152,37 @@ def render(scene, width: int, height: int, spp: int, seed: int = 0,
     by op, or from its first wave with graph=True; graph=False runs the
     eager wave, with the same image bit for bit; graph=True off the card
     raises."""
-    device, pack, cam = setup(scene, width, height, device)
-    wave = frame_wave_fn(device, graph, scene.meta, width, max_depth,
-                         integrator, mis, nee, sampler, spp, seed, sort_rays,
-                         with_stats)
-    n_pixels = width * height
-    samples = 1 if integrator == "debug" else spp
-    film = film_mod.new_film(width, height, device)
-    stats = {}
-    for s0, ns, p0, npx in _waves(n_pixels, samples, chunk):
-        sample = torch.arange(s0, s0 + ns, device=device).repeat_interleave(npx)
-        pixel = torch.arange(p0, p0 + npx, device=device).repeat(ns)
-        # the wave's range in a profile (scripts/wave_nodes.py)
-        with record_function("render.wave"):
-            out = wave(pack, cam, sample, pixel)
+    with span("render.frame"):
+        with span("render.setup"):
+            device, pack, cam = setup(scene, width, height, device)
+        wave = frame_wave_fn(device, graph, scene.meta, width, max_depth,
+                             integrator, mis, nee, sampler, spp, seed,
+                             sort_rays, with_stats)
+        n_pixels = width * height
+        samples = 1 if integrator == "debug" else spp
+        with span("render.film"):
+            film = film_mod.new_film(width, height, device)
+        stats = {}
+        for s0, ns, p0, npx in _waves(n_pixels, samples, chunk):
+            sample = torch.arange(s0, s0 + ns,
+                                  device=device).repeat_interleave(npx)
+            pixel = torch.arange(p0, p0 + npx, device=device).repeat(ns)
+            # the wave's range in a profile (scripts/wave_nodes.py)
+            with span("render.wave"):
+                out = wave(pack, cam, sample, pixel)
+            if with_stats:
+                out, st = out
+                for k, v in st.items():
+                    stats[k] = stats.get(k, 0) + v
+            out = out.view(ns, npx, 3)
+            with span("render.film"):
+                for k in range(ns):  # sample by sample, as the reference adds
+                    film_mod.add_samples(film, out[k], p0)
+        with span("render.finalize"):
+            img = film_mod.finalize(film, samples, clamp)
         if with_stats:
-            out, st = out
-            for k, v in st.items():
-                stats[k] = stats.get(k, 0) + v
-        out = out.view(ns, npx, 3)
-        for k in range(ns):     # sample by sample, as the reference adds
-            film_mod.add_samples(film, out[k], p0)
-    img = film_mod.finalize(film, samples, clamp)
-    if with_stats:
-        return img, {k: int(v) for k, v in stats.items()}
-    return img
+            return img, {k: int(v) for k, v in stats.items()}
+        return img
 
 
 def render_fn(scene, width: int, height: int, spp: int, seed: int = 0,

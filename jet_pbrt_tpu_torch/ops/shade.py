@@ -51,7 +51,6 @@ import math
 from typing import NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from . import bsdf as bsdf_ops
 from . import lights as light_ops
@@ -62,6 +61,7 @@ from .launches import register
 from .linalg import PI, absdot, frame_from_z, is_black, length, cross, \
     max_component, to_local, to_world
 from .sampling import power_heuristic
+from ..utils.log import span
 
 # the light table's row widths (csrc/shade.cuh TABLE_W, STATIC_W, EM_W)
 TABLE_W = 32
@@ -1032,15 +1032,15 @@ class _Vertex(torch.autograd.Function):
         lights = call.lights if le_env is None \
             else call.lights._replace(le_env=le_env.detach())
         last = call.bounce >= call.max_depth
-        with record_function("li_path.vertex"):
+        with span("li_path.vertex"):
             v = shade_vertex(call.meta, pack, call.hit, state, call.u_vertex,
                              call.bounce, call.max_depth, lights=lights,
                              counts=call.counts)
         L_out, occ = v.state.L, None
         if not last:
-            with record_function("li_path.occluded"):
+            with span("li_path.occluded"):
                 occ = call.occlude(v)
-            with record_function("li_path.nee_accumulate"):
+            with span("li_path.nee_accumulate"):
                 L_out = nee_accumulate(v.state.L, v.useful, occ, v.contrib)
         call.vertex, call.occ = v, occ
         if any(ctx.needs_input_grad):
