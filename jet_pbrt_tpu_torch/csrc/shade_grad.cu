@@ -7,13 +7,19 @@
 // custom_vjp and no Pallas kernel for it; the port's plain version is
 // autograd through ops/shade.py's plain vertex (shade.vertex_backward_plain).
 //
-//   vertex_backward_kernel<S>  one launch per tangent set S the scene's
-//       materials need (ops/shade.py::backward_sets). A lane's f depends
-//       only on the parameters of its material kind (ops/shade.py's
-//       TANGENTS); set S carries N_S tangents: 0 c0 (matte, mirror), 1 c0
-//       and s0 (phong), 2 all eight (glass, plastic, metal, rough glass),
-//       and each set is its own kernel, so the matte lanes of a scene pay
-//       for 3 tangents and the registers of their own path. A block owns
+//   vertex_backward_kernel<S, W>  one launch per tangent set S the
+//       scene's materials need (ops/shade.py::backward_sets). A lane's f
+//       depends only on the parameters of its material kind (ops/shade.py's
+//       TANGENTS); set S holds its kinds' parameters: 0 c0 (matte,
+//       mirror), 1 c0 and s0 (phong), 2 all eight (glass, plastic, metal,
+//       rough glass). A launch carries W tangents, those of the set with
+//       W parameters, at 3 (c0's) or at S's own width: the entry point
+//       takes the smallest that holds the parameters of S the caller
+//       differentiates (`want`), the map fixed at compile time, so that
+//       the tangents a parameter does not reach fold away; it adds the
+//       gradients of the requested parameters alone. So the matte lanes of
+//       a scene pay for 3 tangents and the registers of their own path,
+//       and a fit of the colours c0 runs every set at 3. A block owns
 //       spans of SPAN lanes. It lists in shared memory the span's lanes
 //       that continue (active, valid, below max_depth) and whose kind is in
 //       S, grouped by the lobe code they run (cheap lobes, microfacet
@@ -24,7 +30,7 @@
 //       flags) its own lobe, every NEE light's sample, f and mask, the BSDF
 //       sample and the roulette with csrc/shade.cuh's code, the values and
 //       branches by F, equal to the forward's bit for bit, and each f's
-//       derivatives by D<N_S> (a light's f by D only where it adds: useful
+//       derivatives by D<W> (a light's f by D only where it adds: useful
 //       and unoccluded, which its F value decides). It writes the lane's
 //       d loss / d beta, the sum of
 //         where(active_out, gbeta * weight, gbeta)     (the next beta),
@@ -59,11 +65,12 @@
 //       graph, under deterministic algorithms or not.
 //
 // Bound: bytes for the lane's reads and writes (hit, state, uniforms,
-// flags and gradients, about 170 B a lane at the bunny's S = 8 and two
+// flags and gradients, about 170 B a lane at the bunny's W = 8 and two
 // lights); the dual arithmetic over a lobe's whole evaluation, once a
 // light that adds and once for the BSDF sample, is what the kernel spends
-// its time on: the tangent sets cut it for the kinds that need fewer
-// tangents, the buckets keep a warp on one lobe's code, and the kernels
+// its time on: the tangent widths cut it for the kinds that need fewer
+// tangents and for the parameters the caller does not differentiate, the
+// buckets keep a warp on one lobe's code, and the kernels
 // run at three blocks an SM (set 2, 168 registers) or four (sets 0 and 1,
 // 128), spilling, which measured faster than fewer blocks without
 // (PERF.md).
@@ -80,8 +87,9 @@ struct GradArgs {
   float* taps;            // [n,4,3] an image texture's texel gradients, or null
   int64_t* tap_rows;      // [n,4] their flat rows of tex_image
   int n_mat, n_tex_rows, n_slots;
-  int first;              // the vertex's first launch (set by vertex_backward)
+  int first;              // the vertex's first launch (set by the entry point)
   int device_acc;         // accumulators in partials' warp rows (likewise)
+  int want;               // bit p: material parameter p's gradient added (likewise)
 };
 
 namespace {
@@ -89,24 +97,24 @@ namespace {
 constexpr int GB = 128;           // threads a block
 constexpr int WARPS = GB / 32;
 constexpr int SPAN = 1024;        // lanes a block lists at a time
-constexpr int MAX_GRID = 1024;    // blocks: each loops over spans
-constexpr int SMEM_ACC = 40 * 1024;            // the warps' accumulators
-constexpr long long DEVICE_ACC = 16 << 20;     // floats of partials, device path
-constexpr int CHAINS = 64;        // grad_reduce's chains
-constexpr int RX = 8;             // grad_reduce's slots a block
 constexpr unsigned FULL = 0xffffffffu;
 
-// The tangent sets: set S carries tangents of the material parameters
-// (0-2 c0 rgb, 3-5 c1 rgb, 6 s0, 7 s1) param<S>(0 .. N_S - 1).
+// The tangent sets: set S holds the material parameters (0-2 c0 rgb, 3-5
+// c1 rgb, 6 s0, 7 s1) param_of(S, 0 .. n_params(S) - 1). A launch of
+// width W carries the tangents of the set of W parameters, tangent t the
+// derivative by param_of(set, t); set S's kernel is instantiated at width
+// 3 and at its own.
 constexpr int N_SETS = 3;
-template <int S> __host__ __device__ constexpr int n_tangents() { return S == 0 ? 3 : (S == 1 ? 4 : 8); }
+__host__ __device__ constexpr int n_params(int set) { return set == 0 ? 3 : (set == 1 ? 4 : 8); }
 __host__ __device__ constexpr int param_of(int set, int t) {
   return set == 1 && t == 3 ? 6 : t;
 }
-// the tangent of parameter p in set S, or -1
-template <int S> __device__ constexpr int tangent_of(int p) {
-  return S == 2 ? p : (p < 3 ? p : (S == 1 && p == 6 ? 3 : -1));
+// the tangent of parameter p at width W, or -1
+template <int W> __device__ constexpr int tangent_of(int p) {
+  return W == 8 ? p : (p < 3 ? p : (W == 4 && p == 6 ? 3 : -1));
 }
+// the set of width w
+__host__ __device__ constexpr int set_of_width(int w) { return w == 3 ? 0 : (w == 4 ? 1 : 2); }
 // a material kind's set: the smallest that holds ops/shade.py's TANGENTS row
 __host__ __device__ constexpr int set_of(int kind) {
   return kind == MAT_MATTE || kind == MAT_MIRROR ? 0 : (kind == MAT_PHONG ? 1 : 2);
@@ -259,13 +267,13 @@ __device__ void rest_lane(const GradArgs& g, long long i, bool in, float* region
   group_add(region, ekey, eslot, ge);
 }
 
-// One continuing lane's lobe part in set S (every lane of the warp comes
-// here, `in` false past the list's end): its d loss / d beta and its
-// parameter gradients added to its warp's accumulators `region`.
-template <int S>
+// One continuing lane's lobe part at width N (every lane of the warp
+// comes here, `in` false past the list's end): its d loss / d beta and its
+// requested parameter gradients added to its warp's accumulators `region`.
+template <int N>
 __device__ __forceinline__ void lobe_lane(const GradArgs& g, long long i, bool in,
                                           float* region) {
-  constexpr int N = n_tangents<S>();
+  constexpr int S = set_of_width(N);
   using T = D<N>;
   const ShadeArgs& a = g.a;
   const int M = g.n_mat, KT = g.n_tex_rows;
@@ -306,9 +314,9 @@ __device__ __forceinline__ void lobe_lane(const GradArgs& g, long long i, bool i
     }
     const F3 c1 = ld3(a.mat_c1 + 3 * mat);
     const F s0 = {a.mat_s0[mat]}, s1 = {a.mat_s1[mat]};
-    lobe = make_lobe(a.mat_kind[mat], seed3<N>(c0, tangent_of<S>(0)),
-                     seed3<N>(c1, tangent_of<S>(3)), seed1<N>(s0, tangent_of<S>(6)),
-                     seed1<N>(s1, tangent_of<S>(7)), a.mat_remap[mat], F{u[0]}, a.mat_mf[mat]);
+    lobe = make_lobe(a.mat_kind[mat], seed3<N>(c0, tangent_of<N>(0)),
+                     seed3<N>(c1, tangent_of<N>(3)), seed1<N>(s0, tangent_of<N>(6)),
+                     seed1<N>(s1, tangent_of<N>(7)), a.mat_remap[mat], F{u[0]}, a.mat_mf[mat]);
     lobe_v = make_lobe(a.mat_kind[mat], c0, c1, s0, s1, a.mat_remap[mat], F{u[0]}, a.mat_mf[mat]);
     delta = lobe.kind == LOBE_SPECULAR || lobe.kind == LOBE_FRESNEL;
     frame = frame_from_z(n);
@@ -384,17 +392,20 @@ __device__ __forceinline__ void lobe_lane(const GradArgs& g, long long i, bool i
   }
 
   // route the lane's c0 gradient to its texture or its material row: the
-  // material adds its set's tangents (c0's zero where a texture takes it;
-  // in set 0, which carries c0 alone, none), the texture a colour row
-  const bool textured = tex >= 0;
-  int mkey = in && !(S == 0 && textured) ? mat : -1;
-  int tkey = in && textured && tap.src < 2 ? 2 * tex + tap.src : -1;
+  // material adds its tangents (0 for a parameter not requested, and c0's
+  // where a texture takes them; nothing where c0's are all it would add),
+  // the texture a colour row where c0's are requested
+  const bool textured = tex >= 0, c0 = g.want & 7;
+  const int want = g.want & (textured ? ~7 : ~0);
+  int mkey = -1;
+  for (int t = 0; t < N; ++t) mkey = in && (want >> param_of(S, t) & 1) ? mat : mkey;
+  int tkey = in && textured && c0 && tap.src < 2 ? 2 * tex + tap.src : -1;
   int mslot[N], tslot[3];
   float gm[N], gt[3];
   for (int t = 0; t < N; ++t) {
     const int q = param_of(S, t);
     mslot[t] = q < 6 ? 3 * M * (q / 3) + 3 * mkey + q % 3 : q * M + mkey;
-    gm[t] = q < 3 && textured ? 0.0f : th[t];
+    gm[t] = want >> q & 1 ? th[t] : 0.0f;
   }
   for (int c = 0; c < 3; ++c) {
     tslot[c] = 8 * M + (tkey & 1 ? 3 * KT : 0) + 3 * (tkey >> 1) + c;
@@ -429,7 +440,7 @@ constexpr int CHUNKS = SPAN / GB;
 constexpr int ENTRIES = BUCKETS * CHUNKS * WARPS;
 constexpr int PER = (ENTRIES + 31) / 32;
 
-template <int S>
+template <int S, int W>
 __global__ void __launch_bounds__(GB, S == 2 ? 3 : 4)
     vertex_backward_kernel(const __grid_constant__ GradArgs g) {
   extern __shared__ float acc[];     // [WARPS][n_slots], unless device_acc
@@ -515,7 +526,7 @@ __global__ void __launch_bounds__(GB, S == 2 ? 3 : 4)
     for (int r = 0; r < count; r += GB) {
       if (r + 32 * warp < count) {
         const int j = r + threadIdx.x;
-        lobe_lane<S>(g, j < count ? base + list[j] : 0, j < count, region);
+        lobe_lane<W>(g, j < count ? base + list[j] : 0, j < count, region);
       }
     }
     __syncthreads();
@@ -530,6 +541,18 @@ __global__ void __launch_bounds__(GB, S == 2 ? 3 : 4)
     }
   }
 }
+
+template <int S, int W> int launch(const GradArgs& g, int grid, cudaStream_t stream) {
+  const int smem = g.device_acc ? 0 : WARPS * g.n_slots * (int)sizeof(float);
+  vertex_backward_kernel<S, W><<<grid, GB, smem, stream>>>(g);
+  return (int)cudaGetLastError();
+}
+
+constexpr int MAX_GRID = 1024;    // blocks: each loops over spans
+constexpr int SMEM_ACC = 40 * 1024;            // the warps' accumulators
+constexpr long long DEVICE_ACC = 16 << 20;     // floats of partials, device path
+constexpr int CHAINS = 64;        // grad_reduce's chains
+constexpr int RX = 8;             // grad_reduce's slots a block
 
 // out[s] = the column s of partials [rows, n_slots] summed in CHAINS
 // chains, then a pairwise tree over the chains; a block covers RX slots
@@ -571,10 +594,23 @@ int grid_of(int n, int n_slots) {
   return grid;
 }
 
-template <int S> int launch(const GradArgs& g, int grid, cudaStream_t stream) {
-  const int smem = g.device_acc ? 0 : WARPS * g.n_slots * (int)sizeof(float);
-  vertex_backward_kernel<S><<<grid, GB, smem, stream>>>(g);
-  return (int)cudaGetLastError();
+// set s's launch at width w (3 or n_params(s)), adding the gradients of
+// the parameters `want`
+int launch_of(const GradArgs* args, int set, int width, int want, int first,
+              cudaStream_t stream) {
+  GradArgs g = *args;
+  g.first = first;
+  g.device_acc = device_acc(g.n_slots);
+  g.want = want;
+  const int grid = grid_of(g.a.n, g.n_slots);
+  switch (set * 16 + width) {
+    case 0 * 16 + 3: return launch<0, 3>(g, grid, stream);
+    case 1 * 16 + 3: return launch<1, 3>(g, grid, stream);
+    case 1 * 16 + 4: return launch<1, 4>(g, grid, stream);
+    case 2 * 16 + 3: return launch<2, 3>(g, grid, stream);
+    case 2 * 16 + 8: return launch<2, 8>(g, grid, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -589,9 +625,8 @@ int shade_grad_args_size() { return (int)sizeof(GradArgs); }
 int vertex_backward_sets() { return N_SETS; }
 int vertex_backward_set_of(int kind) { return set_of(kind); }
 int vertex_backward_set_params(int set, int* params) {
-  const int n = set == 0 ? n_tangents<0>() : (set == 1 ? n_tangents<1>() : n_tangents<2>());
-  for (int t = 0; t < n; ++t) params[t] = param_of(set, t);
-  return n;
+  for (int t = 0; t < n_params(set); ++t) params[t] = param_of(set, t);
+  return n_params(set);
 }
 
 // The rows of partial sums the backward of n lanes with n_slots parameter
@@ -601,18 +636,21 @@ int vertex_backward_rows(int n, int n_slots) {
   return grid_of(n, n_slots) * (device_acc(n_slots) ? WARPS : 1);
 }
 
-// One launch of set `set`'s kernel; `first` for the vertex's first
-int vertex_backward(const GradArgs* args, int set, int first, cudaStream_t stream) {
-  GradArgs g = *args;
-  g.first = first;
-  g.device_acc = device_acc(g.n_slots);
-  const int grid = grid_of(g.a.n, g.n_slots);
-  switch (set) {
-    case 0: return launch<0>(g, grid, stream);
-    case 1: return launch<1>(g, grid, stream);
-    case 2: return launch<2>(g, grid, stream);
-  }
-  return (int)cudaErrorInvalidValue;
+// One launch of set `set`'s kernel, adding the gradients of the
+// parameters of `want` (bit p for parameter p; c0's where the call writes
+// texel taps) that the set holds, at the smallest width that carries them:
+// 3 where they are c0's alone, else the set's own. Returns the width, or
+// minus the CUDA error.
+int vertex_backward_tangents(const GradArgs* args, int set, int want, int first,
+                             cudaStream_t stream) {
+  if (set < 0 || set >= N_SETS || (args->taps && (want & 7) != 7))
+    return -(int)cudaErrorInvalidValue;
+  int held = 0;
+  for (int t = 0; t < n_params(set); ++t) held |= 1 << param_of(set, t);
+  want &= held;
+  const int width = want & ~7 ? n_params(set) : 3;
+  const int err = launch_of(args, set, width, want, first, stream);
+  return err ? -err : width;
 }
 
 int grad_reduce(const float* partials, int rows, int n_slots, float* out, cudaStream_t stream) {

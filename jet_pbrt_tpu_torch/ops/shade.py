@@ -46,6 +46,7 @@ li_debug_normal keep their own torch code. These are the next fusions.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 from typing import NamedTuple
@@ -691,7 +692,8 @@ class _GradArgs(ctypes.Structure):
                     "tap_rows")]
                 + [(k, ctypes.c_int) for k in ("n_mat", "n_tex_rows",
                                                "n_slots", "first",
-                                               "device_acc")])
+                                               "device_acc")]
+                + [("want", ctypes.c_int)])
 
 
 # A material row's parameters by index: 0-2 c0 rgb, 3-5 c1 rgb, 6 s0, 7 s1.
@@ -706,9 +708,21 @@ TANGENTS = {bsdf_ops.MAT_MATTE: _C0, bsdf_ops.MAT_MIRROR: _C0,
             bsdf_ops.MAT_PLASTIC: _C0 + _C1 + (6,),
             bsdf_ops.MAT_ROUGHGLASS: _C0 + _C1 + (6, 7),
             bsdf_ops.MAT_METAL: _C0 + _C1 + (6, 7)}
-# vertex_backward_kernel's instantiations, smallest first: the parameters
+# vertex_backward_kernel's tangent sets, smallest first: the parameters
 # each carries tangents for; a kind takes the first set that holds its row
 TANGENT_SETS = (_C0, _C0 + (6,), tuple(range(8)))
+# the material parameters whose tangents a field's gradient needs: a
+# texture takes c0's; light_c (and the environment's radiance) none, its
+# gradient goes through each light's radiance, a value
+_FIELD_PARAMS = {"mat_c0": _C0, "mat_c1": _C1, "mat_s0": (6,),
+                 "mat_s1": (7,), "tex_c0": _C0, "tex_c1": _C0,
+                 "tex_image": _C0, "light_c": ()}
+
+
+def requested_params(fields) -> tuple:
+    """The material parameters (0-7) whose tangents the gradients of
+    `fields` (of GRAD_FIELDS) need, ascending."""
+    return tuple(sorted({p for f in fields for p in _FIELD_PARAMS[f]}))
 
 
 def tangent_set(kind: int) -> int:
@@ -743,8 +757,9 @@ def _grad_library():
 
 def _declare_grad(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.vertex_backward.argtypes = [ctypes.POINTER(_GradArgs), ci, ci, vp]
-    lib.vertex_backward.restype = ci
+    lib.vertex_backward_tangents.argtypes = [
+        ctypes.POINTER(_GradArgs), ci, ci, ci, vp]
+    lib.vertex_backward_tangents.restype = ci
     lib.grad_reduce.argtypes = [vp, ci, ci, vp, vp]
     lib.grad_reduce.restype = ci
     for name in ("shade_grad_args_size", "vertex_backward_rows",
@@ -835,9 +850,13 @@ def check_backward_inputs(meta, pack, hit, state: VertexState, u_vertex,
 
 def vertex_backward(meta, pack, hit, state: VertexState, u_vertex,
                     bounce: int, max_depth: int, lights: LightTable, occ, gL,
-                    gbeta=None, taps: bool = False):
+                    gbeta=None, taps: bool = False,
+                    params: tuple = tuple(range(8))):
     """vertex_backward_kernel, one launch per tangent set of
-    backward_sets(meta) below max_depth and one on the last bounce (CUDA
+    backward_sets(meta) below max_depth and one on the last bounce, each
+    adding the gradients of the material parameters `params` (0-7, c0's
+    where taps) that its set holds, at the smallest width that carries them:
+    3 where they are c0's alone, else the set's own (CUDA
     tensors only; CPU tensors take `vertex_backward_plain` whole): from the
     vertex's inputs (the hit, state.beta, .active, .prev_specular, the
     uniforms, the light table and the bounce's [J, N] shadow flags occ) and
@@ -845,8 +864,11 @@ def vertex_backward(meta, pack, hit, state: VertexState, u_vertex,
     (d loss / d beta [N,3], the partial parameter gradients [G,
     n_grad_slots] for grad_reduce, and with taps an image texture's
     per-lane texel gradients [N, 4, 3] and flat rows of tex_image [N, 4],
-    else None, None). Any number of parameter slots: past a block's shared
-    memory the kernel accumulates in the partials' rows."""
+    else None, None); the partials of a parameter not in `params` are 0.
+    Any number of parameter slots: past a block's shared memory the kernel
+    accumulates in the partials' rows. Counts each launch in `.launches`
+    and, by (set, width), in `.widths` (a graph's replays in `.launches`
+    alone)."""
     dev = gL.device
     if dev.type != "cuda":
         raise ValueError(f"no vertex_backward kernel for device {dev}")
@@ -878,15 +900,19 @@ def vertex_backward(meta, pack, hit, state: VertexState, u_vertex,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for k, s in enumerate(sets):
-            err = lib.vertex_backward(ctypes.byref(g), s, int(k == 0), stream)
+            width = lib.vertex_backward_tangents(
+                ctypes.byref(g), s, sum(1 << p for p in set(params)),
+                int(k == 0), stream)
             vertex_backward.launches += 1
-            if err != 0:
+            if width < 0:
                 raise RuntimeError(f"vertex_backward launch failed: CUDA "
-                                   f"error {err}")
+                                   f"error {-width}")
+            vertex_backward.widths[s, width] += 1
     return gbeta_in, partials, tap_g, tap_rows
 
 
 vertex_backward.launches = 0
+vertex_backward.widths = collections.Counter()
 register(__name__, "vertex_backward", "vertex_backward_kernel")
 
 
@@ -979,9 +1005,10 @@ def vertex_grads(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
                  fields=GRAD_FIELDS):
     """(d loss / d L, d loss / d beta, {field: gradient} for `fields`, d
     loss / d lights.le_env or None) of one vertex: on the card
-    vertex_backward's launches and grad_reduce (and, where "tex_image" is
-    among the fields and the pack has images, index_add_ of the texel
-    taps), on the CPU vertex_backward_plain."""
+    vertex_backward's launches carrying the tangents `fields` need
+    (requested_params) and grad_reduce (and, where "tex_image" is among the
+    fields and the pack has images, index_add_ of the texel taps), on the
+    CPU vertex_backward_plain."""
     if gL.device.type == "cpu":
         gl, gb, g, ge = vertex_backward_plain(
             meta, pack, hit, state, u_vertex, bounce, max_depth, occ, gL,
@@ -992,7 +1019,7 @@ def vertex_grads(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
         and bounce < max_depth
     gb, partials, tap_g, tap_rows = vertex_backward(
         meta, pack, hit, state, u_vertex, bounce, max_depth, lights, occ, gL,
-        gbeta, taps)
+        gbeta, taps, requested_params(fields))
     flat = split_grads(grad_reduce(partials), pack)
     g = {f: flat[f] for f in fields if f in flat}
     if "tex_image" in fields:

@@ -94,20 +94,25 @@ build's ptxas registers, shared memory and spills per kernel are printed
 where this process built it.
 
 shade_grad: OTHER.cu has this source's C entry points (a variant: one
-launch per tangent set) or commit feed372's (one vertex_backward launch a
-vertex, its grid by lanes, grad_reduce in block order); ops/shade.py's
-vertex_backward and grad_reduce are swapped per turn for the other
-build's. Both builds' ptxas lines per kernel first. On the bunny's and
-the Cornell box's 1024^2 1-spp gradient waves (chip_smoke.grad_wave_calls,
-every appearance field on the tape): the bounce-1 vertex's backward at
-2^20 lanes with seeded upstream gradients, d loss / d beta equal bit
-for bit between the builds and each parameter field within
+launch per tangent set at the width the request needs), commit a419817's
+(one launch per tangent set at the set's full width, whatever the
+request; its argument layout is this one's without `want`) or
+commit feed372's (one vertex_backward launch a vertex, its grid by lanes,
+grad_reduce in block order); ops/shade.py's vertex_backward and
+grad_reduce are swapped per turn for the other build's. Both builds'
+ptxas lines per kernel first. On the bunny's and the Cornell box's
+1024^2 1-spp gradient waves (chip_smoke.grad_wave_calls, every
+appearance field on the tape), for two requests, every field and the
+fit's mat_c0 and light_c (SHADE_GRAD_REQUESTS): the bounce-1 vertex's
+backward at 2^20 lanes with seeded upstream gradients, d loss / d beta
+equal bit for bit between the builds and each requested field within
 chip_smoke.GRAD_FIELD_TOL of its largest |gradient|; its vertex_backward
 call timed per turn (events over 20 calls, host enqueue, and the device
 time by events behind a held stream, warm and after an L2 flush each:
-shade_grad_times), its grad_reduce on that build's partials and
-torch.sum(partials, 0) on the same; every vertex of the wave's backward
-(vertex_grads of the six, both kernels) per turn. Then the bunny's loss
+shade_grad_times); every vertex of the wave's backward (vertex_grads of
+the six, both kernels) per turn; and once, the full request's
+grad_reduce on that build's partials and torch.sum(partials, 0) on the
+same. Then the bunny's loss
 mean((img - target)^2) over mat_c0 and light_c at 1024^2, 1 spp, depth
 5 (chip_smoke.diff_phase's): each build's profiled backward
 (chip_smoke.profile_backward: every device operation), and in turns
@@ -679,11 +684,42 @@ class _OneLaunchArgs(ctypes.Structure):
                 if f[0] not in ("first", "device_acc")]
 
 
+class _FullWidthArgs(ctypes.Structure):
+    """Commit a419817's argument layout: this one's without `want`."""
+    _fields_ = [f for f in shade_ops._GradArgs._fields_ if f[0] != "want"]
+
+
+def _declare_full_width(lib):
+    """Declares a build of commit a419817's entry points (vertex_backward:
+    one launch per tangent set at the set's full width). Its layout is a
+    prefix of this one's, so the wrapper's arguments pass as they are; a
+    launch the wrapper narrows runs at the set's full width there."""
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.vertex_backward.argtypes = [ctypes.POINTER(shade_ops._GradArgs), ci,
+                                    ci, vp]
+    lib.grad_reduce.argtypes = [vp, ci, ci, vp, vp]
+    lib.vertex_backward_rows.argtypes = [ci, ci]
+    for name in ("vertex_backward", "grad_reduce", "vertex_backward_rows",
+                 "shade_grad_args_size"):
+        getattr(lib, name).restype = ci
+    if lib.shade_grad_args_size() != ctypes.sizeof(_FullWidthArgs):
+        raise RuntimeError("OTHER.cu's argument layout is not commit "
+                           "a419817's")
+    # this wrapper's entry point: the launch's width, or minus the error
+    lib.vertex_backward_tangents = \
+        lambda g, s, want, first, stream: -err if (
+            err := lib.vertex_backward(g, s, first, stream)) \
+        else len(shade_ops.TANGENT_SETS[s])
+
+
 def _declare_shade_grad(lib):
-    """Declares a build of this source's entry points, or commit
-    feed372's."""
-    if hasattr(lib, "vertex_backward_rows"):
+    """Declares a build of this source's entry points, commit a419817's,
+    or commit feed372's."""
+    if hasattr(lib, "vertex_backward_tangents"):
         shade_ops._declare_grad(lib)
+        return
+    if hasattr(lib, "vertex_backward_rows"):
+        _declare_full_width(lib)
         return
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.vertex_backward.argtypes = [ctypes.POINTER(_OneLaunchArgs), vp]
@@ -816,6 +852,11 @@ def _line(label, times) -> str:
             f"{t(times['this'][0])} / {t(times['this'][1])}")
 
 
+# name: the fields a request differentiates
+SHADE_GRAD_REQUESTS = {"every field": shade_ops.GRAD_FIELDS,
+                       "mat_c0, light_c": ("mat_c0", "light_c")}
+
+
 def shade_grad_main(path) -> int:
     dev = _card()
     # both builds at once: each takes minutes
@@ -836,51 +877,65 @@ def shade_grad_main(path) -> int:
         vertices = [a for k, a in calls if k == "vertex"]
         seeded = [chip_smoke.seeded_grads(r[3].L.shape[0], 7 + r[5], dev,
                                           r[5] >= r[6]) for r in vertices]
-        run = lambda r, g: shade_ops.vertex_grads(
-            *r[:3], chip_smoke.kernel_state(r[3]), *r[4:], *g)
         rec, grads = vertices[1], seeded[1]
-        outs = {}
-        for who in ORDER[:2]:
-            with _grad_build(libs[who]):
-                gl, gb, g, ge = run(rec, grads)
-                outs[who] = (gb, {**g, "le_env": ge})
-        if not torch.equal(outs["this"][0], outs["other"][0]):
-            raise AssertionError(f"{label}: the builds' d loss / d beta "
-                                 "differ")
-        worst = _grads_close(label, outs["this"][1], outs["other"][1])
         meta, pack, hit, state, u, bounce, depth, lights, occ = rec
+        for request, fields in SHADE_GRAD_REQUESTS.items():
+            run = lambda r, g: shade_ops.vertex_grads(
+                *r[:3], chip_smoke.kernel_state(r[3]), *r[4:], *g,
+                fields=fields)
+            outs = {}
+            for who in ORDER[:2]:
+                with _grad_build(libs[who]):
+                    gl, gb, g, ge = run(rec, grads)
+                    outs[who] = (gb, {**g, "le_env": ge})
+            if not torch.equal(outs["this"][0], outs["other"][0]):
+                raise AssertionError(f"{label} {request}: the builds' d loss "
+                                     "/ d beta differ")
+            worst = _grads_close(f"{label} {request}", outs["this"][1],
+                                 outs["other"][1])
+            same = all(torch.equal(outs["this"][1][k], outs["other"][1][k])
+                       for k in outs["other"][1])
+            kernel = lambda: shade_ops.vertex_backward(
+                meta, pack, hit, chip_smoke.kernel_state(state), u, bounce,
+                depth, lights, occ, *grads,
+                params=shade_ops.requested_params(fields))
+            times = {"this": [], "other": []}
+            wave_times = {"this": [], "other": []}
+            for who in ORDER:
+                with _grad_build(libs[who]):
+                    times[who].append(shade_grad_times(kernel, flush))
+                    wave_times[who].append(chip_smoke.queued_events_ms(
+                        lambda: [run(r, g) for r, g in zip(vertices, seeded)],
+                        5))
+            print(_line(f"{label} bounce-1 vertex_backward "
+                        f"({state.L.shape[0]} lanes), {request}", times)
+                  + "; d loss / d beta equal bit for bit, fields "
+                  + ("equal bit for bit" if same else
+                     f"within {worst:.2e} of their largest |gradient|"),
+                  flush=True)
+            print(f"shade_grad A/B {label} the wave's {len(vertices)} "
+                  f"vertices' backward, {request} (vertex_backward and "
+                  f"grad_reduce, device ms by events behind a held stream; "
+                  f"order other, this, this, other): other "
+                  f"{wave_times['other'][0]:.4f} / "
+                  f"{wave_times['other'][1]:.4f}, this "
+                  f"{wave_times['this'][0]:.4f} / "
+                  f"{wave_times['this'][1]:.4f}", flush=True)
         kernel = lambda: shade_ops.vertex_backward(
             meta, pack, hit, chip_smoke.kernel_state(state), u, bounce,
             depth, lights, occ, *grads)
-        times = {"this": [], "other": []}
         reduce_times = {"this": [], "other": []}
-        wave_times = {"this": [], "other": []}
         for who in ORDER:
             with _grad_build(libs[who]):
-                times[who].append(shade_grad_times(kernel, flush))
                 partials = kernel()[1]
                 reduce_times[who].append(shade_grad_times(
                     lambda: shade_ops.grad_reduce(partials), flush))
-                wave_times[who].append(chip_smoke.queued_events_ms(
-                    lambda: [run(r, g) for r, g in zip(vertices, seeded)],
-                    5))
         partials = kernel()[1]
         lib_ms = shade_grad_times(lambda: torch.sum(partials, 0), flush)
-        print(_line(f"{label} bounce-1 vertex_backward ({state.L.shape[0]} "
-                    "lanes)", times) + f"; d loss / d beta equal bit for bit, "
-              f"fields within {worst:.2e} of their largest |gradient|",
-              flush=True)
         print(_line(f"{label} grad_reduce (each build's partials)",
                     reduce_times) + f"; torch.sum(partials, 0) on this "
               f"build's {list(partials.shape)}: {lib_ms['device_ms']:.4f} "
               "ms device", flush=True)
-        print(f"shade_grad A/B {label} the wave's {len(vertices)} vertices' "
-              f"backward (vertex_backward and grad_reduce, device ms by "
-              f"events behind a held stream; order other, this, this, "
-              f"other): other {wave_times['other'][0]:.4f} / "
-              f"{wave_times['other'][1]:.4f}, this "
-              f"{wave_times['this'][0]:.4f} / {wave_times['this'][1]:.4f}",
-              flush=True)
         del calls, vertices, rec, partials
     _, got = _bunny_steps("shade_grad", _grad_build, libs, dev)
     worst = _grads_close("bunny value_and_grad", got["this"], got["other"])

@@ -79,6 +79,12 @@ streams), bit for bit; the frames through them against their plain
 versions' and the plain glue's; the graphed wave's kernel nodes and frame
 against the eager ones; an input that requires grad refused; render_fn's
 gradient running the camera, and nothing else of them, in its forward.
+The vertex's backward (ops/shade.py, csrc/shade_grad.cu): each backward
+kernel against its plain version; the kernel's tangent table; the
+launches narrowed to a request of fields, each set at the smallest width
+that carries it, against the full-width ones, bit for bit, on the bunny
+garden, the Cornell box and the every-kind scene; a graphed
+value_and_grad's widths by request.
 chip_smoke.py covers the bunnies at the main path's shapes.
 """
 import contextlib
@@ -1755,6 +1761,112 @@ def test_gradient_tangent_table_on_card():
     sets, of = SH.kernel_tangents()
     assert sets == SH.TANGENT_SETS
     assert of == {k: SH.tangent_set(k) for k in SH.TANGENTS}
+
+
+# requests of fields the narrow launches are held on (the fit's, single
+# material parameters, a texture colour, two parameters of set 2 alone,
+# and every field): each set's width, the smallest instantiated (3, or
+# the set's own) whose tangents carry the set's requested parameters
+GRAD_REQUESTS = {("mat_c0",): (3, 3, 3), ("mat_c0", "light_c"): (3, 3, 3),
+                 ("light_c",): (3, 3, 3), ("mat_s0",): (3, 4, 8),
+                 ("tex_c0",): (3, 3, 3), ("mat_c1", "mat_s1"): (3, 3, 8),
+                 ("mat_c0", "mat_c1", "mat_s0", "mat_s1", "light_c",
+                  "tex_image", "tex_c0", "tex_c1"): (3, 4, 8)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["bunny", "cornell", "every-kind"])
+def test_narrow_tangents_equal_the_full_width_on_card(which):
+    """Each vertex of a differentiated 32^2, 1-spp, depth-5 wave (the
+    bunny garden, the Cornell box, the every-kind scene with its textured
+    lanes) through vertex_backward for each request of GRAD_REQUESTS
+    against the launches of every parameter (each set at its own width),
+    seeded upstream gradients: each set launched at the request's width
+    (vertex_backward.widths); d loss / d beta, each requested field's
+    gradient, the environment's and an image texture's taps and their rows
+    equal bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    import chip_smoke
+    from jet_pbrt_tpu_torch.ops import shade as SH
+    from jet_pbrt_tpu_torch.scene.scenes import bunny_scene
+    dev = torch.device("cuda")
+    scene = (bunny_scene() if which == "bunny" else chip_smoke.cornell_box()
+             if which == "cornell" else _shade_scene("wide"))
+    calls = chip_smoke.grad_wave_calls(which, scene.to(dev), 32, dev)
+    for i, rec in enumerate(a for n, a in calls if n == "vertex"):
+        meta, pack, hit, state, u, bounce, depth, lights, occ = rec
+        last = bounce >= depth
+        gL, gbeta = chip_smoke.seeded_grads(state.L.shape[0], 50 + i, dev,
+                                            last)
+        slim = chip_smoke.kernel_state(state)
+        sets = SH.backward_sets(meta)[:1 if last else None]
+
+        def run(taps, fields):
+            before = SH.vertex_backward.widths.copy()
+            out = SH.vertex_backward(
+                meta, pack, hit, slim, u, bounce, depth, lights, occ, gL,
+                gbeta, taps, SH.requested_params(fields))
+            widths = GRAD_REQUESTS[fields]
+            assert SH.vertex_backward.widths - before \
+                == {(s, widths[s]): 1 for s in sets}, (which, bounce, fields)
+            return out
+
+        taps = pack.tex_image.shape[0] > 0 and not last
+        gb, partials, tap_g, tap_rows = run(taps, SH.GRAD_FIELDS)
+        full = SH.split_grads(SH.grad_reduce(partials), pack)
+        for fields in GRAD_REQUESTS:
+            with_taps = taps and "tex_image" in fields
+            ngb, npartials, ntap_g, ntap_rows = run(with_taps, fields)
+            got = SH.split_grads(SH.grad_reduce(npartials), pack)
+            assert torch.equal(ngb, gb), (which, bounce, fields)
+            for f in [f for f in fields if f in got] + ["le_env"]:
+                assert torch.equal(got[f], full[f]), (which, bounce, fields,
+                                                      f)
+            if with_taps:
+                assert torch.equal(ntap_g, tap_g) \
+                    and torch.equal(ntap_rows, tap_rows), (which, bounce)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fields,width", [
+    (("mat_c0", "light_c"), 3),
+    (("mat_c0", "mat_c1", "mat_s0", "mat_s1", "light_c"), 8)])
+def test_graphed_value_and_grad_counts_the_tangent_widths_on_card(fields,
+                                                                   width):
+    """compile_value_and_grad of the bunny garden's 32^2, 1-spp, depth-5
+    render_fn loss over `fields` (the fit's, every material field): its
+    warm-ups and capture launch the full tangent set (2) at `width` alone
+    and the matte set (0) at 3 (shade.vertex_backward.widths); a replay
+    counts its 11 launches on vertex_backward.launches alone."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
+    from jet_pbrt_tpu_torch.diff import params as P
+    from jet_pbrt_tpu_torch.models import graph as G
+    from jet_pbrt_tpu_torch.models.render import render_fn
+    from jet_pbrt_tpu_torch.ops import shade as SH
+    from jet_pbrt_tpu_torch.scene.scenes import bunny_scene
+    fn, pack = render_fn(bunny_scene(), 32, 32, 1, seed=3, max_depth=5,
+                         device="cuda")
+    with torch.no_grad():
+        target = fn(pack._replace(light_c=pack.light_c * 1.2))
+    f = P.loss_fn(fn, pack, target)
+    params = P.get_params(pack, fields)
+    G.clear()
+    before = SH.vertex_backward.widths.copy()
+    vg = P.compile_value_and_grad(f)
+    vg(params)
+    counted = SH.vertex_backward.widths - before
+    launches = SH.vertex_backward.launches
+    vg(params)
+    torch.cuda.synchronize()
+    assert SH.vertex_backward.widths - before == counted
+    assert SH.vertex_backward.launches == launches + 11
+    # each of the warm-ups and the capture: 6 vertices, 5 below max_depth
+    calls = G.GRAD_WARMUPS + 1
+    assert counted == {(0, 3): 6 * calls, (2, width): 5 * calls}, counted
+    vg.release()
+    G.clear()
 
 
 @pytest.mark.cuda

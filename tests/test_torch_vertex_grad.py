@@ -25,7 +25,8 @@ vertex here) and ops/wave.py's permute and unsort.
 - The backward kernel's tangent table (shade.TANGENTS): per material
   kind, the plain backward's gradients of the material parameters
   outside the kind's row exactly 0; the tangent sets and the sets each
-  scene launches; grad_reduce's fixed order of chains and a tree; a scene
+  scene launches; the material parameters a request of fields carries
+  into each set's launch; grad_reduce's fixed order of chains and a tree; a scene
   of more parameter slots than commit feed372's kernel held takes the kernel
   route and matches the reference.
 
@@ -683,3 +684,34 @@ def test_tangent_sets_and_the_sets_a_scene_launches():
     assert S.backward_sets(meta) == (0, 1, 2)
     assert S.backward_sets(dataclasses.replace(meta, present_lobes=None)) \
         == (0, 1, 2)
+
+
+# request: its material parameters
+_REQUESTS = {
+    ("mat_c0",): (0, 1, 2),
+    ("mat_c0", "light_c"): (0, 1, 2),
+    ("light_c",): (),
+    ("mat_s0",): (6,),
+    ("tex_c0",): (0, 1, 2),
+    ("mat_c1", "mat_s1"): (3, 4, 5, 7),
+    S.GRAD_FIELDS: tuple(range(8))}
+
+
+@pytest.mark.parametrize("fields", list(_REQUESTS),
+                         ids=lambda f: "+".join(f) if len(f) < 8 else "all")
+@pytest.mark.parametrize("s", range(len(S.TANGENT_SETS)))
+def test_a_request_carries_each_kinds_requested_parameters(s, fields):
+    """A request's material parameters (requested_params: a texture takes
+    c0's, light_c none), which set s's launch intersects with the set's
+    (csrc/shade_grad.cu picks the width that carries them, on the card),
+    hold TANGENTS[kind] and the request in common for every kind of the
+    set, and of each field the request names the parameters of its row."""
+    params = S.requested_params(fields)
+    assert params == _REQUESTS[fields]
+    added = set(params) & set(S.TANGENT_SETS[s])
+    rows = {"mat_c0": {0, 1, 2}, "mat_c1": {3, 4, 5}, "mat_s0": {6},
+            "mat_s1": {7}, "tex_c0": {0, 1, 2}, "tex_c1": {0, 1, 2},
+            "tex_image": {0, 1, 2}, "light_c": set()}
+    for kind in (k for k in S.TANGENTS if S.tangent_set(k) == s):
+        for f in fields:
+            assert rows[f] & set(S.TANGENTS[kind]) <= added, (kind, f)
