@@ -394,7 +394,7 @@ DEAD_RAY_BYTES = 4 + 4 + 4 + 4
 # 8 slab tests of 26 (wide_bvh.cu visit_node), the 19 comparators of an
 # optimal 8-key sorting network where a node visit hits two or more
 # children and so orders them, and one Moller-Trumbore test with its accept
-# rule (tri_test)
+# rule (csrc/tri_mt.cuh mt_test)
 WIDE_SLAB_OPS = 8 * 26
 WIDE_RANK_OPS = 19
 WIDE_TRI_OPS = 55
@@ -402,11 +402,11 @@ WIDE_TRI_OPS = 55
 # also counts the memset that zeroes its counter
 WIDE_KERNELS = ("wide_cull_kernel", "wide_walk_kernel")
 WIDE_OPS = WIDE_KERNELS + ("Memset",)
-# sweep_bvh.cu:133-145 and 259, one ray against one group sphere, and
-# :343-356, one ray against one triangle (a fused multiply-add counts as
-# its product and its sum)
+# sweep_bvh.cu's sphere_test, one ray against one group sphere (a fused
+# multiply-add counts as its product and its sum), and its mt_test, one
+# ray against one triangle: the wide kernel's Moller-Trumbore
 SWEEP_CULL_OPS = 33
-SWEEP_TRI_OPS = 51
+SWEEP_TRI_OPS = WIDE_TRI_OPS
 # one Moller-Trumbore test of prim_micro.cu's mt: 44 products and sums,
 # the division, |det| > eps, u + v, 4 comparisons and the running minimum
 MT_TEST_OPS = 44 + 1 + 1 + 1 + 4 + 1
@@ -644,7 +644,7 @@ def sweep_route(scene) -> Route:
         culls = n_root * tables.n_groups
         tests = n_pairs * sweep_bvh.GROUP
         nbytes = o.shape[0] * RAY_BYTES + sum(
-            x.nbytes for x in (tables.sph, tables.bw, tables.inst,
+            x.nbytes for x in (tables.sph, tables.mt, tables.inst,
                                tables.root))
         return (nbytes, culls * SWEEP_CULL_OPS + tests * SWEEP_TRI_OPS,
                 {"ray_group_culls": culls, "ray_tri_tests": tests,

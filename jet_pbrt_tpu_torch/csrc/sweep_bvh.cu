@@ -6,8 +6,11 @@
 // for meshes beyond the wide kernel's budget. It computes the same thing:
 // per ray, the closest accepted triangle (world t and index
 // inst * n_tris + row) or an any-hit bit, over the tables of
-// ops/sweep_bvh.py (group spheres, Baldwin-Weber rows, instance rows, the
-// mesh's root sphere).
+// ops/sweep_bvh.py (group spheres, (p0, e1, e2) rows, instance rows, the
+// mesh's root sphere). Unlike the TPU kernel it tests a triangle by the
+// wide kernel's Moller-Trumbore (csrc/tri_mt.cuh), not by precomputed
+// Baldwin-Weber rows, so that a mesh's hits do not depend on the route its
+// triangle count sends it to (ops/sweep_bvh.py).
 //
 // Design. One thread block per 128-ray packet. Per instance, in table
 // order:
@@ -21,7 +24,7 @@
 //      minimum over the rays that pass (FAR when none does). Keys sit in
 //      shared memory and each thread holds the minimum of its own keys;
 //   3. scan: a block-wide min pops the nearest group, and thread j at once
-//      requests triangle j's 12 Baldwin-Weber values into registers (one
+//      requests triangle j's 9 values (p0, e1, e2) into registers (one
 //      coalesced row per value), so the loads run while the want test and
 //      its barrier do. The packet stops when no compacted ray's bound
 //      min(tmax, best) reaches the group's entry. Otherwise thread k
@@ -33,17 +36,17 @@
 //      hit is a 64-bit atomicMin on the ray's key, an any hit a store that
 //      marks it occluded (its bound drops to 0: it wants no later group).
 // The TPU kernel tested whole packets, since its MXU makes a 128 x 128
-// contraction nearly free; here each ray-triangle test is ~51 float
+// contraction nearly free; here each ray-triangle test is ~55 float
 // operations and an IEEE division, so only the (ray, group) pairs whose
 // own sphere test passes are tested. Its packets-per-step, VMEM residency
-// and streamed DMA mode are TPU constraints with no counterpart: the BW
+// and streamed DMA mode are TPU constraints with no counterpart: the row
 // table is read from global memory (L2-resident for a mesh of a million
-// rows: 48 MB).
+// rows: 36 MB).
 //
 // What bounds it on this card: the cull, Gp sphere tests (33 float
 // operations each) per compacted ray per instance; not the triangle tests
 // (a ray tests a few groups, about 1.2x the pairs a near-to-far traversal
-// needs) and not bytes (rays are read once, a tested group's rows are 12
+// needs) and not bytes (rays are read once, a tested group's rows are 9
 // coalesced 512-byte loads). The cull reads each ray as three broadcast
 // float4 loads for two groups, so the FP32 pipe, not shared-memory issue,
 // sets its pace. The scan costs two barriers per pop, three when the group
@@ -63,10 +66,14 @@
 // space as o' = (o - off) * (1 / scale), d unchanged, tmin' = tmin / scale;
 // a hit is accepted when t > tmin' in local space and t * scale < min(tmax,
 // best) in world space; the group-sphere slack 1e-6 (relative) and the root
-// slack 1.0001, +1e-5 (rounding may over-cull, never under-cull); the
-// |n.d| > 1e-20 guard, u, v >= 0, u + v <= 1, t = -(n.o - d0) * (1 / n.d)
-// in exact IEEE division (no --use_fast_math), every product and sum of
-// the test rounded as written (dot3); zero rows never hit; dead
+// slack 1.0001, +1e-5 (rounding may over-cull, never under-cull). The
+// triangle test is not the reference kernel's: Moller-Trumbore with
+// 1 / det where |det| > 1e-12 (else 0), u, v >= 0, (1 - u) - v >= 0, every
+// product and sum rounded alone (__fmul_rn / __fsub_rn / __fadd_rn, IEEE
+// division, no --use_fast_math), in ops/wide_bvh.py::mt_test's order; a
+// row with a zero edge never hits (t = 0 is not above tmin >= 0), and the
+// spheres bound every other row, slivers the reference drops included
+// (ops/sweep_bvh.py::build_sweep_tables); dead
 // lanes (tmin = inf, tmax < 0) never hit and an all-dead packet exits
 // after one test; an any-hit reports t = 0. Every product and sum of the
 // root and sphere tests is pinned too (ops/sweep_bvh.py::sweep_work_plain
@@ -79,6 +86,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "tri_mt.cuh"
+
 namespace {
 
 constexpr int GROUP = 128;
@@ -86,17 +95,17 @@ constexpr int RAYS = 128;
 constexpr int WARPS = RAYS / 32;
 constexpr int GMASK = 8191;
 constexpr float FAR = 3.0e37f;
-constexpr int BW_ROWS = 12;
+constexpr int MT_ROWS = 9;
 // a compacted ray: (o', tmin' clamped), (d, cap' clamped), (o'.d, o'.o,
 // tmin', world tmax)
 constexpr int RAY_VEC = 3;
 
 __device__ __forceinline__ int fbits(float x) { return __float_as_int(x); }
 
-// a * x + b * y + c * z as a chain of fused multiply-adds in this order.
-// For the Baldwin-Weber rows the reference contracted on the TPU's MXU; its
-// CPU interpret mode, the plain PyTorch version and this kernel all round
-// this chain, so they agree bit for bit.
+// a * x + b * y + c * z as a chain of fused multiply-adds in this order:
+// the root and sphere tests' contraction, which the reference evaluated on
+// the TPU's MXU; its CPU interpret mode, the plain PyTorch version and this
+// kernel all round this chain, so they agree bit for bit.
 __device__ __forceinline__ float dot3(float a, float b, float c, float x,
                                       float y, float z) {
   return __fmaf_rn(c, z, __fmaf_rn(b, y, __fmul_rn(a, x)));
@@ -156,7 +165,7 @@ __device__ __forceinline__ int own_min(const int* s_key, int gp, int tid) {
 template <bool ANY_HIT, bool STATS>
 __global__ void __launch_bounds__(RAYS)
 sweep_bvh_kernel(const float* __restrict__ sph, int gp,
-                 const float* __restrict__ bw, const float* __restrict__ inst,
+                 const float* __restrict__ mt, const float* __restrict__ inst,
                  int n_inst, const float* __restrict__ root, int n_groups,
                  int n_tris, const float* __restrict__ o,
                  const float* __restrict__ d, const float* __restrict__ tmin_in,
@@ -288,11 +297,11 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
         const int dist = kmin & ~GMASK;
 
         // rows requested before the want test (speculative)
-        const float* src = bw + static_cast<size_t>(g) * GROUP + tid;
-        float wr[BW_ROWS];
+        const float* src = mt + static_cast<size_t>(g) * GROUP + tid;
+        float wr[MT_ROWS];
         if (dist < far_key) {
 #pragma unroll
-          for (int r = 0; r < BW_ROWS; ++r) wr[r] = __ldg(src + r * tp);
+          for (int r = 0; r < MT_ROWS; ++r) wr[r] = __ldg(src + r * tp);
         }
         // compacted ray tid: does its bound reach the group, and does its
         // own sphere test keep it?
@@ -342,20 +351,9 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
             m &= m - 1;
             const float4 a = s_ray[RAY_VEC * k], b = s_ray[RAY_VEC * k + 1];
             const float4 c = s_ray[RAY_VEC * k + 2];
-            const float nd = dot3(wr[0], wr[1], wr[2], b.x, b.y, b.z);
-            if (!(fabsf(nd) > 1e-20f)) continue;
-            const float no =
-                __fadd_rn(dot3(wr[0], wr[1], wr[2], a.x, a.y, a.z), wr[3]);
-            const float t = __fmul_rn(-no, __fdiv_rn(1.0f, nd));
-            const float u = __fmaf_rn(
-                t, dot3(wr[4], wr[5], wr[6], b.x, b.y, b.z),
-                __fadd_rn(dot3(wr[4], wr[5], wr[6], a.x, a.y, a.z), wr[7]));
-            const float v = __fmaf_rn(
-                t, dot3(wr[8], wr[9], wr[10], b.x, b.y, b.z),
-                __fadd_rn(dot3(wr[8], wr[9], wr[10], a.x, a.y, a.z), wr[11]));
-            const float t_w = __fmul_rn(t, scl);
-            if (!(u >= 0.0f && v >= 0.0f && __fadd_rn(u, v) <= 1.0f &&
-                  t > c.z && t_w < c.w))
+            float t_w;
+            if (!mt_test([&](int j) { return wr[j]; }, a.x, a.y, a.z, b.x,
+                         b.y, b.z, c.z, c.w, scl, t_w))
               continue;
             if (ANY_HIT)
               s_best[k] = hit_key(0.0f, 0);  // occluded: the bound drops to 0
@@ -396,14 +394,14 @@ size_t shmem_bytes(int gp) {
 }
 
 template <bool ANY_HIT, bool STATS>
-int launch(const float* sph, int gp, const float* bw, const float* inst,
+int launch(const float* sph, int gp, const float* mt, const float* inst,
            int n_inst, const float* root, int n_groups, int n_tris,
            const float* o, const float* d, const float* tmin,
            const float* tmax, int n, float* t_out, int* idx_out,
            uint8_t* valid_out, long long* stats, cudaStream_t stream) {
   const int grid = (n + RAYS - 1) / RAYS;
   sweep_bvh_kernel<ANY_HIT, STATS><<<grid, RAYS, shmem_bytes(gp), stream>>>(
-      sph, gp, bw, inst, n_inst, root, n_groups, n_tris, o, d, tmin, tmax, n,
+      sph, gp, mt, inst, n_inst, root, n_groups, n_tris, o, d, tmin, tmax, n,
       t_out, idx_out, valid_out, stats);
   return static_cast<int>(cudaGetLastError());
 }
@@ -423,7 +421,7 @@ int blocks_per_sm(int gp) {
 // [ceil(n/128), 6] int64 or null; valid_out is null or [n] bool,
 // isfinite(t_out) (the last argument, so a build of the entry without it
 // takes the same call and leaves it).
-extern "C" int sweep_bvh_launch(const float* sph, int gp, const float* bw,
+extern "C" int sweep_bvh_launch(const float* sph, int gp, const float* mt,
                                 const float* inst, int n_inst,
                                 const float* root, int n_groups, int n_tris,
                                 const float* o, const float* d,
@@ -434,16 +432,16 @@ extern "C" int sweep_bvh_launch(const float* sph, int gp, const float* bw,
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit)
-    return stats ? launch<true, true>(sph, gp, bw, inst, n_inst, root, n_groups,
+    return stats ? launch<true, true>(sph, gp, mt, inst, n_inst, root, n_groups,
                                       n_tris, o, d, tmin, tmax, n, t_out,
                                       idx_out, valid_out, stats, s)
-                 : launch<true, false>(sph, gp, bw, inst, n_inst, root,
+                 : launch<true, false>(sph, gp, mt, inst, n_inst, root,
                                        n_groups, n_tris, o, d, tmin, tmax, n,
                                        t_out, idx_out, valid_out, stats, s);
-  return stats ? launch<false, true>(sph, gp, bw, inst, n_inst, root, n_groups,
+  return stats ? launch<false, true>(sph, gp, mt, inst, n_inst, root, n_groups,
                                      n_tris, o, d, tmin, tmax, n, t_out,
                                      idx_out, valid_out, stats, s)
-               : launch<false, false>(sph, gp, bw, inst, n_inst, root,
+               : launch<false, false>(sph, gp, mt, inst, n_inst, root,
                                       n_groups, n_tris, o, d, tmin, tmax, n,
                                       t_out, idx_out, valid_out, stats, s);
 }

@@ -41,7 +41,8 @@
 //      8 child codes as two int4 loads, ranks the hit children by (entry t,
 //      slot) with 28 comparisons when more than one is hit, and stores
 //      each at its rank (nearest on top); a leaf pop runs Moller-Trumbore
-//      over its leaf_size rows in slot order.
+//      (csrc/tri_mt.cuh, shared with the sweep) over its leaf_size rows in
+//      slot order.
 // Tried on the card and not kept (PERF.md, `sweep_ab.py --wide`): one
 // launch whose persistent warps scan the lanes themselves and queue the
 // survivors in shared memory (no list, no memset, but more registers, fewer
@@ -71,6 +72,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tri_mt.cuh"
 
 namespace {
 
@@ -175,41 +178,6 @@ __device__ __forceinline__ void rank_hits(unsigned mask, const float key[WIDTH],
       rank[j] += ((mask >> k) & 1u) & !first;
     }
   }
-}
-
-// Moller-Trumbore of one ray against one (p0, e1, e2) row, each product and
-// sum rounded in the plain version's order: sets the world t and returns
-// the accept rule (cap is min(tmax, best), world units).
-__device__ __forceinline__ bool tri_test(const float* __restrict__ tr,
-                                         const Space& s, float dx, float dy,
-                                         float dz, float cap, float& t_w) {
-  const float e2x = __ldg(tr + 6), e2y = __ldg(tr + 7), e2z = __ldg(tr + 8);
-  const float px = __fsub_rn(__fmul_rn(dy, e2z), __fmul_rn(dz, e2y));
-  const float py = __fsub_rn(__fmul_rn(dz, e2x), __fmul_rn(dx, e2z));
-  const float pz = __fsub_rn(__fmul_rn(dx, e2y), __fmul_rn(dy, e2x));
-  const float e1x = __ldg(tr + 3), e1y = __ldg(tr + 4), e1z = __ldg(tr + 5);
-  const float det = __fadd_rn(__fadd_rn(__fmul_rn(e1x, px), __fmul_rn(e1y, py)),
-                              __fmul_rn(e1z, pz));
-  const float inv_det = fabsf(det) > 1e-12f ? __fdiv_rn(1.0f, det) : 0.0f;
-  const float tx = __fsub_rn(s.ox, __ldg(tr + 0));
-  const float ty = __fsub_rn(s.oy, __ldg(tr + 1));
-  const float tz = __fsub_rn(s.oz, __ldg(tr + 2));
-  const float uu = __fmul_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(tx, px), __fmul_rn(ty, py)),
-                __fmul_rn(tz, pz)), inv_det);
-  const float qx = __fsub_rn(__fmul_rn(ty, e1z), __fmul_rn(tz, e1y));
-  const float qy = __fsub_rn(__fmul_rn(tz, e1x), __fmul_rn(tx, e1z));
-  const float qz = __fsub_rn(__fmul_rn(tx, e1y), __fmul_rn(ty, e1x));
-  const float vv = __fmul_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(dx, qx), __fmul_rn(dy, qy)),
-                __fmul_rn(dz, qz)), inv_det);
-  const float tt = __fmul_rn(
-      __fadd_rn(__fadd_rn(__fmul_rn(e2x, qx), __fmul_rn(e2y, qy)),
-                __fmul_rn(e2z, qz)), inv_det);
-  t_w = __fmul_rn(tt, s.scl);
-  return uu >= 0.0f && vv >= 0.0f &&
-         __fsub_rn(__fsub_rn(1.0f, uu), vv) >= 0.0f && tt > s.tmin &&
-         t_w < cap;
 }
 
 // ---------------------------------------------------------------------------
@@ -409,7 +377,9 @@ wide_walk_kernel(const float4* __restrict__ planar,
         const float* tr = tris + (size_t)l * leaf_size * 9;
         for (int k = 0; k < leaf_size; ++k, tr += 9) {
           float t_w;
-          if (!tri_test(tr, s, r.dx, r.dy, r.dz, fminf(r.tmax, best), t_w))
+          if (!mt_test([&](int j) { return __ldg(tr + j); }, s.ox, s.oy,
+                       s.oz, r.dx, r.dy, r.dz, s.tmin, fminf(r.tmax, best),
+                       s.scl, t_w))
             continue;
           if (ANY_HIT) {
             occluded = true;

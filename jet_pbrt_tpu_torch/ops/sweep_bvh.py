@@ -6,23 +6,29 @@ Replaces the TPU kernel jet_pbrt_tpu/ops/sweep_bvh.py (`_sweep_kernel` /
 reference sends meshes too big for the wide kernel's budget. The work is the
 same: triangles in BVH-DFS order are cut into groups of GROUP consecutive
 rows, each group with a bounding sphere; a 128-ray packet culls every group
-by its sphere, then tests the culled groups near to far with precomputed
-Baldwin-Weber rows, and stops when the nearest remaining group lies beyond
-every live ray's bound. Instancing is uniform scale + translation, one
-instance after another in table order, each behind a root-sphere pre-test.
+by its sphere, then tests the culled groups near to far, and stops when the
+nearest remaining group lies beyond every live ray's bound. Instancing is
+uniform scale + translation, one instance after another in table order,
+each behind a root-sphere pre-test.
 
-Tables (`SweepTables`, built by `build_sweep_tables` exactly as the
-reference builds them):
+The triangle test is the wide route's Moller-Trumbore, rounded as
+`wide_bvh.intersect_wide_plain` rounds it (one rounding an operation, no
+fused multiply-add), not the reference kernel's precomputed Baldwin-Weber
+rows: so a mesh's hits, and the frame, do not depend on which route its
+triangle count sends it to. Both tests are sound; they round differently,
+and at 481k triangles a bunny's hits by the two lay a few float32 ulps of
+t apart, which a path tracer turns into other paths at grazing shadow rays
+and silhouettes.
+
+Tables (`SweepTables`; the spheres built by `build_sweep_tables` as the
+reference builds them, over the rows the triangle test can accept):
   sph  [8, Gp]        f32  per group: cx, cy, cz, |c|^2, r^2, r, 0, 0
                            (Gp = n_groups rounded up to 128; padding zero)
-  bw   [12, Tp]       f32  per triangle (Tp = 128 * n_groups):
-                           rows 0:4   n = e1 x e2, -n.p0
-                           rows 4:8   A1, b1 (barycentric u = A1.p + b1)
-                           rows 8:12  A2, b2 (barycentric v)
-                           all zero for padding and degenerate rows
+  mt   [9, Tp]        f32  per triangle (Tp = 128 * n_groups): p0, e1, e2
+                           (the wide route's rows), zero for padding
   inst [(I+1)*4]      f32  (offset.xyz, scale) rows; row 0 the identity
   root [8]            f32  the mesh's bounding sphere, as a group's row
-The CUDA kernel is csrc/sweep_bvh.cu; the BW table stays in global memory
+The CUDA kernel is csrc/sweep_bvh.cu; the row table stays in global memory
 (the TPU kernel's resident and streamed modes are one function).
 """
 from __future__ import annotations
@@ -37,6 +43,7 @@ import torch
 from .intersect import KindHit, check_hit_out, no_grad_inputs
 from .launches import register
 from .linalg import fma32
+from .wide_bvh import mt_test
 
 GROUP = 128          # triangles per cull group
 RAYS = 128           # rays per packet (one CUDA thread block)
@@ -68,14 +75,14 @@ def max_groups() -> int:
 
 class SweepTables(NamedTuple):
     sph: torch.Tensor    # [8, Gp] f32 group spheres
-    bw: torch.Tensor     # [12, Tp] f32 Baldwin-Weber rows
+    mt: torch.Tensor     # [9, Tp] f32 (p0, e1, e2) rows
     inst: torch.Tensor   # [(I+1)*4] f32 flat (offset, scale) rows
     root: torch.Tensor   # [8] f32 mesh sphere
     n_groups: int
     n_inst: int          # 0 for a single-level soup
 
     def to(self, device) -> "SweepTables":
-        return self._replace(sph=self.sph.to(device), bw=self.bw.to(device),
+        return self._replace(sph=self.sph.to(device), mt=self.mt.to(device),
                              inst=self.inst.to(device),
                              root=self.root.to(device))
 
@@ -96,35 +103,22 @@ def _sphere(p0, e1, e2, ok):
 
 
 def build_sweep_tables(tris_mt: np.ndarray):
-    """Triangle rows [T,9] (p0, e1, e2) in BVH-DFS order -> (bw [12, Tp],
-    sph [8, Gp], root [8], n_groups), bit for bit the reference's."""
+    """Triangle rows [T,9] (p0, e1, e2) in BVH-DFS order -> (mt [9, Tp],
+    sph [8, Gp], root [8], n_groups): the rows transposed and padded with
+    zeros, and the spheres built as the reference builds them, each over
+    its group's rows that `wide_bvh.mt_test` can accept: every row whose e1
+    and e2 are both non-zero. The reference leaves out its Baldwin-Weber
+    degenerate rows, |e1 x e2|^2 <= 1e-18, which its test never hits; the
+    port's test can hit such a sliver, so only where a group holds one do
+    the two spheres differ."""
     a = np.asarray(tris_mt, np.float64)
     t = a.shape[0]
     tp = ((max(t, 1) + GROUP - 1) // GROUP) * GROUP
     a = np.pad(a, ((0, tp - t), (0, 0)))
     p0, e1, e2 = a[:, 0:3], a[:, 3:6], a[:, 6:9]
-    n = np.cross(e1, e2)
-    d0 = np.einsum("ij,ij->i", n, p0)
-    # barycentric rows: [u, v, w]^T = M^{-1} (p - p0), M columns (e1, e2, n)
-    m = np.stack([e1, e2, n], axis=2)
-    det = np.linalg.det(m)
-    ok = np.abs(det) > 1e-18
-    minv = np.zeros((tp, 3, 3))
-    if ok.any():
-        minv[ok] = np.linalg.inv(m[ok])
-    a1 = minv[:, 0, :]
-    a2 = minv[:, 1, :]
-    b1 = -np.einsum("ij,ij->i", a1, p0)
-    b2 = -np.einsum("ij,ij->i", a2, p0)
-    n = np.where(ok[:, None], n, 0.0)
-    d0 = np.where(ok, d0, 0.0)
-    a1 = np.where(ok[:, None], a1, 0.0)
-    a2 = np.where(ok[:, None], a2, 0.0)
-    b1 = np.where(ok, b1, 0.0)
-    b2 = np.where(ok, b2, 0.0)
-    bw = np.stack([n[:, 0], n[:, 1], n[:, 2], -d0,
-                   a1[:, 0], a1[:, 1], a1[:, 2], b1,
-                   a2[:, 0], a2[:, 1], a2[:, 2], b2]).astype(np.float32)
+    # a row with a zero edge gets det = 0, so t = 0, and never passes
+    ok = e1.any(axis=1) & e2.any(axis=1)
+    mt = np.ascontiguousarray(a.T.astype(np.float32))
     n_groups = tp // GROUP
     gp = ((n_groups + RAYS - 1) // RAYS) * RAYS
     sph = np.zeros((8, gp), np.float32)
@@ -132,7 +126,7 @@ def build_sweep_tables(tris_mt: np.ndarray):
         s = slice(g * GROUP, (g + 1) * GROUP)
         sph[:, g] = _sphere(p0[s], e1[s], e2[s], ok[s])
     root = _sphere(p0, e1, e2, ok)
-    return bw, sph, root, n_groups
+    return mt, sph, root, n_groups
 
 
 def mesh_root_sphere(tris_mt: np.ndarray) -> np.ndarray:
@@ -159,12 +153,12 @@ def sweep_tables(tris_mt: np.ndarray, inst_off=None,
                  inst_scale=None) -> SweepTables:
     """SweepTables over [T,9] rows; with inst_off/inst_scale the rows are a
     shared BLAS in local space, else a single-level soup."""
-    bw, sph, root, n_groups = build_sweep_tables(tris_mt)
+    mt, sph, root, n_groups = build_sweep_tables(tris_mt)
     if inst_scale is None:
         inst, n_inst = flat_inst(np.zeros((0, 3)), np.zeros(0)), 0
     else:
         inst, n_inst = flat_inst(inst_off, inst_scale), len(inst_scale)
-    return SweepTables(sph=torch.from_numpy(sph), bw=torch.from_numpy(bw),
+    return SweepTables(sph=torch.from_numpy(sph), mt=torch.from_numpy(mt),
                        inst=torch.from_numpy(inst),
                        root=torch.from_numpy(root), n_groups=int(n_groups),
                        n_inst=int(n_inst))
@@ -182,7 +176,7 @@ def _check(tables: SweepTables, o, d, tmin, tmax, n_tris):
     for name, x, shape in (
             ("o", o, (n, 3)), ("d", d, (n, 3)), ("tmin", tmin, (n,)),
             ("tmax", tmax, (n,)), ("sph", tables.sph, (8, gp)),
-            ("bw", tables.bw, (12, ng * GROUP)),
+            ("mt", tables.mt, (9, ng * GROUP)),
             ("inst", tables.inst, ((tables.n_inst + 1) * 4,)),
             ("root", tables.root, (8,))):
         if x.device != dev:
@@ -273,7 +267,7 @@ def launch(lib, tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
         t, idx, valid = out
     with torch.cuda.device(o.device):
         err = lib.sweep_bvh_launch(
-            tables.sph.data_ptr(), tables.sph.shape[1], tables.bw.data_ptr(),
+            tables.sph.data_ptr(), tables.sph.shape[1], tables.mt.data_ptr(),
             tables.inst.data_ptr(), tables.n_inst, tables.root.data_ptr(),
             tables.n_groups, n_tris, o.data_ptr(), d.data_ptr(),
             tmin.data_ptr(), tmax.data_ptr(), n, int(any_hit),
@@ -310,19 +304,19 @@ def intersect_sweep_plain(tables: SweepTables, o, d, tmin, tmax, *,
     """The kernel's plain PyTorch version, by another route: per instance,
     cull every (ray, group) pair with the kernel's sphere test (cap = tmax:
     there is no sequential best here), test the 128 triangles of every
-    surviving pair with the same Baldwin-Weber arithmetic, and keep the
-    minimum t with the lowest index on exact ties. Each contraction is the
-    kernel's chain of float32 fused multiply-adds, evaluated elementwise
-    (never a matrix product, so never TF32). Chunked over rays (_CULL_ELEMS
-    (ray, group) pairs at a time) and over surviving pairs (_PAIR_CHUNK at
-    a time), so memory stays bounded at 2^20 rays on a mesh of a million
-    rows."""
+    surviving pair with the wide route's Moller-Trumbore
+    (`wide_bvh.mt_test`), and keep the minimum t with the lowest index on
+    exact ties. The sphere tests' contractions are the kernel's chains of
+    float32 fused multiply-adds, evaluated elementwise (never a matrix
+    product, so never TF32). Chunked over rays (_CULL_ELEMS (ray, group)
+    pairs at a time) and over surviving pairs (_PAIR_CHUNK at a time), so
+    memory stays bounded at 2^20 rays on a mesh of a million rows."""
     n = o.shape[0]
     dev = o.device
     ng = tables.n_groups
     sph = tables.sph[:, :ng]
     cx, cy, cz, cc, r2, rad = (sph[k][None, :] for k in range(6))
-    bw = tables.bw.view(12, ng, GROUP)
+    mt = tables.mt.view(9, ng, GROUP)
     inst = tables.inst.view(-1, 4)
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     best = torch.full((n,), math.inf, dtype=torch.float32, device=dev)
@@ -358,23 +352,11 @@ def intersect_sweep_plain(tables: SweepTables, o, d, tmin, tmax, *,
             for p0 in range(0, ray.shape[0], _PAIR_CHUNK):
                 rr = ray[p0:p0 + _PAIR_CHUNK]
                 gg = grp[p0:p0 + _PAIR_CHUNK]
-                b = [bw[k][gg] for k in range(12)]              # [P, 128]
-                ddx, ddy, ddz = dx[rr, None], dy[rr, None], dz[rr, None]
-                lox, loy, loz = ox[rr, None], oy[rr, None], oz[rr, None]
-                nd = _dot3(b[0:3], ddx, ddy, ddz)
-                no = _dot3(b[0:3], lox, loy, loz) + b[3]
-                ud = _dot3(b[4:7], ddx, ddy, ddz)
-                uo = _dot3(b[4:7], lox, loy, loz) + b[7]
-                vd = _dot3(b[8:11], ddx, ddy, ddz)
-                vo = _dot3(b[8:11], lox, loy, loz) + b[11]
-                ok_nd = torch.abs(nd) > 1e-20
-                r_nd = torch.where(ok_nd, 1.0 / nd, torch.zeros_like(nd))
-                t = -no * r_nd
-                u = fma32(t, ud, uo)
-                v = fma32(t, vd, vo)
-                t_w = t * scl
-                ok = (ok_nd & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
-                      & (t > tminl[rr, None]) & (t_w < tmax[rr, None]))
+                rows = [mt[k][gg] for k in range(9)]            # [P, 128]
+                t_w, ok = mt_test(
+                    rows, (ox[rr, None], oy[rr, None], oz[rr, None]),
+                    (dx[rr, None], dy[rr, None], dz[rr, None]),
+                    tminl[rr, None], tmax[rr, None], scl)
                 if any_hit:
                     occ[rr[ok.any(1)]] = True
                     continue

@@ -446,6 +446,37 @@ def wide_root_cull_plain(tables: WideTables, o, d, tmin, tmax):
     return live_lanes(o, d, tmin, tmax) & hit.any(1)
 
 
+def mt_test(rows, o, d, tminl, tmax, scl):
+    """Moller-Trumbore of rays (o in the instance's space, d) against
+    (p0, e1, e2) rows, each product and sum rounded alone in this order, as
+    csrc/tri_mt.cuh's mt_test, which both kernels include, rounds it:
+    (t in the world, the accept rule t > tminl (instance space) and
+    t_w < tmax (world)). The plain walk and the plain sweep share it, so a
+    mesh's hits do not depend on its route."""
+    p0x, p0y, p0z, e1x, e1y, e1z, e2x, e2y, e2z = rows
+    ox, oy, oz = o
+    dx, dy, dz = d
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det,
+                          torch.zeros_like(det))
+    tx = ox - p0x
+    ty = oy - p0y
+    tz = oz - p0z
+    uu = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    vv = (dx * qx + dy * qy + dz * qz) * inv_det
+    tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    t_w = tt * scl
+    ok = ((uu >= 0.0) & (vv >= 0.0) & (1.0 - uu - vv >= 0.0) & (tt > tminl)
+          & (t_w < tmax))
+    return t_w, ok
+
+
 def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
                          any_hit: bool, has_inst: bool, leaf_size: int,
                          n_tris: int, with_stats: bool = False):
@@ -564,28 +595,10 @@ def intersect_wide_plain(tables: WideTables, o, d, tmin, tmax, *,
             if has_inst:
                 base_idx = base_idx + ins[lsel] * n_tris
             for k in range(leaf_size):
-                tr = tris[leaf * leaf_size + k]
-                e2x, e2y, e2z = tr[:, 6], tr[:, 7], tr[:, 8]
-                px = ddy * e2z - ddz * e2y
-                py = ddz * e2x - ddx * e2z
-                pz = ddx * e2y - ddy * e2x
-                e1x, e1y, e1z = tr[:, 3], tr[:, 4], tr[:, 5]
-                det = e1x * px + e1y * py + e1z * pz
-                inv_det = torch.where(torch.abs(det) > 1e-12, 1.0 / det,
-                                      torch.zeros_like(det))
-                tx = lx - tr[:, 0]
-                ty = ly - tr[:, 1]
-                tz = lz - tr[:, 2]
-                uu = (tx * px + ty * py + tz * pz) * inv_det
-                qx = ty * e1z - tz * e1y
-                qy = tz * e1x - tx * e1z
-                qz = tx * e1y - ty * e1x
-                vv = (ddx * qx + ddy * qy + ddz * qz) * inv_det
-                tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-                t_w = tt * scl[lsel] if has_inst else tt
-                c_now = torch.minimum(tmax[a], b_t)
-                ok = ((uu >= 0.0) & (vv >= 0.0) & (1.0 - uu - vv >= 0.0)
-                      & (tt > tml) & (t_w < c_now))
+                t_w, ok = mt_test(
+                    tris[leaf * leaf_size + k].unbind(1), (lx, ly, lz),
+                    (ddx, ddy, ddz), tml, torch.minimum(tmax[a], b_t),
+                    scl[lsel] if has_inst else 1.0)
                 if any_hit:
                     occ = occ | ok
                 else:

@@ -18,7 +18,8 @@ commit's, written into a directory that .gitignore lists:
 
 A source that includes a header takes the one beside it, so an earlier
 commit's shade_grad.cu goes into a directory of its own with that
-commit's shade.cuh:
+commit's shade.cuh (and a sweep_bvh.cu or wide_bvh.cu that includes
+tri_mt.cuh with that commit's tri_mt.cuh):
 
     mkdir -p _ab/feed372
     cd _ab/feed372

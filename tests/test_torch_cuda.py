@@ -258,7 +258,7 @@ def test_wide_kernel_edge_cases_on_card(case, which):
 @pytest.mark.cuda
 @pytest.mark.parametrize("which", ["soup", "instanced"])
 def test_sweep_kernel_matches_plain_on_card(which):
-    """Same Baldwin-Weber arithmetic, rounded alike, on both sides: valid
+    """Same Moller-Trumbore arithmetic, rounded alike, on both sides: valid
     bits, t and indices agree exactly."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")

@@ -1,21 +1,33 @@
 """The port's cull-sweep (jet_pbrt_tpu_torch/ops/sweep_bvh.py) and its
 routing against the JAX package.
 
-* Host tables: `build_sweep_tables`, `mesh_root_sphere`, `flat_inst` equal
-  the reference's bit for bit.
-* The plain sweep against the reference kernel in interpret mode and the
-  XLA skip-link walks, closest hit and any hit, soup and 4 instances, with
-  dead lanes, finite tmax and a partial last packet. Valid bits must be
-  equal everywhere. t within rtol 1e-5 of the reference kernel (the same
-  Baldwin-Weber rows and arithmetic in float32), and within the
-  reference's own sweep-against-walk tolerance, rtol 1e-4
-  (tests/test_sweep.py), of the walk: its Moller-Trumbore t rounds
-  differently from the Baldwin-Weber plane equation, by up to ~1e-5
-  relative on grazing rays. A hit index may differ only on a lane that the
+* Host tables: the spheres, root and group count of `build_sweep_tables`,
+  `mesh_root_sphere`, `flat_inst` equal the reference's bit for bit, but
+  for a group that holds a sliver the reference drops (both edges
+  non-zero, |e1 x e2|^2 <= 1e-18), whose sphere must bound every row the
+  port's test can accept; the rows the port tests are the (p0, e1, e2)
+  rows themselves.
+* The plain sweep against the reference's kernels in interpret mode and
+  the XLA skip-link walks, closest hit and any hit, soup and 4 instances,
+  with dead lanes, finite tmax and a partial last packet. Valid bits must
+  be equal everywhere. The port tests a triangle by the wide route's
+  Moller-Trumbore, rounded one operation at a time, so it equals the
+  port's own wide walk bit for bit (t, valid bits, triangle and
+  instance), and the reference's XLA walk evaluated op by op
+  (jax.disable_jit, so no multiply-add is contracted) bit for bit too:
+  the same Moller-Trumbore in the same order. The reference's sweep
+  kernel tests by Baldwin-Weber rows and its jitted XLA walk contracts
+  multiply-adds, so t lies within the reference's own sweep-against-walk
+  tolerance, rtol 1e-4 (tests/test_sweep.py), of both: those rounding
+  orders part by up to ~2e-5 relative on grazing rays. A hit index may differ from theirs only on a lane that the
   float64 forensic of chip_smoke explains as a near-tie or an edge graze.
+* A sliver far from the rest of its group, which the reference's spheres
+  leave out: the sweep finds its hit, as the wide walk does.
 * Routing: `sweep_route` equals the reference's predicate on a grid of
   counts on both sides of each bound; a build with the budget lowered
-  populates only the sweep layout; the gate reads leaf-16 tables.
+  populates only the sweep layout; the gate reads leaf-16 tables; the same
+  scene's frame through the sweep and through the wide kernel's plain walk
+  is the same bit for bit.
 * `li_path` on a sweep-routed scene against the JAX `li_path` on the same
   rays and uniforms, both sorting: at least 99.5% of lanes agree at the
   slice tolerances (rtol 1e-4, atol 1e-5) and the image mean to 1e-4.
@@ -49,6 +61,7 @@ from jet_pbrt_tpu.ops import wide_bvh as JW
 from jet_pbrt_tpu.scene.builder import SceneBuilder as JBuilder
 from jet_pbrt_tpu_torch.models import integrators as tint
 from jet_pbrt_tpu_torch.models.render import render
+from jet_pbrt_tpu_torch.ops import bvh as tbvh
 from jet_pbrt_tpu_torch.ops import sweep_bvh as TS
 from jet_pbrt_tpu_torch.ops import wide_bvh as TW
 from jet_pbrt_tpu_torch.scene import builder as tbuilder
@@ -63,7 +76,6 @@ from test_torch_slice import _both, _lane_ok
 torch.set_num_threads(2)
 
 LEAF = 4
-RTOL = 1e-5
 WALK_RTOL = 1e-4
 OFF = np.array([[0, 0, 0], [25, 0, 0], [0, 25, 0], [25, 25, 0]], np.float32)
 SCALE = np.array([1.0, 0.5, 2.0, 1.5], np.float32)
@@ -96,11 +108,46 @@ MESHES = {
 }
 
 
+def _bounds(sphere, rows):
+    """Every vertex of rows lies inside sphere ([8] row: c, |c|^2, r^2, r)."""
+    v = np.concatenate([rows[:, 0:3], rows[:, 0:3] + rows[:, 3:6],
+                        rows[:, 0:3] + rows[:, 6:9]]).astype(np.float64)
+    dist = np.linalg.norm(v - sphere[:3].astype(np.float64), axis=1)
+    return bool((dist <= sphere[5]).all())
+
+
 @pytest.mark.parametrize("name", sorted(MESHES))
 def test_host_tables_match_reference(name):
     mt = MESHES[name]()
-    for x, y in zip(TS.build_sweep_tables(mt), JS.build_sweep_tables(mt)):
-        np.testing.assert_array_equal(x, y)
+    rows, sph, root, ng = TS.build_sweep_tables(mt)
+    _, j_sph, j_root, j_ng = JS.build_sweep_tables(mt)
+    assert ng == j_ng
+    # the port's spheres bound every row its triangle test can accept;
+    # the reference's leave out its Baldwin-Weber degenerate rows. Where a
+    # group holds no sliver (a row of the first kind and not of the
+    # second), the two are equal bit for bit; where it does, the port's
+    # sphere bounds each such row
+    e1, e2 = mt[:, 3:6].astype(np.float64), mt[:, 6:9].astype(np.float64)
+    accept = e1.any(1) & e2.any(1)
+    sliver = accept & ((np.cross(e1, e2) ** 2).sum(1) <= 1e-18)
+    assert sliver.any() == (name == "degenerate")
+    for g in range(ng):
+        s = slice(g * TS.GROUP, (g + 1) * TS.GROUP)
+        if sliver[s].any():
+            assert _bounds(sph[:, g], mt[s][accept[s]]), g
+        else:
+            np.testing.assert_array_equal(sph[:, g], j_sph[:, g])
+    np.testing.assert_array_equal(sph[:, ng:], j_sph[:, ng:])
+    if sliver.any():
+        assert _bounds(root, mt[accept])
+    else:
+        np.testing.assert_array_equal(root, j_root)
+    # the rows the port tests are the (p0, e1, e2) rows themselves, padded
+    # with zeros
+    tp = ng * TS.GROUP
+    assert rows.shape == (9, tp) and rows.dtype == np.float32
+    np.testing.assert_array_equal(rows[:, :mt.shape[0]], mt.T)
+    assert not rows[:, mt.shape[0]:].any()
     np.testing.assert_array_equal(TS.mesh_root_sphere(mt),
                                   JS.mesh_root_sphere(mt))
     np.testing.assert_array_equal(TS.flat_inst(OFF, SCALE),
@@ -159,6 +206,25 @@ def _explained(o, d, tmin, tmax, hits, any_hit, mt, n_inst):
         inst.reshape(-1, 4).astype(np.float64), mt.shape[0])
 
 
+def _wide_plain(mt, nodes, n_inst, rays, any_hit):
+    """The port's wide walk over the same rows: (its hit, and for instances
+    the TLAS order, whose position p holds instance torder[p])."""
+    blas = tbvh.unpack_node_table(nodes, LEAF)
+    torder = None
+    if n_inst:
+        lo = nodes[0, :3][None] * SCALE[:, None] + OFF
+        hi = nodes[0, 3:6][None] * SCALE[:, None] + OFF
+        tlas, torder = tbvh.build_box_bvh(lo, hi, leaf_size=1)
+        tables = TW.wide_tables_instanced(tlas, blas, mt, OFF[torder],
+                                          SCALE[torder], LEAF)
+    else:
+        tables = TW.wide_tables(blas, mt, LEAF)
+    h = TW.intersect_wide_plain(tables, *map(torch.from_numpy, rays),
+                                any_hit=any_hit, has_inst=bool(n_inst),
+                                leaf_size=LEAF, n_tris=mt.shape[0])
+    return h, torder
+
+
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("which", ["soup", "instanced"])
 def test_plain_sweep_matches_reference(meshes, which, any_hit):
@@ -182,13 +248,16 @@ def test_plain_sweep_matches_reference(meshes, which, any_hit):
     h_ref = JS.intersect_sweep(J(sph), J(bw), J(inst), J(root), n_tris, ng,
                                J(o), J(d), J(tmin), J(tmax), n_inst=n_inst,
                                any_hit=any_hit, interpret=True, pps=1)
-    if n_inst:
-        h_xla = jbvh.intersect_instances(J(OFF), J(SCALE), J(nodes), J(mt),
-                                         J(o), J(d), J(tmin), J(tmax),
-                                         leaf_size=LEAF, any_hit=any_hit)
-    else:
-        h_xla = jbvh.intersect_bvh(J(nodes), J(mt), J(o), J(d), J(tmin),
-                                   J(tmax), leaf_size=LEAF, any_hit=any_hit)
+
+    def xla_walk():
+        if n_inst:
+            return jbvh.intersect_instances(
+                J(OFF), J(SCALE), J(nodes), J(mt), J(o), J(d), J(tmin),
+                J(tmax), leaf_size=LEAF, any_hit=any_hit)
+        return jbvh.intersect_bvh(J(nodes), J(mt), J(o), J(d), J(tmin),
+                                  J(tmax), leaf_size=LEAF, any_hit=any_hit)
+
+    h_xla = xla_walk()
     tables = TS.sweep_tables(mt, OFF if n_inst else None,
                              SCALE if n_inst else None)
     before = TS.intersect_sweep.launches
@@ -199,12 +268,35 @@ def test_plain_sweep_matches_reference(meshes, which, any_hit):
     vp, tp, ip = hp.valid.numpy(), hp.t.numpy(), hp.index.numpy()
     assert 40 < vp.sum() < len(vp) - 40
     assert not vp[::5].any()
-    for h, rtol in ((h_ref, RTOL), (h_xla, WALK_RTOL)):
+    # the port's own wide walk tests by the same arithmetic: bit for bit
+    hw, torder = _wide_plain(mt, nodes, n_inst, (o, d, tmin, tmax), any_hit)
+    assert np.array_equal(hw.valid.numpy(), vp)
+    if not any_hit:
+        assert np.array_equal(hw.t.numpy()[vp], tp[vp])
+        iw = hw.index.numpy().astype(np.int64)[vp]
+        if n_inst:
+            iw = torder[iw // n_tris] * n_tris + iw % n_tris
+        assert np.array_equal(iw, ip[vp])
+    # the reference's XLA walk tests by Moller-Trumbore too, in the same
+    # order. Evaluated op by op (jax.disable_jit: no multiply-add
+    # contracted, as in the eager reference that tests/golden is held to)
+    # it rounds every product and sum as the port does: valid, t, triangle
+    # and instance bit for bit
+    if not any_hit:
+        with jax.disable_jit():
+            he = xla_walk()
+        assert np.array_equal(np.asarray(he.valid), vp)
+        assert np.array_equal(np.asarray(he.t)[vp], tp[vp])
+        assert np.array_equal(np.asarray(he.index)[vp], ip[vp])
+    # the reference's sweep kernel tests by Baldwin-Weber rows, and its
+    # jitted XLA walk contracts multiply-adds: both within the reference's
+    # own sweep-against-walk tolerance
+    for h in (h_ref, h_xla):
         v, t, idx = (np.asarray(x) for x in (h.valid, h.t, h.index))
         assert np.array_equal(v, vp)
         if any_hit:
             continue
-        np.testing.assert_allclose(t[vp], tp[vp], rtol=rtol)
+        np.testing.assert_allclose(t[vp], tp[vp], rtol=WALK_RTOL)
         for j in np.nonzero(vp & (idx != ip))[0]:
             assert _explained(o[j], d[j], tmin[j], tmax[j],
                               [(True, float(t[j]), idx[j]),
@@ -410,6 +502,57 @@ def test_routed_build_populates_only_the_sweep(monkeypatch, instanced):
     img = render(scene, 12, 12, spp=1, seed=3, max_depth=3, clamp=False,
                  device="cpu")
     assert torch.isfinite(img).all() and float(img.mean()) > 0.01
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_sweep_bounds_slivers_the_reference_drops(any_hit):
+    """A sliver (|e1 x e2| = 5e-10, under the reference's Baldwin-Weber
+    degenerate bound, so outside its spheres) far from the rest of its
+    group: Moller-Trumbore hits it (|det| 5e-10 > 1e-12), so the port's
+    group and root spheres bound it, and the sweep finds the hit the wide
+    walk finds."""
+    sliver = np.array([[[100, 0, 0], [101, 0, 0], [100.5, 5e-10, 0]]],
+                      np.float32)
+    mt, nodes = _rows(np.concatenate([_random_mesh(5, t=300), sliver]))
+    n_tris = mt.shape[0]
+    k = int(np.nonzero(mt[:, 0] == 100.0)[0][0])
+    g = k // TS.GROUP
+    assert (mt[g * TS.GROUP:(g + 1) * TS.GROUP, 0] < 20).sum() > 1
+    assert not _bounds(JS.build_sweep_tables(mt)[1][:, g], mt[k:k + 1])
+    o, d, tmin, tmax = _rays(mt, 0, 5)
+    rays = (np.concatenate([o, [[100.5, 2e-10, 5.0]]]).astype(np.float32),
+            np.concatenate([d, [[0.0, 0.0, -1.0]]]).astype(np.float32),
+            np.append(tmin, np.float32(1e-3)),
+            np.append(tmax, np.float32(np.inf)))
+    hs = TS.intersect_sweep_plain(TS.sweep_tables(mt),
+                                  *map(torch.from_numpy, rays),
+                                  any_hit=any_hit, n_tris=n_tris)
+    hw, _ = _wide_plain(mt, nodes, 0, rays, any_hit)
+    assert bool(hw.valid[-1]) and torch.equal(hs.valid, hw.valid)
+    if not any_hit:
+        assert int(hs.index[-1]) == k
+        assert torch.equal(hs.t[hs.valid], hw.t[hw.valid])
+        assert torch.equal(hs.index[hs.valid], hw.index[hw.valid])
+
+
+@pytest.mark.parametrize("instanced", [True, False],
+                         ids=["instanced", "flattened"])
+def test_sweep_and_wide_routes_agree(monkeypatch, instanced):
+    """The sweep tests a triangle by the wide route's Moller-Trumbore,
+    rounded alike: the same scene's frame through either route is the
+    same, bit for bit (a mesh's image does not depend on its triangle
+    count's route)."""
+    frames = []
+    for budget in (TW._VMEM_BUDGET, 1024):
+        monkeypatch.setattr(TW, "_VMEM_BUDGET", budget)
+        scene = instanced_scene(TBuilder, instanced)
+        m = scene.meta
+        swept = any(m.pallas_blas) or m.pallas_bvh
+        assert swept == (budget == 1024)
+        frames.append(render(scene, 12, 12, spp=2, seed=5, max_depth=5,
+                             clamp=False, device="cpu"))
+    assert float(frames[0].mean()) > 0.01
+    assert torch.equal(frames[0], frames[1])
 
 
 def test_gate_reads_leaf16_tables(monkeypatch):
