@@ -170,8 +170,10 @@ Phases, each printing its result; any failure raises and exits non-zero:
      600k-target OBJ and the soup of four copies of the 150k-target OBJ
      (generated under assets/ at first use); then both timed and held
      against each other on a 2^20-ray wave, whose needed culls and
-     ray-group tests `sweep_work_plain` counts from the inputs (its bound),
-     printed beside the kernel's counters and its cull / scan cycle split;
+     ray-group tests `sweep_work_plain` counts from the inputs, with the
+     two-level cull's super and group sphere tests (its bound) beside the
+     flat cull's rays past the root x groups, printed beside the kernel's
+     counters and its cull / scan cycle split;
      the kernel's resident blocks per SM at 4,096 and 8,192 groups;
   7. main path on the sweep route: render(bunny_scene(bunny_path=<600k
      OBJ>), 1024, 1024, spp=4, max_depth=5, device="cuda") with the exact
@@ -403,9 +405,12 @@ WIDE_TRI_OPS = 55
 WIDE_KERNELS = ("wide_cull_kernel", "wide_walk_kernel")
 WIDE_OPS = WIDE_KERNELS + ("Memset",)
 # sweep_bvh.cu's sphere_test, one ray against one group sphere (a fused
-# multiply-add counts as its product and its sum), and its mt_test, one
+# multiply-add counts as its product and its sum), its super_test, one ray
+# against one super-sphere (the same expansion, |d|^2, the slack's two
+# terms, a square root and the intervals' margin), and its mt_test, one
 # ray against one triangle: the wide kernel's Moller-Trumbore
 SWEEP_CULL_OPS = 33
+SWEEP_SUPER_OPS = 50
 SWEEP_TRI_OPS = WIDE_TRI_OPS
 # one Moller-Trumbore test of prim_micro.cu's mt: 44 products and sums,
 # the division, |det| > eps, u + v, 4 comparisons and the running minimum
@@ -622,33 +627,49 @@ def sweep_route(scene) -> Route:
 
     def work(o, d, tmin, tmax):
         """From the inputs (`sweep_work_plain` on the plain version's
-        closest hits): the rays past each root test x the mesh's groups
-        (sphere tests), and the needed (ray, group) pairs x 128 triangles.
-        Prints the kernel's own counters beside them, and how its cycles
-        split between cull and scan."""
+        closest hits): the two-level cull's tests, the rays past each root
+        test x the mesh's supers (super tests) and the groups of each
+        passing (ray, super) pair (sphere tests), and the needed (ray,
+        group) pairs x 128 triangles; the flat cull's rays past the root x
+        groups beside them. Prints the kernel's own counters beside these,
+        and how its cycles split between cull and scan."""
         t_final = sweep_bvh.intersect_sweep_plain(
             tables, o, d, tmin, tmax, any_hit=False, n_tris=n_tris).t
-        n_root, n_pairs = sweep_bvh.sweep_work_plain(tables, o, d, tmin, tmax,
-                                                     t_final)
+        w = sweep_bvh.sweep_work_plain(tables, o, d, tmin, tmax, t_final)
         st = [int(x) for x in sweep_bvh.intersect_sweep(
             tables, o, d, tmin, tmax, any_hit=False, n_tris=n_tris,
             with_stats=True)[1].sum(0)]
         cyc = st[4] + st[5]
+        n_sup = -(-tables.n_groups // sweep_bvh.SUPER)
+        flat = w.n_root * tables.n_groups
         print(f"sweep_bvh counts at {o.shape[0]} rays, inputs / kernel: "
-              f"rays past a root test {n_root} / {st[2]}; ray-group tests "
-              f"{n_pairs} (needed) / {st[3]} ({st[3] / max(n_pairs, 1):.3f}x)"
-              f"; groups tested by the kernel {st[1]}; kernel cycles (thread "
-              f"0 of each block) cull {st[4]} ({100 * st[4] / max(cyc, 1):.1f}"
-              f"%), scan {st[5]} ({100 * st[5] / max(cyc, 1):.1f}%)",
-              flush=True)
-        culls = n_root * tables.n_groups
-        tests = n_pairs * sweep_bvh.GROUP
+              f"rays past a root test {w.n_root} / {st[2]}; ray-group tests "
+              f"{w.n_pairs} (needed) / {st[3]} "
+              f"({st[3] / max(w.n_pairs, 1):.3f}x); groups tested by the "
+              f"kernel {st[1]}; (ray, super) passes {w.n_super} / {st[6]} "
+              f"({w.n_super / max(w.n_root, 1):.2f} a ray past the root); "
+              f"cull sphere tests: flat {flat} (rays past the root x "
+              f"{tables.n_groups} groups; the kernel's rays past the root x "
+              f"groups {st[2] * tables.n_groups}), two-level "
+              f"{w.n_root * n_sup} super + {w.n_group_tests} group / kernel "
+              f"{st[2] * n_sup} super + {st[7]} group "
+              f"({flat / max(w.n_root * n_sup + w.n_group_tests, 1):.2f}x "
+              f"fewer than flat); kernel cycles (thread 0 of each block) "
+              f"cull {st[4]} ({100 * st[4] / max(cyc, 1):.1f}%), scan "
+              f"{st[5]} ({100 * st[5] / max(cyc, 1):.1f}%)", flush=True)
+        supers = w.n_root * n_sup
+        tests = w.n_pairs * sweep_bvh.GROUP
         nbytes = o.shape[0] * RAY_BYTES + sum(
             x.nbytes for x in (tables.sph, tables.mt, tables.inst,
-                               tables.root))
-        return (nbytes, culls * SWEEP_CULL_OPS + tests * SWEEP_TRI_OPS,
-                {"ray_group_culls": culls, "ray_tri_tests": tests,
+                               tables.root, tables.sup))
+        return (nbytes, supers * SWEEP_SUPER_OPS
+                + w.n_group_tests * SWEEP_CULL_OPS + tests * SWEEP_TRI_OPS,
+                {"ray_super_tests": supers,
+                 "ray_group_culls": w.n_group_tests,
+                 "flat_ray_group_culls": flat, "ray_tri_tests": tests,
                  "kernel_ray_group_tests": st[3],
+                 "kernel_ray_super_passes": st[6],
+                 "kernel_group_sphere_tests": st[7],
                  "kernel_cull_cycles": st[4], "kernel_scan_cycles": st[5]})
 
     return Route("sweep_bvh",
@@ -4367,7 +4388,11 @@ def profile_wave(scene, dev, label, res=1024, depth=5, table=True,
 def sort_effect(scene, dev, label, res=1024, depth=5):
     """The sweep's work on one 1-spp wave with sort_rays on (the default)
     and off, run on, off, off, on: group tests per packet that culled at
-    least one instance, by cast class, and each run's wall time."""
+    least one instance, by cast class, the cull's (ray, super) passes and
+    group sphere tests beside the flat cull's (rays past the root x
+    groups), and each run's wall time."""
+    m = scene.meta
+    n_groups = m.n_groups_blas[0] if m.n_inst else m.n_groups_bvh
     imgs, walls = {}, {True: [], False: []}
     for sort in (True, False):  # warm-up: captures each setting's wave
         render(scene, res, res, spp=1, max_depth=depth, seed=2, clamp=False,
@@ -4385,11 +4410,14 @@ def sort_effect(scene, dev, label, res=1024, depth=5):
         imgs[sort] = img
         parts = []
         for cls in ("closest", "shadow"):
-            p, c, t = (st.get(f"sweep_{cls}_{k}", 0)
-                       for k in ("packets", "culls", "tests"))
+            p, c, t, r, su, sp = (st.get(f"sweep_{cls}_{k}", 0) for k in (
+                "packets", "culls", "tests", "root", "supers", "spheres"))
             parts.append(f"{cls}: {t} group tests, {p} live packets, {c} "
                          f"instance culls, {t / max(p, 1):.2f} tests per "
-                         "live packet")
+                         f"live packet; cull: {su} (ray, super) passes, {sp} "
+                         f"group sphere tests against the flat cull's {r} "
+                         f"rays past the root x {n_groups} groups = "
+                         f"{r * n_groups}")
         print(f"{label} 1-spp wave, sort_rays={'on' if sort else 'off'}: "
               f"{st['rays']} rays; " + "; ".join(parts), flush=True)
     if not torch.equal(imgs[True], imgs[False]):

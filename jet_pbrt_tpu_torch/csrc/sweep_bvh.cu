@@ -18,11 +18,21 @@
 //      compacted into shared memory (ray k of the instance = column k);
 //      none -> the instance is skipped. Each compacted ray's best hit so
 //      far sits in shared memory as a 64-bit key (t bits << 32 | index);
-//   2. cull: thread j owns groups j, j+128, ... (two per pass); for each
-//      it runs the sphere test against every compacted ray and keeps the
-//      packet's packed key (entry-distance bits & ~8191) | group, the
-//      minimum over the rays that pass (FAR when none does). Keys sit in
-//      shared memory and each thread holds the minimum of its own keys;
+//   2. cull, in two levels, each ended by a barrier. (a) Thread j tests
+//      super-sphere j (and j + 128), the sphere of the run of 32 groups
+//      32j..32j+31, against every compacted ray (broadcast reads), and
+//      keeps the 128-bit mask of the rays that pass it in shared memory.
+//      (b) Warp w takes the supers s = w mod 4; for each word of 32 rays
+//      of a super's mask that holds a ray, lane l takes group 32s + l and
+//      runs its sphere test for each ray of the word in lockstep
+//      (broadcast reads again). A group's packed key is (entry-distance
+//      bits & ~8191) | group, the minimum over the rays that pass, merged
+//      over the words by a shared-memory atomicMin (FAR when none does, as
+//      every group of a super that no ray passes keeps). The supers
+//      are wide enough that a ray failing one fails each member group's
+//      own test (ops/sweep_bvh.py::super_spheres), so every key is the one
+//      a flat cull of every group by every ray gives. Each thread then
+//      holds the minimum of its own keys (groups j, j + 128, ...);
 //   3. scan: a block-wide min pops the nearest group, and thread j at once
 //      requests triangle j's 9 values (p0, e1, e2) into registers (one
 //      coalesced row per value), so the loads run while the want test and
@@ -43,24 +53,25 @@
 // table is read from global memory (L2-resident for a mesh of a million
 // rows: 36 MB).
 //
-// What bounds it on this card: the cull, Gp sphere tests (33 float
-// operations each) per compacted ray per instance; not the triangle tests
-// (a ray tests a few groups, about 1.2x the pairs a near-to-far traversal
-// needs) and not bytes (rays are read once, a tested group's rows are 9
-// coalesced 512-byte loads). The cull reads each ray as three broadcast
-// float4 loads for two groups, so the FP32 pipe, not shared-memory issue,
-// sets its pace. The scan costs two barriers per pop, three when the group
-// is tested. On an H100 the cull took about half of thread 0's cycles on
-// a 2^20-ray wave of the 600k-triangle bunny, the scan the other half
-// (PERF.md).
+// What bounds it on this card: the culls and the scan's pops, not the
+// triangle tests (a ray tests a few groups, about 1.2x the pairs a
+// near-to-far traversal needs) and not bytes (rays are read once, a tested
+// group's rows are 9 coalesced 512-byte loads). A flat cull ran Gp sphere
+// tests (33 float operations) per compacted ray per instance and took
+// about half of thread 0's cycles on a 2^20-ray wave of the 600k-triangle
+// bunny; the two-level cull runs Gp / 32 super tests and 32 group tests
+// per super a ray passes (a few), each still three broadcast float4 loads
+// of the ray from shared memory. The scan costs two barriers per pop, three
+// when the group is tested (PERF.md).
 //
-// Resources: dynamic shared memory 4 * Gp + 6,144 bytes (22,528 at
-// Gp = 4,096, 38,912 at Gp = 8,192) and 1,088 static, under the 48 KB
-// default, so no opt-in is needed; ptxas (sm_90a, CUDA 12.8): 72 registers
-// and 8 bytes of spill stores without the counters, 92 and none with them;
-// so 7 resident blocks per SM at Gp = 4,096 (registers bind) and 5 at
-// Gp = 8,192 (shared memory binds). chip_smoke.py prints both (phases 2
-// and 6).
+// Resources: dynamic shared memory 4 * Gp + 6,144 + 16 * Gp / 32 bytes
+// (24,576 at Gp = 4,096, 43,008 at Gp = 8,192) and 1,088 static (1,104
+// with the counters), under the 48 KB default, so no opt-in is needed;
+// ptxas (sm_90a, CUDA 12.8): 64 registers and 48-52 bytes of spill stores
+// without the counters, 80 and 28 with them; so 8 resident blocks per SM
+// at Gp = 4,096 (registers bind) and 5 at Gp = 8,192 (shared memory
+// binds). chip_smoke.py
+// prints both (phases 2 and 6).
 //
 // Semantics kept from the reference kernel: rays are mapped into instance
 // space as o' = (o - off) * (1 / scale), d unchanged, tmin' = tmin / scale;
@@ -93,12 +104,20 @@ namespace {
 constexpr int GROUP = 128;
 constexpr int RAYS = 128;
 constexpr int WARPS = RAYS / 32;
+constexpr int SUPER = 32;  // groups per super-sphere: one per lane of a warp
+constexpr unsigned FULL = 0xffffffffu;
+// ops/sweep_bvh.py's E_MAX and KT: a ray further than E_MAX from unit length
+// (|1 - |d|^2|) passes every super; the intervals' margin per sqrt(S)
+constexpr float E_MAX = 0.0078125f;
+constexpr float KT = 1.52587890625e-05f;
 constexpr int GMASK = 8191;
 constexpr float FAR = 3.0e37f;
 constexpr int MT_ROWS = 9;
 // a compacted ray: (o', tmin' clamped), (d, cap' clamped), (o'.d, o'.o,
 // tmin', world tmax)
 constexpr int RAY_VEC = 3;
+// the counters a packet (STATS): ops/sweep_bvh.py's STATS_COLS
+constexpr int STATS_COLS = 8;
 
 __device__ __forceinline__ int fbits(float x) { return __float_as_int(x); }
 
@@ -155,6 +174,45 @@ __device__ __forceinline__ bool sphere_test(const Sphere& s, float4 a,
          entry <= b.w && b.w >= a.w;
 }
 
+// a super-sphere: centre, |c|^2, the test's r^2 and r, its slack k1 and the
+// factor F of ops/sweep_bvh.py::super_spheres
+struct Super {
+  float cx, cy, cz, cc, r2, rad, k1, f;
+};
+
+__device__ __forceinline__ Super load_super(const float* __restrict__ sup,
+                                            int sp, int s) {
+  return {__ldg(sup + s),          __ldg(sup + sp + s),
+          __ldg(sup + 2 * sp + s), __ldg(sup + 3 * sp + s),
+          __ldg(sup + 4 * sp + s), __ldg(sup + 5 * sp + s),
+          __ldg(sup + 6 * sp + s), __ldg(sup + 7 * sp + s)};
+}
+
+// The super test of one compacted ray: sphere_test's expansion with the
+// margins that make it pass wherever a member group's sphere_test passes,
+// this rounding and that one's included (ops/sweep_bvh.py::super_spheres
+// derives them; its super_test repeats this arithmetic). S is the slack's
+// sum, e = |1 - |d|^2|.
+__device__ __forceinline__ bool super_test(const Super& s, float4 a, float4 b,
+                                           float od, float oo) {
+  const float cd = dot3(b.x, b.y, b.z, s.cx, s.cy, s.cz);
+  const float co = dot3(a.x, a.y, a.z, s.cx, s.cy, s.cz);
+  const float tc = __fsub_rn(cd, od);
+  const float m2 =
+      __fmaf_rn(-tc, tc, __fadd_rn(__fmaf_rn(-2.0f, co, s.cc), oo));
+  const float ss =
+      __fmaf_rn(tc, tc, __fadd_rn(__fmaf_rn(2.0f, fabsf(co), s.cc), oo));
+  const float e = fabsf(__fsub_rn(1.0f, dot3(b.x, b.y, b.z, b.x, b.y, b.z)));
+  const float slack =
+      __fmaf_rn(ss, __fmaf_rn(__fmaf_rn(2.6f, s.f, 2.1f), e, s.k1),
+                __fmul_rn(__fmul_rn(s.r2, __fmul_rn(31.0f, s.f)), e));
+  const float rt =
+      __fmaf_rn(__fsqrt_rn(ss), KT, __fmul_rn(s.rad, __fadd_rn(1.0f, e)));
+  return e > E_MAX ||
+         (m2 <= __fadd_rn(s.r2, slack) && __fadd_rn(tc, rt) >= a.w &&
+          __fsub_rn(tc, rt) <= b.w && b.w >= a.w);
+}
+
 // minimum of this thread's keys (groups tid, tid + RAYS, ...)
 __device__ __forceinline__ int own_min(const int* s_key, int gp, int tid) {
   int m = INT_MAX;
@@ -172,11 +230,16 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
                  const float* __restrict__ tmax_in, int n,
                  float* __restrict__ t_out, int* __restrict__ idx_out,
                  uint8_t* __restrict__ valid_out,
-                 long long* __restrict__ stats_out) {
+                 long long* __restrict__ stats_out,
+                 const float* __restrict__ sup) {
   extern __shared__ float4 smem[];
   float4* s_ray = smem;                                        // [RAYS][3]
   int* s_key = reinterpret_cast<int*>(smem + RAY_VEC * RAYS);  // [gp]
+  // per super, the mask of the compacted rays that pass it: word w (rays
+  // 32w..32w+31) of super s at s_smask[w * sp + s]
+  unsigned* s_smask = reinterpret_cast<unsigned*>(s_key + gp);
   __shared__ unsigned long long s_best[RAYS];
+  __shared__ unsigned long long s_count[2];
   __shared__ int s_red[WARPS];
   __shared__ unsigned s_mask[WARPS], s_live[WARPS];
   __shared__ int s_nlive;
@@ -186,6 +249,8 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
   const int i_ray = blockIdx.x * RAYS + tid;
   const size_t tp = static_cast<size_t>(n_groups) * GROUP;
   const int far_key = fbits(FAR) & ~GMASK;
+  const int sp = gp / SUPER;
+  const int n_sup = (n_groups + SUPER - 1) / SUPER;
 
   // lanes past the end of the batch are dead padding
   float ox = 0.f, oy = 0.f, oz = 0.f, dx = 1.f, dy = 0.f, dz = 0.f;
@@ -198,10 +263,12 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
   float best = INFINITY;
   int best_idx = 0;
   // STATS: instances culled, groups tested, the rays that did that work
-  // (past the root test in each cull, testing in each tested group), and
-  // thread 0's clock64() cycles in the culls and in the scans
+  // (past the root test in each cull, testing in each tested group),
+  // thread 0's clock64() cycles in the culls and in the scans, and this
+  // thread's (ray, super) passes and group sphere tests in the culls
   long long n_cull = 0, n_test = 0, n_ray_cull = 0, n_ray_test = 0;
-  long long cyc_cull = 0, cyc_scan = 0;
+  long long cyc_cull = 0, cyc_scan = 0, n_sup_pass = 0, n_grp_test = 0;
+  if (STATS && tid == 0) s_count[0] = s_count[1] = 0;
 
   // whole-packet exit: an all-dead packet costs this one test
   if (__syncthreads_or(tmax > 0.0f)) {
@@ -252,34 +319,62 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
         clk = clock64();
       }
 
-      // ---- 2. cull: the packet's packed key of every group this thread
-      // owns, two groups per pass over the rays
-      int lmin = INT_MAX;
-      for (int g0 = tid; g0 < gp; g0 += 2 * RAYS) {
-        const int g1 = g0 + RAYS;
-        const bool ok0 = g0 < n_groups, ok1 = g1 < n_groups;
-        const Sphere s0 = load_sphere(sph, gp, ok0 ? g0 : 0);
-        const Sphere s1 = load_sphere(sph, gp, ok1 ? g1 : 0);
-        int key0 = far_key, key1 = far_key;
-        if (ok0) {
-          for (int k = 0; k < n_live; ++k) {
-            const float4 a = s_ray[RAY_VEC * k], b = s_ray[RAY_VEC * k + 1];
+      // ---- 2a. super cull: thread tid tests supers tid (and tid + RAYS)
+      // against every compacted ray; every key starts culled out
+      for (int g = tid; g < gp; g += RAYS) s_key[g] = far_key | g;
+      for (int s = tid; s < sp; s += RAYS) {
+        const bool ok = s < n_sup;
+        const Super su = load_super(sup, sp, ok ? s : 0);
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w) {
+          unsigned bits = 0;
+          const int end = ok ? min(n_live - 32 * w, 32) : 0;
+          for (int j = 0; j < end; ++j) {
+            const int k = 32 * w + j;
             const float4 c = s_ray[RAY_VEC * k + 2];
-            float e0, e1;
-            if (sphere_test(s0, a, b, c.x, c.y, e0))
-              key0 = min(key0, fbits(__fmul_rn(fmaxf(e0, 0.0f), scl)) & ~GMASK);
-            if (ok1 && sphere_test(s1, a, b, c.x, c.y, e1))
-              key1 = min(key1, fbits(__fmul_rn(fmaxf(e1, 0.0f), scl)) & ~GMASK);
+            if (super_test(su, s_ray[RAY_VEC * k], s_ray[RAY_VEC * k + 1],
+                           c.x, c.y))
+              bits |= 1u << j;
           }
-        }
-        s_key[g0] = key0 | g0;
-        lmin = min(lmin, key0 | g0);
-        if (g1 < gp) {
-          s_key[g1] = key1 | g1;
-          lmin = min(lmin, key1 | g1);
+          s_smask[w * sp + s] = bits;
+          if (STATS) n_sup_pass += __popc(bits);
         }
       }
       __syncthreads();
+
+      // ---- 2b. group cull: a warp takes each super of its share (s = warp
+      // mod WARPS) that a word of rays passes, lane l group SUPER * s + l,
+      // and tests the word's rays in lockstep; a group's key is the minimum
+      // over every word, by atomicMin
+      for (int w = 0; 32 * w < n_live; ++w) {
+        for (int s0 = 0; s0 < sp; s0 += RAYS) {
+          const int sl = s0 + WARPS * lane + warp;
+          const unsigned word = sl < sp ? s_smask[w * sp + sl] : 0u;
+          unsigned todo = __ballot_sync(FULL, word != 0u);
+          while (todo) {
+            const int src = __ffs(todo) - 1;
+            todo &= todo - 1;
+            unsigned m = __shfl_sync(FULL, word, src);
+            const int g = SUPER * (s0 + WARPS * src + warp) + lane;
+            const bool ok = g < n_groups;
+            const Sphere sg = load_sphere(sph, gp, ok ? g : 0);
+            if (STATS && ok) n_grp_test += __popc(m);
+            int key = far_key;
+            while (m) {
+              const int k = 32 * w + __ffs(m) - 1;
+              m &= m - 1;
+              const float4 c = s_ray[RAY_VEC * k + 2];
+              float e;
+              if (sphere_test(sg, s_ray[RAY_VEC * k], s_ray[RAY_VEC * k + 1],
+                              c.x, c.y, e))
+                key = min(key, fbits(__fmul_rn(fmaxf(e, 0.0f), scl)) & ~GMASK);
+            }
+            if (ok && key < far_key) atomicMin(&s_key[g], key | g);
+          }
+        }
+      }
+      __syncthreads();
+      int lmin = own_min(s_key, gp, tid);
       if (STATS && tid == 0) {
         const long long now = clock64();
         cyc_cull += now - clk;
@@ -378,19 +473,27 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
     idx_out[i_ray] = ANY_HIT ? 0 : best_idx;
     if (valid_out) valid_out[i_ray] = isfinite(best);
   }
-  if (STATS && tid == 0) {
-    long long* row = stats_out + 6 * blockIdx.x;
-    row[0] = n_cull;
-    row[1] = n_test;
-    row[2] = n_ray_cull;
-    row[3] = n_ray_test;
-    row[4] = cyc_cull;
-    row[5] = cyc_scan;
+  if (STATS) {
+    atomicAdd(&s_count[0], static_cast<unsigned long long>(n_sup_pass));
+    atomicAdd(&s_count[1], static_cast<unsigned long long>(n_grp_test));
+    __syncthreads();
+    if (tid == 0) {
+      long long* row = stats_out + STATS_COLS * blockIdx.x;
+      row[0] = n_cull;
+      row[1] = n_test;
+      row[2] = n_ray_cull;
+      row[3] = n_ray_test;
+      row[4] = cyc_cull;
+      row[5] = cyc_scan;
+      row[6] = static_cast<long long>(s_count[0]);
+      row[7] = static_cast<long long>(s_count[1]);
+    }
   }
 }
 
 size_t shmem_bytes(int gp) {
-  return sizeof(float4) * RAY_VEC * RAYS + sizeof(int) * gp;
+  return sizeof(float4) * RAY_VEC * RAYS + sizeof(int) * gp +
+         sizeof(unsigned) * WARPS * (gp / SUPER);
 }
 
 template <bool ANY_HIT, bool STATS>
@@ -398,11 +501,12 @@ int launch(const float* sph, int gp, const float* mt, const float* inst,
            int n_inst, const float* root, int n_groups, int n_tris,
            const float* o, const float* d, const float* tmin,
            const float* tmax, int n, float* t_out, int* idx_out,
-           uint8_t* valid_out, long long* stats, cudaStream_t stream) {
+           uint8_t* valid_out, long long* stats, const float* sup,
+           cudaStream_t stream) {
   const int grid = (n + RAYS - 1) / RAYS;
   sweep_bvh_kernel<ANY_HIT, STATS><<<grid, RAYS, shmem_bytes(gp), stream>>>(
       sph, gp, mt, inst, n_inst, root, n_groups, n_tris, o, d, tmin, tmax, n,
-      t_out, idx_out, valid_out, stats);
+      t_out, idx_out, valid_out, stats, sup);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,9 +522,10 @@ int blocks_per_sm(int gp) {
 
 // Plain C entry point, loaded through ctypes. Launches on `stream` without
 // synchronising and returns cudaGetLastError() of the launch. stats is
-// [ceil(n/128), 6] int64 or null; valid_out is null or [n] bool,
-// isfinite(t_out) (the last argument, so a build of the entry without it
-// takes the same call and leaves it).
+// [ceil(n/128), 8] int64 or null; valid_out is null or [n] bool,
+// isfinite(t_out); sup is the [8, gp/32] super-sphere table (each the last
+// argument it added, so a build of the entry without it takes the same
+// call and leaves it).
 extern "C" int sweep_bvh_launch(const float* sph, int gp, const float* mt,
                                 const float* inst, int n_inst,
                                 const float* root, int n_groups, int n_tris,
@@ -428,22 +533,24 @@ extern "C" int sweep_bvh_launch(const float* sph, int gp, const float* mt,
                                 const float* tmin, const float* tmax, int n,
                                 int any_hit, float* t_out, int* idx_out,
                                 long long* stats, void* stream,
-                                uint8_t* valid_out) {
+                                uint8_t* valid_out, const float* sup) {
   if (n <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (any_hit)
     return stats ? launch<true, true>(sph, gp, mt, inst, n_inst, root, n_groups,
                                       n_tris, o, d, tmin, tmax, n, t_out,
-                                      idx_out, valid_out, stats, s)
+                                      idx_out, valid_out, stats, sup, s)
                  : launch<true, false>(sph, gp, mt, inst, n_inst, root,
                                        n_groups, n_tris, o, d, tmin, tmax, n,
-                                       t_out, idx_out, valid_out, stats, s);
+                                       t_out, idx_out, valid_out, stats, sup,
+                                       s);
   return stats ? launch<false, true>(sph, gp, mt, inst, n_inst, root, n_groups,
                                      n_tris, o, d, tmin, tmax, n, t_out,
-                                     idx_out, valid_out, stats, s)
+                                     idx_out, valid_out, stats, sup, s)
                : launch<false, false>(sph, gp, mt, inst, n_inst, root,
                                       n_groups, n_tris, o, d, tmin, tmax, n,
-                                      t_out, idx_out, valid_out, stats, s);
+                                      t_out, idx_out, valid_out, stats, sup,
+                                      s);
 }
 
 // Resident blocks per SM of the closest-hit kernel without counters at

@@ -9,7 +9,11 @@ rows, each group with a bounding sphere; a 128-ray packet culls every group
 by its sphere, then tests the culled groups near to far, and stops when the
 nearest remaining group lies beyond every live ray's bound. Instancing is
 uniform scale + translation, one instance after another in table order,
-each behind a root-sphere pre-test.
+each behind a root-sphere pre-test. The cull goes through two levels: a
+ray is tested against a group's sphere only where it passes the
+super-sphere of the group's run of SUPER groups; the super-spheres are
+wide enough that this never drops a (ray, group) pair that the group test
+passes, so the keys, and every hit, are the flat cull's.
 
 The triangle test is the wide route's Moller-Trumbore, rounded as
 `wide_bvh.intersect_wide_plain` rounds it (one rounding an operation, no
@@ -28,6 +32,9 @@ reference builds them, over the rows the triangle test can accept):
                            (the wide route's rows), zero for padding
   inst [(I+1)*4]      f32  (offset.xyz, scale) rows; row 0 the identity
   root [8]            f32  the mesh's bounding sphere, as a group's row
+  sup  [8, Gp/32]     f32  per run of SUPER groups: cx, cy, cz, |c|^2, the
+                           test's r^2 and r, its slack k1 and the factor F
+                           (`super_spheres`; zero past the last group)
 The CUDA kernel is csrc/sweep_bvh.cu; the row table stays in global memory
 (the TPU kernel's resident and streamed modes are one function).
 """
@@ -47,6 +54,8 @@ from .wide_bvh import mt_test
 
 GROUP = 128          # triangles per cull group
 RAYS = 128           # rays per packet (one CUDA thread block)
+SUPER = 32           # groups per super-sphere (a warp's width in the kernel)
+STATS_COLS = 8       # the kernel's counters a packet (intersect_sweep)
 # a culled-out group's key distance, and the packed group key (the
 # reference's): (entry-distance bits & ~GMASK) | group; csrc/sweep_bvh.cu
 # holds the same values
@@ -80,11 +89,13 @@ class SweepTables(NamedTuple):
     root: torch.Tensor   # [8] f32 mesh sphere
     n_groups: int
     n_inst: int          # 0 for a single-level soup
+    sup: torch.Tensor    # [8, Gp/32] f32 super-spheres (`super_spheres`)
 
     def to(self, device) -> "SweepTables":
         return self._replace(sph=self.sph.to(device), mt=self.mt.to(device),
                              inst=self.inst.to(device),
-                             root=self.root.to(device))
+                             root=self.root.to(device),
+                             sup=self.sup.to(device))
 
 
 # ---------------------------------------------------------------------------
@@ -129,6 +140,79 @@ def build_sweep_tables(tris_mt: np.ndarray):
     return mt, sph, root, n_groups
 
 
+# The super test's margins (csrc/sweep_bvh.cu super_test). A group test
+# that passes in float32 puts the sphere's centre within sqrt(r^2 + x) of
+# the ray's line, x = (1e-6 + 28.6 u) S + 2 e S (u = 2^-24; S the slack's
+# sum |c|^2 + 2|c.o| + |o|^2 + tc^2; e = |1 - |d|^2|): the group's slack
+# and every rounding of its expansion, for a direction within e of unit
+# length. The super test's own rounding costs 28.6 u S + 2 e S more.
+_BETA_GROUP = 2.75e-6
+_BETA_SUPER = 1.75e-6
+# a direction further than this from unit length (|1 - |d|^2|) passes
+# every super, so the margins are proven only for |d| <= 1.004
+E_MAX = 2.0 ** -7
+# the interval tests' margin, a share of sqrt(S): covers tc's rounding,
+# 5.4 u sqrt(S) on each side
+KT = 2.0 ** -16
+# a super's own radius margin: the intervals' rounding in R0 (19 u R0)
+_PAD = 2.0 ** -10
+
+
+def _up32(x) -> np.ndarray:
+    """float32 of x rounded towards +inf."""
+    x = np.asarray(x, np.float64)
+    y = x.astype(np.float32)
+    return np.where(y.astype(np.float64) < x, np.nextafter(y, np.float32(
+        np.inf)), y)
+
+
+def super_spheres(sph: np.ndarray, n_groups: int) -> np.ndarray:
+    """[8, Gp/32] f32 super-spheres of the group spheres sph [8, Gp]: per
+    run of SUPER consecutive groups, the centre c (float32), |c|^2, the
+    test's r^2 and r, its slack coefficient k1 and the factor F, zero past
+    the last group (a ragged last super holds only real groups).
+
+    Built in float64 from the stored float32 group spheres (c_g, r_g
+    raised by 2^-20 for the rounding of r^2): the centre of their
+    bounding box, R0 = max(|c_g - c| + r_g') with each r_g' = max(r_g,
+    R0'/64) (R0' the same maximum over r_g: a tiny or empty group is
+    taken at 1/64 of the super), and F = max(1 + |c_g - c| / r_g').
+    Where a group's float32 test passes for a ray, its centre lies
+    within sqrt(r_g^2 + x) of the ray's line, x = b_g S_g (see
+    _BETA_GROUP); so c lies within R0 + sqrt(F x) of it, by
+    (sqrt(r^2 + x) + D)^2 <= (r + D)^2 + x (1 + D / r), and S_g <= 1.25
+    S + 15.1 D^2 for |d| <= 1.01. The super test passes where m2 <= r^2
+    + slack, slack = S (k1 + (2.6 F + 2.1) e) + 31 F e r^2: with r^2 =
+    R0^2 (1 + 16 F b_g) and k1 = 1.01 (1.25 F b_g + b_s) that holds for
+    every such ray, its own rounding included; its intervals use r =
+    R0 (1 + 2^-10) (1 + e) + 2^-16 sqrt(S). So no (ray, group) pair that
+    the group test passes fails its super's test (tests/test_torch_sweep.py
+    counts them on adversarial rays)."""
+    gp = sph.shape[1]
+    out = np.zeros((8, gp // SUPER), np.float32)
+    c = sph[0:3, :n_groups].T.astype(np.float64)
+    r = sph[5, :n_groups].astype(np.float64) * (1 + 2.0 ** -20)
+    tiny = float(np.finfo(np.float32).tiny)
+    for s in range(-(-n_groups // SUPER)):
+        cg, rg = c[s * SUPER:(s + 1) * SUPER], r[s * SUPER:(s + 1) * SUPER]
+        lo = (cg - rg[:, None]).min(0)
+        hi = (cg + rg[:, None]).max(0)
+        cs = (0.5 * (lo + hi)).astype(np.float32)
+        dist = np.linalg.norm(cg - cs.astype(np.float64), axis=1)
+        rgf = np.maximum(np.maximum(rg, (dist + rg).max() / 64), tiny)
+        r0 = (dist + rgf).max()
+        f = (1 + dist / rgf).max()
+        out[0:3, s] = cs
+        out[3, s] = np.float32(float(cs.astype(np.float64)
+                                     @ cs.astype(np.float64)))
+        out[4, s] = _up32(r0 * r0 * (1 + 16 * f * _BETA_GROUP)
+                          * (1 + 2.0 ** -20))
+        out[5, s] = _up32(r0 * (1 + _PAD))
+        out[6, s] = _up32(1.01 * (1.25 * f * _BETA_GROUP + _BETA_SUPER))
+        out[7, s] = _up32(f)
+    return out
+
+
 def mesh_root_sphere(tris_mt: np.ndarray) -> np.ndarray:
     """[8] f32 bounding sphere of a [T,9] triangle table; the sort's
     needs-BVH pre-test reads it for every mesh, whatever its route."""
@@ -161,7 +245,8 @@ def sweep_tables(tris_mt: np.ndarray, inst_off=None,
     return SweepTables(sph=torch.from_numpy(sph), mt=torch.from_numpy(mt),
                        inst=torch.from_numpy(inst),
                        root=torch.from_numpy(root), n_groups=int(n_groups),
-                       n_inst=int(n_inst))
+                       n_inst=int(n_inst),
+                       sup=torch.from_numpy(super_spheres(sph, n_groups)))
 
 
 # ---------------------------------------------------------------------------
@@ -176,6 +261,7 @@ def _check(tables: SweepTables, o, d, tmin, tmax, n_tris):
     for name, x, shape in (
             ("o", o, (n, 3)), ("d", d, (n, 3)), ("tmin", tmin, (n,)),
             ("tmax", tmax, (n,)), ("sph", tables.sph, (8, gp)),
+            ("sup", tables.sup, (8, gp // SUPER)),
             ("mt", tables.mt, (9, ng * GROUP)),
             ("inst", tables.inst, ((tables.n_inst + 1) * 4,)),
             ("root", tables.root, (8,))):
@@ -201,12 +287,14 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
 
     Index = inst * n_tris + triangle row (inst 0 for a soup); an any-hit
     reports t = 0 when occluded. with_stats also returns per-packet
-    counters [ceil(N/128), 6] int64: instances culled (root test passed),
-    groups tested, the rays past the root test summed over the culled
-    instances, the rays that test a group summed over the groups tested
-    (the (ray, group) tests), and thread 0's clock64() cycles in the culls
-    and in the scans. CUDA tensors launch the kernel of csrc/sweep_bvh.cu,
-    which writes t, index and valid (isfinite(t)); CPU tensors take
+    counters [ceil(N/128), STATS_COLS] int64: instances culled (root test
+    passed), groups tested, the rays past the root test summed over the
+    culled instances, the rays that test a group summed over the groups
+    tested (the (ray, group) tests), thread 0's clock64() cycles in the
+    culls and in the scans, the (ray, super) pairs whose super test
+    passed, and the group sphere tests the cull ran for them. CUDA
+    tensors launch the kernel of csrc/sweep_bvh.cu, which writes t,
+    index and valid (isfinite(t)); CPU tensors take
     `intersect_sweep_plain` (whose counters are not the kernel's: it has no
     packets, so it returns zeros). out: None, or the (t, index, valid) [N]
     tensors to write (rows of the caller's slabs; the plain version's
@@ -220,13 +308,14 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
         if out is not None:
             hit = KindHit(*(y.copy_(x) for x, y in zip(hit, out)))
         if with_stats:
-            return hit, torch.zeros((n_packets, 6), dtype=torch.int64)
+            return hit, torch.zeros((n_packets, STATS_COLS),
+                                    dtype=torch.int64)
         return hit
     if o.device.type != "cuda":
         raise ValueError(f"no sweep route for device {o.device}")
     no_grad_inputs("sweep_bvh", o=o, d=d, tmin=tmin, tmax=tmax)
-    stats = (torch.empty((n_packets, 6), dtype=torch.int64, device=o.device)
-             if with_stats else None)
+    stats = (torch.empty((n_packets, STATS_COLS), dtype=torch.int64,
+                         device=o.device) if with_stats else None)
     if out is None:
         n = o.shape[0]
         out = (torch.empty((n,), dtype=torch.float32, device=o.device),
@@ -257,7 +346,8 @@ def launch(lib, tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
     arguments `_check` has passed; returns (t, index) (allocated, or out's
     where out = (t, index, valid) is given, valid being isfinite(t)) and
     raises when the launch fails. `stats` is None or the counters'
-    [packets, 6] int64 output."""
+    [packets, STATS_COLS] int64 output. The super table's pointer goes
+    last, so a build of the entry without it takes the same call."""
     n = o.shape[0]
     if out is None:
         t = torch.empty((n,), dtype=torch.float32, device=o.device)
@@ -274,7 +364,7 @@ def launch(lib, tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
             t.data_ptr(), idx.data_ptr(),
             None if stats is None else stats.data_ptr(),
             torch.cuda.current_stream(o.device).cuda_stream,
-            None if valid is None else valid.data_ptr())
+            None if valid is None else valid.data_ptr(), tables.sup.data_ptr())
     if err != 0:
         raise RuntimeError(f"sweep_bvh kernel launch failed: CUDA error {err}")
     return t, idx
@@ -289,7 +379,7 @@ def blocks_per_sm(gp: int) -> int:
 def _declare(lib):
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.sweep_bvh_launch.argtypes = [vp, ci, vp, vp, ci, vp, ci, ci, vp, vp,
-                                     vp, vp, ci, ci, vp, vp, vp, vp, vp]
+                                     vp, vp, ci, ci, vp, vp, vp, vp, vp, vp]
     lib.sweep_bvh_launch.restype = ci
 
 
@@ -429,20 +519,57 @@ def sphere_test(sph, lo, d, tminl, capl, od, oo):
     return ok, entry
 
 
+def super_test(sup, lo, d, tminl, capl, od, oo):
+    """The kernel's super-sphere test: rays [R] (instance space) against
+    super columns sup [8, S] -> [R, S] bool, every step rounded as
+    csrc/sweep_bvh.cu's super_test rounds it."""
+    cx, cy, cz, cc, r2, rad, k1, f = (sup[k][None, :] for k in range(8))
+    c = lambda x: x[:, None]
+    far = float(FAR)
+    tminc, capc = c(tminl.clamp(max=far)), c(capl.clamp(max=far))
+    dx, dy, dz = (c(d[:, k]) for k in range(3))
+    cd = _dot3((dx, dy, dz), cx, cy, cz)
+    co = _dot3((c(lo[:, 0]), c(lo[:, 1]), c(lo[:, 2])), cx, cy, cz)
+    tc = cd - c(od)
+    m2 = fma32(-tc, tc, cc - 2.0 * co + c(oo))
+    ssum = fma32(tc, tc, cc + 2.0 * torch.abs(co) + c(oo))
+    e = torch.abs(1.0 - _dot3((dx, dy, dz), dx, dy, dz))
+    k2 = fma32(torch.tensor(2.6), f, torch.tensor(2.1))
+    slack = fma32(ssum, fma32(k2, e, k1), r2 * (31.0 * f) * e)
+    rt = fma32(torch.sqrt(ssum), torch.tensor(KT), rad * (1.0 + e))
+    return (e > E_MAX) | ((m2 <= r2 + slack) & (tc + rt >= tminc)
+                          & (tc - rt <= capc) & (capc >= tminc))
+
+
+class SweepWork(NamedTuple):
+    n_root: int        # rays past each instance's root test, summed
+    n_pairs: int       # needed (ray, group) pairs
+    n_super: int       # (ray, super) pairs whose super test passes
+    n_group_tests: int  # the group tests those supers hold
+
+
 def sweep_work_plain(tables: SweepTables, o, d, tmin, tmax, t_final):
     """The work a closest-hit cull-sweep needs on these rays, counted from
     the inputs, whichever kernel does it: (rays past each
     instance's root test, summed over instances; (ray, group) pairs among
     those whose own sphere test passes and whose entry, in world units,
-    lies at or before the ray's final closest t). t_final [N] is that t,
-    inf where there is no hit; min(tmax, t_final) caps both tests. Any
-    near-to-far traversal culls those rays and tests those pairs."""
+    lies at or before the ray's final closest t; the (ray, super) pairs
+    among the same rays whose super test passes; and the groups of those
+    supers, the group tests a two-level cull runs for them). t_final [N]
+    is that t, inf where there is no hit; min(tmax, t_final) caps every
+    test. Any near-to-far traversal culls those rays and tests those
+    pairs; a flat cull runs n_root x n_groups sphere tests, the two-level
+    cull n_root x n_supers super tests and n_group_tests."""
     ng = tables.n_groups
     sph = tables.sph[:, :ng]
+    n_sup = -(-ng // SUPER)
+    sup = tables.sup[:, :n_sup]
+    size = torch.clamp(ng - SUPER * torch.arange(n_sup, device=o.device),
+                       max=SUPER)
     inst = tables.inst.view(-1, 4)
     cap = torch.minimum(tmax, t_final)
     chunk = max(1, _CULL_ELEMS // ng)
-    n_root = n_pairs = 0
+    n_root = n_pairs = n_super = n_tests = 0
     for i in range(max(tables.n_inst, 1)):
         row = inst[i + 1] if tables.n_inst else inst[0]
         lo, tminl, capl, od, oo = instance_rays(row, o, d, tmin, cap)
@@ -450,8 +577,11 @@ def sweep_work_plain(tables: SweepTables, o, d, tmin, tmax, t_final):
         n_root += live.numel()
         for r0 in range(0, live.numel(), chunk):
             k = live[r0:r0 + chunk]
-            ok, entry = sphere_test(sph, lo[k], d[k], tminl[k], capl[k], od[k],
-                                    oo[k])
+            args = (lo[k], d[k], tminl[k], capl[k], od[k], oo[k])
+            ok, entry = sphere_test(sph, *args)
             ok &= entry.clamp(min=0.0) * row[3] <= cap[k, None]
             n_pairs += int(ok.sum())
-    return n_root, n_pairs
+            sok = super_test(sup, *args)
+            n_super += int(sok.sum())
+            n_tests += int((sok.to(torch.int64) * size).sum())
+    return SweepWork(n_root, n_pairs, n_super, n_tests)

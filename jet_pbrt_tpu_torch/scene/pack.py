@@ -194,8 +194,10 @@ class Hit(NamedTuple):
 def _sweep(tables, n_tris, o, d, tmin, tmax, any_hit, stats, out=None):
     """One sweep cast, written into out where given (ops/sweep_bvh.py's);
     with a stats dict, adds the kernel's per-packet counters to it under
-    sweep_<closest|shadow>_<packets|culls|tests> (packets: those that
-    culled at least one instance)."""
+    sweep_<closest|shadow>_<packets|culls|tests|root|supers|spheres>
+    (packets: those that culled at least one instance; tests: groups
+    tested; root: rays past a root test; supers: (ray, super) passes;
+    spheres: the cull's group sphere tests)."""
     if stats is None:
         return sweep_bvh.intersect_sweep(tables, o, d, tmin, tmax,
                                          any_hit=any_hit, n_tris=n_tris,
@@ -205,7 +207,8 @@ def _sweep(tables, n_tris, o, d, tmin, tmax, any_hit, stats, out=None):
                                        with_stats=True, out=out)
     cls = "shadow" if any_hit else "closest"
     for k, v in (("packets", (c[:, 0] > 0).sum()), ("culls", c[:, 0].sum()),
-                 ("tests", c[:, 1].sum())):
+                 ("tests", c[:, 1].sum()), ("root", c[:, 2].sum()),
+                 ("supers", c[:, 6].sum()), ("spheres", c[:, 7].sum())):
         key = f"sweep_{cls}_{k}"
         stats[key] = stats.get(key, 0) + v.to(torch.int64)
     return hit

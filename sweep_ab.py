@@ -36,7 +36,9 @@ closest hit and any hit (tmax 10% short of the closest hit) on the
 instanced bunny, closest hit on the soup; then the instanced bunny's
 1024^2, 4-spp, depth-5 frame through each (host wall ending in a
 synchronize). The two kernels' outputs, and the two frames, must be equal
-bit for bit.
+bit for bit; so must each case's counters of culls, groups tested, rays
+past the root and ray-group tests (a build before the super-spheres
+writes 6 counters a packet, this one 8).
 
 Wide: OTHER.cu exports one of three C entry points: this source's
 (`wide_bvh_cast`, ...; a variant of this kernel), the one-launch design's
@@ -211,6 +213,17 @@ def sweep_main(path) -> int:
                                                          outs["other"]))
             if not same:
                 raise AssertionError(f"{label} {mode}: the two kernels differ")
+            counts = {who: _sweep_counters(libs[who], tables, o, d, tmin, tm,
+                                           mode == "any", route.n_tris)
+                      for who in ("other", "this")}
+            print(f"sweep A/B {label} {mode} counters (culls, groups tested, "
+                  "rays past the root, ray-group tests, cull and scan "
+                  "cycles[, (ray, super) passes, group sphere tests]): "
+                  f"other {counts['other']}, this {counts['this']}",
+                  flush=True)
+            if counts["this"][:4] != counts["other"][:4]:
+                raise AssertionError(f"{label} {mode}: the two kernels' "
+                                     "work counters differ")
             print(f"sweep A/B {label} {mode} at {o.shape[0]} rays (order "
                   f"other, this, this, other): other "
                   f"{times['other'][0]:.4f} / {times['other'][1]:.4f} ms, "
@@ -240,6 +253,21 @@ def sweep_main(path) -> int:
           f"s, this {walls['this'][0]:.3f} / {walls['this'][1]:.3f} s; "
           "frames equal bit for bit", flush=True)
     return 0
+
+
+def _sweep_counters(lib, tables, o, d, tmin, tmax, any_hit, n_tris):
+    """A build's counters on one cast, summed over its packets: 6 from a
+    build before the super-spheres (which writes 6 a packet, leaving the
+    buffer's last 2 x packets entries unwritten), else STATS_COLS."""
+    packets = (o.shape[0] + sweep_bvh.RAYS - 1) // sweep_bvh.RAYS
+    cols = sweep_bvh.STATS_COLS
+    buf = torch.full((packets * cols,), -1, dtype=torch.int64,
+                     device=o.device)
+    sweep_bvh.launch(lib, tables, o, d, tmin, tmax, any_hit=any_hit,
+                     n_tris=n_tris, stats=buf.view(packets, cols))
+    if bool((buf[6 * packets:] == -1).all()):
+        cols = 6
+    return [int(x) for x in buf[:cols * packets].view(packets, cols).sum(0)]
 
 
 # --------------------------------------------------------------------------

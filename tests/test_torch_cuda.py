@@ -16,7 +16,8 @@ soup and 4 instances, both modes, with and without its counters, and on
 the cases its per-ray scan relies on: exact-t ties across two groups and
 across two coincident instances, packets in which each group is wanted by
 exactly one ray, a ragged batch with dead lanes and an all-dead packet,
-and a mesh of 8,192 groups (the packed key's limit). The two
+a mesh of 8,192 groups (the packed key's limit), of one super-sphere and
+of a ragged last super, with the two-level cull's counters consistent. The two
 harness kernels, the sweep primitives and the wide kernel's eleven
 primitive probes, must equal their plain versions bit for bit. So must the
 Threefry kernel of the random streams (lane keys and uniforms) on its
@@ -289,7 +290,7 @@ def test_sweep_kernel_matches_plain_on_card(which):
     assert vp.sum() > 100 and not vk[dead.cpu().numpy()].any()
     assert np.array_equal(vk, vp)
     assert np.array_equal(tk[vk], tp[vk]) and np.array_equal(ik[vk], ip[vk])
-    assert stats.shape == ((o.shape[0] + 127) // 128, 6)
+    assert stats.shape == ((o.shape[0] + 127) // 128, TS.STATS_COLS)
     assert stats.dtype == torch.int64
     st = stats.cpu().numpy()
     assert (st[:, 1] > 0).any() and (st[:, 0] <= max(tables.n_inst, 1)).all()
@@ -299,6 +300,7 @@ def test_sweep_kernel_matches_plain_on_card(which):
     # cycles in the cull and the scan wherever an instance was culled
     assert ((st[:, 4] > 0) == (st[:, 0] > 0)).all()
     assert ((st[:, 5] > 0) == (st[:, 0] > 0)).all()
+    _check_cull_counters(st, tables)
 
     short = torch.where(hp.valid, hp.t * 0.9, torch.full_like(hp.t, 30.0))
     ak = TS.intersect_sweep(tb, o, d, tmin, short, any_hit=True, n_tris=n_tris)
@@ -310,6 +312,19 @@ def test_sweep_kernel_matches_plain_on_card(which):
     ap = TS.intersect_sweep_plain(tb, o, d, tmin, long, any_hit=True,
                                   n_tris=n_tris)
     assert torch.equal(ak.valid, ap.valid) and bool(ak.valid.any())
+
+
+def _check_cull_counters(st, tables):
+    """The two-level cull's counters [packets, 8] against the rest: (ray,
+    super) passes at most the rays past the root x supers, the group
+    sphere tests at most 32 a pass and at most the flat cull's rays past
+    the root x groups, and at least the scan's ray-group tests (each
+    tested pair passed its group's test in the cull)."""
+    n_sup = -(-tables.n_groups // TS.SUPER)
+    assert (st[:, 6] <= st[:, 2] * n_sup).all()
+    assert (st[:, 7] <= TS.SUPER * st[:, 6]).all()
+    assert (st[:, 7] <= st[:, 2] * tables.n_groups).all()
+    assert (st[:, 7] >= st[:, 3]).all()
 
 
 def _clusters(nx, ny, seed, spacing=4.0):
@@ -368,6 +383,17 @@ def _sweep_case(case):
                               np.zeros((n, 1))], 1)
         o = target + np.array([0.0, 0.0, 10.0])
         d = np.repeat(np.array([[0.0, 0.0, -1.0]]), n, 0)
+    elif case in ("one-super", "ragged-super"):
+        # 16 clusters (one super) or 70 (two and a ragged third of 6),
+        # from a row of origins above the plane, aimed at random clusters
+        mt, centre = _clusters(*((4, 4) if case == "one-super" else (10, 7)),
+                               34)
+        tables = TS.sweep_tables(mt)
+        n = 2 * TS.RAYS + 31
+        o = np.stack([rng.uniform(0, 40, n), rng.uniform(-10, 30, n),
+                      np.full(n, 12.0)], 1)
+        o, d = _aimed(o, centre[rng.integers(0, len(centre), n)]
+                      + rng.uniform(-0.4, 0.4, (n, 3)))
     else:  # "8192-groups"
         mt, centre = _clusters(128, 64, 33)
         tables = TS.sweep_tables(mt)
@@ -389,10 +415,12 @@ def _sweep_case(case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["tie-groups", "tie-instances",
                                   "one-ray-per-group", "ragged-dead",
-                                  "8192-groups"])
+                                  "8192-groups", "one-super", "ragged-super"])
 def test_sweep_kernel_edge_cases_on_card(case):
     """The per-ray scan against the plain version, bit for bit, closest hit
-    and any hit, on the cases it relies on."""
+    and any hit, on the cases it relies on, with the two-level cull's
+    counters consistent: one super, a ragged last super and the 256
+    supers of 8,192 groups."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
     tables, n_tris, *rays = _sweep_case(case)
@@ -421,8 +449,13 @@ def test_sweep_kernel_edge_cases_on_card(case):
     elif case == "ragged-dead":
         assert not vk[np.isinf(rays[2])].any()
         assert (st[1] == 0).all()  # the all-dead packet exits at once
-    else:
+    elif case == "8192-groups":
         assert tables.n_groups == TS.max_groups()
+        assert tables.sup.shape == (8, TS.max_groups() // TS.SUPER)
+    else:
+        assert tables.n_groups == {"one-super": 16, "ragged-super": 70}[case]
+        assert (st[:, 7] > 0).any()
+    _check_cull_counters(st, tables)
     for f in (0.9, 1.1):
         tm = torch.where(hp.valid, hp.t * f, torch.full_like(hp.t, 30.0))
         tm = torch.where(tmax < 0, tmax, tm)

@@ -23,6 +23,14 @@ routing against the JAX package.
   float64 forensic of chip_smoke explains as a near-tie or an edge graze.
 * A sliver far from the rest of its group, which the reference's spheres
   leave out: the sweep finds its hit, as the wide walk does.
+* The two-level cull's super-spheres: no (ray, group) pair that passes
+  the kernel-rounded group test fails its super's test, on rays bisected
+  onto each group test's float32 boundary, origins inside group spheres,
+  tmin and tmax at a sphere's entry and exit and directions off unit
+  length, on a dense generated bunny (4 instances too) and a soup; each
+  packet's keys from a plain two-level cull equal the flat cull's; the
+  table's shape and bounds on a ragged last super and a single one; the
+  work counts of `sweep_work_plain` against numpy.
 * Routing: `sweep_route` equals the reference's predicate on a grid of
   counts on both sides of each bound; a build with the budget lowered
   populates only the sweep layout; the gate reads leaf-16 tables; the same
@@ -310,7 +318,7 @@ def test_plain_sweep_stats_shape(meshes):
     hit, stats = TS.intersect_sweep(TS.sweep_tables(mt, OFF, SCALE), o, d,
                                     tmin, tmax, any_hit=False,
                                     n_tris=mt.shape[0], with_stats=True)
-    assert stats.shape == (3, 6) and stats.dtype == torch.int64
+    assert stats.shape == (3, TS.STATS_COLS) and stats.dtype == torch.int64
     assert hit.valid.shape == (o.shape[0],)
 
 
@@ -331,15 +339,38 @@ def _inst_rows(n_inst):
             else np.array([[0, 0, 0, 1]], np.float32))
 
 
+def _super_numpy(sup, lx, ly, lz, dx, dy, dz, od, oo, tminc, capc):
+    """csrc/sweep_bvh.cu's super_test in numpy: rays [R] against supers
+    [8, S], float32 with each fused step rounded once."""
+    R = lambda x: x[:, None]
+    cx, cy, cz, cc, r2, rad, k1, f = (sup[k][None] for k in range(8))
+    f32 = np.float32
+    cd = _dot(R(dx), R(dy), R(dz), cx, cy, cz)
+    co = _dot(R(lx), R(ly), R(lz), cx, cy, cz)
+    tc = cd - R(od)
+    m2 = _fma(-tc, tc, cc - f32(2) * co + R(oo))
+    ss = _fma(tc, tc, cc + f32(2) * np.abs(co) + R(oo))
+    e = R(np.abs(f32(1) - _dot(dx, dy, dz, dx, dy, dz)))
+    slack = _fma(ss, _fma(_fma(f32(2.6), f, f32(2.1)), e, k1),
+                 r2 * (f32(31) * f) * e)
+    rt = _fma(np.sqrt(ss), f32(2.0 ** -16), rad * (f32(1) + e))
+    return (e > f32(2.0 ** -7)) | ((m2 <= r2 + slack) & (tc + rt >= tminc)
+                                   & (tc - rt <= capc) & (capc >= tminc))
+
+
 def _work_numpy(mt, n_inst, o, d, tmin, tmax, t_final):
     """sweep_work_plain by brute force in numpy: every ray against every
-    group of every instance, float32 with each fused step rounded once."""
+    group and every super of every instance, float32 with each fused step
+    rounded once."""
     _, sph, root, ng = JS.build_sweep_tables(mt)
+    n_sup = -(-ng // 32)
+    sup = TS.super_spheres(sph, ng)[:, :n_sup]
+    size = np.minimum(ng - 32 * np.arange(n_sup), 32)
     cap = np.minimum(tmax, t_final)
     cx, cy, cz, cc, r2, rad = (sph[k, :ng][None] for k in range(6))
     R = lambda x: x[:, None]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
-    n_root = n_pairs = 0
+    n_root = n_pairs = n_super = n_tests = 0
     for row in _inst_rows(n_inst):
         inv = np.float32(1) / row[3]
         lo = (o - row[:3]) * inv
@@ -366,7 +397,11 @@ def _work_numpy(mt, n_inst, o, d, tmin, tmax, t_final):
               & (capc >= tminc) & R(rhit)
               & (np.maximum(entry, np.float32(0)) * row[3] <= R(cap)))
         n_pairs += int(ok.sum())
-    return n_root, n_pairs
+        sok = _super_numpy(sup, lx, ly, lz, dx, dy, dz, od, oo, tminc,
+                           capc) & R(rhit)
+        n_super += int(sok.sum())
+        n_tests += int((sok * size).sum())
+    return n_root, n_pairs, n_super, n_tests
 
 
 @pytest.mark.parametrize("which", ["soup", "instanced"])
@@ -384,11 +419,14 @@ def test_sweep_work_plain_matches_brute_force(meshes, monkeypatch, which):
     with np.errstate(invalid="ignore", over="ignore"):
         want = _work_numpy(mt, n_inst, o, d, tmin, tmax, h.t.numpy())
     got = TS.sweep_work_plain(tables, T(o), T(d), T(tmin), T(tmax), h.t)
-    assert got == want
-    n_root, n_pairs = got
+    assert tuple(got) == want
+    n_root, n_pairs, n_super, n_tests = got
     # every hit's group is a needed pair; dead lanes pass no root test
     assert int(h.valid.sum()) <= n_pairs < n_root * tables.n_groups
     assert n_root <= (len(o) - len(o[::5])) * max(n_inst, 1)
+    # a needed pair's super passes, and the two-level cull tests no more
+    # groups than the flat one (these meshes hold one super or two)
+    assert 0 < n_super and n_pairs <= n_tests <= n_root * tables.n_groups
 
 
 @pytest.mark.parametrize("which", ["soup", "instanced"])
@@ -432,6 +470,259 @@ def test_closest_hit_group_passes_own_sphere_test(meshes, which):
             assert bool(ok[j, r // TS.GROUP]), (j, i, r // TS.GROUP)
             checked += 1
     assert checked > 40
+
+
+# ---------------------------------------------------------------------------
+# the super-spheres of the two-level cull
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _dense_rows():
+    """The bunny generator at sweep density in BVH-DFS order (47,420
+    triangles in 371 groups: 11 supers and a ragged twelfth of 19)."""
+    from jet_pbrt_tpu_torch.scene import assets
+    tris = assets.bunny_mesh(60_000).astype(np.float32)
+    _, order = tbvh.build_bvh(tris[:, 0], tris[:, 1], tris[:, 2], leaf_size=4)
+    t = tris[order]
+    return np.concatenate([t[:, 0], t[:, 1] - t[:, 0], t[:, 2] - t[:, 0]],
+                          axis=1).astype(np.float32)
+
+
+def _unit(v):
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def _own_group_test(sph, g, off, scl, o, d, tmin, tmax):
+    """The kernel-rounded group test of each world ray i against its own
+    group g[i] of instance (off[i], scl[i]): [N] bool."""
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    inv = 1.0 / f(scl)
+    lo = (f(o) - f(off)) * inv[:, None]
+    d = f(d)
+    dots = lambda a, b: TS._dot3((a[:, 0], a[:, 1], a[:, 2]), b[:, 0],
+                                 b[:, 1], b[:, 2])
+    ok, _ = TS.sphere_test(torch.from_numpy(sph[:, g]), lo, d,
+                           f(tmin) * inv, f(tmax) * inv, dots(lo, d),
+                           dots(lo, lo))
+    return ok.diagonal()
+
+
+def _adversarial_rays(sph, ng, rows, seed, n_groups_hit=160):
+    """World rays built against group spheres of instances `rows` [(off.xyz,
+    scale), ...]: lines at the group test's own float32 boundary (found by
+    bisection on the line's distance from the centre, then a few ulps
+    either side), from 2 to 3e4 radii away; origins inside a group's
+    sphere; tmax and tmin a few ulps either side of the entry and the
+    exit; directions a few ulps to 1e-3 off unit length. -> (o, d, tmin,
+    tmax) float32 and each ray's target group; rays 9k..9k+3 are the
+    boundary rays of group target[9k]."""
+    rng = np.random.default_rng(seed)
+    c = sph[0:3, :ng].T.astype(np.float64)
+    r = sph[5, :ng].astype(np.float64)
+    ulp = 2.0 ** -23
+    groups = rng.choice(ng, min(n_groups_hit, ng), replace=False)
+    pick = rng.integers(len(rows), size=len(groups))
+    off = np.array([rows[k][0] for k in pick])
+    scl = np.array([rows[k][1] for k in pick])
+    # boundary rays: 4 distances back along the line, bisected together
+    gb = np.repeat(groups, 4)
+    ob, sb = np.repeat(off, 4, 0), np.repeat(scl, 4)
+    dl = _unit(rng.normal(size=(len(gb), 3)))
+    nrm = _unit(np.cross(dl, rng.normal(size=(len(gb), 3))))
+    back = r[gb] * np.tile([2.0, 40.0, 1e3, 3e4], len(groups)) \
+        * rng.uniform(0.5, 1.5, len(gb))
+    ends = np.full(len(gb), 1e-3), np.full(len(gb), np.inf)
+
+    def world(h):
+        ol = c[gb] + nrm * h[:, None] - dl * back[:, None]
+        return ol * sb[:, None] + ob
+
+    def passes(h):
+        return _own_group_test(sph, gb, ob, sb, world(h), dl,
+                               *ends).numpy()
+
+    lo_h, hi_h = np.zeros(len(gb)), r[gb].copy()
+    for _ in range(80):
+        more = passes(hi_h)
+        if not more.any():
+            break
+        hi_h = np.where(more, 2 * hi_h, hi_h)
+    for _ in range(60):
+        mid = 0.5 * (lo_h + hi_h)
+        ok = passes(mid)
+        lo_h, hi_h = np.where(ok, mid, lo_h), np.where(ok, hi_h, mid)
+    k = rng.integers(-3, 4, len(gb))
+    bound = world(lo_h * (1 + k * ulp))
+    o, d, tmin, tmax, tg = [], [], [], [], []
+    for j, g in enumerate(groups):
+        o.extend(bound[4 * j:4 * j + 4])
+        d.extend(dl[4 * j:4 * j + 4])
+        tmin.extend([1e-3] * 4)
+        tmax.extend([np.inf] * 4)
+        tg.extend([g] * 4)
+        for kind in range(4, 9):
+            dk = _unit(rng.normal(size=3))
+            nk = _unit(np.cross(dk, rng.normal(size=3)))
+            lo_, hi = 1e-3, np.inf
+            if kind == 4:     # inside the sphere
+                ol = c[g] + _unit(rng.normal(size=3)) * r[g] \
+                    * rng.uniform(0, 0.9)
+            else:             # through the sphere, capped at its entry or
+                # starting at its exit
+                ol = c[g] + nk * r[g] * rng.uniform(0, 0.99) \
+                    - dk * r[g] * rng.uniform(1.5, 30)
+                tc = float(dk @ (c[g] - ol))
+                kk = 1 + rng.integers(-4, 5) * ulp
+                if kind in (5, 6):
+                    hi = (tc - r[g]) * scl[j] * kk
+                else:
+                    lo_ = max((tc + r[g]) * scl[j] * kk, 1e-3)
+            if kind in (6, 8):
+                dk = dk * (1 + rng.choice([-1, 1])
+                           * rng.choice([1e-7, 1e-6, 1e-5, 1e-3]))
+            o.append(ol * scl[j] + off[j])
+            d.append(dk)
+            tmin.append(lo_)
+            tmax.append(hi)
+            tg.append(g)
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32))
+    return f(o), f(d), f(tmin), f(tmax), np.array(tg)
+
+
+def _inst_rows_of(n_inst):
+    return ([(OFF[k].astype(np.float64), float(SCALE[k]))
+             for k in range(len(SCALE))] if n_inst
+            else [(np.zeros(3), 1.0)])
+
+
+@pytest.mark.parametrize("which", ["dense", "dense-instanced", "soup"])
+def test_super_test_never_drops_a_pair_the_group_test_passes(meshes, which):
+    """The kernel-rounded group test against the kernel-rounded super test
+    (ops/sweep_bvh.py sphere_test and super_test, csrc/sweep_bvh.cu's
+    arithmetic) on every (ray, group) pair of adversarial rays: no pair
+    that passes its group's test fails its super's. The rays graze group
+    spheres within a few ulps, start inside them, are capped or start a
+    few ulps from a sphere's entry or exit, start up to 3e4 radii away,
+    and some have directions off unit length."""
+    mt = _dense_rows() if which.startswith("dense") else meshes["soup"][0]
+    n_inst = len(SCALE) if which.endswith("instanced") else 0
+    tables = TS.sweep_tables(mt, OFF if n_inst else None,
+                             SCALE if n_inst else None)
+    ng = tables.n_groups
+    sph, sup = tables.sph[:, :ng], tables.sup[:, :-(-ng // TS.SUPER)]
+    o, d, tmin, tmax, target = _adversarial_rays(
+        tables.sph.numpy(), ng, _inst_rows_of(n_inst), 41)
+    passed = failed_super = 0
+    # a tangent ray against its own group: both sides of the boundary
+    tangent = torch.from_numpy(np.arange(len(target)) % 9 < 4)
+    sides = set()
+    for row in tables.inst.view(-1, 4)[1:] if n_inst else tables.inst.view(
+            -1, 4)[:1]:
+        lo, tminl, capl, od, oo = TS.instance_rays(row, o, d, tmin, tmax)
+        ok, _ = TS.sphere_test(sph, lo, d, tminl, capl, od, oo)
+        sok = TS.super_test(sup, lo, d, tminl, capl, od, oo)
+        sok = sok.repeat_interleave(TS.SUPER, dim=1)[:, :ng]
+        passed += int(ok.sum())
+        failed_super += int((ok & ~sok).sum())
+        own = ok[torch.arange(len(target)), torch.from_numpy(target)]
+        sides |= set(own[tangent].tolist())
+    assert failed_super == 0
+    assert passed > len(target) and sides == {False, True}
+    # the supers cull: most (ray, super) pairs fail where the mesh has
+    # several supers
+    if ng > TS.SUPER:
+        assert float(sok.float().mean()) < 0.5
+
+
+@pytest.mark.parametrize("case", ["ragged", "single", "one-group"])
+def test_super_table_shape_and_bounds(case):
+    """`sweep_tables`' super table: [8, Gp / 32]; a ragged last super
+    (n_groups % 32 != 0) and a single super hold only their real groups
+    (the padding columns of sph are ignored; the columns past the last
+    super are zero); each super's test radii bound every member group's
+    sphere (float64), its factor F is at least 1, its slack positive."""
+    rows = {"ragged": lambda: _random_mesh(7, t=70 * TS.GROUP - 50),
+            "single": lambda: _random_mesh(3),
+            "one-group": lambda: _random_mesh(3, t=60)}[case]()
+    mt = np.concatenate([rows[:, 0], rows[:, 1] - rows[:, 0],
+                         rows[:, 2] - rows[:, 0]], 1).astype(np.float32)
+    tables = TS.sweep_tables(mt)
+    ng = tables.n_groups
+    gp = tables.sph.shape[1]
+    n_sup = -(-ng // TS.SUPER)
+    sup = tables.sup.numpy()
+    assert sup.shape == (8, gp // TS.SUPER) and sup.dtype == np.float32
+    assert ng % TS.SUPER != 0 and n_sup == {"ragged": 3, "single": 1,
+                                            "one-group": 1}[case]
+    assert not sup[:, n_sup:].any()
+    sph = tables.sph.numpy().astype(np.float64)
+    for s in range(n_sup):
+        g = np.arange(s * TS.SUPER, min((s + 1) * TS.SUPER, ng))
+        dist = np.linalg.norm(sph[0:3, g].T - sup[0:3, s].astype(np.float64),
+                              axis=1)
+        reach = (dist + sph[5, g]).max()
+        assert reach <= sup[5, s] and reach ** 2 <= sup[4, s], s
+        assert sup[7, s] >= 1 and sup[6, s] > 0
+    # groups past the last are not part of any super
+    junk = tables.sph.numpy().copy()
+    junk[:, ng:] = 1e3
+    np.testing.assert_array_equal(TS.super_spheres(junk, ng), sup)
+
+
+def _packet_keys(tables, o, d, tmin, tmax, two_level):
+    """Per packet of RAYS rays and per instance, each group's packed cull
+    key (entry-distance bits & ~GMASK) | group over the packet's rays past
+    the root test (capped at tmax): by the flat cull (every group against
+    every such ray) or by a plain two-level cull (a group against the rays
+    that pass its super's test)."""
+    ng = tables.n_groups
+    sph = tables.sph[:, :ng]
+    sup = tables.sup[:, :-(-ng // TS.SUPER)]
+    far = int(torch.tensor(float(TS.FAR)).view(torch.int32)) & ~TS.GMASK
+    gid = torch.arange(ng, dtype=torch.int32)
+    inst = tables.inst.view(-1, 4)
+    keys = []
+    for p0 in range(0, o.shape[0], TS.RAYS):
+        q = slice(p0, p0 + TS.RAYS)
+        for i in range(max(tables.n_inst, 1)):
+            row = inst[i + 1] if tables.n_inst else inst[0]
+            lo, tminl, capl, od, oo = TS.instance_rays(row, o[q], d[q],
+                                                       tmin[q], tmax[q])
+            live = TS.root_test(tables.root, lo, d[q], tminl, capl)
+            args = tuple(x[live] for x in (lo, d[q], tminl, capl, od, oo))
+            ok, entry = TS.sphere_test(sph, *args)
+            if two_level:
+                sok = TS.super_test(sup, *args)
+                ok = ok & sok.repeat_interleave(TS.SUPER, dim=1)[:, :ng]
+            bits = (entry.clamp(min=0.0) * row[3]).view(torch.int32) \
+                & ~TS.GMASK
+            key = torch.where(ok, bits, torch.full_like(bits, far))
+            key = (key.amin(0) if key.shape[0] else torch.full_like(gid, far))
+            keys.append(torch.minimum(key, torch.full_like(key, far)) | gid)
+    return torch.stack(keys)
+
+
+@pytest.mark.parametrize("which", ["soup", "instanced", "dense-instanced"])
+def test_two_level_cull_keys_equal_the_flat_cull(meshes, which):
+    """Each packet's group keys from a plain two-level cull (a group
+    tested only for the rays that pass its super) equal the flat cull's,
+    on the sweep tests' rays and on adversarial ones: the scan pops the
+    same groups in the same order."""
+    if which == "dense-instanced":
+        mt, n_inst = _dense_rows(), len(SCALE)
+    else:
+        mt, _, n_inst = meshes[which]
+    tables = TS.sweep_tables(mt, OFF if n_inst else None,
+                             SCALE if n_inst else None)
+    rays = list(map(torch.from_numpy, _rays(mt, n_inst, 23)))
+    adv = _adversarial_rays(tables.sph.numpy(), tables.n_groups,
+                            _inst_rows_of(n_inst), 43, n_groups_hit=40)
+    rays = [torch.cat([a, b]) for a, b in zip(rays, adv[:4])]
+    flat = _packet_keys(tables, *rays, two_level=False)
+    two = _packet_keys(tables, *rays, two_level=True)
+    assert torch.equal(flat, two)
+    far = int(torch.tensor(float(TS.FAR)).view(torch.int32)) & ~TS.GMASK
+    assert int(((flat & ~TS.GMASK) < far).sum()) > 10
 
 
 def test_sweep_checks_its_arguments(meshes):
