@@ -100,8 +100,7 @@ Phases, each printing its result; any failure raises and exits non-zero:
      index_select of the packed state, the un-sort's index_put_ and
      L[argsort(lane)]); the Cornell 512^2 16-spp and bunny 1024^2 4-spp
      frames and the bunny's debug- and stratified-sampler frames against
-     the plain versions' (plain_wave) and the plain glue's (plain_glue),
-     image and stats bit for bit;
+     the plain versions' (plain_wave), image and stats bit for bit;
   2g. the gradient's kernels (ops/shade.py, csrc/shade_grad.cu:
      vertex_backward and grad_reduce; csrc/wave.cu: permute_state_backward
      and unsort_guard_backward): the kernel's tangent table against
@@ -269,15 +268,13 @@ Phases, each printing its result; any failure raises and exits non-zero:
      1-spp wave at 1024^2 split by li_path's record_function ranges
      (module_split: intersect, rng, vertex, occluded, nee_accumulate,
      sort, camera/init, between, end, render()'s frame), replayed and
-     eager, with the kernels, the plain glue, the plain vertex, the plain
-     brute-force casts and the plain casts' set-up and hit reconstruction
-     in turns, each range's replayed operations and device ms by class
+     eager, with the kernels, the plain vertex, the plain brute-force
+     casts and the plain casts' set-up and hit reconstruction in turns,
+     each range's replayed operations and device ms by class
      (scripts/wave_nodes.py: port kernel, argsort, memset, copy, other)
      and the names of the others, and the host's ms per replay in
-     graph._copy_in and graph.wave_key (host_replay_ms); the graphed frame
-     and the profiled replayed 1-spp wave in turns with the plain glue
-     (glue_turns); whether `import triton` works; one {"graph": ...}
-     JSON line.
+     graph._copy_in and graph.wave_key (host_replay_ms); whether `import
+     triton` works; one {"graph": ...} JSON line.
 Phases 4, 7, 11, 12 and 13 count each frame's or gradient forward's
 shade_vertex and nee_accumulate launches beside the others
 (expected_launches, sharded_launches), and phases 11 and 12 their
@@ -291,7 +288,7 @@ ops/wave.py's (wave_launches): one camera_rays a wave on every path, and
 on the fused vertex's route (gradients in the appearance fields
 included) one permute_state per sort between bounces and one
 unsort_guard a wave. Phase 13's module_split adds turns with
-their plain versions (plain_rays) and with the plain glue (plain_glue).
+their plain versions (plain_rays).
 Phases 4, 5, 7, 10, 11 and 12 run render() (and the sharded forward) on
 graphed waves: graph=True, or the default once a graph=True frame has
 captured the key; the recorders of kernel calls (phase 4's wide casts,
@@ -344,7 +341,7 @@ from jet_pbrt_tpu_torch.models.render import DEFAULT_CHUNK, n_waves, render, \
 from jet_pbrt_tpu_torch.ops import brute as brute_ops
 from jet_pbrt_tpu_torch.ops import bsdf as bsdf_ops
 from jet_pbrt_tpu_torch.ops import intersect as isect_ops
-from jet_pbrt_tpu_torch.ops import launches as launch_registry
+from jet_pbrt_tpu_torch.ops import kernels
 from jet_pbrt_tpu_torch.ops import linalg, rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops import rays as rays_ops
 from jet_pbrt_tpu_torch.ops import shade as shade_ops
@@ -1272,7 +1269,7 @@ def vertex_bytes(meta, pack, n: int, lights: int, last: bool) -> int:
 
 
 def count_library():
-    lib = cuda_build.load_library(*COUNT_LIBRARY, shade_ops._declare)
+    lib = kernels.LIBRARIES["shade"].build(*COUNT_LIBRARY[::-1])
     lib.shade_count_ops.argtypes = [ctypes.c_void_p]
     lib.shade_count_ops.restype = ctypes.c_int
     return lib
@@ -1287,13 +1284,9 @@ def counted_ops(fn, n: int, dev):
     counts = torch.zeros((n + 256,), dtype=torch.int64, device=dev)
     if lib.shade_count_ops(counts.data_ptr()) != 0:
         raise AssertionError("the counting build did not take its buffer")
-    inner = shade_ops._library
-    shade_ops._library = lambda: lib
-    try:
-        got, _ = launch_registry.counted_apart(fn)
+    with kernels.substitute(kernels.LIBRARIES["shade"], lib):
+        got, _ = kernels.counted_apart(fn)
         torch.cuda.synchronize()
-    finally:
-        shade_ops._library = inner
     return int(counts.sum()), got
 
 
@@ -2496,28 +2489,6 @@ def plain_wave():
             setattr(wave_ops, name, inner)
 
 
-@contextlib.contextmanager
-def plain_glue():
-    """While open, the wave's glue is the torch code it was before
-    ops/wave.py: the camera's plain version, and on li_path's kernel route
-    integrators._li_path_plain with the fused vertex (the torch fills,
-    bounds, counts, stacks, gathers and un-sort between the kernels; the
-    casts still write their slab rows). A measurement only."""
-    kernels, camera = integrators._li_path_kernels, wave_ops.camera_rays
-
-    def glue(meta, pack, u, max_depth, with_stats, sort_rays, state):
-        return integrators._li_path_plain(
-            meta, pack, state.ray_o, state.ray_d, u, max_depth, False, True,
-            with_stats, sort_rays, True)
-
-    integrators._li_path_kernels = glue
-    wave_ops.camera_rays = wave_ops.camera_rays_plain
-    try:
-        yield
-    finally:
-        integrators._li_path_kernels, wave_ops.camera_rays = kernels, camera
-
-
 def wave_state_rows(x) -> list:
     """A WaveState's rows, or (state, u), or a tensor, as [(name, tensor)]
     with the lanes first (the counters apart, as one row)."""
@@ -2791,25 +2762,21 @@ def wave_edges(scene, dev, sizes=(1, 1000, (1 << 20) + 1)) -> dict:
 def wave_frames(cases, dev) -> None:
     """Each (label, scene, res, spp, keywords) frame, eager, on the glue
     kernels' route against the same frame with ops/wave.py's plain
-    versions (plain_wave) and with the glue as it was before them
-    (plain_glue), image and stats bit for bit."""
+    versions (plain_wave), image and stats bit for bit."""
     for label, scene, res, spp, extra in cases:
         kw = dict(spp=spp, max_depth=VERTEX_DEPTH, seed=0, clamp=False,
                   device=dev, graph=False, with_stats=True, **extra)
         img, st = render(scene, res, res, **kw)
-        for route, ctx in (("plain versions", plain_wave),
-                           ("plain glue", plain_glue)):
-            with ctx():
-                pimg, pst = render(scene, res, res, **kw)
-            if not torch.equal(img, pimg) or st != pst:
-                raise AssertionError(
-                    f"{label}: the frame through ops/wave.py's kernels "
-                    f"differs from the {route}' (max |diff| "
-                    f"{float((img - pimg).abs().max())}, stats {st} vs "
-                    f"{pst})")
+        with plain_wave():
+            pimg, pst = render(scene, res, res, **kw)
+        if not torch.equal(img, pimg) or st != pst:
+            raise AssertionError(
+                f"{label}: the frame through ops/wave.py's kernels differs "
+                f"from the plain versions' (max |diff| "
+                f"{float((img - pimg).abs().max())}, stats {st} vs {pst})")
         print(f"{label} {res}^2 {spp}-spp frame {extra}: ops/wave.py's "
-              f"kernels' image and stats equal the plain versions' and the "
-              f"plain glue's bit for bit ({st['rays']} rays)", flush=True)
+              f"kernels' image and stats equal the plain versions' bit for "
+              f"bit ({st['rays']} rays)", flush=True)
 
 
 def wave_phase(cases, dev, smi: str, time_case: str | None = None) -> dict:
@@ -5854,13 +5821,11 @@ GRAPH_DEPTH = 5
 
 
 # the routes phase 13 splits a wave under, in turns: the kernels, the
-# wave's glue as it was before ops/wave.py (plain_glue), the plain vertex
-# (plain_vertex), the plain brute-force casts (plain_brute), the plain
-# casts' set-up and hit reconstruction (plain_rays)
-SPLIT_TURNS = ("fused", "plain glue", "plain vertex", "plain brute",
-               "plain rays", "plain rays", "plain brute", "plain vertex",
-               "plain glue", "fused")
-SPLIT_ROUTES = {"fused": contextlib.nullcontext, "plain glue": plain_glue,
+# plain vertex (plain_vertex), the plain brute-force casts (plain_brute),
+# the plain casts' set-up and hit reconstruction (plain_rays)
+SPLIT_TURNS = ("fused", "plain vertex", "plain brute", "plain rays",
+               "plain rays", "plain brute", "plain vertex", "fused")
+SPLIT_ROUTES = {"fused": contextlib.nullcontext,
                 "plain vertex": plain_vertex, "plain brute": plain_brute,
                 "plain rays": plain_rays}
 def host_replay_ms(scene, dev, res: int, depth: int, reps: int = 20) -> dict:
@@ -5951,42 +5916,6 @@ def module_split(scene, dev, label: str, res: int, depth: int,
     return out
 
 
-# the wave's glue in turns: the kernels and the glue as it was before
-# ops/wave.py (plain_glue)
-GLUE_TURNS = ("fused", "plain glue", "plain glue", "fused")
-
-
-def glue_turns(scene, dev, label: str, res: int, kw: dict, img, st) -> dict:
-    """The graphed frame (render(graph=True, **kw)) and the profiled
-    replayed 1-spp wave (profile_wave) on the glue kernels' route and on
-    the plain glue's, in GLUE_TURNS, each route capturing its own graphs
-    (the cache is cleared between turns): each frame's image and stats
-    equal to img, st (the kernels' graphed frame) bit for bit. Returns
-    {route: {"frame_s": [...], "wave": [(wall ms, device ms, source)]}}."""
-    out = {route: {"frame_s": [], "wave": []} for route in GLUE_TURNS}
-    for route in GLUE_TURNS:
-        graph_mod.clear()
-        with SPLIT_ROUTES[route]():
-            render(scene, res, res, graph=True, **kw)   # captures
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            got, gst = render(scene, res, res, graph=True, **kw)
-            torch.cuda.synchronize()
-            out[route]["frame_s"].append(time.perf_counter() - t0)
-            if not torch.equal(got, img) or gst != st:
-                raise AssertionError(f"{label}: the graphed frame on route "
-                                     f"{route} differs from the kernels'")
-            out[route]["wave"].append(profile_wave(
-                scene, dev, f"{label} {res}^2 ({route})", res, GRAPH_DEPTH,
-                table=False, graph=True))
-    graph_mod.clear()
-    print(f"{label} {res}^2 graphed frames in turns {GLUE_TURNS}: "
-          + "; ".join(f"{r} {v['frame_s']} s, replayed 1-spp wave (wall, "
-                      f"device ms) {[w[:2] for w in v['wave']]}"
-                      for r, v in out.items()), flush=True)
-    return out
-
-
 def compiled_phase(cases, dev, smi: str) -> dict:
     """render()'s frame with its waves replayed from CUDA graphs (graph=
     True) against the eager frame (graph=False), for each (label, scene,
@@ -6054,7 +5983,6 @@ def compiled_phase(cases, dev, smi: str) -> dict:
         wave = {mode: profile_wave(scene, dev, f"{label} {res}^2", res,
                                    GRAPH_DEPTH, table=graph, graph=graph)
                 for mode, graph in (("graphed", True), ("eager", False))}
-        glue = glue_turns(scene, dev, label, res, kw, gi, gs)
         split = module_split(scene, dev, label, 1024, GRAPH_DEPTH, smi)
         out[label] = {
             "res": res, "spp": spp, "rays": rays, "launches": want,
@@ -6065,7 +5993,7 @@ def compiled_phase(cases, dev, smi: str) -> dict:
             "peak_bytes": {"graphed": peaks[True], "eager": peaks[False]},
             "wave": {m: {"wall_ms": w[0], "device_ms": w[1], "source": w[2]}
                      for m, w in wave.items()},
-            "glue_turns": glue, "modules": split}
+            "modules": split}
         print(f"{label} {res}^2 spp {spp} depth {GRAPH_DEPTH}: graphed frame "
               f"equal to the eager one bit for bit (images and stats), "
               f"launches {want} a frame in both modes; first frame on the "

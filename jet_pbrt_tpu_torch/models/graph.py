@@ -31,7 +31,7 @@ graph: one launch of the whole wave.
   The next replay of the same entry overwrites them: use or clone them
   first.
 - Launch counts: a replay runs no kernel wrapper, so it counts on the
-  wrappers' counters (ops/launches.py) what its graph holds: the graph's
+  wrappers' counters (ops/kernels.py) what its graph holds: the graph's
   kernel nodes, read by device function through the CUDA driver API
   once at capture. The launches the wrappers counted while capturing
   (where nothing ran) are taken back, and must equal the graph's nodes,
@@ -57,7 +57,7 @@ graph: one launch of the whole wave.
   the gradient's), "graph.eager" (a key's call op by op before its
   capture), "graph.capture" (a new entry's warm-up and capture), and per
   replay "graph.copy_in" (the caller's values into the static buffers),
-  "graph.launch" (`replay()`) and "graph.count" (`launches.add`).
+  "graph.launch" (`replay()`) and "graph.count" (`kernels.add`).
 """
 from __future__ import annotations
 
@@ -67,7 +67,7 @@ import time
 
 import torch
 
-from ..ops import launches
+from ..ops import kernels
 from ..utils.log import span
 
 # a frame captures at most two shapes (a short last pixel range, a short
@@ -202,10 +202,10 @@ def _capture(fn, stream, pool=None):
                               capture_error_mode="thread_local"):
             return fn()
 
-    outputs, counted = launches.counted_apart(capture)
+    outputs, counted = kernels.counted_apart(capture)
     graph.instantiate()
     return graph, outputs, replay_launches(
-        counted, launches.kernel_nodes(kernel_names(graph)))
+        counted, kernels.kernel_nodes(kernel_names(graph)))
 
 
 def _warm_up(fn, dev, n: int):
@@ -266,7 +266,7 @@ class CapturedCall:
         with span("graph.launch"):
             self.graph.replay()
         with span("graph.count"):
-            launches.add(self.launches)
+            kernels.add(self.launches)
         return self.outputs
 
     def release(self) -> None:
@@ -332,7 +332,7 @@ class CapturedForwardBackward:
         with span("graph.launch"):
             self.forward_graph.replay()
         with span("graph.count"):
-            launches.add(self.launches["forward"])
+            kernels.add(self.launches["forward"])
         self._taped = True
         return self.outputs.detach()
 
@@ -346,7 +346,7 @@ class CapturedForwardBackward:
         with span("graph.launch"):
             self.backward_graph.replay()
         with span("graph.count"):
-            launches.add(self.launches["backward"])
+            kernels.add(self.launches["backward"])
         return self.grads
 
     def release(self) -> None:

@@ -31,7 +31,8 @@ kernel makes it (models/render.py::wave_fn), shade_vertex writes the next
 cast's bounds and adds to the ray counters, the casts write their rows in
 place into slabs (scene/pack.py::_kind_hits), one permute_state launch
 moves every row at a sort and unsort_guard scatters the colours back to
-their lanes; the other routes keep the torch glue (`_li_path_plain`).
+their lanes; the other routes keep the torch glue and the plain vertex
+(`_li_path_plain`).
 
 Gradients (models/render.py::render_fn): sampled directions, pdfs, light
 sample points, MIS weights and the roulette probability are detached where
@@ -86,27 +87,26 @@ def li_path(meta, pack, o, d, u, max_depth: int, mis: bool = False,
     as in the reference); shadow batches of bounces 0-1 of kernel-routed
     scenes are sorted inside `occluded` either way. init: the state before
     the first cast (ops/wave.py::WaveState, as camera_rays makes it with o
-    and d as its rays), else made here."""
+    and d as its rays), else made here. Where shade.kernel_route allows,
+    the wave runs on the glue kernels' route (_li_path_kernels); every
+    other path takes the torch glue and the plain vertex
+    (_li_path_plain)."""
     if sort_rays is None:
         sort_rays = meta.kernel_routed
-    fused = shade_ops.kernel_route(meta, pack, o, d, nee=nee, mis=mis)
-    if fused:
+    if shade_ops.kernel_route(meta, pack, o, d, nee=nee, mis=mis):
         if init is None:
             init = wave_ops.initial_state_plain(o, d, pack.ray_eps)
         return _li_path_kernels(meta, pack, u, max_depth, with_stats,
                                 sort_rays, init)
     return _li_path_plain(meta, pack, o, d, u, max_depth, mis, nee,
-                          with_stats, sort_rays, fused)
+                          with_stats, sort_rays)
 
 
 def _li_path_plain(meta, pack, o, d, u, max_depth: int, mis: bool,
-                   nee: bool, with_stats: bool, sort_rays: bool,
-                   fused: bool):
-    """li_path in the torch glue it ran before the glue kernels: the
-    route of every path shade.kernel_route refuses (MIS, no NEE, a
-    gradient), with the plain vertex; with fused, the vertex through
-    shade_vertex and nee_accumulate (the wave as it was before
-    ops/wave.py)."""
+                   nee: bool, with_stats: bool, sort_rays: bool):
+    """li_path in torch glue with the plain vertex: the route of every
+    path shade.kernel_route refuses (MIS, no NEE, a gradient outside
+    shade.GRAD_FIELDS), differentiated by autograd op by op."""
     n = o.shape[0]
     dev = o.device
     nl = meta.n_lights
@@ -126,9 +126,7 @@ def _li_path_plain(meta, pack, o, d, u, max_depth: int, mis: bool,
     # original lane of each row, to unsort the film at the end
     lane = torch.arange(n, device=dev)
 
-    lights = (shade_ops.light_table(meta, pack)
-              if fused and dev.type == "cuda" else None)
-    le_env = None if fused else light_ops.env_radiance(meta, pack, n)
+    le_env = light_ops.env_radiance(meta, pack, n)
     # the BVH root spheres of the sort keys' kernel, made once a wave (a
     # captured wave makes them from the pack it replays)
     roots = (rays_ops.root_table(meta, pack)
@@ -156,15 +154,9 @@ def _li_path_plain(meta, pack, o, d, u, max_depth: int, mis: bool,
             with span("li_path.rng"):
                 u_vertex = rng.vertex_uniforms(u, bounce, nl)
         with span("li_path.vertex"):
-            if fused:
-                v = shade_ops.shade_vertex(
-                    meta, pack, hit, state, None if u_vertex is None
-                    else u_vertex.contiguous(), bounce, max_depth,
-                    lights=lights)
-            else:
-                v = shade_ops.shade_vertex_plain(
-                    meta, pack, hit, state, u_vertex, bounce, max_depth,
-                    le_env=le_env, nee=nee, mis=mis)
+            v = shade_ops.shade_vertex_plain(
+                meta, pack, hit, state, u_vertex, bounce, max_depth,
+                le_env=le_env, nee=nee, mis=mis)
         if bounce >= max_depth:
             L = v.state.L
             break
@@ -179,9 +171,8 @@ def _li_path_plain(meta, pack, o, d, u, max_depth: int, mis: bool,
         with span("li_path.nee_accumulate"):
             occ = (torch.stack(occ) if occ
                    else torch.zeros_like(v.useful))
-            accumulate = (shade_ops.nee_accumulate if fused
-                          else shade_ops.nee_accumulate_plain)
-            L = accumulate(v.state.L, v.useful, occ, v.contrib)
+            L = shade_ops.nee_accumulate_plain(v.state.L, v.useful, occ,
+                                               v.contrib)
         L, beta, active, prev_specular, prev_pdf, ray_o, ray_d = \
             v.state._replace(L=L)
 

@@ -27,9 +27,8 @@ import ctypes
 
 import torch
 
-from .intersect import BruteShapes, KindHit, brute_hits_plain, \
-    no_grad_inputs
-from .launches import register
+from . import kernels
+from .intersect import BruteShapes, KindHit, brute_hits_plain
 
 # BruteShapes field -> (its tensors' names, each tensor's shape past the
 # shape count)
@@ -53,28 +52,11 @@ class _BruteArgs(ctypes.Structure):
                 + [("row", ctypes.c_int * 4)])
 
 
-def _library():
-    from ..utils.cuda_build import load_library
-    return load_library("brute", ["brute.cu"], _declare)
-
-
-def _declare(lib):
-    lib.brute_hits.argtypes = [ctypes.POINTER(_BruteArgs), ctypes.c_int,
-                               ctypes.c_void_p]
-    lib.brute_hits.restype = ctypes.c_int
-    lib.brute_args_size.restype = ctypes.c_int
-    if lib.brute_args_size() != ctypes.sizeof(_BruteArgs):
-        raise RuntimeError("csrc/brute.cu and ops/brute.py disagree on the "
-                           "kernel's argument layout")
-
-
-def _check(name, x, shape, dev):
-    if x.dtype != torch.float32 or tuple(x.shape) != tuple(shape) \
-            or not x.is_contiguous() or x.device != dev:
-        raise ValueError(f"{name}: expected a contiguous float32 "
-                         f"{list(shape)} tensor on {dev}, got {x.dtype} "
-                         f"{list(x.shape)} on {x.device}"
-                         + ("" if x.is_contiguous() else ", not contiguous"))
+_LIB = kernels.Library(
+    "brute", ["brute.cu"],
+    {"brute_hits": [ctypes.POINTER(_BruteArgs), ctypes.c_int,
+                    ctypes.c_void_p]},
+    {"brute_args_size": _BruteArgs})
 
 
 def shape_tensors(shapes: BruteShapes) -> dict:
@@ -92,7 +74,7 @@ def check_inputs(o, d, tmin, tmax, shapes: BruteShapes) -> dict:
     dev = o.device
     for name, x, shape in (("o", o, (n, 3)), ("d", d, (n, 3)),
                            ("tmin", tmin, (n,)), ("tmax", tmax, (n,))):
-        _check(name, x, shape, dev)
+        kernels.check(name, x, torch.float32, shape, dev)
     counts = dict.fromkeys(_COUNTS.values(), 0)
     for f in shapes.present:
         xs = getattr(shapes, f)
@@ -104,13 +86,13 @@ def check_inputs(o, d, tmin, tmax, shapes: BruteShapes) -> dict:
             raise ValueError(f"shapes.{f} holds no shape: a kind the scene "
                              "lacks is None")
         for (name, tail), x in zip(spec, xs):
-            _check(name, x, (m, *tail), dev)
+            kernels.check(name, x, torch.float32, (m, *tail), dev)
         counts[_COUNTS[f]] = m
     if n >= 2 ** 31 or any(m >= 2 ** 31 for m in counts.values()):
         raise ValueError("the kernel's int32 ray and shape indices hold "
                          "fewer than 2^31")
-    no_grad_inputs("brute_hits", o=o, d=d, tmin=tmin, tmax=tmax,
-                   **shape_tensors(shapes))
+    kernels.no_grad_inputs("brute_hits", o=o, d=d, tmin=tmin, tmax=tmax,
+                           **shape_tensors(shapes))
     return counts
 
 
@@ -142,6 +124,7 @@ def check_out(out, rows, n: int, kinds: int, any_hit: bool, dev):
     return rows
 
 
+@kernels.wrapper("brute_hits_kernel")
 def brute_hits(o, d, tmin, tmax, shapes: BruteShapes, any_hit: bool,
                out=None, rows=None):
     """`intersect.brute_hits_plain`: one launch of brute_hits_kernel on
@@ -156,18 +139,12 @@ def brute_hits(o, d, tmin, tmax, shapes: BruteShapes, any_hit: bool,
     n = o.shape[0]
     k = 1 if any_hit else len(shapes.present)
     rows = check_out(out, rows, n, k, any_hit, dev)
-    if dev.type == "cpu":
+    if not kernels.route("brute_hits", dev):
         got = brute_hits_plain(o, d, tmin, tmax, shapes, any_hit)
-        if out is None:
-            return got
-        if any_hit:
-            return out.copy_(got)
-        for j, h in zip(rows, got):
-            for slab, x in zip(out, h):
-                slab[j].copy_(x)
-        return [KindHit(*(slab[j] for slab in out)) for j in rows]
-    if dev.type != "cuda":
-        raise ValueError(f"no brute_hits route for device {dev}")
+        if out is None or any_hit:
+            return kernels.copy_out(got, out)
+        return [kernels.copy_out(h, KindHit(*(slab[j] for slab in out)))
+                for j, h in zip(rows, got)]
     if out is None:
         t = torch.empty((0 if any_hit else k, n), dtype=torch.float32,
                         device=dev)
@@ -184,23 +161,13 @@ def brute_hits(o, d, tmin, tmax, shapes: BruteShapes, any_hit: bool,
         ptrs = dict(o=o, d=d, tmin=tmin, tmax=tmax, t=t, index=index,
                     valid=valid, **shape_tensors(shapes))
         for name, x in ptrs.items():
-            setattr(a, name, x.data_ptr() if x is not None and x.numel()
-                    else None)
+            setattr(a, name, kernels.ptr(x))
         for j, r in enumerate(rows):
             a.row[j] = r
-        lib = _library()
-        with torch.cuda.device(dev):
-            err = lib.brute_hits(ctypes.byref(a), int(any_hit),
-                                 torch.cuda.current_stream(dev).cuda_stream)
-        brute_hits.launches += 1
-        if err != 0:
-            raise RuntimeError(f"brute_hits launch failed: CUDA error {err}")
+        kernels.launch(brute_hits, dev, _LIB.load().brute_hits,
+                       ctypes.byref(a), int(any_hit))
     elif any_hit:
         valid.zero_()
     if any_hit:
         return valid if out is not None else valid[0]
     return [KindHit(t=t[j], index=index[j], valid=valid[j]) for j in rows]
-
-
-brute_hits.launches = 0
-register(__name__, "brute_hits", "brute_hits_kernel")

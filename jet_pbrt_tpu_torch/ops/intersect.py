@@ -38,16 +38,6 @@ def check_hit_out(out, n: int, dev) -> None:
                              f"[{n}] tensor on {dev}")
 
 
-def no_grad_inputs(kernel: str, **inputs):
-    """Raise where a traversal kernel's input requires grad: its launch
-    reads raw pointers and has no backward, so the gradient would be lost
-    without a word. The integrators detach every ray they cast."""
-    bad = [k for k, x in inputs.items() if x.requires_grad]
-    if bad:
-        raise ValueError(f"{kernel}: {', '.join(bad)} require grad, and the "
-                         "kernel has no backward; detach them")
-
-
 def _closest_mn(t_mn: torch.Tensor, valid_mn: torch.Tensor) -> KindHit:
     """Reduce [M, N] candidates to the per-ray closest; ties go to the
     lowest shape index, like jnp.argmin."""

@@ -44,8 +44,8 @@ import math
 import torch
 
 from . import sort as sort_ops
-from .intersect import no_grad_inputs
-from .launches import register
+from . import kernels
+from .kernels import check, ptr
 from .linalg import dot
 
 # csrc/rays.cu's kind ids (scene/pack.py's KIND_*)
@@ -114,65 +114,14 @@ class _HitArgs(ctypes.Structure):
                     "wo", "uv", "mat_id", "light_id")])
 
 
-_ARGS = {"rays_key_args_size": _KeyArgs,
-         "rays_segments_args_size": _SegArgs,
-         "rays_merge_args_size": _MergeArgs,
-         "rays_hit_args_size": _HitArgs}
-
-
-def _library():
-    from ..utils.cuda_build import load_library
-    return load_library("rays", ["rays.cu"], _declare)
-
-
-def _declare(lib):
-    lib.shadow_key.argtypes = [ctypes.POINTER(_KeyArgs), ctypes.c_int,
-                               ctypes.c_void_p]
-    for name, args in (("shadow_segments", _SegArgs),
-                       ("occlusion_merge", _MergeArgs),
-                       ("hit_reconstruct", _HitArgs)):
-        getattr(lib, name).argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
-    for name in ("shadow_key", "shadow_segments", "occlusion_merge",
-                 "hit_reconstruct"):
-        getattr(lib, name).restype = ctypes.c_int
-    for name, args in _ARGS.items():
-        getattr(lib, name).restype = ctypes.c_int
-        if getattr(lib, name)() != ctypes.sizeof(args):
-            raise RuntimeError("csrc/rays.cu and ops/rays.py disagree on "
-                               f"the layout of {args.__name__}")
-
-
-def _check(name, x, dtype, shape, dev):
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
-            or not x.is_contiguous() or x.device != dev:
-        raise ValueError(f"{name}: expected a contiguous {dtype} "
-                         f"{list(shape)} tensor on {dev}, got {x.dtype} "
-                         f"{list(x.shape)} on {x.device}"
-                         + ("" if x.is_contiguous() else ", not contiguous"))
-
-
-def _route(name: str, dev, **inputs) -> bool:
-    """True where `name` launches its kernel (a CUDA device), False on the
-    CPU (the plain version); raises on another device and, on the card,
-    where an input requires grad."""
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"no {name} route for device {dev}")
-    no_grad_inputs(name, **{k: x for k, x in inputs.items()
-                            if x is not None})
-    return True
-
-
-def _ptr(x):
-    return None if x is None or not x.numel() else x.data_ptr()
-
-
-def _launch(name: str, fn, *args) -> None:
-    dev = torch.cuda.current_device()
-    err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+_LIB = kernels.Library(
+    "rays", ["rays.cu"],
+    {"shadow_key": [ctypes.POINTER(_KeyArgs), ctypes.c_int, ctypes.c_void_p],
+     **{name: [ctypes.POINTER(args), ctypes.c_void_p] for name, args in (
+         ("shadow_segments", _SegArgs), ("occlusion_merge", _MergeArgs),
+         ("hit_reconstruct", _HitArgs))}},
+    {"rays_key_args_size": _KeyArgs, "rays_segments_args_size": _SegArgs,
+     "rays_merge_args_size": _MergeArgs, "rays_hit_args_size": _HitArgs})
 
 
 def _slab(xs) -> torch.Tensor:
@@ -285,31 +234,26 @@ def root_table(meta, pack) -> torch.Tensor:
 # the wrappers
 # --------------------------------------------------------------------------
 
-def _check_lanes(n: int) -> None:
-    if n >= 2 ** 31:
-        raise ValueError("the kernels' int32 lane index holds fewer than "
-                         "2^31 lanes")
-
-
 def check_key_inputs(pack, a, b, live, bounce: bool, dev) -> int:
     """Raise unless shadow_key_kernel can take the inputs: a, b contiguous
     float32 [N,3], live a contiguous bool [N] (or None where not bounce),
     the pack's ray_eps, world_center and world_radius float32 of their
     shapes, all on dev. Returns N."""
     n = a.shape[0] if a.dim() == 2 else -1
-    _check("a", a, torch.float32, (n, 3), dev)
-    _check("b", b, torch.float32, (n, 3), dev)
+    check("a", a, torch.float32, (n, 3), dev)
+    check("b", b, torch.float32, (n, 3), dev)
     if live is None and bounce:
         raise ValueError("shadow_key: bounce=True takes the active lanes")
     if live is not None:
-        _check("live", live, torch.bool, (n,), dev)
-    _check("pack.ray_eps", pack.ray_eps, torch.float32, (), dev)
-    _check("pack.world_center", pack.world_center, torch.float32, (3,), dev)
-    _check("pack.world_radius", pack.world_radius, torch.float32, (), dev)
-    _check_lanes(n)
+        check("live", live, torch.bool, (n,), dev)
+    check("pack.ray_eps", pack.ray_eps, torch.float32, (), dev)
+    check("pack.world_center", pack.world_center, torch.float32, (3,), dev)
+    check("pack.world_radius", pack.world_radius, torch.float32, (), dev)
+    kernels.check_lanes(n)
     return n
 
 
+@kernels.wrapper("shadow_key_kernel")
 def shadow_key(meta, pack, a, b, live=None, bounce: bool = False,
                roots=None):
     """`shadow_key_plain`: one launch of shadow_key_kernel<bounce> on CUDA
@@ -317,31 +261,24 @@ def shadow_key(meta, pack, a, b, live=None, bounce: bool = False,
     the [R, 4] `root_table`, made here where None), the plain version on
     CPU tensors."""
     dev = a.device
-    if not _route("shadow_key", dev, a=a, b=b, ray_eps=pack.ray_eps,
-                  world_center=pack.world_center,
-                  world_radius=pack.world_radius, roots=roots):
+    if not kernels.route("shadow_key", dev, a=a, b=b, ray_eps=pack.ray_eps,
+                         world_center=pack.world_center,
+                         world_radius=pack.world_radius, roots=roots):
         return shadow_key_plain(meta, pack, a, b, live, bounce, roots)
     n = check_key_inputs(pack, a, b, live, bounce, dev)
     if roots is None:
         roots = root_table(meta, pack)
-        no_grad_inputs("shadow_key", roots=roots)
-    _check("roots", roots, torch.float32, (roots.shape[0], 4), dev)
+        kernels.no_grad_inputs("shadow_key", roots=roots)
+    check("roots", roots, torch.float32, (roots.shape[0], 4), dev)
     key = torch.empty((n,), dtype=torch.int32, device=dev)
-    args = _KeyArgs(n=n, n_roots=roots.shape[0], a=_ptr(a), b=_ptr(b),
-                    live=_ptr(live), ray_eps=_ptr(pack.ray_eps),
-                    center=_ptr(pack.world_center),
-                    radius=_ptr(pack.world_radius), roots=_ptr(roots),
-                    key=_ptr(key))
-    lib = _library()
-    with torch.cuda.device(dev):
-        _launch("shadow_key", lib.shadow_key, ctypes.byref(args),
-                int(bounce))
-    shadow_key.launches += 1
+    args = _KeyArgs(n=n, n_roots=roots.shape[0], a=ptr(a), b=ptr(b),
+                    live=ptr(live), ray_eps=ptr(pack.ray_eps),
+                    center=ptr(pack.world_center),
+                    radius=ptr(pack.world_radius), roots=ptr(roots),
+                    key=ptr(key))
+    kernels.launch(shadow_key, dev, _LIB.load().shadow_key, ctypes.byref(args),
+                   int(bounce))
     return key
-
-
-shadow_key.launches = 0
-register(__name__, "shadow_key", "shadow_key_kernel")
 
 
 def check_segment_inputs(pack, p_from, p_to, mask, perm, dev) -> int:
@@ -349,43 +286,38 @@ def check_segment_inputs(pack, p_from, p_to, mask, perm, dev) -> int:
     p_to contiguous float32 [N,3], mask bool [N] or None, perm int64 [N]
     or None, the pack's ray_eps a float32 scalar, all on dev. Returns N."""
     n = p_from.shape[0] if p_from.dim() == 2 else -1
-    _check("p_from", p_from, torch.float32, (n, 3), dev)
-    _check("p_to", p_to, torch.float32, (n, 3), dev)
+    check("p_from", p_from, torch.float32, (n, 3), dev)
+    check("p_to", p_to, torch.float32, (n, 3), dev)
     if mask is not None:
-        _check("mask", mask, torch.bool, (n,), dev)
+        check("mask", mask, torch.bool, (n,), dev)
     if perm is not None:
-        _check("perm", perm, torch.int64, (n,), dev)
-    _check("pack.ray_eps", pack.ray_eps, torch.float32, (), dev)
-    _check_lanes(n)
+        check("perm", perm, torch.int64, (n,), dev)
+    check("pack.ray_eps", pack.ray_eps, torch.float32, (), dev)
+    kernels.check_lanes(n)
     return n
 
 
+@kernels.wrapper("shadow_segments_kernel")
 def shadow_segments(pack, p_from, p_to, mask=None, perm=None):
     """`shadow_segments_plain`: one launch of shadow_segments_kernel on
     CUDA tensors (p_from, p_to [N,3] float32, mask [N] bool or None, perm
     [N] int64 or None), the plain version on CPU tensors."""
     dev = p_from.device
-    if not _route("shadow_segments", dev, p_from=p_from, p_to=p_to,
-                  ray_eps=pack.ray_eps):
+    if not kernels.route("shadow_segments", dev, p_from=p_from, p_to=p_to,
+                         ray_eps=pack.ray_eps):
         return shadow_segments_plain(pack, p_from, p_to, mask, perm)
     n = check_segment_inputs(pack, p_from, p_to, mask, perm, dev)
     o = torch.empty((n, 3), dtype=torch.float32, device=dev)
     d = torch.empty_like(o)
     tmin = torch.empty((n,), dtype=torch.float32, device=dev)
     tmax = torch.empty_like(tmin)
-    args = _SegArgs(n=n, p_from=_ptr(p_from), p_to=_ptr(p_to),
-                    mask=_ptr(mask), perm=_ptr(perm),
-                    ray_eps=_ptr(pack.ray_eps), o=_ptr(o), d=_ptr(d),
-                    tmin=_ptr(tmin), tmax=_ptr(tmax))
-    lib = _library()
-    with torch.cuda.device(dev):
-        _launch("shadow_segments", lib.shadow_segments, ctypes.byref(args))
-    shadow_segments.launches += 1
+    args = _SegArgs(n=n, p_from=ptr(p_from), p_to=ptr(p_to),
+                    mask=ptr(mask), perm=ptr(perm),
+                    ray_eps=ptr(pack.ray_eps), o=ptr(o), d=ptr(d),
+                    tmin=ptr(tmin), tmax=ptr(tmax))
+    kernels.launch(shadow_segments, dev, _LIB.load().shadow_segments,
+                   ctypes.byref(args))
     return o, d, tmin, tmax
-
-
-shadow_segments.launches = 0
-register(__name__, "shadow_segments", "shadow_segments_kernel")
 
 
 def check_merge_inputs(flags, perm, dev) -> int:
@@ -397,13 +329,14 @@ def check_merge_inputs(flags, perm, dev) -> int:
                          "to merge")
     n = flags[0].shape[0] if flags[0].dim() == 1 else -1
     for j, f in enumerate(flags):
-        _check(f"flags[{j}]", f, torch.bool, (n,), dev)
+        check(f"flags[{j}]", f, torch.bool, (n,), dev)
     if perm is not None:
-        _check("perm", perm, torch.int64, (n,), dev)
-    _check_lanes(n)
+        check("perm", perm, torch.int64, (n,), dev)
+    kernels.check_lanes(n)
     return n
 
 
+@kernels.wrapper("occlusion_merge_kernel")
 def occlusion_merge(flags, perm=None, out=None):
     """`occlusion_merge_plain`: one launch of occlusion_merge_kernel on
     CUDA tensors (flags: one or more [N] bool, as one [F, N] slab; perm
@@ -415,26 +348,19 @@ def occlusion_merge(flags, perm=None, out=None):
                          "to merge")
     dev = flags[0].device
     if out is not None:
-        _check("out", out, torch.bool, (flags[0].shape[0],), dev)
-    if not _route("occlusion_merge", dev,
-                  **{f"flags[{j}]": f for j, f in enumerate(flags)}):
-        got = occlusion_merge_plain(flags, perm)
-        return got if out is None else out.copy_(got)
+        check("out", out, torch.bool, (flags[0].shape[0],), dev)
+    if not kernels.route("occlusion_merge", dev,
+                         **{f"flags[{j}]": f for j, f in enumerate(flags)}):
+        return kernels.copy_out(occlusion_merge_plain(flags, perm), out)
     n = check_merge_inputs(flags, perm, dev)
     slab = _slab(flags)
     if out is None:
         out = torch.empty((n,), dtype=torch.bool, device=dev)
-    args = _MergeArgs(n=n, n_flags=len(flags), flags=_ptr(slab),
-                      perm=_ptr(perm), out=_ptr(out))
-    lib = _library()
-    with torch.cuda.device(dev):
-        _launch("occlusion_merge", lib.occlusion_merge, ctypes.byref(args))
-    occlusion_merge.launches += 1
+    args = _MergeArgs(n=n, n_flags=len(flags), flags=ptr(slab),
+                      perm=ptr(perm), out=ptr(out))
+    kernels.launch(occlusion_merge, dev, _LIB.load().occlusion_merge,
+                   ctypes.byref(args))
     return out
-
-
-occlusion_merge.launches = 0
-register(__name__, "occlusion_merge", "occlusion_merge_kernel")
 
 
 def _used_tables(kinds, tables: dict, families: list, want_uv: bool):
@@ -469,22 +395,22 @@ def check_hit_inputs(o, d, hits, kinds, tables, families, want_uv,
     (_used_tables) each a contiguous tensor of its dtype on dev with at
     least one row of its width. Returns (N, {name: table it reads})."""
     n = o.shape[0] if o.dim() == 2 else -1
-    _check("o", o, torch.float32, (n, 3), dev)
-    _check("d", d, torch.float32, (n, 3), dev)
+    check("o", o, torch.float32, (n, 3), dev)
+    check("d", d, torch.float32, (n, 3), dev)
     if not hits or len(hits) != len(kinds):
         raise ValueError(f"hit_reconstruct: one or more kinds, one id "
                          f"each; got {len(hits)} hits, {len(kinds)} ids")
     for j, h in enumerate(hits):
-        _check(f"hits[{j}].t", h.t, torch.float32, (n,), dev)
-        _check(f"hits[{j}].index", h.index, torch.int32, (n,), dev)
+        check(f"hits[{j}].t", h.t, torch.float32, (n,), dev)
+        check(f"hits[{j}].index", h.index, torch.int32, (n,), dev)
     used = _used_tables(kinds, tables, families, want_uv)
     for name, dtype, w, x in used:
         rows = x.shape[0] if x.dim() else 0
         if rows == 0 or x.numel() != rows * w:
             raise ValueError(f"{name}: expected rows of {w} values, at "
                              f"least one, got {list(x.shape)}")
-        _check(name, x, dtype, tuple(x.shape), dev)
-    _check_lanes(n)
+        check(name, x, dtype, tuple(x.shape), dev)
+    kernels.check_lanes(n)
     return n, {name: x for name, *_, x in used}
 
 
@@ -524,6 +450,7 @@ def hit_table(kinds, families: list, used: dict, dev) -> torch.Tensor:
     return _HIT_TABLE_CACHE[key]
 
 
+@kernels.wrapper("hit_reconstruct_kernel")
 def hit_reconstruct(o, d, hits, kinds, tables: dict, families: list,
                     want_uv: bool) -> tuple:
     """One launch of hit_reconstruct_kernel on CUDA tensors: the closest
@@ -536,14 +463,14 @@ def hit_reconstruct(o, d, hits, kinds, tables: dict, families: list,
     version is scene/pack.py::hit_reconstruct_plain, which that module's
     hit_reconstruct takes on CPU tensors; any other device raises here."""
     dev = o.device
-    if dev.type != "cuda":
-        raise ValueError(f"no hit_reconstruct kernel for device {dev}: "
-                         "the plain version is scene/pack.py's")
+    if not kernels.route("hit_reconstruct", dev):
+        raise ValueError("no hit_reconstruct kernel for device cpu: the "
+                         "plain version is scene/pack.py's")
     n, used = check_hit_inputs(o, d, hits, kinds, tables, families,
                                want_uv, dev)
-    no_grad_inputs("hit_reconstruct", o=o, d=d,
-                   **{f"hits[{j}].t": h.t for j, h in enumerate(hits)},
-                   **used)
+    kernels.no_grad_inputs("hit_reconstruct", o=o, d=d,
+                           **{f"hits[{j}].t": h.t for j, h in enumerate(hits)},
+                           **used)
     kt = _slab([h.t for h in hits])
     ki = _slab([h.index for h in hits])
     table = hit_table(kinds, families, used, dev)
@@ -557,16 +484,11 @@ def hit_reconstruct(o, d, hits, kinds, tables: dict, families: list,
            torch.empty((n,), dtype=torch.int32, device=dev),
            torch.empty((n,), dtype=torch.int32, device=dev))
     args = _HitArgs(n=n, n_kinds=len(hits), want_uv=int(want_uv),
-                    o=_ptr(o), d=_ptr(d), kt=_ptr(kt), ki=_ptr(ki),
-                    table=_ptr(table),
+                    o=ptr(o), d=ptr(d), kt=ptr(kt), ki=ptr(ki),
+                    table=ptr(table),
                     **dict(zip(("valid", "t", "pos", "nrm", "wo", "uv",
-                                "mat_id", "light_id"), map(_ptr, out))))
-    lib = _library()
-    with torch.cuda.device(dev):
-        _launch("hit_reconstruct", lib.hit_reconstruct, ctypes.byref(args))
-    hit_reconstruct.launches += 1
+                                "mat_id", "light_id"), map(ptr, out))))
+    kernels.launch(hit_reconstruct, dev, _LIB.load().hit_reconstruct,
+                   ctypes.byref(args))
     return out
 
-
-hit_reconstruct.launches = 0
-register(__name__, "hit_reconstruct", "hit_reconstruct_kernel")

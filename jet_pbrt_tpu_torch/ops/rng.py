@@ -36,13 +36,13 @@ u: [N, max_depth+1, S] (the debug sampler's, or a test's injected draws).
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import NamedTuple
 
 import torch
 
-from .launches import register
+from . import kernels
+from .kernels import INT, PTR, U32
 
 PURPOSE_CAMERA = 0
 PURPOSE_PATH_BASE = 16
@@ -92,26 +92,12 @@ def threefry2x32(k0, k1, c0, c1):
     return x0, x1
 
 
-def _check(name, x, dtype, n, device):
-    if x.dtype != dtype or x.dim() != 1 or x.shape[0] != n \
-            or not x.is_contiguous() or x.device != device:
-        raise ValueError(f"{name}: expected a contiguous {dtype} [{n}] tensor "
-                         f"on {device}")
+_LIB = kernels.Library("threefry", ["threefry.cu"], {
+    "threefry_lane_keys": [U32, PTR, PTR, INT, PTR, PTR, PTR],
+    "threefry_uniforms": [PTR, PTR, INT, U32, INT, PTR, PTR]})
 
 
-def _library():
-    from ..utils.cuda_build import load_library
-    return load_library("threefry", ["threefry.cu"], _declare)
-
-
-def _declare(lib):
-    vp, ci, cu = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.threefry_lane_keys.argtypes = [cu, vp, vp, ci, vp, vp, vp]
-    lib.threefry_lane_keys.restype = ci
-    lib.threefry_uniforms.argtypes = [vp, vp, ci, cu, ci, vp, vp]
-    lib.threefry_uniforms.restype = ci
-
-
+@kernels.wrapper("lane_keys_kernel")
 def lane_keys(seed: int, sample, pixel_ids: torch.Tensor) -> LaneKeys:
     """One key per lane, fold_in(fold_in(key(seed), sample), pixel).
     sample: an int or an [N] tensor of global sample indices; pixel_ids:
@@ -123,31 +109,19 @@ def lane_keys(seed: int, sample, pixel_ids: torch.Tensor) -> LaneKeys:
             pixel.shape).contiguous()
     else:   # made on the device: a host copy would break a CUDA graph
         sample = torch.full_like(pixel, int(sample))
-    if pixel.device.type == "cpu":
+    # the refusal of an input that requires grad is moot: integer inputs
+    if not kernels.route("lane_keys", pixel.device):
         return lane_keys_plain(seed, sample, pixel)
-    if pixel.device.type != "cuda":
-        raise ValueError(f"no lane_keys route for device {pixel.device}")
     if pixel.dim() != 1:
         raise ValueError("pixel_ids: expected a [N] tensor")
     n = pixel.shape[0]
     k0 = torch.empty((n,), dtype=torch.int32, device=pixel.device)
     k1 = torch.empty_like(k0)
     if n:
-        lib = _library()
-        with torch.cuda.device(pixel.device):
-            err = lib.threefry_lane_keys(
-                int(seed) & _MASK, sample.data_ptr(), pixel.data_ptr(), n,
-                k0.data_ptr(), k1.data_ptr(),
-                torch.cuda.current_stream(pixel.device).cuda_stream)
-        lane_keys.launches += 1
-        if err != 0:
-            raise RuntimeError(f"threefry lane_keys launch failed: CUDA error "
-                               f"{err}")
+        kernels.launch(lane_keys, pixel.device, _LIB.load().threefry_lane_keys,
+                       int(seed) & _MASK, sample.data_ptr(), pixel.data_ptr(),
+                       n, k0.data_ptr(), k1.data_ptr())
     return LaneKeys(k0, k1, sample)
-
-
-lane_keys.launches = 0
-register(__name__, "lane_keys", "lane_keys_kernel")
 
 
 def lane_keys_plain(seed: int, sample: torch.Tensor,
@@ -160,35 +134,23 @@ def lane_keys_plain(seed: int, sample: torch.Tensor,
     return LaneKeys(_i32(k0), _i32(k1), sample)
 
 
+@kernels.wrapper("uniforms_kernel")
 def uniforms(keys: LaneKeys, purpose: int, n: int) -> torch.Tensor:
     """[N, n] float32 uniforms in [0, 1): jax.random.uniform(fold_in(key,
     purpose), (n,)) of every lane. The kernel for CUDA tensors,
     `uniforms_plain` for CPU tensors."""
     dev = keys.k0.device
-    if dev.type == "cpu":
+    if not kernels.route("uniforms", dev):
         return uniforms_plain(keys, purpose, n)
-    if dev.type != "cuda":
-        raise ValueError(f"no uniforms route for device {dev}")
     lanes = keys.k0.shape[0]
-    _check("k0", keys.k0, torch.int32, lanes, dev)
-    _check("k1", keys.k1, torch.int32, lanes, dev)
+    kernels.check("k0", keys.k0, torch.int32, (lanes,), dev)
+    kernels.check("k1", keys.k1, torch.int32, (lanes,), dev)
     out = torch.empty((lanes, n), dtype=torch.float32, device=dev)
     if lanes and n:
-        lib = _library()
-        with torch.cuda.device(dev):
-            err = lib.threefry_uniforms(
-                keys.k0.data_ptr(), keys.k1.data_ptr(), lanes,
-                int(purpose) & _MASK, n, out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
-        uniforms.launches += 1
-        if err != 0:
-            raise RuntimeError(f"threefry uniforms launch failed: CUDA error "
-                               f"{err}")
+        kernels.launch(uniforms, dev, _LIB.load().threefry_uniforms,
+                       keys.k0.data_ptr(), keys.k1.data_ptr(), lanes,
+                       int(purpose) & _MASK, n, out.data_ptr())
     return out
-
-
-uniforms.launches = 0
-register(__name__, "uniforms", "uniforms_kernel")
 
 
 def uniforms_plain(keys: LaneKeys, purpose: int, n: int) -> torch.Tensor:

@@ -57,8 +57,8 @@ from . import bsdf as bsdf_ops
 from . import lights as light_ops
 from . import microfacet as mf
 from . import rng
-from .intersect import no_grad_inputs
-from .launches import register
+from . import kernels
+from .kernels import INT, PTR, check
 from .linalg import PI, absdot, frame_from_z, is_black, length, cross, \
     max_component, to_local, to_world
 from .sampling import power_heuristic
@@ -430,38 +430,11 @@ class _ShadeArgs(ctypes.Structure):
                 + [(k, ctypes.c_void_p) for k in _PTRS])
 
 
-def _library():
-    from ..utils.cuda_build import load_library
-    return load_library("shade", ["shade.cu"], _declare)
-
-
-def _declare(lib):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.shade_vertex.argtypes = [ctypes.POINTER(_ShadeArgs), vp]
-    lib.shade_vertex.restype = ci
-    lib.nee_accumulate.argtypes = [vp, vp, vp, vp, ci, ci, vp, vp]
-    lib.nee_accumulate.restype = ci
-    for name in ("shade_args_size", "shade_table_width"):
-        getattr(lib, name).restype = ci
-    if (lib.shade_args_size(), lib.shade_table_width()) != (
-            ctypes.sizeof(_ShadeArgs), TABLE_W):
-        raise RuntimeError("csrc/shade.cu and ops/shade.py disagree on the "
-                           "kernel's argument layout")
-
-
-def _check(name, x, dtype, shape, dev):
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
-            or not x.is_contiguous() or x.device != dev:
-        raise ValueError(f"{name}: expected a contiguous {dtype} "
-                         f"{list(shape)} tensor on {dev}, got {x.dtype} "
-                         f"{list(x.shape)} on {x.device}"
-                         + ("" if x.is_contiguous() else ", not contiguous"))
-
-
-def _table_check(name, x, dtype, dev):
-    if x.dtype != dtype or not x.is_contiguous() or x.device != dev:
-        raise ValueError(f"pack.{name}: expected a contiguous {dtype} tensor "
-                         f"on {dev}")
+_LIB = kernels.Library(
+    "shade", ["shade.cu"],
+    {"shade_vertex": [ctypes.POINTER(_ShadeArgs), PTR],
+     "nee_accumulate": [PTR, PTR, PTR, PTR, INT, INT, PTR, PTR]},
+    {"shade_args_size": _ShadeArgs, "shade_table_width": TABLE_W})
 
 
 def _mf_mode(kinds) -> int:
@@ -502,7 +475,7 @@ def check_vertex_inputs(meta, pack, hit, state: VertexState, u_vertex,
            "ray_o": (state.ray_o, f32, (n, 3)),
            "ray_d": (state.ray_d, f32, (n, 3))}
     for name, (x, dtype, shape) in ins.items():
-        _check(name, x, dtype, shape, dev)
+        check(name, x, dtype, shape, dev)
     if bounce < max_depth:
         s = 4 + 2 * meta.n_lights
         if u_vertex.dtype != f32 or tuple(u_vertex.shape) != (n, s) \
@@ -514,14 +487,15 @@ def check_vertex_inputs(meta, pack, hit, state: VertexState, u_vertex,
                              f"strides {u_vertex.stride()} on "
                              f"{u_vertex.device}")
         ins["u_vertex"] = (u_vertex, f32, (n, s))
-    _check("pack.ray_eps", pack.ray_eps, f32, (), dev)
+    check("pack.ray_eps", pack.ray_eps, f32, (), dev)
     if counts is not None:
-        _check("counts", counts, torch.int64, (4,), dev)
+        check("counts", counts, torch.int64, (4,), dev)
     for name, dtype in _TABLES.items():
-        _table_check(name, getattr(pack, name), dtype, dev)
-    no_grad_inputs("shade_vertex", **{k.replace(".", "_"): v[0]
-                                      for k, v in ins.items()},
-                   **{k: getattr(pack, k) for k in _TABLES})
+        check(f"pack.{name}", getattr(pack, name), dtype, None, dev)
+    kernels.no_grad_inputs("shade_vertex",
+                           **{k.replace(".", "_"): v[0]
+                              for k, v in ins.items()},
+                           **{k: getattr(pack, k) for k in _TABLES})
 
 
 def check_accumulate_inputs(L, useful, occ, contrib, dev) -> int:
@@ -530,11 +504,11 @@ def check_accumulate_inputs(L, useful, occ, contrib, dev) -> int:
     tape; returns J."""
     n = L.shape[0]
     j = useful.shape[0] if useful.dim() == 2 else -1
-    _check("L", L, torch.float32, (n, 3), dev)
-    _check("useful", useful, torch.bool, (j, n), dev)
-    _check("occ", occ, torch.bool, (j, n), dev)
-    _check("contrib", contrib, torch.float32, (j, n, 3), dev)
-    no_grad_inputs("nee_accumulate", L=L, contrib=contrib)
+    check("L", L, torch.float32, (n, 3), dev)
+    check("useful", useful, torch.bool, (j, n), dev)
+    check("occ", occ, torch.bool, (j, n), dev)
+    check("contrib", contrib, torch.float32, (j, n, 3), dev)
+    kernels.no_grad_inputs("nee_accumulate", L=L, contrib=contrib)
     return j
 
 
@@ -578,15 +552,16 @@ def _check_lights(meta, lights: LightTable, dev) -> int:
     """Raise unless the light table's tensors are contiguous, of their
     dtype and shape, on dev; returns the NEE lights' count."""
     n_nee = sum(not lm.static_black for lm in meta.lights)
-    _check("lights.rows", lights.rows, torch.float32, (n_nee, TABLE_W), dev)
-    _check("lights.statics", lights.statics, torch.int32, (n_nee, STATIC_W),
-           dev)
-    _check("lights.em", lights.em, torch.float32, (lights.em.shape[0], EM_W),
-           dev)
-    _check("lights.le_env", lights.le_env, torch.float32, (3,), dev)
+    check("lights.rows", lights.rows, torch.float32, (n_nee, TABLE_W), dev)
+    check("lights.statics", lights.statics, torch.int32, (n_nee, STATIC_W),
+          dev)
+    check("lights.em", lights.em, torch.float32, (lights.em.shape[0], EM_W),
+          dev)
+    check("lights.le_env", lights.le_env, torch.float32, (3,), dev)
     return n_nee
 
 
+@kernels.wrapper("shade_vertex_kernel")
 def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
                  max_depth: int, *, lights: LightTable | None = None,
                  counts=None) -> Vertex:
@@ -596,11 +571,9 @@ def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
     counters, which the kernel adds to in place and returns), the plain
     version on CPU tensors."""
     dev = state.L.device
-    if dev.type == "cpu":
+    if not kernels.route("shade_vertex", dev):
         return shade_vertex_plain(meta, pack, hit, state, u_vertex, bounce,
                                   max_depth, counts=counts)
-    if dev.type != "cuda":
-        raise ValueError(f"no shade_vertex route for device {dev}")
     check_vertex_inputs(meta, pack, hit, state, u_vertex, bounce, max_depth,
                         dev, counts)
     n = state.L.shape[0]
@@ -638,47 +611,27 @@ def shade_vertex(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
                         pdf_out=pdf_out, o_out=o_out, d_out=d_out,
                         useful=useful, contrib=contrib, shadow_to=shadow_to,
                         tmin_out=tmin, tmax_out=tmax, counts=counts))
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.shade_vertex(ctypes.byref(a),
-                               torch.cuda.current_stream(dev).cuda_stream)
-    shade_vertex.launches += 1
-    if err != 0:
-        raise RuntimeError(f"shade_vertex launch failed: CUDA error {err}")
+    kernels.launch(shade_vertex, dev, _LIB.load().shade_vertex,
+                   ctypes.byref(a))
     return Vertex(VertexState(L_out, beta_out, active_out, spec_out, pdf_out,
                               o_out, d_out), useful, contrib, shadow_to,
                   tmin, tmax, counts)
 
 
-shade_vertex.launches = 0
-register(__name__, "shade_vertex", "shade_vertex_kernel")
-
-
+@kernels.wrapper("nee_accumulate_kernel")
 def nee_accumulate(L, useful, occ, contrib):
     """`nee_accumulate_plain`: one launch of nee_accumulate_kernel on CUDA
     tensors for all lights, the plain version on CPU tensors."""
     dev = L.device
-    if dev.type == "cpu":
+    if not kernels.route("nee_accumulate", dev):
         return nee_accumulate_plain(L, useful, occ, contrib)
-    if dev.type != "cuda":
-        raise ValueError(f"no nee_accumulate route for device {dev}")
     j = check_accumulate_inputs(L, useful, occ, contrib, dev)
     n = L.shape[0]
     out = torch.empty_like(L)
-    lib = _library()
-    with torch.cuda.device(dev):
-        err = lib.nee_accumulate(L.data_ptr(), useful.data_ptr(),
-                                 occ.data_ptr(), contrib.data_ptr(), n, j,
-                                 out.data_ptr(),
-                                 torch.cuda.current_stream(dev).cuda_stream)
-    nee_accumulate.launches += 1
-    if err != 0:
-        raise RuntimeError(f"nee_accumulate launch failed: CUDA error {err}")
+    kernels.launch(nee_accumulate, dev, _LIB.load().nee_accumulate,
+                   L.data_ptr(), useful.data_ptr(), occ.data_ptr(),
+                   contrib.data_ptr(), n, j, out.data_ptr())
     return out
-
-
-nee_accumulate.launches = 0
-register(__name__, "nee_accumulate", "nee_accumulate_kernel")
 
 
 # --------------------------------------------------------------------------
@@ -750,35 +703,22 @@ def backward_sets(meta) -> tuple:
     return tuple(i for i, ls in enumerate(_SET_LOBES) if lobes & ls)
 
 
-def _grad_library():
-    from ..utils.cuda_build import load_library
-    return load_library("shade_grad", ["shade_grad.cu"], _declare_grad)
-
-
-def _declare_grad(lib):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.vertex_backward_tangents.argtypes = [
-        ctypes.POINTER(_GradArgs), ci, ci, ci, vp]
-    lib.vertex_backward_tangents.restype = ci
-    lib.grad_reduce.argtypes = [vp, ci, ci, vp, vp]
-    lib.grad_reduce.restype = ci
-    for name in ("shade_grad_args_size", "vertex_backward_rows",
-                 "vertex_backward_sets", "vertex_backward_set_of",
-                 "vertex_backward_set_params"):
-        getattr(lib, name).restype = ci
-    lib.vertex_backward_rows.argtypes = [ci, ci]
-    lib.vertex_backward_set_of.argtypes = [ci]
-    lib.vertex_backward_set_params.argtypes = [ci, ctypes.POINTER(ci)]
-    if lib.shade_grad_args_size() != ctypes.sizeof(_GradArgs):
-        raise RuntimeError("csrc/shade_grad.cu and ops/shade.py disagree on "
-                           "the backward's argument layout")
+_GRAD_LIB = kernels.Library(
+    "shade_grad", ["shade_grad.cu"],
+    {"vertex_backward_tangents": [ctypes.POINTER(_GradArgs), INT, INT, INT,
+                                  PTR],
+     "grad_reduce": [PTR, INT, INT, PTR, PTR],
+     "vertex_backward_rows": [INT, INT], "vertex_backward_sets": [],
+     "vertex_backward_set_of": [INT],
+     "vertex_backward_set_params": [INT, ctypes.POINTER(ctypes.c_int)]},
+    {"shade_grad_args_size": _GradArgs})
 
 
 def kernel_tangents() -> tuple:
     """The kernel's own tangent table: (its sets' parameters, each
     material kind's set), for holding against TANGENT_SETS and
     tangent_set."""
-    lib = _grad_library()
+    lib = _GRAD_LIB.load()
     sets = []
     for s in range(lib.vertex_backward_sets()):
         params = (ctypes.c_int * 8)()
@@ -840,14 +780,16 @@ def check_backward_inputs(meta, pack, hit, state: VertexState, u_vertex,
                 raise ValueError(f"u_vertex: expected float32 {list(shape)} "
                                  f"rows of contiguous floats on {dev}")
         else:
-            _check(name, x, dtype, shape, dev)
+            check(name, x, dtype, shape, dev)
     for name, dtype in _TABLES.items():
-        _table_check(name, getattr(pack, name), dtype, dev)
-    no_grad_inputs("vertex_backward", **{k.replace(".", "_"): v[0]
-                                         for k, v in ins.items()},
-                   **{k: getattr(pack, k) for k in _TABLES})
+        check(f"pack.{name}", getattr(pack, name), dtype, None, dev)
+    kernels.no_grad_inputs("vertex_backward",
+                           **{k.replace(".", "_"): v[0]
+                              for k, v in ins.items()},
+                           **{k: getattr(pack, k) for k in _TABLES})
 
 
+@kernels.wrapper("vertex_backward_kernel")
 def vertex_backward(meta, pack, hit, state: VertexState, u_vertex,
                     bounce: int, max_depth: int, lights: LightTable, occ, gL,
                     gbeta=None, taps: bool = False,
@@ -870,15 +812,16 @@ def vertex_backward(meta, pack, hit, state: VertexState, u_vertex,
     and, by (set, width), in `.widths` (a graph's replays in `.launches`
     alone)."""
     dev = gL.device
-    if dev.type != "cuda":
-        raise ValueError(f"no vertex_backward kernel for device {dev}")
+    if not kernels.route("vertex_backward", dev):
+        raise ValueError("no vertex_backward kernel for device cpu: CPU "
+                         "tensors take vertex_backward_plain")
     check_backward_inputs(meta, pack, hit, state, u_vertex, bounce,
                           max_depth, occ, gL, gbeta, dev)
     n = gL.shape[0]
     last = bounce >= max_depth
     n_nee = _check_lights(meta, lights, dev)
     slots = n_grad_slots(pack)
-    lib = _grad_library()
+    lib = _GRAD_LIB.load()
     f32 = dict(dtype=torch.float32, device=dev)
     gbeta_in = torch.empty((n, 3), **f32)
     partials = torch.empty((lib.vertex_backward_rows(n, slots), slots), **f32)
@@ -897,23 +840,16 @@ def vertex_backward(meta, pack, hit, state: VertexState, u_vertex,
     # the first launch writes every lane's cheap part and the partials'
     # rows, the later ones add theirs
     sets = backward_sets(meta)[:1 if last else None]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        for k, s in enumerate(sets):
-            width = lib.vertex_backward_tangents(
-                ctypes.byref(g), s, sum(1 << p for p in set(params)),
-                int(k == 0), stream)
-            vertex_backward.launches += 1
-            if width < 0:
-                raise RuntimeError(f"vertex_backward launch failed: CUDA "
-                                   f"error {-width}")
-            vertex_backward.widths[s, width] += 1
+    for k, s in enumerate(sets):
+        width = kernels.launch(vertex_backward, dev,
+                               lib.vertex_backward_tangents, ctypes.byref(g),
+                               s, sum(1 << p for p in set(params)),
+                               int(k == 0), sized=True)
+        vertex_backward.widths[s, width] += 1
     return gbeta_in, partials, tap_g, tap_rows
 
 
-vertex_backward.launches = 0
 vertex_backward.widths = collections.Counter()
-register(__name__, "vertex_backward", "vertex_backward_kernel")
 
 
 # grad_reduce's chains (csrc/shade_grad.cu CHAINS)
@@ -939,32 +875,20 @@ def grad_reduce_plain(partials):
     return acc[0]
 
 
+@kernels.wrapper("grad_reduce_kernel")
 def grad_reduce(partials):
     """`grad_reduce_plain`: one launch of grad_reduce_kernel on a CUDA
     tensor [G, P] (float32, contiguous), the plain version on a CPU
     tensor."""
     dev = partials.device
-    if dev.type == "cpu":
+    if not kernels.route("grad_reduce", dev, partials=partials):
         return grad_reduce_plain(partials)
-    if dev.type != "cuda":
-        raise ValueError(f"no grad_reduce route for device {dev}")
-    _check("partials", partials, torch.float32, tuple(partials.shape), dev)
-    no_grad_inputs("grad_reduce", partials=partials)
+    check("partials", partials, torch.float32, tuple(partials.shape), dev)
     grid, slots = partials.shape
     out = torch.empty((slots,), dtype=torch.float32, device=dev)
-    lib = _grad_library()
-    with torch.cuda.device(dev):
-        err = lib.grad_reduce(partials.data_ptr(), grid, slots,
-                              out.data_ptr(),
-                              torch.cuda.current_stream(dev).cuda_stream)
-    grad_reduce.launches += 1
-    if err != 0:
-        raise RuntimeError(f"grad_reduce launch failed: CUDA error {err}")
+    kernels.launch(grad_reduce, dev, _GRAD_LIB.load().grad_reduce,
+                   partials.data_ptr(), grid, slots, out.data_ptr())
     return out
-
-
-grad_reduce.launches = 0
-register(__name__, "grad_reduce", "grad_reduce_kernel")
 
 
 def vertex_backward_plain(meta, pack, hit, state: VertexState, u_vertex,
@@ -1009,7 +933,7 @@ def vertex_grads(meta, pack, hit, state: VertexState, u_vertex, bounce: int,
     (requested_params) and grad_reduce (and, where "tex_image" is among the
     fields and the pack has images, index_add_ of the texel taps), on the
     CPU vertex_backward_plain."""
-    if gL.device.type == "cpu":
+    if not kernels.route("vertex_backward", gL.device):
         gl, gb, g, ge = vertex_backward_plain(
             meta, pack, hit, state, u_vertex, bounce, max_depth, occ, gL,
             gbeta, None if lights is None else lights.le_env)

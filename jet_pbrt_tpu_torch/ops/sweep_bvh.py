@@ -40,15 +40,15 @@ The CUDA kernel is csrc/sweep_bvh.cu; the row table stays in global memory
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .intersect import KindHit, check_hit_out, no_grad_inputs
-from .launches import register
+from . import kernels
+from .intersect import KindHit, check_hit_out
+from .kernels import INT, PTR
 from .linalg import fma32
 from .wide_bvh import mt_test
 
@@ -253,6 +253,12 @@ def sweep_tables(tris_mt: np.ndarray, inst_off=None,
 # traversal
 # ---------------------------------------------------------------------------
 
+_LIB = kernels.Library("sweep_bvh", ["sweep_bvh.cu"], {
+    "sweep_bvh_launch": [PTR, INT, PTR, PTR, INT, PTR, INT, INT, PTR, PTR,
+                         PTR, PTR, INT, INT, PTR, PTR, PTR, PTR, PTR, PTR],
+    "sweep_bvh_blocks_per_sm": [INT]})
+
+
 def _check(tables: SweepTables, o, d, tmin, tmax, n_tris):
     n = o.shape[0]
     dev = o.device
@@ -265,13 +271,7 @@ def _check(tables: SweepTables, o, d, tmin, tmax, n_tris):
             ("mt", tables.mt, (9, ng * GROUP)),
             ("inst", tables.inst, ((tables.n_inst + 1) * 4,)),
             ("root", tables.root, (8,))):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, rays on {dev}")
-        if x.dtype != torch.float32 or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected float32 {shape}, got "
-                             f"{x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        kernels.check(name, x, torch.float32, shape, dev)
     if not 0 < ng <= max_groups():
         raise ValueError(f"{ng} groups: the packed key names 1 to "
                          f"{max_groups()}")
@@ -281,6 +281,7 @@ def _check(tables: SweepTables, o, d, tmin, tmax, n_tris):
         raise ValueError("hit indices overflow int32")
 
 
+@kernels.wrapper("sweep_bvh_kernel")
 def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
                     n_tris: int, with_stats: bool = False, out=None):
     """Closest hit (or any hit) of rays o, d [N,3] in (tmin, tmax) [N].
@@ -301,86 +302,45 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
     outputs are copied there)."""
     _check(tables, o, d, tmin, tmax, n_tris)
     check_hit_out(out, o.shape[0], o.device)
-    n_packets = (o.shape[0] + RAYS - 1) // RAYS
-    if o.device.type == "cpu":
-        hit = intersect_sweep_plain(tables, o, d, tmin, tmax,
-                                    any_hit=any_hit, n_tris=n_tris)
-        if out is not None:
-            hit = KindHit(*(y.copy_(x) for x, y in zip(hit, out)))
+    dev = o.device
+    n = o.shape[0]
+    n_packets = (n + RAYS - 1) // RAYS
+    if not kernels.route("intersect_sweep", dev, o=o, d=d, tmin=tmin,
+                         tmax=tmax):
+        hit = kernels.copy_out(intersect_sweep_plain(
+            tables, o, d, tmin, tmax, any_hit=any_hit, n_tris=n_tris), out)
         if with_stats:
             return hit, torch.zeros((n_packets, STATS_COLS),
                                     dtype=torch.int64)
         return hit
-    if o.device.type != "cuda":
-        raise ValueError(f"no sweep route for device {o.device}")
-    no_grad_inputs("sweep_bvh", o=o, d=d, tmin=tmin, tmax=tmax)
     stats = (torch.empty((n_packets, STATS_COLS), dtype=torch.int64,
-                         device=o.device) if with_stats else None)
+                         device=dev) if with_stats else None)
     if out is None:
-        n = o.shape[0]
-        out = (torch.empty((n,), dtype=torch.float32, device=o.device),
-               torch.empty((n,), dtype=torch.int32, device=o.device),
-               torch.empty((n,), dtype=torch.bool, device=o.device))
-    launch(load_kernel(), tables, o, d, tmin, tmax, any_hit=any_hit,
-           n_tris=n_tris, stats=stats, out=out)
-    intersect_sweep.launches += 1
+        out = (torch.empty((n,), dtype=torch.float32, device=dev),
+               torch.empty((n,), dtype=torch.int32, device=dev),
+               torch.empty((n,), dtype=torch.bool, device=dev))
+    kernels.launch(
+        intersect_sweep, dev, _LIB.load().sweep_bvh_launch,
+        tables.sph.data_ptr(), tables.sph.shape[1], tables.mt.data_ptr(),
+        tables.inst.data_ptr(), tables.n_inst, tables.root.data_ptr(),
+        tables.n_groups, n_tris, o.data_ptr(), d.data_ptr(),
+        tmin.data_ptr(), tmax.data_ptr(), n, int(any_hit),
+        out[0].data_ptr(), out[1].data_ptr(), kernels.ptr(stats),
+        after=(out[2].data_ptr(), tables.sup.data_ptr()))
     hit = KindHit(*out)
     return (hit, stats) if with_stats else hit
-
-
-intersect_sweep.launches = 0
-register(__name__, "intersect_sweep", "sweep_bvh_kernel")
 
 
 def load_kernel(source: str = "sweep_bvh.cu", name: str = "sweep_bvh"):
     """The compiled sweep library: csrc/<source>, or any file (an absolute
     path) with the same C entry point, built and loaded under `name`."""
-    from ..utils.cuda_build import load_library
-
-    return load_library(name, [source], _declare)
-
-
-def launch(lib, tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
-           n_tris: int, stats=None, out=None):
-    """One launch of `lib`'s sweep_bvh_launch on the current stream, on
-    arguments `_check` has passed; returns (t, index) (allocated, or out's
-    where out = (t, index, valid) is given, valid being isfinite(t)) and
-    raises when the launch fails. `stats` is None or the counters'
-    [packets, STATS_COLS] int64 output. The super table's pointer goes
-    last, so a build of the entry without it takes the same call."""
-    n = o.shape[0]
-    if out is None:
-        t = torch.empty((n,), dtype=torch.float32, device=o.device)
-        idx = torch.empty((n,), dtype=torch.int32, device=o.device)
-        valid = None
-    else:
-        t, idx, valid = out
-    with torch.cuda.device(o.device):
-        err = lib.sweep_bvh_launch(
-            tables.sph.data_ptr(), tables.sph.shape[1], tables.mt.data_ptr(),
-            tables.inst.data_ptr(), tables.n_inst, tables.root.data_ptr(),
-            tables.n_groups, n_tris, o.data_ptr(), d.data_ptr(),
-            tmin.data_ptr(), tmax.data_ptr(), n, int(any_hit),
-            t.data_ptr(), idx.data_ptr(),
-            None if stats is None else stats.data_ptr(),
-            torch.cuda.current_stream(o.device).cuda_stream,
-            None if valid is None else valid.data_ptr(), tables.sup.data_ptr())
-    if err != 0:
-        raise RuntimeError(f"sweep_bvh kernel launch failed: CUDA error {err}")
-    return t, idx
+    return _LIB.build([source], name)
 
 
 def blocks_per_sm(gp: int) -> int:
     """Resident blocks per SM of the closest-hit kernel at a sphere table
     of gp columns (the occupancy API, on the current card)."""
-    return int(load_kernel().sweep_bvh_blocks_per_sm(int(gp)))
-
-
-def _declare(lib):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.sweep_bvh_launch.argtypes = [vp, ci, vp, vp, ci, vp, ci, ci, vp, vp,
-                                     vp, vp, ci, ci, vp, vp, vp, vp, vp, vp]
-    lib.sweep_bvh_launch.restype = ci
+    return int(_LIB.load().sweep_bvh_blocks_per_sm(int(gp)))
 
 
 def _dot3(w, x, y, z):

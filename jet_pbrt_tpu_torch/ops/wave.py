@@ -50,8 +50,8 @@ from typing import NamedTuple
 import torch
 
 from . import rng
-from .intersect import no_grad_inputs
-from .launches import register
+from . import kernels
+from .kernels import check, ptr
 
 # the wave's ray counters (li_path's with_stats), in csrc/wave.cu's order
 COUNTS = ("rays_primary", "rays_bounce", "rays_shadow", "rays")
@@ -119,70 +119,18 @@ class _UnsortGradArgs(ctypes.Structure):
         "L", "lane", "g", "gL")]
 
 
-_ARGS = {"wave_camera_args_size": _CameraArgs,
-         "wave_permute_args_size": _PermuteArgs,
-         "wave_unsort_args_size": _UnsortArgs,
-         "wave_permute_grad_args_size": _PermuteGradArgs,
-         "wave_unsort_grad_args_size": _UnsortGradArgs}
-
-
-def _library():
-    from ..utils.cuda_build import load_library
-    return load_library("wave", ["wave.cu"], _declare)
-
-
-def _declare(lib):
-    for name, args in (("camera_rays", _CameraArgs),
-                       ("permute_state", _PermuteArgs),
-                       ("unsort_guard", _UnsortArgs),
-                       ("permute_state_backward", _PermuteGradArgs),
-                       ("unsort_guard_backward", _UnsortGradArgs)):
-        getattr(lib, name).argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
-        getattr(lib, name).restype = ctypes.c_int
-    for name, args in _ARGS.items():
-        getattr(lib, name).restype = ctypes.c_int
-        if getattr(lib, name)() != ctypes.sizeof(args):
-            raise RuntimeError("csrc/wave.cu and ops/wave.py disagree on "
-                               f"the layout of {args.__name__}")
-
-
-def _check(name, x, dtype, shape, dev):
-    if x.dtype != dtype or tuple(x.shape) != tuple(shape) \
-            or not x.is_contiguous() or x.device != dev:
-        raise ValueError(f"{name}: expected a contiguous {dtype} "
-                         f"{list(shape)} tensor on {dev}, got {x.dtype} "
-                         f"{list(x.shape)} on {x.device}"
-                         + ("" if x.is_contiguous() else ", not contiguous"))
-
-
-def _route(name: str, dev, **inputs) -> bool:
-    """True where `name` launches its kernel (a CUDA device), False on the
-    CPU (the plain version); raises on another device and, on the card,
-    where an input requires grad."""
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"no {name} route for device {dev}")
-    no_grad_inputs(name, **{k: x for k, x in inputs.items()
-                            if x is not None})
-    return True
-
-
-def _ptr(x):
-    return None if x is None or not x.numel() else x.data_ptr()
-
-
-def _launch(name: str, fn, args) -> None:
-    dev = torch.cuda.current_device()
-    err = fn(ctypes.byref(args), torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-
-
-def _check_lanes(n: int) -> None:
-    if n >= 2 ** 31:
-        raise ValueError("the kernels' int32 lane index holds fewer than "
-                         "2^31 lanes")
+_LIB = kernels.Library(
+    "wave", ["wave.cu"],
+    {name: [ctypes.POINTER(args), ctypes.c_void_p] for name, args in (
+        ("camera_rays", _CameraArgs), ("permute_state", _PermuteArgs),
+        ("unsort_guard", _UnsortArgs),
+        ("permute_state_backward", _PermuteGradArgs),
+        ("unsort_guard_backward", _UnsortGradArgs))},
+    {"wave_camera_args_size": _CameraArgs,
+     "wave_permute_args_size": _PermuteArgs,
+     "wave_unsort_args_size": _UnsortArgs,
+     "wave_permute_grad_args_size": _PermuteGradArgs,
+     "wave_unsort_grad_args_size": _UnsortGradArgs})
 
 
 # --------------------------------------------------------------------------
@@ -258,26 +206,27 @@ def check_camera_inputs(cam, pixel, width: int, jitter, ray_eps, dev) -> int:
     rows float32 [3] (and resolution [2]) and ray_eps a float32 scalar, all
     on dev, width positive. Returns N."""
     n = pixel.shape[0] if pixel.dim() == 1 else -1
-    _check("pixel", pixel, torch.int64, (n,), dev)
-    _check("jitter", jitter, torch.float32, (n, 2), dev)
+    check("pixel", pixel, torch.int64, (n,), dev)
+    check("jitter", jitter, torch.float32, (n, 2), dev)
     for name in ("position", "front", "right", "up"):
-        _check(f"cam.{name}", getattr(cam, name), torch.float32, (3,), dev)
-    _check("cam.resolution", cam.resolution, torch.float32, (2,), dev)
-    _check("ray_eps", ray_eps, torch.float32, (), dev)
+        check(f"cam.{name}", getattr(cam, name), torch.float32, (3,), dev)
+    check("cam.resolution", cam.resolution, torch.float32, (2,), dev)
+    check("ray_eps", ray_eps, torch.float32, (), dev)
     if width <= 0:
         raise ValueError(f"camera_rays: width {width} is not positive")
-    _check_lanes(n)
+    kernels.check_lanes(n)
     return n
 
 
+@kernels.wrapper("camera_rays_kernel")
 def camera_rays(cam, pixel, width: int, jitter, ray_eps) -> WaveState:
     """`camera_rays_plain`: one launch of camera_rays_kernel on CUDA
     tensors (pixel [N] int64, jitter [N, 2] float32, the camera's rows and
     ray_eps on the card), the plain version on CPU tensors. The state's
     ray_o and ray_d are the camera's rays."""
     dev = pixel.device
-    if not _route("camera_rays", dev, jitter=jitter, ray_eps=ray_eps,
-                  **{k: getattr(cam, k) for k in cam._fields}):
+    if not kernels.route("camera_rays", dev, jitter=jitter, ray_eps=ray_eps,
+                         **{k: getattr(cam, k) for k in cam._fields}):
         return camera_rays_plain(cam, pixel, width, jitter, ray_eps)
     n = check_camera_inputs(cam, pixel, width, jitter, ray_eps, dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -291,24 +240,18 @@ def camera_rays(cam, pixel, width: int, jitter, ray_eps) -> WaveState:
         tmin=torch.empty((n,), **f32), tmax=torch.empty((n,), **f32),
         counts=torch.empty((len(COUNTS),), dtype=torch.int64, device=dev))
     args = _CameraArgs(
-        n=n, width=int(width), pixel=_ptr(pixel), jitter=_ptr(jitter),
-        position=_ptr(cam.position), front=_ptr(cam.front),
-        right=_ptr(cam.right), up=_ptr(cam.up),
-        resolution=_ptr(cam.resolution), ray_eps=_ptr(ray_eps),
-        o=_ptr(state.ray_o), d=_ptr(state.ray_d), L=_ptr(state.L),
-        beta=_ptr(state.beta), active=_ptr(state.active),
-        spec=_ptr(state.prev_specular), pdf=_ptr(state.prev_pdf),
-        lane=_ptr(state.lane), tmin=_ptr(state.tmin),
-        tmax=_ptr(state.tmax), counts=_ptr(state.counts))
-    lib = _library()
-    with torch.cuda.device(dev):
-        _launch("camera_rays", lib.camera_rays, args)
-    camera_rays.launches += 1
+        n=n, width=int(width), pixel=ptr(pixel), jitter=ptr(jitter),
+        position=ptr(cam.position), front=ptr(cam.front),
+        right=ptr(cam.right), up=ptr(cam.up),
+        resolution=ptr(cam.resolution), ray_eps=ptr(ray_eps),
+        o=ptr(state.ray_o), d=ptr(state.ray_d), L=ptr(state.L),
+        beta=ptr(state.beta), active=ptr(state.active),
+        spec=ptr(state.prev_specular), pdf=ptr(state.prev_pdf),
+        lane=ptr(state.lane), tmin=ptr(state.tmin),
+        tmax=ptr(state.tmax), counts=ptr(state.counts))
+    kernels.launch(camera_rays, dev, _LIB.load().camera_rays,
+                   ctypes.byref(args))
     return state
-
-
-camera_rays.launches = 0
-register(__name__, "camera_rays", "camera_rays_kernel")
 
 
 def check_permute_inputs(state: WaveState, u, perm, dev) -> int:
@@ -318,19 +261,20 @@ def check_permute_inputs(state: WaveState, u, perm, dev) -> int:
     [N, ...] tensor, perm int64 [N], all on dev. Returns N."""
     n = state.L.shape[0] if state.L.dim() == 2 else -1
     for name, dtype, w in _ROWS:
-        _check(name, getattr(state, name), dtype,
-               (n, 3) if w == 3 else (n,), dev)
+        check(name, getattr(state, name), dtype,
+              (n, 3) if w == 3 else (n,), dev)
     if isinstance(u, rng.LaneKeys):
-        _check("u.k0", u.k0, torch.int32, (n,), dev)
-        _check("u.k1", u.k1, torch.int32, (n,), dev)
-        _check("u.sample", u.sample, torch.int64, (n,), dev)
+        check("u.k0", u.k0, torch.int32, (n,), dev)
+        check("u.k1", u.k1, torch.int32, (n,), dev)
+        check("u.sample", u.sample, torch.int64, (n,), dev)
     else:
-        _check("u", u, torch.float32, (n, *u.shape[1:]), dev)
-    _check("perm", perm, torch.int64, (n,), dev)
-    _check_lanes(n)
+        check("u", u, torch.float32, (n, *u.shape[1:]), dev)
+    check("perm", perm, torch.int64, (n,), dev)
+    kernels.check_lanes(n)
     return n
 
 
+@kernels.wrapper("permute_state_kernel")
 def permute_state(state: WaveState, u, perm):
     """`permute_state_plain`: one launch of permute_state_kernel on CUDA
     tensors for every row of the state and of u (LaneKeys or the debug
@@ -338,8 +282,8 @@ def permute_state(state: WaveState, u, perm):
     permuted (state, u) in fresh tensors; the counters stay."""
     dev = perm.device
     rows = {name: getattr(state, name) for name, *_ in _ROWS}
-    if not _route("permute_state", dev, **rows,
-                  **({"u": u} if torch.is_tensor(u) else {})):
+    if not kernels.route("permute_state", dev, **rows,
+                         **({"u": u} if torch.is_tensor(u) else {})):
         return permute_state_plain(state, u, perm)
     n = check_permute_inputs(state, u, perm, dev)
     out = {k: torch.empty_like(x) for k, x in rows.items()}
@@ -349,63 +293,52 @@ def permute_state(state: WaveState, u, perm):
 
     def state_rows(r, uu):
         return _StateRows(
-            L=_ptr(r["L"]), beta=_ptr(r["beta"]), o=_ptr(r["ray_o"]),
-            d=_ptr(r["ray_d"]), active=_ptr(r["active"]),
-            spec=_ptr(r["prev_specular"]), pdf=_ptr(r["prev_pdf"]),
-            lane=_ptr(r["lane"]), tmin=_ptr(r["tmin"]), tmax=_ptr(r["tmax"]),
-            k0=_ptr(uu.k0) if keys else None,
-            k1=_ptr(uu.k1) if keys else None,
-            sample=_ptr(uu.sample) if keys else None,
-            u=None if keys else _ptr(uu))
+            L=ptr(r["L"]), beta=ptr(r["beta"]), o=ptr(r["ray_o"]),
+            d=ptr(r["ray_d"]), active=ptr(r["active"]),
+            spec=ptr(r["prev_specular"]), pdf=ptr(r["prev_pdf"]),
+            lane=ptr(r["lane"]), tmin=ptr(r["tmin"]), tmax=ptr(r["tmax"]),
+            k0=ptr(uu.k0) if keys else None,
+            k1=ptr(uu.k1) if keys else None,
+            sample=ptr(uu.sample) if keys else None,
+            u=None if keys else ptr(uu))
 
     args = _PermuteArgs(n=n, u_width=0 if keys or not n
-                        else u.numel() // n, perm=_ptr(perm),
+                        else u.numel() // n, perm=ptr(perm),
                         inp=state_rows(rows, u), out=state_rows(out, u_out))
-    lib = _library()
-    with torch.cuda.device(dev):
-        _launch("permute_state", lib.permute_state, args)
-    permute_state.launches += 1
+    kernels.launch(permute_state, dev, _LIB.load().permute_state,
+                   ctypes.byref(args))
     return state._replace(**out), u_out
-
-
-permute_state.launches = 0
-register(__name__, "permute_state", "permute_state_kernel")
 
 
 def check_unsort_inputs(L, lane, dev) -> int:
     """Raise unless unsort_guard_kernel can take the inputs: L a contiguous
     float32 [N, 3], lane int64 [N] or None, on dev. Returns N."""
     n = L.shape[0] if L.dim() == 2 else -1
-    _check("L", L, torch.float32, (n, 3), dev)
+    check("L", L, torch.float32, (n, 3), dev)
     if lane is not None:
-        _check("lane", lane, torch.int64, (n,), dev)
-    _check_lanes(n)
+        check("lane", lane, torch.int64, (n,), dev)
+    kernels.check_lanes(n)
     return n
 
 
+@kernels.wrapper("unsort_guard_kernel")
 def unsort_guard(L, lane=None, out=None):
     """`unsort_guard_plain`: one launch of unsort_guard_kernel on CUDA
     tensors (L [N, 3] float32; lane [N] int64, the pixel row of each row, a
     permutation, or None without a sort, when L is guarded in place unless
     `out` is given), the plain version on CPU tensors."""
     dev = L.device
-    if not _route("unsort_guard", dev, L=L):
+    if not kernels.route("unsort_guard", dev, L=L):
         return unsort_guard_plain(L, lane)
     n = check_unsort_inputs(L, lane, dev)
     if out is None:
         out = L if lane is None else torch.empty_like(L)
     else:
-        _check("out", out, torch.float32, (n, 3), dev)
-    args = _UnsortArgs(n=n, L=_ptr(L), lane=_ptr(lane), out=_ptr(out))
-    lib = _library()
-    with torch.cuda.device(dev):
-        _launch("unsort_guard", lib.unsort_guard, args)
-    unsort_guard.launches += 1
+        check("out", out, torch.float32, (n, 3), dev)
+    args = _UnsortArgs(n=n, L=ptr(L), lane=ptr(lane), out=ptr(out))
+    kernels.launch(unsort_guard, dev, _LIB.load().unsort_guard,
+                   ctypes.byref(args))
     return out
-
-
-unsort_guard.launches = 0
-register(__name__, "unsort_guard", "unsort_guard_kernel")
 
 
 # --------------------------------------------------------------------------
@@ -423,6 +356,7 @@ def permute_state_backward_plain(perm, gL, gbeta):
     return back(gL), back(gbeta)
 
 
+@kernels.wrapper("permute_state_backward_kernel")
 def permute_state_backward(perm, gL, gbeta):
     """`permute_state_backward_plain`: one launch of
     permute_state_backward_kernel on CUDA tensors (perm [N] int64 a
@@ -430,30 +364,24 @@ def permute_state_backward(perm, gL, gbeta):
     None for 0), returning both gradients (zeros for a None one; None
     where both are None), the plain version on CPU tensors."""
     dev = perm.device
-    if not _route("permute_state_backward", dev, gL=gL, gbeta=gbeta):
+    if not kernels.route("permute_state_backward", dev, gL=gL, gbeta=gbeta):
         return permute_state_backward_plain(perm, gL, gbeta)
     n = perm.shape[0] if perm.dim() == 1 else -1
-    _check("perm", perm, torch.int64, (n,), dev)
+    check("perm", perm, torch.int64, (n,), dev)
     for name, g in (("gL", gL), ("gbeta", gbeta)):
         if g is not None:
-            _check(name, g, torch.float32, (n, 3), dev)
-    _check_lanes(n)
+            check(name, g, torch.float32, (n, 3), dev)
+    kernels.check_lanes(n)
     if gL is None and gbeta is None:
         return None, None
     gl = torch.empty((n, 3), dtype=torch.float32, device=dev)
     gb = torch.empty_like(gl)
-    args = _PermuteGradArgs(n=n, perm=_ptr(perm), gL=_ptr(gL),
-                            gbeta=_ptr(gbeta), gL_in=_ptr(gl),
-                            gbeta_in=_ptr(gb))
-    lib = _library()
-    with torch.cuda.device(dev):
-        _launch("permute_state_backward", lib.permute_state_backward, args)
-    permute_state_backward.launches += 1
+    args = _PermuteGradArgs(n=n, perm=ptr(perm), gL=ptr(gL),
+                            gbeta=ptr(gbeta), gL_in=ptr(gl),
+                            gbeta_in=ptr(gb))
+    kernels.launch(permute_state_backward, dev,
+                   _LIB.load().permute_state_backward, ctypes.byref(args))
     return gl, gb
-
-
-permute_state_backward.launches = 0
-register(__name__, "permute_state_backward", "permute_state_backward_kernel")
 
 
 def unsort_guard_backward_plain(L, lane, g):
@@ -464,28 +392,23 @@ def unsort_guard_backward_plain(L, lane, g):
     return torch.where(torch.isfinite(L), g, torch.zeros_like(g))
 
 
+@kernels.wrapper("unsort_guard_backward_kernel")
 def unsort_guard_backward(L, lane, g):
     """`unsort_guard_backward_plain`: one launch of
     unsort_guard_backward_kernel on CUDA tensors (L [N,3] float32 the
     un-sort's input, lane [N] int64 or None, g [N,3] float32), the plain
     version on CPU tensors."""
     dev = L.device
-    if not _route("unsort_guard_backward", dev, L=L, g=g):
+    if not kernels.route("unsort_guard_backward", dev, L=L, g=g):
         return unsort_guard_backward_plain(L, lane, g)
     n = check_unsort_inputs(L, lane, dev)
-    _check("g", g, torch.float32, (n, 3), dev)
+    check("g", g, torch.float32, (n, 3), dev)
     out = torch.empty_like(L)
-    args = _UnsortGradArgs(n=n, L=_ptr(L), lane=_ptr(lane), g=_ptr(g),
-                           gL=_ptr(out))
-    lib = _library()
-    with torch.cuda.device(dev):
-        _launch("unsort_guard_backward", lib.unsort_guard_backward, args)
-    unsort_guard_backward.launches += 1
+    args = _UnsortGradArgs(n=n, L=ptr(L), lane=ptr(lane), g=ptr(g),
+                           gL=ptr(out))
+    kernels.launch(unsort_guard_backward, dev,
+                   _LIB.load().unsort_guard_backward, ctypes.byref(args))
     return out
-
-
-unsort_guard_backward.launches = 0
-register(__name__, "unsort_guard_backward", "unsort_guard_backward_kernel")
 
 
 class _Permute(torch.autograd.Function):

@@ -27,15 +27,15 @@ For two-level tables the TLAS nodes come first and the BLAS root is node
 """
 from __future__ import annotations
 
-import ctypes
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from .intersect import KindHit, check_hit_out, no_grad_inputs
-from .launches import register
+from . import kernels
+from .intersect import KindHit, check_hit_out
+from .kernels import INT, PTR
 
 WIDTH = 8
 # raw collapse encoding, as the reference's collapse_wide emits it:
@@ -234,6 +234,11 @@ def wide_tables_instanced(tlas_bvh, blas_bvh, tris, inst_off, inst_scale,
 # traversal
 # ---------------------------------------------------------------------------
 
+_LIB = kernels.Library("wide_bvh", ["wide_bvh.cu"], {
+    "wide_bvh_cast": [PTR] * 8 + [INT] * 6 + [PTR] * 7,
+    "wide_bvh_walk_warps": [INT, INT, INT], "wide_bvh_blocks_per_sm": []})
+
+
 def _check(tables: WideTables, o, d, tmin, tmax, leaf_size, n_tris):
     n = o.shape[0]
     dev = o.device
@@ -261,17 +266,12 @@ def _check(tables: WideTables, o, d, tmin, tmax, leaf_size, n_tris):
             ("child", tables.child, (n8, WIDTH), torch.int32),
             ("tris", tables.tris, (n_tris, 9), torch.float32),
             ("inst", tables.inst, (tables.inst.shape[0], 4), torch.float32)):
-        if x.device != dev:
-            raise ValueError(f"{name} is on {x.device}, rays on {dev}")
-        if x.dtype != dtype or tuple(x.shape) != shape:
-            raise ValueError(f"{name}: expected {dtype} {shape}, got "
-                             f"{x.dtype} {tuple(x.shape)}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        kernels.check(name, x, dtype, shape, dev)
     if n_tris % leaf_size:
         raise ValueError("triangle rows are not a whole number of leaves")
 
 
+@kernels.wrapper("wide_walk_kernel")
 def intersect_wide(tables: WideTables, o, d, tmin, tmax, *, any_hit: bool,
                    has_inst: bool, leaf_size: int, n_tris: int,
                    with_stats: bool = False, out=None):
@@ -288,100 +288,53 @@ def intersect_wide(tables: WideTables, o, d, tmin, tmax, *, any_hit: bool,
     STATS_COLS; `stats_summary` adds them up)."""
     _check(tables, o, d, tmin, tmax, leaf_size, n_tris)
     check_hit_out(out, o.shape[0], o.device)
-    if o.device.type == "cpu" and not with_stats:
-        hit = intersect_wide_plain(tables, o, d, tmin, tmax, any_hit=any_hit,
-                                   has_inst=has_inst, leaf_size=leaf_size,
-                                   n_tris=n_tris)
-        if out is None:
-            return hit
-        return KindHit(*(y.copy_(x) for x, y in zip(hit, out)))
-    if o.device.type != "cuda":
-        raise ValueError(f"no wide-BVH kernel for device {o.device}"
-                         + (" (with_stats counts the kernel's work)"
-                            if with_stats else ""))
-    no_grad_inputs("wide_bvh", o=o, d=d, tmin=tmin, tmax=tmax)
-    lib = load_kernel()
+    dev = o.device
+    if dev.type == "cpu" and with_stats:
+        raise ValueError("no wide-BVH kernel for device cpu: with_stats "
+                         "counts the kernel's work")
+    if not kernels.route("intersect_wide", dev, o=o, d=d, tmin=tmin,
+                         tmax=tmax):
+        return kernels.copy_out(intersect_wide_plain(
+            tables, o, d, tmin, tmax, any_hit=any_hit, has_inst=has_inst,
+            leaf_size=leaf_size, n_tris=n_tris), out)
+    lib = _LIB.load()
+    n = o.shape[0]
     stats = None
     if with_stats:
-        with torch.cuda.device(o.device):
+        with torch.cuda.device(dev):
             warps = lib.wide_bvh_walk_warps(int(any_hit), int(has_inst), 1)
         stats = torch.empty((1 + warps, STATS_COLS), dtype=torch.int64,
-                            device=o.device)
+                            device=dev)
     if out is None:
-        n = o.shape[0]
-        out = (torch.empty((n,), dtype=torch.float32, device=o.device),
-               torch.empty((n,), dtype=torch.int32, device=o.device),
-               torch.empty((n,), dtype=torch.bool, device=o.device))
-    launch(lib, tables, o, d, tmin, tmax, any_hit=any_hit,
-           has_inst=has_inst, leaf_size=leaf_size, n_tris=n_tris,
-           stats=stats, out=out)
-    intersect_wide.launches += 1
+        out = (torch.empty((n,), dtype=torch.float32, device=dev),
+               torch.empty((n,), dtype=torch.int32, device=dev),
+               torch.empty((n,), dtype=torch.bool, device=dev))
+    # the survivor list and its two counters, in one tensor (the C entry
+    # zeroes the counters on the stream; nothing is read back)
+    scratch = torch.empty((n + 2,), dtype=torch.int32, device=dev)
+    kernels.launch(
+        intersect_wide, dev, lib.wide_bvh_cast, tables.planar.data_ptr(),
+        tables.child.data_ptr(), tables.tris.data_ptr(),
+        tables.inst.data_ptr(), o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
+        tmax.data_ptr(), n, tables.blas_root, leaf_size, n_tris,
+        int(any_hit), int(has_inst), out[0].data_ptr(), out[1].data_ptr(),
+        scratch.data_ptr(), scratch.data_ptr() + 4 * n, kernels.ptr(stats),
+        after=(out[2].data_ptr(),))
     hit = KindHit(*out)
     return (hit, stats) if with_stats else hit
-
-
-intersect_wide.launches = 0
-register(__name__, "intersect_wide", "wide_walk_kernel")
 
 
 def load_kernel(source: str = "wide_bvh.cu", name: str = "wide_bvh"):
     """The compiled wide-BVH library: csrc/<source>, or any file (an
     absolute path) with the same C entry points, built and loaded under
     `name`."""
-    from ..utils.cuda_build import load_library
-
-    return load_library(name, [source], _declare)
-
-
-def launch(lib, tables: WideTables, o, d, tmin, tmax, *, any_hit: bool,
-           has_inst: bool, leaf_size: int, n_tris: int, stats=None,
-           out=None):
-    """One cast through `lib`'s wide_bvh_cast on the current stream, on
-    arguments `_check` has passed: allocates the outputs (or writes out =
-    (t, index, valid), valid being isfinite(t)) and, in one tensor, the
-    survivor list and its two counters (the C entry zeroes the counters on
-    the stream; nothing is read back), returns (t, index) and raises when
-    a launch fails. `stats` is None or the counters' output."""
-    n = o.shape[0]
-    dev = o.device
-    if out is None:
-        t = torch.empty((n,), dtype=torch.float32, device=dev)
-        idx = torch.empty((n,), dtype=torch.int32, device=dev)
-        valid = None
-    else:
-        t, idx, valid = out
-    scratch = torch.empty((n + 2,), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        err = lib.wide_bvh_cast(
-            tables.planar.data_ptr(), tables.child.data_ptr(),
-            tables.tris.data_ptr(), tables.inst.data_ptr(),
-            o.data_ptr(), d.data_ptr(), tmin.data_ptr(), tmax.data_ptr(),
-            n, tables.blas_root, leaf_size, n_tris, int(any_hit),
-            int(has_inst), t.data_ptr(), idx.data_ptr(),
-            scratch.data_ptr(), scratch.data_ptr() + 4 * n,
-            None if stats is None else stats.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream,
-            None if valid is None else valid.data_ptr())
-    if err != 0:
-        raise RuntimeError(f"wide_bvh kernel launch failed: CUDA error {err}")
-    return t, idx
+    return _LIB.build([source], name)
 
 
 def blocks_per_sm() -> int:
     """Resident blocks per SM of the walk (closest hit, instanced, no
     counters; the occupancy API on the current card)."""
-    return int(load_kernel().wide_bvh_blocks_per_sm())
-
-
-def _declare(lib):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.wide_bvh_cast.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                                  ci, ci, ci, vp, vp, vp, vp, vp, vp, vp]
-    lib.wide_bvh_cast.restype = ci
-    lib.wide_bvh_walk_warps.argtypes = [ci, ci, ci]
-    lib.wide_bvh_walk_warps.restype = ci
-    lib.wide_bvh_blocks_per_sm.argtypes = []
-    lib.wide_bvh_blocks_per_sm.restype = ci
+    return int(_LIB.load().wide_bvh_blocks_per_sm())
 
 
 def stats_summary(stats: torch.Tensor, leaf_size: int) -> dict:

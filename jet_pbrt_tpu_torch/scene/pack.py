@@ -24,6 +24,7 @@ import torch
 
 from ..ops import brute as brute_ops
 from ..ops import intersect as isect_ops
+from ..ops import kernels
 from ..ops import sweep_bvh
 from ..ops import wide_bvh
 from ..ops import linalg
@@ -363,7 +364,7 @@ def hit_reconstruct(meta: SceneMeta, pack: ScenePack, o, d, hits,
     on CPU tensors; on CUDA tensors one launch of
     ops/rays.py::hit_reconstruct's kernel over the pack's tables, which
     raises on what the kernel cannot take."""
-    if o.device.type == "cpu":
+    if not kernels.route("hit_reconstruct", o.device):
         return hit_reconstruct_plain(meta, pack, o, d, hits, kinds)
     return Hit(*rays_ops.hit_reconstruct(o, d, hits, kinds,
                                          *hit_tables(meta, pack),

@@ -30,15 +30,15 @@ when asked (`main(device="cpu")`), and there the plain versions run.
 """
 from __future__ import annotations
 
-import ctypes
 import sys
 import time
 
 import numpy as np
 import torch
 
+from ..ops import kernels
+from ..ops.kernels import INT, PTR
 from ..ops.linalg import fma32
-from ..ops.launches import register
 
 REPS = 2048
 RUNS = 10            # timed launches per probe, after one warm-up
@@ -59,6 +59,10 @@ SORT8 = ((0, 1), (2, 3), (4, 5), (6, 7), (0, 2), (1, 3), (4, 6), (5, 7),
          (2, 4), (3, 5), (3, 4))
 
 
+_LIB = kernels.Library("prim_micro", ["prim_micro.cu"], {
+    "prim_micro_launch": [INT, PTR, INT, PTR, PTR]})
+
+
 def tables(device) -> dict[str, torch.Tensor]:
     """The reference's three tables, drawn in its order from default_rng(0)
     (float32 rounded to nearest even for the bf16 ones), on `device`."""
@@ -70,6 +74,7 @@ def tables(device) -> dict[str, torch.Tensor]:
     return out
 
 
+@kernels.wrapper("prim_micro_kernel")
 def prim_micro(probe: str, table: torch.Tensor, reps: int) -> torch.Tensor:
     """One probe's out [8, 8, 128] f32 over `reps` iterations: the kernel of
     csrc/prim_micro.cu for a CUDA table, `prim_micro_plain` for a CPU one."""
@@ -82,36 +87,17 @@ def prim_micro(probe: str, table: torch.Tensor, reps: int) -> torch.Tensor:
                          f"table, got {table.dtype} {tuple(table.shape)}")
     if not 0 <= reps <= MAX_REPS:
         raise ValueError(f"reps must lie in [0, {MAX_REPS}], got {reps}")
-    if table.device.type == "cpu":
+    if not kernels.route("prim_micro", table.device):
         return prim_micro_plain(probe, table, reps)
-    if table.device.type != "cuda":
-        raise ValueError(f"no prim_micro route for device {table.device}")
     if table.data_ptr() % 16:
         raise ValueError(f"{probe}: the kernel stages the table in 16-byte "
                          "words; it must be 16-byte aligned")
-    from ..utils.cuda_build import load_library
-
-    lib = load_library("prim_micro", ["prim_micro.cu"], _declare)
     out = torch.empty((GRID, ROWS, LANES), dtype=torch.float32,
                       device=table.device)
-    with torch.cuda.device(table.device):
-        err = lib.prim_micro_launch(
-            PROBES.index(probe), table.data_ptr(), reps, out.data_ptr(),
-            torch.cuda.current_stream(table.device).cuda_stream)
-    prim_micro.launches += 1
-    if err != 0:
-        raise RuntimeError(f"prim_micro kernel launch failed: CUDA error {err}")
+    kernels.launch(prim_micro, table.device, _LIB.load().prim_micro_launch,
+                   PROBES.index(probe), table.data_ptr(), reps,
+                   out.data_ptr())
     return out
-
-
-prim_micro.launches = 0
-register(__name__, "prim_micro", "prim_micro_kernel")
-
-
-def _declare(lib):
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.prim_micro_launch.argtypes = [ci, vp, ci, vp, vp]
-    lib.prim_micro_launch.restype = ci
 
 
 # ---------------------------------------------------------------------------

@@ -14,18 +14,21 @@ against a numpy evaluation of that function. Prints "all primitives OK".
 """
 from __future__ import annotations
 
-import ctypes
 import sys
 
 import numpy as np
 import torch
 
+from ..ops import kernels
+from ..ops.kernels import PTR
 from ..ops.linalg import fma32
-from ..ops.launches import register
 
 K, L = 4, 128
+_LIB = kernels.Library("sweep_prims", ["sweep_prims.cu"],
+                       {"sweep_prims_launch": [PTR, PTR, PTR, PTR]})
 
 
+@kernels.wrapper("sweep_prims_kernel")
 def sweep_prims(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a^T b + s ([128, 128] f32) of a, b [4, 128] f32: the kernel for CUDA
     tensors, `sweep_prims_plain` for CPU tensors."""
@@ -34,35 +37,12 @@ def sweep_prims(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                 or not x.is_contiguous() or x.device != a.device:
             raise ValueError(f"{name}: expected contiguous float32 [{K}, {L}] "
                              f"on {a.device}")
-    if a.device.type == "cpu":
+    if not kernels.route("sweep_prims", a.device):
         return sweep_prims_plain(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"no sweep_prims route for device {a.device}")
-    lib = _library()
     out = torch.empty((L, L), dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = lib.sweep_prims_launch(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            torch.cuda.current_stream(a.device).cuda_stream)
-    sweep_prims.launches += 1
-    if err != 0:
-        raise RuntimeError(f"sweep_prims kernel launch failed: CUDA error {err}")
+    kernels.launch(sweep_prims, a.device, _LIB.load().sweep_prims_launch,
+                   a.data_ptr(), b.data_ptr(), out.data_ptr())
     return out
-
-
-sweep_prims.launches = 0
-register(__name__, "sweep_prims", "sweep_prims_kernel")
-
-
-def _library():
-    from ..utils.cuda_build import load_library
-    return load_library("sweep_prims", ["sweep_prims.cu"], _declare)
-
-
-def _declare(lib):
-    vp = ctypes.c_void_p
-    lib.sweep_prims_launch.argtypes = [vp, vp, vp, vp]
-    lib.sweep_prims_launch.restype = ctypes.c_int
 
 
 def sweep_prims_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,7 @@ film). A replay carries no ranges, so
 its operations take the eager wave's ranges in order, by name; the replay
 call's copies of its inputs into the graph's buffers are "graph inputs".
 Each operation's class is the port's kernel (a device function of
-ops/launches.py's registry, or the wide kernel's cull pass), a pass of
+ops/kernels.py's registry, or the wide kernel's cull pass), a pass of
 CUB's radix sort (torch.argsort), a memset, a copy, or other. The script
 prints one JSON line per scene: operations and device ms by range and
 class, and the names of the operations of class other.
@@ -35,7 +35,7 @@ import torch
 
 from jet_pbrt_tpu_torch.models import graph as graph_mod
 from jet_pbrt_tpu_torch.models.render import render
-from jet_pbrt_tpu_torch.ops import launches
+from jet_pbrt_tpu_torch.ops import kernels
 
 # li_path's record_function ranges (models/integrators.py), in wave order
 WAVE_RANGES = ("li_path.intersect", "li_path.rng", "li_path.vertex",
@@ -46,7 +46,7 @@ WAVE_SPAN = "render.wave"
 OUTER_RANGES = ("camera/init", "between", "end", "frame")
 RANGES = WAVE_RANGES + OUTER_RANGES + ("graph inputs",)
 NODE_CLASSES = ("port kernel", "argsort", "memset", "copy", "other")
-PORT_KERNEL_NAMES = tuple(launches.REGISTRY) + ("wide_cull_kernel",)
+PORT_KERNEL_NAMES = tuple(kernels.REGISTRY) + ("wide_cull_kernel",)
 
 
 def node_class(name: str) -> str:

@@ -21,109 +21,93 @@ commit's shade_grad.cu goes into a directory of its own with that
 commit's shade.cuh (and a sweep_bvh.cu or wide_bvh.cu that includes
 tri_mt.cuh with that commit's tri_mt.cuh):
 
-    mkdir -p _ab/feed372
-    cd _ab/feed372
-    git show feed372:jet_pbrt_tpu_torch/csrc/shade_grad.cu > shade_grad.cu
-    git show feed372:jet_pbrt_tpu_torch/csrc/shade.cuh > shade.cuh
+    mkdir -p _ab/old
+    cd _ab/old
+    git show <commit>:jet_pbrt_tpu_torch/csrc/shade_grad.cu > shade_grad.cu
+    git show <commit>:jet_pbrt_tpu_torch/csrc/shade.cuh > shade.cuh
+
+OTHER.cu has the C entry points of this checkout's source, and each turn
+runs the port's own wrapper with the other build put in its library's
+place (ops/kernels.py's substitute), so both builds take the same calls.
 
 Each kernel is timed in the order other, this, this, other (CUDA events).
 Prints the card's name and power limit first. Needs one GPU.
 
-Sweep: OTHER.cu has the same C entry point (`sweep_bvh_launch`). On
-chip_smoke's 2^20-ray wave (wave_rays(scene, 1024, 11)) of the
+Sweep: on chip_smoke's 2^20-ray wave (wave_rays(scene, 1024, 11)) of the
 600k-target instanced bunny and of the 150k x4 soup, 5 launches per turn:
 closest hit and any hit (tmax 10% short of the closest hit) on the
 instanced bunny, closest hit on the soup; then the instanced bunny's
 1024^2, 4-spp, depth-5 frame through each (host wall ending in a
 synchronize). The two kernels' outputs, and the two frames, must be equal
 bit for bit; so must each case's counters of culls, groups tested, rays
-past the root and ray-group tests (a build before the super-spheres
-writes 6 counters a packet, this one 8).
+past the root and ray-group tests.
 
-Wide: OTHER.cu exports one of three C entry points: this source's
-(`wide_bvh_cast`, ...; a variant of this kernel), the one-launch design's
-(`wide_bvh_one_pass`: persistent warps scan the lanes and queue the
-survivors in shared memory; no scratch arguments, a stats row per warp)
-or the node-major kernel's (`wide_bvh_launch`: one thread per lane over
-node-major bounds, no pinned rounding). On the default bunny, 10 launches
-per turn: chip_smoke's 2^20-ray wave and its 2^20-ray targeted set,
-closest hit and any hit (tmax 10% short of the closest hit), then the 16
-wide casts of one 1-spp wave as chip_smoke records them (5 launches of
-each per turn, summed over the casts, with the host's enqueue time, its
-slowest call, and what could stall the host during the event-timed calls:
-chip_smoke.host_stalls); then the 1024^2, 4-spp, depth-5 frame through
-each. After the turns each build's device time per call is read by the
-profiler (chip_smoke.profiled_ms, 10 calls; each device operation by
-name: kernels and memsets). A variant must give outputs and frames equal
-bit for bit, and its counters and this kernel's are printed (visits, SIMD
-efficiency, lane-0 cycle split); the one-launch design pins its
-arithmetic as this one does, so it too must agree bit for bit. The
-node-major kernel pins neither its arithmetic nor its child order, so
-there the count of lanes whose output differs is printed and each is put
-through chip_smoke's float64 forensic, and the frames' largest pixel
-difference is printed.
+Wide: on the default bunny, 10 launches per turn: chip_smoke's 2^20-ray
+wave and its 2^20-ray targeted set, closest hit and any hit (tmax 10%
+short of the closest hit), then the 16 wide casts of one 1-spp wave as
+chip_smoke records them (5 launches of each per turn, summed over the
+casts, with the host's enqueue time, its slowest call, and what could
+stall the host during the event-timed calls: chip_smoke.host_stalls); then
+the 1024^2, 4-spp, depth-5 frame through each. After the turns each
+build's device time per call is read by the profiler
+(chip_smoke.profiled_ms, 10 calls; each device operation by name: kernels
+and memsets). The other build must give outputs and frames equal bit for
+bit, and its counters and this kernel's are printed (visits, SIMD
+efficiency, lane-0 cycle split).
 
---lib NAME: a kernel behind a ctypes wrapper whose module loads its
-library through _library(), which is swapped per turn (LIB_AB). OTHER.cu
-has the same C entry points. Each case's output of both builds is held
-equal to the plain version's bit for bit, and the timed cases run 20 or
-100 calls per turn (chip_smoke.kernel_times: events, host enqueue, and
-the profiler's device time, also after an L2 flush by a write and by a
-read before each call). threefry, at chip_smoke's 2^20 lanes
-(rng_phase's keys): a lane_keys call and a uniforms call at S = 2, 6, 8,
-10 and 13 (the camera, 1-3 lights, and a width of the generic
-instantiation); each build's SASS per lane at S = 8 (ALU-pipe,
-FMA-heavy-pipe, all; chip_smoke.threefry_sass) beside the function's
-bound; then the default bunny's 1024^2, 4-spp, depth-5 frame through
-each build (frames equal bit for bit) and each build's profiled 1-spp
-wave (chip_smoke.profile_wave, the Threefry share of device time).
-sweep_prims: chip_smoke.prims' six inputs held equal, the harness's
-inputs timed. brute: the Cornell box's bounce-1 closest cast and its first
-shadow cast of a 1024^2 wave (2^20 lanes, as chip_smoke.time_brute records
-them) and the many-shapes scene's 256^2 wave rays (more than one tile of
-each kind), closest hit and any hit (tmax 10% short of the closest hit),
-each against both bounds (chip_smoke.brute_bounds: one issued instruction
-per operation, and F32_PEAK); then the Cornell 512^2, 16-spp, depth-5
-frame through each build (frames equal bit for bit) and each build's
-profiled 1024^2 1-spp Cornell wave. wave: the permute's backward
+--lib NAME: the library NAME of ops/kernels.py (LIB_AB). Each case's
+output of both builds is held equal to the plain version's bit for bit,
+and the timed cases run 20 or 100 calls per turn (chip_smoke.kernel_times:
+events, host enqueue, and the profiler's device time, also after an L2
+flush by a write and by a read before each call). threefry, at
+chip_smoke's 2^20 lanes (rng_phase's keys): a lane_keys call and a
+uniforms call at S = 2, 6, 8, 10 and 13 (the camera, 1-3 lights, and a
+width of the generic instantiation); each build's SASS per lane at S = 8
+(ALU-pipe, FMA-heavy-pipe, all; chip_smoke.threefry_sass) beside the
+function's bound; then the default bunny's 1024^2, 4-spp, depth-5 frame
+through each build (frames equal bit for bit) and each build's profiled
+1-spp wave (chip_smoke.profile_wave, the Threefry share of device time).
+sweep_prims: chip_smoke.prims' six inputs held equal, the harness's inputs
+timed. brute: the Cornell box's bounce-1 closest cast and its first shadow
+cast of a 1024^2 wave (2^20 lanes, as chip_smoke.time_brute records them)
+and the many-shapes scene's 256^2 wave rays (more than one tile of each
+kind), closest hit and any hit (tmax 10% short of the closest hit), each
+against both bounds (chip_smoke.brute_bounds: one issued instruction per
+operation, and F32_PEAK); then the Cornell 512^2, 16-spp, depth-5 frame
+through each build (frames equal bit for bit) and each build's profiled
+1024^2 1-spp Cornell wave. wave: the permute's backward
 (permute_state_backward) on the bunny's first sort of a 1024^2 gradient
 wave at 2^20 lanes with seeded gL and gbeta, gL alone and gbeta alone,
-each output's words equal to the plain version's, beside the bound and
-the PyTorch yardsticks (index_copy_ of the gradients packed as [N, 6],
-and torch.cat with it); then the bunny's 1024^2, 4-spp frame and each
-build's profiled wave, the bunny loss's steps as for shade_grad
-(gradients equal bit for bit), and phase 2g's time_grads in turns. Each
-build's ptxas registers, shared memory and spills per kernel are printed
-where this process built it.
+each output's words equal to the plain version's, beside the bound and the
+PyTorch yardsticks (index_copy_ of the gradients packed as [N, 6], and
+torch.cat with it); then the bunny's 1024^2, 4-spp frame and each build's
+profiled wave, the bunny loss's steps as for shade_grad (gradients equal
+bit for bit), and phase 2g's time_grads in turns. Each build's ptxas
+registers, shared memory and spills per kernel are printed where this
+process built it.
 
-shade_grad: OTHER.cu has this source's C entry points (a variant: one
-launch per tangent set at the width the request needs), commit a419817's
-(one launch per tangent set at the set's full width, whatever the
-request; its argument layout is this one's without `want`) or
-commit feed372's (one vertex_backward launch a vertex, its grid by lanes,
-grad_reduce in block order); ops/shade.py's vertex_backward and
-grad_reduce are swapped per turn for the other build's. Both builds'
-ptxas lines per kernel first. On the bunny's and the Cornell box's
-1024^2 1-spp gradient waves (chip_smoke.grad_wave_calls, every
-appearance field on the tape), for two requests, every field and the
-fit's mat_c0 and light_c (SHADE_GRAD_REQUESTS): the bounce-1 vertex's
-backward at 2^20 lanes with seeded upstream gradients, d loss / d beta
-equal bit for bit between the builds and each requested field within
-chip_smoke.GRAD_FIELD_TOL of its largest |gradient|; its vertex_backward
-call timed per turn (events over 20 calls, host enqueue, and the device
-time by events behind a held stream, warm and after an L2 flush each:
-shade_grad_times); every vertex of the wave's backward (vertex_grads of
-the six, both kernels) per turn; and once, the full request's
-grad_reduce on that build's partials and torch.sum(partials, 0) on the
-same. Then the bunny's loss
-mean((img - target)^2) over mat_c0 and light_c at 1024^2, 1 spp, depth
-5 (chip_smoke.diff_phase's): each build's profiled backward
-(chip_smoke.profile_backward: every device operation), and in turns
-the eager and the graphed value_and_grad (the graph captured anew under
-each build; medians of 5 calls after a warm-up), a 6-step fit graphed
-and eager (median ms a step) and the (1, 1) train step of chip_smoke's
-phase 12 (train_steps over a one-rank NCCL world), graphed and eager;
-each turn's gradient against the other build's within GRAD_FIELD_TOL.
+shade_grad: ops/shade.py's vertex_backward and grad_reduce run on each
+build in turns. Both builds' ptxas lines per kernel first. On the bunny's
+and the Cornell box's 1024^2 1-spp gradient waves
+(chip_smoke.grad_wave_calls, every appearance field on the tape), for two
+requests, every field and the fit's mat_c0 and light_c
+(SHADE_GRAD_REQUESTS): the bounce-1 vertex's backward at 2^20 lanes with
+seeded upstream gradients, d loss / d beta equal bit for bit between the
+builds and each requested field within chip_smoke.GRAD_FIELD_TOL of its
+largest |gradient|; its vertex_backward call timed per turn (events over
+20 calls, host enqueue, and the device time by events behind a held
+stream, warm and after an L2 flush each: shade_grad_times); every vertex
+of the wave's backward (vertex_grads of the six, both kernels) per turn;
+and once, the full request's grad_reduce on that build's partials and
+torch.sum(partials, 0) on the same. Then the bunny's loss mean((img -
+target)^2) over mat_c0 and light_c at 1024^2, 1 spp, depth 5
+(chip_smoke.diff_phase's): each build's profiled backward
+(chip_smoke.profile_backward: every device operation), and in turns the
+eager and the graphed value_and_grad (the graph captured anew under each
+build; medians of 5 calls after a warm-up), a 6-step fit graphed and eager
+(median ms a step) and the (1, 1) train step of chip_smoke's phase 12
+(train_steps over a one-rank NCCL world), graphed and eager; each turn's
+gradient against the other build's within GRAD_FIELD_TOL.
 
 Frames replay their waves from CUDA graphs (models/graph.py), and a graph
 keeps the kernels it captured: each turn empties the graph cache and
@@ -134,7 +118,6 @@ captured under it.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 import os
 import re
 import subprocess
@@ -152,10 +135,9 @@ from jet_pbrt_tpu_torch.models import graph as graph_mod
 from jet_pbrt_tpu_torch.models.render import render, render_fn
 from jet_pbrt_tpu_torch.ops import brute as brute_ops
 from jet_pbrt_tpu_torch.ops import intersect as isect_ops
-from jet_pbrt_tpu_torch.ops import rng, sweep_bvh, wide_bvh
+from jet_pbrt_tpu_torch.ops import kernels, rng, sweep_bvh, wide_bvh
 from jet_pbrt_tpu_torch.ops import shade as shade_ops
 from jet_pbrt_tpu_torch.ops import wave as wave_ops
-from jet_pbrt_tpu_torch.ops.intersect import KindHit
 from jet_pbrt_tpu_torch.parallel import mesh as pmesh
 from jet_pbrt_tpu_torch.parallel import multihost
 from jet_pbrt_tpu_torch.scene import pack as scene_pack
@@ -183,9 +165,9 @@ def _card():
 
 def sweep_main(path) -> int:
     dev = _card()
-    libs = {"this": sweep_bvh.load_kernel(),
+    library = kernels.LIBRARIES["sweep_bvh"]
+    libs = {"this": library.load(),
             "other": sweep_bvh.load_kernel(path, "sweep_bvh_other")}
-    this_kernel = sweep_bvh.load_kernel
     inst = chip_smoke.build_sweep_scene(
         "bunny 600k instanced", dev,
         bunny_path=chip_smoke.dense_obj(600_000))[0]
@@ -203,22 +185,26 @@ def sweep_main(path) -> int:
             tm = tmax if mode == "closest" else tmax_sh
             times = {"this": [], "other": []}
             outs = {}
+            cast = lambda **kw: sweep_bvh.intersect_sweep(
+                tables, o, d, tmin, tm, any_hit=mode == "any",
+                n_tris=route.n_tris, **kw)
             for who in ORDER:
-                ms, out = chip_smoke.time_ms(lambda: sweep_bvh.launch(
-                    libs[who], tables, o, d, tmin, tm,
-                    any_hit=mode == "any", n_tris=route.n_tris), 5)
+                with kernels.substitute(library, libs[who]):
+                    ms, out = chip_smoke.time_ms(cast, 5)
                 times[who].append(ms)
                 outs[who] = out
             same = all(torch.equal(a, b) for a, b in zip(outs["this"],
                                                          outs["other"]))
             if not same:
                 raise AssertionError(f"{label} {mode}: the two kernels differ")
-            counts = {who: _sweep_counters(libs[who], tables, o, d, tmin, tm,
-                                           mode == "any", route.n_tris)
-                      for who in ("other", "this")}
+            counts = {}
+            for who in ("other", "this"):
+                with kernels.substitute(library, libs[who]):
+                    stats = cast(with_stats=True)[1]
+                counts[who] = [int(x) for x in stats.sum(0)]
             print(f"sweep A/B {label} {mode} counters (culls, groups tested, "
                   "rays past the root, ray-group tests, cull and scan "
-                  "cycles[, (ray, super) passes, group sphere tests]): "
+                  "cycles, (ray, super) passes, group sphere tests): "
                   f"other {counts['other']}, this {counts['this']}",
                   flush=True)
             if counts["this"][:4] != counts["other"][:4]:
@@ -234,8 +220,7 @@ def sweep_main(path) -> int:
     imgs, walls = {}, {"this": [], "other": []}
     render(inst, 64, 64, spp=1, max_depth=5, device=dev)  # warm-up
     for who in ORDER:
-        sweep_bvh.load_kernel = lambda lib=libs[who]: lib
-        try:
+        with kernels.substitute(library, libs[who]):
             _captured_frame(inst, dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -243,8 +228,6 @@ def sweep_main(path) -> int:
                          clamp=False, device=dev)
             torch.cuda.synchronize()
             walls[who].append(time.perf_counter() - t0)
-        finally:
-            sweep_bvh.load_kernel = this_kernel
         imgs.setdefault(who, img)
     if not torch.equal(imgs["this"], imgs["other"]):
         raise AssertionError("the two kernels render different frames")
@@ -255,128 +238,43 @@ def sweep_main(path) -> int:
     return 0
 
 
-def _sweep_counters(lib, tables, o, d, tmin, tmax, any_hit, n_tris):
-    """A build's counters on one cast, summed over its packets: 6 from a
-    build before the super-spheres (which writes 6 a packet, leaving the
-    buffer's last 2 x packets entries unwritten), else STATS_COLS."""
-    packets = (o.shape[0] + sweep_bvh.RAYS - 1) // sweep_bvh.RAYS
-    cols = sweep_bvh.STATS_COLS
-    buf = torch.full((packets * cols,), -1, dtype=torch.int64,
-                     device=o.device)
-    sweep_bvh.launch(lib, tables, o, d, tmin, tmax, any_hit=any_hit,
-                     n_tris=n_tris, stats=buf.view(packets, cols))
-    if bool((buf[6 * packets:] == -1).all()):
-        cols = 6
-    return [int(x) for x in buf[:cols * packets].view(packets, cols).sum(0)]
-
-
 # --------------------------------------------------------------------------
 # the wide kernel
 # --------------------------------------------------------------------------
 
-# the device operations of a cast by any of the three entry points (the
-# one-launch design and the node-major kernel name their one kernel
-# wide_bvh_kernel)
-WIDE_OPS = chip_smoke.WIDE_OPS + ("wide_bvh_kernel",)
+WIDE = kernels.LIBRARIES["wide_bvh"]
 
 
-def _entry(lib) -> str:
-    return next(e for e in ("wide_bvh_cast", "wide_bvh_one_pass",
-                            "wide_bvh_launch") if hasattr(lib, e))
-
-
-def _declare_wide(lib):
-    """This source's entry points; or the one-launch design's
-    wide_bvh_one_pass (planar, child, tris, inst, o, d, tmin, tmax, n,
-    blas_root, leaf_size, n_tris, any_hit, has_inst, t_out, idx_out, stats,
-    stream); or the node-major kernel's wide_bvh_launch (bounds, child,
-    tris, inst, o, d, tmin, tmax, n, blas_root, leaf_size, n_tris, any_hit,
-    has_inst, t_out, idx_out, stream)."""
-    entry = _entry(lib)
-    if entry == "wide_bvh_cast":
-        wide_bvh._declare(lib)
-        return
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    fn = getattr(lib, entry)
-    fn.argtypes = [vp] * 8 + [ci] * 6 + [vp] * (
-        4 if entry == "wide_bvh_one_pass" else 3)
-    fn.restype = ci
-
-
-def wide_call(lib, tables, o, d, tmin, tmax, *, any_hit, has_inst,
-              leaf_size, n_tris, stats=None, out=None):
-    """One cast through lib on the current stream -> KindHit, copied into
-    out = (t, index, valid) where the caller hands its slab rows."""
-    hit = _wide_call(lib, tables, o, d, tmin, tmax, any_hit=any_hit,
-                     has_inst=has_inst, leaf_size=leaf_size, n_tris=n_tris,
-                     stats=stats)
-    if out is None:
-        return hit
-    return KindHit(*(y.copy_(x) for x, y in zip(hit, out)))
-
-
-def _wide_call(lib, tables, o, d, tmin, tmax, *, any_hit, has_inst,
-               leaf_size, n_tris, stats=None):
-    entry = _entry(lib)
-    if entry == "wide_bvh_cast":
-        t, idx = wide_bvh.launch(lib, tables, o, d, tmin, tmax,
-                                 any_hit=any_hit, has_inst=has_inst,
-                                 leaf_size=leaf_size, n_tris=n_tris,
-                                 stats=stats)
-        return KindHit(t=t, index=idx, valid=torch.isfinite(t))
-    n = o.shape[0]
-    t = torch.empty((n,), dtype=torch.float32, device=o.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=o.device)
-    one_pass = entry == "wide_bvh_one_pass"
-    err = getattr(lib, entry)(
-        tables.planar.data_ptr() if one_pass else tables.bounds.data_ptr(),
-        tables.child.data_ptr(), tables.tris.data_ptr(),
-        tables.inst.data_ptr(), o.data_ptr(), d.data_ptr(), tmin.data_ptr(),
-        tmax.data_ptr(), n, tables.blas_root, leaf_size, n_tris, int(any_hit),
-        int(has_inst), t.data_ptr(), idx.data_ptr(),
-        *((None,) if one_pass else ()),
-        torch.cuda.current_stream(o.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"other wide kernel: CUDA error {err}")
-    return KindHit(t=t, index=idx, valid=torch.isfinite(t))
+def wide_call(lib, tables, o, d, tmin, tmax, **kw):
+    """One cast through intersect_wide on build lib -> KindHit (and its
+    counters where kw has with_stats)."""
+    with kernels.substitute(WIDE, lib):
+        return wide_bvh.intersect_wide(tables, o, d, tmin, tmax, **kw)
 
 
 def _wide_stats(lib, tables, rays, kw):
-    warps = lib.wide_bvh_walk_warps(int(kw["any_hit"]), int(kw["has_inst"]), 1)
-    stats = torch.empty((1 + warps, wide_bvh.STATS_COLS), dtype=torch.int64,
-                        device=rays[0].device)
-    wide_call(lib, tables, *rays, stats=stats, **kw)
+    _, stats = wide_call(lib, tables, *rays, with_stats=True, **kw)
     return wide_bvh.stats_summary(stats, kw["leaf_size"])
 
 
 def _device(lib, call) -> tuple[float, str]:
     """(device ms per call, its split by operation) of call(lib)."""
     parts = {k: v for k, v in chip_smoke.profiled_ms(
-        lambda: call(lib), 10, WIDE_OPS, each=()).items() if v}
+        lambda: call(lib), 10, chip_smoke.WIDE_OPS, each=()).items() if v}
     return sum(parts.values()), ", ".join(f"{k} {v:.4f}"
                                           for k, v in parts.items())
 
 
-def _held(route, label, rays, kw, out_this, out_other, pinned):
-    """A build that pins its arithmetic: equal bit for bit. The
-    node-major kernel: lanes that differ, through the forensic."""
-    if pinned:
-        if not all(torch.equal(a, b) for a, b in zip(out_this, out_other)):
-            raise AssertionError(f"{label}: the other build's output differs")
-        return "outputs equal bit for bit"
-    chip_smoke.check_lanes(route, f"wide A/B {label}, this vs other", *rays,
-                           kw["any_hit"], out_this, out_other, exact=False)
-    return "differing lanes explained (line above)"
+def _held(label, out_this, out_other):
+    if not all(torch.equal(a, b) for a, b in zip(out_this, out_other)):
+        raise AssertionError(f"{label}: the other build's output differs")
 
 
 def wide_main(path) -> int:
     dev = _card()
-    libs = {"this": wide_bvh.load_kernel(),
-            "other": cuda_build.load_library("wide_bvh_other", [path],
-                                             _declare_wide)}
-    entry = _entry(libs["other"])
-    variant, pinned = entry == "wide_bvh_cast", entry != "wide_bvh_launch"
-    print(f"other kernel: {path} (entry {entry})", flush=True)
+    libs = {"this": WIDE.load(),
+            "other": wide_bvh.load_kernel(path, "wide_bvh_other")}
+    print(f"other kernel: {path}", flush=True)
     bunny = bunny_scene().to(dev)
     route = chip_smoke.wide_route(bunny)
     tables = bunny.pack.inst_wide[0]
@@ -397,17 +295,16 @@ def wide_main(path) -> int:
                 ms, out = chip_smoke.time_ms(lambda: call(libs[who]), 10)
                 times[who].append(ms)
                 outs.setdefault(who, out)
-            held = _held(route, f"{label} {mode}", rays, kw, outs["this"],
-                         outs["other"], pinned)
+            _held(f"{label} {mode}", outs["this"], outs["other"])
             dev_ms = {who: _device(libs[who], call) for who in ORDER[:2]}
             print(f"wide A/B {label} {mode} at {o.shape[0]} rays (order other, "
                   f"this, this, other): other {times['other'][0]:.4f} / "
                   f"{times['other'][1]:.4f} ms, this {times['this'][0]:.4f} / "
                   f"{times['this'][1]:.4f} ms by events; device time other "
                   f"{dev_ms['other'][0]:.4f} ms ({dev_ms['other'][1]}), this "
-                  f"{dev_ms['this'][0]:.4f} ms ({dev_ms['this'][1]}); {held}",
-                  flush=True)
-            for who in ("other", "this") if variant else ("this",):
+                  f"{dev_ms['this'][0]:.4f} ms ({dev_ms['this'][1]}); "
+                  "outputs equal bit for bit", flush=True)
+            for who in ("other", "this"):
                 st = _wide_stats(libs[who], tables, rays, kw)
                 print(f"  {who} counters: node visits {st['node_visits']}, "
                       f"triangle tests {st['tri_tests']}, "
@@ -432,9 +329,8 @@ def wide_main(path) -> int:
         lib, tb, o, d, tmin, tmax, **kw))[0]
         for tb, o, d, tmin, tmax, kw in casts) for who in ORDER[:2]}
     for j, (tb, o, d, tmin, tmax, kw) in enumerate(casts):
-        _held(route, f"cast {j}", (o, d, tmin, tmax), kw,
-              wide_call(libs["this"], tb, o, d, tmin, tmax, **kw),
-              wide_call(libs["other"], tb, o, d, tmin, tmax, **kw), pinned)
+        _held(f"cast {j}", wide_call(libs["this"], tb, o, d, tmin, tmax, **kw),
+              wide_call(libs["other"], tb, o, d, tmin, tmax, **kw))
     turn = lambda x: (f"{x[0]:.4f} ms (host enqueue {x[1]:.4f} ms, slowest "
                       f"call {x[2]:.4f} ms; "
                       + chip_smoke.stalls_line(x[3]) + ")")
@@ -446,14 +342,10 @@ def wide_main(path) -> int:
           flush=True)
     del casts
 
-    inner = wide_bvh.intersect_wide
     imgs, walls = {}, {"this": [], "other": []}
     render(bunny, 64, 64, spp=1, max_depth=5, device=dev)  # warm-up
     for who in ORDER:
-        wide_bvh.intersect_wide = (
-            lambda tb, o, d, tmin, tmax, lib=libs[who], **kw:
-            wide_call(lib, tb, o, d, tmin, tmax, **kw))
-        try:
+        with kernels.substitute(WIDE, libs[who]):
             _captured_frame(bunny, dev)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -461,11 +353,9 @@ def wide_main(path) -> int:
                          clamp=False, device=dev)
             torch.cuda.synchronize()
             walls[who].append(time.perf_counter() - t0)
-        finally:
-            wide_bvh.intersect_wide = inner
         imgs.setdefault(who, img)
     diff = (imgs["this"] - imgs["other"]).abs()
-    if pinned and float(diff.max()) != 0.0:
+    if float(diff.max()) != 0.0:
         raise AssertionError("the other build renders a different frame")
     print(f"wide A/B frame 1024^2 spp 4 depth 5 (order other, this, this, "
           f"other): other {walls['other'][0]:.3f} / {walls['other'][1]:.3f} "
@@ -476,22 +366,11 @@ def wide_main(path) -> int:
 
 
 # --------------------------------------------------------------------------
-# --lib: a kernel behind a ctypes wrapper whose module loads its library
-# through a module-level _library(), swapped per turn
+# --lib: a library of ops/kernels.py, its build swapped per turn
 # --------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def _using(module, lib):
-    this = module._library
-    module._library = lambda: lib
-    try:
-        yield
-    finally:
-        module._library = this
-
-
-def _turns(module, libs, call, names, reps, flush):
-    """{who: [kernel_times of each turn]} of call() with module's wrapper
+def _turns(library, libs, call, names, reps, flush):
+    """{who: [kernel_times of each turn]} of call() with library's wrappers
     on each build, in ORDER, each also with the profiler's device time
     after an L2 flush before each call (flush, a tensor larger than L2):
     by a write (flush.fill_(0), which leaves L2 full of dirty lines) and
@@ -499,7 +378,7 @@ def _turns(module, libs, call, names, reps, flush):
     kernels are not among names."""
     times = {"this": [], "other": []}
     for who in ORDER:
-        with _using(module, libs[who]):
+        with kernels.substitute(library, libs[who]):
             t = chip_smoke.kernel_times(call, names, reps)
             for key, fill in (("device_cold_ms", lambda: flush.fill_(0)),
                               ("device_read_cold_ms", flush.sum)):
@@ -646,12 +525,12 @@ def wave_cases(dev):
     return cases
 
 
-def _wave_steps(module, libs, dev, res: int = 1024) -> None:
+def _wave_steps(library, libs, dev, res: int = 1024) -> None:
     """The bunny loss's steps through each build (_bunny_steps), their
     gradients equal bit for bit; then phase 2g's timing of the backward
     kernels (chip_smoke.time_grads) on a recorded gradient wave under each
     build in turns."""
-    using = lambda lib: _using(module, lib)
+    using = lambda lib: kernels.substitute(library, lib)
     scene, got = _bunny_steps("wave", using, libs, dev, res)
     for k in got["this"]:
         if not torch.equal(got["this"][k], got["other"][k]):
@@ -666,13 +545,13 @@ def _wave_steps(module, libs, dev, res: int = 1024) -> None:
             chip_smoke.time_grads(f"wave A/B {who} bunny", calls, smi)
 
 
-def _frames(module, libs, dev, label, scene, res, spp):
+def _frames(library, libs, dev, label, scene, res, spp):
     """The scene's res^2, spp frame through each build, equal bit for
     bit, then each build's profiled 1024^2 1-spp wave."""
     imgs, walls = {}, {"this": [], "other": []}
     render(scene, 64, 64, spp=1, max_depth=5, device=dev)  # warm-up
     for who in ORDER:
-        with _using(module, libs[who]):
+        with kernels.substitute(library, libs[who]):
             _captured_frame(scene, dev, res, spp)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -688,7 +567,7 @@ def _frames(module, libs, dev, label, scene, res, spp):
           f"{walls['other'][1]:.4f} s, this {walls['this'][0]:.4f} / "
           f"{walls['this'][1]:.4f} s; frames equal bit for bit", flush=True)
     for who in ORDER:
-        with _using(module, libs[who]):
+        with kernels.substitute(library, libs[who]):
             graph_mod.clear()
             chip_smoke.profile_wave(scene, dev, f"A/B {who} {label}:",
                                     table=False)
@@ -706,130 +585,19 @@ def _captured_frame(scene, dev, res=1024, spp=4):
 # --lib shade_grad: the vertex's backward
 # --------------------------------------------------------------------------
 
-class _OneLaunchArgs(ctypes.Structure):
-    """Commit feed372's argument layout: this one's without first and
-    device_acc."""
-    _fields_ = [f for f in shade_ops._GradArgs._fields_
-                if f[0] not in ("first", "device_acc")]
-
-
-class _FullWidthArgs(ctypes.Structure):
-    """Commit a419817's argument layout: this one's without `want`."""
-    _fields_ = [f for f in shade_ops._GradArgs._fields_ if f[0] != "want"]
-
-
-def _declare_full_width(lib):
-    """Declares a build of commit a419817's entry points (vertex_backward:
-    one launch per tangent set at the set's full width). Its layout is a
-    prefix of this one's, so the wrapper's arguments pass as they are; a
-    launch the wrapper narrows runs at the set's full width there."""
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.vertex_backward.argtypes = [ctypes.POINTER(shade_ops._GradArgs), ci,
-                                    ci, vp]
-    lib.grad_reduce.argtypes = [vp, ci, ci, vp, vp]
-    lib.vertex_backward_rows.argtypes = [ci, ci]
-    for name in ("vertex_backward", "grad_reduce", "vertex_backward_rows",
-                 "shade_grad_args_size"):
-        getattr(lib, name).restype = ci
-    if lib.shade_grad_args_size() != ctypes.sizeof(_FullWidthArgs):
-        raise RuntimeError("OTHER.cu's argument layout is not commit "
-                           "a419817's")
-    # this wrapper's entry point: the launch's width, or minus the error
-    lib.vertex_backward_tangents = \
-        lambda g, s, want, first, stream: -err if (
-            err := lib.vertex_backward(g, s, first, stream)) \
-        else len(shade_ops.TANGENT_SETS[s])
-
-
-def _declare_shade_grad(lib):
-    """Declares a build of this source's entry points, commit a419817's,
-    or commit feed372's."""
-    if hasattr(lib, "vertex_backward_tangents"):
-        shade_ops._declare_grad(lib)
-        return
-    if hasattr(lib, "vertex_backward_rows"):
-        _declare_full_width(lib)
-        return
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.vertex_backward.argtypes = [ctypes.POINTER(_OneLaunchArgs), vp]
-    lib.grad_reduce.argtypes = [vp, ci, ci, vp, vp]
-    lib.vertex_backward_grid.argtypes = [ci]
-    for name in ("vertex_backward", "grad_reduce", "vertex_backward_grid",
-                 "shade_grad_args_size"):
-        getattr(lib, name).restype = ci
-    if lib.shade_grad_args_size() != ctypes.sizeof(_OneLaunchArgs):
-        raise RuntimeError("OTHER.cu's argument layout is neither this "
-                           "source's nor feed372's")
-
-
-def _one_launch_wrappers(lib):
-    """vertex_backward and grad_reduce on a build of feed372's entry points:
-    one launch a vertex, partials [grid, slots] summed in block order."""
-    def vertex_backward(meta, pack, hit, state, u_vertex, bounce, max_depth,
-                        lights, occ, gL, gbeta=None, taps=False):
-        dev = gL.device
-        shade_ops.check_backward_inputs(meta, pack, hit, state, u_vertex,
-                                        bounce, max_depth, occ, gL, gbeta,
-                                        dev)
-        n, last = gL.shape[0], bounce >= max_depth
-        n_nee = shade_ops._check_lights(meta, lights, dev)
-        slots = shade_ops.n_grad_slots(pack)
-        f32 = dict(dtype=torch.float32, device=dev)
-        gbeta_in = torch.empty((n, 3), **f32)
-        partials = torch.empty((lib.vertex_backward_grid(n), slots), **f32)
-        tap_g = torch.empty((n, 4, 3), **f32) if taps else None
-        tap_rows = torch.empty((n, 4), dtype=torch.int64, device=dev) \
-            if taps else None
-        g = _OneLaunchArgs()
-        g.a = shade_ops._shade_args(meta, pack, hit, state, u_vertex, bounce,
-                                    max_depth, lights, 0 if last else n_nee,
-                                    {})
-        for k, v in dict(gL=gL, gbeta=gbeta, occ=None if last else occ,
-                         gbeta_in=gbeta_in, partials=partials, taps=tap_g,
-                         tap_rows=tap_rows).items():
-            setattr(g, k, None if v is None else v.data_ptr())
-        g.n_mat, g.n_tex_rows = pack.mat_c0.shape[0], pack.tex_c0.shape[0]
-        g.n_slots = slots
-        if lib.vertex_backward(ctypes.byref(g),
-                               torch.cuda.current_stream(dev).cuda_stream):
-            raise RuntimeError("the other build's vertex_backward launch "
-                               "failed")
-        vertex_backward.launches += 1
-        return gbeta_in, partials, tap_g, tap_rows
-
-    def grad_reduce(partials):
-        grid, slots = partials.shape
-        out = torch.empty((slots,), dtype=torch.float32,
-                          device=partials.device)
-        if lib.grad_reduce(partials.data_ptr(), grid, slots, out.data_ptr(),
-                           torch.cuda.current_stream().cuda_stream):
-            raise RuntimeError("the other build's grad_reduce launch failed")
-        grad_reduce.launches += 1
-        return out
-
-    vertex_backward.launches = grad_reduce.launches = 0
-    return vertex_backward, grad_reduce
+GRAD = kernels.LIBRARIES["shade_grad"]
 
 
 @contextlib.contextmanager
 def _grad_build(lib):
-    """While open, ops/shade.py's backward runs on lib (this source's
-    entry points through _grad_library, feed372's through its wrappers) and
-    no graph captured under another build is replayed."""
-    saved = (shade_ops._grad_library, shade_ops.vertex_backward,
-             shade_ops.grad_reduce)
-    if hasattr(lib, "vertex_backward_rows"):
-        shade_ops._grad_library = lambda: lib
-    else:
-        shade_ops.vertex_backward, shade_ops.grad_reduce = \
-            _one_launch_wrappers(lib)
+    """While open, ops/shade.py's backward runs on lib and no graph
+    captured under another build is replayed."""
     graph_mod.clear()
     try:
-        yield
+        with kernels.substitute(GRAD, lib):
+            yield
     finally:
         graph_mod.clear()
-        (shade_ops._grad_library, shade_ops.vertex_backward,
-         shade_ops.grad_reduce) = saved
 
 
 def _ptxas(name: str, log: str, who: str) -> None:
@@ -891,9 +659,8 @@ def shade_grad_main(path) -> int:
     # both builds at once: each takes minutes
     cuda_build.build_libraries([("shade_grad", ["shade_grad.cu"]),
                                 ("shade_grad_other", [path])])
-    libs = {"this": shade_ops._grad_library(),
-            "other": cuda_build.load_library("shade_grad_other", [path],
-                                             _declare_shade_grad)}
+    libs = {"this": GRAD.load(),
+            "other": GRAD.build([path], "shade_grad_other")}
     print(f"other kernel: {path}", flush=True)
     for who, built in (("other", "shade_grad_other"), ("this", "shade_grad")):
         _ptxas("shade_grad", cuda_build.BUILD_LOG.get(built, (0, ""))[1],
@@ -1052,12 +819,11 @@ def _bunny_steps(name, using, libs, dev, res: int = 1024):
 
 
 class LibAB(NamedTuple):
-    """A --lib entry: the wrapper's module (its _library() swapped per
-    turn), cases(dev) -> [(label, call, plain output, kernel names,
-    reps)], a build's per-lane SASS line or None, frame(dev) -> (label,
-    scene, res, spp) of the frame through each build or None, and
-    steps(module, libs, dev) run after it or None."""
-    module: object
+    """A --lib entry of a library of ops/kernels.py: cases(dev) ->
+    [(label, call, plain output, kernel names, reps)], a build's per-lane
+    SASS line or None, frame(dev) -> (label, scene, res, spp) of the frame
+    through each build or None, and steps(library, libs, dev) run after it
+    or None."""
     cases: Callable
     sass: Callable | None = None
     frame: Callable | None = None
@@ -1065,29 +831,29 @@ class LibAB(NamedTuple):
 
 
 LIB_AB = {
-    "threefry": LibAB(rng, threefry_cases, lambda lib: chip_smoke.sass_line(
+    "threefry": LibAB(threefry_cases, lambda lib: chip_smoke.sass_line(
         chip_smoke.threefry_sass(lib, 8)),
         lambda dev: ("bunny", bunny_scene().to(dev), 1024, 4)),
-    "sweep_prims": LibAB(sweep_prims, prims_cases),
-    "brute": LibAB(brute_ops, brute_cases,
+    "sweep_prims": LibAB(prims_cases),
+    "brute": LibAB(brute_cases,
                    frame=lambda dev: ("Cornell", cornell_box().to(dev), 512,
                                       16)),
-    "wave": LibAB(wave_ops, wave_cases,
+    "wave": LibAB(wave_cases,
                   frame=lambda dev: ("bunny", bunny_scene().to(dev), 1024, 4),
                   steps=_wave_steps)}
 
 
 def lib_main(name, path) -> int:
-    module, cases, sass, frame, steps = LIB_AB[name]
+    cases, sass, frame, steps = LIB_AB[name]
+    library = kernels.LIBRARIES[name]
     dev = _card()
     if steps:
         # the steps run every library: all built at once with the other
         cuda_build.build_libraries(chip_smoke.LIBRARIES
                                    + (chip_smoke.COUNT_LIBRARY,
                                       (f"{name}_other", [path])))
-    libs = {"this": module._library(),
-            "other": cuda_build.load_library(f"{name}_other", [path],
-                                             module._declare)}
+    libs = {"this": library.load(),
+            "other": library.build([path], f"{name}_other")}
     print(f"other kernel: {path}", flush=True)
     for who, built in (("other", f"{name}_other"), ("this", name)):
         _ptxas(name, cuda_build.BUILD_LOG.get(built, (0, ""))[1], who)
@@ -1096,12 +862,12 @@ def lib_main(name, path) -> int:
     for label, call, want, names, reps in cases(dev):
         outs = [want]
         for who in ORDER[:2]:
-            with _using(module, libs[who]):
+            with kernels.substitute(library, libs[who]):
                 outs.append(call())
         _held_equal(label, outs)
         if reps:
             print(f"{name} A/B {label} (order other, this, this, other): "
-                  + _turns_line(_turns(module, libs, call, names, reps,
+                  + _turns_line(_turns(library, libs, call, names, reps,
                                        flush))
                   + "; outputs equal to the plain version bit for bit",
                   flush=True)
@@ -1114,9 +880,9 @@ def lib_main(name, path) -> int:
             print(f"{name} A/B {who} SASS per lane (ALU-pipe / "
                   f"FMA-heavy-pipe / all) at S = 8: {sass(lib)}", flush=True)
     if frame:
-        _frames(module, libs, dev, *frame(dev))
+        _frames(library, libs, dev, *frame(dev))
     if steps:
-        steps(module, libs, dev)
+        steps(library, libs, dev)
     return 0
 
 

@@ -390,13 +390,13 @@ def test_wrapper_refuses_what_the_kernel_cannot_take(bad):
         shapes = tis.BruteShapes(*(None if v is None else tuple(
             x.to("meta") for x in v) for v in shapes))
     with pytest.raises(ValueError, match={
-            "dtype": "expected a contiguous float32", "shape": r"\[24\]",
+            "dtype": "expected a contiguous torch.float32", "shape": r"\[24\]",
             "contiguity": "not contiguous", "empty": "holds no shape",
             "device": "no brute_hits route"}[bad]):
         TB.brute_hits(*rays, shapes, False)
 
 
 def test_kernel_is_registered():
-    from jet_pbrt_tpu_torch.ops.launches import REGISTRY
+    from jet_pbrt_tpu_torch.ops.kernels import REGISTRY
     assert REGISTRY["brute_hits_kernel"] == (TB.__name__, "brute_hits")
     assert isinstance(TB.brute_hits.launches, int)

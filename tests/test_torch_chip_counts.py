@@ -223,7 +223,7 @@ def test_node_launches_count_the_fused_vertex():
     them: the fused vertex's two kernels, the brute-force casts',
     ops/rays.py's four, ops/wave.py's three and the gradient's four
     backward kernels beside the traversal and the streams."""
-    from jet_pbrt_tpu_torch.ops.launches import REGISTRY
+    from jet_pbrt_tpu_torch.ops.kernels import REGISTRY
     nodes = dict.fromkeys(REGISTRY, 0) | {
         "wide_walk_kernel": 16, "lane_keys_kernel": 1, "uniforms_kernel": 6,
         "shade_vertex_kernel": 6, "nee_accumulate_kernel": 5,

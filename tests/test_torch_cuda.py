@@ -77,7 +77,7 @@ Cornell box, and on chip_smoke's edge sets (one lane, ragged counts, pixel
 ids past 2^24, every sampler's jitter, NaN and inf colours, dead lanes,
 the identity, reversed and seeded perms, the keys' and the debug sampler's
 streams), bit for bit; the frames through them against their plain
-versions' and the plain glue's; the graphed wave's kernel nodes and frame
+versions'; the graphed wave's kernel nodes and frame
 against the eager ones; an input that requires grad refused; render_fn's
 gradient running the camera, and nothing else of them, in its forward.
 The vertex's backward (ops/shade.py, csrc/shade_grad.cu): each backward
@@ -812,7 +812,7 @@ def test_default_captures_after_eager_calls_on_card(monkeypatch):
     assert (entry.launches["wide_walk_kernel"], entry.launches[
         "sweep_bvh_kernel"], entry.launches["lane_keys_kernel"]
         + entry.launches["uniforms_kernel"]) == eager
-    from jet_pbrt_tpu_torch.ops.launches import is_function
+    from jet_pbrt_tpu_torch.ops.kernels import is_function
     names = G.kernel_names(entry.graph)
     assert sum(is_function(n, "wide_cull_kernel") for n in names) \
         == eager[0], sorted(set(names))
@@ -1305,7 +1305,7 @@ def test_brute_cast_replays_from_a_graph_on_card(any_hit):
     g = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(g):
         out = cast()
-    from jet_pbrt_tpu_torch.ops.launches import is_function
+    from jet_pbrt_tpu_torch.ops.kernels import is_function
     assert sum(is_function(name, "brute_hits_kernel")
                for name in G.kernel_names(g)) == 1
     for x, y in zip(static, new):
@@ -1599,8 +1599,8 @@ def test_wave_kernels_edge_sets_on_card():
 @pytest.mark.parametrize("which", ["cornell", "wide", "sweep"])
 def test_wave_route_frame_equals_plain_on_card(which):
     """A 32^2, 3-spp frame through the glue kernels equals the frame with
-    their plain versions and with the plain glue, image and stats bit for
-    bit, and the debug and stratified samplers' frames likewise; the
+    their plain versions, image and stats bit for bit, and the debug and
+    stratified samplers' frames likewise; the
     kernels launched as wave_launches counts."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")

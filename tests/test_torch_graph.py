@@ -32,7 +32,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from jet_pbrt_tpu_torch.models import graph as G
 from jet_pbrt_tpu_torch.models import render as R
 from jet_pbrt_tpu_torch.ops import brute as TB
-from jet_pbrt_tpu_torch.ops import launches as L
+from jet_pbrt_tpu_torch.ops import kernels as L
 from jet_pbrt_tpu_torch.ops import rays as TRAY
 from jet_pbrt_tpu_torch.ops import wave as TWAVE
 from jet_pbrt_tpu_torch.ops import rng as TR

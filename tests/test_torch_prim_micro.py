@@ -126,5 +126,3 @@ def test_wrapper_checks_its_arguments():
         P.prim_micro("m1", tabs["tb_bf16"].t(), 4)
     with pytest.raises(ValueError, match="reps"):
         P.prim_micro("m1", tabs["tb_bf16"], -1)
-    with pytest.raises(ValueError, match="no prim_micro route"):
-        P.prim_micro("m1", tabs["tb_bf16"].to("meta"), 4)

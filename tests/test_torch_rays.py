@@ -37,7 +37,7 @@ from jet_pbrt_tpu.scene import scenes as jscenes
 from jet_pbrt_tpu.scene.assets import generate_bunny_obj
 from jet_pbrt_tpu.scene.builder import SceneBuilder as JBuilder
 from jet_pbrt_tpu_torch.ops import intersect as tis
-from jet_pbrt_tpu_torch.ops import launches as L
+from jet_pbrt_tpu_torch.ops import kernels as L
 from jet_pbrt_tpu_torch.ops import rays as TR
 from jet_pbrt_tpu_torch.scene import pack as tpack
 from jet_pbrt_tpu_torch.scene import scenes as tscenes
@@ -349,13 +349,13 @@ def test_requires_grad_refused_on_card_kept_on_cpu(scenes):
     stays on the tape; any other device raises."""
     x = torch.zeros(3)
     cuda = torch.device("cuda")
-    assert TR._route("k", cuda, x=x, y=None)
+    assert L.route("k", cuda, x=x, y=None)
     with pytest.raises(ValueError, match="k: y require grad"):
-        TR._route("k", cuda, x=x, y=x.clone().requires_grad_(True))
-    assert not TR._route("k", torch.device("cpu"),
-                         x=x.clone().requires_grad_(True))
+        L.route("k", cuda, x=x, y=x.clone().requires_grad_(True))
+    assert not L.route("k", torch.device("cpu"),
+                       x=x.clone().requires_grad_(True))
     with pytest.raises(ValueError, match="no k route for device meta"):
-        TR._route("k", torch.device("meta"), x=x)
+        L.route("k", torch.device("meta"), x=x)
     _, ts = scenes["every-kind"]
     o, d, _ = (torch.from_numpy(v) for v in _rays(ts, 8))
     o = o.requires_grad_(True)

@@ -114,15 +114,3 @@ def test_multi_sample_wave_keys_per_lane():
         np.testing.assert_array_equal(_bits(got[rows]), _bits(want))
 
 
-def test_kernel_route_refuses_other_devices():
-    """The wrappers take the plain version only for CPU tensors: a tensor
-    on another device gets the kernel or an error, never the plain
-    version."""
-    meta = torch.arange(4, device="meta")
-    with pytest.raises(ValueError, match="no lane_keys route"):
-        trng.lane_keys(0, 0, meta)
-    keys = trng.LaneKeys(torch.zeros(4, dtype=torch.int32, device="meta"),
-                         torch.zeros(4, dtype=torch.int32, device="meta"),
-                         torch.zeros(4, dtype=torch.int64, device="meta"))
-    with pytest.raises(ValueError, match="no uniforms route"):
-        trng.uniforms(keys, 16, 8)

@@ -44,7 +44,7 @@ from jet_pbrt_tpu_torch.diff import params as dparams
 from jet_pbrt_tpu_torch.models import render as R
 from jet_pbrt_tpu_torch.ops import lights as light_ops
 from jet_pbrt_tpu_torch.ops import shade as S
-from jet_pbrt_tpu_torch.ops.launches import REGISTRY
+from jet_pbrt_tpu_torch.ops.kernels import REGISTRY
 from jet_pbrt_tpu_torch.scene import pack as tpack
 from jet_pbrt_tpu_torch.scene import scenes as tscenes
 
@@ -366,18 +366,6 @@ def test_accumulate_checks_pass_and_raise():
                      ("L", args["L"].requires_grad_())):
         with pytest.raises(ValueError):
             S.check_accumulate_inputs(**(args | {key: bad}), dev=cpu)
-
-
-def test_wrappers_refuse_a_device_without_a_route(scenes):
-    ts = scenes[1]
-    hit, state, u = _vertex_inputs(ts, n_side=4)
-    meta = lambda x: x.to("meta")
-    with pytest.raises(ValueError, match="no shade_vertex route"):
-        S.shade_vertex(ts.meta, ts.pack, hit,
-                       S.VertexState(*(meta(x) for x in state)), u, 0, DEPTH)
-    with pytest.raises(ValueError, match="no nee_accumulate route"):
-        S.nee_accumulate(*(torch.zeros(s, device="meta")
-                           for s in ((4, 3), (1, 4), (1, 4), (1, 4, 3))))
 
 
 @pytest.mark.parametrize("which", ["every-kind", "many-lights"])

@@ -735,10 +735,6 @@ def test_sweep_checks_its_arguments(meshes):
     with pytest.raises(ValueError, match="float32"):
         TS.intersect_sweep(tables, o.double(), d, tmin, tmax, any_hit=False,
                            n_tris=mt.shape[0])
-    with pytest.raises(ValueError, match="no sweep route"):
-        TS.intersect_sweep(tables.to("meta"), o.to("meta"), d.to("meta"),
-                           tmin.to("meta"), tmax.to("meta"), any_hit=False,
-                           n_tris=mt.shape[0])
 
 
 # ---------------------------------------------------------------------------

@@ -42,6 +42,7 @@ from jet_pbrt_tpu.scene import scenes as jscenes
 from jet_pbrt_tpu.scene.builder import SceneBuilder as JBuilder
 from jet_pbrt_tpu_torch.models import camera as tcam
 from jet_pbrt_tpu_torch.models import integrators as tint
+from jet_pbrt_tpu_torch.ops import kernels
 from jet_pbrt_tpu_torch.ops import rng as trng
 from jet_pbrt_tpu_torch.ops import wave as W
 from jet_pbrt_tpu_torch.scene import pack as tpack
@@ -294,10 +295,9 @@ def test_li_path_takes_the_camera_state():
 
 
 def test_wrappers_check_their_inputs():
-    """Each wrapper raises on a tensor its kernel cannot take; on a device
-    that is neither the CPU nor the card, and on the card where an input
-    requires grad (no kernel has a backward), it raises rather than fall
-    back."""
+    """Each wrapper raises on a tensor its kernel cannot take, and on the
+    card where an input requires grad (no kernel has a backward) rather
+    than fall back (a device without a route: tests/test_torch_kernels.py)."""
     ts = tscenes.cornell_box()
     _, tc = _cameras(ts, 4, 4)
     pix = torch.arange(16)
@@ -321,11 +321,9 @@ def test_wrappers_check_their_inputs():
                                keys, pix, torch.device("cpu"))
     with pytest.raises(ValueError, match="lane"):
         W.check_unsort_inputs(state.L, pix.int(), torch.device("cpu"))
-    with pytest.raises(ValueError, match="no unsort_guard route"):
-        W.unsort_guard(state.L.to("meta"))
     with pytest.raises(ValueError, match="require grad"):
-        W._route("permute_state", torch.device("cuda"),
-                 L=state.L.requires_grad_())
+        kernels.route("permute_state", torch.device("cuda"),
+                      L=state.L.requires_grad_())
 
 
 def test_casts_write_their_slab_rows():
