@@ -172,8 +172,14 @@ Phases, each printing its result; any failure raises and exits non-zero:
      ray-group tests `sweep_work_plain` counts from the inputs, with the
      two-level cull's super and group sphere tests (its bound) beside the
      flat cull's rays past the root x groups, printed beside the kernel's
-     counters and its cull / scan cycle split;
-     the kernel's resident blocks per SM at 4,096 and 8,192 groups;
+     counters and its cull / scan cycle split (and the groups its culls
+     listed and its scans popped, the pops that tested nothing, and the
+     share of the listed popped);
+     the kernel's resident blocks per SM at 4,096 and 8,192 groups; then
+     the split of the benchmark cell's own casts (sweep_split on the 16
+     sweep casts of one eager 1-spp 1024^2 wave of the 600k garden, seed
+     3): per class, closest and shadow, those counters a cull, thread 0's
+     cull / scan cycles and the casts' summed event time;
   7. main path on the sweep route: render(bunny_scene(bunny_path=<600k
      OBJ>), 1024, 1024, spp=4, max_depth=5, device="cuda") with the exact
      sweep launch count and no wide launch, rays/s, peak memory, build
@@ -637,6 +643,7 @@ def sweep_route(scene) -> Route:
             tables, o, d, tmin, tmax, any_hit=False, n_tris=n_tris,
             with_stats=True)[1].sum(0)]
         cyc = st[4] + st[5]
+        culls = max(st[0], 1)
         n_sup = -(-tables.n_groups // sweep_bvh.SUPER)
         flat = w.n_root * tables.n_groups
         print(f"sweep_bvh counts at {o.shape[0]} rays, inputs / kernel: "
@@ -653,7 +660,12 @@ def sweep_route(scene) -> Route:
               f"({flat / max(w.n_root * n_sup + w.n_group_tests, 1):.2f}x "
               f"fewer than flat); kernel cycles (thread 0 of each block) "
               f"cull {st[4]} ({100 * st[4] / max(cyc, 1):.1f}%), scan "
-              f"{st[5]} ({100 * st[5] / max(cyc, 1):.1f}%)", flush=True)
+              f"{st[5]} ({100 * st[5] / max(cyc, 1):.1f}%); culls {st[0]}: "
+              f"listed {st[8]} ({st[8] / culls:.2f} a cull), popped {st[9]} "
+              f"({st[9] / culls:.2f}), pops that tested nothing "
+              f"{st[9] - st[1]} ({(st[9] - st[1]) / culls:.2f} a cull), "
+              f"{100 * st[9] / max(st[8], 1):.1f}% of the listed popped",
+              flush=True)
         supers = w.n_root * n_sup
         tests = w.n_pairs * sweep_bvh.GROUP
         nbytes = o.shape[0] * RAY_BYTES + sum(
@@ -667,7 +679,8 @@ def sweep_route(scene) -> Route:
                  "kernel_ray_group_tests": st[3],
                  "kernel_ray_super_passes": st[6],
                  "kernel_group_sphere_tests": st[7],
-                 "kernel_cull_cycles": st[4], "kernel_scan_cycles": st[5]})
+                 "kernel_cull_cycles": st[4], "kernel_scan_cycles": st[5],
+                 "kernel_listed": st[8], "kernel_pops": st[9]})
 
     return Route("sweep_bvh",
                  lambda *r, any_hit: sweep_bvh.intersect_sweep(
@@ -3937,12 +3950,12 @@ def time_wide(scene, route: Route, dev):
     return out
 
 
-def wide_casts(scene, dev, res=1024, depth=5, seed=1):
-    """Every wide-kernel cast of one 1-spp wave of the frame, in order:
-    [(tables, o, d, tmin, tmax, kwargs)], recorded by wrapping
-    wide_bvh.intersect_wide for the length of one render."""
+def recorded_casts(module, name, scene, dev, res=1024, depth=5, seed=1):
+    """Every cast that wrapper module.<name> makes in one eager 1-spp wave
+    of the frame, in order: [(tables, o, d, tmin, tmax, kwargs)], recorded
+    by wrapping it for the length of one render."""
     casts = []
-    inner = wide_bvh.intersect_wide
+    inner = getattr(module, name)
 
     @functools.wraps(inner)  # the wrapper counts its launches on `record`
     def record(tables, o, d, tmin, tmax, **kw):
@@ -3952,14 +3965,63 @@ def wide_casts(scene, dev, res=1024, depth=5, seed=1):
                                      if k != "out"}))
         return inner(tables, o, d, tmin, tmax, **kw)
 
-    wide_bvh.intersect_wide = record
+    setattr(module, name, record)
     try:
         # the eager wave: a replayed graph runs no Python, so records nothing
         render(scene, res, res, spp=1, max_depth=depth, seed=seed, device=dev,
                graph=False)
     finally:
-        wide_bvh.intersect_wide = inner
+        setattr(module, name, inner)
     return casts
+
+
+def sweep_rows(stats, cols: int = sweep_bvh.STATS_COLS):
+    """intersect_sweep's counters as a build that writes `cols` a packet
+    wrote them (an earlier build wrote fewer, packed from the start of the
+    wrapper's buffer): [packets, cols] int64."""
+    return stats.reshape(-1)[:stats.shape[0] * cols].view(-1, cols)
+
+
+def sweep_split(casts, cols: int = sweep_bvh.STATS_COLS, label: str = "",
+                reps: int = 5) -> dict:
+    """The cull / scan split on recorded sweep casts (recorded_casts of
+    sweep_bvh.intersect_sweep), by class, closest and shadow: each cast run
+    again with the counters of a build that writes `cols` a packet, and
+    timed by CUDA events over reps calls. Prints per class the culls, the
+    groups listed, popped and tested a cull, the pops that tested nothing,
+    the share of the listed groups popped (where the build counts lists:
+    10 counters), thread 0's cycles in the culls (the sort included) and
+    the scans, and the summed event time. Returns {class: {"counts": the
+    summed counters, "ms": event ms, "hits": [each cast's KindHit]}}."""
+    out = {}
+    for tables, o, d, tmin, tmax, kw in casts:
+        cls = "shadow" if kw["any_hit"] else "closest"
+        call = lambda **x: sweep_bvh.intersect_sweep(tables, o, d, tmin,
+                                                     tmax, **kw, **x)
+        ms, hit = time_ms(call, reps)
+        st = sweep_rows(call(with_stats=True)[1], cols).sum(0)
+        acc = out.setdefault(cls, {"counts": torch.zeros_like(st), "ms": 0.0,
+                                   "hits": []})
+        acc["counts"] += st
+        acc["ms"] += ms
+        acc["hits"].append(hit)
+    for cls, acc in out.items():
+        c = [int(x) for x in acc["counts"]]
+        culls, cyc = max(c[0], 1), max(c[4] + c[5], 1)
+        lists = (f"listed {c[8] / culls:.2f}, popped {c[9] / culls:.2f}, "
+                 f"tested {c[1] / culls:.2f} a cull; pops that tested "
+                 f"nothing {(c[9] - c[1]) / culls:.2f} a cull "
+                 f"({100 * (c[9] - c[1]) / max(c[9], 1):.1f}% of the pops); "
+                 f"{100 * c[9] / max(c[8], 1):.1f}% of the listed popped"
+                 if cols >= 10 else
+                 f"tested {c[1] / culls:.2f} a cull (lists not counted)")
+        print(f"sweep split{label} {cls}: {len(acc['hits'])} casts, "
+              f"{c[0]} culls, {c[2] / culls:.2f} rays past the root a cull, "
+              f"{c[3] / max(c[1], 1):.2f} rays a tested group; {lists}; "
+              f"thread 0 cycles cull {c[4]} ({100 * c[4] / cyc:.1f}%), scan "
+              f"{c[5]} ({100 * c[5] / cyc:.1f}%); {acc['ms']:.4f} ms by events "
+              f"({reps} calls a cast)", flush=True)
+    return out
 
 
 def counters_line(st) -> str:
@@ -4377,11 +4439,15 @@ def sort_effect(scene, dev, label, res=1024, depth=5):
         imgs[sort] = img
         parts = []
         for cls in ("closest", "shadow"):
-            p, c, t, r, su, sp = (st.get(f"sweep_{cls}_{k}", 0) for k in (
-                "packets", "culls", "tests", "root", "supers", "spheres"))
+            p, c, t, r, su, sp, ls, po = (
+                st.get(f"sweep_{cls}_{k}", 0) for k in (
+                    "packets", "culls", "tests", "root", "supers", "spheres",
+                    "listed", "pops"))
             parts.append(f"{cls}: {t} group tests, {p} live packets, {c} "
                          f"instance culls, {t / max(p, 1):.2f} tests per "
-                         f"live packet; cull: {su} (ray, super) passes, {sp} "
+                         f"live packet; {ls} groups listed and {po} popped "
+                         f"({ls / max(c, 1):.2f} and {po / max(c, 1):.2f} a "
+                         f"cull); cull: {su} (ray, super) passes, {sp} "
                          f"group sphere tests against the flat cull's {r} "
                          f"rays past the root x {n_groups} groups = "
                          f"{r * n_groups}")
@@ -6125,7 +6191,7 @@ def main() -> int:
         # eager: a graph replays the streams it captured
         profile_wave(bunny, dev, "bunny, streams by the plain version,",
                      table=False, graph=False, draws=0)
-    casts = wide_casts(bunny, dev)
+    casts = recorded_casts(wide_bvh, "intersect_wide", bunny, dev)
     lights = sum(1 for lt in bunny.meta.lights if not lt.static_black)
     expected = n_waves(1024, 1024, 1, DEFAULT_CHUNK) * (6 + 5 * lights)
     if len(casts) != expected:
@@ -6159,6 +6225,9 @@ def main() -> int:
         sweep_times[label] = time_sweep(scene, route, label, dev)
         sweep_err = max(sweep_err, sweep_times[label]["err"])
     del soup
+    # the benchmark cell's own casts: one 1-spp wave of the 600k garden
+    sweep_split(recorded_casts(sweep_bvh, "intersect_sweep", inst600, dev,
+                               seed=3))
 
     phase("7 main path (sweep route)")
     print(f"bunny 600k instanced: scene build {build_s:.2f} s", flush=True)

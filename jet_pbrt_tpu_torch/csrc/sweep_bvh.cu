@@ -31,20 +31,29 @@
 //      every group of a super that no ray passes keeps). The supers
 //      are wide enough that a ray failing one fails each member group's
 //      own test (ops/sweep_bvh.py::super_spheres), so every key is the one
-//      a flat cull of every group by every ray gives. Each thread then
-//      holds the minimum of its own keys (groups j, j + 128, ...);
-//   3. scan: a block-wide min pops the nearest group, and thread j at once
-//      requests triangle j's 9 values (p0, e1, e2) into registers (one
-//      coalesced row per value), so the loads run while the want test and
-//      its barrier do. The packet stops when no compacted ray's bound
-//      min(tmax, best) reaches the group's entry. Otherwise thread k
-//      re-runs compacted ray k's own sphere test of the group (the cull's
-//      arithmetic on the cull's inputs), and the rays that both want the
-//      group and pass it form a 128-bit mask. A pop that no ray wants only
-//      retires the group. Else thread j tests its triangle against each
-//      ray of the mask, read from shared memory as a broadcast; a closest
-//      hit is a 64-bit atomicMin on the ray's key, an any hit a store that
-//      marks it occluded (its bound drops to 0: it wants no later group).
+//      a flat cull of every group by every ray gives;
+//   3. order: the groups whose key is below FAR are listed and the list is
+//      sorted once by key (`sort_keys`, a bitonic sort in shared memory),
+//      so popping it in order is popping the minimum key each time. The
+//      list takes the super masks' space, dead after (b), where it fits
+//      (Gp / 8 entries); a longer one is compacted to the front of the key
+//      array in place (`compact_keys`);
+//   4. scan: pop p is list entry p. Its sphere was copied into shared
+//      memory two pops ahead (cp.async, `copy_sphere`), and thread j at
+//      once requests triangle j's 9 values (p0, e1, e2) into registers
+//      (one coalesced row per value), so the loads run while the want test
+//      and its barrier do. The packet stops when no compacted ray's bound
+//      min(tmax, best) reaches the entry's distance, or the list ends.
+//      Otherwise thread k re-runs compacted ray k's own sphere test of the
+//      group (the cull's arithmetic on the cull's inputs), and the rays
+//      that both want the group and pass it form a 128-bit mask. A pop that
+//      no ray wants ends there, after one barrier. Else thread j tests its
+//      triangle against each ray of the mask, read from shared memory as a
+//      broadcast; a closest hit is a 64-bit atomicMin on the ray's key, an
+//      any hit a store that marks it occluded (its bound drops to 0: it
+//      wants no later group); a second barrier publishes the keys. The
+//      pops are the ones a block-wide minimum over the keys would make, in
+//      the same order.
 // The TPU kernel tested whole packets, since its MXU makes a 128 x 128
 // contraction nearly free; here each ray-triangle test is ~55 float
 // operations and an IEEE division, so only the (ray, group) pairs whose
@@ -61,17 +70,18 @@
 // about half of thread 0's cycles on a 2^20-ray wave of the 600k-triangle
 // bunny; the two-level cull runs Gp / 32 super tests and 32 group tests
 // per super a ray passes (a few), each still three broadcast float4 loads
-// of the ray from shared memory. The scan costs two barriers per pop, three
-// when the group is tested (PERF.md).
+// of the ray from shared memory. Listing and sorting add about a fifth to a
+// cull. A pop costs one barrier, two when its group is tested; about
+// three pops in five test nothing on the 600k garden's casts (PERF.md).
 //
 // Resources: dynamic shared memory 4 * Gp + 6,144 + 16 * Gp / 32 bytes
-// (24,576 at Gp = 4,096, 43,008 at Gp = 8,192) and 1,088 static (1,104
+// (24,576 at Gp = 4,096, 43,008 at Gp = 8,192) and 1,216 static (1,232
 // with the counters), under the 48 KB default, so no opt-in is needed;
-// ptxas (sm_90a, CUDA 12.8): 64 registers and 48-52 bytes of spill stores
-// without the counters, 80 and 28 with them; so 8 resident blocks per SM
-// at Gp = 4,096 (registers bind) and 5 at Gp = 8,192 (shared memory
-// binds). chip_smoke.py
-// prints both (phases 2 and 6).
+// ptxas (sm_90a, CUDA 12.8): 62 registers and no spills without the
+// counters (at most 64, by the launch bounds), 94 and 93 with them
+// (closest, any hit); so 8 resident blocks per SM at Gp = 4,096
+// (registers bind) and 5 at Gp = 8,192 (shared memory binds).
+// chip_smoke.py prints both (phases 2 and 6).
 //
 // Semantics kept from the reference kernel: rays are mapped into instance
 // space as o' = (o - off) * (1 / scale), d unchanged, tmin' = tmin / scale;
@@ -93,7 +103,6 @@
 // the lowest index (so it visits a group whose entry equals the bound in
 // closest-hit mode).
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -117,7 +126,7 @@ constexpr int MT_ROWS = 9;
 // tmin', world tmax)
 constexpr int RAY_VEC = 3;
 // the counters a packet (STATS): ops/sweep_bvh.py's STATS_COLS
-constexpr int STATS_COLS = 8;
+constexpr int STATS_COLS = 10;
 
 __device__ __forceinline__ int fbits(float x) { return __float_as_int(x); }
 
@@ -213,15 +222,90 @@ __device__ __forceinline__ bool super_test(const Super& s, float4 a, float4 b,
           __fsub_rn(tc, rt) <= b.w && b.w >= a.w);
 }
 
-// minimum of this thread's keys (groups tid, tid + RAYS, ...)
-__device__ __forceinline__ int own_min(const int* s_key, int gp, int tid) {
-  int m = INT_MAX;
-  for (int g = tid; g < gp; g += RAYS) m = min(m, s_key[g]);
-  return m;
+// Moves the keys below far_key of a[0, n) to its front, in place, 128 at a
+// time: a chunk is read before its barrier and its keys land below its
+// end, where every key was read already. cnt: scratch of 2 x WARPS words
+// (alternating by chunk). Ends with a barrier.
+__device__ void compact_keys(int* a, int n, int far_key,
+                             unsigned (*cnt)[WARPS], int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  int base = 0;
+  for (int c = 0; c * RAYS < n; ++c) {
+    const int g = c * RAYS + tid;
+    const int k = g < n ? a[g] : far_key;
+    const unsigned b = __ballot_sync(FULL, k < far_key);
+    if (lane == 0) cnt[c & 1][warp] = __popc(b);
+    __syncthreads();
+    int pos = base + __popc(b & ((1u << lane) - 1));
+    for (int w = 0; w < WARPS; ++w) {
+      const int m = cnt[c & 1][w];
+      if (w < warp) pos += m;
+      base += m;
+    }
+    if (k < far_key) a[pos] = k;
+  }
+  __syncthreads();
 }
 
+// Sorts a[0, n) ascending in place, the block's threads together, by a
+// bitonic network over the next power of two whose merges compare mirrored
+// pairs first: every comparison puts the smaller key at the lower index,
+// so the virtual keys past n (+inf) never move and a pair that reaches
+// past n is skipped. Thread tid takes pairs tid, tid + RAYS, ...; a step
+// whose pairs lie j <= 32 apart stays inside each warp's own spans of 64
+// keys, so only the steps around a wider one take a block barrier. Ends
+// with a barrier.
+__device__ void sort_keys(int* a, int n, int tid) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  for (int k = 2; k <= p; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int q = tid; q < p >> 1; q += RAYS) {
+        const int i = ((q & ~(j - 1)) << 1) | (q & (j - 1));
+        const int h = j == k >> 1 ? i ^ (k - 1) : i + j;
+        if (h < n) {
+          const int x = a[i], y = a[h];
+          if (y < x) {
+            a[i] = y;
+            a[h] = x;
+          }
+        }
+      }
+      // the next step: (k, j / 2), or (2k, k) once j is 1
+      const int next = j > 1 ? j >> 1 : (k < p ? k : 0);
+      if (j > 32 || next > 32)
+        __syncthreads();
+      else
+        __syncwarp();
+    }
+  }
+  __syncthreads();
+}
+
+// Where on: threads 0-5 copy group g's sphere (cx, cy, cz, |c|^2, r^2, r)
+// into dst[0, 6) by cp.async, which holds no register while the copy is in
+// flight. Every thread then closes a commit group, one a call, so that
+// wait_older() counts alike on every thread.
+__device__ __forceinline__ void copy_sphere(float* dst, const float* sph,
+                                            int gp, int g, int tid, bool on) {
+  if (on && tid < 6) {
+    const unsigned d =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + tid));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(sph + static_cast<size_t>(tid) * gp + g));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Waits until every copy_sphere of this thread but its latest has landed.
+__device__ __forceinline__ void wait_older() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Without the counters, 8 resident blocks an SM at Gp = 4,096: at most 64
+// registers a thread.
 template <bool ANY_HIT, bool STATS>
-__global__ void __launch_bounds__(RAYS)
+__global__ void __launch_bounds__(RAYS, STATS ? 1 : 8)
 sweep_bvh_kernel(const float* __restrict__ sph, int gp,
                  const float* __restrict__ mt, const float* __restrict__ inst,
                  int n_inst, const float* __restrict__ root, int n_groups,
@@ -241,8 +325,10 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
   __shared__ unsigned long long s_best[RAYS];
   __shared__ unsigned long long s_count[2];
   __shared__ int s_red[WARPS];
-  __shared__ unsigned s_mask[WARPS], s_live[WARPS];
+  __shared__ unsigned s_mask[2][WARPS], s_live[2][WARPS];
   __shared__ int s_nlive;
+  // the spheres of list entries p, p + 1, p + 2 at pop p: entry e in e % 3
+  __shared__ float s_sph[3][8];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -264,10 +350,12 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
   int best_idx = 0;
   // STATS: instances culled, groups tested, the rays that did that work
   // (past the root test in each cull, testing in each tested group),
-  // thread 0's clock64() cycles in the culls and in the scans, and this
-  // thread's (ray, super) passes and group sphere tests in the culls
+  // thread 0's clock64() cycles in the culls (the sort included) and in
+  // the scans, this thread's (ray, super) passes and group sphere tests in
+  // the culls, and the groups the culls listed and the scans popped
   long long n_cull = 0, n_test = 0, n_ray_cull = 0, n_ray_test = 0;
   long long cyc_cull = 0, cyc_scan = 0, n_sup_pass = 0, n_grp_test = 0;
+  long long n_listed = 0, n_pop = 0;
   if (STATS && tid == 0) s_count[0] = s_count[1] = 0;
 
   // whole-packet exit: an all-dead packet costs this one test
@@ -374,90 +462,144 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
         }
       }
       __syncthreads();
-      int lmin = own_min(s_key, gp, tid);
+
+      // ---- 3. the pop order: the listed groups (key below far_key) in a
+      // list sorted once. Thread tid counts its own (groups tid, tid +
+      // RAYS, ...; bit m of `own` for group tid + RAYS * m, gp <= 8,192);
+      // a block scan places them. The list goes into the super masks,
+      // dead after 2b, where it fits; else it is compacted to the front of
+      // the key array, in place.
+      int n_own = 0;
+      unsigned long long own = 0;
+      for (int g = tid, m = 0; g < n_groups; g += RAYS, ++m) {
+        if (s_key[g] < far_key) {
+          ++n_own;
+          own |= 1ull << m;
+        }
+      }
+      int off = n_own;
+#pragma unroll
+      for (int s = 1; s < 32; s <<= 1) {
+        const int v = __shfl_up_sync(FULL, off, s);
+        if (lane >= s) off += v;
+      }
+      if (lane == 31) s_red[warp] = off;
+      __syncthreads();
+      off -= n_own;
+      int n_list = 0;
+#pragma unroll
+      for (int w = 0; w < WARPS; ++w) {
+        if (w < warp) off += s_red[w];
+        n_list += s_red[w];
+      }
+      const bool fits = n_list <= WARPS * sp;  // uniform
+      int* s_list = fits ? reinterpret_cast<int*>(s_smask) : s_key;
+      if (fits) {
+        while (own) {
+          const int m = __ffsll(static_cast<long long>(own)) - 1;
+          own &= own - 1;
+          s_list[off++] = s_key[tid + RAYS * m];
+        }
+      }
+      __syncthreads();  // s_red is free again: the next instance writes it
+      if (!fits) compact_keys(s_key, n_groups, far_key, s_mask, tid);
+      sort_keys(s_list, n_list, tid);
       if (STATS && tid == 0) {
         const long long now = clock64();
         cyc_cull += now - clk;
+        n_listed += n_list;
         clk = now;
       }
 
-      // ---- 3. near-to-far scan
-      while (true) {
-        const int wmin = __reduce_min_sync(0xffffffffu, lmin);
-        if (lane == 0) s_red[warp] = wmin;
-        __syncthreads();
-        int kmin = s_red[0];
-        for (int w = 1; w < WARPS; ++w) kmin = min(kmin, s_red[w]);
-        const int g = kmin & GMASK;
-        const int dist = kmin & ~GMASK;
-
-        // rows requested before the want test (speculative)
+      // ---- 4. near-to-far scan: pop p is list entry p. Its sphere was
+      // copied into s_sph two pops ahead: pop p asks for entry p + 2's and
+      // waits, before its barrier, for entry p + 1's, which that barrier
+      // then shows to every thread.
+      int entry = n_list > 0 ? s_list[0] : 0;
+      copy_sphere(s_sph[0], sph, gp, entry & GMASK, tid, n_list > 0);
+      copy_sphere(s_sph[1], sph, gp, n_list > 1 ? s_list[1] & GMASK : 0, tid,
+                  n_list > 1);
+      wait_older();
+      __syncthreads();
+      for (int p = 0, ring = 0; p < n_list;
+           ++p, ring = ring == 2 ? 0 : ring + 1) {
+        const int g = entry & GMASK;
+        const int dist = entry & ~GMASK;
+        copy_sphere(s_sph[ring == 0 ? 2 : ring - 1], sph, gp,
+                    p + 2 < n_list ? s_list[p + 2] & GMASK : 0, tid,
+                    p + 2 < n_list);
+        // rows requested before the want test (speculative): thread tid's
+        // triangle, 9 values (p0, e1, e2), one coalesced row each
         const float* src = mt + static_cast<size_t>(g) * GROUP + tid;
         float wr[MT_ROWS];
-        if (dist < far_key) {
 #pragma unroll
-          for (int r = 0; r < MT_ROWS; ++r) wr[r] = __ldg(src + r * tp);
-        }
+        for (int r = 0; r < MT_ROWS; ++r) wr[r] = __ldg(src + r * tp);
+        if (p + 1 < n_list) entry = s_list[p + 1];
         // compacted ray tid: does its bound reach the group, and does its
         // own sphere test keep it?
         bool live = false, mine = false;
         if (tid < n_live) {
           const float4 c = s_ray[RAY_VEC * tid + 2];
           const int bound = fbits(fminf(c.w, key_to_t(s_best[tid])));
-          live = dist < far_key && (ANY_HIT ? dist < bound : dist <= bound);
+          live = ANY_HIT ? dist < bound : dist <= bound;
           if (live) {
             float e;
-            mine = sphere_test(load_sphere(sph, gp, g), s_ray[RAY_VEC * tid],
+            const float* q = s_sph[ring];
+            const Sphere sg = {q[0], q[1], q[2], q[3], q[4], q[5]};
+            mine = sphere_test(sg, s_ray[RAY_VEC * tid],
                                s_ray[RAY_VEC * tid + 1], c.x, c.y, e);
           }
         }
-        const unsigned bm = __ballot_sync(0xffffffffu, mine);
-        const unsigned bl = __ballot_sync(0xffffffffu, live);
+        // the masks alternate by pop: an idle pop has no barrier after its
+        // reads, and pop p + 2 writes only after pop p + 1's barrier
+        const int buf = p & 1;
+        const unsigned bm = __ballot_sync(FULL, mine);
+        const unsigned bl = __ballot_sync(FULL, live);
         if (lane == 0) {
-          s_mask[warp] = bm;
-          s_live[warp] = bl;
+          s_mask[buf][warp] = bm;
+          s_live[buf][warp] = bl;
         }
+        wait_older();  // the next entry's sphere has landed
         __syncthreads();
         unsigned any_live = 0, any_mine = 0;
 #pragma unroll
         for (int w = 0; w < WARPS; ++w) {
-          any_live |= s_live[w];
-          any_mine |= s_mask[w];
+          any_live |= s_live[buf][w];
+          any_mine |= s_mask[buf][w];
         }
         if (!any_live) break;  // uniform: the packet stops
-        if ((g & (RAYS - 1)) == tid) {  // retire the group
-          s_key[g] = far_key | g;
-          lmin = own_min(s_key, gp, tid);
-        }
-        if (!any_mine) continue;  // uniform: no load, no test
+        if (STATS && tid == 0) ++n_pop;
 
         // ---- thread tid tests triangle tid of g against each wanting ray
-        const int idx = i * n_tris + g * GROUP + tid;
-        if (STATS && tid == 0) {
-          ++n_test;
+        if (any_mine) {  // uniform
+          const int idx = i * n_tris + g * GROUP + tid;
+          if (STATS && tid == 0) {
+            ++n_test;
 #pragma unroll
-          for (int w = 0; w < WARPS; ++w) n_ray_test += __popc(s_mask[w]);
-        }
-        // s_mask is rewritten only after the barrier that ends this pop
-        for (int w = 0; w < WARPS; ++w) {
-          unsigned m = s_mask[w];
-          while (m) {
-            const int k = 32 * w + __ffs(m) - 1;
-            m &= m - 1;
-            const float4 a = s_ray[RAY_VEC * k], b = s_ray[RAY_VEC * k + 1];
-            const float4 c = s_ray[RAY_VEC * k + 2];
-            float t_w;
-            if (!mt_test([&](int j) { return wr[j]; }, a.x, a.y, a.z, b.x,
-                         b.y, b.z, c.z, c.w, scl, t_w))
-              continue;
-            if (ANY_HIT)
-              s_best[k] = hit_key(0.0f, 0);  // occluded: the bound drops to 0
-            else
-              atomicMin(&s_best[k], hit_key(t_w, idx));
+            for (int w = 0; w < WARPS; ++w)
+              n_ray_test += __popc(s_mask[buf][w]);
           }
+          for (int w = 0; w < WARPS; ++w) {
+            unsigned m = s_mask[buf][w];
+            while (m) {
+              const int k = 32 * w + __ffs(m) - 1;
+              m &= m - 1;
+              const float4 a = s_ray[RAY_VEC * k], b = s_ray[RAY_VEC * k + 1];
+              const float4 c = s_ray[RAY_VEC * k + 2];
+              float t_w;
+              if (!mt_test([&](int j) { return wr[j]; }, a.x, a.y, a.z, b.x,
+                           b.y, b.z, c.z, c.w, scl, t_w))
+                continue;
+              if (ANY_HIT)
+                s_best[k] = hit_key(0.0f, 0);  // occluded: the bound drops
+              else
+                atomicMin(&s_best[k], hit_key(t_w, idx));
+            }
+          }
+          __syncthreads();  // s_best is read by the next pop
         }
-        __syncthreads();  // s_best is read by the next pop
       }
+      asm volatile("cp.async.wait_all;\n" ::: "memory");  // none left over
       if (STATS && tid == 0) cyc_scan += clock64() - clk;
       if (rhit) {
         const unsigned long long key = s_best[pos];
@@ -487,6 +629,8 @@ sweep_bvh_kernel(const float* __restrict__ sph, int gp,
       row[5] = cyc_scan;
       row[6] = static_cast<long long>(s_count[0]);
       row[7] = static_cast<long long>(s_count[1]);
+      row[8] = n_listed;
+      row[9] = n_pop;
     }
   }
 }
@@ -522,7 +666,7 @@ int blocks_per_sm(int gp) {
 
 // Plain C entry point, loaded through ctypes. Launches on `stream` without
 // synchronising and returns cudaGetLastError() of the launch. stats is
-// [ceil(n/128), 8] int64 or null; valid_out is null or [n] bool,
+// [ceil(n/128), 10] int64 or null; valid_out is null or [n] bool,
 // isfinite(t_out); sup is the [8, gp/32] super-sphere table (each the last
 // argument it added, so a build of the entry without it takes the same
 // call and leaves it).

@@ -55,7 +55,7 @@ from .wide_bvh import mt_test
 GROUP = 128          # triangles per cull group
 RAYS = 128           # rays per packet (one CUDA thread block)
 SUPER = 32           # groups per super-sphere (a warp's width in the kernel)
-STATS_COLS = 8       # the kernel's counters a packet (intersect_sweep)
+STATS_COLS = 10      # the kernel's counters a packet (intersect_sweep)
 # a culled-out group's key distance, and the packed group key (the
 # reference's): (entry-distance bits & ~GMASK) | group; csrc/sweep_bvh.cu
 # holds the same values
@@ -292,8 +292,10 @@ def intersect_sweep(tables: SweepTables, o, d, tmin, tmax, *, any_hit: bool,
     passed), groups tested, the rays past the root test summed over the
     culled instances, the rays that test a group summed over the groups
     tested (the (ray, group) tests), thread 0's clock64() cycles in the
-    culls and in the scans, the (ray, super) pairs whose super test
-    passed, and the group sphere tests the cull ran for them. CUDA
+    culls (the list's sort included) and in the scans, the (ray, super)
+    pairs whose super test passed, the group sphere tests the cull ran for
+    them, the groups the culls listed (key below FAR) and the groups the
+    scans popped from those lists (tested or not). CUDA
     tensors launch the kernel of csrc/sweep_bvh.cu, which writes t,
     index and valid (isfinite(t)); CPU tensors take
     `intersect_sweep_plain` (whose counters are not the kernel's: it has no

@@ -195,10 +195,11 @@ class Hit(NamedTuple):
 def _sweep(tables, n_tris, o, d, tmin, tmax, any_hit, stats, out=None):
     """One sweep cast, written into out where given (ops/sweep_bvh.py's);
     with a stats dict, adds the kernel's per-packet counters to it under
-    sweep_<closest|shadow>_<packets|culls|tests|root|supers|spheres>
-    (packets: those that culled at least one instance; tests: groups
-    tested; root: rays past a root test; supers: (ray, super) passes;
-    spheres: the cull's group sphere tests)."""
+    sweep_<closest|shadow>_<packets|culls|tests|root|supers|spheres|
+    listed|pops> (packets: those that culled at least one instance; tests:
+    groups tested; root: rays past a root test; supers: (ray, super)
+    passes; spheres: the cull's group sphere tests; listed: the groups the
+    culls listed; pops: the groups the scans popped)."""
     if stats is None:
         return sweep_bvh.intersect_sweep(tables, o, d, tmin, tmax,
                                          any_hit=any_hit, n_tris=n_tris,
@@ -209,7 +210,8 @@ def _sweep(tables, n_tris, o, d, tmin, tmax, any_hit, stats, out=None):
     cls = "shadow" if any_hit else "closest"
     for k, v in (("packets", (c[:, 0] > 0).sum()), ("culls", c[:, 0].sum()),
                  ("tests", c[:, 1].sum()), ("root", c[:, 2].sum()),
-                 ("supers", c[:, 6].sum()), ("spheres", c[:, 7].sum())):
+                 ("supers", c[:, 6].sum()), ("spheres", c[:, 7].sum()),
+                 ("listed", c[:, 8].sum()), ("pops", c[:, 9].sum())):
         key = f"sweep_{cls}_{k}"
         stats[key] = stats.get(key, 0) + v.to(torch.int64)
     return hit

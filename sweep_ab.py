@@ -35,12 +35,17 @@ Prints the card's name and power limit first. Needs one GPU.
 
 Sweep: on chip_smoke's 2^20-ray wave (wave_rays(scene, 1024, 11)) of the
 600k-target instanced bunny and of the 150k x4 soup, 5 launches per turn:
-closest hit and any hit (tmax 10% short of the closest hit) on the
-instanced bunny, closest hit on the soup; then the instanced bunny's
-1024^2, 4-spp, depth-5 frame through each (host wall ending in a
-synchronize). The two kernels' outputs, and the two frames, must be equal
-bit for bit; so must each case's counters of culls, groups tested, rays
-past the root and ray-group tests.
+closest hit and any hit (tmax 10% short of the closest hit) on each; then
+the benchmark cell's own casts, the 16 sweep casts of one eager 1-spp
+1024^2 wave of the instanced bunny (seed 3), through each build in turns
+(chip_smoke.sweep_split: per class the culls, groups listed, popped and
+tested a cull, thread 0's cull / scan cycles, the summed event time); then
+the instanced bunny's 1024^2, 4-spp, depth-5 frame through each (host wall
+ending in a synchronize). The two kernels' outputs, and the two frames,
+must be equal bit for bit; so must each case's counters of culls, groups
+tested, rays past the root and ray-group tests (the same work in the same
+order). Each build's counters are read at its own width, the STATS_COLS
+of its source (8 before the lists' two counters).
 
 Wide: on the default bunny, 10 launches per turn: chip_smoke's 2^20-ray
 wave and its 2^20-ray targeted set, closest hit and any hit (tmax 10%
@@ -163,11 +168,20 @@ def _card():
     return torch.device("cuda")
 
 
+def _stats_cols(path) -> int:
+    """The counters a packet that the sweep source at path writes: its
+    STATS_COLS."""
+    with open(path) as f:
+        return int(re.search(r"constexpr int STATS_COLS = (\d+);",
+                             f.read()).group(1))
+
+
 def sweep_main(path) -> int:
     dev = _card()
     library = kernels.LIBRARIES["sweep_bvh"]
     libs = {"this": library.load(),
             "other": sweep_bvh.load_kernel(path, "sweep_bvh_other")}
+    cols = {"this": sweep_bvh.STATS_COLS, "other": _stats_cols(path)}
     inst = chip_smoke.build_sweep_scene(
         "bunny 600k instanced", dev,
         bunny_path=chip_smoke.dense_obj(600_000))[0]
@@ -175,7 +189,7 @@ def sweep_main(path) -> int:
         "bunny 150k x4 soup", dev, bunny_path=chip_smoke.dense_obj(150_000),
         instancing=False)[0]
     for label, scene, modes in (("instanced", inst, ("closest", "any")),
-                                ("soup", soup, ("closest",))):
+                                ("soup", soup, ("closest", "any"))):
         route = chip_smoke.sweep_route(scene)
         tables = (scene.pack.inst_sweep[0] if any(scene.meta.pallas_blas)
                   else scene.pack.bvh_sweep)
@@ -201,12 +215,13 @@ def sweep_main(path) -> int:
             for who in ("other", "this"):
                 with kernels.substitute(library, libs[who]):
                     stats = cast(with_stats=True)[1]
-                counts[who] = [int(x) for x in stats.sum(0)]
+                counts[who] = [int(x) for x in chip_smoke.sweep_rows(
+                    stats, cols[who]).sum(0)]
             print(f"sweep A/B {label} {mode} counters (culls, groups tested, "
                   "rays past the root, ray-group tests, cull and scan "
-                  "cycles, (ray, super) passes, group sphere tests): "
-                  f"other {counts['other']}, this {counts['this']}",
-                  flush=True)
+                  "cycles, (ray, super) passes, group sphere tests[, groups "
+                  f"listed, popped]): other {counts['other']}, this "
+                  f"{counts['this']}", flush=True)
             if counts["this"][:4] != counts["other"][:4]:
                 raise AssertionError(f"{label} {mode}: the two kernels' "
                                      "work counters differ")
@@ -216,6 +231,27 @@ def sweep_main(path) -> int:
                   f"this {times['this'][0]:.4f} / {times['this'][1]:.4f} ms; "
                   "outputs equal bit for bit", flush=True)
     del soup
+
+    cell = chip_smoke.recorded_casts(sweep_bvh, "intersect_sweep", inst, dev,
+                                     seed=3)
+    splits = {}
+    for who in ORDER:  # every turn prints; each build's first is kept
+        with kernels.substitute(library, libs[who]):
+            split = chip_smoke.sweep_split(cell, cols[who], f" ({who})")
+        splits.setdefault(who, split)
+    for cls, acc in splits["this"].items():
+        other = splits["other"][cls]
+        if not all(torch.equal(x, y) for a, b in zip(acc["hits"],
+                                                     other["hits"])
+                   for x, y in zip(a, b)):
+            raise AssertionError(f"the wave's {cls} casts: the two kernels "
+                                 "differ")
+        if not torch.equal(acc["counts"][:4], other["counts"][:4]):
+            raise AssertionError(f"the wave's {cls} casts: the two kernels' "
+                                 "work counters differ")
+    print(f"sweep A/B: the wave's {len(cell)} casts equal between the "
+          "builds bit for bit, and their work counters too", flush=True)
+    del cell
 
     imgs, walls = {}, {"this": [], "other": []}
     render(inst, 64, 64, spp=1, max_depth=5, device=dev)  # warm-up
@@ -311,7 +347,7 @@ def wide_main(path) -> int:
                       + chip_smoke.counters_line(st), flush=True)
         del o, d, tmin, tmax, tmax_sh
 
-    casts = chip_smoke.wide_casts(bunny, dev)
+    casts = chip_smoke.recorded_casts(wide_bvh, "intersect_wide", bunny, dev)
     sums = {"this": [], "other": []}
     for who in ORDER:
         total = host = slowest = 0.0

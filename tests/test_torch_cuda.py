@@ -301,6 +301,7 @@ def test_sweep_kernel_matches_plain_on_card(which):
     assert ((st[:, 4] > 0) == (st[:, 0] > 0)).all()
     assert ((st[:, 5] > 0) == (st[:, 0] > 0)).all()
     _check_cull_counters(st, tables)
+    _check_list_counters(st, tables)
 
     short = torch.where(hp.valid, hp.t * 0.9, torch.full_like(hp.t, 30.0))
     ak = TS.intersect_sweep(tb, o, d, tmin, short, any_hit=True, n_tris=n_tris)
@@ -325,6 +326,15 @@ def _check_cull_counters(st, tables):
     assert (st[:, 7] <= TS.SUPER * st[:, 6]).all()
     assert (st[:, 7] <= st[:, 2] * tables.n_groups).all()
     assert (st[:, 7] >= st[:, 3]).all()
+
+
+def _check_list_counters(st, tables):
+    """The scan's list counters [packets, 10]: the groups tested at most
+    those popped, these at most those listed, these at most the culls x
+    groups, and at least one pop wherever a cull ran."""
+    assert (st[:, 1] <= st[:, 9]).all() and (st[:, 9] <= st[:, 8]).all()
+    assert (st[:, 8] <= st[:, 0] * tables.n_groups).all()
+    assert (st[st[:, 0] > 0, 9] >= 1).all()
 
 
 def _clusters(nx, ny, seed, spacing=4.0):
@@ -394,6 +404,15 @@ def _sweep_case(case):
                       np.full(n, 12.0)], 1)
         o, d = _aimed(o, centre[rng.integers(0, len(centre), n)]
                       + rng.uniform(-0.4, 0.4, (n, 3)))
+    elif case == "every-group":
+        # ray j runs along column j of the 128 x 64 clusters, just above
+        # the plane: the one packet's rays pass all 8,192 groups together
+        mt, _ = _clusters(128, 64, 35)
+        tables = TS.sweep_tables(mt)
+        n = TS.RAYS
+        o = np.stack([4.0 * np.arange(n), np.full(n, -10.0),
+                      np.full(n, 0.05)], 1)
+        d = np.repeat(np.array([[0.0, 1.0, 0.0]]), n, 0)
     else:  # "8192-groups"
         mt, centre = _clusters(128, 64, 33)
         tables = TS.sweep_tables(mt)
@@ -415,12 +434,14 @@ def _sweep_case(case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["tie-groups", "tie-instances",
                                   "one-ray-per-group", "ragged-dead",
-                                  "8192-groups", "one-super", "ragged-super"])
+                                  "8192-groups", "one-super", "ragged-super",
+                                  "every-group"])
 def test_sweep_kernel_edge_cases_on_card(case):
     """The per-ray scan against the plain version, bit for bit, closest hit
     and any hit, on the cases it relies on, with the two-level cull's
-    counters consistent: one super, a ragged last super and the 256
-    supers of 8,192 groups."""
+    counters and the scan's list counters consistent: one super, a ragged
+    last super, the 256 supers of 8,192 groups, and a packet that lists
+    all 8,192 groups (the list sorted at its largest)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with the CUDA toolkit")
     tables, n_tris, *rays = _sweep_case(case)
@@ -452,10 +473,14 @@ def test_sweep_kernel_edge_cases_on_card(case):
     elif case == "8192-groups":
         assert tables.n_groups == TS.max_groups()
         assert tables.sup.shape == (8, TS.max_groups() // TS.SUPER)
+    elif case == "every-group":
+        assert tables.n_groups == TS.max_groups()
+        assert st[0, 0] == 1 and st[0, 8] == TS.max_groups()
     else:
         assert tables.n_groups == {"one-super": 16, "ragged-super": 70}[case]
         assert (st[:, 7] > 0).any()
     _check_cull_counters(st, tables)
+    _check_list_counters(st, tables)
     for f in (0.9, 1.1):
         tm = torch.where(hp.valid, hp.t * f, torch.full_like(hp.t, 30.0))
         tm = torch.where(tmax < 0, tmax, tm)
