@@ -30,8 +30,50 @@ GAP_LABELS = {"render.wave": "wave", "bench.render": "render",
               "bench.step": "step", "bench.update": "update"}
 
 
+# a configuration's render block: the keys the harness reads, and the
+# values of those that both sides compute as the configuration states
+RENDER_KEYS = ("width", "height", "max_depth", "integrator", "sampler",
+               "nee", "mis")
+HONOURED = {"integrator": ("path",), "sampler": ("random",)}
+
+
+def check_render(config: dict, traffic: dict) -> None:
+    """Raise ValueError, naming the key, where a configuration's render
+    block states what the harness cannot honour: a key it does not read,
+    or one it needs left out; an integrator other than path or a sampler
+    other than random (the reference runs those alone); nee or mis other
+    than true or false; MIS without NEE (the program's MIS term would add
+    weighted emission on top of the full emission that nee false credits,
+    an estimator no user runs); and a fit without NEE (render_fn has no
+    nee)."""
+    name, r = config["name"], config["render"]
+    for key in r:
+        if key not in RENDER_KEYS:
+            raise ValueError(f"{name}: render.{key} is not a key the "
+                             f"harness reads ({', '.join(RENDER_KEYS)})")
+    for key in RENDER_KEYS:
+        if key not in r:
+            raise ValueError(f"{name}: render.{key} is not stated")
+    for key, values in HONOURED.items():
+        if r[key] not in values:
+            raise ValueError(f"{name}: render.{key} {r[key]!r}: the harness "
+                             f"honours {' or '.join(values)} alone")
+    for key in ("nee", "mis"):
+        if not isinstance(r[key], bool):
+            raise ValueError(f"{name}: render.{key} {r[key]!r} is not true "
+                             f"or false")
+    if r["mis"] and not r["nee"]:
+        raise ValueError(f"{name}: render.mis true with render.nee false: "
+                         "MIS weights light samples that nee false never "
+                         "draws")
+    if traffic["kind"] == "fit" and not r["nee"]:
+        raise ValueError(f"{name}: render.nee false under fit traffic: "
+                         "render_fn has no nee")
+
+
 class Cell:
-    """A cell's entries and files, found by name."""
+    """A cell's entries and files, found by name; a configuration whose
+    render block the harness cannot honour is refused (check_render)."""
 
     def __init__(self, spec: dict, workload: str, base: str = HERE):
         cells = {w["name"]: w for w in spec["workloads"]}
@@ -46,6 +88,7 @@ class Cell:
         with open(os.path.join(base, "traffic",
                                self.workload["traffic"] + ".json")) as f:
             self.traffic = json.load(f)
+        check_render(self.config, self.traffic)
         with open(os.path.join(base, "limits", workload + ".json")) as f:
             self.limits = json.load(f)
         mine = lambda m: "workloads" not in m or workload in m["workloads"]

@@ -1,8 +1,10 @@
 """What the plain reference computes for a cell's check: the sampled
 pixels of each view a frame cell rendered, and the first steps of a fit;
 and the fit's target, an input that the benchmark makes itself and hands
-to both sides. It imports the reference alone, never the program; `dtype`
-bfloat16 gives the control that `correct` must fail."""
+to both sides; each with the estimator that the configuration's render
+block states (traffic.estimator: mis, nee). It imports the reference
+alone, never the program; `dtype` bfloat16 gives the control that
+`correct` must fail."""
 from __future__ import annotations
 
 import numpy as np
@@ -30,7 +32,8 @@ def frame_pixels(config: dict, layout, views: list, wanted, pixels, spp: int,
         for v in sorted(set(wanted)):
             cam = _camera(layout, *views[v], width, height, device, dtype)
             out[v] = ref_render.pixels(rs, cam, width, seed,
-                                       pixels.to(device), spp, depth)
+                                       pixels.to(device), spp, depth,
+                                       **traffic_mod.estimator(config))
     return out
 
 
@@ -63,7 +66,8 @@ def fit_target(config: dict, layout, traffic: dict, seed: int, width: int,
             traffic_mod.sub_seed(seed, "target") & 0xFFFFFFFF,
             torch.arange(width * height, device=device),
             int(traffic["target_spp"]), int(config["render"]["max_depth"]),
-            clamp=False).view(height, width, 3)
+            clamp=False, **traffic_mod.estimator(config)
+        ).view(height, width, 3)
 
 
 def fit_record(config: dict, layout, traffic: dict, seed: int, width: int,
@@ -83,7 +87,7 @@ def fit_record(config: dict, layout, traffic: dict, seed: int, width: int,
     cam = _fit_camera(layout, width, height, device, dtype)
     target = target.to(device).to(dtype)
     fn = ref_render.image_fn(rs, cam, width, height, int(traffic["spp"]),
-                             int(seed), depth)
+                             int(seed), depth, **traffic_mod.estimator(config))
     params = {f: getattr(rs, f).detach().clone() for f in fields}
     rec = {"p0": {k: v.float().clone() for k, v in params.items()},
            "losses": [], "grad1": None, "p3": None}

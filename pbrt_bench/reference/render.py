@@ -1,17 +1,19 @@
-"""The plain reference path tracer: the program's path integrator with NEE
-(no MIS), written as plain torch operations over a batch of (sample, pixel)
-lanes.
+"""The plain reference path tracer: the program's path integrator, with
+NEE or without, with MIS or without, written as plain torch operations
+over a batch of (sample, pixel) lanes.
 
 The camera, the integrator loop, the path vertex and the hit
 reconstruction are frozen copies of the program's plain route at commit
 77f45ea (jet_pbrt_tpu_torch/models/camera.py, models/integrators.py::
 _li_path_plain, ops/shade.py::shade_vertex_plain with nee=True and
 mis=False, scene/pack.py's intersect, emitted and gather_material, and
-ops/rays.py::segment_plain); the casts go through this package's own BVH
-(bvh.py) and brute-force tests. Lanes are never sorted (a sort moves lanes,
-never their values), and dead lanes are dropped from the casts. Every
-float tensor is of the scene's dtype, so the same code computed in
-bfloat16 is the control that `correct` must fail.
+ops/rays.py::segment_plain); what mis=True and nee=False add to that loop
+(the emission gate, the MIS weights, prev_pdf) copies the same functions
+at commit 2b2268e, and mis.py their pdf_li. The casts go through this
+package's own BVH (bvh.py) and brute-force tests. Lanes are never sorted
+(a sort moves lanes, never their values), and dead lanes are dropped from
+the casts. Every float tensor is of the scene's dtype, so the same code
+computed in bfloat16 is the control that `correct` must fail.
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ from . import bsdf as bsdf_ops
 from . import bvh as bvh_ops
 from . import intersect as isect_ops
 from . import lights as light_ops
+from . import mis as mis_ops
 from . import rng
-from .consts import KIND_TRI, KIND_SPHERE, KIND_RECT, KIND_DISK, KIND_INST
+from .consts import (KIND_TRI, KIND_SPHERE, KIND_RECT, KIND_DISK, KIND_INST,
+                     LIGHT_AREA, LIGHT_POINT, LIGHT_DIRECTIONAL, LIGHT_ENV)
 from .linalg import (absdot, dot, frame_from_z, is_black, max_component,
                      normalize, to_local, to_world)
 
@@ -216,11 +220,18 @@ def gather_material(scene, mat_id):
 # the integrator
 # --------------------------------------------------------------------------
 
-def li_path(scene, o, d, keys: rng.LaneKeys, max_depth: int):
+def li_path(scene, o, d, keys: rng.LaneKeys, max_depth: int, *,
+            mis: bool = False, nee: bool = True):
     """Path-traced radiance [N, 3] of rays o, d with NEE at every
     non-delta vertex, emission at bounce 0 and after specular bounces,
     Russian roulette from bounce 3 on the sampled f (integrator.cc:316-403
-    of the reference renderer), and the invalid-sample guard."""
+    of the reference renderer), and the invalid-sample guard.
+
+    mis=True (with NEE) also adds the emission of a BSDF-sampled hit on an
+    area light, or of an escaped ray, after a non-specular bounce,
+    weighted by power_heuristic(1, prev_pdf, 1, pdf_li), and weights each
+    non-delta light's NEE by power_heuristic(1, pdf, 1, bsdf pdf).
+    nee=False samples no light and credits emission at every bounce."""
     n = o.shape[0]
     dev, dt = o.device, o.dtype
     nl = scene.n_lights
@@ -228,6 +239,8 @@ def li_path(scene, o, d, keys: rng.LaneKeys, max_depth: int):
     beta = torch.ones((n, 3), dtype=dt, device=dev)
     active = torch.ones((n,), dtype=torch.bool, device=dev)
     prev_specular = torch.zeros((n,), dtype=torch.bool, device=dev)
+    # pdf of the previous BSDF sample, for the MIS weight of emitter hits
+    prev_pdf = torch.zeros((n,), dtype=dt, device=dev)
     ray_o, ray_d = o, d
     inf = torch.full((n,), math.inf, dtype=dt, device=dev)
     le_env = torch.zeros((n, 3), dtype=dt, device=dev)
@@ -243,9 +256,25 @@ def li_path(scene, o, d, keys: rng.LaneKeys, max_depth: int):
                     for h, fill in zip(hit_live, (False, math.inf, 0.0, 0.0,
                                                   0.0, 0, -1))))
         hit = hit._replace(wo=-ray_d)
-        gate = active if bounce == 0 else active & prev_specular
+        gate = (active if bounce == 0 else active & prev_specular) if nee \
+            else active
         le = torch.where(hit.valid[:, None], emitted(scene, hit), le_env)
         L = L + torch.where(gate[:, None], beta * le, torch.zeros_like(le))
+        if mis and bounce > 0:
+            # the BSDF-sampled emitter hits that NEE alone drops
+            w_area = torch.zeros((n,), dtype=dt, device=dev)
+            for li_idx in range(nl):
+                kind = scene.lights[li_idx].kind
+                if kind not in (LIGHT_AREA, LIGHT_ENV):
+                    continue
+                pl = mis_ops.pdf_li(scene, li_idx, ray_o, ray_d)
+                w = mis_ops.power_heuristic(1.0, prev_pdf, 1.0, pl)
+                this = (hit.valid & (hit.light_id == li_idx)
+                        if kind == LIGHT_AREA else ~hit.valid)
+                w_area = torch.where(this, w, w_area)
+            L = L + torch.where((active & ~prev_specular)[:, None],
+                                beta * le * w_area.detach()[:, None],
+                                torch.zeros_like(le))
         if bounce >= max_depth:
             break
         cont = active & hit.valid
@@ -259,19 +288,27 @@ def li_path(scene, o, d, keys: rng.LaneKeys, max_depth: int):
         wo_local = to_local(frame, hit.wo)
 
         # NEE over all lights
-        for li_idx in range(nl):
+        for li_idx in range(nl if nee else 0):
             if scene.lights[li_idx].static_black:
                 continue
             ls = light_ops.sample_li(scene, scene, li_idx, hit.position,
                                      rng.stream_nee(u, li_idx))
             wi, pdf = ls.wi.detach(), ls.pdf.detach()
-            f = bsdf_ops.eval_f(lobe, wo_local, to_local(frame, wi),
+            wi_local = to_local(frame, wi)
+            f = bsdf_ops.eval_f(lobe, wo_local, wi_local,
                                 lobes=scene.present_lobes,
                                 mf_kinds=scene.present_mf_kinds)
             useful = (cont & ~delta & (pdf > 0.0) & ~is_black(ls.li)
                       & ~is_black(f))
             contrib = beta * f * ls.li * (
                 absdot(wi, hit.normal) / torch.clamp_min(pdf, 1e-20))[:, None]
+            if mis and scene.lights[li_idx].kind not in (LIGHT_POINT,
+                                                         LIGHT_DIRECTIONAL):
+                pb = bsdf_ops.pdf(lobe, wo_local, wi_local,
+                                  lobes=scene.present_lobes,
+                                  mf_kinds=scene.present_mf_kinds)
+                contrib = contrib * mis_ops.power_heuristic(
+                    1.0, pdf, 1.0, pb.detach())[:, None]
             occ = occluded(scene, hit.position.detach(), ls.pos.detach(),
                            useful)
             L = L + torch.where((useful & ~occ)[:, None], contrib,
@@ -300,6 +337,7 @@ def li_path(scene, o, d, keys: rng.LaneKeys, max_depth: int):
         ray_o = torch.where(active[:, None], hit.position, ray_o)
         ray_d = torch.where(active[:, None], wi_world, ray_d)
         prev_specular = bs.is_specular
+        prev_pdf = pdf_b
     return torch.where(torch.isfinite(L), L, torch.zeros_like(L))
 
 
@@ -312,12 +350,13 @@ def _scatter(x, live, n, fill):
 
 
 def lanes(scene, cam: Camera, width: int, seed: int, sample, pixel,
-          max_depth: int):
-    """Radiance [N, 3] of (sample, pixel) lanes, [N] int64 each."""
+          max_depth: int, **estimator):
+    """Radiance [N, 3] of (sample, pixel) lanes, [N] int64 each; estimator:
+    li_path's mis and nee."""
     keys = rng.lane_keys(seed, sample, pixel)
     jitter = rng.uniforms(keys, rng.PURPOSE_CAMERA, 2, scene.dtype)
     o, d = camera_rays(cam, pixel, width, jitter)
-    return li_path(scene, o, d, keys, max_depth)
+    return li_path(scene, o, d, keys, max_depth, **estimator)
 
 
 # lanes a batch of the reference's frames (pixels) and gradient renders
@@ -327,11 +366,11 @@ IMAGE_LANES = 1 << 20
 
 
 def pixels(scene, cam: Camera, width: int, seed: int, pixel, spp: int,
-           max_depth: int, clamp: bool = True):
+           max_depth: int, clamp: bool = True, **estimator):
     """render()'s value [P, 3] float32 of pixel ids [P]: each sample's
     radiance added in float64 in sample order, the mean cast to float32,
     clamped to [0, 1] (or not, with clamp False). Lanes go in batches of
-    whole samples."""
+    whole samples; estimator: li_path's mis and nee."""
     film = torch.zeros((pixel.shape[0], 3), dtype=torch.float64,
                        device=pixel.device)
     per = max(1, PIXEL_LANES // max(pixel.shape[0], 1))
@@ -340,7 +379,7 @@ def pixels(scene, cam: Camera, width: int, seed: int, pixel, spp: int,
         sample = torch.arange(s0, s0 + ns, device=pixel.device
                               ).repeat_interleave(pixel.shape[0])
         out = lanes(scene, cam, width, seed, sample, pixel.repeat(ns),
-                    max_depth).view(ns, -1, 3)
+                    max_depth, **estimator).view(ns, -1, 3)
         for k in range(ns):
             film += out[k].to(torch.float64)
     img = (film / spp).to(torch.float32)
@@ -348,11 +387,12 @@ def pixels(scene, cam: Camera, width: int, seed: int, pixel, spp: int,
 
 
 def image_fn(scene, cam: Camera, width: int, height: int, spp: int,
-             seed: int, max_depth: int):
+             seed: int, max_depth: int, **estimator):
     """render_fn's function: fn(scene) -> [H, W, 3], each sample's wave of
     the whole frame summed in the scene's dtype in sample order and divided
     by spp, unclamped; differentiable in the scene's material and light
-    rows. A frame larger than IMAGE_LANES goes in pixel blocks."""
+    rows. A frame larger than IMAGE_LANES goes in pixel blocks; estimator:
+    li_path's mis and nee."""
     n = width * height
     dev = cam.position.device
 
@@ -364,7 +404,7 @@ def image_fn(scene, cam: Camera, width: int, height: int, spp: int,
                 pixel = torch.arange(p0, min(n, p0 + IMAGE_LANES), device=dev)
                 sample = torch.full_like(pixel, s)
                 parts.append(lanes(sc, cam, width, seed, sample, pixel,
-                                   max_depth))
+                                   max_depth, **estimator))
             film = film + torch.cat(parts)
         return (film / spp).view(height, width, 3)
 

@@ -17,23 +17,59 @@ def _config(name):
     return json.load(open(os.path.join(core.HERE, "configs", name + ".json")))
 
 
-@pytest.mark.parametrize("name,res,spp", [("cornell_box", 16, 4),
-                                          ("bunny_garden", 16, 2)])
-def test_reference_equals_the_program_on_the_cpu(name, res, spp):
-    from jet_pbrt_tpu_torch.models.render import render
+# a sphere light and a disk light in the Cornell box: the area-light
+# shapes that no configuration has, for pdf_li's other branches
+SHAPE_LIGHTS = [
+    {"op": "sphere", "center": [150, 420, 300], "radius": 40,
+     "material": "white", "light": [6.0, 5.0, 4.0]},
+    {"op": "disk", "center": [400, 80, 250], "normal": [0, 1, 0],
+     "radius": 60, "material": "white", "light": [3.0, 4.0, 5.0]}]
 
+
+def _variant(name, shapes=(), **render):
+    """A configuration in memory with some render keys changed and some
+    scene operations appended."""
     cfg = _config(name)
-    img = render(program_scene.build(cfg), res, res, spp, seed=11,
-                 device="cpu")
+    return dict(cfg, render=dict(cfg["render"], **render),
+                scene=cfg["scene"] + list(shapes))
+
+
+def _cases():
+    for name, res, spp in (("cornell_box", 16, 4), ("bunny_garden", 16, 2)):
+        yield pytest.param(name, res, spp, {}, (), id=f"{name}-{res}-{spp}")
+        for tag, render in (("mis", {"mis": True}),
+                            ("no-nee", {"nee": False})):
+            yield pytest.param(name, res, spp, render, (),
+                               id=f"{name}-{res}-{spp}-{tag}")
+    yield pytest.param("cornell_box", 16, 4, {"mis": True}, SHAPE_LIGHTS,
+                       id="cornell_box-16-4-mis-shape-lights")
+
+
+@pytest.mark.parametrize("name,res,spp,render,shapes", list(_cases()))
+def test_reference_equals_the_program_on_the_cpu(name, res, spp, render,
+                                                 shapes):
+    from jet_pbrt_tpu_torch.models.render import render as program_render
+
+    from pbrt_bench import traffic
+
+    cfg = _variant(name, shapes, **render)
+    est = traffic.estimator(cfg)
+    img = program_render(program_scene.build(cfg), res, res, spp, seed=11,
+                         device="cpu", **est)
     lay = ref_scene.Layout(cfg)
     cam = ref_render.make_camera(lay.lookfrom, tuple(
         torch.tensor(lay.lookat, dtype=torch.float64)
         - torch.tensor(lay.lookfrom, dtype=torch.float64)), lay.vup,
         lay.vfov, (res, res), "cpu")
     ref = ref_render.pixels(ref_scene.RefScene(lay, "cpu"), cam, res, 11,
-                            torch.arange(res * res), spp, 5)
+                            torch.arange(res * res), spp, 5, **est)
     # the same samples through the same float32 arithmetic: bit for bit
     assert torch.equal(img.view(-1, 3), ref)
+    if render:
+        # and the configuration's estimator is not the default's
+        plain = ref_render.pixels(ref_scene.RefScene(lay, "cpu"), cam, res,
+                                  11, torch.arange(res * res), spp, 5)
+        assert not torch.equal(plain, ref)
 
 
 def test_the_fit_hands_both_sides_the_benchmarks_own_target():

@@ -30,8 +30,9 @@ def test_sweep_ms_per_wave_reads_nothing_on_the_wide_route():
 def test_the_sweep_cell_reads_the_sweep_and_not_the_wide_kernel():
     cell = core.load("bunny600k_offline")
     names = {m["name"] for m in cell.per_layer}
-    assert {"sweep_ms_per_wave", "wave_device_ms",
-            "device_idle_pct.offline"} <= names
+    assert {"sweep_ms_per_wave", "wave_device_ms", "device_idle_pct.offline",
+            "brute_ms_per_wave", "vertex_roofline_pct",
+            "replay_gap_ms.offline"} <= names
     assert "traversal_ms_per_wave" not in names
     assert [m["name"] for m in cell.end_to_end] == ["samples_per_s",
                                                      "setup_s"]

@@ -61,6 +61,14 @@ def sample_pixels(seed: int, width: int, height: int, n: int):
     return torch.randperm(width * height, generator=g)[:n]
 
 
+def estimator(config: dict) -> dict:
+    """The estimator that a configuration's render block states, as
+    render()'s and the reference's keywords mis and nee (core.Cell refuses
+    a block that the harness cannot honour)."""
+    r = config["render"]
+    return {"mis": r["mis"], "nee": r["nee"]}
+
+
 def sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -80,6 +88,7 @@ class Frames:
         self.width, self.height = width, height
         self.spp = int(traffic["spp"])
         self.depth = int(config["render"]["max_depth"])
+        self.estimator = estimator(config)
         self.view_list = views(config, int(traffic["views"]),
                                traffic["yaw_deg"])
         self.scenes = [program_scene.with_view(scene, p, f)
@@ -94,7 +103,8 @@ class Frames:
         with record_function("bench.render"):
             img = self.render(self.scenes[k % len(self.scenes)], self.width,
                               self.height, self.spp, seed=self.seed,
-                              max_depth=self.depth, device=self.device)
+                              max_depth=self.depth, device=self.device,
+                              **self.estimator)
         with record_function("bench.sync"):
             sync(self.device)
         return img
@@ -158,8 +168,10 @@ class Fit:
         depth = int(config["render"]["max_depth"])
         # the program gets its own copy of the benchmark's target
         self.target = target.to(device).clone()
+        # render_fn has no nee: core.Cell refuses a fit without NEE
         fn, pack_d = render_fn(scene, width, height, int(traffic["spp"]),
-                               seed=self.seed, max_depth=depth, device=device)
+                               seed=self.seed, max_depth=depth, device=device,
+                               mis=estimator(config)["mis"])
         self._fn, self._pack = fn, pack_d
         loss = P.loss_fn(fn, pack_d, self.target)
         if device.type == "cuda":
